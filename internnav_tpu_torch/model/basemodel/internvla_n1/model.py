@@ -1,0 +1,250 @@
+"""InternVLA-N1 dual-system model.
+
+Port of internnav_tpu/model/basemodel/internvla_n1/model.py
+(`InternVLAN1Config`, `MemoryEncoder`, `QFormer`, `InternVLAN1Model`):
+System-2 is Qwen2.5-VL (text + vision) with learned traj-latent query
+tokens; System-1 `nextdit` / `nextdit_async` is the NextDiT flow-matching
+Euler denoise conditioned on the projected latents (and, async, on
+DINOv2 → MemoryEncoder → QFormer memory tokens). Submodule and parameter
+names follow the JAX module tree, so `model/weights/from_jax.py` maps one
+onto the other. The NavDP System-1 (`navdp*`) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from internnav_tpu_torch.model.basemodel.internvla_n1.nextdit import NextDiT, NextDiTConfig
+from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import (
+    QwenTextConfig,
+    QwenTextModel,
+)
+from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
+    QwenVisionConfig,
+    QwenVisionTower,
+)
+from internnav_tpu_torch.model.encoder.navdp_backbone import FormerDecoder
+from internnav_tpu_torch.model.encoder.transformer import TransformerEncoderLayer
+from internnav_tpu_torch.model.encoder.vit import DinoViT
+from internnav_tpu_torch.ops.schedulers import FlowMatchEulerScheduler
+
+IMAGE_TOKEN_INDEX = 151655
+TRAJ_TOKEN_INDEX = 151667
+LATENT_EMB_SIZE = 768
+
+
+@dataclasses.dataclass(frozen=True)
+class InternVLAN1Config:
+    text: QwenTextConfig = dataclasses.field(default_factory=QwenTextConfig)
+    vision: QwenVisionConfig = dataclasses.field(default_factory=QwenVisionConfig)
+    system1: str = "nextdit_async"  # nextdit | nextdit_async
+    n_query: int = 4
+    traj_token_index: int = TRAJ_TOKEN_INDEX
+    image_token_index: int = IMAGE_TOKEN_INDEX
+    num_history: int = 8
+    predict_step_nums: int = 32
+    #: System-1 frame resolution the DinoViT pos embed is built for; frames
+    #: of another grid are resized to it
+    s1_image_hw: int = 56
+
+    @classmethod
+    def tiny(cls, system1: str = "nextdit_async", dtype=torch.float32) -> "InternVLAN1Config":
+        tc = dataclasses.replace(QwenTextConfig.tiny(), dtype=dtype)
+        base = tc.vocab_size - 6  # compact special ids (SimpleTokenizer layout)
+        return cls(text=tc, vision=dataclasses.replace(QwenVisionConfig.tiny(), dtype=dtype),
+                   system1=system1, n_query=2, predict_step_nums=8,
+                   image_token_index=base + 4, traj_token_index=base + 5)
+
+    @classmethod
+    def qwen25vl_7b(cls, system1: str = "nextdit_async") -> "InternVLAN1Config":
+        """The flagship: true Qwen2.5-VL-7B dims, bf16 weights and KV cache."""
+        return cls(text=QwenTextConfig(dtype=torch.bfloat16),
+                   vision=QwenVisionConfig(dtype=torch.bfloat16),
+                   system1=system1, s1_image_hw=224)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.text.dtype
+
+
+class MemoryEncoder(nn.Module):
+    """Post-norm transformer encoder over per-frame image features, with
+    torch TransformerEncoderLayer defaults (ff 2048, relu)."""
+
+    def __init__(self, hidden_size: int = 384, num_heads: int = 6, num_layers: int = 3,
+                 max_len: int = 512, dim_feedforward: int = 2048, dtype=torch.float32):
+        super().__init__()
+        self.memory_pos = nn.Parameter(torch.zeros(max_len, hidden_size, dtype=dtype))
+        self.layer = nn.ModuleList(
+            TransformerEncoderLayer(hidden_size, num_heads, dim_feedforward,
+                                    norm_first=False, activation="relu", dtype=dtype)
+            for _ in range(num_layers))
+
+    def forward(self, memory):
+        x = memory + self.memory_pos[None, : memory.shape[1]]
+        for layer in self.layer:
+            x = layer(x)
+        return x
+
+
+class QFormer(nn.Module):
+    """num_query learned queries cross-attending visual features through a
+    post-norm decoder (torch TransformerDecoder defaults)."""
+
+    def __init__(self, num_query: int = 32, hidden_size: int = 768, num_layers: int = 3,
+                 num_heads: int = 12, dim_feedforward: int = 2048, dtype=torch.float32):
+        super().__init__()
+        self.query_tokens = nn.Parameter(torch.zeros(num_query, hidden_size, dtype=dtype))
+        self.query_pos = nn.Parameter(torch.zeros(num_query, hidden_size, dtype=dtype))
+        self.decoder = FormerDecoder(hidden_size, num_heads, num_layers,
+                                     dim_feedforward=dim_feedforward, dtype=dtype)
+
+    def forward(self, visual_feats):
+        B = visual_feats.shape[0]
+        q = (self.query_tokens + self.query_pos)[None].expand(B, -1, -1)
+        return self.decoder(q, visual_feats)
+
+
+class InternVLAN1Model(nn.Module):
+    def __init__(self, cfg: InternVLAN1Config):
+        super().__init__()
+        c, dt = cfg, cfg.dtype
+        self.cfg = cfg
+        self.s1_image_hw = c.s1_image_hw
+        self.language_model = QwenTextModel(c.text)
+        self.visual = QwenVisionTower(c.vision)
+        self.latent_queries = nn.Parameter(torch.zeros(1, c.n_query, c.text.hidden_size, dtype=dt))
+        if "navdp" in c.system1:
+            raise NotImplementedError("the NavDP System-1 is not ported yet")
+        if "nextdit" not in c.system1:
+            raise ValueError(c.system1)
+        big = c.text.hidden_size > 512
+        dit_cfg = dataclasses.replace(
+            NextDiTConfig(latent_embedding_size=LATENT_EMB_SIZE) if big else NextDiTConfig.tiny(),
+            dtype=dt)
+        latent = dit_cfg.latent_embedding_size
+        self.traj_dit = NextDiT(dit_cfg)
+        self.action_encoder = nn.Linear(3, dit_cfg.dim, dtype=dt)
+        self.action_decoder = nn.Linear(dit_cfg.dim, 3, dtype=dt)
+        self.cond_projector = nn.ModuleList([nn.Linear(c.text.hidden_size, latent, dtype=dt),
+                                             nn.Linear(latent, latent, dtype=dt)])
+        self.noise_scheduler = FlowMatchEulerScheduler()
+        if "async" in c.system1:
+            rgb_dim = 384 if big else 32
+            self.rgb_model = DinoViT(dim=rgb_dim, depth=12 if big else 2, heads=6 if big else 4,
+                                     image_hw=self.s1_image_hw, dtype=dt)
+            self.memory_encoder = MemoryEncoder(hidden_size=rgb_dim, num_heads=6 if big else 4,
+                                                dtype=dt)
+            self.rgb_resampler = QFormer(hidden_size=latent, num_heads=12 if big else 4, dtype=dt)
+            # concat(feats, encoded) is 2*rgb_dim wide and feeds the QFormer
+            # directly at 7B (384+384 == 768); only tiny configs project it
+            self.memory_proj = (nn.Linear(2 * rgb_dim, latent, dtype=dt)
+                                if 2 * rgb_dim != latent else nn.Identity())
+
+    # --------------------------------------------------------------- embeds
+    def embed_multimodal(self, input_ids, image_embeds=None):
+        """Token embedding with the image-token and traj-query scatter.
+        input_ids (B, T); image_embeds (N_img, D) in reading order."""
+        c = self.cfg
+        embeds = self.language_model.embed(
+            torch.where(input_ids >= c.text.vocab_size, 0, input_ids))
+        B, T, D = embeds.shape
+        if image_embeds is not None:
+            img_mask = (input_ids == c.image_token_index).reshape(-1)
+            flat = embeds.reshape(B * T, D)
+            idx = (img_mask.long().cumsum(0) - 1).clamp(0, image_embeds.shape[0] - 1)
+            flat = torch.where(img_mask[:, None], image_embeds[idx].to(flat.dtype), flat)
+            embeds = flat.reshape(B, T, D)
+        traj_mask = input_ids == c.traj_token_index
+        pos_in_run = torch.where(traj_mask, (traj_mask.long().cumsum(1) - 1) % c.n_query, 0)
+        q_embeds = self.latent_queries[0][pos_in_run]
+        return torch.where(traj_mask[..., None], q_embeds.to(embeds.dtype), embeds)
+
+    def encode_vision(self, patches, cos, sin, window_segments, full_segments,
+                      window_index, reverse_index, window_block: int = 0, full_block: int = 0):
+        return self.visual(patches, cos, sin, window_segments, full_segments,
+                           window_index, reverse_index,
+                           window_block=window_block, full_block=full_block)
+
+    def traj_queries(self):
+        """The learned latent query embeddings (1, n_query, D)."""
+        return self.latent_queries
+
+    def prefill(self, inputs_embeds, position_ids, segment_ids=None):
+        """Text prefill: (logits, hidden, per-layer KV caches)."""
+        return self.language_model(inputs_embeds, position_ids, segment_ids=segment_ids)
+
+    # ------------------------------------------------------------ system-1
+    def _project_latents(self, traj_latents):
+        x = self.cond_projector[0](traj_latents.to(self.cfg.dtype))
+        return self.cond_projector[1](F.gelu(x, approximate="tanh"))
+
+    def rgb_feats(self, images):
+        """DINOv2 patch features: (N, H, W, 3) normalized → (N, P, rgb_dim)."""
+        return self.rgb_model(images.to(self.cfg.dtype))
+
+    def memory_tokens_from_feats(self, feats):
+        """(B, S*P, rgb_dim) per-frame features → (B, 32, latent) tokens."""
+        mem = self.memory_encoder(feats)
+        mem = self.memory_proj(torch.cat([feats, mem], dim=-1))
+        return self.rgb_resampler(mem)
+
+    def memory_tokens_from_images(self, images_dp):
+        """images_dp (B, 2, H, W, 3) [pixel-goal frame, current frame],
+        ImageNet-normalized → (B, 32, latent) QFormer tokens."""
+        B = images_dp.shape[0]
+        feats = self.rgb_feats(images_dp.reshape((-1,) + images_dp.shape[2:]))
+        return self.memory_tokens_from_feats(feats.reshape(B, -1, feats.shape[-1]))
+
+    def nextdit_velocity(self, noisy_traj, timestep, z_latents, num_samples: int = 1):
+        """noisy_traj (B*num_samples, T, 3) → velocity (B*num_samples, T, 3)."""
+        feats = self.action_encoder(noisy_traj.to(self.cfg.dtype))
+        T = feats.shape[1]
+        feats = feats + _sin_pos_encoding(torch.arange(T, device=feats.device),
+                                          feats.shape[-1])[None]
+        out = self.traj_dit(feats, timestep, z_latents, num_samples=num_samples)
+        return self.action_decoder(out)
+
+    def generate_traj_nextdit(self, traj_latents, images_dp=None, *, x_init,
+                              guidance_scale: float = 1.0, num_inference_steps: int = 10,
+                              num_sample_trajs: int = 32):
+        """Flow-matching Euler denoise from x_init (B*num_sample_trajs, P, 3)."""
+        lat = self._project_latents(traj_latents)
+        if "async" in self.cfg.system1 and images_dp is not None:
+            hidden = torch.cat([self.memory_tokens_from_images(images_dp), lat], dim=1)
+        else:
+            hidden = lat
+        return self._denoise_hidden(hidden, guidance_scale, num_inference_steps,
+                                    num_sample_trajs, x_init=x_init)
+
+    def _denoise_hidden(self, hidden, guidance_scale, num_inference_steps,
+                        num_sample_trajs, *, x_init):
+        B = hidden.shape[0]
+        if guidance_scale == 1.0:
+            # u + 1.0 * (c - u) == c: only the conditional branch runs
+            def velocity(x, t):
+                return self.nextdit_velocity(x, t.expand(B), hidden,
+                                             num_samples=num_sample_trajs)
+        else:
+            cond2 = torch.cat([torch.zeros_like(hidden), hidden], dim=0)
+
+            def velocity(x, t):
+                v = self.nextdit_velocity(torch.cat([x, x], dim=0), t.expand(2 * B), cond2,
+                                          num_samples=num_sample_trajs)
+                v_u, v_c = v[: x.shape[0]].float(), v[x.shape[0]:].float()
+                return v_u + guidance_scale * (v_c - v_u)
+
+        return self.noise_scheduler.denoise(velocity, x_init.float(), num_inference_steps)
+
+
+def _sin_pos_encoding(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, device=positions.device) / half)
+    ang = positions.float()[:, None] * freqs[None]
+    return torch.cat([ang.sin(), ang.cos()], dim=-1)

@@ -1,0 +1,361 @@
+"""InternVLA-N1 inference policy — System-2 step + System-1 step.
+
+Port of internnav_tpu/model/basemodel/internvla_n1/policy.py
+(`SimpleTokenizer`, `InternVLAN1Policy`): keeps the rgb history, builds the
+Qwen chat prompt with history frames sampled by np.linspace, runs the fused
+System-2 step (vision encode with per-frame caching → embed → bucketed
+prefill + greedy decode → traj-latent chunk decode) and the System-1
+NextDiT denoise on the latent.
+
+Differences from the JAX policy:
+- System-1 frames are fitted to the DinoViT grid per stream: rgb and depth
+  are each resized on their own grid mismatch (the JAX policy decides from
+  the rgb grid alone and can pass a mismatched depth through);
+- `s1_step_latent` takes an optional `x_init` (the denoise's starting
+  noise); without it the noise is drawn from the policy's torch.Generator;
+- only the fused System-2 step and the NextDiT System-1 with continuous
+  trajectories are ported (`from_pretrained*`, `generate_latents`, the
+  unfused step, `chunk_token` actions and NavDP are not).
+"""
+
+from __future__ import annotations
+
+import re
+import zlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from internnav_tpu.model.utils.vln_utils import (
+    S1Output,
+    S2Output,
+    parse_actions,
+    split_and_clean,
+    traj_to_actions,
+)
+from internnav_tpu_torch.model.basemodel.internvla_n1.model import (
+    InternVLAN1Config,
+    InternVLAN1Model,
+)
+from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import (
+    RMSNorm,
+    greedy_generate,
+)
+from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
+    preprocess_images_device,
+    rotary_table,
+    vision_indices,
+)
+from internnav_tpu_torch.model.encoder.vit import IMAGENET_MEAN, IMAGENET_STD
+from internnav_tpu_torch.ops.rope import get_rope_index_25
+
+IM_START, IM_END = "<|im_start|>", "<|im_end|>"
+VISION_START, VISION_END = "<|vision_start|>", "<|vision_end|>"
+
+
+class SimpleTokenizer:
+    """Whitespace tokenizer with Qwen special-token ids — a stand-in with
+    the HF tokenizer's encode/decode interface."""
+
+    QWEN_SPECIALS = {
+        "<|im_start|>": 151644, "<|im_end|>": 151645,
+        "<|vision_start|>": 151652, "<|vision_end|>": 151653,
+        "<|image_pad|>": 151655, "<|traj_pad|>": 151667,
+    }
+
+    def __init__(self, vocab_size: int = 151680):
+        self.vocab_size = vocab_size
+        if vocab_size > max(self.QWEN_SPECIALS.values()):
+            self.SPECIALS = dict(self.QWEN_SPECIALS)
+        else:  # tiny vocab: compact special ids at the top
+            self.SPECIALS = {name: vocab_size - len(self.QWEN_SPECIALS) + i
+                             for i, name in enumerate(self.QWEN_SPECIALS)}
+        self.eos_token_id = self.SPECIALS["<|im_end|>"]
+        self._cache: Dict[str, int] = {}
+
+    def encode(self, text: str) -> List[int]:
+        pattern = "|".join(re.escape(s) for s in self.SPECIALS)
+        out = []
+        for piece in re.split(f"({pattern})", text):
+            if not piece:
+                continue
+            if piece in self.SPECIALS:
+                out.append(self.SPECIALS[piece])
+            else:
+                for w in piece.split():
+                    # crc32: stable across processes, unlike hash()
+                    out.append(self._cache.setdefault(
+                        w, (zlib.crc32(w.encode()) % (self.vocab_size - 10)) + 3))
+        return out
+
+    def decode(self, ids) -> str:
+        inv = {v: k for k, v in self.SPECIALS.items()}
+        return " ".join(inv.get(int(i), f"tok{int(i)}") for i in ids
+                        if int(i) not in (self.eos_token_id,))
+
+
+def _resize_frames(frames: np.ndarray, hw: int) -> np.ndarray:
+    """Host-side resize of (..., H, W, C) frames to (hw, hw) with PIL's
+    default filter (what the reference agent does to every S1 frame)."""
+    arr = np.asarray(frames)
+    if arr.shape[-3] == hw and arr.shape[-2] == hw:
+        return arr
+    from PIL import Image
+
+    lead, c = arr.shape[:-3], arr.shape[-1]
+    flat = arr.reshape((-1,) + arr.shape[-3:])
+    out = np.empty((flat.shape[0], hw, hw, c), arr.dtype)
+    for i, f in enumerate(flat):
+        if c == 1:  # PIL has no HxWx1 mode (depth)
+            out[i, ..., 0] = np.asarray(Image.fromarray(f[..., 0]).resize((hw, hw)))
+        else:
+            out[i] = np.asarray(Image.fromarray(f).resize((hw, hw)))
+    return out.reshape(lead + (hw, hw, c))
+
+
+def _fit_s1_grid(frames: np.ndarray, hw: int) -> np.ndarray:
+    """Resize only on a patch-grid mismatch: the SAME-padded stride-14
+    patch embed feeds a (hw/14)^2 pos embed from any H with ceil(H/14) ==
+    hw/14."""
+    g0 = hw // 14
+    h, w = np.asarray(frames).shape[-3:-1]
+    if (-(-h // 14), -(-w // 14)) != (g0, g0):
+        return _resize_frames(frames, hw)
+    return frames
+
+
+def build_model(cfg: InternVLAN1Config, device="cpu") -> InternVLAN1Model:
+    """An uninitialized model on `device` (parameters allocated, not set)."""
+    with torch.device("meta"):
+        model = InternVLAN1Model(cfg)
+    return model.to_empty(device=device).eval()
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights in place: N(0, 0.02) weights, 0 biases, 1 norm scales."""
+    for mod in model.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if name == "weight" and isinstance(mod, (RMSNorm, nn.LayerNorm)):
+                p.fill_(1.0)
+            elif name == "bias":
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+class InternVLAN1Policy:
+    """An InternVLAN1Model + the host-side prompt and history bookkeeping."""
+
+    #: the reference samples one of seven conjunctions; parity pins the first
+    CONJUNCTION = "you can see "
+    SYSTEM_PROMPT = (
+        "You are an autonomous navigation assistant. Your task is to "
+        "<instruction>. Where should you go next to stay on track? Please "
+        "output the next waypoint's coordinates in the image. Please output "
+        "STOP when you have successfully completed the task."
+    )
+    CHAT_SYSTEM = "You are a helpful assistant."
+    CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+    CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+    #: prompts are right-padded to a multiple of this (pads isolated by
+    #: segment ids), as in the JAX policy
+    PROMPT_BUCKET = 32
+
+    def __init__(self, model: InternVLAN1Model, seed: int = 0):
+        self.model = model.eval()
+        self.cfg = cfg = model.cfg
+        self.device = next(model.parameters()).device
+        self.tokenizer = SimpleTokenizer(cfg.text.vocab_size)
+        self.num_history = cfg.num_history
+        self.seed = seed
+        self._index_cache: Dict[Tuple[int, int], tuple] = {}
+        self.reset()
+
+    @classmethod
+    def build(cls, cfg: Optional[InternVLAN1Config] = None, *, device="cpu",
+              seed: int = 0) -> "InternVLAN1Policy":
+        """Random-weight policy on `device`, drawn from a torch.Generator
+        seeded with `seed` on that device."""
+        cfg = cfg or InternVLAN1Config.tiny()
+        model = build_model(cfg, device=device)
+        init_random_(model, torch.Generator(device=device).manual_seed(seed))
+        return cls(model, seed=seed)
+
+    @property
+    def stop_token_ids(self) -> tuple:
+        return (self.tokenizer.eos_token_id,)
+
+    def reset(self) -> None:
+        self.rgb_list: List[np.ndarray] = []
+        self.episode_idx = 0
+        self.llm_output = ""
+        self.input_images: List[np.ndarray] = []
+        self._frame_keys: List[Optional[int]] = []
+        self._vision_cache: Dict[int, torch.Tensor] = {}
+        self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    # --------------------------------------------------------------- vision
+    def _vision_host_indices(self, h: int, w: int):
+        """Window/rope index tables of one h x w image, on the device,
+        memoized per resolution."""
+        if (h, w) not in self._index_cache:
+            v = self.cfg.vision
+            idx = vision_indices((v.patch_size, v.spatial_merge_size, v.window_size),
+                                 ((1, h // v.patch_size, w // v.patch_size),))
+            cos, sin = rotary_table(idx["pos_ids"], v.hidden_size // v.num_heads)
+            dev = tuple(torch.as_tensor(a, device=self.device) for a in (
+                cos, sin, idx["window_segments"], idx["full_segments"],
+                idx["window_index"], idx["reverse_index"]))
+            self._index_cache[(h, w)] = (dev, (idx["window_block"], idx["full_block"]))
+        return self._index_cache[(h, w)]
+
+    def _encode_image(self, image: np.ndarray) -> torch.Tensor:
+        """(H, W, 3) uint8 → (N_tok, D) vision tokens; normalization and
+        patchification run on the device."""
+        dev_idx, (wblk, fblk) = self._vision_host_indices(*image.shape[:2])
+        raw = torch.as_tensor(np.asarray(image, np.uint8)[None], device=self.device)
+        patches = preprocess_images_device(raw, self.cfg.vision, self.CLIP_MEAN, self.CLIP_STD)
+        return self.model.encode_vision(patches, *dev_idx, window_block=wblk, full_block=fblk)
+
+    def _gather_vision_tokens(self, images: np.ndarray, frame_keys: List[Optional[int]]):
+        """Vision tokens of every frame + grid_thw. Each image is encoded on
+        its own, so a history frame's tokens are cached (key: its index in
+        the episode) and encoded once per episode; key None is never cached."""
+        tokens = []
+        for img, key in zip(images, frame_keys):
+            tok = self._vision_cache.pop(key, None) if key is not None else None
+            if tok is None:
+                tok = self._encode_image(img)
+            if key is not None:
+                self._vision_cache[key] = tok  # (re)inserted last: LRU order
+                while len(self._vision_cache) > 24:
+                    self._vision_cache.pop(next(iter(self._vision_cache)))
+            tokens.append(tok)
+        p = self.cfg.vision.patch_size
+        grid = np.tile(np.asarray([[1, images.shape[1] // p, images.shape[2] // p]]),
+                       (len(images), 1))
+        return torch.cat(tokens, dim=0), grid
+
+    # --------------------------------------------------------------- prompt
+    def _tokens_per_image(self, image_hw: Tuple[int, int]) -> int:
+        m, p = self.cfg.vision.spatial_merge_size, self.cfg.vision.patch_size
+        return (image_hw[0] // p // m) * (image_hw[1] // p // m)
+
+    def _build_prompt_ids(self, instruction: str, n_images: int,
+                          image_hw: Tuple[int, int]) -> np.ndarray:
+        """Qwen chat template with expanded image-token runs (the JAX
+        policy's `_build_prompt_ids`, byte for byte)."""
+        img_block = VISION_START + "<|image_pad|>" * self._tokens_per_image(image_hw) + VISION_END
+        value = self.SYSTEM_PROMPT.replace("<instruction>.", instruction)
+        history = n_images - 1
+        if history > 0:
+            value += " These are your historical observations: " + "<image>\n" * history + "."
+        value += f" {self.CONJUNCTION}<image>."
+        body = "".join(img_block if part == "<image>" else part
+                       for part in split_and_clean(value))
+        text = (f"{IM_START}system\n{self.CHAT_SYSTEM}{IM_END}\n"
+                f"{IM_START}user\n{body}{IM_END}\n{IM_START}assistant\n")
+        return np.asarray(self.tokenizer.encode(text), np.int64)[None]
+
+    # ---------------------------------------------------------------- steps
+    def s2_step(self, image: np.ndarray, instruction: str, look_down: bool = False,
+                max_new_tokens: int = 128) -> S2Output:
+        if not look_down:
+            self.rgb_list.append(np.asarray(image))
+            if self.episode_idx == 0:
+                history_id = []
+            else:
+                history_id = np.unique(np.linspace(0, self.episode_idx - 1, self.num_history,
+                                                   dtype=np.int32)).tolist()
+            frame_keys = sorted(int(i) for i in history_id) + [len(self.rgb_list) - 1]
+            self.input_images = [self.rgb_list[i] for i in frame_keys]
+            self._frame_keys = list(frame_keys)
+            self.episode_idx += 1
+        else:  # look-down frames are transient: encoded fresh, not cached
+            self.input_images = self.input_images + [np.asarray(image)]
+            self._frame_keys = self._frame_keys + [None]
+        images = np.stack(self.input_images)
+        input_ids = self._build_prompt_ids(instruction, len(images), images.shape[1:3])
+        return self._s2_step_fused(images, input_ids, max_new_tokens, self._frame_keys)
+
+    @torch.inference_mode()
+    def _s2_step_fused(self, images: np.ndarray, input_ids: np.ndarray, max_new_tokens: int,
+                       frame_keys: List[Optional[int]]) -> S2Output:
+        """vision → embed → bucketed prefill + greedy decode → one chunked
+        decode of the n_query traj queries over the generation's cache."""
+        cfg = self.cfg
+        dev = self.device
+        img_tokens, grid = self._gather_vision_tokens(images, frame_keys)
+        # rope positions on the REAL prompt, then right-pad to the bucket
+        pos_ids, rope_deltas = get_rope_index_25(
+            input_ids, grid, spatial_merge_size=cfg.vision.spatial_merge_size,
+            image_token_id=cfg.image_token_index)
+        B, P = input_ids.shape
+        T = -(-P // self.PROMPT_BUCKET) * self.PROMPT_BUCKET
+        padded_ids = np.full((B, T), self.tokenizer.eos_token_id, np.int64)
+        padded_ids[:, :P] = input_ids
+        pad_pos = pos_ids.max() + 1 + np.arange(T - P)
+        padded_pos = np.concatenate([pos_ids, np.broadcast_to(pad_pos, (3, B, T - P))], axis=2)
+        prompt_seg = np.zeros((B, T), np.int32)
+        prompt_seg[:, P:] = 1
+        prompt_len = torch.full((B,), P, dtype=torch.long, device=dev)
+        deltas = torch.as_tensor(rope_deltas[:, 0], device=dev)
+
+        ids = torch.as_tensor(padded_ids, device=dev)
+        embeds = self.model.embed_multimodal(ids, img_tokens)
+        tokens, lengths, caches = greedy_generate(
+            self.model.language_model, embeds, torch.as_tensor(padded_pos, device=dev),
+            max_new_tokens=max_new_tokens, eos_token_ids=self.stop_token_ids,
+            rope_deltas=deltas, prompt_lengths=prompt_len,
+            segment_ids=torch.as_tensor(prompt_seg, device=dev), extra_cache_slots=cfg.n_query)
+        # query i sits at position prompt_len + lengths + i; its K/V write
+        # overwrites the stale eos-pad slot there
+        n_q = cfg.n_query
+        q = self.model.traj_queries()
+        pos1 = (prompt_len + deltas + lengths)[None, :, None] + torch.arange(n_q, device=dev)
+        latents, _ = self.model.language_model.decode_chunk(
+            q.expand(B, n_q, q.shape[-1]).to(embeds.dtype), pos1.expand(3, B, n_q),
+            caches, prompt_len + lengths)
+
+        gen = tokens[0, : int(lengths[0])].cpu().numpy()
+        self.last_gen_tokens = gen
+        self.llm_output = self.tokenizer.decode(gen)
+        out = S2Output()
+        if re.search(r"\d", self.llm_output):
+            coords = [int(c) for c in re.findall(r"\d+", self.llm_output)]
+            if len(coords) >= 2:
+                out.output_pixel = np.array([coords[1], coords[0]])
+            out.output_latent = latents
+        else:
+            out.output_action = parse_actions(self.llm_output)
+        return out
+
+    @torch.inference_mode()
+    def s1_step_latent(self, rgb: np.ndarray, depth: Optional[np.ndarray], latent,
+                       num_sample_trajs: int = 32,
+                       x_init: Optional[torch.Tensor] = None) -> S1Output:
+        """rgb (B, 2, H, W, 3) [memory frame, current]; depth (B, 2, H, W, 1)
+        or None; latent from `s2_step`. x_init (B*num_sample_trajs, P, 3)
+        is the denoise's starting noise (drawn from the policy's generator
+        when None)."""
+        cfg = self.cfg
+        rgb = _fit_s1_grid(rgb, self.model.s1_image_hw)
+        if depth is not None:  # not read by NextDiT; fitted for the NavDP head
+            depth = _fit_s1_grid(depth, self.model.s1_image_hw)
+        raw = torch.as_tensor(np.asarray(rgb, np.uint8), device=self.device)
+        mean = torch.tensor(IMAGENET_MEAN, device=self.device)
+        std = torch.tensor(IMAGENET_STD, device=self.device)
+        images = (raw.float() / 255.0 - mean) / std
+        B = raw.shape[0]
+        if x_init is None:
+            x_init = torch.randn((B * num_sample_trajs, cfg.predict_step_nums, 3),
+                                 generator=self._generator, device=self.device)
+        traj = self.model.generate_traj_nextdit(
+            latent, images, x_init=x_init.to(self.device), num_sample_trajs=num_sample_trajs)
+        dp = traj.float().cpu().numpy()
+        action_list = [a for a in traj_to_actions(dp) if a != 0]
+        return S1Output(idx=action_list[:4], trajectory=dp)

@@ -1,0 +1,97 @@
+"""JAX param tree → the port's state_dict.
+
+The port's modules carry the JAX package's submodule and parameter names,
+so the mapping is by rule, per leaf:
+
+- Dense `kernel` (in, out)  → `weight` (out, in)
+- Conv `kernel` HWIO        → `weight` OIHW
+- Embed `embedding`         → `weight`
+- RMSNorm/LayerNorm `scale` → `weight`
+- `bias` and named params (`latent_queries`, `pos_embed`, `gate`, ...) keep
+  their name and layout.
+
+A flax list attribute `name_<i>` is the port's `nn.ModuleList` entry
+`name.<i>` when the port has no attribute of the flat name. Any JAX leaf
+not consumed, any port parameter left unset and any shape that differs
+raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_LIST_ENTRY = re.compile(r"^(.+)_(\d+)$")
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = np.asarray(v)
+    return out
+
+
+def _convert_leaf(name: str, value: np.ndarray):
+    if name == "kernel":
+        if value.ndim == 2:
+            return "weight", value.T
+        if value.ndim == 4:
+            return "weight", value.transpose(3, 2, 0, 1)
+        raise ValueError(f"kernel of rank {value.ndim} has no torch layout rule")
+    if name in ("embedding", "scale"):
+        return "weight", value
+    return name, value
+
+
+def _resolve(path: tuple, names: set) -> str:
+    """Dotted port name for a JAX module path: each `name_<i>` segment is
+    tried as is and as a ModuleList entry `name.<i>`."""
+    candidates = [""]
+    for seg in path:
+        nxt = []
+        m = _LIST_ENTRY.match(seg)
+        for c in candidates:
+            base = f"{c}." if c else ""
+            nxt.append(base + seg)
+            if m:
+                nxt.append(base + f"{m.group(1)}.{m.group(2)}")
+        candidates = nxt
+    hits = [c for c in candidates if c in names]
+    if len(hits) != 1:
+        raise KeyError(f"JAX leaf {'/'.join(path)} maps to {len(hits)} port "
+                       f"parameters: {hits or candidates}")
+    return hits[0]
+
+
+def state_dict_from_jax(params: Mapping[str, Any], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert a JAX param tree (nested dicts of arrays) into a complete
+    state_dict for `module`, in the module's parameter dtypes."""
+    target = module.state_dict()
+    names = set(target)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        leaf, arr = _convert_leaf(path[-1], value)
+        key = _resolve(path[:-1] + (leaf,), names)
+        if key in out:
+            raise KeyError(f"port parameter {key} set twice (last from {'/'.join(path)})")
+        want = target[key]
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"{'/'.join(path)} {arr.shape} → {key} {tuple(want.shape)}: shape differs")
+        out[key] = torch.from_numpy(np.array(arr, np.float32)).to(want.dtype)
+    missing = sorted(names - set(out))
+    if missing:
+        raise KeyError(f"port parameters not set by the JAX tree: {missing}")
+    return out
+
+
+def load_from_jax(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Load a JAX param tree into `module` in place (strict)."""
+    module.load_state_dict(state_dict_from_jax(params, module), strict=True)
+    return module

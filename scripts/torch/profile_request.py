@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Where the time of one serving step goes, for the PyTorch port on a GPU.
+
+    python scripts/torch/profile_request.py [--requests 3]
+
+Drives the same 7B bf16 policy, agent and seeded 420x420 frames as
+`chip_smoke.py`'s serve phase, without the HTTP server and with System-1
+on every step as well (the action queue is cleared before each one). The
+history grows by one frame per step. Prints per step the wall time and the
+seconds spent in each stage (vision encode, text prefill, decode steps,
+lm_head, traj-latent chunk, System-1), each stage timed between device
+synchronisations. Then one more step under torch.profiler: device-busy
+seconds, the idle share of that step with the profiler on, and the top
+kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=3)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import INSTRUCTION, build_agent, gpu_line, request_frames
+    from internnav_tpu_torch import require_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    policy, agent = build_agent(require_cuda())
+    seconds, calls = collections.defaultdict(float), collections.Counter()
+
+    def timed(obj, name, label):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[label] += time.perf_counter() - t
+            calls[label] += 1
+            return out
+
+        setattr(obj, name, wrapper)
+
+    lm = policy.model.language_model
+    for obj, name, label in ((policy, "_encode_image", "vision_encode"),
+                             (lm, "forward", "text_prefill"), (lm, "decode_step", "decode_step"),
+                             (lm, "_logits", "lm_head"), (lm, "decode_chunk", "latent_chunk"),
+                             (policy, "s1_step_latent", "system1")):
+        timed(obj, name, label)
+    rng = np.random.default_rng(0)
+
+    def step():
+        agent.action_queue.clear()  # System-1 runs on every step's latent
+        rgb, depth = request_frames(rng)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        agent.step([{"instruction_text": INSTRUCTION, "rgb": rgb, "depth": depth}])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    agent.reset()
+    for i in range(args.requests):
+        seconds.clear()
+        calls.clear()
+        wall = step()
+        stages = " ".join(f"{k}={v:.4f}s/{calls[k]}" for k, v in seconds.items())
+        print(f"step {i}: wall_s={wall:.4f} images={len(policy.input_images)} "
+              f"generated={len(policy.last_gen_tokens)} {stages}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = step()
+    table = prof.key_averages()
+    busy_s = sum(e.self_device_time_total for e in table if e.device_type.name == "CUDA") / 1e6
+    print(f"profiled step: wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
+          f"idle_share={1 - busy_s / wall:.3f} (profiler on)")
+    print(table.table(sort_by="self_device_time_total", row_limit=20, max_name_column_width=60))
+    print(gpu_line())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,248 @@
+"""Port Qwen2.5-VL System-2 modules held against the JAX package.
+
+Both packages get the same weights (the JAX init, through
+`model/weights/from_jax.py`) and the same numpy inputs. Tolerances: fp32
+at atol/rtol 1e-4 (same math, different summation order), greedy tokens
+exactly equal, and one bf16 case at atol/rtol 3e-2 (bf16 rounding at
+every layer boundary, in a different order on each side).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from internnav_tpu.model.basemodel.internvla_n1 import qwen_text as jqt
+from internnav_tpu.model.basemodel.internvla_n1 import qwen_vision as jqv
+from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text as qt
+from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_vision as qv
+from internnav_tpu_torch.model.weights.from_jax import load_from_jax, state_dict_from_jax
+from internnav_tpu_torch.ops.rope import get_rope_index_25
+
+torch.set_num_threads(2)
+ATOL = RTOL = 1e-4
+BF16_TOL = 3e-2
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(port, ref, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(port, np.float32), np.asarray(ref, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+# ------------------------------------------------------------------ text
+def _text_pair(jdtype=jnp.float32, tdtype=torch.float32):
+    jcfg = dataclasses.replace(jqt.QwenTextConfig.tiny(), dtype=jdtype)
+    jm = jqt.QwenTextModel(jcfg)
+    B, T = 2, 16
+    ids = np.random.default_rng(0).integers(0, jcfg.vocab_size, (B, T))
+    pos = np.broadcast_to(np.arange(T)[None, None], (3, B, T))
+    params = jax.jit(lambda i, p: jm.init(jax.random.PRNGKey(0), i, p, method=jm.init_all))(
+        jnp.asarray(ids), jnp.asarray(pos))["params"]
+    tm = qt.QwenTextModel(dataclasses.replace(qt.QwenTextConfig.tiny(), dtype=tdtype))
+    load_from_jax(tm, params)
+    return jm, params, tm
+
+
+@pytest.fixture(scope="module")
+def text_pair():
+    return _text_pair()
+
+
+def _prompt(cfg_vocab, B=2, P=21, T=32, seed=1):
+    """A bucketed prompt: P real tokens right-padded to T, pads in segment 1,
+    M-RoPE positions from get_rope_index_25 plus pad positions."""
+    r = np.random.default_rng(seed)
+    ids = r.integers(3, cfg_vocab - 10, (B, P))
+    pos, deltas = get_rope_index_25(ids, None)
+    pad_pos = pos.max() + 1 + np.arange(T - P)
+    pos = np.concatenate([pos, np.broadcast_to(pad_pos, (3, B, T - P))], axis=2)
+    seg = np.zeros((B, T), np.int32)
+    seg[:, P:] = 1
+    emb = r.standard_normal((B, T, 64)).astype(np.float32)
+    return emb, pos, seg, np.full((B,), P, np.int32), deltas[:, 0]
+
+
+def test_text_prefill_logits_and_caches_match_jax(text_pair):
+    jm, params, tm = text_pair
+    emb, pos, seg, plen, _ = _prompt(512)
+    jl, jh, jc = jax.jit(lambda p, *a: jm.apply(
+        {"params": p}, *a[:2], segment_ids=a[2], return_cache=True, logits_indices=a[3]))(
+        params, jnp.asarray(emb), jnp.asarray(pos), jnp.asarray(seg), jnp.asarray(plen - 1))
+    with torch.no_grad():
+        tl, th, tc = tm(_t(emb), _t(pos), segment_ids=_t(seg),
+                        logits_indices=_t(plen - 1).long())
+    _close(tl, jl)
+    _close(th, jh)
+    for (tk, tv), (jk, jv) in zip(tc, jc):
+        _close(tk, jk)
+        _close(tv, jv)
+
+
+def test_text_decode_step_and_chunk_match_jax(text_pair):
+    jm, params, tm = text_pair
+    emb, pos, seg, plen, _ = _prompt(512)
+    B, T = seg.shape
+    new = np.random.default_rng(2).standard_normal((B, 3, 64)).astype(np.float32)
+    npos = (pos.max() + 1 + np.arange(3))[None, None].repeat(3, 0).repeat(B, 1)
+    cl = plen.copy()
+
+    @jax.jit
+    def jax_side(p, emb, pos, seg, new, npos, cl):
+        _, _, jc = jm.apply({"params": p}, emb, pos, segment_ids=seg, return_cache=True)
+        jc = jqt.pad_caches(jc, T + 4)
+        step = jm.apply({"params": p}, new[:, :1], npos[:, :, :1], jc, cl,
+                        method=jm.decode_step)
+        chunk, _ = jm.apply({"params": p}, new, npos, jc, cl, method=jm.decode_chunk)
+        return step, chunk
+
+    (jlog, jh, jc1), jhc = jax_side(params, *(jnp.asarray(a) for a in (emb, pos, seg, new,
+                                                                       npos, cl)))
+    with torch.no_grad():
+        _, _, tc = tm(_t(emb), _t(pos), segment_ids=_t(seg))
+        tc = qt.pad_caches(tc, T + 4)
+        tlog, th, tc1 = tm.decode_step(_t(new[:, :1]), _t(npos[:, :, :1]),
+                                       [(k.clone(), v.clone()) for k, v in tc], _t(cl).long())
+        thc, _ = tm.decode_chunk(_t(new), _t(npos), tc, _t(cl).long())
+    _close(tlog, jlog)
+    _close(th, jh)
+    _close(thc, jhc)
+    for (tk, tv), (jk, jv) in zip(tc1, jc1):
+        _close(tk, jk)
+        _close(tv, jv)
+
+
+def test_greedy_generate_bucketed_prompt_matches_jax(text_pair):
+    """Greedy tokens exactly equal; the stop token is one the port emits at
+    step 4 of row 0, so that row stops early while row 1 runs on."""
+    jm, params, tm = text_pair
+    emb, pos, seg, plen, deltas = _prompt(512)
+    args = dict(max_new_tokens=10, extra_cache_slots=2)
+
+    def run_jax(eos):
+        return jqt.greedy_generate(jm, params, jnp.asarray(emb), jnp.asarray(pos),
+                                   eos_token_ids=eos, rope_deltas=jnp.asarray(deltas),
+                                   prompt_lengths=jnp.asarray(plen),
+                                   segment_ids=jnp.asarray(seg), return_caches=True, **args)
+
+    def run_port(eos):
+        return qt.greedy_generate(tm, _t(emb), _t(pos), eos_token_ids=eos,
+                                  rope_deltas=_t(deltas), prompt_lengths=_t(plen),
+                                  segment_ids=_t(seg), **args)
+
+    eos = (int(run_port((511,))[0][0, 4]),)
+    jtok, jlen, jcache = run_jax(eos)
+    ttok, tlen, tcache = run_port(eos)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(tlen.numpy(), np.asarray(jlen))
+    assert int(tlen[0]) <= 4
+    for (tk, tv), (jk, jv) in zip(tcache, jcache):  # incl. the decoded tokens' K/V
+        _close(tk, jk)
+        _close(tv, jv)
+
+
+def test_text_prefill_bf16_matches_jax():
+    """bf16 on both sides (JAX computes with bf16-cast fp32 params, the port
+    holds the same values in bf16): hidden states within 3e-2."""
+    jm, params, tm = _text_pair(jnp.bfloat16, torch.bfloat16)
+    emb, pos, seg, plen, _ = _prompt(512)
+    _, jh, _ = jax.jit(lambda p, e, pos, seg: jm.apply({"params": p}, e, pos, segment_ids=seg))(
+        params, jnp.asarray(emb, jnp.bfloat16), jnp.asarray(pos), jnp.asarray(seg))
+    with torch.no_grad():
+        _, th, _ = tm(_t(emb).bfloat16(), _t(pos), segment_ids=_t(seg))
+    _close(th.float(), np.asarray(jh, np.float32), BF16_TOL, BF16_TOL)
+
+
+def test_quantized_formats_are_not_silently_bf16():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        qt.QwenTextConfig(weight_dtype="int8")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        qt.QwenTextConfig(kv_dtype="int8")
+
+
+# ---------------------------------------------------------------- vision
+def _vision_inputs(cfg, sizes, seed=3):
+    """Patches for images of the given sizes (each its own grid)."""
+    r = np.random.default_rng(seed)
+    patches, grids = [], []
+    for hw in sizes:
+        img = r.standard_normal((1, hw, hw, 3)).astype(np.float32)
+        p, g = qv.preprocess_images(img, cfg)
+        pj, gj = jqv.preprocess_images(img, cfg)
+        np.testing.assert_array_equal(p, pj)
+        np.testing.assert_array_equal(g, gj)
+        patches.append(p)
+        grids.append(g)
+    grid = np.concatenate(grids)
+    key = tuple(map(tuple, grid.tolist()))
+    idx = qv.vision_indices((cfg.patch_size, cfg.spatial_merge_size, cfg.window_size), key)
+    jidx = jqv.vision_indices((cfg.patch_size, cfg.spatial_merge_size, cfg.window_size), key)
+    for name in idx:
+        np.testing.assert_array_equal(np.asarray(idx[name]), np.asarray(jidx[name]))
+    cos, sin = qv.rotary_table(idx["pos_ids"], cfg.hidden_size // cfg.num_heads)
+    jcos, jsin = jqv.rotary_table(idx["pos_ids"], cfg.hidden_size // cfg.num_heads)
+    np.testing.assert_array_equal(cos, jcos)
+    np.testing.assert_array_equal(sin, jsin)
+    arrays = (np.concatenate(patches), cos, sin, idx["window_segments"], idx["full_segments"],
+              idx["window_index"], idx["reverse_index"])
+    return arrays, idx["window_block"], idx["full_block"]
+
+
+@pytest.mark.parametrize("sizes,segmented", [((56,), False), ((84, 56), True)])
+def test_vision_tower_matches_jax(sizes, segmented):
+    """Uniform windows take the block-diagonal path; ragged windows and two
+    image sizes take the segmented flash_attention path."""
+    jcfg = dataclasses.replace(jqv.QwenVisionConfig.tiny(), dtype=jnp.float32)
+    tcfg = dataclasses.replace(qv.QwenVisionConfig.tiny(), dtype=torch.float32)
+    arrays, wblk, fblk = _vision_inputs(tcfg, sizes)
+    assert (wblk == 0 and fblk == 0) == segmented
+    jt = jqv.QwenVisionTower(jcfg)
+    jargs = [jnp.asarray(a) for a in arrays]
+    params = jax.jit(lambda *a: jt.init(jax.random.PRNGKey(1), *a, window_block=wblk,
+                                        full_block=fblk)["params"])(*jargs)
+    ref = jax.jit(lambda p, *a: jt.apply({"params": p}, *a, window_block=wblk,
+                                         full_block=fblk))(params, *jargs)
+    tt = load_from_jax(qv.QwenVisionTower(tcfg), params)
+    with torch.no_grad():
+        out = tt(*[_t(a) for a in arrays], window_block=wblk, full_block=fblk)
+    _close(out, ref)
+
+
+def test_encode_images_matches_jax():
+    """Host normalize + patchify + tower, 84 px frames (ragged windows)."""
+    jcfg = dataclasses.replace(jqv.QwenVisionConfig.tiny(), dtype=jnp.float32)
+    tcfg = dataclasses.replace(qv.QwenVisionConfig.tiny(), dtype=torch.float32)
+    raw = np.random.default_rng(5).integers(0, 256, (2, 84, 84, 3)).astype(np.uint8)
+    arrays, wblk, fblk = _vision_inputs(tcfg, (84, 84))
+    jt = jqv.QwenVisionTower(jcfg)
+    params = jax.jit(lambda *a: jt.init(jax.random.PRNGKey(2), *a, window_block=wblk,
+                                        full_block=fblk)["params"])(*map(jnp.asarray, arrays))
+    ref, jgrid = jqv.encode_images(jt, params, raw)
+    out, grid = qv.encode_images(load_from_jax(qv.QwenVisionTower(tcfg), params), raw)
+    np.testing.assert_array_equal(grid, jgrid)
+    _close(out, ref)
+
+
+def test_device_preprocess_matches_host():
+    cfg = qv.QwenVisionConfig.tiny()
+    raw = np.random.default_rng(4).integers(0, 256, (2, 56, 84, 3)).astype(np.uint8)
+    mean, std = (0.5, 0.4, 0.3), (0.2, 0.25, 0.3)
+    host, _ = qv.preprocess_images((raw / 255.0 - np.asarray(mean)) / np.asarray(std), cfg)
+    _close(qv.preprocess_images_device(_t(raw), cfg, mean, std), host)
+
+
+def test_from_jax_rejects_unconsumed_and_missing_leaves(text_pair):
+    jm, params, tm = text_pair
+    extra = {**params, "stray": {"kernel": np.zeros((2, 2), np.float32)}}
+    with pytest.raises(KeyError, match="stray"):
+        state_dict_from_jax(extra, tm)
+    partial = {k: v for k, v in params.items() if k != "norm"}
+    with pytest.raises(KeyError, match="norm.weight"):
+        state_dict_from_jax(partial, tm)
