@@ -2,12 +2,15 @@
 
 The JAX package `internnav_tpu` stays the reference. This package mirrors its
 layout (`ops/`, `model/basemodel/internvla_n1/`, `model/encoder/`, `agent/`,
-`realworld/`), imports torch and never jax, and carries its hand-written
-CUDA kernels under `csrc/` (built on first use, see `ops/_build.py`).
+`realworld/`, `dataset/`, `trainer/`, `configs/`), imports torch and never
+jax nor the JAX package, and carries its hand-written CUDA kernels under
+`csrc/` (built on first use, see `ops/_build.py`).
 
 Ported so far: the InternVLA-N1 single-robot serving path in bf16 (vision
 tower, Qwen2.5 text prefill/decode, traj-latent chunk decode, System-1
-`nextdit_async`), its agent and its HTTP launcher.
+`nextdit_async`), its agent and its HTTP launcher; and the single-device
+N1 finetune path (`trainer.train_n1`) with the flash-attention backward
+kernels.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from internnav_tpu.model.utils.vln_utils import S2Input, S2Output
+from internnav_tpu_torch.model.utils.vln_utils import S2Input, S2Output
 
 LOOK_DOWN_ACTION = 5
 S2Result = Union[S2Output, Exception]

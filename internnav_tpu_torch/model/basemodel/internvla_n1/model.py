@@ -7,7 +7,9 @@ tokens; System-1 `nextdit` / `nextdit_async` is the NextDiT flow-matching
 Euler denoise conditioned on the projected latents (and, async, on
 DINOv2 → MemoryEncoder → QFormer memory tokens). Submodule and parameter
 names follow the JAX module tree, so `model/weights/from_jax.py` maps one
-onto the other. The NavDP System-1 (`navdp*`) is not ported yet.
+onto the other. Training: `traj_loss_nextdit` (flow-matching velocity MSE)
+with the timesteps and noise passed in. The NavDP System-1 (`navdp*`) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -62,9 +64,13 @@ class InternVLAN1Config:
                    image_token_index=base + 4, traj_token_index=base + 5)
 
     @classmethod
-    def qwen25vl_7b(cls, system1: str = "nextdit_async") -> "InternVLAN1Config":
-        """The flagship: true Qwen2.5-VL-7B dims, bf16 weights and KV cache."""
-        return cls(text=QwenTextConfig(dtype=torch.bfloat16),
+    def qwen25vl_7b(cls, system1: str = "nextdit_async", *, remat: bool = False,
+                    num_hidden_layers: Optional[int] = None) -> "InternVLAN1Config":
+        """The flagship: true Qwen2.5-VL-7B dims, bf16 weights and KV cache.
+        remat=True recomputes decoder layers in backward (training);
+        num_hidden_layers cuts the 28-layer depth (never the width)."""
+        kw = {} if num_hidden_layers is None else {"num_hidden_layers": num_hidden_layers}
+        return cls(text=QwenTextConfig(dtype=torch.bfloat16, remat=remat, **kw),
                    vision=QwenVisionConfig(dtype=torch.bfloat16),
                    system1=system1, s1_image_hw=224)
 
@@ -176,9 +182,11 @@ class InternVLAN1Model(nn.Module):
         """The learned latent query embeddings (1, n_query, D)."""
         return self.latent_queries
 
-    def prefill(self, inputs_embeds, position_ids, segment_ids=None):
+    def prefill(self, inputs_embeds, position_ids, segment_ids=None, *,
+                compute_logits: bool = True):
         """Text prefill: (logits, hidden, per-layer KV caches)."""
-        return self.language_model(inputs_embeds, position_ids, segment_ids=segment_ids)
+        return self.language_model(inputs_embeds, position_ids, segment_ids=segment_ids,
+                                   compute_logits=compute_logits)
 
     # ------------------------------------------------------------ system-1
     def _project_latents(self, traj_latents):
@@ -241,6 +249,26 @@ class InternVLAN1Model(nn.Module):
                 return v_u + guidance_scale * (v_c - v_u)
 
         return self.noise_scheduler.denoise(velocity, x_init.float(), num_inference_steps)
+
+    # ------------------------------------------------------------- training
+    def traj_loss_nextdit(self, traj_hidden, traj_poses, *, t, noise, images_dp=None,
+                          loss_mask=None):
+        """Flow-matching velocity MSE. traj_hidden (B, n_query, D_text);
+        traj_poses (B, P, 3); t (B,) integer timesteps in
+        [0, num_train_timesteps) and noise (B, P, 3), both drawn by the
+        caller; loss_mask (B,) weights whole samples."""
+        lat = self._project_latents(traj_hidden)
+        if "async" in self.cfg.system1 and images_dp is not None:
+            lat = torch.cat([self.memory_tokens_from_images(images_dp), lat], dim=1)
+        B = traj_poses.shape[0]
+        sched = self.noise_scheduler
+        noisy = sched.add_noise(traj_poses, noise, t)
+        v_pred = self.nextdit_velocity(noisy, t.float(), lat)
+        mse = (v_pred.float() - sched.velocity_target(traj_poses, noise).float()) ** 2
+        if loss_mask is None:
+            return mse.mean()
+        w = loss_mask.reshape(B, 1, 1).float()
+        return (mse * w).sum() / w.sum().clamp(min=1e-6) / (mse.shape[1] * mse.shape[2])
 
 
 def _sin_pos_encoding(positions: torch.Tensor, dim: int) -> torch.Tensor:

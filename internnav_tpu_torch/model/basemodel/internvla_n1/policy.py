@@ -28,13 +28,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from internnav_tpu.model.utils.vln_utils import (
-    S1Output,
-    S2Output,
-    parse_actions,
-    split_and_clean,
-    traj_to_actions,
-)
 from internnav_tpu_torch.model.basemodel.internvla_n1.model import (
     InternVLAN1Config,
     InternVLAN1Model,
@@ -49,6 +42,13 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
     vision_indices,
 )
 from internnav_tpu_torch.model.encoder.vit import IMAGENET_MEAN, IMAGENET_STD
+from internnav_tpu_torch.model.utils.vln_utils import (
+    S1Output,
+    S2Output,
+    parse_actions,
+    split_and_clean,
+    traj_to_actions,
+)
 from internnav_tpu_torch.ops.rope import get_rope_index_25
 
 IM_START, IM_END = "<|im_start|>", "<|im_end|>"
@@ -172,7 +172,7 @@ class InternVLAN1Policy:
         self.tokenizer = SimpleTokenizer(cfg.text.vocab_size)
         self.num_history = cfg.num_history
         self.seed = seed
-        self._index_cache: Dict[Tuple[int, int], tuple] = {}
+        self._index_cache: Dict[Tuple[int, int, int], tuple] = {}
         self.reset()
 
     @classmethod
@@ -199,27 +199,36 @@ class InternVLAN1Policy:
         self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
 
     # --------------------------------------------------------------- vision
-    def _vision_host_indices(self, h: int, w: int):
-        """Window/rope index tables of one h x w image, on the device,
-        memoized per resolution."""
-        if (h, w) not in self._index_cache:
+    def _vision_host_indices(self, h: int, w: int, n: int = 1):
+        """Window/rope index tables of n h x w images, on the device,
+        memoized per shape."""
+        if (n, h, w) not in self._index_cache:
             v = self.cfg.vision
             idx = vision_indices((v.patch_size, v.spatial_merge_size, v.window_size),
-                                 ((1, h // v.patch_size, w // v.patch_size),))
+                                 ((1, h // v.patch_size, w // v.patch_size),) * n)
             cos, sin = rotary_table(idx["pos_ids"], v.hidden_size // v.num_heads)
             dev = tuple(torch.as_tensor(a, device=self.device) for a in (
                 cos, sin, idx["window_segments"], idx["full_segments"],
                 idx["window_index"], idx["reverse_index"]))
-            self._index_cache[(h, w)] = (dev, (idx["window_block"], idx["full_block"]))
-        return self._index_cache[(h, w)]
+            self._index_cache[(n, h, w)] = (dev, (idx["window_block"], idx["full_block"]))
+        return self._index_cache[(n, h, w)]
 
     def _encode_image(self, image: np.ndarray) -> torch.Tensor:
-        """(H, W, 3) uint8 → (N_tok, D) vision tokens; normalization and
-        patchification run on the device."""
-        dev_idx, (wblk, fblk) = self._vision_host_indices(*image.shape[:2])
-        raw = torch.as_tensor(np.asarray(image, np.uint8)[None], device=self.device)
+        """(H, W, 3) uint8 → (N_tok, D) vision tokens."""
+        return self._encode_images(np.asarray(image)[None])[0]
+
+    @torch.no_grad()
+    def _encode_images(self, images: np.ndarray):
+        """(N, H, W, 3) uint8 → ((N_tok, D) vision tokens, grid_thw (N, 3)),
+        the N images in one tower pass; normalization and patchification run
+        on the device."""
+        n, h, w = images.shape[:3]
+        dev_idx, (wblk, fblk) = self._vision_host_indices(h, w, n)
+        raw = torch.as_tensor(np.asarray(images, np.uint8), device=self.device)
         patches = preprocess_images_device(raw, self.cfg.vision, self.CLIP_MEAN, self.CLIP_STD)
-        return self.model.encode_vision(patches, *dev_idx, window_block=wblk, full_block=fblk)
+        tokens = self.model.encode_vision(patches, *dev_idx, window_block=wblk, full_block=fblk)
+        p = self.cfg.vision.patch_size
+        return tokens, np.tile(np.asarray([[1, h // p, w // p]], np.int64), (n, 1))
 
     def _gather_vision_tokens(self, images: np.ndarray, frame_keys: List[Optional[int]]):
         """Vision tokens of every frame + grid_thw. Each image is encoded on

@@ -2,8 +2,10 @@
 
 Port of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
 RMSNorm, SwiGLU MLP, GQA attention with q/k/v biases, M-RoPE, untied LM
-head, cached greedy decode with the rope-delta fast path, and the chunked
-decode of the traj-latent queries.
+head, cached greedy decode with the rope-delta fast path, the chunked
+decode of the traj-latent queries, and for training the per-layer
+rematerialization (`QwenTextConfig.remat`) and the chunked full-vocab
+cross-entropy (`chunked_ce`).
 
 - Prefill runs `flash_attention` (the Hopper kernel on CUDA) with causal +
   pad-isolating segment ids, on UN-repeated K/V: query head h reads KV head
@@ -22,6 +24,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from internnav_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -48,6 +51,9 @@ class QwenTextConfig:
     dtype: torch.dtype = torch.bfloat16
     weight_dtype: str = "bf16"
     kv_dtype: str = "bf16"
+    #: recompute each decoder layer in backward (torch.utils.checkpoint)
+    #: instead of keeping its activations; the parameter names are unchanged
+    remat: bool = False
 
     def __post_init__(self):
         if self.weight_dtype != "bf16" or self.kv_dtype != "bf16":
@@ -176,18 +182,29 @@ class QwenTextModel(nn.Module):
         c = self.cfg
         return mrope_cos_sin(position_ids, c.head_dim, c.mrope_section, c.rope_theta)
 
-    def forward(self, inputs_embeds, position_ids, *, segment_ids=None, logits_indices=None):
+    def forward(self, inputs_embeds, position_ids, *, segment_ids=None, logits_indices=None,
+                compute_logits: bool = True):
         """Prefill. inputs_embeds (B, T, E); position_ids (3, B, T).
         Returns (logits, hidden, caches), caches per layer (k, v) of
         (B, T, KV, D); logits_indices (B,) computes the logits only at those
-        positions ((B, 1, vocab))."""
+        positions ((B, 1, vocab)); compute_logits=False returns logits None
+        (training with `chunked_ce` never builds the (B, T, vocab) logits).
+        With cfg.remat and grad enabled each layer runs under checkpoint and
+        is recomputed in backward, and caches is None."""
         cos, sin = self._cos_sin(position_ids)
         x = inputs_embeds
-        caches: List[KVCache] = []
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        caches: Optional[List[KVCache]] = None if remat else []
         for layer in self.layers:
-            x, cache = layer(x, cos, sin, segment_ids=segment_ids)
-            caches.append(cache)
+            if remat:
+                x = checkpoint(_layer_hidden, layer, x, cos, sin, segment_ids,
+                               use_reentrant=False)
+            else:
+                x, cache = layer(x, cos, sin, segment_ids=segment_ids)
+                caches.append(cache)
         hidden = self.norm(x)
+        if not compute_logits:
+            return None, hidden, caches
         if logits_indices is not None:
             rows = torch.arange(hidden.shape[0], device=hidden.device)
             logits = self._logits(hidden[rows, logits_indices.long()])[:, None]
@@ -197,6 +214,32 @@ class QwenTextModel(nn.Module):
 
     def _logits(self, hidden):
         return self.lm_head(hidden).float()
+
+    def chunked_ce(self, hidden, labels, *, ignore_index: int, chunk: int = 1024):
+        """Mean next-token cross-entropy over the full vocab without the
+        (B, T, vocab) fp32 logits: the lm_head and the softmax-CE run per
+        `chunk` positions under checkpoint, so one chunk's logits are live
+        at a time and backward recomputes them. Same value as the
+        full-logits loss on shifted logits / labels."""
+        h = hidden[:, :-1]
+        lbl = labels[:, 1:]
+        tot = hidden.new_zeros((), dtype=torch.float32)
+        cnt = hidden.new_zeros((), dtype=torch.float32)
+        for start in range(0, h.shape[1], chunk):
+            t, c = checkpoint(self._chunk_ce, h[:, start:start + chunk],
+                              lbl[:, start:start + chunk], ignore_index, use_reentrant=False)
+            tot = tot + t
+            cnt = cnt + c
+        return tot / cnt.clamp(min=1.0)
+
+    def _chunk_ce(self, h, lbl, ignore_index: int):
+        """(sum of CE, count) over the valid labels of one chunk."""
+        logits = self._logits(h)
+        valid = lbl != ignore_index
+        safe = torch.where(valid, lbl, 0).long()
+        gold = logits.gather(-1, safe[..., None])[..., 0]
+        ce = torch.logsumexp(logits, dim=-1) - gold
+        return (ce * valid).sum(), valid.sum().float()
 
     def _decode(self, token_embeds, position_ids, caches, cache_len):
         cos, sin = self._cos_sin(position_ids)
@@ -219,6 +262,11 @@ class QwenTextModel(nn.Module):
         traj-latent queries): equal to n `decode_step` calls, one weight
         pass. Returns (hidden (B, n, E), caches)."""
         return self._decode(token_embeds, position_ids, caches, cache_len), caches
+
+
+def _layer_hidden(layer, x, cos, sin, segment_ids):
+    """A decoder layer's hidden output alone (the checkpointed function)."""
+    return layer(x, cos, sin, segment_ids=segment_ids)[0]
 
 
 def pad_caches(caches: List[KVCache], max_len: int) -> List[KVCache]:

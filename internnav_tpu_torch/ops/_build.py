@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_source_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -56,8 +57,12 @@ def library_path(source: str) -> Path:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<source>` as a shared library."""
+    """Build (if needed) and load `csrc/<source>` as a shared library.
+    Calls for different sources from different threads compile
+    concurrently; calls for one source wait for its single build."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         if source in _loaded:
             return _loaded[source]
         src = CSRC / source

@@ -1,12 +1,15 @@
-"""Attention ops: plain PyTorch versions and the Hopper flash-attention kernel.
+"""Attention ops: plain PyTorch versions and the Hopper flash-attention kernels.
 
 Port of internnav_tpu/ops/flash_attention.py. Layout is the JAX package's:
 q (B, H, Tq, D), k/v (B, KV, Tk, D), segment ids (B, T) int32.
 
 `flash_attention` dispatches on the tensor's device: a CPU tensor runs the
-plain version (`mha_reference`), a CUDA tensor launches the hand-written
-kernel (`csrc/flash_fwd.cu`, the port of the Pallas `_flash_kernel`) or
-raises. There is no fallback from one to the other.
+plain version (`mha_reference`, differentiated by autograd), a CUDA tensor
+goes through `FlashAttentionFn`, whose forward is the hand-written kernel
+`csrc/flash_fwd.cu` (port of the Pallas `_flash_kernel`) and whose backward
+is `csrc/flash_bwd.cu` (ports of `_flash_bwd_dkv_kernel` and
+`_flash_bwd_dq_kernel`), or raises. There is no fallback from one to the
+other. `flash_backward_reference` is the plain version of the backward.
 
 Differences from the JAX wrapper:
 - grouped-query K/V (KV heads dividing H) is taken un-repeated; query head
@@ -29,9 +32,11 @@ import torch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (80, 128)
 
-#: launches of the flash-attention kernel in this process (the CUDA wrapper
-#: adds one per launch; the plain version never does)
+#: launches of each kernel in this process (its CUDA wrapper adds one per
+#: launch; the plain versions never do): K1 forward, K2 dK/dV, K3 dQ
 kernel_launches = 0
+bwd_dkv_launches = 0
+bwd_dq_launches = 0
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -168,17 +173,171 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
     return o, lse
 
 
+# ----------------------------------------------------------------- backward
+def flash_backward_reference(q, k, v, segment_ids, kv_segment_ids, o, lse, do,
+                             causal: bool, sm_scale: Optional[float] = None):
+    """Plain backward: the whole-matrix form of the JAX `_flash_backward`.
+
+    P is recomputed from the forward's lse (rows with lse = -inf give
+    P = 0), D_i = rowsum(dO * O), dS = P * (dP - D_i) * scale; dK and dV
+    are summed over each group of H / KV query heads. fp32 throughout;
+    returns (dq, dk, dv) in the dtypes of q, k, v. One KV group at a time,
+    so the score matrices held are (B, H / KV, Tq, Tk)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    H, KV = q.shape[1], k.shape[1]
+    if H % KV:
+        raise ValueError(f"query heads {H} not a multiple of KV heads {KV}")
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError("causal flash backward needs Tq == Tk")
+    G = H // KV
+    mask = _attention_mask(q, k, causal, segment_ids, kv_segment_ids)
+    di = (o.float() * do.float()).sum(-1)
+    finite = torch.isfinite(lse)
+    lse_safe = torch.where(finite, lse, 0.0).float()
+    dq, dk, dv = [], [], []
+    for j in range(KV):
+        heads = slice(j * G, (j + 1) * G)
+        qf, dof = q[:, heads].float(), do[:, heads].float()
+        kf, vf = k[:, j:j + 1].float(), v[:, j:j + 1].float()  # (B, 1, Tk, D)
+        s = torch.einsum("bhqd,bkd->bhqk", qf, kf[:, 0]) * sm_scale
+        p = torch.exp(s - lse_safe[:, heads, :, None])
+        p = p.masked_fill(~finite[:, heads, :, None], 0.0)
+        if mask is not None:
+            p = p.masked_fill(~mask, 0.0)
+        dp = torch.einsum("bhqd,bkd->bhqk", dof, vf[:, 0])
+        ds = p * (dp - di[:, heads, :, None]) * sm_scale
+        dv.append(torch.einsum("bhqk,bhqd->bkd", p, dof))
+        dk.append(torch.einsum("bhqk,bhqd->bkd", ds, qf))
+        dq.append(torch.einsum("bhqk,bkd->bhqd", ds, kf[:, 0]))
+    return (torch.cat(dq, dim=1).to(q.dtype), torch.stack(dk, dim=1).to(k.dtype),
+            torch.stack(dv, dim=1).to(v.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entries():
+    """The backward kernels' C entry points (dkv, dq), built and bound once."""
+    from internnav_tpu_torch.ops._build import load_library
+
+    lib = load_library("flash_bwd.cu")
+    dkv, dq = lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16
+    dkv.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    dq.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    dkv.restype = dq.restype = ctypes.c_int
+    return dkv, dq
+
+
+def _bwd_prologue(q, k, v, do, lse, di, segment_ids, kv_segment_ids, causal, sm_scale):
+    """Check the backward kernels' inputs; returns (kv_segment_ids, sm_scale)."""
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    _check_kernel_args(q, k, v, segment_ids, kv_segment_ids, causal)
+    if do.shape != q.shape or do.dtype != torch.bfloat16 or not do.is_contiguous() \
+            or do.device != q.device or do.data_ptr() % 16:
+        raise ValueError("flash backward kernel: do must be a contiguous, aligned bfloat16 "
+                         f"tensor of q's shape {tuple(q.shape)} on {q.device}")
+    for name, t in (("lse", lse), ("di", di)):
+        if tuple(t.shape) != tuple(q.shape[:3]) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash backward kernel: {name} must be contiguous float32 "
+                             f"{tuple(q.shape[:3])} on {q.device}")
+    return kv_segment_ids, q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+
+
+def _seg_ptrs(segment_ids, kv_segment_ids):
+    return (segment_ids.data_ptr() if segment_ids is not None else None,
+            kv_segment_ids.data_ptr() if kv_segment_ids is not None else None)
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, di, *, causal: bool = False,
+                       segment_ids: Optional[torch.Tensor] = None,
+                       kv_segment_ids: Optional[torch.Tensor] = None,
+                       sm_scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2: returns (dk, dv) bf16 (B, KV, Tk, D), already summed over
+    each query-head group. lse is K1's, di = rowsum(dO * O) fp32 (B, H, Tq)."""
+    global bwd_dkv_launches
+    kv_segment_ids, sm_scale = _bwd_prologue(q, k, v, do, lse, di, segment_ids,
+                                             kv_segment_ids, causal, sm_scale)
+    fn = _bwd_entries()[0]
+    B, H, Tq, D = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 di.data_ptr(), *_seg_ptrs(segment_ids, kv_segment_ids),
+                 dk.data_ptr(), dv.data_ptr(), B, H, KV, Tq, Tk, D,
+                 float(sm_scale), int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash backward dK/dV kernel launch failed: cudaError_t {err}")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, di, *, causal: bool = False,
+                      segment_ids: Optional[torch.Tensor] = None,
+                      kv_segment_ids: Optional[torch.Tensor] = None,
+                      sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Launch K3: returns dq bf16 (B, H, Tq, D)."""
+    global bwd_dq_launches
+    kv_segment_ids, sm_scale = _bwd_prologue(q, k, v, do, lse, di, segment_ids,
+                                             kv_segment_ids, causal, sm_scale)
+    fn = _bwd_entries()[1]
+    B, H, Tq, D = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 di.data_ptr(), *_seg_ptrs(segment_ids, kv_segment_ids),
+                 dq.data_ptr(), B, H, KV, Tq, Tk, D, float(sm_scale), int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash backward dQ kernel launch failed: cudaError_t {err}")
+    bwd_dq_launches += 1
+    return dq
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable kernel attention on CUDA tensors: forward K1, backward
+    D_i = rowsum(dO * O) in one torch expression, then K2 and K3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, sm_scale):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, segment_ids=segment_ids,
+                                      kv_segment_ids=kv_segment_ids, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, segment_ids, kv_segment_ids, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg, kv_seg, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        di = (o.float() * do.float()).sum(-1)
+        kw = dict(causal=ctx.causal, segment_ids=seg, kv_segment_ids=kv_seg,
+                  sm_scale=ctx.sm_scale)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, di, **kw)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, di, **kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     segment_ids: Optional[torch.Tensor] = None,
                     kv_segment_ids: Optional[torch.Tensor] = None,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention, (B, H, Tq, D) out. CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version (autograd differentiates it); CUDA tensors go through the
+    kernels (`FlashAttentionFn`) or raise."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError("causal flash attention is top-left and needs Tq == Tk")
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, segment_ids=segment_ids,
-                                    kv_segment_ids=kv_segment_ids, sm_scale=sm_scale)[0]
+        if segment_ids is not None and kv_segment_ids is None:
+            kv_segment_ids = segment_ids
+        return FlashAttentionFn.apply(q, k, v, segment_ids, kv_segment_ids, causal, sm_scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention has no path for device {q.device}")
     return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids,

@@ -1,7 +1,8 @@
 """Flow-matching Euler scheduler (port of internnav_tpu/ops/schedulers.py
 `FlowMatchEulerScheduler`). The denoise loop takes its starting noise as an
-argument, so callers draw it from a `torch.Generator` and tests inject the
-same noise into both packages."""
+argument, and the training noise is passed to `add_noise`, so callers draw
+it from a `torch.Generator` and tests inject the same noise into both
+packages."""
 
 from __future__ import annotations
 
@@ -19,6 +20,19 @@ class FlowMatchEulerScheduler:
 
     num_train_timesteps: int = 1000
 
+    # ------------------------------------------------------------ training
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """x_t = (1 - σ)·x0 + σ·ε with σ = t / num_train_timesteps for the
+        integer timesteps t (B,)."""
+        sigma = (t.float() / self.num_train_timesteps).reshape((-1,) + (1,) * (x0.dim() - 1))
+        return (1.0 - sigma) * x0 + sigma * noise
+
+    @staticmethod
+    def velocity_target(x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """The model's target: ε − x0."""
+        return noise - x0
+
+    # ----------------------------------------------------------- inference
     def inference_sigmas(self, num_inference_steps: int) -> np.ndarray:
         """σ grid linspace(1, 1/n, n) with terminal 0 appended."""
         s = np.linspace(1.0, 1.0 / num_inference_steps, num_inference_steps)

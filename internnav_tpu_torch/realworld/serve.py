@@ -4,10 +4,9 @@
 
 Builds the InternVLA-N1 policy at the full Qwen2.5-VL-7B width (bf16,
 random weights from a seeded generator: no checkpoint loading is ported
-yet), wraps it in the dual-system agent and serves it through the JAX
-package's
-`RealWorldServer` (stdlib HTTP, POST /eval_dual and /reset), which imports
-no jax. Only the `parity` profile (bf16 weights, bf16 KV cache) is ported;
+yet), wraps it in the dual-system agent and serves it through
+`RealWorldServer` (`realworld/server.py`: stdlib HTTP, POST /eval_dual and
+/reset). Only the `parity` profile (bf16 weights, bf16 KV cache) is ported;
 `realtime` (W8A8 + int8 KV) raises. `--device cuda` without a GPU raises:
 there is no CPU fallback.
 """
@@ -19,9 +18,8 @@ from typing import Optional, Sequence
 
 import torch
 
-# the JAX package's server and payload encoder are plain stdlib + numpy;
-# clients of the port take them from here
-from internnav_tpu.realworld.server import RealWorldServer, encode_npy  # noqa: F401
+# clients of the port take the server and its payload encoder from here
+from internnav_tpu_torch.realworld.server import RealWorldServer, encode_npy  # noqa: F401
 
 PROFILES = ("parity", "realtime")
 

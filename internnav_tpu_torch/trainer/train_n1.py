@@ -1,0 +1,161 @@
+"""InternVLA-N1 dual-system finetune entry point of the port.
+
+    python -m internnav_tpu_torch.trainer.train_n1 --store data/sft_store.bin \
+        --steps 1000 --max-len 8192 --remat --ce-chunk 1024 --opt-state-dtype bf16
+
+Port of scripts/train/train_n1.py with the same flags plus `--device`: a
+config file or `--name` gives the ExpCfg, the policy is built at `--tiny`
+or full Qwen2.5-VL-7B dims with random weights (seed 0), packed SFT rows
+from the trajectory store feed `InternVLAN1Trainer`. `--device` defaults
+to `cuda` and refuses without a GPU; `--device cpu` runs the tiny config
+on the CPU (the plain attention path):
+
+    python -m internnav_tpu_torch.trainer.train_n1 --tiny --device cpu \
+        --store /tmp/n1_store.bin --steps 2 --batch-size 2 --max-len 256
+
+Not ported yet, and refused: `--tp`, `--fsdp` (one device only) and
+`--ckpt` (loading a checkpoint into the port).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional, Sequence
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--name", default="n1_finetune")
+    ap.add_argument("--config", default=None,
+                    help="python file exposing exp_cfg (ExpCfg); CLI flags override its "
+                         "il/mesh fields")
+    ap.add_argument("--store", required=True, help="trajectory store file")
+    ap.add_argument("--ckpt", default=None, help="checkpoint dir (not yet ported: raises)")
+    ap.add_argument("--tiny", action="store_true", help="tiny dims smoke config")
+    ap.add_argument("--system1", default="nextdit", choices=["nextdit", "nextdit_async"])
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--batch-size", type=int, default=8,
+                    help="samples per packed batch (pre-packing)")
+    ap.add_argument("--max-len", type=int, default=2048, help="packed sequence length")
+    ap.add_argument("--grad-accum", type=int, default=None,
+                    help="gradient accumulation microbatches (only 1 is ported)")
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--tune-llm", action="store_true", default=True)
+    ap.add_argument("--no-tune-llm", dest="tune_llm", action="store_false")
+    ap.add_argument("--tune-mm-vision", action="store_true", default=False)
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (not yet ported)")
+    ap.add_argument("--fsdp", action="store_true", help="FSDP sharding (not yet ported)")
+    ap.add_argument("--remat", action="store_true", default=False,
+                    help="recompute decoder layers in backward")
+    ap.add_argument("--opt-state-dtype", default=None, choices=["bf16", "fp32"],
+                    help="Adam m/v storage dtype")
+    ap.add_argument("--ce-chunk", type=int, default=0,
+                    help="chunked full-vocab CE per N tokens (0 = full logits)")
+    ap.add_argument("--num-history", type=int, default=None)
+    ap.add_argument("--image-hw", type=int, default=None,
+                    help="square frame size fed to the vision tower "
+                         "(default: 28 at --tiny, 224 at full dims)")
+    ap.add_argument("--output-dir", default=None)
+    ap.add_argument("--resume", action="store_true", default=True)
+    ap.add_argument("--no-resume", dest="resume", action="store_false")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; a CUDA device unless `cpu` is asked for")
+    return ap
+
+
+def make_batch_iter(store_path: str, policy, cfg_model, batch_size: int, max_len: int,
+                    num_history: int, image_hw: int):
+    """Infinite iterator of packed SFT batches over the store."""
+    from internnav_tpu_torch.dataset.internvla_n1_dataset import (
+        N1SampleDataset,
+        n1_packed_collate_fn,
+        tokenize_sample,
+    )
+
+    tpi = policy._tokens_per_image((image_hw, image_hw))
+    ds = N1SampleDataset(store_path, predict_step_nums=cfg_model.predict_step_nums,
+                         num_history=num_history)
+
+    def collate(rows):
+        return n1_packed_collate_fn(rows, max_len=max_len,
+                                    predict_step_nums=cfg_model.predict_step_nums)
+
+    while True:
+        rows = []
+        for s in ds:
+            rows.append(tokenize_sample(s, policy.tokenizer, tokens_per_image=tpi,
+                                        n_query=cfg_model.n_query))
+            if len(rows) == batch_size:
+                yield collate(rows)
+                rows = []
+        if rows:
+            yield collate(rows)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = build_argparser().parse_args(argv)
+
+    import torch
+
+    from internnav_tpu_torch import require_cuda
+    from internnav_tpu_torch.configs.trainer import ExpCfg
+    from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
+    from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
+
+    if args.tp > 1 or args.fsdp:
+        raise NotImplementedError("--tp / --fsdp: sharded training is not yet ported")
+    if args.ckpt:
+        raise NotImplementedError("--ckpt: loading a checkpoint into the port is not yet ported")
+    device = torch.device(args.device)
+    if device.type != "cpu":
+        device = require_cuda(device)
+
+    if args.config:
+        import runpy
+
+        exp = runpy.run_path(args.config)["exp_cfg"]
+        if not isinstance(exp, ExpCfg):
+            exp = ExpCfg.model_validate(exp.model_dump() if hasattr(exp, "model_dump") else exp)
+    else:
+        exp = ExpCfg(name=args.name, model_name="internvla_n1")
+    if args.output_dir:
+        exp.output_dir = args.output_dir
+    if args.lr is not None:
+        exp.il.lr = args.lr
+    if args.grad_accum is not None:
+        exp.il.grad_accum_steps = args.grad_accum
+    exp.il.batch_size = args.batch_size
+    if args.remat:
+        exp.il.remat = True
+    if args.ce_chunk:
+        exp.il.ce_chunk = args.ce_chunk
+    if args.opt_state_dtype:
+        exp.il.opt_state_dtype = args.opt_state_dtype
+
+    image_hw = args.image_hw or (28 if args.tiny else 224)
+    if args.tiny:
+        # the tiny DinoViT follows the frame size, as the JAX tiny config's
+        # init does (its s1_image_hw is unset)
+        cfg_model = dataclasses.replace(InternVLAN1Config.tiny(args.system1),
+                                        s1_image_hw=image_hw)
+    else:
+        cfg_model = InternVLAN1Config.qwen25vl_7b(args.system1)
+    if args.num_history is not None:
+        cfg_model = dataclasses.replace(cfg_model, num_history=args.num_history)
+    policy = InternVLAN1Policy.build(cfg_model, device=device)
+    trainer = InternVLAN1Trainer(exp, policy, total_steps=args.steps,
+                                 tune_llm=args.tune_llm, tune_mm_vision=args.tune_mm_vision)
+    raw = make_batch_iter(args.store, policy, cfg_model, args.batch_size, args.max_len,
+                          cfg_model.num_history, image_hw)
+    trainer.dataset = (trainer.prepare_batch(b) for b in raw)
+    if args.resume:
+        trainer.maybe_restore()
+    metrics = trainer.train(resume=False)
+    print("final:", metrics)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,12 @@
-"""The port imports no jax, and its agent serves through the real-robot HTTP
-server on the CPU (tiny policy): /reset, /eval_dual round trips, and a
-System-2 failure reaching the caller as HTTP 500 instead of a STOP action.
+"""The port imports nothing of JAX or of the JAX package, its copies of the
+JAX package's host-side modules equal their originals, and its agent
+serves through the port's real-robot HTTP server on the CPU (tiny policy):
+/reset, /eval_dual round trips, and a System-2 failure reaching the caller
+as HTTP 500 instead of a STOP action.
 """
 
 import json
+import re
 import socket
 import subprocess
 import sys
@@ -15,47 +18,112 @@ import numpy as np
 import pytest
 import torch
 
-from internnav_tpu.realworld.server import RealWorldServer, encode_npy
-from internnav_tpu.model.utils.vln_utils import S2Output
+from internnav_tpu.model.utils import vln_utils as jvln
+from internnav_tpu.realworld import controllers as jctrl
+from internnav_tpu.utils import geometry as jgeo
 from internnav_tpu_torch import require_cuda
 from internnav_tpu_torch.agent.internvla_n1_agent import InternVLAN1Agent
 from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
 from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
+from internnav_tpu_torch.model.utils import vln_utils as tvln
+from internnav_tpu_torch.model.utils.vln_utils import S2Output
+from internnav_tpu_torch.realworld import controllers as tctrl
 from internnav_tpu_torch.realworld import serve
+from internnav_tpu_torch.realworld.server import RealWorldServer, encode_npy
+from internnav_tpu_torch.utils import geometry as tgeo
+from internnav_tpu_torch.utils.logging import get_logger
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
-PORT_MODULES = [
-    "internnav_tpu_torch",
-    "internnav_tpu_torch.ops.flash_attention",
-    "internnav_tpu_torch.ops._build",
-    "internnav_tpu_torch.model.basemodel.internvla_n1.policy",
-    "internnav_tpu_torch.model.weights.from_jax",
-    "internnav_tpu_torch.agent.internvla_n1_agent",
-    "internnav_tpu_torch.realworld.serve",
-    "internnav_tpu.realworld.server",
-]
+PORT_SOURCES = [*(REPO / "internnav_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+                *(REPO / "scripts" / "torch").glob("*.py")]
+#: every module of the port, by its file
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for p in (REPO / "internnav_tpu_torch").rglob("*.py"))
+#: an import of the JAX package or of jax / flax, in any form
+FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|internnav_tpu)(\.|\s|$|,)")
+
+
+def test_port_modules_cover_the_package():
+    assert "internnav_tpu_torch.trainer.internvla_n1_trainer" in PORT_MODULES
+    assert "internnav_tpu_torch.realworld.server" in PORT_MODULES
+    assert "internnav_tpu_torch.dataset.traj_store" in PORT_MODULES
+    assert len(PORT_MODULES) > 40
+    assert not any(m.split(".")[0] != "internnav_tpu_torch" for m in PORT_MODULES)
 
 
 def test_port_imports_with_jax_blocked():
-    """In a fresh interpreter (this one already imported jax): with jax made
-    unimportable, every port module imports and neither jax nor flax loads."""
-    code = ("import sys; sys.modules['jax'] = None\n"
+    """In a fresh interpreter (this one already imported jax): with jax and
+    internnav_tpu made unimportable, every port module imports and neither
+    jax, flax nor internnav_tpu loads."""
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['internnav_tpu'] = None\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
-            + "assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules "
-              "if sys.modules[m] is not None)\n")
+            + "assert not any(m.split('.')[0] in ('jax', 'flax', 'internnav_tpu') "
+              "for m in sys.modules if sys.modules[m] is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 
 def test_port_sources_never_import_jax():
-    paths = [*(REPO / "internnav_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
-             *(REPO / "scripts" / "torch").glob("*.py")]
-    for path in paths:
+    for bad in ("import jax", "from jax.numpy import x", "import internnav_tpu",
+                "import internnav_tpu.ops", "from internnav_tpu import ops",
+                "    from internnav_tpu.realworld.server import RealWorldServer", "import flax"):
+        assert FORBIDDEN_IMPORT.match(bad), bad
+    assert not FORBIDDEN_IMPORT.match("from internnav_tpu_torch.ops import rope")
+    for path in PORT_SOURCES:
         for line in path.read_text().splitlines():
-            s = line.strip()
-            assert not (s.startswith("import jax") or s.startswith("from jax")), (path, line)
+            assert not FORBIDDEN_IMPORT.match(line), (path, line)
+
+
+# ------------------------------------------------- copies equal originals
+def test_vln_utils_copy_equals_jax_original():
+    text = "go <image>\n now <image>. then\nstop"
+    assert tvln.split_and_clean(text) == jvln.split_and_clean(text)
+    assert tvln.parse_actions("↑ ← STOP → ↓ x") == jvln.parse_actions("↑ ← STOP → ↓ x")
+    r = np.random.default_rng(0)
+    steps = r.uniform(-0.3, 0.3, (12, 3))
+    assert tvln.chunk_token(steps) == jvln.chunk_token(steps)
+    dp = r.standard_normal((8, 16, 3)) * [1.0, 0.4, 0.2] + [0.8, 0, 0]
+    assert tvln.traj_to_actions(dp) == jvln.traj_to_actions(dp)
+    np.testing.assert_array_equal(tvln.traj_to_actions(dp, use_discrete_action=False),
+                                  jvln.traj_to_actions(dp, use_discrete_action=False))
+    path = np.cumsum(r.uniform(0, 0.3, (20, 2)), axis=0)
+    assert (tvln.trajectory_to_discrete_actions(path)
+            == jvln.trajectory_to_discrete_actions(path))
+    for name in ("S1Input", "S1Output", "S2Input", "S2Output"):
+        assert repr(getattr(tvln, name)()) == repr(getattr(jvln, name)())
+    assert tvln.S2Output(output_action=[1]).validate() and not tvln.S2Output().validate()
+
+
+def test_geometry_and_controller_copies_equal_jax_originals():
+    r = np.random.default_rng(1)
+    a = r.uniform(-10, 10, 50)
+    np.testing.assert_array_equal(tgeo.wrap_angle(a), jgeo.wrap_angle(a))
+    pos, cur, yaw = r.standard_normal((9, 2)), r.standard_normal(2), 0.7
+    np.testing.assert_array_equal(tgeo.to_local_coords(pos, cur, yaw),
+                                  jgeo.to_local_coords(pos, cur, yaw))
+    np.testing.assert_array_equal(tgeo.yaw_rotmat(yaw), jgeo.yaw_rotmat(yaw))
+    traj = np.cumsum(r.uniform(0, 0.2, (10, 2)), axis=0)
+    pose = (0.3, -0.2, 0.4)
+    assert tctrl.trajectory_to_vw(traj, pose) == jctrl.trajectory_to_vw(traj, pose)
+    assert tctrl.MPCController().step(pose, traj) == jctrl.MPCController().step(pose, traj)
+    tp, jp = tctrl.PIDController(), jctrl.PIDController()
+    for target in traj[:4]:
+        assert tp.step(pose, target) == jp.step(pose, target)
+
+
+def test_logger_copy_configures_like_the_original(tmp_path):
+    from internnav_tpu.utils.logging import get_logger as jget_logger
+
+    ours = get_logger("port_copy_check", str(tmp_path))
+    theirs = jget_logger("jax_copy_check", str(tmp_path))
+    assert ours is get_logger("port_copy_check")
+    assert (ours.level, ours.propagate, len(ours.handlers)) == (
+        theirs.level, theirs.propagate, len(theirs.handlers))
+    assert (tmp_path / "port_copy_check.log").exists()
 
 
 def _free_port() -> int:

@@ -225,3 +225,91 @@ def test_flow_match_euler_with_injected_noise():
                                     jnp.asarray(x0), 10)
     ours = FlowMatchEulerScheduler().denoise(lambda x, t: x @ _t(w) + t / 1000.0, _t(x0), 10)
     _close(ours, ref)
+
+
+# ----------------------------------------------------------------- backward
+BWD_CASES = {  # name: (H, KV, causal, q segments, kv segments)
+    "causal": (2, 2, True, None, None),
+    "full": (2, 2, False, None, None),
+    "packed_causal": (2, 2, True, "packed", "packed"),
+    "gqa_packed_causal": (4, 2, True, "packed", "packed"),
+    "fully_masked_rows": (2, 2, False, "masked", "packed"),
+}
+
+
+def _bwd_segments(kind, T):
+    if kind is None:
+        return None
+    seg = np.zeros((1, T), np.int32)
+    seg[:, T // 3:] = 1
+    seg[:, T - 40:] = 2
+    if kind == "masked":
+        seg[:, T - 16:] = 9  # no key carries segment 9: o = 0, lse = -inf
+    return seg
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_backward_matches_pallas_backward(case):
+    """The port's plain backward (`flash_backward_reference`, from the
+    forward's o and lse) and the autograd of its CPU `flash_attention`,
+    against the JAX `_flash_attention` gradient with the Pallas dK/dV and
+    dQ kernels in interpret mode. The JAX side takes K/V repeated per query
+    head (as its prefill does); its dK/dV are summed over each group here.
+    fp32 on both sides: atol/rtol 1e-4."""
+    H, KV, causal, qkind, kkind = BWD_CASES[case]
+    B, T, D = 1, 128, 32
+    q, k, v = _qkv(20, B, H, T, D, KV=KV)
+    do = np.random.default_rng(21).standard_normal((B, H, T, D)).astype(np.float32)
+    qseg, kseg = _bwd_segments(qkind, T), _bwd_segments(kkind, T)
+    G = H // KV
+    sm = D ** -0.5
+    jseg = None if qseg is None else jnp.asarray(qseg)
+    jkseg = None if kseg is None else jnp.asarray(kseg)
+
+    def f(q_, k_, v_):
+        return jfa._flash_attention(q_, k_, v_, jseg, jkseg, causal, sm, 64, 64)
+
+    rep = lambda a: jnp.repeat(jnp.asarray(a), G, axis=1)  # noqa: E731
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(f, jnp.asarray(q), rep(k), rep(v))
+        jdq, jdk, jdv = vjp(jnp.asarray(do))
+    sum_groups = lambda g: np.asarray(g).reshape(B, KV, G, T, D).sum(2)  # noqa: E731
+    want = (np.asarray(jdq), sum_groups(jdk), sum_groups(jdv))
+
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    tseg = None if qseg is None else _t(qseg)
+    tkseg = None if kseg is None else _t(kseg)
+    o = fa.flash_attention(tq, tk, tv, causal=causal, segment_ids=tseg, kv_segment_ids=tkseg)
+    autograd = torch.autograd.grad(o, (tq, tk, tv), _t(do))
+    o, lse = fa.mha_reference(_t(q), _t(k), _t(v), causal=causal, segment_ids=tseg,
+                              kv_segment_ids=tkseg, return_lse=True)
+    plain = fa.flash_backward_reference(_t(q), _t(k), _t(v), tseg, tkseg, o, lse, _t(do), causal)
+    for name, a, p, w in zip(("dq", "dk", "dv"), autograd, plain, want):
+        _close(p, w)
+        _close(a, w)
+    if case == "fully_masked_rows":
+        assert torch.all(plain[0][:, :, T - 16:] == 0) and torch.all(torch.isneginf(lse[:, :, T - 16:]))
+
+
+def test_backward_kernel_wrappers_refuse_cpu_tensors():
+    q, k, v = (_t(a).bfloat16() for a in _qkv(22, 1, 2, 16, 128))
+    lse = torch.zeros((1, 2, 16))
+    for fn in (fa.flash_bwd_dkv_cuda, fa.flash_bwd_dq_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, k, v, q, lse, lse)
+    before = (fa.bwd_dkv_launches, fa.bwd_dq_launches)
+    tq = _t(_qkv(22, 1, 2, 16, 128)[0]).requires_grad_()
+    fa.flash_attention(tq, tq, tq, causal=True).sum().backward()
+    assert (fa.bwd_dkv_launches, fa.bwd_dq_launches) == before  # autograd of the plain version
+
+
+def test_flow_match_training_noise_matches_jax():
+    r = np.random.default_rng(12)
+    x0 = r.standard_normal((3, 8, 3)).astype(np.float32)
+    noise = r.standard_normal((3, 8, 3)).astype(np.float32)
+    t = np.array([0, 417, 999], np.int32)
+    ours, ref = FlowMatchEulerScheduler(), JFlowMatch()
+    _close(ours.add_noise(_t(x0), _t(noise), _t(t)),
+           ref.add_noise(jnp.asarray(x0), jnp.asarray(noise), jnp.asarray(t)))
+    _close(ours.velocity_target(_t(x0), _t(noise)),
+           ref.velocity_target(jnp.asarray(x0), jnp.asarray(noise)))
