@@ -9,9 +9,14 @@ Phases, each printing its numbers:
   2. kernels — hold each kernel against its plain PyTorch version and time
                both: K1 at the serving shapes; K1, K2 and K3 at the training
                head shape (28 heads, 4 KV heads, D=128, causal, segment ids of
-               a real packed row) at T=2048 and a ragged T; at T=8192 only
-               times (kernel, plain version, and scaled_dot_product_attention
-               as a yardstick) and the bound;
+               a real packed row) at T=2048 and a ragged T, K2 and K3 also at
+               T=8192, with the live and causal tiles per head of each row;
+               at T=8192 the kernels' times beside the plain version's,
+               scaled_dot_product_attention's (a yardstick) and the bound,
+               and the whole backward (D_i + K2 + K3 through
+               FlashAttentionFn) beside SDPA's; then a dense causal T=8192
+               row (no segment ids, where no tile can be skipped: the rate)
+               checked and timed beside SDPA with is_causal;
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy (bf16,
                random weights from a seeded generator), serve it through the
                real-robot HTTP server and POST /reset + 4 /eval_dual requests;
@@ -59,6 +64,7 @@ TRAIN_LEN = 8192
 TRAIN_LAYERS = 28
 TRAIN_HW = 224
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+QUEUE_CYCLES = 10_000_000  # device sleep ahead of each timed call (~5 ms at 1.98 GHz)
 
 
 def gpu_line() -> str:
@@ -68,7 +74,11 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up)."""
+    """Device milliseconds of one fn() call: the median of `reps` CUDA-event
+    timings (after one warm-up). Each call is queued behind a device-side
+    sleep (QUEUE_CYCLES, ~5 ms), so the host has enqueued the call's
+    launches before the device reaches them, and the events time the
+    device's work alone rather than the host's launch overhead."""
     import torch
 
     fn()
@@ -76,6 +86,7 @@ def cuda_ms(fn, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -95,7 +106,7 @@ def phase_build() -> None:
     for src in sources:
         log = _build.library_path(src).with_suffix(".log")
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"ptxas {log.stem}: {line.strip()}")
     print(f"phase build: gpu={gpu_line()!r} seconds={seconds:.2f}")
 
@@ -241,23 +252,38 @@ def check_bwd(name, q, k, v, seg, causal, o, lse, do):
 
 def sdpa_ms(q, k, v, seg, do, causal: bool):
     """scaled_dot_product_attention on the same inputs and masks (K/V
-    repeated per query head, boolean mask): (forward ms, backward ms). A
-    yardstick only: the port never calls it."""
+    repeated per query head; a boolean mask, or is_causal when seg is
+    None): (forward ms, backward ms). A yardstick only: the port never
+    calls it."""
     import torch
     import torch.nn.functional as F
 
     G = q.shape[1] // k.shape[1]
     kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
     T = q.shape[2]
-    mask = seg[:, :, None] == seg[:, None, :]
-    if causal:
-        mask = mask & torch.ones(T, T, dtype=torch.bool, device=q.device).tril()[None]
-    mask = mask[:, None]
-    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask), reps=10)
+    kw = {"is_causal": causal}
+    if seg is not None:
+        mask = seg[:, :, None] == seg[:, None, :]
+        if causal:
+            mask = mask & torch.ones(T, T, dtype=torch.bool, device=q.device).tril()[None]
+        kw = {"attn_mask": mask[:, None]}
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, **kw), reps=10)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, kr, vr))
-    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    o = F.scaled_dot_product_attention(qg, kg, vg, **kw)
     bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True), reps=10)
     return fwd, bwd
+
+
+def flash_backward_ms(q, k, v, seg, do) -> float:
+    """The whole backward as the train step runs it: FlashAttentionFn's
+    backward (D_i, the tile tables, K2 and K3) on K1's output, causal."""
+    import torch
+
+    from internnav_tpu_torch.ops import flash_attention as fa
+
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = fa.FlashAttentionFn.apply(qg, kg, vg, seg, seg, True, None)
+    return cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
 
 
 def phase_kernels(device, store) -> dict:
@@ -284,28 +310,41 @@ def phase_kernels(device, store) -> dict:
 
     errs = {"fwd": [], "dkv": [], "dq": []}
     train_rows = []
-    for T in (2048, 1000, TRAIN_LEN):  # training heads; 1000 is ragged (not a multiple of 64)
-        seg = torch.as_tensor(packed_row(store, T)["segment_ids"], device=device)
+    # training heads at T=2048, 1000 (ragged: not a multiple of 64) and
+    # 8192 on packed rows, then a dense causal 8192 row (no segment ids)
+    for T, packed in ((2048, True), (1000, True), (TRAIN_LEN, True), (TRAIN_LEN, False)):
+        seg = torch.as_tensor(packed_row(store, T)["segment_ids"], device=device) if packed \
+            else None
         q, k, v, do = rnd(1, 28, T, 128), rnd(1, 4, T, 128), rnd(1, 4, T, 128), rnd(1, 28, T, 128)
-        name = f"train_T{T}"
+        name = f"train_T{T}" if packed else f"dense_causal_T{T}"
+        live = fa.live_tile_pairs(T, T, causal=True, segment_ids=seg)
+        live_cpu = fa.live_tile_pairs(T, T, causal=True,
+                                      segment_ids=None if seg is None else seg.cpu())
+        if live != live_cpu:
+            raise AssertionError(f"{name}: {live} live tiles on the GPU, {live_cpu} on the CPU")
         row = {"shape": name, "q": list(q.shape), "kv_heads": 4, "causal": True,
-               "segments": int(seg.unique().numel())}
-        if T != TRAIN_LEN:  # the plain versions' fp32 scores at 8192 take 7.5 GB a call
+               "segments": int(seg.unique().numel()) if packed else 1,
+               "live_tiles": live, "causal_tiles": fa.live_tile_pairs(T, T, causal=True)}
+        if T != TRAIN_LEN:  # K1's plain version with lse at 8192 would hold ~5 fp32 score copies
             o, lse, err, _ = check_k1(name, q, k, v, seg, True)
-            e_dkv, e_dq = check_bwd(name, q, k, v, seg, True, o, lse, do)
             errs["fwd"].append(err)
-            errs["dkv"].append(e_dkv)
-            errs["dq"].append(e_dq)
-            row.update(fwd_err=err, dkv_err=e_dkv, dq_err=e_dq)
-        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, segment_ids=seg)
+            row["fwd_err"] = err
+        else:
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=True, segment_ids=seg)
+        e_dkv, e_dq = check_bwd(name, q, k, v, seg, True, o, lse, do)
+        errs["dkv"].append(e_dkv)
+        errs["dq"].append(e_dq)
+        row.update(dkv_err=e_dkv, dq_err=e_dq)
         di = (o.float() * do.float()).sum(-1)
-        pairs = valid_pairs(seg.cpu(), True)
+        pairs = valid_pairs((seg if packed else torch.zeros((1, T))).cpu(), True)
+        # the kernels' own time: tile tables made once, as FlashAttentionFn does
+        tabs = (fa.tile_segment_ranges(seg),) * 2 if packed else None
         row.update(
             fwd_ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True, segment_ids=seg)),
             dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal=True,
-                                                         segment_ids=seg)),
+                                                         segment_ids=seg, tile_tables=tabs)),
             dq_ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, di, causal=True,
-                                                       segment_ids=seg)),
+                                                       segment_ids=seg, tile_tables=tabs)),
             plain_fwd_ms=cuda_ms(lambda: fa.mha_reference(q, k, v, causal=True,
                                                           segment_ids=seg), reps=5),
             plain_bwd_ms=cuda_ms(lambda: fa.flash_backward_reference(
@@ -314,6 +353,7 @@ def phase_kernels(device, store) -> dict:
         for kind in ("fwd", "dkv", "dq"):
             row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound(kind, q, k, pairs)
         if T == TRAIN_LEN:
+            row["bwd_ms"] = flash_backward_ms(q, k, v, seg, do)
             row["sdpa_fwd_ms"], row["sdpa_bwd_ms"] = sdpa_ms(q, k, v, seg, do, True)
         train_rows.append(row)
         print("phase kernels: " + " ".join(
@@ -581,17 +621,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(device, store)
     k1_train, k2_train, k3_train = train["launches"]
-    main_row = kern["train"][-1]  # T=8192, the training step's attention shape
+    rows = {r["shape"]: r for r in kern["train"]}
+    main_row = rows[f"train_T{TRAIN_LEN}"]  # the training step's attention shape
+    dense_row = rows[f"dense_causal_T{TRAIN_LEN}"]
     shapes = kern["k1_serve"] + kern["train"]
 
     def entry(name, source, replaces, launches, by_path, err, kind, library_ms):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "launches_by_path": by_path, "max_abs_err": err,
-                "ms": main_row[f"{kind}_ms"],
-                "plain_ms": main_row["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
-                "bound_ms": main_row[f"{kind}_bound_ms"],
-                "bound_by": main_row[f"{kind}_bound_by"], "library_ms": library_ms,
-                "shape": main_row["shape"]}
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "launches_by_path": by_path, "max_abs_err": err,
+             "ms": main_row[f"{kind}_ms"],
+             "plain_ms": main_row["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
+             "bound_ms": main_row[f"{kind}_bound_ms"],
+             "bound_by": main_row[f"{kind}_bound_by"], "library_ms": library_ms,
+             "shape": main_row["shape"]}
+        if kind != "fwd":  # the backward kernels skip tiles: their work, and the dense rate
+            e.update(live_tiles=main_row["live_tiles"], causal_tiles=main_row["causal_tiles"],
+                     dense_causal={k: dense_row[k] for k in (
+                         f"{kind}_ms", "plain_bwd_ms", f"{kind}_bound_ms", "sdpa_bwd_ms")})
+        return e
 
     errs = kern["errs"]
     k1_err = max([r["max_abs_err"] for r in kern["k1_serve"]] + errs["fwd"])

@@ -1,0 +1,232 @@
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tile and bulk loads, 128-byte-swizzled wgmma descriptors, the wgmma
+// products the flash-attention backward issues, and host-side tensor maps.
+//
+// Layout convention. A tile is 64 rows of up to 128 bf16 columns, loaded by
+// TMA as two boxes of 64 x 64 elements (box 0: columns 0-63, box 1: 64-127,
+// 8 KB each, 1024-byte aligned) with CU_TENSOR_MAP_SWIZZLE_128B: each row is
+// one 128-byte line and 8 rows form one 1024-byte swizzle atom. Columns past
+// the tensor's last one, and rows past its last row, arrive as zeros.
+// Such a tile serves wgmma in two ways:
+// - K-major (the columns are the reduction axis, e.g. Q in S = Q K^T):
+//   k-step kk (16 columns) starts at box kk / 4, byte (kk % 4) * 32 of the
+//   line; the 8-row groups are SBO = 1024 bytes apart;
+// - MN-major (the rows are the reduction axis, e.g. K in dQ = dS K): k-step
+//   kk (16 rows) starts 2048 * kk bytes in; the two 64-column boxes are
+//   LBO = 8192 bytes apart, the 8-row groups SBO = 1024 bytes.
+
+#pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+constexpr int TILE_COLS = 128;             // head dim, zero-padded
+constexpr int BOX_BYTES = 64 * 64 * 2;     // one 64 x 64 bf16 box
+constexpr int TILE_BYTES = 2 * BOX_BYTES;  // 64 x 128 bf16
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------- mbarriers
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and expect `bytes` of asynchronous copies on this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase with parity `parity` has completed; a
+// phase that never completes (a lost copy) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// ------------------------------------------------------------------- TMA
+// one box of a 3-D tensor map at coordinates (x, y, z), innermost first
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// a 64 x 128 tile: both 64-column boxes at rows y.. of slice z
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int y, int z) {
+  tma_load_3d(dst, map, bar, 0, y, z);
+  tma_load_3d(static_cast<char*>(dst) + BOX_BYTES, map, bar, 64, y, z);
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory, 16-byte aligned
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ----------------------------------------------------------------- wgmma
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// k-step kk of a tile used K-major (64 rows x 16 columns)
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024);
+}
+
+// k-step kk of a tile used MN-major (16 rows x 128 columns)
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 2048, BOX_BYTES, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HOPPER_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HOPPER_F32(o)                                                                     \
+  HOPPER_F4(o + 0), HOPPER_F4(o + 4), HOPPER_F4(o + 8), HOPPER_F4(o + 12), HOPPER_F4(o + 16), \
+      HOPPER_F4(o + 20), HOPPER_F4(o + 24), HOPPER_F4(o + 28)
+
+// d (64 x 64 fp32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_F32(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128 fp32) (+)= A (64 x 16, registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HOPPER_F32(0), HOPPER_F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+#undef HOPPER_F32
+#undef HOPPER_F4
+
+// Accumulator layout of an m64nN product (and of each thread's fragments):
+// thread t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 + {0, 8}
+// and, for each 8-column block j, columns 8 j + 2 (t % 4) + {0, 1}:
+// d[4 j + e] is row + 8 * (e / 2), column 8 j + 2 (t % 4) + e % 2.
+// A register fragment for k-step kk takes accumulator blocks 2 kk, 2 kk + 1.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// ------------------------------------------------------------------ host
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no libcuda link)
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &status);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
+
+// Tensor map of a contiguous bf16 (slices, rows, cols) tensor as the 3-D
+// (cols, rows, slices) with 64 x 64 boxes and 128-byte swizzle: a box that
+// runs past `rows` or `cols` is zero-filled, never read from the next slice.
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, int slices, int rows,
+                            int cols) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(slices)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace hopper

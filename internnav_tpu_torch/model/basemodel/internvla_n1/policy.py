@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from internnav_tpu_torch import require_cuda
 from internnav_tpu_torch.model.basemodel.internvla_n1.model import (
     InternVLAN1Config,
     InternVLAN1Model,
@@ -126,8 +127,12 @@ def _fit_s1_grid(frames: np.ndarray, hw: int) -> np.ndarray:
     return frames
 
 
-def build_model(cfg: InternVLAN1Config, device="cpu") -> InternVLAN1Model:
-    """An uninitialized model on `device` (parameters allocated, not set)."""
+def build_model(cfg: InternVLAN1Config, device=None) -> InternVLAN1Model:
+    """An uninitialized model on `device` (parameters allocated, not set).
+    Without a device it goes to the GPU and raises when there is none; pass
+    device="cpu" to build it on the host."""
+    if device is None:
+        device = require_cuda()
     with torch.device("meta"):
         model = InternVLAN1Model(cfg)
     return model.to_empty(device=device).eval()
@@ -176,11 +181,13 @@ class InternVLAN1Policy:
         self.reset()
 
     @classmethod
-    def build(cls, cfg: Optional[InternVLAN1Config] = None, *, device="cpu",
+    def build(cls, cfg: Optional[InternVLAN1Config] = None, *, device=None,
               seed: int = 0) -> "InternVLAN1Policy":
-        """Random-weight policy on `device`, drawn from a torch.Generator
-        seeded with `seed` on that device."""
+        """Random-weight policy on `device` (the GPU when None; raises
+        without one), drawn from a torch.Generator seeded with `seed` on
+        that device."""
         cfg = cfg or InternVLAN1Config.tiny()
+        device = require_cuda() if device is None else device
         model = build_model(cfg, device=device)
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
         return cls(model, seed=seed)

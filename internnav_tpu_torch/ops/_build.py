@@ -3,8 +3,9 @@
 Each kernel source under `internnav_tpu_torch/csrc/` exposes a plain C entry
 point. It is compiled with `nvcc` into a shared library under
 `build/kernels/` at the repository root (git-ignored) and loaded with
-ctypes. The library name carries a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads from disk; the compiler's
+ctypes. The library name carries a hash of the source, of every shared
+header `csrc/*.cuh` and of the flags, so an edited source or header
+rebuilds and an unchanged one loads from disk; the compiler's
 output (ptxas registers, spills) is kept beside it as `<library>.log`.
 
 Importing this module needs no compiler: `nvcc` is looked up only when a
@@ -50,10 +51,14 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where `csrc/<source>` builds to: named by a hash of source + flags."""
+    """Where `csrc/<source>` builds to: named by a hash of the source, the
+    shared headers `csrc/*.cuh` and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}_{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def load_library(source: str) -> ctypes.CDLL:

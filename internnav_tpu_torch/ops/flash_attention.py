@@ -11,6 +11,10 @@ is `csrc/flash_bwd.cu` (ports of `_flash_bwd_dkv_kernel` and
 `_flash_bwd_dq_kernel`), or raises. There is no fallback from one to the
 other. `flash_backward_reference` is the plain version of the backward.
 
+The backward kernels compute a (64-query, 64-key) tile pair only when it is
+live (`live_tile_mask`): causally live, and its segment ranges
+(`tile_segment_ranges`, one table per side) overlap.
+
 Differences from the JAX wrapper:
 - grouped-query K/V (KV heads dividing H) is taken un-repeated; query head
   h reads KV head h // (H // KV);
@@ -28,9 +32,13 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (80, 128)
+#: rows and keys per tile of the backward kernels
+TILE = 64
+INT32_MAX, INT32_MIN = 2**31 - 1, -(2**31)
 
 #: launches of each kernel in this process (its CUDA wrapper adds one per
 #: launch; the plain versions never do): K1 forward, K2 dK/dV, K3 dQ
@@ -173,6 +181,63 @@ def flash_attention_cuda(q, k, v, *, causal: bool = False,
     return o, lse
 
 
+# ------------------------------------------------------------- tile skipping
+def tile_segment_ranges(segment_ids: torch.Tensor, block: int = TILE) -> torch.Tensor:
+    """Per tile of `block` rows of (B, T) int32 segment ids: int32
+    (B, ceil(T / block), 4) holding [lo, hi] over the ids >= 0 and [lo, hi]
+    over the ids < 0; an empty range is (INT32_MAX, INT32_MIN). The last
+    tile counts only its rows < T."""
+    B, T = segment_ids.shape
+    n = -(-T // block)
+    seg = F.pad(segment_ids, (0, n * block - T)).view(B, n, block)
+    valid = (torch.arange(n * block, device=seg.device) < T).view(1, n, block)
+    pos, neg = valid & (seg >= 0), valid & (seg < 0)
+    big = torch.full_like(seg, INT32_MAX)
+    small = torch.full_like(seg, INT32_MIN)
+    return torch.stack([torch.where(pos, seg, big).amin(-1), torch.where(pos, seg, small).amax(-1),
+                        torch.where(neg, seg, big).amin(-1), torch.where(neg, seg, small).amax(-1)],
+                       dim=-1).to(torch.int32).contiguous()
+
+
+def _ranges_overlap(q_tab, kv_tab):
+    """(B, nq, nk) bool: a query tile's and a key tile's ranges overlap."""
+    a, b = q_tab[:, :, None, :], kv_tab[:, None, :, :]
+    pos = torch.maximum(a[..., 0], b[..., 0]) <= torch.minimum(a[..., 1], b[..., 1])
+    neg = torch.maximum(a[..., 2], b[..., 2]) <= torch.minimum(a[..., 3], b[..., 3])
+    return pos | neg
+
+
+def live_tile_mask(tq: int, tk: int, *, causal: bool,
+                   segment_ids: Optional[torch.Tensor] = None,
+                   kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, ceil(tq / TILE), ceil(tk / TILE)) bool (B = 1 without segment
+    ids): the (query tile, key tile) pairs the backward kernels compute.
+    A pair is live when it is causally live (top-left, Tq == Tk) and its
+    ranges over ids >= 0 or its ranges over ids < 0 overlap. A dropped pair
+    holds no (q, k) with equal ids, whatever the ids' order."""
+    if causal and tq != tk:
+        raise ValueError("causal tile skipping needs Tq == Tk")
+    nq, nk = -(-tq // TILE), -(-tk // TILE)
+    device = segment_ids.device if segment_ids is not None else None
+    live = torch.ones((1, nq, nk), dtype=torch.bool, device=device)
+    if causal:
+        live = live.tril()
+    if segment_ids is not None:
+        kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
+        live = live & _ranges_overlap(tile_segment_ranges(segment_ids),
+                                      tile_segment_ranges(kv_seg))
+    return live
+
+
+def live_tile_pairs(tq: int, tk: int, *, causal: bool,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    kv_segment_ids: Optional[torch.Tensor] = None) -> int:
+    """Live (query tile, key tile) pairs of `live_tile_mask`, summed over the
+    batch: the tiles K2 and K3 each compute per query head."""
+    return int(live_tile_mask(tq, tk, causal=causal, segment_ids=segment_ids,
+                              kv_segment_ids=kv_segment_ids).sum())
+
+
 # ----------------------------------------------------------------- backward
 def flash_backward_reference(q, k, v, segment_ids, kv_segment_ids, o, lse, do,
                              causal: bool, sm_scale: Optional[float] = None):
@@ -223,16 +288,26 @@ def _bwd_entries():
 
     lib = load_library("flash_bwd.cu")
     dkv, dq = lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16
-    dkv.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    dkv.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    dq.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    dq.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     dkv.restype = dq.restype = ctypes.c_int
     return dkv, dq
 
 
-def _bwd_prologue(q, k, v, do, lse, di, segment_ids, kv_segment_ids, causal, sm_scale):
-    """Check the backward kernels' inputs; returns (kv_segment_ids, sm_scale)."""
+def _rows_for_kernel(x, value):
+    """x (..., T) padded to a multiple of TILE rows with `value`, 16-byte
+    aligned: the kernels copy whole 64-row slices of it."""
+    pad = -x.shape[-1] % TILE
+    if pad:
+        return F.pad(x, (0, pad), value=value)
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _bwd_launch(which, q, k, v, do, lse, di, outs, segment_ids, kv_segment_ids, causal,
+                sm_scale, tile_tables):
+    """Check the inputs, pad the row vectors, and launch K2 ("dkv") or K3 ("dq")."""
     if segment_ids is not None and kv_segment_ids is None:
         kv_segment_ids = segment_ids
     _check_kernel_args(q, k, v, segment_ids, kv_segment_ids, causal)
@@ -245,35 +320,48 @@ def _bwd_prologue(q, k, v, do, lse, di, segment_ids, kv_segment_ids, causal, sm_
                 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"flash backward kernel: {name} must be contiguous float32 "
                              f"{tuple(q.shape[:3])} on {q.device}")
-    return kv_segment_ids, q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-
-
-def _seg_ptrs(segment_ids, kv_segment_ids):
-    return (segment_ids.data_ptr() if segment_ids is not None else None,
-            kv_segment_ids.data_ptr() if kv_segment_ids is not None else None)
+    B, H, Tq, D = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    seg = tabs = (None, None)
+    if segment_ids is not None:
+        seg = (_rows_for_kernel(segment_ids, 0), _rows_for_kernel(kv_segment_ids, 0))
+        tabs = tile_tables if tile_tables is not None else (
+            tile_segment_ranges(segment_ids), tile_segment_ranges(kv_segment_ids))
+        for t, T in zip(tabs, (Tq, Tk)):
+            if tuple(t.shape) != (B, -(-T // TILE), 4) or t.dtype != torch.int32 \
+                    or not t.is_contiguous() or t.device != q.device:
+                raise ValueError("flash backward kernel: tile tables must be "
+                                 "tile_segment_ranges of the segment ids")
+    lse_k = _rows_for_kernel(lse, float("-inf"))
+    di_k = _rows_for_kernel(di, 0.0)
+    fn = _bwd_entries()[0 if which == "dkv" else 1]
+    ptrs = [None if t is None else t.data_ptr() for t in (*seg, *tabs)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse_k.data_ptr(),
+                 di_k.data_ptr(), *ptrs, *(o.data_ptr() for o in outs), B, H, KV, Tq, Tk, D,
+                 float(sm_scale), int(causal), stream)
+    if err != 0:
+        name = "dK/dV" if which == "dkv" else "dQ"
+        raise RuntimeError(f"flash backward {name} kernel launch failed: cudaError_t {err}")
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, di, *, causal: bool = False,
                        segment_ids: Optional[torch.Tensor] = None,
                        kv_segment_ids: Optional[torch.Tensor] = None,
-                       sm_scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                       sm_scale: Optional[float] = None,
+                       tile_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2: returns (dk, dv) bf16 (B, KV, Tk, D), already summed over
-    each query-head group. lse is K1's, di = rowsum(dO * O) fp32 (B, H, Tq)."""
+    each query-head group. lse is K1's, di = rowsum(dO * O) fp32 (B, H, Tq).
+    tile_tables: `tile_segment_ranges` of (segment_ids, kv_segment_ids),
+    computed here when not given."""
     global bwd_dkv_launches
-    kv_segment_ids, sm_scale = _bwd_prologue(q, k, v, do, lse, di, segment_ids,
-                                             kv_segment_ids, causal, sm_scale)
-    fn = _bwd_entries()[0]
-    B, H, Tq, D = q.shape
-    KV, Tk = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 di.data_ptr(), *_seg_ptrs(segment_ids, kv_segment_ids),
-                 dk.data_ptr(), dv.data_ptr(), B, H, KV, Tq, Tk, D,
-                 float(sm_scale), int(causal), stream)
-    if err != 0:
-        raise RuntimeError(f"flash backward dK/dV kernel launch failed: cudaError_t {err}")
+    _bwd_launch("dkv", q, k, v, do, lse, di, (dk, dv), segment_ids, kv_segment_ids, causal,
+                sm_scale, tile_tables)
     bwd_dkv_launches += 1
     return dk, dv
 
@@ -281,29 +369,22 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, di, *, causal: bool = False,
 def flash_bwd_dq_cuda(q, k, v, do, lse, di, *, causal: bool = False,
                       segment_ids: Optional[torch.Tensor] = None,
                       kv_segment_ids: Optional[torch.Tensor] = None,
-                      sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Launch K3: returns dq bf16 (B, H, Tq, D)."""
+                      sm_scale: Optional[float] = None,
+                      tile_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      ) -> torch.Tensor:
+    """Launch K3: returns dq bf16 (B, H, Tq, D); tile_tables as for K2."""
     global bwd_dq_launches
-    kv_segment_ids, sm_scale = _bwd_prologue(q, k, v, do, lse, di, segment_ids,
-                                             kv_segment_ids, causal, sm_scale)
-    fn = _bwd_entries()[1]
-    B, H, Tq, D = q.shape
-    KV, Tk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 di.data_ptr(), *_seg_ptrs(segment_ids, kv_segment_ids),
-                 dq.data_ptr(), B, H, KV, Tq, Tk, D, float(sm_scale), int(causal), stream)
-    if err != 0:
-        raise RuntimeError(f"flash backward dQ kernel launch failed: cudaError_t {err}")
+    _bwd_launch("dq", q, k, v, do, lse, di, (dq,), segment_ids, kv_segment_ids, causal,
+                sm_scale, tile_tables)
     bwd_dq_launches += 1
     return dq
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable kernel attention on CUDA tensors: forward K1, backward
-    D_i = rowsum(dO * O) in one torch expression, then K2 and K3."""
+    D_i = rowsum(dO * O) in one torch expression, the tile tables once, then
+    K2 and K3."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, sm_scale):
@@ -318,8 +399,13 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, seg, kv_seg, o, lse = ctx.saved_tensors
         do = do.contiguous()
         di = (o.float() * do.float()).sum(-1)
+        tables = None
+        if seg is not None:
+            q_tab = tile_segment_ranges(seg)
+            same = kv_seg.data_ptr() == seg.data_ptr() and kv_seg.shape == seg.shape
+            tables = (q_tab, q_tab if same else tile_segment_ranges(kv_seg))
         kw = dict(causal=ctx.causal, segment_ids=seg, kv_segment_ids=kv_seg,
-                  sm_scale=ctx.sm_scale)
+                  sm_scale=ctx.sm_scale, tile_tables=tables)
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, di, **kw)
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, di, **kw)
         return dq, dk, dv, None, None, None, None

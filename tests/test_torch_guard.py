@@ -165,7 +165,7 @@ class _Served:
 
 
 def test_agent_round_trip_through_server():
-    policy = InternVLAN1Policy.build(InternVLAN1Config.tiny())
+    policy = InternVLAN1Policy.build(InternVLAN1Config.tiny(), device="cpu")
     with _Served(InternVLAN1Agent(policy)) as srv:
         assert _post(srv.port, "/reset", {}) == (200, {"status": "ok"})
         for seed in range(2):
@@ -201,6 +201,18 @@ def test_launcher_refuses_unported_profile_and_missing_gpu(monkeypatch):
         serve.main(["--device", "cuda"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         require_cuda("cuda:0")
+
+
+def test_public_constructors_default_to_the_gpu(monkeypatch):
+    """`build_model` and `InternVLAN1Policy.build` without a device run on
+    the GPU: with no CUDA device they raise instead of building on the host."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InternVLAN1Policy.build(InternVLAN1Config.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(InternVLAN1Config.tiny())
 
 
 class _LookDownPolicy:

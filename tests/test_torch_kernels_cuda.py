@@ -148,6 +148,73 @@ def test_backward_cross_lengths_and_fully_masked_rows(device):
     assert torch.all(dk[1, :, 120:] == 0) and torch.all(dv[1, :, 120:] == 0)
 
 
+def _seg(device, rows):
+    return torch.as_tensor(rows, dtype=torch.int32, device=device)
+
+
+def _check_bwd_gqa(device, seg, causal=True, H=8, KV=2, D=128):
+    B, T = seg.shape
+    return _check_bwd(_rand(device, B, H, T, D), _rand(device, B, KV, T, D, seed=1),
+                      _rand(device, B, KV, T, D, seed=2), seg, seg, causal=causal)
+
+
+def test_backward_interleaved_segments(device):
+    """Ids (t // 7) % 3: every tile holds all three segments, none is skipped."""
+    T = 700
+    _check_bwd_gqa(device, _seg(device, [[(t // 7) % 3 for t in range(T)]]))
+
+
+def test_backward_tile_mixing_a_sample_with_pads(device):
+    """One tile holds the end of the last sample and the -1 pads after it."""
+    T = 640
+    row = [t // 150 for t in range(T)]
+    row[T - 30:] = [-1] * 30
+    _check_bwd_gqa(device, _seg(device, [row]))
+
+
+def test_backward_several_negative_ids(device):
+    T = 500
+    row = [(t // 40) % 4 - 2 for t in range(T)]  # ids -2, -1, 0, 1 in runs of 40
+    row[100:130] = [-5] * 30
+    _check_bwd_gqa(device, _seg(device, [row]), causal=False)
+
+
+def test_backward_batch_rows_with_different_layouts(device):
+    T = 333
+    rows = [[t // 100 for t in range(T)], [(t // 7) % 3 for t in range(T)]]
+    rows[0][T - 20:] = [-1] * 20
+    _check_bwd_gqa(device, _seg(device, rows))
+
+
+def test_backward_dense_causal(device):
+    """No segment ids: only the causal rule skips, T ragged."""
+    T = 1000
+    _check_bwd(_rand(device, 1, 28, T, 128), _rand(device, 1, 4, T, 128, seed=1),
+               _rand(device, 1, 4, T, 128, seed=2), causal=True)
+
+
+def test_backward_key_tile_without_live_query_tile(device):
+    """Keys 128-191 form a segment no query carries: their KV tile has no
+    live query tile, K2 walks nothing for it and its dK, dV are exactly 0;
+    the tile tables passed in give the same gradients as computed inside."""
+    T = 320
+    qseg = _seg(device, [[0] * 128 + [1] * 64 + [2] * 128])
+    kseg = _seg(device, [[0] * 128 + [5] * 64 + [2] * 128])
+    tabs = (fa.tile_segment_ranges(qseg), fa.tile_segment_ranges(kseg))
+    assert not fa.live_tile_mask(T, T, causal=False, segment_ids=qseg,
+                                 kv_segment_ids=kseg)[0, :, 2].any()
+    q, k, v = (_rand(device, 1, h, T, 128, seed=s) for s, h in ((0, 4), (1, 2), (2, 2)))
+    dq, dk, dv = _check_bwd(q, k, v, qseg, kseg)
+    assert torch.all(dk[:, :, 128:192] == 0) and torch.all(dv[:, :, 128:192] == 0)
+    o, lse = fa.flash_attention_cuda(q, k, v, segment_ids=qseg, kv_segment_ids=kseg)
+    do = _rand(device, *q.shape, seed=3)
+    di = (o.float() * do.float()).sum(-1)
+    kw = dict(segment_ids=qseg, kv_segment_ids=kseg, tile_tables=tabs)
+    assert torch.equal(fa.flash_bwd_dq_cuda(q, k, v, do, lse, di, **kw), dq)
+    assert all(torch.equal(a, b) for a, b in zip(fa.flash_bwd_dkv_cuda(q, k, v, do, lse, di, **kw),
+                                                 (dk, dv)))
+
+
 def test_autograd_function_runs_the_three_kernels(device):
     """flash_attention on CUDA tensors: forward K1, backward K2 + K3, with
     the gradients of the plain version's autograd."""

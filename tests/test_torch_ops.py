@@ -151,6 +151,25 @@ def test_kernel_build_asks_for_nvcc_only_when_building(monkeypatch, tmp_path):
         _build.load_library("flash_fwd.cu")
 
 
+def test_kernel_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """Editing a shared header `csrc/*.cuh` renames (so rebuilds) every
+    library; editing one source renames only its own."""
+    from internnav_tpu_torch.ops import _build
+
+    for src in _build.CSRC.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {s: _build.library_path(s) for s in ("flash_fwd.cu", "flash_bwd.cu")}
+    assert before["flash_bwd.cu"] == _build.library_path("flash_bwd.cu")
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s: _build.library_path(s) for s in before}
+    assert all(after[s] != before[s] for s in before)
+    (tmp_path / "flash_fwd.cu").write_text((tmp_path / "flash_fwd.cu").read_text() + "\n")
+    assert _build.library_path("flash_fwd.cu") != after["flash_fwd.cu"]
+    assert _build.library_path("flash_bwd.cu") == after["flash_bwd.cu"]
+
+
 @pytest.mark.parametrize("n", [1, 3])
 @pytest.mark.parametrize("scaled", [False, True])
 def test_gqa_decode_attention_matches_jax(n, scaled):

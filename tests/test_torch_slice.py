@@ -35,7 +35,7 @@ def policies():
         jm = jmodel.InternVLAN1Model(cfg)
         params = n1_params(jm, cfg, seed=1)
         tcfg = InternVLAN1Config.tiny("nextdit_async", dtype=torch.float32)
-        tm = load_from_jax(tpolicy.build_model(tcfg), params)
+        tm = load_from_jax(tpolicy.build_model(tcfg, device="cpu"), params)
         yield JPolicy(jm, params, cfg), tpolicy.InternVLAN1Policy(tm)
 
 

@@ -180,7 +180,7 @@ def n1_pair(request):
     jm = jmodel.InternVLAN1Model(cfg)
     params = n1_params(jm, cfg)
     tcfg = tmodel.InternVLAN1Config.tiny(request.param, dtype=torch.float32)
-    return jm, params, load_from_jax(build_model(tcfg), params)
+    return jm, params, load_from_jax(build_model(tcfg, device="cpu"), params)
 
 
 @pytest.mark.parametrize("guidance", [1.0, 2.5])

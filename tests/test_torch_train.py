@@ -129,7 +129,8 @@ def test_traj_loss_nextdit_matches_jax_with_its_draws():
     cfg = f32_config("nextdit")
     jm = jmodel.InternVLAN1Model(cfg)
     params = n1_params(jm, cfg, seed=2)
-    tm = load_from_jax(tpolicy.build_model(InternVLAN1Config.tiny("nextdit", dtype=torch.float32)),
+    tm = load_from_jax(tpolicy.build_model(InternVLAN1Config.tiny("nextdit", dtype=torch.float32),
+                                           device="cpu"),
                        params)
     r = np.random.default_rng(3)
     N, P = 3, cfg.predict_step_nums
@@ -251,8 +252,8 @@ def test_trainer_two_steps_match_jax(tmp_path):
     jm = jmodel.InternVLAN1Model(cfg)
     params = jax.tree_util.tree_map(np.array, n1_params(jm, cfg, seed=4))
     tcfg = InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
-    start = load_from_jax(tpolicy.build_model(tcfg), params).state_dict()
-    tpol = tpolicy.InternVLAN1Policy(load_from_jax(tpolicy.build_model(tcfg), params))
+    start = load_from_jax(tpolicy.build_model(tcfg, device="cpu"), params).state_dict()
+    tpol = tpolicy.InternVLAN1Policy(load_from_jax(tpolicy.build_model(tcfg, device="cpu"), params))
     # the JAX trainer donates its parameter buffers: give it its own copy
     jpol = JPolicy(jm, jax.tree_util.tree_map(jnp.array, params), cfg,
                    tokenizer=JTokenizer(cfg.text.vocab_size))
@@ -282,7 +283,7 @@ def test_trainer_two_steps_match_jax(tmp_path):
     for k in ("lm_loss", "s1_loss", "loss", "grad_norm"):
         _close(tm_out[k], jm_out[k])
     assert jm_out["s1_loss"] > 0
-    want = load_from_jax(tpolicy.build_model(tcfg), jax.device_get(jtrainer.params)).state_dict()
+    want = load_from_jax(tpolicy.build_model(tcfg, device="cpu"), jax.device_get(jtrainer.params)).state_dict()
     got = tpol.model.state_dict()
     for name in ("language_model.layers.0.self_attn.q_proj.weight",
                  "language_model.embed_tokens.weight", "language_model.lm_head.weight",
@@ -309,7 +310,7 @@ def test_train_n1_cli_trains_saves_and_restores(tmp_path):
     assert (step_dir / "state.pt").exists() and (step_dir / "exp_config.json").exists()
 
     cfg = dataclasses.replace(InternVLAN1Config.tiny("nextdit"), s1_image_hw=28)
-    pol = tpolicy.InternVLAN1Policy.build(cfg, seed=1)
+    pol = tpolicy.InternVLAN1Policy.build(cfg, device="cpu", seed=1)
     exp = ExpCfg(name="restore", output_dir=out)
     exp.il.opt_state_dtype = "bf16"
     trainer = InternVLAN1Trainer(exp, pol, total_steps=2)
@@ -324,7 +325,7 @@ def test_unported_options_raise(tmp_path):
     from internnav_tpu_torch.configs.trainer import MeshCfg
     from internnav_tpu_torch.trainer import train_n1
 
-    pol = tpolicy.InternVLAN1Policy.build(InternVLAN1Config.tiny("nextdit"))
+    pol = tpolicy.InternVLAN1Policy.build(InternVLAN1Config.tiny("nextdit"), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         InternVLAN1Trainer(ExpCfg(mesh=MeshCfg(axes={"dp": 4}, param_sharding="fsdp")), pol)
     for flags in (["--tp", "2"], ["--fsdp"], ["--ckpt", str(tmp_path)]):
