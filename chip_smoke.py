@@ -7,14 +7,17 @@ Phases, each printing its numbers:
   1. build   — compile every CUDA kernel from csrc/ (one nvcc per source,
                all started together) and print ptxas registers / spills;
   2. kernels — hold each kernel against its plain PyTorch version and time
-               both: K1 at the serving shapes; K1, K2 and K3 at the training
+               both: K1 at the serving shapes (beside SDPA with the same
+               boolean mask and the bound); K1, K2 and K3 at the training
                head shape (28 heads, 4 KV heads, D=128, causal, segment ids of
-               a real packed row) at T=2048 and a ragged T, K2 and K3 also at
-               T=8192, with the live and causal tiles per head of each row;
-               at T=8192 the kernels' times beside the plain version's,
-               scaled_dot_product_attention's (a yardstick) and the bound,
-               and the whole backward (D_i + K2 + K3 through
-               FlashAttentionFn) beside SDPA's; then a dense causal T=8192
+               a real packed row) at T=2048, a ragged T and T=8192 (K1's
+               plain version in query chunks), with the live and causal
+               tiles per head of each row and K1's walked tiles counted by
+               the kernel itself; the kernels' times beside the plain
+               version's, the bound and scaled_dot_product_attention's
+               forward (a yardstick), at T=8192 also the whole backward
+               (D_i + K2 + K3 through FlashAttentionFn) beside SDPA's;
+               then a dense causal T=8192
                row (no segment ids, where no tile can be skipped: the rate)
                checked and timed beside SDPA with is_causal;
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy (bf16,
@@ -205,16 +208,56 @@ def k1_cases(device):
     return cases
 
 
-def check_k1(name, q, k, v, seg, causal):
-    """K1 against the plain version; returns (o, lse, max_abs_err, lse_err)."""
+def chunked_reference(q, k, v, seg, causal: bool, chunk: int = 1024):
+    """K1's plain version (`mha_reference` in fp32) over query chunks, so
+    that a T=8192 row holds (chunk x T) scores at a time: chunk [i, i + c)
+    against keys [0, i + c) under the causal mask (the plain version's
+    bottom-right convention, equal here to the global top-left mask), or
+    against every key. Returns (o, lse)."""
     import torch
 
     from internnav_tpu_torch.ops import flash_attention as fa
 
-    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, segment_ids=seg)
-    ref_o, ref_lse = fa.mha_reference(q.float(), k.float(), v.float(), causal=causal,
-                                      segment_ids=seg, return_lse=True)
+    outs, lses = [], []
+    T = q.shape[2]
+    for i in range(0, T, chunk):
+        end = min(i + chunk, T)
+        kv_end = end if causal else k.shape[2]
+        o, lse = fa.mha_reference(
+            q[:, :, i:end].float(), k[:, :, :kv_end].float(), v[:, :, :kv_end].float(),
+            causal=causal, segment_ids=None if seg is None else seg[:, i:end],
+            kv_segment_ids=None if seg is None else seg[:, :kv_end], return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def k1_tiles(q, k, seg, causal):
+    """(live, causal) key tiles per head that K1 walks: (128-query block,
+    64-key tile) pairs of the liveness rule, counted on the CPU."""
+    from internnav_tpu_torch.ops import flash_attention as fa
+
+    Tq, Tk = q.shape[2], k.shape[2]
+    kw = dict(causal=causal, query_block=fa.FWD_QUERY_BLOCK)
+    return (fa.live_tile_pairs(Tq, Tk, segment_ids=None if seg is None else seg.cpu(), **kw),
+            fa.live_tile_pairs(Tq, Tk, **kw))
+
+
+def check_k1(name, q, k, v, seg, causal):
+    """K1 against the plain version, and its walked key tiles against the
+    CPU count; returns (o, lse, max_abs_err, lse_err)."""
+    import torch
+
+    from internnav_tpu_torch.ops import flash_attention as fa
+
+    walked = torch.zeros(1, dtype=torch.int32, device=q.device)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, segment_ids=seg,
+                                     tile_counter=walked)
+    ref_o, ref_lse = chunked_reference(q, k, v, seg, causal)
     torch.cuda.synchronize()
+    want = k1_tiles(q, k, seg, causal)[0] * q.shape[1]
+    if int(walked) != want:
+        raise AssertionError(f"K1 {name}: walked {int(walked)} key tiles, the CPU rule keeps {want}")
     err = (o.float() - ref_o).abs().max().item()
     if not torch.allclose(o.float(), ref_o, atol=K1_ATOL, rtol=K1_RTOL):
         raise AssertionError(f"K1 {name}: o differs from the plain version by {err}")
@@ -250,13 +293,10 @@ def check_bwd(name, q, k, v, seg, causal, o, lse, do):
     return max(errs["dk"], errs["dv"]), errs["dq"]
 
 
-def sdpa_ms(q, k, v, seg, do, causal: bool):
-    """scaled_dot_product_attention on the same inputs and masks (K/V
-    repeated per query head; a boolean mask, or is_causal when seg is
-    None): (forward ms, backward ms). A yardstick only: the port never
-    calls it."""
+def _sdpa_args(q, k, v, seg, causal: bool):
+    """K/V repeated per query head, and a boolean mask (or is_causal when
+    seg is None) for scaled_dot_product_attention."""
     import torch
-    import torch.nn.functional as F
 
     G = q.shape[1] // k.shape[1]
     kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
@@ -267,16 +307,32 @@ def sdpa_ms(q, k, v, seg, do, causal: bool):
         if causal:
             mask = mask & torch.ones(T, T, dtype=torch.bool, device=q.device).tril()[None]
         kw = {"attn_mask": mask[:, None]}
-    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, **kw), reps=10)
+    return kr, vr, kw
+
+
+def sdpa_fwd_ms(q, kr, vr, kw) -> float:
+    """scaled_dot_product_attention's forward on q and `_sdpa_args`' K/V and
+    mask. A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, **kw), reps=10)
+
+
+def sdpa_bwd_ms(q, kr, vr, kw, do) -> float:
+    """scaled_dot_product_attention's backward (dq, dk, dv) on the same
+    arguments. A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, kr, vr))
     o = F.scaled_dot_product_attention(qg, kg, vg, **kw)
-    bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True), reps=10)
-    return fwd, bwd
+    return cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True), reps=10)
 
 
 def flash_backward_ms(q, k, v, seg, do) -> float:
     """The whole backward as the train step runs it: FlashAttentionFn's
-    backward (D_i, the tile tables, K2 and K3) on K1's output, causal."""
+    backward (D_i, then K2 and K3 on the forward's tile tables) on K1's
+    output, causal."""
     import torch
 
     from internnav_tpu_torch.ops import flash_attention as fa
@@ -294,14 +350,21 @@ def phase_kernels(device, store) -> dict:
     k1_rows = []
     for name, q, k, v, seg, causal in k1_cases(device):
         _, _, err, lse_err = check_k1(name, q, k, v, seg, causal)
-        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal, segment_ids=seg))
+        tabs = fa.segment_tile_tables(seg)  # made once per segment set, as the model does
+        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal, segment_ids=seg,
+                                                     tile_tables=tabs))
         plain_ms = cuda_ms(lambda: fa.mha_reference(q, k, v, causal=causal, segment_ids=seg))
-        k1_rows.append({"shape": name, "q": list(q.shape), "kv_heads": k.shape[1],
-                        "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
-                        "ms": ms, "plain_ms": plain_ms})
-        print(f"phase kernels: K1 {name} q={tuple(q.shape)} kv_heads={k.shape[1]} "
-              f"causal={causal} max_abs_err={err:.3e} lse_err={lse_err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} gpu={gpu_line()!r}")
+        live, causal_tiles = k1_tiles(q, k, seg, causal)
+        bound_ms, bound_by = bound("fwd", q, k, valid_pairs(seg.cpu(), causal))
+        row = {"shape": name, "q": list(q.shape), "kv_heads": k.shape[1], "causal": causal,
+               "max_abs_err": err, "lse_max_abs_err": lse_err, "live_tiles": live,
+               "causal_tiles": causal_tiles, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": sdpa_fwd_ms(q, *_sdpa_args(q, k, v, seg, causal))}
+        k1_rows.append(row)
+        print("phase kernels: K1 " + " ".join(
+            f"{key}={val:.4f}" if isinstance(val, float) else f"{key}={val}"
+            for key, val in row.items()) + f" gpu={gpu_line()!r}")
 
     g = torch.Generator(device=device).manual_seed(1)
 
@@ -322,15 +385,14 @@ def phase_kernels(device, store) -> dict:
                                       segment_ids=None if seg is None else seg.cpu())
         if live != live_cpu:
             raise AssertionError(f"{name}: {live} live tiles on the GPU, {live_cpu} on the CPU")
+        fwd_live, fwd_causal = k1_tiles(q, k, seg, True)
         row = {"shape": name, "q": list(q.shape), "kv_heads": 4, "causal": True,
                "segments": int(seg.unique().numel()) if packed else 1,
-               "live_tiles": live, "causal_tiles": fa.live_tile_pairs(T, T, causal=True)}
-        if T != TRAIN_LEN:  # K1's plain version with lse at 8192 would hold ~5 fp32 score copies
-            o, lse, err, _ = check_k1(name, q, k, v, seg, True)
-            errs["fwd"].append(err)
-            row["fwd_err"] = err
-        else:
-            o, lse = fa.flash_attention_cuda(q, k, v, causal=True, segment_ids=seg)
+               "live_tiles": live, "causal_tiles": fa.live_tile_pairs(T, T, causal=True),
+               "fwd_live_tiles": fwd_live, "fwd_causal_tiles": fwd_causal}
+        o, lse, err, lse_err = check_k1(name, q, k, v, seg, True)
+        errs["fwd"].append(err)
+        row.update(fwd_err=err, fwd_lse_err=lse_err)
         e_dkv, e_dq = check_bwd(name, q, k, v, seg, True, o, lse, do)
         errs["dkv"].append(e_dkv)
         errs["dq"].append(e_dq)
@@ -338,9 +400,10 @@ def phase_kernels(device, store) -> dict:
         di = (o.float() * do.float()).sum(-1)
         pairs = valid_pairs((seg if packed else torch.zeros((1, T))).cpu(), True)
         # the kernels' own time: tile tables made once, as FlashAttentionFn does
-        tabs = (fa.tile_segment_ranges(seg),) * 2 if packed else None
+        tabs = fa.segment_tile_tables(seg)
         row.update(
-            fwd_ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True, segment_ids=seg)),
+            fwd_ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True, segment_ids=seg,
+                                                           tile_tables=tabs)),
             dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal=True,
                                                          segment_ids=seg, tile_tables=tabs)),
             dq_ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, di, causal=True,
@@ -352,9 +415,12 @@ def phase_kernels(device, store) -> dict:
             pairs_per_head=pairs)
         for kind in ("fwd", "dkv", "dq"):
             row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound(kind, q, k, pairs)
+        sdpa = _sdpa_args(q, k, v, seg, True)
+        row["sdpa_fwd_ms"] = sdpa_fwd_ms(q, *sdpa)
         if T == TRAIN_LEN:
             row["bwd_ms"] = flash_backward_ms(q, k, v, seg, do)
-            row["sdpa_fwd_ms"], row["sdpa_bwd_ms"] = sdpa_ms(q, k, v, seg, do, True)
+            row["sdpa_bwd_ms"] = sdpa_bwd_ms(q, *sdpa, do)
+        del sdpa
         train_rows.append(row)
         print("phase kernels: " + " ".join(
             f"{key}={val:.4f}" if isinstance(val, float) else f"{key}={val}"
@@ -634,10 +700,14 @@ def main() -> int:
              "bound_ms": main_row[f"{kind}_bound_ms"],
              "bound_by": main_row[f"{kind}_bound_by"], "library_ms": library_ms,
              "shape": main_row["shape"]}
-        if kind != "fwd":  # the backward kernels skip tiles: their work, and the dense rate
-            e.update(live_tiles=main_row["live_tiles"], causal_tiles=main_row["causal_tiles"],
-                     dense_causal={k: dense_row[k] for k in (
-                         f"{kind}_ms", "plain_bwd_ms", f"{kind}_bound_ms", "sdpa_bwd_ms")})
+        # the tiles each kernel walks per head (K1 in 128-query blocks), and
+        # the dense causal row, where no tile can be skipped: the rate
+        tiles = ("fwd_live_tiles", "fwd_causal_tiles") if kind == "fwd" else (
+            "live_tiles", "causal_tiles")
+        side = "fwd" if kind == "fwd" else "bwd"
+        e.update(live_tiles=main_row[tiles[0]], causal_tiles=main_row[tiles[1]],
+                 dense_causal={k: dense_row[k] for k in (
+                     f"{kind}_ms", f"plain_{side}_ms", f"{kind}_bound_ms", f"sdpa_{side}_ms")})
         return e
 
     errs = kern["errs"]

@@ -86,60 +86,14 @@ struct QueryRows {
   int seg[BLOCK];
 };
 
-__device__ __forceinline__ bool ranges_overlap(int4 a, int4 b) {
-  return max(a.x, b.x) <= min(a.y, b.y) || max(a.z, b.z) <= min(a.w, b.w);
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 // The tiles i in [begin, end) whose ranges overlap `mine` (all of them
 // when `tab` is null), in order, into `list`; returns their count. Called
 // by every thread of the block.
-__device__ int build_live_list(int* list, int* warp_counts, const int4* tab, int4 mine,
-                               int begin, int end) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int count = 0;
-  for (int base = begin; base < end; base += NUM_THREADS) {
-    const int i = base + threadIdx.x;
-    const bool live = i < end && (tab == nullptr || ranges_overlap(mine, tab[i]));
-    const unsigned ballot = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) warp_counts[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = count, total = 0;
-#pragma unroll
-    for (int w = 0; w < NUM_THREADS / 32; ++w) {
-      offset += w < warp ? warp_counts[w] : 0;
-      total += warp_counts[w];
-    }
-    if (live) list[offset + __popc(ballot & ((1u << lane) - 1u))] = i;
-    count += total;
-    __syncthreads();
-  }
-  return count;
-}
-
-// rows row0 + {0, 8} of a (rows, D) bf16 matrix from an m64n128 fp32
-// accumulator; rows at or past `limit` and columns at or past D skipped
-__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const float (&acc)[64], int row0,
-                                          int limit, int D) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= limit) continue;
-    __nv_bfloat16* out = dst + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col < D) {
-        *reinterpret_cast<uint32_t*>(out + col) = pack_bf16(acc[4 * j + 2 * r],
-                                                            acc[4 * j + 2 * r + 1]);
-      }
-    }
-  }
+__device__ int live_list(int* list, int* warp_counts, const int4* tab, int4 mine, int begin,
+                         int end) {
+  return build_live_list<NUM_THREADS>(list, warp_counts, begin, end, [&](int i) {
+    return tab == nullptr || ranges_overlap(mine, tab[i]) ? i : -1;
+  });
 }
 
 // ---------------------------------------------------------------- K2: dK, dV
@@ -183,8 +137,8 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
   // live query tiles: causal keeps tiles kt.. (a key sees rows at or after
   // it), segment ranges keep the overlapping ones
   const int4 mine = has_seg ? p.kv_tab[b * p.n_kt + kt] : make_int4(0, 0, 0, 0);
-  const int n_live = build_live_list(list, warp_counts, has_seg ? p.q_tab + b * p.n_qt : nullptr,
-                                     mine, p.causal ? kt : 0, p.n_qt);
+  const int n_live = live_list(list, warp_counts, has_seg ? p.q_tab + b * p.n_qt : nullptr,
+                               mine, p.causal ? kt : 0, p.n_qt);
   const int n_items = n_live * G;
   const int q_pad = p.n_qt * BLOCK;
 
@@ -334,8 +288,8 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
   __syncthreads();
 
   const int4 mine = has_seg ? p.q_tab[b * p.n_qt + qt] : make_int4(0, 0, 0, 0);
-  const int n_live = build_live_list(list, warp_counts, has_seg ? p.kv_tab + b * p.n_kt : nullptr,
-                                     mine, 0, p.causal ? min(qt + 1, p.n_kt) : p.n_kt);
+  const int n_live = live_list(list, warp_counts, has_seg ? p.kv_tab + b * p.n_kt : nullptr,
+                               mine, 0, p.causal ? min(qt + 1, p.n_kt) : p.n_kt);
   const int k_pad = p.n_kt * BLOCK;
 
   auto issue = [&](int item, int s) {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile and bulk loads, 128-byte-swizzled wgmma descriptors, the wgmma
-// products the flash-attention backward issues, and host-side tensor maps.
+// products the flash-attention kernels issue, register reallocation, the
+// live-tile list, the accumulator store, and host-side tensor maps.
 //
 // Layout convention. A tile is 64 rows of up to 128 bf16 columns, loaded by
 // TMA as two boxes of 64 x 64 elements (box 0: columns 0-63, box 1: 64-127,
@@ -48,6 +49,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// arrive once (a consumer releasing a ring stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // wait until the barrier's phase with parity `parity` has completed; a
@@ -168,8 +174,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64 fp32) (+)= A (64 x 16, registers) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : HOPPER_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 #undef HOPPER_F32
 #undef HOPPER_F4
+
+// --------------------------------------------------- register reallocation
+// Every warp of a warpgroup executes these together. A producer warpgroup
+// gives registers back; the consumer warpgroups take them.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 // Accumulator layout of an m64nN product (and of each thread's fragments):
 // thread t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 + {0, 8}
@@ -181,12 +213,109 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The register A operand of k-step kk from a tile in shared memory
+// (K-major, 128-byte swizzle; the layout convention above): this thread's
+// rows 16 (t / 32) + (t % 32) / 4 + {0, 8}, columns 16 kk + 2 (t % 4) +
+// {0, 1, 8, 9}. In the swizzle, 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8) of the row's 128-byte line.
+__device__ __forceinline__ void smem_to_a(uint32_t (&a)[4], const unsigned char* tile, int kk) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+  const unsigned char* line = tile + (kk >> 2) * BOX_BYTES + row * 128;
+  const int c0 = (kk & 3) * 2;
+  const int byte = 4 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // columns 16 kk + {0..7}, then + {8..15}
+    const unsigned char* p = line + (((c0 + h) ^ (row & 7)) << 4) + byte;
+    a[2 * h] = *reinterpret_cast<const uint32_t*>(p);
+    a[2 * h + 1] = *reinterpret_cast<const uint32_t*>(p + 8 * 128);
+  }
+}
+
+// 2^x on the special-function unit (flush-to-zero; -inf gives 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
   a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
   a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// rows row0 + {0, 8} of a (rows, D) bf16 matrix from an m64n128 fp32
+// accumulator; rows at or past `limit` and columns at or past D skipped
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const float (&acc)[64], int row0,
+                                          int limit, int D) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= limit) continue;
+    __nv_bfloat16* out = dst + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < D) {
+        *reinterpret_cast<uint32_t*>(out + col) = pack_bf16(acc[4 * j + 2 * r],
+                                                            acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ tile skipping
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Two tiles' segment ranges (`tile_segment_ranges` in ops/flash_attention.py:
+// [lo, hi] over the ids >= 0, then [lo, hi] over the ids < 0) overlap: only
+// then can the tiles hold a query and a key with equal ids.
+__device__ __forceinline__ bool ranges_overlap(int4 a, int4 b) {
+  return max(a.x, b.x) <= min(a.y, b.y) || max(a.z, b.z) <= min(a.w, b.w);
+}
+
+// The live tiles i in [begin, end), in order, into `list`: live(i) returns
+// the entry to store for tile i (i itself, or i with flags in its high
+// bits), or -1 to drop the tile; returns their count. Called by all
+// THREADS threads of the block (it holds __syncthreads), or with
+// THREADS = 32 by one warp alone (__syncwarp); `warp_counts` has
+// THREADS / 32 entries.
+template <int THREADS, typename Live>
+__device__ int build_live_list(int* list, int* warp_counts, int begin, int end, Live live) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) % (THREADS / 32);
+  auto sync = [] {
+    if constexpr (THREADS == 32) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+  };
+  int count = 0;
+  for (int base = begin; base < end; base += THREADS) {
+    const int i = base + static_cast<int>(threadIdx.x % THREADS);
+    const int entry = i < end ? live(i) : -1;
+    const bool ok = entry >= 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    sync();
+    int offset = count, total = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      offset += w < warp ? warp_counts[w] : 0;
+      total += warp_counts[w];
+    }
+    if (ok) list[offset + __popc(ballot & ((1u << lane) - 1u))] = entry;
+    count += total;
+    sync();
+  }
+  return count;
 }
 
 // ------------------------------------------------------------------ host

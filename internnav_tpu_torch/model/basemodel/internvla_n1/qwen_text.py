@@ -9,7 +9,8 @@ cross-entropy (`chunked_ce`).
 
 - Prefill runs `flash_attention` (the Hopper kernel on CUDA) with causal +
   pad-isolating segment ids, on UN-repeated K/V: query head h reads KV head
-  h // (H // KV) inside the kernel.
+  h // (H // KV) inside the kernel. The segment ids' tile tables are built
+  once per forward and shared by every layer (and their backward).
 - Decode writes the new K/V into the preallocated cache IN PLACE (the JAX
   package returns updated copies); the cache is owned by the decode loop.
 - Only the bf16 weight / bf16 KV format is ported: `weight_dtype` or
@@ -30,6 +31,7 @@ from internnav_tpu_torch.ops.flash_attention import (
     flash_attention,
     gqa_chunk_decode_attention,
     gqa_decode_attention,
+    segment_tile_tables,
 )
 from internnav_tpu_torch.ops.rope import mrope_cos_sin, rotate_half
 
@@ -100,12 +102,14 @@ class QwenAttention(nn.Module):
         self.v_proj = nn.Linear(E, KV * D, bias=True, dtype=cfg.dtype)
         self.o_proj = nn.Linear(H * D, E, bias=False, dtype=cfg.dtype)
 
-    def forward(self, x, cos, sin, *, segment_ids=None,
+    def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None,
                 kv_cache: Optional[KVCache] = None, cache_len=None):
         """Prefill when kv_cache is None: returns (out, (k, v)) with the new
-        cache entries (B, T, KV, D). Otherwise x holds n >= 1 new tokens
-        whose K/V are written into kv_cache at cache_len (B,) in place, each
-        attending stepwise-causally over the cache."""
+        cache entries (B, T, KV, D); tile_tables are `segment_tile_tables`
+        of segment_ids (built by the kernel wrapper when None). Otherwise x
+        holds n >= 1 new tokens whose K/V are written into kv_cache at
+        cache_len (B,) in place, each attending stepwise-causally over the
+        cache."""
         c = self.cfg
         B, n = x.shape[:2]
         H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
@@ -116,7 +120,8 @@ class QwenAttention(nn.Module):
         if kv_cache is None:
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.transpose(1, 2).contiguous(),
-                                  causal=True, segment_ids=segment_ids)
+                                  causal=True, segment_ids=segment_ids,
+                                  tile_tables=tile_tables)
             new_cache = (k.transpose(1, 2), v)
         else:
             k_cache, v_cache = kv_cache
@@ -154,10 +159,11 @@ class QwenDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
         self.mlp = QwenMLP(cfg)
 
-    def forward(self, x, cos, sin, *, segment_ids=None, kv_cache=None, cache_len=None):
+    def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None, kv_cache=None,
+                cache_len=None):
         h, new_cache = self.self_attn(self.input_layernorm(x), cos, sin,
-                                      segment_ids=segment_ids, kv_cache=kv_cache,
-                                      cache_len=cache_len)
+                                      segment_ids=segment_ids, tile_tables=tile_tables,
+                                      kv_cache=kv_cache, cache_len=cache_len)
         x = x + h
         return x + self.mlp(self.post_attention_layernorm(x)), new_cache
 
@@ -190,17 +196,20 @@ class QwenTextModel(nn.Module):
         positions ((B, 1, vocab)); compute_logits=False returns logits None
         (training with `chunked_ce` never builds the (B, T, vocab) logits).
         With cfg.remat and grad enabled each layer runs under checkpoint and
-        is recomputed in backward, and caches is None."""
+        is recomputed in backward, and caches is None. The segment ids'
+        `segment_tile_tables` are built here once and shared by every
+        layer."""
+        tile_tables = segment_tile_tables(segment_ids)
         cos, sin = self._cos_sin(position_ids)
         x = inputs_embeds
         remat = self.cfg.remat and torch.is_grad_enabled()
         caches: Optional[List[KVCache]] = None if remat else []
         for layer in self.layers:
             if remat:
-                x = checkpoint(_layer_hidden, layer, x, cos, sin, segment_ids,
+                x = checkpoint(_layer_hidden, layer, x, cos, sin, segment_ids, tile_tables,
                                use_reentrant=False)
             else:
-                x, cache = layer(x, cos, sin, segment_ids=segment_ids)
+                x, cache = layer(x, cos, sin, segment_ids=segment_ids, tile_tables=tile_tables)
                 caches.append(cache)
         hidden = self.norm(x)
         if not compute_logits:
@@ -264,9 +273,9 @@ class QwenTextModel(nn.Module):
         return self._decode(token_embeds, position_ids, caches, cache_len), caches
 
 
-def _layer_hidden(layer, x, cos, sin, segment_ids):
+def _layer_hidden(layer, x, cos, sin, segment_ids, tile_tables):
     """A decoder layer's hidden output alone (the checkpointed function)."""
-    return layer(x, cos, sin, segment_ids=segment_ids)[0]
+    return layer(x, cos, sin, segment_ids=segment_ids, tile_tables=tile_tables)[0]
 
 
 def pad_caches(caches: List[KVCache], max_len: int) -> List[KVCache]:

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import RMSNorm
-from internnav_tpu_torch.ops.flash_attention import flash_attention
+from internnav_tpu_torch.ops.flash_attention import flash_attention, segment_tile_tables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,9 +130,11 @@ class VisionBlock(nn.Module):
         self.up_proj = nn.Linear(E, I, dtype=dt)
         self.down_proj = nn.Linear(I, E, dtype=dt)
 
-    def forward(self, x, cos, sin, segment_ids, block: int = 0):
+    def forward(self, x, cos, sin, segment_ids, block: int = 0, tile_tables=None):
         """x (S, E) token-major; segment_ids (S,). block > 0: the segments
-        are uniform contiguous `block`-token runs, attended block-diagonally."""
+        are uniform contiguous `block`-token runs, attended block-diagonally.
+        tile_tables: `segment_tile_tables(segment_ids[None])`, or None (the
+        kernel wrapper builds them)."""
         c = self.cfg
         H = c.num_heads
         D = c.hidden_size // H
@@ -158,7 +160,8 @@ class VisionBlock(nn.Module):
             attn = flash_attention(q.transpose(0, 1)[None].contiguous(),
                                    k.transpose(0, 1)[None].contiguous(),
                                    v.transpose(0, 1)[None].contiguous(),
-                                   causal=False, segment_ids=segment_ids[None])
+                                   causal=False, segment_ids=segment_ids[None],
+                                   tile_tables=tile_tables)
             out = attn[0].transpose(0, 1).reshape(-1, c.hidden_size)
         x = x + self.proj(out)
         y = self.norm2(x)
@@ -184,16 +187,21 @@ class QwenVisionTower(nn.Module):
     def forward(self, patches, cos, sin, window_segments, full_segments,
                 window_index, reverse_index, window_block: int = 0,
                 full_block: int = 0):
+        """The tile tables of each segment set that runs the flash kernel
+        (window and full attention) are built once and shared by its blocks."""
         c = self.cfg
         unit = c.spatial_merge_size ** 2
         x = self.patch_embed(patches.to(c.dtype))
         S = x.shape[0]
         # permute into window order at merge-unit granularity
         x = x.reshape(S // unit, unit, -1)[window_index.long()].reshape(S, -1)
+        tables = {full: None if block else segment_tile_tables(seg[None])
+                  for full, seg, block in ((False, window_segments, window_block),
+                                           (True, full_segments, full_block))}
         for i, blk in enumerate(self.blocks):
             full = i in c.fullatt_block_indexes
             x = blk(x, cos, sin, full_segments if full else window_segments,
-                    block=full_block if full else window_block)
+                    block=full_block if full else window_block, tile_tables=tables[full])
         x = self.merger_ln_q(x).reshape(S // unit, unit * c.hidden_size)
         x = F.gelu(self.merger_fc1(x), approximate="tanh")  # flax nn.gelu default
         x = self.merger_fc2(x)

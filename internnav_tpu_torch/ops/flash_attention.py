@@ -11,9 +11,13 @@ is `csrc/flash_bwd.cu` (ports of `_flash_bwd_dkv_kernel` and
 `_flash_bwd_dq_kernel`), or raises. There is no fallback from one to the
 other. `flash_backward_reference` is the plain version of the backward.
 
-The backward kernels compute a (64-query, 64-key) tile pair only when it is
+All three kernels compute a (query tile, 64-key tile) pair only when it is
 live (`live_tile_mask`): causally live, and its segment ranges
-(`tile_segment_ranges`, one table per side) overlap.
+(`tile_segment_ranges`, one table per side, per 64-row tile) overlap. The
+backward kernels take 64-query tiles; K1 takes 128-query blocks
+(`FWD_QUERY_BLOCK`) and walks a key tile when it is live for either 64-row
+half. The tables are built once per segment-id tensor (`segment_tile_tables`)
+and handed to every call that shares it (`tile_tables=`).
 
 Differences from the JAX wrapper:
 - grouped-query K/V (KV heads dividing H) is taken un-repeated; query head
@@ -36,8 +40,10 @@ import torch.nn.functional as F
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (80, 128)
-#: rows and keys per tile of the backward kernels
+#: rows and keys per tile of the segment tables and the backward kernels
 TILE = 64
+#: query rows per block of the forward kernel K1 (two 64-row halves)
+FWD_QUERY_BLOCK = 128
 INT32_MAX, INT32_MIN = 2**31 - 1, -(2**31)
 
 #: launches of each kernel in this process (its CUDA wrapper adds one per
@@ -144,7 +150,7 @@ def _kernel_entry():
     from internnav_tpu_torch.ops._build import load_library
 
     fn = load_library("flash_fwd.cu").flash_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -153,27 +159,43 @@ def _kernel_entry():
 def flash_attention_cuda(q, k, v, *, causal: bool = False,
                          segment_ids: Optional[torch.Tensor] = None,
                          kv_segment_ids: Optional[torch.Tensor] = None,
-                         sm_scale: Optional[float] = None
+                         sm_scale: Optional[float] = None,
+                         tile_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         tile_counter: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper kernel: returns (o bf16 (B, H, Tq, D), lse fp32
-    (B, H, Tq)). Raises on any input the kernel does not take."""
+    (B, H, Tq)). tile_tables: `segment_tile_tables` of these segment ids
+    (only their shape, dtype and device are checked), built here when not
+    given. tile_counter: an int32 CUDA tensor of one element that gains
+    the key tiles the kernel walks (summed over its blocks), or None.
+    Raises on any input the kernel does not take."""
     global kernel_launches
     if segment_ids is not None and kv_segment_ids is None:
         kv_segment_ids = segment_ids
+    _check_tile_tables(tile_tables, q, k, segment_ids)
     _check_kernel_args(q, k, v, segment_ids, kv_segment_ids, causal)
+    if tile_counter is not None and (tile_counter.device != q.device
+                                     or tile_counter.dtype != torch.int32
+                                     or tile_counter.numel() != 1):
+        raise ValueError(f"flash attention kernel: tile_counter must be one int32 on {q.device}")
     fn = _kernel_entry()
     B, H, Tq, D = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = D ** -0.5
+    seg = tabs = (None, None)
+    if segment_ids is not None:
+        # K1 reads the query ids row by row, and copies 64-key slices
+        seg = (segment_ids, _rows_for_kernel(kv_segment_ids, 0))
+        tabs = tile_tables if tile_tables is not None else segment_tile_tables(
+            segment_ids, kv_segment_ids)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    ptrs = [None if t is None else t.data_ptr() for t in (*seg, *tabs)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 segment_ids.data_ptr() if segment_ids is not None else None,
-                 kv_segment_ids.data_ptr() if kv_segment_ids is not None else None,
-                 o.data_ptr(), lse.data_ptr(), B, H, KV, Tq, Tk, D,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, o.data_ptr(), lse.data_ptr(),
+                 None if tile_counter is None else tile_counter.data_ptr(), B, H, KV, Tq, Tk, D,
                  float(sm_scale), int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError_t {err}")
@@ -199,6 +221,38 @@ def tile_segment_ranges(segment_ids: torch.Tensor, block: int = TILE) -> torch.T
                        dim=-1).to(torch.int32).contiguous()
 
 
+def segment_tile_tables(segment_ids: Optional[torch.Tensor],
+                        kv_segment_ids: Optional[torch.Tensor] = None
+                        ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(query table, key table) of `tile_segment_ranges`, or None without
+    segment ids; one table serves both sides when they share their ids.
+    Built once per segment-id tensor and passed as `tile_tables=` to every
+    kernel call on it (all layers, forward and backward)."""
+    if segment_ids is None:
+        return None
+    q_tab = tile_segment_ranges(segment_ids)
+    if kv_segment_ids is None or kv_segment_ids is segment_ids:
+        return q_tab, q_tab
+    return q_tab, tile_segment_ranges(kv_segment_ids)
+
+
+def _check_tile_tables(tables, q, k, segment_ids):
+    """Raise unless `tables` is None or two contiguous int32 tables of the
+    segment ids' shape per 64-row tile, on q's device."""
+    if tables is None:
+        return
+    if segment_ids is None:
+        raise ValueError("tile tables given without segment ids")
+    B, Tq, Tk = q.shape[0], q.shape[2], k.shape[2]
+    if len(tables) != 2:
+        raise ValueError("tile tables must be a (query, key) pair")
+    for t, T in zip(tables, (Tq, Tk)):
+        if tuple(t.shape) != (B, -(-T // TILE), 4) or t.dtype != torch.int32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError("tile tables must be tile_segment_ranges of the segment ids: "
+                             f"int32 {(B, -(-T // TILE), 4)} on {q.device}")
+
+
 def _ranges_overlap(q_tab, kv_tab):
     """(B, nq, nk) bool: a query tile's and a key tile's ranges overlap."""
     a, b = q_tab[:, :, None, :], kv_tab[:, None, :, :]
@@ -209,12 +263,18 @@ def _ranges_overlap(q_tab, kv_tab):
 
 def live_tile_mask(tq: int, tk: int, *, causal: bool,
                    segment_ids: Optional[torch.Tensor] = None,
-                   kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, ceil(tq / TILE), ceil(tk / TILE)) bool (B = 1 without segment
-    ids): the (query tile, key tile) pairs the backward kernels compute.
-    A pair is live when it is causally live (top-left, Tq == Tk) and its
-    ranges over ids >= 0 or its ranges over ids < 0 overlap. A dropped pair
-    holds no (q, k) with equal ids, whatever the ids' order."""
+                   kv_segment_ids: Optional[torch.Tensor] = None,
+                   query_block: int = TILE) -> torch.Tensor:
+    """(B, ceil(tq / query_block), ceil(tk / TILE)) bool (B = 1 without
+    segment ids): the (query block, key tile) pairs the kernels compute.
+    A 64-row query tile and a key tile are live when they are causally live
+    (top-left, Tq == Tk) and their ranges over ids >= 0 or their ranges over
+    ids < 0 overlap; a block of `query_block` rows (TILE for K2/K3,
+    FWD_QUERY_BLOCK for K1) walks the key tiles live for any of its 64-row
+    tiles. A dropped pair holds no (q, k) with equal ids, whatever the ids'
+    order."""
+    if query_block % TILE:
+        raise ValueError(f"query_block {query_block} is not a multiple of {TILE}")
     if causal and tq != tk:
         raise ValueError("causal tile skipping needs Tq == Tk")
     nq, nk = -(-tq // TILE), -(-tk // TILE)
@@ -226,16 +286,22 @@ def live_tile_mask(tq: int, tk: int, *, causal: bool,
         kv_seg = kv_segment_ids if kv_segment_ids is not None else segment_ids
         live = live & _ranges_overlap(tile_segment_ranges(segment_ids),
                                       tile_segment_ranges(kv_seg))
+    group = query_block // TILE
+    if group > 1:
+        live = F.pad(live, (0, 0, 0, -nq % group))
+        live = live.view(live.shape[0], -1, group, nk).any(dim=2)
     return live
 
 
 def live_tile_pairs(tq: int, tk: int, *, causal: bool,
                     segment_ids: Optional[torch.Tensor] = None,
-                    kv_segment_ids: Optional[torch.Tensor] = None) -> int:
-    """Live (query tile, key tile) pairs of `live_tile_mask`, summed over the
-    batch: the tiles K2 and K3 each compute per query head."""
+                    kv_segment_ids: Optional[torch.Tensor] = None,
+                    query_block: int = TILE) -> int:
+    """Live (query block, key tile) pairs of `live_tile_mask`, summed over
+    the batch: the key tiles the kernels walk per query head (K2 and K3 at
+    the default 64-row blocks, K1 at FWD_QUERY_BLOCK)."""
     return int(live_tile_mask(tq, tk, causal=causal, segment_ids=segment_ids,
-                              kv_segment_ids=kv_segment_ids).sum())
+                              kv_segment_ids=kv_segment_ids, query_block=query_block).sum())
 
 
 # ----------------------------------------------------------------- backward
@@ -310,6 +376,7 @@ def _bwd_launch(which, q, k, v, do, lse, di, outs, segment_ids, kv_segment_ids, 
     """Check the inputs, pad the row vectors, and launch K2 ("dkv") or K3 ("dq")."""
     if segment_ids is not None and kv_segment_ids is None:
         kv_segment_ids = segment_ids
+    _check_tile_tables(tile_tables, q, k, segment_ids)
     _check_kernel_args(q, k, v, segment_ids, kv_segment_ids, causal)
     if do.shape != q.shape or do.dtype != torch.bfloat16 or not do.is_contiguous() \
             or do.device != q.device or do.data_ptr() % 16:
@@ -327,13 +394,8 @@ def _bwd_launch(which, q, k, v, do, lse, di, outs, segment_ids, kv_segment_ids, 
     seg = tabs = (None, None)
     if segment_ids is not None:
         seg = (_rows_for_kernel(segment_ids, 0), _rows_for_kernel(kv_segment_ids, 0))
-        tabs = tile_tables if tile_tables is not None else (
-            tile_segment_ranges(segment_ids), tile_segment_ranges(kv_segment_ids))
-        for t, T in zip(tabs, (Tq, Tk)):
-            if tuple(t.shape) != (B, -(-T // TILE), 4) or t.dtype != torch.int32 \
-                    or not t.is_contiguous() or t.device != q.device:
-                raise ValueError("flash backward kernel: tile tables must be "
-                                 "tile_segment_ranges of the segment ids")
+        tabs = tile_tables if tile_tables is not None else segment_tile_tables(
+            segment_ids, kv_segment_ids)
     lse_k = _rows_for_kernel(lse, float("-inf"))
     di_k = _rows_for_kernel(di, 0.0)
     fn = _bwd_entries()[0 if which == "dkv" else 1]
@@ -383,49 +445,56 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, di, *, causal: bool = False,
 
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable kernel attention on CUDA tensors: forward K1, backward
-    D_i = rowsum(dO * O) in one torch expression, the tile tables once, then
-    K2 and K3."""
+    D_i = rowsum(dO * O) in one torch expression, then K2 and K3. The tile
+    tables are the caller's (`tile_tables`) or built once here, and the
+    backward reuses the forward's."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, sm_scale):
+    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, sm_scale, tile_tables=None):
+        if tile_tables is None:
+            tile_tables = segment_tile_tables(segment_ids, kv_segment_ids)
         o, lse = flash_attention_cuda(q, k, v, causal=causal, segment_ids=segment_ids,
-                                      kv_segment_ids=kv_segment_ids, sm_scale=sm_scale)
-        ctx.save_for_backward(q, k, v, segment_ids, kv_segment_ids, o, lse)
+                                      kv_segment_ids=kv_segment_ids, sm_scale=sm_scale,
+                                      tile_tables=tile_tables)
+        ctx.save_for_backward(q, k, v, segment_ids, kv_segment_ids, o, lse,
+                              *(tile_tables or (None, None)))
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, seg, kv_seg, o, lse = ctx.saved_tensors
+        q, k, v, seg, kv_seg, o, lse, q_tab, kv_tab = ctx.saved_tensors
         do = do.contiguous()
         di = (o.float() * do.float()).sum(-1)
-        tables = None
-        if seg is not None:
-            q_tab = tile_segment_ranges(seg)
-            same = kv_seg.data_ptr() == seg.data_ptr() and kv_seg.shape == seg.shape
-            tables = (q_tab, q_tab if same else tile_segment_ranges(kv_seg))
         kw = dict(causal=ctx.causal, segment_ids=seg, kv_segment_ids=kv_seg,
-                  sm_scale=ctx.sm_scale, tile_tables=tables)
+                  sm_scale=ctx.sm_scale, tile_tables=None if seg is None else (q_tab, kv_tab))
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, di, **kw)
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, di, **kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     segment_ids: Optional[torch.Tensor] = None,
                     kv_segment_ids: Optional[torch.Tensor] = None,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    tile_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> torch.Tensor:
     """Multi-head attention, (B, H, Tq, D) out. CPU tensors run the plain
-    version (autograd differentiates it); CUDA tensors go through the
-    kernels (`FlashAttentionFn`) or raise."""
+    version (autograd differentiates it; tile_tables are checked and not
+    needed); CUDA tensors go through the kernels (`FlashAttentionFn`, whose
+    wrapper checks the tables) or raise. tile_tables: `segment_tile_tables`
+    of these very segment ids, for a caller that runs many calls on one
+    segment-id tensor; only their shape, dtype and device are checked."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError("causal flash attention is top-left and needs Tq == Tk")
     if q.is_cuda:
         if segment_ids is not None and kv_segment_ids is None:
             kv_segment_ids = segment_ids
-        return FlashAttentionFn.apply(q, k, v, segment_ids, kv_segment_ids, causal, sm_scale)
+        return FlashAttentionFn.apply(q, k, v, segment_ids, kv_segment_ids, causal, sm_scale,
+                                      tile_tables)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention has no path for device {q.device}")
+    _check_tile_tables(tile_tables, q, k, segment_ids)
     return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids,
                          kv_segment_ids=kv_segment_ids, sm_scale=sm_scale)
 

@@ -39,11 +39,27 @@ def _rand(device, *shape, seed=0):
     return torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
 
 
-def _check(q, k, v, seg=None, kv_seg=None, causal=False):
+def _walked_tiles(q, k, seg, kv_seg, causal):
+    """Key tiles K1 must walk, summed over its blocks: the CPU count of live
+    (128-query block, 64-key tile) pairs times the heads."""
+    B, H, Tq = q.shape[:3]
+    pairs = fa.live_tile_pairs(Tq, k.shape[2], causal=causal,
+                               segment_ids=None if seg is None else seg.cpu(),
+                               kv_segment_ids=None if kv_seg is None else kv_seg.cpu(),
+                               query_block=fa.FWD_QUERY_BLOCK)
+    return pairs * H * (B if seg is None else 1)
+
+
+def _check(q, k, v, seg=None, kv_seg=None, causal=False, tile_tables=None):
+    """K1 against the plain version; the kernel walks exactly the live key
+    tiles the CPU rule counts."""
     before = fa.kernel_launches
+    walked = torch.zeros(1, dtype=torch.int32, device=q.device)
     o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, segment_ids=seg,
-                                     kv_segment_ids=kv_seg)
+                                     kv_segment_ids=kv_seg, tile_tables=tile_tables,
+                                     tile_counter=walked)
     assert fa.kernel_launches == before + 1
+    assert int(walked) == _walked_tiles(q, k, seg, kv_seg, causal)
     ref_o, ref_lse = fa.mha_reference(q.float(), k.float(), v.float(), causal=causal,
                                       segment_ids=seg, kv_segment_ids=kv_seg, return_lse=True)
     torch.cuda.synchronize()
@@ -80,6 +96,107 @@ def test_batched_cross_lengths_and_fully_masked_rows(device):
     assert torch.all(o[:, :, 90:] == 0) and torch.all(torch.isneginf(lse[:, :, 90:]))
 
 
+def _seg(device, rows):
+    return torch.as_tensor(rows, dtype=torch.int32, device=device)
+
+
+def _check_gqa(device, seg, kv_seg=None, causal=True, H=8, KV=2, D=128, Tk=None):
+    B, T = seg.shape
+    Tk = Tk or T
+    return _check(_rand(device, B, H, T, D), _rand(device, B, KV, Tk, D, seed=1),
+                  _rand(device, B, KV, Tk, D, seed=2), seg, kv_seg, causal=causal)
+
+
+def test_forward_tile_mixing_a_sample_with_pads(device):
+    """One tile holds the end of the last sample and the -1 pads after it."""
+    T = 640
+    row = [t // 150 for t in range(T)]
+    row[T - 30:] = [-1] * 30
+    _check_gqa(device, _seg(device, [row]))
+
+
+def test_forward_interleaved_segments(device):
+    """Ids (t // 7) % 3: every tile holds all three segments, none is skipped."""
+    T = 700
+    _check_gqa(device, _seg(device, [[(t // 7) % 3 for t in range(T)]]))
+
+
+def test_forward_several_negative_ids(device):
+    T = 500
+    row = [(t // 40) % 4 - 2 for t in range(T)]  # ids -2, -1, 0, 1 in runs of 40
+    row[100:130] = [-5] * 30
+    _check_gqa(device, _seg(device, [row]), causal=False)
+    _check_gqa(device, _seg(device, [row]), causal=True)
+
+
+def test_forward_batch_rows_with_different_layouts(device):
+    T = 333
+    rows = [[t // 100 for t in range(T)], [(t // 7) % 3 for t in range(T)]]
+    rows[0][T - 20:] = [-1] * 20
+    _check_gqa(device, _seg(device, rows))
+
+
+def test_forward_query_block_without_live_key_tile(device):
+    """Queries 128-255 (the second 128-row block) carry a segment no key
+    has: that block walks no tile, its o is exactly 0 and its lse -inf;
+    the tables passed in give the same output as those computed inside."""
+    T = 320
+    qseg = _seg(device, [[0] * 128 + [5] * 128 + [2] * 64])
+    kseg = _seg(device, [[0] * 128 + [1] * 128 + [2] * 64])
+    assert not fa.live_tile_mask(T, T, causal=False, segment_ids=qseg.cpu(),
+                                 kv_segment_ids=kseg.cpu(), query_block=128)[0, 1].any()
+    q, k, v = (_rand(device, 1, h, T, 128, seed=s) for s, h in ((0, 4), (1, 2), (2, 2)))
+    o, lse = _check(q, k, v, qseg, kseg)
+    assert torch.all(o[:, :, 128:256] == 0) and torch.all(torch.isneginf(lse[:, :, 128:256]))
+    tabs = (fa.tile_segment_ranges(qseg), fa.tile_segment_ranges(kseg))
+    o2, lse2 = _check(q, k, v, qseg, kseg, tile_tables=tabs)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+def test_forward_explicit_tables_equal_computed_ones(device):
+    T = 1000
+    seg = _seg(device, [[t // 230 for t in range(T - 40)] + [-1] * 40])
+    q, k, v = (_rand(device, 1, h, T, 128, seed=s) for s, h in ((0, 28), (1, 4), (2, 4)))
+    want = _check(q, k, v, seg, causal=True)
+    got = _check(q, k, v, seg, causal=True, tile_tables=fa.segment_tile_tables(seg))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_forward_dense_causal_ragged(device):
+    """No segment ids: only the causal rule skips, T ragged."""
+    T = 1000
+    _check(_rand(device, 1, 28, T, 128), _rand(device, 1, 4, T, 128, seed=1),
+           _rand(device, 1, 4, T, 128, seed=2), causal=True)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_forward_non_causal_cross_lengths(device, segmented):
+    Tq, Tk = 200, 333
+    q, k, v = _rand(device, 2, 8, Tq, 128), _rand(device, 2, 2, Tk, 128, seed=1), \
+        _rand(device, 2, 2, Tk, 128, seed=2)
+    if not segmented:
+        _check(q, k, v)
+        return
+    qseg = _seg(device, [[t // 70 for t in range(Tq)], [t % 2 for t in range(Tq)]])
+    kseg = _seg(device, [[t // 120 for t in range(Tk)], [(t // 64) % 2 for t in range(Tk)]])
+    _check(q, k, v, qseg, kseg)
+
+
+@pytest.mark.parametrize("S", [900, 257])
+def test_vision_head_dim_80_real_windows(device, S):
+    """The tower's own window segments (30 x 30 grid at S=900, ragged
+    windows of 37 tokens at S=257), 16 heads of D=80, non-causal."""
+    if S == 900:
+        from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import vision_indices
+
+        win = vision_indices((14, 2, 112), ((1, 30, 30),))["window_segments"]
+        seg = torch.as_tensor(win, dtype=torch.int32, device=device)[None]
+    else:
+        seg = (torch.arange(S, device=device) // 37).to(torch.int32)[None]
+    _check(_rand(device, 1, 16, S, 80), _rand(device, 1, 16, S, 80, seed=1),
+           _rand(device, 1, 16, S, 80, seed=2), seg)
+
+
 def test_dispatcher_launches_the_kernel_on_cuda(device):
     q = _rand(device, 1, 2, 64, 80)
     before = fa.kernel_launches
@@ -96,6 +213,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         fa.flash_attention_cuda(q.float(), q.float(), q.float())
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_cuda(q.transpose(2, 3), q, q)
+    seg = torch.zeros((1, 64), dtype=torch.int32, device=device)
+    tabs = fa.segment_tile_tables(seg)
+    for bad in ((tabs[0].long(), tabs[1]), (tabs[0].cpu(), tabs[1]),
+                (torch.zeros((1, 2, 4), dtype=torch.int32, device=device), tabs[1])):
+        with pytest.raises(ValueError, match="tile tables"):
+            fa.flash_attention_cuda(q, q, q, segment_ids=seg, tile_tables=bad)
 
 
 def _check_bwd(q, k, v, seg=None, kv_seg=None, causal=False, seed=3):
@@ -146,10 +269,6 @@ def test_backward_cross_lengths_and_fully_masked_rows(device):
                             _rand(device, B, 2, Tk, 128, seed=2), qseg, kseg)
     assert torch.all(dq[:, :, 90:] == 0)
     assert torch.all(dk[1, :, 120:] == 0) and torch.all(dv[1, :, 120:] == 0)
-
-
-def _seg(device, rows):
-    return torch.as_tensor(rows, dtype=torch.int32, device=device)
 
 
 def _check_bwd_gqa(device, seg, causal=True, H=8, KV=2, D=128):

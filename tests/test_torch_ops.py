@@ -134,6 +134,44 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert fa.kernel_launches == before  # the plain version launches nothing
 
 
+def _bad_tables(kind, good):
+    q_tab, kv_tab = good
+    return {"shape": (q_tab[:, :2].contiguous(), kv_tab),
+            "dtype": (q_tab, kv_tab.long()),
+            "device": (q_tab.to("meta"), kv_tab)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["shape", "dtype", "device"])
+def test_wrappers_reject_tile_tables_the_kernels_do_not_take(kind):
+    """K1's wrapper, the dispatcher and the backward wrappers refuse tables
+    of another shape, dtype or device before anything else; right tables
+    pass that check (the CPU tensors then fail the kernel's device check)."""
+    q, k, v = (_t(a).bfloat16() for a in _qkv(6, 1, 2, 130, 128))
+    seg = torch.zeros((1, 130), dtype=torch.int32)
+    seg[:, 100:] = 1
+    good = fa.segment_tile_tables(seg)
+    bad = _bad_tables(kind, good)
+    lse = torch.zeros((1, 2, 130))
+    with pytest.raises(ValueError, match="tile tables"):
+        fa.flash_attention_cuda(q, k, v, segment_ids=seg, tile_tables=bad)
+    with pytest.raises(ValueError, match="tile tables"):
+        fa.flash_attention(q.float(), k.float(), v.float(), segment_ids=seg, tile_tables=bad)
+    with pytest.raises(ValueError, match="tile tables"):
+        fa.flash_bwd_dkv_cuda(q, k, v, q, lse, lse, segment_ids=seg, tile_tables=bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, k, v, segment_ids=seg, tile_tables=good)
+
+
+def test_tile_tables_leave_the_cpu_path_unchanged():
+    q, k, v = (_t(a) for a in _qkv(7, 1, 2, 130, 16))
+    seg = torch.as_tensor(_segments(1, 130))
+    tabs = fa.segment_tile_tables(seg)
+    assert torch.equal(fa.flash_attention(q, k, v, causal=True, segment_ids=seg, tile_tables=tabs),
+                       fa.flash_attention(q, k, v, causal=True, segment_ids=seg))
+    with pytest.raises(ValueError, match="without segment ids"):
+        fa.flash_attention(q, k, v, tile_tables=tabs)
+
+
 def test_kernel_build_asks_for_nvcc_only_when_building(monkeypatch, tmp_path):
     """The ops import without a CUDA compiler; a build request without one
     raises, and the library name follows the source and flags."""

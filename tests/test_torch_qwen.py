@@ -160,6 +160,37 @@ def test_text_prefill_bf16_matches_jax():
     _close(th.float(), np.asarray(jh, np.float32), BF16_TOL, BF16_TOL)
 
 
+def _spy(monkeypatch, module, name, calls, key=None):
+    """Record each call of module.name (its result, or kwargs[key])."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(out if key is None else kwargs[key])
+        return out
+
+    monkeypatch.setattr(module, name, wrapper)
+
+
+def test_text_model_builds_tile_tables_once_for_all_layers(text_pair, monkeypatch):
+    """One table build per forward, handed to every layer's attention; the
+    output equals the one with no tables handed down."""
+    tm = text_pair[2]
+    emb, pos, seg, plen, _ = _prompt(512)
+    built, seen = [], []
+    _spy(monkeypatch, qt, "segment_tile_tables", built)
+    _spy(monkeypatch, qt, "flash_attention", seen, key="tile_tables")
+    L = tm.cfg.num_hidden_layers
+    with torch.no_grad():
+        _, with_tables, _ = tm(_t(emb), _t(pos), segment_ids=_t(seg))
+        assert len(built) == 1 and len(seen) == L
+        assert built[0] is not None and all(t is built[0] for t in seen)
+        monkeypatch.setattr(qt, "segment_tile_tables", lambda seg: None)
+        _, without, _ = tm(_t(emb), _t(pos), segment_ids=_t(seg))
+        assert len(seen) == 2 * L and all(t is None for t in seen[L:])
+    assert torch.equal(with_tables, without)
+
+
 def test_quantized_formats_are_not_silently_bf16():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         qt.QwenTextConfig(weight_dtype="int8")
@@ -246,3 +277,26 @@ def test_from_jax_rejects_unconsumed_and_missing_leaves(text_pair):
     partial = {k: v for k, v in params.items() if k != "norm"}
     with pytest.raises(KeyError, match="norm.weight"):
         state_dict_from_jax(partial, tm)
+
+
+def test_vision_tower_builds_one_table_per_segment_set(monkeypatch):
+    """Ragged windows (the flash path): one table for the window blocks and
+    one for the full-attention blocks per forward, each shared by its
+    blocks; the output equals the one with no tables handed down."""
+    tcfg = dataclasses.replace(qv.QwenVisionConfig.tiny(), dtype=torch.float32)
+    arrays, wblk, fblk = _vision_inputs(tcfg, (84, 56))
+    torch.manual_seed(0)
+    tower = qv.QwenVisionTower(tcfg)
+    args = [_t(a) for a in arrays]
+    built, seen = [], []
+    with torch.no_grad():
+        _spy(monkeypatch, qv, "segment_tile_tables", built)
+        _spy(monkeypatch, qv, "flash_attention", seen, key="tile_tables")
+        with_tables = tower(*args, window_block=wblk, full_block=fblk)
+        assert len(built) == 2 and len(seen) == tcfg.depth
+        for i, tabs in enumerate(seen):
+            assert tabs is built[1 if i in tcfg.fullatt_block_indexes else 0]
+        monkeypatch.setattr(qv, "segment_tile_tables", lambda seg: None)
+        without = tower(*args, window_block=wblk, full_block=fblk)
+        assert all(t is None for t in seen[tcfg.depth:])
+    assert torch.equal(with_tables, without)
