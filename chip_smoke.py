@@ -19,20 +19,32 @@ Phases, each printing its numbers:
                (D_i + K2 + K3 through FlashAttentionFn) beside SDPA's;
                then a dense causal T=8192
                row (no segment ids, where no tile can be skipped: the rate)
-               checked and timed beside SDPA with is_causal;
-  3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy (bf16,
-               random weights from a seeded generator), serve it through the
-               real-robot HTTP server and POST /reset + 4 /eval_dual requests;
-               K1 must have launched during the requests;
-  4. train   — with the serving policy freed: the full-width 7B
+               checked and timed beside SDPA with is_causal; then the int8
+               kernels of the realtime profile at the 7B shapes: K6a
+               (activation quantization, Triton), K6b (W8A8 GEMM; beside
+               torch._int_mm where it takes the shape), K4/K5 (int8 decode
+               attention) and K7 (KV quantization + cache write, Triton);
+  3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy in the
+               `parity` profile (bf16, random weights from a seeded
+               generator), serve it through the real-robot HTTP server and
+               POST /reset + 4 /eval_dual requests; K1 must have launched
+               during the requests, and no int8 kernel;
+  4. serve realtime — the same with `serve.build_policy("realtime")` (W8A8
+               projections, int8 KV cache; the bf16 draws quantized on the
+               card): the launches of K1, K4, K5, K6a, K6b and K7 must equal
+               the counts computed from the layers and each request's
+               decode steps;
+  5. train   — with the serving policies freed: the full-width 7B
                `nextdit_async` policy at TRAIN_LAYERS decoder layers with
                remat, one packed 8192-token row from a synthetic store through
                `InternVLAN1Trainer.prepare_batch`, one untimed and 3 timed
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
                L times each.
-Then one JSON line of kernel results, the GPU's name and power limit, and as
-the last line {"ok": true, "device": {...}}. Any failure raises and exits
+Every kernel's launch count is set to 0 just before each of the three
+paths (serve, serve realtime, train) and read just after. Then one JSON
+line of kernel results, the GPU's name and power limit, and as the last
+line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing any result.
 """
 
@@ -52,6 +64,15 @@ BWD_SOURCE = "internnav_tpu_torch/csrc/flash_bwd.cu"
 K1_REPLACES = "internnav_tpu/ops/flash_attention.py:79"
 K2_REPLACES = "internnav_tpu/ops/flash_attention.py:260"
 K3_REPLACES = "internnav_tpu/ops/flash_attention.py:314"
+QUANT_SOURCE = "internnav_tpu_torch/ops/quant.py"
+GEMM_SOURCE = "internnav_tpu_torch/csrc/w8a8_gemm.cu"
+DECODE_SOURCE = "internnav_tpu_torch/csrc/decode_int8.cu"
+QWEN_TEXT = "internnav_tpu/model/basemodel/internvla_n1/qwen_text.py"
+K4_REPLACES = "internnav_tpu/ops/flash_attention.py:548"
+K5_REPLACES = "internnav_tpu/ops/flash_attention.py:589"
+K6A_REPLACES = f"{QWEN_TEXT}:173"
+K6B_REPLACES = f"{QWEN_TEXT}:177"
+K7_REPLACES = f"{QWEN_TEXT}:527"
 K1_ATOL = K1_RTOL = 2e-2   # o: bf16 output rounding + bf16 P in the P.V product
 LSE_ATOL = 1e-3            # lse: fp32 statistics from the same bf16 inputs
 # dq/dk/dv: bf16 outputs, and P / dS rounded to bf16 as tensor-core operands
@@ -59,10 +80,24 @@ LSE_ATOL = 1e-3            # lse: fp32 statistics from the same bf16 inputs
 # (at least 1e-2) plus rtol 2%
 BWD_ATOL_FRAC = 1e-2
 BWD_RTOL = 2e-2
+# K6a and K7 are bitwise (the plain versions' IEEE divisions and round half
+# to even); K6b per-channel within one bf16 ulp (exact int32 sums, the same
+# fp32 epilogue), grouped at 1e-2 (the sum over groups in another order);
+# K4/K5 at 2e-2, as K1
+GEMM_RTOL = 2 ** -7
+GROUPED_TOL = 1e-2
+DECODE_TOL = 2e-2
 INSTRUCTION = "go past the table and stop at the second door on the left"
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core peak
+PEAK_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (decode attention)
+# realtime serving shapes: a bucketed prompt at the 4th request, the decode
+# budget and the traj-latent chunk
+PROMPT_T = 1088
+MAX_NEW_TOKENS = 128
+N_QUERY = 4
 TRAIN_LEN = 8192
 TRAIN_LAYERS = 28
 TRAIN_HW = 224
@@ -101,7 +136,7 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def phase_build() -> None:
     from internnav_tpu_torch.ops import _build
 
-    sources = ("flash_fwd.cu", "flash_bwd.cu")
+    sources = ("flash_fwd.cu", "flash_bwd.cu", "w8a8_gemm.cu", "decode_int8.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, sources))
@@ -430,6 +465,187 @@ def phase_kernels(device, store) -> dict:
     return {"k1_serve": k1_rows, "train": train_rows, "errs": errs}
 
 
+# ----------------------------------------------------------- int8 kernels
+def _bytes_bound(nbytes: float, ops: float, peak_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _row(kernel, shape, err, ms, plain_ms, bound, library_ms=None, **extra):
+    row = {"kernel": kernel, "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **extra}
+    print("phase kernels: " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items())
+        + f" gpu={gpu_line()!r}")
+    return row
+
+
+def int8_quantize_rows_rows(device, g):
+    """K6a at the decode (M = 1) and prompt (M = PROMPT_T) rows of both input
+    widths: bitwise against the plain version."""
+    import torch
+
+    from internnav_tpu_torch.ops import quant
+
+    rows = []
+    for M, K in ((1, 3584), (1, 18944), (PROMPT_T, 3584), (PROMPT_T, 18944)):
+        x = torch.randn((M, K), generator=g, device=device, dtype=torch.bfloat16) * 3
+        q, s = quant.quantize_rows_cuda(x)
+        rq, rs = quant.quantize_rows(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, rq) and torch.equal(s, rs)):
+            raise AssertionError(f"K6a M={M} K={K}: int8 codes or scales differ from the plain "
+                                 f"version ({int((q != rq).sum())} codes)")
+        rows.append(_row("K6a", f"M{M}_K{K}", 0.0, cuda_ms(lambda: quant.quantize_rows_cuda(x)),
+                         cuda_ms(lambda: quant.quantize_rows(x)),
+                         _bytes_bound(3 * M * K + 4 * M, 0, PEAK_INT8_OPS)))
+    return rows
+
+
+def int8_gemm_rows(device, g):
+    """K6b at every (N, K) of the 7B decoder and the lm_head, at M = 1
+    (decode), 4 (latent chunk) and PROMPT_T (prefill); one grouped g=128
+    row. torch._int_mm (an int32 product with no epilogue, not on the path)
+    is the yardstick where it takes the shape (M > 16)."""
+    import torch
+
+    from internnav_tpu_torch.ops import quant
+
+    shapes = [(3584, 3584, True), (512, 3584, True), (18944, 3584, False),
+              (3584, 18944, False)]
+    cases = [(M, N, K, bias, None) for M in (1, 4, PROMPT_T) for N, K, bias in shapes]
+    cases += [(1, 152064, 3584, False, None), (1, 18944, 3584, False, 128)]
+    rows = []
+    for M, N, K, bias, group in cases:
+        xq, a = quant.quantize_rows(torch.randn((M, K), generator=g, device=device,
+                                                dtype=torch.bfloat16))
+        w = torch.randint(-127, 128, (N, K), generator=g, device=device, dtype=torch.int8)
+        s = torch.rand((K // group, N) if group else (N,), generator=g, device=device) * 1e-3
+        b = torch.randn(N, generator=g, device=device) if bias else None
+        y = quant.w8a8_linear_cuda(xq, a, w, s, b)
+        want = quant.w8a8_linear_reference(xq, a, w, s, b)
+        torch.cuda.synchronize()
+        err = (y.float() - want.float()).abs().max().item()
+        tol = dict(atol=GROUPED_TOL, rtol=GROUPED_TOL) if group else dict(atol=0, rtol=GEMM_RTOL)
+        if not torch.allclose(y.float(), want.float(), **tol):
+            raise AssertionError(f"K6b M={M} N={N} K={K} group={group}: differs from the plain "
+                                 f"version by {err}")
+        nbytes = M * K + N * K + 4 * M + 4 * s.numel() + (4 * N if bias else 0) + 2 * M * N
+        library = None
+        if M > 16:
+            wt = w.t()
+            library = cuda_ms(lambda: torch._int_mm(xq, wt))
+        rows.append(_row("K6b", f"M{M}_N{N}_K{K}" + (f"_g{group}" if group else ""), err,
+                         cuda_ms(lambda: quant.w8a8_linear_cuda(xq, a, w, s, b)),
+                         cuda_ms(lambda: quant.w8a8_linear_reference(xq, a, w, s, b), reps=5),
+                         _bytes_bound(nbytes, 2.0 * M * N * K, PEAK_INT8_OPS), library))
+        del xq, a, w, s, b, y, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_cache(device, g, Tmax):
+    """(k, v) int8 cache entries (B=1, Tmax, 4 KV heads, D=128) of random
+    codes and scales."""
+    import torch
+
+    def entry():
+        return (torch.randint(-127, 128, (1, Tmax, 4, 128), generator=g, device=device,
+                              dtype=torch.int8),
+                torch.rand((1, Tmax, 4, 1), generator=g, device=device) * 0.05 + 1e-3)
+
+    return entry(), entry()
+
+
+def int8_decode_rows(device, g):
+    """K4 (n = 1) and K5 (n = N_QUERY) at the realtime caches of the first
+    and the fourth request (Tmax = prompt + 128 + 4), late in the decode."""
+    import torch
+
+    from internnav_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for T in (352, PROMPT_T):
+        Tmax = T + MAX_NEW_TOKENS + N_QUERY
+        ke, ve = int8_cache(device, g, Tmax)
+        views = (ke[0].transpose(1, 2), ve[0].transpose(1, 2))
+        sc = dict(k_scale=ke[1][..., 0].transpose(1, 2), v_scale=ve[1][..., 0].transpose(1, 2))
+        for kernel, n in (("K4", 1), ("K5", N_QUERY)):
+            cache_len = torch.tensor([Tmax - N_QUERY - 1 if n == 1 else Tmax - N_QUERY],
+                                     device=device)
+            if n == 1:
+                q = torch.randn((1, 28, 128), generator=g, device=device, dtype=torch.bfloat16)
+                lens = cache_len + 1
+
+                def run():
+                    return fa.gqa_decode_int8_cuda(q, *views, lens, **sc)
+
+                def plain():
+                    return fa.gqa_decode_reference(q, *views, lens, **sc)
+            else:
+                q = torch.randn((1, 28, n, 128), generator=g, device=device, dtype=torch.bfloat16)
+
+                def run():
+                    return fa.gqa_chunk_decode_int8_cuda(q, *views, cache_len, **sc)
+
+                def plain():
+                    return fa.gqa_chunk_decode_reference(q, *views, cache_len, **sc)
+            out, want = run(), plain()
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            if not torch.allclose(out.float(), want.float(), atol=DECODE_TOL, rtol=DECODE_TOL):
+                raise AssertionError(f"{kernel} Tmax={Tmax}: differs from the plain version by "
+                                     f"{err}")
+            keys = int(cache_len) + n  # keys the last row sees
+            nbytes = 2 * 4 * keys * (128 + 4) + 2 * 2 * 28 * n * 128 + 8
+            rows.append(_row(kernel, f"Tmax{Tmax}_keys{keys}_n{n}", err, cuda_ms(run),
+                             cuda_ms(plain),
+                             _bytes_bound(nbytes, 4.0 * 28 * n * keys * 128, PEAK_FP32_FLOPS)))
+    return rows
+
+
+def int8_kv_write_rows(device, g):
+    """K7 for one decode token, the latent chunk and the prompt (at 0):
+    bitwise against the plain version."""
+    import torch
+
+    from internnav_tpu_torch.ops import quant
+
+    rows = []
+    Tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
+    for n, pos in ((1, PROMPT_T + 17), (N_QUERY, PROMPT_T + MAX_NEW_TOKENS), (PROMPT_T, 0)):
+        k = torch.randn((1, n, 4, 128), generator=g, device=device, dtype=torch.bfloat16)
+        v = torch.randn((1, n, 4, 128), generator=g, device=device, dtype=torch.bfloat16)
+        cache_len = torch.tensor([pos], device=device)
+        ke, ve = int8_cache(device, g, Tmax)
+        ref = [tuple(t.clone() for t in e) for e in (ke, ve)]
+        quant.write_kv_cache_cuda(k, v, ke, ve, cache_len)
+        quant.write_kv_cache_reference(k, v, *ref, cache_len)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((*ke, *ve), (*ref[0], *ref[1]))):
+            raise AssertionError(f"K7 n={n}: the cache differs from the plain version's")
+        nbytes = 2 * n * 4 * 128 * 2 + 2 * n * 4 * (128 + 4) + 8
+        rows.append(_row("K7", f"n{n}_pos{pos}", 0.0,
+                         cuda_ms(lambda: quant.write_kv_cache_cuda(k, v, ke, ve, cache_len)),
+                         cuda_ms(lambda: quant.write_kv_cache_reference(k, v, ke, ve,
+                                                                        cache_len)),
+                         _bytes_bound(nbytes, 0, PEAK_INT8_OPS)))
+    return rows
+
+
+def phase_int8_kernels(device) -> dict:
+    """The realtime profile's kernels at the 7B shapes; rows by kernel."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(2)
+    rows = (int8_quantize_rows_rows(device, g) + int8_gemm_rows(device, g)
+            + int8_decode_rows(device, g) + int8_kv_write_rows(device, g))
+    return {name: [r for r in rows if r["kernel"] == name]
+            for name in ("K4", "K5", "K6a", "K6b", "K7")}
+
+
 # ----------------------------------------------------------------- serve
 def _post(port: int, route: str, body: dict):
     import urllib.request
@@ -456,58 +672,103 @@ def request_frames(rng):
             rng.uniform(0.0, 0.5, (420, 420, 1)).astype(np.float32))
 
 
-def build_agent(device):
-    """The full-width 7B `parity` policy (random weights, seed 0) and its
-    agent, synchronous and re-planning System-2 after every action."""
+def build_agent(device, profile: str = "parity"):
+    """The full-width 7B policy of a serving profile (random weights, seed
+    0) and its agent, synchronous and re-planning System-2 after every
+    action."""
     from internnav_tpu_torch.agent.internvla_n1_agent import InternVLAN1Agent
     from internnav_tpu_torch.realworld import serve
 
-    policy = serve.build_policy("parity", device=device)
+    policy = serve.build_policy(profile, device=device)
     return policy, InternVLAN1Agent(policy, async_s2=False, sys2_max_forward_step=1)
 
 
-def phase_serve(device) -> int:
-    """Serve the 7B policy through the real-robot HTTP server; returns the
-    kernel launches counted during the requests."""
+def launch_counts() -> dict:
+    """Every kernel's launch count, by name."""
+    from internnav_tpu_torch.ops import flash_attention as fa
+    from internnav_tpu_torch.ops import quant
+
+    return {"K1": fa.kernel_launches, "K2": fa.bwd_dkv_launches, "K3": fa.bwd_dq_launches,
+            "K4": fa.decode_int8_launches, "K5": fa.chunk_decode_int8_launches,
+            "K6a": quant.quantize_rows_launches, "K6b": quant.w8a8_launches,
+            "K7": quant.kv_write_launches}
+
+
+def reset_launch_counts() -> None:
+    from internnav_tpu_torch.ops import flash_attention as fa
+    from internnav_tpu_torch.ops import quant
+
+    fa.kernel_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.decode_int8_launches = fa.chunk_decode_int8_launches = 0
+    quant.quantize_rows_launches = quant.w8a8_launches = quant.kv_write_launches = 0
+
+
+def _count_calls(obj, names, calls):
+    """Wrap obj's methods `names` so that each call adds one to calls[name]."""
+    for name in names:
+        fn = getattr(obj, name)
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(obj, name, wrapper)
+
+
+def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
+    """Launches of 4 requests, each with one prefill, steps[r] cached decode
+    steps and one traj-latent chunk, and `logits_calls` lm_head calls in
+    all: K1 once per prefill layer and once per windowed ViT block of the
+    new frame; with the realtime profile per layer pass 4 activation
+    quantizations (q/k/v share one, gate/up one, o and down one each), 7
+    W8A8 products and one K/V cache write, plus one of each of the first
+    two per lm_head call; K4 per decode layer, K5 per chunk layer."""
+    L = cfg.text.num_hidden_layers
+    windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7"), 0)
+    want["K1"] = 4 * L + 4 * windowed
+    if profile == "realtime":
+        passes = sum(2 + s for s in steps)  # prefill + decode steps + chunk, per layer
+        want.update(K4=L * sum(steps), K5=L * len(steps), K6a=4 * L * passes + logits_calls,
+                    K6b=7 * L * passes + logits_calls, K7=L * passes)
+    return want
+
+
+def phase_serve(device, profile: str) -> dict:
+    """Serve the 7B policy of `profile` through the real-robot HTTP server;
+    returns every kernel's launches during the 4 requests, held equal to
+    `expected_serve_launches`."""
     import numpy as np
     import torch
 
-    from internnav_tpu_torch.ops import flash_attention as fa
     from internnav_tpu_torch.realworld import serve
 
     t0 = time.perf_counter()
-    policy, agent = build_agent(device)
+    policy, agent = build_agent(device, profile)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_mem_gib = torch.cuda.memory_allocated(device) / 2**30
     text = policy.cfg.text
     calls = {"s2_step": 0, "s1_step_latent": 0}
-
-    def counted(name):
-        fn = getattr(policy, name)
-
-        def wrapper(*args, **kwargs):
-            calls[name] += 1
-            return fn(*args, **kwargs)
-
-        return wrapper
-
-    for name in calls:
-        setattr(policy, name, counted(name))
+    _count_calls(policy, calls, calls)
+    lm_calls = {"decode_step": 0, "decode_chunk": 0, "_logits": 0}
+    _count_calls(policy.model.language_model, lm_calls, lm_calls)
     port = _free_port()
     server = serve.RealWorldServer(agent, "127.0.0.1", port)
     thread = server.run(background=True)
     rng = np.random.default_rng(0)
-    latencies, gen_tokens = [], []
+    latencies, gen_tokens, steps = [], [], []
     try:
         if _post(port, "/reset", {}) != (200, {"status": "ok"}):
             raise AssertionError("/reset failed")
         torch.cuda.reset_peak_memory_stats(device)
-        # count only the requests' launches
-        fa.kernel_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+        lm_calls["_logits"] = 0
+        reset_launch_counts()  # count only the requests' launches
         for _ in range(4):
             rgb, depth = request_frames(rng)
             body = {"instruction": INSTRUCTION, "rgb": serve.encode_npy(rgb),
                     "depth": serve.encode_npy(depth)}
+            before = lm_calls["decode_step"]
             t = time.perf_counter()
             code, resp = _post(port, "/eval_dual", body)
             latencies.append(time.perf_counter() - t)
@@ -516,25 +777,33 @@ def phase_serve(device) -> int:
                     or not np.isfinite(traj).all():
                 raise AssertionError(f"/eval_dual gave {code} with trajectory shape {traj.shape}")
             gen_tokens.append(len(policy.last_gen_tokens))
-        launches = fa.kernel_launches
-        bwd_launches = fa.bwd_dkv_launches + fa.bwd_dq_launches
+            steps.append(lm_calls["decode_step"] - before)
+        launches = launch_counts()
     finally:
         server.shutdown()
         thread.join(timeout=30)
         agent.close()
-    if calls["s2_step"] != 4 or calls["s1_step_latent"] < 1:
-        raise AssertionError(f"main path calls {calls}: want 4 System-2 and >= 1 System-1")
-    # one launch per prefill layer, one per windowed ViT block of each new frame
-    windowed = policy.cfg.vision.depth - len(policy.cfg.vision.fullatt_block_indexes)
-    expected = 4 * text.num_hidden_layers + 4 * windowed
-    if launches != expected:
-        raise AssertionError(f"flash kernel launched {launches} times, expected {expected}")
-    if bwd_launches:
-        raise AssertionError("serving launched a backward kernel")
+    if calls["s2_step"] != 4 or calls["s1_step_latent"] < 1 or lm_calls["decode_chunk"] != 4:
+        raise AssertionError(f"main path calls {calls}, {lm_calls}: want 4 System-2 (4 chunks) "
+                             "and >= 1 System-1")
+    # the decode loop runs until the stop token has been fed (its K/V is in
+    # the cache) or the budget is spent; every step but the last needs logits
+    if steps != [min(n + 1, MAX_NEW_TOKENS) for n in gen_tokens] \
+            or lm_calls["_logits"] != sum(steps):  # 4 prefills + sum(steps - 1)
+        raise AssertionError(f"decode steps {steps} / lm_head calls {lm_calls['_logits']} do "
+                             f"not follow the generated lengths {gen_tokens}")
+    want = expected_serve_launches(policy.cfg, profile, steps, lm_calls["_logits"])
+    if launches != want:
+        raise AssertionError(f"serve {profile}: kernel launches {launches}, expected {want}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    print(f"phase serve: layers={text.num_hidden_layers} hidden={text.hidden_size} "
-          f"build_s={build_s:.2f} request_s={[round(x, 4) for x in latencies]} "
-          f"generated_tokens={gen_tokens} calls={calls} flash_launches={launches} "
+    L = text.num_hidden_layers
+    per_step = {"K4": L, "K6a": 4 * L, "K6b": 7 * L, "K7": L} if profile == "realtime" else {}
+    print(f"phase serve: profile={profile} weight_dtype={text.weight_dtype} "
+          f"kv_dtype={text.kv_dtype} layers={text.num_hidden_layers} hidden={text.hidden_size} "
+          f"build_s={build_s:.2f} resident_gib={build_mem_gib:.2f} "
+          f"request_s={[round(x, 4) for x in latencies]} generated_tokens={gen_tokens} "
+          f"decode_steps={steps} calls={calls} launches={launches} "
+          f"launches_per_decode_step={per_step} "
           f"peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
     return launches
 
@@ -617,7 +886,7 @@ def phase_train(device, store) -> dict:
     n_all = sum(p.numel() for p in model.parameters())
 
     torch.cuda.reset_peak_memory_stats(device)
-    fa.kernel_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    reset_launch_counts()
     times, metrics = [], []
     for step in range(4):
         before = (fa.kernel_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
@@ -639,7 +908,9 @@ def phase_train(device, store) -> dict:
             times.append(dt)
         else:
             first_s = dt
-    totals = [fa.kernel_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches]
+    totals = launch_counts()
+    if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K7")):
+        raise AssertionError(f"the bf16 train step launched an int8 kernel: {totals}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     for i, m in enumerate(metrics):
         bad = [k for k in ("lm_loss", "s1_loss", "loss", "grad_norm")
@@ -682,19 +953,26 @@ def main() -> int:
     phase_build()
     store = synthetic_store()
     kern = phase_kernels(device, store)
-    serve_launches = phase_serve(device)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train = phase_train(device, store)
-    k1_train, k2_train, k3_train = train["launches"]
+    int8 = phase_int8_kernels(device)
+    by_path = {}
+    for path, profile in (("serve", "parity"), ("serve_realtime", "realtime")):
+        by_path[path] = phase_serve(device, profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_path["train"] = phase_train(device, store)["launches"]
     rows = {r["shape"]: r for r in kern["train"]}
     main_row = rows[f"train_T{TRAIN_LEN}"]  # the training step's attention shape
     dense_row = rows[f"dense_causal_T{TRAIN_LEN}"]
     shapes = kern["k1_serve"] + kern["train"]
 
-    def entry(name, source, replaces, launches, by_path, err, kind, library_ms):
+    def paths(kernel):
+        counts = {path: by_path[path][kernel] for path in by_path}
+        return sum(counts.values()), counts
+
+    def entry(name, kernel, source, replaces, err, kind, library_ms):
+        launches, by = paths(kernel)
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches, "launches_by_path": by_path, "max_abs_err": err,
+             "launches": launches, "launches_by_path": by, "max_abs_err": err,
              "ms": main_row[f"{kind}_ms"],
              "plain_ms": main_row["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"],
              "bound_ms": main_row[f"{kind}_bound_ms"],
@@ -710,17 +988,39 @@ def main() -> int:
                      f"{kind}_ms", f"plain_{side}_ms", f"{kind}_bound_ms", f"sdpa_{side}_ms")})
         return e
 
+    def int8_entry(name, kernel, route, source, replaces, shape):
+        """An int8 kernel's line: its numbers at the decode shape `shape`
+        (the path's most frequent launch), every checked row under
+        "shapes"."""
+        launches, by = paths(kernel)
+        main = next(r for r in int8[kernel] if r["shape"] == shape)
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches, "launches_by_path": by,
+                "max_abs_err": max(r["max_abs_err"] for r in int8[kernel]),
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "shape")},
+                "shapes": int8[kernel]}
+
     errs = kern["errs"]
     k1_err = max([r["max_abs_err"] for r in kern["k1_serve"]] + errs["fwd"])
+    tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
     kernels = [
-        entry("flash_fwd", K1_SOURCE, K1_REPLACES, serve_launches + k1_train,
-              {"serve": serve_launches, "train": k1_train}, k1_err, "fwd",
-              main_row["sdpa_fwd_ms"]),
+        entry("flash_fwd", "K1", K1_SOURCE, K1_REPLACES, k1_err, "fwd", main_row["sdpa_fwd_ms"]),
         # the library call and the plain backward compute dq, dk and dv at once
-        entry("flash_bwd_dkv", BWD_SOURCE, K2_REPLACES, k2_train, {"train": k2_train},
-              max(errs["dkv"]), "dkv", main_row["sdpa_bwd_ms"]),
-        entry("flash_bwd_dq", BWD_SOURCE, K3_REPLACES, k3_train, {"train": k3_train},
-              max(errs["dq"]), "dq", main_row["sdpa_bwd_ms"]),
+        entry("flash_bwd_dkv", "K2", BWD_SOURCE, K2_REPLACES, max(errs["dkv"]), "dkv",
+              main_row["sdpa_bwd_ms"]),
+        entry("flash_bwd_dq", "K3", BWD_SOURCE, K3_REPLACES, max(errs["dq"]), "dq",
+              main_row["sdpa_bwd_ms"]),
+        # K4 and K5 are one kernel (decode_int8.cu), launched once per
+        # layer by the decode step (n = 1) and by the latent chunk (n = 4)
+        int8_entry("decode_int8", "K4", "cuda", DECODE_SOURCE, K4_REPLACES,
+                   f"Tmax{tmax}_keys{tmax - N_QUERY}_n1"),
+        int8_entry("chunk_decode_int8", "K5", "cuda", DECODE_SOURCE, K5_REPLACES,
+                   f"Tmax{tmax}_keys{tmax}_n{N_QUERY}"),
+        int8_entry("quantize_rows", "K6a", "triton", QUANT_SOURCE, K6A_REPLACES, "M1_K3584"),
+        int8_entry("w8a8_gemm", "K6b", "cuda", GEMM_SOURCE, K6B_REPLACES, "M1_N18944_K3584"),
+        int8_entry("kv_write_int8", "K7", "triton", QUANT_SOURCE, K7_REPLACES,
+                   f"n1_pos{PROMPT_T + 17}"),
     ]
     kernels[0]["shapes"] = shapes
     print(json.dumps({"kernels": kernels}))

@@ -6,10 +6,13 @@ layout (`ops/`, `model/basemodel/internvla_n1/`, `model/encoder/`, `agent/`,
 jax nor the JAX package, and carries its hand-written CUDA kernels under
 `csrc/` (built on first use, see `ops/_build.py`).
 
-Ported so far: the InternVLA-N1 single-robot serving path in bf16 (vision
-tower, Qwen2.5 text prefill/decode, traj-latent chunk decode, System-1
-`nextdit_async`), its agent and its HTTP launcher; and the single-device
-N1 finetune path (`trainer.train_n1`) with the flash-attention backward
+Ported so far: the InternVLA-N1 single-robot serving path (vision tower,
+Qwen2.5 text prefill/decode, traj-latent chunk decode, System-1
+`nextdit_async`), its agent and its HTTP launcher, in both serving
+profiles: `parity` (bf16) and `realtime` (W8A8 projections and an int8 KV
+cache, with their Triton and CUDA kernels in `ops/quant.py`,
+`csrc/w8a8_gemm.cu` and `csrc/decode_int8.cu`); and the single-device N1
+finetune path (`trainer.train_n1`) with the flash-attention backward
 kernels.
 """
 

@@ -64,13 +64,18 @@ class InternVLAN1Config:
                    image_token_index=base + 4, traj_token_index=base + 5)
 
     @classmethod
-    def qwen25vl_7b(cls, system1: str = "nextdit_async", *, remat: bool = False,
+    def qwen25vl_7b(cls, system1: str = "nextdit_async", weight_dtype: str = "bf16",
+                    kv_dtype: str = "bf16", remat: bool = False,
                     num_hidden_layers: Optional[int] = None) -> "InternVLAN1Config":
-        """The flagship: true Qwen2.5-VL-7B dims, bf16 weights and KV cache.
-        remat=True recomputes decoder layers in backward (training);
-        num_hidden_layers cuts the 28-layer depth (never the width)."""
+        """The flagship: true Qwen2.5-VL-7B dims, bf16 activations.
+        weight_dtype="int8" selects the W8A8 projections and kv_dtype="int8"
+        the int8 KV cache (the `realtime` profile); the vision tower and
+        System-1 stay bf16. remat=True recomputes decoder layers in
+        backward (training); num_hidden_layers cuts the 28-layer depth
+        (never the width)."""
         kw = {} if num_hidden_layers is None else {"num_hidden_layers": num_hidden_layers}
-        return cls(text=QwenTextConfig(dtype=torch.bfloat16, remat=remat, **kw),
+        return cls(text=QwenTextConfig(dtype=torch.bfloat16, weight_dtype=weight_dtype,
+                                       kv_dtype=kv_dtype, remat=remat, **kw),
                    vision=QwenVisionConfig(dtype=torch.bfloat16),
                    system1=system1, s1_image_hw=224)
 

@@ -20,6 +20,7 @@ Differences from the JAX policy:
 
 from __future__ import annotations
 
+import dataclasses
 import re
 import zlib
 from typing import Dict, List, Optional, Tuple
@@ -36,6 +37,7 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.model import (
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import (
     RMSNorm,
     greedy_generate,
+    quantize_qwen_text_,
 )
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
     preprocess_images_device,
@@ -185,11 +187,20 @@ class InternVLAN1Policy:
               seed: int = 0) -> "InternVLAN1Policy":
         """Random-weight policy on `device` (the GPU when None; raises
         without one), drawn from a torch.Generator seeded with `seed` on
-        that device."""
+        that device. With weight_dtype="int8" the bf16 weights are drawn
+        as for bf16 and then quantized on the device (`quantize_qwen_text_`,
+        each bf16 projection freed as its int8 copy lands), so the served
+        scales are those of real weights; kv_dtype="int8" gives tuple
+        caches."""
         cfg = cfg or InternVLAN1Config.tiny()
         device = require_cuda() if device is None else device
-        model = build_model(cfg, device=device)
+        text = cfg.text
+        bf16_text = dataclasses.replace(text, weight_dtype="bf16", quant_group_size=None)
+        model = build_model(dataclasses.replace(cfg, text=bf16_text), device=device)
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
+        if text.weight_dtype == "int8":
+            quantize_qwen_text_(model.language_model, text.quant_group_size)
+        model.cfg = cfg
         return cls(model, seed=seed)
 
     @property

@@ -1,4 +1,4 @@
-"""Qwen2.5 text decoder — the InternVLA-N1 System-2 LLM (bf16 path).
+"""Qwen2.5 text decoder — the InternVLA-N1 System-2 LLM.
 
 Port of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
 RMSNorm, SwiGLU MLP, GQA attention with q/k/v biases, M-RoPE, untied LM
@@ -13,15 +13,24 @@ cross-entropy (`chunked_ce`).
   once per forward and shared by every layer (and their backward).
 - Decode writes the new K/V into the preallocated cache IN PLACE (the JAX
   package returns updated copies); the cache is owned by the decode loop.
-- Only the bf16 weight / bf16 KV format is ported: `weight_dtype` or
-  `kv_dtype` other than "bf16" raises NotImplementedError.
+- The int8 `realtime` formats: `weight_dtype="int8"` makes every
+  projection (q/k/v/o, gate/up/down, lm_head; never the embedding) a
+  `QuantLinear`, the port of `QuantDense` at 8 bits (W8A8: activations
+  quantized per token by K6a, the product by K6b); `kv_dtype="int8"` makes
+  each cache entry an (int8 data, fp32 scale) tuple, written by K7 and
+  read by the int8 decode attention K4/K5 (`ops/quant.py`,
+  `ops/flash_attention.py`). The prompt's attention runs over bf16 K/V;
+  only the stored cache is int8. Not yet ported (they raise): int4 / W4A8
+  weights, W8A16 decode (`decode_act_dtype="bf16"`) and the grouped decode
+  of several cache groups.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,9 +42,19 @@ from internnav_tpu_torch.ops.flash_attention import (
     gqa_decode_attention,
     segment_tile_tables,
 )
+from internnav_tpu_torch.ops.quant import (
+    div127,
+    grouped_scales,
+    quantize_activations,
+    w8a8_linear,
+    write_kv_cache,
+)
 from internnav_tpu_torch.ops.rope import mrope_cos_sin, rotate_half
 
-KVCache = Tuple[torch.Tensor, torch.Tensor]  # (B, T, KV, D) each
+#: a cache entry: bf16 (B, T, KV, D), or (int8 (B, T, KV, D), fp32 scale
+#: (B, T, KV, 1)) with kv_dtype="int8"
+CacheEntry = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+KVCache = Tuple[CacheEntry, CacheEntry]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,17 +70,33 @@ class QwenTextConfig:
     rope_theta: float = 1000000.0
     mrope_section: Tuple[int, ...] = (16, 24, 24)
     dtype: torch.dtype = torch.bfloat16
+    #: projection weights: "bf16" (nn.Linear) or "int8" (`QuantLinear`,
+    #: W8A8); "int4" (W4A8) is not yet ported
     weight_dtype: str = "bf16"
+    #: int8 scale granularity: None per output channel; g per (g inputs x
+    #: output channel) where g divides the input width, else per channel
+    quant_group_size: Optional[int] = None
+    #: cached-decode activations with int8 weights: "int8" (W8A8, as the
+    #: prefill); "bf16" (W8A16) is not yet ported
+    decode_act_dtype: str = "int8"
+    #: KV cache storage: "bf16", or "int8" with one fp32 scale per (token,
+    #: KV head)
     kv_dtype: str = "bf16"
     #: recompute each decoder layer in backward (torch.utils.checkpoint)
     #: instead of keeping its activations; the parameter names are unchanged
     remat: bool = False
 
     def __post_init__(self):
-        if self.weight_dtype != "bf16" or self.kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"weight_dtype={self.weight_dtype!r} / kv_dtype={self.kv_dtype!r}: "
-                "only the bf16 format is ported yet (int8/int4 not yet ported)")
+        if self.weight_dtype == "int4":
+            raise NotImplementedError("weight_dtype='int4' (W4A8) is not yet ported")
+        if self.weight_dtype not in ("bf16", "int8"):
+            raise ValueError(f"unknown weight_dtype {self.weight_dtype!r}")
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
+        if self.decode_act_dtype not in ("int8", "bf16"):
+            raise ValueError(f"unknown decode_act_dtype {self.decode_act_dtype!r}")
+        if self.weight_dtype == "int8" and self.decode_act_dtype == "bf16":
+            raise NotImplementedError("decode_act_dtype='bf16' (W8A16 decode) is not yet ported")
 
     @classmethod
     def tiny(cls) -> "QwenTextConfig":
@@ -91,16 +126,99 @@ def apply_rotary(q, k, cos, sin):
     return q_out, k_out.to(k.dtype)
 
 
+def quantize_weight(w: torch.Tensor, group_size: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 weight quantization of a torch-layout (N, K) weight,
+    on its device: per output channel, scale (N,) = max|w| / 127 over K;
+    or, when group_size divides K, per (group, channel), scale (K / g, N).
+    A zero scale becomes 1e-8. The math of `quantize_qwen_text_params`."""
+    w32 = w.float()
+    N, K = w32.shape
+    g = grouped_scales(K, group_size)
+    if g:
+        wg = w32.view(N, K // g, g)
+        s = div127(wg.abs().amax(-1))
+        s = torch.where(s == 0, 1e-8, s)
+        q = torch.round(wg / s[..., None]).clamp(-127, 127).view(N, K)
+        s = s.T.contiguous()
+    else:
+        s = div127(w32.abs().amax(1))
+        s = torch.where(s == 0, 1e-8, s)
+        q = torch.round(w32 / s[:, None]).clamp(-127, 127)
+    return q.to(torch.int8), s
+
+
+class QuantLinear(nn.Module):
+    """Port of `QuantDense` at 8 bits (W8A8): buffers `weight_q` (N, K)
+    int8, `scale_q` (N,) or grouped (K / g, N) fp32 and an optional fp32
+    `bias`; w ≈ weight_q * scale. The input is quantized per token
+    (`quantize_activations`) and multiplied in int8 with int32 sums
+    (`w8a8_linear`); the output has the module's dtype. The weight is
+    stored (N, K), K contiguous: the layout int8 tensor-core products take
+    for their B operand."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 group_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.in_features, self.out_features, self.dtype = in_features, out_features, dtype
+        g = grouped_scales(in_features, group_size)
+        self.register_buffer("weight_q", torch.zeros((out_features, in_features),
+                                                     dtype=torch.int8))
+        self.register_buffer("scale_q", torch.ones(
+            (in_features // g, out_features) if g else (out_features,), dtype=torch.float32))
+        self.register_buffer("bias", torch.zeros(out_features, dtype=torch.float32)
+                             if bias else None)
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear, group_size: Optional[int] = None) -> "QuantLinear":
+        """The quantized copy of a Linear, on its device."""
+        with torch.device(lin.weight.device):
+            out = cls(lin.in_features, lin.out_features, lin.bias is not None, group_size,
+                      dtype=lin.weight.dtype)
+        out.weight_q, out.scale_q = quantize_weight(lin.weight, group_size)
+        if lin.bias is not None:
+            out.bias = lin.bias.detach().float()
+        return out
+
+    def forward_quantized(self, xq: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
+        """(M, K) int8 rows and their (M, 1) scales → (M, N)."""
+        return w8a8_linear(xq, a_scale, self.weight_q, self.scale_q, self.bias,
+                           out_dtype=self.dtype)
+
+    def forward(self, x):
+        return project(x, self)[0]
+
+
+def project(x: torch.Tensor, *mods: nn.Module) -> List[torch.Tensor]:
+    """Each projection of one input. With `QuantLinear`s the input is
+    quantized once and shared (q/k/v, gate/up): the quantization is a
+    function of the input alone, so this equals the JAX package's
+    quantization inside every projection."""
+    if not isinstance(mods[0], QuantLinear):
+        return [m(x) for m in mods]
+    lead = x.shape[:-1]
+    xq, a_scale = quantize_activations(x.reshape(-1, x.shape[-1]).contiguous())
+    return [m.forward_quantized(xq, a_scale).reshape(*lead, m.out_features) for m in mods]
+
+
+def _proj(cfg: QwenTextConfig, in_features: int, out_features: int, bias: bool) -> nn.Module:
+    """nn.Linear, or QuantLinear with weight_dtype="int8"."""
+    if cfg.weight_dtype == "int8":
+        return QuantLinear(in_features, out_features, bias, cfg.quant_group_size, cfg.dtype)
+    return nn.Linear(in_features, out_features, bias=bias, dtype=cfg.dtype)
+
+
 class QwenAttention(nn.Module):
     def __init__(self, cfg: QwenTextConfig):
         super().__init__()
         self.cfg = cfg
         H, KV, D, E = (cfg.num_attention_heads, cfg.num_key_value_heads,
                        cfg.head_dim, cfg.hidden_size)
-        self.q_proj = nn.Linear(E, H * D, bias=True, dtype=cfg.dtype)
-        self.k_proj = nn.Linear(E, KV * D, bias=True, dtype=cfg.dtype)
-        self.v_proj = nn.Linear(E, KV * D, bias=True, dtype=cfg.dtype)
-        self.o_proj = nn.Linear(H * D, E, bias=False, dtype=cfg.dtype)
+        self.q_proj = _proj(cfg, E, H * D, True)
+        self.k_proj = _proj(cfg, E, KV * D, True)
+        self.v_proj = _proj(cfg, E, KV * D, True)
+        self.o_proj = _proj(cfg, H * D, E, False)
 
     def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None,
                 kv_cache: Optional[KVCache] = None, cache_len=None):
@@ -109,46 +227,82 @@ class QwenAttention(nn.Module):
         of segment_ids (built by the kernel wrapper when None). Otherwise x
         holds n >= 1 new tokens whose K/V are written into kv_cache at
         cache_len (B,) in place, each attending stepwise-causally over the
-        cache."""
+        cache. With kv_dtype="int8" the prefill attends over the bf16 K/V
+        and returns their quantized entries; decode writes through K7 and
+        attends through K4/K5 on strided views of the cache."""
         c = self.cfg
         B, n = x.shape[:2]
         H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
-        q = self.q_proj(x).reshape(B, n, H, D).transpose(1, 2)
-        k = self.k_proj(x).reshape(B, n, KV, D).transpose(1, 2)
-        v = self.v_proj(x).reshape(B, n, KV, D)
+        q, k, v = project(x, self.q_proj, self.k_proj, self.v_proj)
+        q = q.reshape(B, n, H, D).transpose(1, 2)
+        k = k.reshape(B, n, KV, D).transpose(1, 2)
+        v = v.reshape(B, n, KV, D)
         q, k = apply_rotary(q, k, cos, sin)
         if kv_cache is None:
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.transpose(1, 2).contiguous(),
                                   causal=True, segment_ids=segment_ids,
                                   tile_tables=tile_tables)
-            new_cache = (k.transpose(1, 2), v)
+            if c.kv_dtype == "int8":
+                new_cache = _int8_entries(k.transpose(1, 2), v)
+            else:
+                new_cache = (k.transpose(1, 2), v)
         else:
             k_cache, v_cache = kv_cache
-            rows = torch.arange(B, device=x.device)[:, None]
-            cols = cache_len.reshape(B, 1) + torch.arange(n, device=x.device)[None]
-            k_cache[rows, cols] = k.transpose(1, 2).to(k_cache.dtype)
-            v_cache[rows, cols] = v.to(v_cache.dtype)
-            kd, vd = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
-            if n == 1:
-                out = gqa_decode_attention(q[:, :, 0], kd, vd, cache_len + 1)[:, :, None]
+            if isinstance(k_cache, tuple):
+                write_kv_cache(k.transpose(1, 2).contiguous(), v.contiguous(), k_cache, v_cache,
+                               cache_len)
             else:
-                out = gqa_chunk_decode_attention(q, kd, vd, cache_len)
+                rows = torch.arange(B, device=x.device)[:, None]
+                cols = cache_len.reshape(B, 1) + torch.arange(n, device=x.device)[None]
+                k_cache[rows, cols] = k.transpose(1, 2).to(k_cache.dtype)
+                v_cache[rows, cols] = v.to(v_cache.dtype)
+            (kd, ks), (vd, vs) = _cache_kvtd(k_cache), _cache_kvtd(v_cache)
+            if n == 1:
+                out = gqa_decode_attention(q[:, :, 0], kd, vd, cache_len + 1,
+                                           k_scale=ks, v_scale=vs)[:, :, None]
+            else:
+                out = gqa_chunk_decode_attention(q, kd, vd, cache_len, k_scale=ks, v_scale=vs)
             new_cache = kv_cache
         out = out.transpose(1, 2).reshape(B, n, H * D)
         return self.o_proj(out), new_cache
+
+
+def _int8_entries(k: torch.Tensor, v: torch.Tensor) -> KVCache:
+    """Quantized cache entries of k/v (B, T, KV, D): written into new
+    (int8 data, fp32 scale) buffers at position 0 by `write_kv_cache`."""
+    B, T, KV, D = k.shape
+
+    def entry():
+        return (torch.empty((B, T, KV, D), dtype=torch.int8, device=k.device),
+                torch.empty((B, T, KV, 1), dtype=torch.float32, device=k.device))
+
+    k_entry, v_entry = entry(), entry()
+    write_kv_cache(k.contiguous(), v.contiguous(), k_entry, v_entry,
+                   torch.zeros(B, dtype=torch.long, device=k.device))
+    return k_entry, v_entry
+
+
+def _cache_kvtd(entry: CacheEntry):
+    """A cache entry as the decode attention reads it: ((B, KV, Tmax, D)
+    data, (B, KV, Tmax) scale or None), both strided views, no copy."""
+    if isinstance(entry, tuple):
+        data, scale = entry
+        return data.transpose(1, 2), scale[..., 0].transpose(1, 2)
+    return entry.transpose(1, 2), None
 
 
 class QwenMLP(nn.Module):
     def __init__(self, cfg: QwenTextConfig):
         super().__init__()
         E, I = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(E, I, bias=False, dtype=cfg.dtype)
-        self.up_proj = nn.Linear(E, I, bias=False, dtype=cfg.dtype)
-        self.down_proj = nn.Linear(I, E, bias=False, dtype=cfg.dtype)
+        self.gate_proj = _proj(cfg, E, I, False)
+        self.up_proj = _proj(cfg, E, I, False)
+        self.down_proj = _proj(cfg, I, E, False)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        gate, up = project(x, self.gate_proj, self.up_proj)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class QwenDecoderLayer(nn.Module):
@@ -178,7 +332,7 @@ class QwenTextModel(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
         self.layers = nn.ModuleList(QwenDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=cfg.dtype)
+        self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size, False)
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids.long())
@@ -279,11 +433,73 @@ def _layer_hidden(layer, x, cos, sin, segment_ids, tile_tables):
 
 
 def pad_caches(caches: List[KVCache], max_len: int) -> List[KVCache]:
-    """Extend prefill caches (B, T, KV, D) to (B, max_len, KV, D)."""
+    """Extend prefill caches (B, T, KV, D) to (B, max_len, KV, D) with
+    zeros; an int8 entry pads its data and its scales."""
     def pad(e):
+        if isinstance(e, tuple):
+            return tuple(pad(x) for x in e)
         return F.pad(e, (0, 0, 0, 0, 0, max_len - e.shape[1]))
 
     return [(pad(k), pad(v)) for k, v in caches]
+
+
+def quantize_qwen_text_params(params: Dict, group_size: Optional[int] = None) -> Dict:
+    """A JAX-layout QwenTextModel param tree (nested dicts of numpy
+    arrays, Dense kernels (in, out)) → its int8 tree: every Dense `kernel`
+    but the embedding's becomes `kernel_q` int8 (in, out) + `scale_q` fp32,
+    (out,) per channel or (in / g, out) when group_size divides the input
+    width; biases, norms and embeddings pass through. The port's own copy
+    of the JAX package's `quantize_qwen_text_params` at 8 bits."""
+
+    def quantize(w):
+        if group_size and w.shape[0] % int(group_size) == 0:
+            K, N = w.shape
+            wg = w.reshape(K // int(group_size), int(group_size), N)
+            s = np.abs(wg).max(axis=1) / 127.0
+            s = np.where(s == 0, 1e-8, s)
+            q = np.clip(np.round(wg / s[:, None]), -127.0, 127.0).reshape(K, N)
+        else:
+            s = np.abs(w).max(axis=0) / 127.0
+            s = np.where(s == 0, 1e-8, s)
+            q = np.clip(np.round(w / s[None]), -127.0, 127.0)
+        return q.astype(np.int8), s.astype(np.float32)
+
+    def convert(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict) and "kernel" in v and k != "embed_tokens":
+                q, s = quantize(np.asarray(v["kernel"], np.float32))
+                out[k] = {"kernel_q": q, "scale_q": s, **({"bias": v["bias"]} if "bias" in v
+                                                         else {})}
+            elif isinstance(v, dict):
+                out[k] = convert(v)
+            else:
+                out[k] = v
+        return out
+
+    return convert(params)
+
+
+@torch.no_grad()
+def quantize_qwen_text_(model: QwenTextModel, group_size: Optional[int] = None) -> QwenTextModel:
+    """Quantize a built bf16 text model to the W8A8 format in place, on its
+    device: every nn.Linear (the projections and the lm_head; the
+    embedding is not a Linear) becomes a `QuantLinear`, and each bf16
+    weight is released as its int8 copy lands, so the peak stays near one
+    bf16 copy plus one matrix. The modules' configs become
+    weight_dtype="int8" with this group size. Counterpart of the JAX
+    `quantize_qwen_text_params_device(free_source=True)`."""
+    # (parent, name) pairs only: a list of the Linears would keep every
+    # bf16 weight alive until the end
+    targets = [(mod, name) for mod in model.modules()
+               for name, child in mod.named_children() if isinstance(child, nn.Linear)]
+    for mod, name in targets:
+        setattr(mod, name, QuantLinear.from_linear(getattr(mod, name), group_size))
+    cfg = dataclasses.replace(model.cfg, weight_dtype="int8", quant_group_size=group_size)
+    for mod in model.modules():
+        if isinstance(getattr(mod, "cfg", None), QwenTextConfig):
+            mod.cfg = cfg
+    return model
 
 
 @torch.no_grad()

@@ -4,6 +4,8 @@ The port's modules carry the JAX package's submodule and parameter names,
 so the mapping is by rule, per leaf:
 
 - Dense `kernel` (in, out)  → `weight` (out, in)
+- int8 Dense `kernel_q` (in, out) → `weight_q` (out, in); its `scale_q`
+  keeps name and layout
 - Conv `kernel` HWIO        → `weight` OIHW
 - Embed `embedding`         → `weight`
 - RMSNorm/LayerNorm `scale` → `weight`
@@ -45,6 +47,10 @@ def _convert_leaf(name: str, value: np.ndarray):
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {value.ndim} has no torch layout rule")
+    if name == "kernel_q":
+        if value.ndim != 2:
+            raise ValueError(f"kernel_q of rank {value.ndim} has no torch layout rule")
+        return "weight_q", value.T
     if name in ("embedding", "scale"):
         return "weight", value
     return name, value
@@ -84,6 +90,7 @@ def state_dict_from_jax(params: Mapping[str, Any], module: nn.Module) -> Dict[st
         want = target[key]
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"{'/'.join(path)} {arr.shape} → {key} {tuple(want.shape)}: shape differs")
+        # through float32: exact for every float and int8 leaf
         out[key] = torch.from_numpy(np.array(arr, np.float32)).to(want.dtype)
     missing = sorted(names - set(out))
     if missing:

@@ -11,7 +11,14 @@ is `csrc/flash_bwd.cu` (ports of `_flash_bwd_dkv_kernel` and
 `_flash_bwd_dq_kernel`), or raises. There is no fallback from one to the
 other. `flash_backward_reference` is the plain version of the backward.
 
-All three kernels compute a (query tile, 64-key tile) pair only when it is
+Decode over an int8 KV cache (`gqa_decode_attention` and
+`gqa_chunk_decode_attention` with k_scale/v_scale) runs, on CUDA, the
+hand-written kernel `csrc/decode_int8.cu` (K4 for one token, K5 for a
+chunk; ports of the XLA int8 branch of the JAX functions); their plain
+versions are `gqa_decode_reference` / `gqa_chunk_decode_reference`, which
+also serve the bf16 cache on every device.
+
+The three flash kernels compute a (query tile, 64-key tile) pair only when it is
 live (`live_tile_mask`): causally live, and its segment ranges
 (`tile_segment_ranges`, one table per side, per 64-row tile) overlap. The
 backward kernels take 64-query tiles; K1 takes 128-query blocks
@@ -47,10 +54,13 @@ FWD_QUERY_BLOCK = 128
 INT32_MAX, INT32_MIN = 2**31 - 1, -(2**31)
 
 #: launches of each kernel in this process (its CUDA wrapper adds one per
-#: launch; the plain versions never do): K1 forward, K2 dK/dV, K3 dQ
+#: launch; the plain versions never do): K1 forward, K2 dK/dV, K3 dQ, and
+#: the int8 decode kernel as K4 (one token) and K5 (a chunk of n tokens)
 kernel_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
+decode_int8_launches = 0
+chunk_decode_int8_launches = 0
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -515,11 +525,121 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, sm_scale=None):
     return torch.einsum("bhk,bhkd->bhd", p, v_cache.float()).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_int8_entry():
+    """K4/K5's C entry point, built and bound once per process."""
+    from internnav_tpu_torch.ops._build import load_library
+
+    fn = load_library("decode_int8.cu").decode_int8_attention
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+#: keys per block of K4/K5, the most query rows (G * n) a block holds, and
+#: the longest cache it combines (128 chunks)
+DECODE_CHUNK = 32
+DECODE_MAX_ROWS = 32
+DECODE_MAX_KEYS = 4096
+#: per device: K4/K5's zeroed per-(batch, KV head) completion counts (the
+#: last block of each resets its count, so one buffer serves every launch)
+_decode_counters: dict = {}
+
+
+def _decode_int8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths, len_offset, sm_scale):
+    """Launch K4/K5: q (B, H, n, D) bf16; caches (B, KV, Tmax, D) int8 and
+    scales (B, KV, Tmax) fp32, any strides with D contiguous (the model
+    passes transposed views of its (B, Tmax, KV, D) cache); query row i sees
+    keys t < lengths[b] + len_offset + i. Returns bf16 (B, H, n, D)."""
+    B, H, n, D = q.shape
+    KV, Tmax = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    if q.dtype != torch.bfloat16 or not q.is_cuda:
+        raise ValueError(f"int8 decode kernel takes bfloat16 CUDA queries, got {q.dtype} on {dev}")
+    if D != 128 or H % KV or (H // KV) * n > DECODE_MAX_ROWS or Tmax > DECODE_MAX_KEYS:
+        raise ValueError(f"int8 decode kernel: D={D} (needs 128), H={H}, KV={KV}, n={n} "
+                         f"(needs H/KV*n <= {DECODE_MAX_ROWS}), Tmax={Tmax} "
+                         f"(needs <= {DECODE_MAX_KEYS})")
+    for name, t, dtype, shape in (("k_cache", k_cache, torch.int8, (B, KV, Tmax, D)),
+                                  ("v_cache", v_cache, torch.int8, (B, KV, Tmax, D)),
+                                  ("k_scale", k_scale, torch.float32, (B, KV, Tmax)),
+                                  ("v_scale", v_scale, torch.float32, (B, KV, Tmax))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"int8 decode kernel: {name} must be {dtype} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.stride(3) != 1 or any(s % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"int8 decode kernel: {name} needs D contiguous and 16-byte "
+                             "aligned rows")
+    if lengths.device != dev or tuple(lengths.shape) != (B,):
+        raise ValueError(f"int8 decode kernel: lengths must be ({B},) on {dev}")
+    q = q.contiguous()
+    if q.data_ptr() % 16:
+        raise ValueError("int8 decode kernel: q is not 16-byte aligned")
+    lengths = lengths.to(torch.int64).contiguous()
+    chunks = -(-Tmax // DECODE_CHUNK)
+    o_part = torch.empty((B * KV, chunks, DECODE_MAX_ROWS, D), dtype=torch.float32, device=dev)
+    ml = torch.empty((B * KV, chunks, DECODE_MAX_ROWS, 2), dtype=torch.float32, device=dev)
+    counters = _decode_counters.get(dev)
+    if counters is None or counters.numel() < B * KV:
+        counters = _decode_counters[dev] = torch.zeros(B * KV, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    strides = [*k_cache.stride()[:3], *v_cache.stride()[:3], *k_scale.stride(),
+               *v_scale.stride()]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _decode_int8_entry()(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), o_part.data_ptr(), ml.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), *strides, B, H, KV, n, Tmax, chunks,
+            len_offset, float(sm_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"int8 decode attention kernel launch failed: cudaError_t {err}")
+    return out
+
+
+def gqa_decode_int8_cuda(q, k_cache, v_cache, cache_len, k_scale, v_scale, *, sm_scale=None):
+    """K4: `gqa_decode_attention` over an int8 cache on the card; q (B, H,
+    D), cache_len (B,) keys visible (the new token's slot included)."""
+    global decode_int8_launches
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    out = _decode_int8_cuda(q[:, :, None], k_cache, v_cache, k_scale, v_scale, cache_len, 0,
+                            sm_scale)
+    decode_int8_launches += 1
+    return out[:, :, 0]
+
+
+def gqa_chunk_decode_int8_cuda(q, k_cache, v_cache, cache_len, k_scale, v_scale, *,
+                               sm_scale=None):
+    """K5: `gqa_chunk_decode_attention` over an int8 cache on the card; q
+    (B, H, n, D), query i sees keys < cache_len + 1 + i."""
+    global chunk_decode_int8_launches
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    out = _decode_int8_cuda(q, k_cache, v_cache, k_scale, v_scale, cache_len, 1, sm_scale)
+    chunk_decode_int8_launches += 1
+    return out
+
+
 def gqa_decode_attention(q, k_cache, v_cache, cache_len, *, sm_scale=None,
                          k_scale=None, v_scale=None):
     """Grouped-query decode without the KV head repeat. q (B, H, D); caches
     (B, KV, Tmax, D); k_scale/v_scale (B, KV, Tmax) dequant scales of an
-    int8 cache, or None."""
+    int8 cache, or None. An int8 cache on CUDA goes to K4
+    (`gqa_decode_int8_cuda`); every other call runs the plain version."""
+    if q.is_cuda and k_scale is not None:
+        return gqa_decode_int8_cuda(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                                    sm_scale=sm_scale)
+    return gqa_decode_reference(q, k_cache, v_cache, cache_len, sm_scale=sm_scale,
+                                k_scale=k_scale, v_scale=v_scale)
+
+
+def gqa_decode_reference(q, k_cache, v_cache, cache_len, *, sm_scale=None,
+                         k_scale=None, v_scale=None):
+    """The plain version of `gqa_decode_attention` (K4's ground truth):
+    fp32 logits, scales and softmax on any device."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     B, H, D = q.shape
@@ -540,7 +660,20 @@ def gqa_decode_attention(q, k_cache, v_cache, cache_len, *, sm_scale=None,
 def gqa_chunk_decode_attention(q, k_cache, v_cache, cache_len, *, sm_scale=None,
                                k_scale=None, v_scale=None):
     """Decode of n new tokens in one cache pass: q (B, H, n, D); query i sees
-    cache positions < cache_len + i + 1 (stepwise causal)."""
+    cache positions < cache_len + i + 1 (stepwise causal). An int8 cache on
+    CUDA goes to K5 (`gqa_chunk_decode_int8_cuda`); every other call runs
+    the plain version."""
+    if q.is_cuda and k_scale is not None:
+        return gqa_chunk_decode_int8_cuda(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                                          sm_scale=sm_scale)
+    return gqa_chunk_decode_reference(q, k_cache, v_cache, cache_len, sm_scale=sm_scale,
+                                      k_scale=k_scale, v_scale=v_scale)
+
+
+def gqa_chunk_decode_reference(q, k_cache, v_cache, cache_len, *, sm_scale=None,
+                               k_scale=None, v_scale=None):
+    """The plain version of `gqa_chunk_decode_attention` (K5's ground
+    truth)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     B, H, n, D = q.shape

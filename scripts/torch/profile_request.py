@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of one serving step goes, for the PyTorch port on a GPU.
 
-    python scripts/torch/profile_request.py [--requests 3]
+    python scripts/torch/profile_request.py [--requests 3] [--profile parity|realtime]
 
-Drives the same 7B bf16 policy, agent and seeded 420x420 frames as
-`chip_smoke.py`'s serve phase, without the HTTP server and with System-1
+Drives the same 7B policy (the `parity` profile's bf16 one by default, or
+the `realtime` profile's W8A8 + int8 KV one), agent and seeded 420x420
+frames as `chip_smoke.py`'s serve phases, without the HTTP server and with System-1
 on every step as well (the action queue is cleared before each one). The
 history grows by one frame per step. Prints per step the wall time and the
 seconds spent in each stage (vision encode, text prefill, decode steps,
@@ -28,6 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--profile", default="parity", choices=("parity", "realtime"))
     args = ap.parse_args()
 
     import numpy as np
@@ -39,7 +41,7 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    policy, agent = build_agent(require_cuda())
+    policy, agent = build_agent(require_cuda(), args.profile)
     seconds, calls = collections.defaultdict(float), collections.Counter()
 
     def timed(obj, name, label):
@@ -88,7 +90,7 @@ def main() -> None:
     print(f"profiled step: wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
           f"idle_share={1 - busy_s / wall:.3f} (profiler on)")
     print(table.table(sort_by="self_device_time_total", row_limit=20, max_name_column_width=60))
-    print(gpu_line())
+    print(f"profile={args.profile} {gpu_line()}")
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ serves through the port's real-robot HTTP server on the CPU (tiny policy):
 as HTTP 500 instead of a STOP action.
 """
 
+import dataclasses
 import json
 import re
 import socket
@@ -62,6 +63,21 @@ def test_port_imports_with_jax_blocked():
             + "".join(f"import {m}\n" for m in PORT_MODULES)
             + "assert not any(m.split('.')[0] in ('jax', 'flax', 'internnav_tpu') "
               "for m in sys.modules if sys.modules[m] is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_int8_modules_import_without_triton():
+    """triton is imported only inside the CUDA path: with it unimportable,
+    the int8 ops and the text model import and run on the CPU."""
+    code = ("import sys; sys.modules['triton'] = None\n"
+            "import torch\n"
+            "from internnav_tpu_torch.ops import quant\n"
+            "from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text\n"
+            "q, s = quant.quantize_activations(torch.ones(2, 8))\n"
+            "assert q.dtype == torch.int8 and 'triton' not in [m for m in sys.modules\n"
+            "                                                  if sys.modules[m] is not None]\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -193,9 +209,29 @@ def test_s2_failure_reaches_caller_as_500(async_s2):
         assert "kernel launch failed" in json.loads(err.value.read())["error"]
 
 
+def _jax_launcher():
+    import importlib.util
+
+    path = REPO / "scripts" / "realworld" / "http_internvla_server.py"
+    spec = importlib.util.spec_from_file_location("jax_rw_launcher", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_launcher_refuses_unported_profile_and_missing_gpu(monkeypatch):
+    """The launcher serves the JAX launcher's profiles (realtime by
+    default); the formats not ported yet raise; no GPU raises."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config as Cfg
+
+    assert serve.PROFILES == _jax_launcher().PROFILES
+    assert serve.build_policy.__defaults__ == ("realtime",)
+    with pytest.raises(ValueError, match="unknown profile"):
+        serve.build_policy("fp8", device=torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.build_policy("realtime", device=torch.device("cpu"))
+        Cfg.qwen25vl_7b(weight_dtype="int4")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        dataclasses.replace(Cfg.qwen25vl_7b(weight_dtype="int8").text, decode_act_dtype="bf16")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--device", "cuda"])

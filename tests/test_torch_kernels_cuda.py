@@ -364,3 +364,155 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(device):
         fa.flash_bwd_dkv_cuda(q, q, q, q.float(), lse, di)
     with pytest.raises(ValueError, match="lse must be"):
         fa.flash_bwd_dq_cuda(q, q, q, q, lse[:, :, :10].contiguous(), di)
+
+
+# ---------------------------------------------------------- int8 kernels
+# K6a and K7 bitwise (same IEEE divisions and round-half-even as the plain
+# versions); K6b per-channel within one bf16 ulp (exact int32 sums and the
+# same fp32 epilogue order), grouped at atol = rtol = 1e-2 (the sum over
+# groups in another order); K4/K5 at atol = rtol = 2e-2, as K1.
+W8A8_7B = [(3584, 3584, True), (512, 3584, True), (18944, 3584, False), (3584, 18944, False)]
+
+
+def _int8_weight(device, N, K, seed, group=None):
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randint(-127, 128, (N, K), generator=g, device=device, dtype=torch.int8)
+    shape = (K // group, N) if group else (N,)
+    s = torch.rand(shape, generator=g, device=device) * 1e-3 + 1e-4
+    return w, s
+
+
+@pytest.mark.parametrize("M,K", [(1, 64), (3, 200), (1, 3584), (4, 3584), (1, 18944),
+                                 (329, 3584), (1100, 18944)])
+def test_quantize_rows_kernel_is_bitwise(device, M, K):
+    from internnav_tpu_torch.ops import quant
+
+    x = _rand(device, M, K, seed=M) * 3.0
+    x[0, : K // 2] = 0.0
+    before = quant.quantize_rows_launches
+    q, s = quant.quantize_activations(x)
+    assert quant.quantize_rows_launches == before + 1
+    rq, rs = quant.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert torch.equal(s, rs) and torch.equal(q, rq)
+
+
+@pytest.mark.parametrize("M", [1, 4, 5, 329])
+@pytest.mark.parametrize("N,K,bias", [(64, 128, True), *W8A8_7B])
+def test_w8a8_gemm_per_channel_within_one_ulp(device, M, N, K, bias):
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=7))
+    w, s = _int8_weight(device, N, K, seed=N + K)
+    b = torch.randn(N, device=device) if bias else None
+    before = quant.w8a8_launches
+    y = quant.w8a8_linear(xq, a, w, s, b)
+    assert quant.w8a8_launches == before + 1 and y.dtype == torch.bfloat16
+    want = quant.w8a8_linear_reference(xq, a, w, s, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want.float(), atol=0, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("M", [1, 4, 1100])
+@pytest.mark.parametrize("N,K,bias", [(64, 256, True), *W8A8_7B])
+def test_w8a8_gemm_grouped(device, M, N, K, bias):
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=8))
+    w, s = _int8_weight(device, N, K, seed=N - K, group=128)
+    b = torch.randn(N, device=device) if bias else None
+    y = quant.w8a8_linear(xq, a, w, s, b)
+    want = quant.w8a8_linear_reference(xq, a, w, s, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_w8a8_gemm_lm_head_at_decode(device):
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, 1, 3584, seed=9))
+    w, s = _int8_weight(device, 152064, 3584, seed=10)
+    y = quant.w8a8_linear(xq, a, w, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), quant.w8a8_linear_reference(xq, a, w, s).float(),
+                               atol=0, rtol=2 ** -7)
+
+
+def test_w8a8_gemm_rejects_what_it_does_not_take(device):
+    from internnav_tpu_torch.ops import quant
+
+    xq = torch.zeros((2, 96), dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        quant.w8a8_linear_cuda(xq, torch.ones((2, 1), device=device),
+                               torch.zeros((8, 96), dtype=torch.int8, device=device),
+                               torch.ones(8, device=device))
+    xq = torch.zeros((2, 128), dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="whole"):
+        quant.w8a8_linear_cuda(xq, torch.ones((2, 1), device=device),
+                               torch.zeros((8, 128), dtype=torch.int8, device=device),
+                               torch.ones((4, 8), device=device))
+
+
+def _int8_kv_cache(device, B, Tmax, KV, D, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    data = torch.randint(-127, 128, (B, Tmax, KV, D), generator=g, device=device,
+                         dtype=torch.int8)
+    scale = torch.rand((B, Tmax, KV, 1), generator=g, device=device) * 0.05 + 1e-3
+    return data, scale
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("B,H,KV,Tmax,lens", [(1, 28, 4, 1260, (1100,)),
+                                              (2, 28, 4, 460, (5, 329)),
+                                              (2, 8, 2, 100, (31, 64)),
+                                              (1, 28, 4, 33, (0,))])
+def test_int8_decode_kernel_matches_plain(device, n, B, H, KV, Tmax, lens):
+    """K4 (n = 1) and K5 (n = 4) on strided views of (B, Tmax, KV, D)
+    caches, cache lengths differing per row."""
+    D = 128
+    kd, ks = _int8_kv_cache(device, B, Tmax, KV, D, seed=1)
+    vd, vs = _int8_kv_cache(device, B, Tmax, KV, D, seed=2)
+    views = (kd.transpose(1, 2), vd.transpose(1, 2))
+    scales = dict(k_scale=ks[..., 0].transpose(1, 2), v_scale=vs[..., 0].transpose(1, 2))
+    cache_len = torch.tensor(lens, device=device)
+    if n == 1:
+        q = _rand(device, B, H, D, seed=3)
+        before = fa.decode_int8_launches
+        out = fa.gqa_decode_attention(q, *views, cache_len + 1, **scales)
+        assert fa.decode_int8_launches == before + 1
+        want = fa.gqa_decode_attention(q.cpu(), *(t.cpu() for t in views), (cache_len + 1).cpu(),
+                                       **{k: t.cpu() for k, t in scales.items()})
+    else:
+        q = _rand(device, B, H, n, D, seed=3)
+        before = fa.chunk_decode_int8_launches
+        out = fa.gqa_chunk_decode_attention(q, *views, cache_len, **scales)
+        assert fa.chunk_decode_int8_launches == before + 1
+        want = fa.gqa_chunk_decode_attention(q.cpu(), *(t.cpu() for t in views),
+                                             cache_len.cpu(),
+                                             **{k: t.cpu() for k, t in scales.items()})
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float().cpu(), want.float(), atol=O_TOL, rtol=O_TOL)
+    # twice in a row: the chunks' completion counts were reset
+    again = (fa.gqa_decode_attention(q, *views, cache_len + 1, **scales) if n == 1 else
+             fa.gqa_chunk_decode_attention(q, *views, cache_len, **scales))
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("n,pos", [(1, (0,)), (1, (17, 450)), (4, (3, 100)), (329, (0, 0))])
+def test_kv_write_kernel_is_bitwise(device, n, pos):
+    from internnav_tpu_torch.ops import quant
+
+    B, KV, D, Tmax = len(pos), 4, 128, 460
+    k = _rand(device, B, n, KV, D, seed=4) * 2.0
+    v = _rand(device, B, n, KV, D, seed=5)
+    k[0, 0, 0] = 0.0  # a zero row takes the 1e-8 floor
+    cache_len = torch.tensor(pos, device=device)
+    ke, ve = _int8_kv_cache(device, B, Tmax, KV, D, 6), _int8_kv_cache(device, B, Tmax, KV, D, 7)
+    ref = [tuple(t.clone() for t in e) for e in (ke, ve)]
+    before = quant.kv_write_launches
+    quant.write_kv_cache(k, v, ke, ve, cache_len)
+    assert quant.kv_write_launches == before + 1
+    quant.write_kv_cache_reference(k, v, ref[0], ref[1], cache_len)
+    torch.cuda.synchronize()
+    for got, want in zip((*ke, *ve), (*ref[0], *ref[1])):
+        assert torch.equal(got, want)

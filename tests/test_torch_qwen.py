@@ -192,10 +192,111 @@ def test_text_model_builds_tile_tables_once_for_all_layers(text_pair, monkeypatc
 
 
 def test_quantized_formats_are_not_silently_bf16():
+    """int8 weights and KV build QuantLinear projections and tuple caches;
+    the formats not ported yet raise instead of running as something else."""
+    cfg = dataclasses.replace(qt.QwenTextConfig.tiny(), weight_dtype="int8", kv_dtype="int8")
+    tm = qt.QwenTextModel(cfg)
+    assert isinstance(tm.lm_head, qt.QuantLinear)
+    assert isinstance(tm.layers[0].mlp.down_proj, qt.QuantLinear)
+    assert isinstance(tm.embed_tokens, torch.nn.Embedding)
+    assert not any(isinstance(m, torch.nn.Linear) for m in tm.modules())
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        qt.QwenTextConfig(weight_dtype="int8")
+        qt.QwenTextConfig(weight_dtype="int4")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        qt.QwenTextConfig(kv_dtype="int8")
+        qt.QwenTextConfig(weight_dtype="int8", decode_act_dtype="bf16")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        qt.QwenTextConfig(kv_dtype="fp8")
+
+
+# ------------------------------------------------------- int8 realtime
+INT8 = dict(weight_dtype="int8", kv_dtype="int8")
+
+
+@pytest.fixture(scope="module")
+def int8_text_pair(text_pair):
+    """The fp32 tiny weights quantized by the JAX package's
+    `quantize_qwen_text_params`, in both int8/int8 models (the port's
+    through `from_jax`)."""
+    _, params, _ = text_pair
+    qparams = jqt.quantize_qwen_text_params(jax.tree_util.tree_map(np.asarray, params))
+    jm = jqt.QwenTextModel(dataclasses.replace(jqt.QwenTextConfig.tiny(), dtype=jnp.float32,
+                                               **INT8))
+    tm = qt.QwenTextModel(dataclasses.replace(qt.QwenTextConfig.tiny(), dtype=torch.float32,
+                                              **INT8))
+    load_from_jax(tm, qparams)
+    return jm, qparams, tm
+
+
+def _clone_caches(caches):
+    return [tuple(tuple(x.clone() for x in e) for e in layer) for layer in caches]
+
+
+def _assert_int8_caches_equal(port, ref):
+    for tlayer, jlayer in zip(port, ref):
+        for (td, ts), (jd, js) in zip(tlayer, jlayer):
+            np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+            _close(ts, js)
+
+
+def test_int8_text_prefill_decode_and_chunk_match_jax(int8_text_pair):
+    """W8A8 projections + int8 KV: prefill logits, one decode step and a
+    3-token chunk over the padded prompt cache; the int8 cache data equal
+    and its scales within 1e-4."""
+    jm, params, tm = int8_text_pair
+    emb, pos, seg, plen, _ = _prompt(512)
+    B, T = seg.shape
+    new = np.random.default_rng(2).standard_normal((B, 3, 64)).astype(np.float32)
+    npos = (pos.max() + 1 + np.arange(3))[None, None].repeat(3, 0).repeat(B, 1)
+
+    @jax.jit
+    def jax_side(p, emb, pos, seg, new, npos, cl):
+        logits, _, jc = jm.apply({"params": p}, emb, pos, segment_ids=seg, return_cache=True,
+                                 logits_indices=cl - 1)
+        jc = jqt.pad_caches(jc, T + 4)
+        step = jm.apply({"params": p}, new[:, :1], npos[:, :, :1], jc, cl,
+                        method=jm.decode_step)
+        chunk, jc2 = jm.apply({"params": p}, new, npos, jc, cl, method=jm.decode_chunk)
+        return logits, step, chunk, jc2
+
+    jl, (jlog, jh, jc1), jhc, jc2 = jax_side(
+        params, *(jnp.asarray(a) for a in (emb, pos, seg, new, npos, plen)))
+    with torch.no_grad():
+        tl, _, tc = tm(_t(emb), _t(pos), segment_ids=_t(seg), logits_indices=_t(plen - 1).long())
+        tc = qt.pad_caches(tc, T + 4)
+        assert isinstance(tc[0][0], tuple) and tc[0][0][0].dtype == torch.int8
+        tlog, th, tc1 = tm.decode_step(_t(new[:, :1]), _t(npos[:, :, :1]), _clone_caches(tc),
+                                       _t(plen).long())
+        thc, tc2 = tm.decode_chunk(_t(new), _t(npos), tc, _t(plen).long())
+    _close(tl, jl)
+    _close(tlog, jlog)
+    _close(th, jh)
+    _close(thc, jhc)
+    _assert_int8_caches_equal(tc1, jc1)
+    _assert_int8_caches_equal(tc2, jc2)
+
+
+def test_int8_greedy_generate_matches_jax(int8_text_pair):
+    """Greedy tokens of the int8/int8 model exactly equal, with an early
+    stop on row 0 as in the bf16 test."""
+    jm, params, tm = int8_text_pair
+    emb, pos, seg, plen, deltas = _prompt(512)
+    args = dict(max_new_tokens=10, extra_cache_slots=2)
+
+    def run_port(eos):
+        return qt.greedy_generate(tm, _t(emb), _t(pos), eos_token_ids=eos,
+                                  rope_deltas=_t(deltas), prompt_lengths=_t(plen),
+                                  segment_ids=_t(seg), **args)
+
+    eos = (int(run_port((511,))[0][0, 4]),)
+    jtok, jlen, jcache = jqt.greedy_generate(
+        jm, params, jnp.asarray(emb), jnp.asarray(pos), eos_token_ids=eos,
+        rope_deltas=jnp.asarray(deltas), prompt_lengths=jnp.asarray(plen),
+        segment_ids=jnp.asarray(seg), return_caches=True, **args)
+    ttok, tlen, tcache = run_port(eos)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(tlen.numpy(), np.asarray(jlen))
+    assert int(tlen[0]) <= 4
+    _assert_int8_caches_equal(tcache, jcache)
 
 
 # ---------------------------------------------------------------- vision
@@ -300,3 +401,21 @@ def test_vision_tower_builds_one_table_per_segment_set(monkeypatch):
         without = tower(*args, window_block=wblk, full_block=fblk)
         assert all(t is None for t in seen[tcfg.depth:])
     assert torch.equal(with_tables, without)
+
+
+def test_from_jax_maps_int8_leaves_strictly(int8_text_pair):
+    """`kernel_q` (in, out) lands transposed in `weight_q` (out, in) as
+    int8 and `scale_q` as it is; a missing or an extra int8 leaf raises."""
+    _, params, tm = int8_text_pair
+    sd = state_dict_from_jax(params, tm)
+    wq = sd["layers.0.self_attn.q_proj.weight_q"]
+    assert wq.dtype == torch.int8
+    kernel_q = params["layers_0"]["self_attn"]["q_proj"]["kernel_q"]
+    np.testing.assert_array_equal(wq.numpy(), np.asarray(kernel_q).T)
+    np.testing.assert_array_equal(sd["lm_head.scale_q"].numpy(), params["lm_head"]["scale_q"])
+    missing = {**params, "lm_head": {"kernel_q": params["lm_head"]["kernel_q"]}}
+    with pytest.raises(KeyError, match="lm_head.scale_q"):
+        state_dict_from_jax(missing, tm)
+    extra = {**params, "lm_head": {**params["lm_head"], "kernel": np.zeros((64, 512), np.float32)}}
+    with pytest.raises(KeyError, match="lm_head"):
+        state_dict_from_jax(extra, tm)
