@@ -21,9 +21,13 @@ Phases, each printing its numbers:
                row (no segment ids, where no tile can be skipped: the rate)
                checked and timed beside SDPA with is_causal; then the int8
                kernels of the realtime profile at the 7B shapes: K6a
-               (activation quantization, Triton), K6b (W8A8 GEMM; beside
-               torch._int_mm where it takes the shape), K4/K5 (int8 decode
-               attention) and K7 (KV quantization + cache write, Triton);
+               (activation quantization of bf16 and fp32 rows, Triton), K6b
+               (W8A8 GEMM at M = 1, 4, the 4th request's and the long
+               request's prompt; the prefill tiles at both widths beside
+               torch._int_mm), K4/K5 (int8 decode attention at the serving
+               caches, past 4,096 keys, a ragged batch of 3 and 8 queries
+               a head) and K7 (KV quantization + cache write, Triton, also
+               past the cache's end);
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy in the
                `parity` profile (bf16, random weights from a seeded
                generator), serve it through the real-robot HTTP server and
@@ -33,7 +37,10 @@ Phases, each printing its numbers:
                projections, int8 KV cache; the bf16 draws quantized on the
                card): the launches of K1, K4, K5, K6a, K6b and K7 must equal
                the counts computed from the layers and each request's
-               decode steps;
+               decode steps; then, after /reset and 8 uncounted 644x644
+               frames with a short decode budget, the long request (the
+               ninth frame: a 4,864-token prompt, a 4,996-key cache), its
+               launches counted on their own;
   5. train   — with the serving policies freed: the full-width 7B
                `nextdit_async` policy at TRAIN_LAYERS decoder layers with
                remat, one packed 8192-token row from a synthetic store through
@@ -41,8 +48,9 @@ Phases, each printing its numbers:
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
                L times each.
-Every kernel's launch count is set to 0 just before each of the three
-paths (serve, serve realtime, train) and read just after. Then one JSON
+Every kernel's launch count is set to 0 just before each of the four
+paths (serve, serve realtime, the long realtime request, train) and read
+just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing any result.
@@ -81,10 +89,9 @@ LSE_ATOL = 1e-3            # lse: fp32 statistics from the same bf16 inputs
 BWD_ATOL_FRAC = 1e-2
 BWD_RTOL = 2e-2
 # K6a and K7 are bitwise (the plain versions' IEEE divisions and round half
-# to even); K6b per-channel within one bf16 ulp (exact int32 sums, the same
-# fp32 epilogue), grouped at 1e-2 (the sum over groups in another order);
-# K4/K5 at 2e-2, as K1
-GEMM_RTOL = 2 ** -7
+# to even); K6b per-channel bitwise too (exact int32 sums, the same fp32
+# epilogue in the same order), grouped at 1e-2 (the sum over groups in
+# another order); K4/K5 at 2e-2, as K1
 GROUPED_TOL = 1e-2
 DECODE_TOL = 2e-2
 INSTRUCTION = "go past the table and stop at the second door on the left"
@@ -92,12 +99,19 @@ INSTRUCTION = "go past the table and stop at the second door on the left"
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core peak
-PEAK_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (decode attention)
 # realtime serving shapes: a bucketed prompt at the 4th request, the decode
 # budget and the traj-latent chunk
 PROMPT_T = 1088
 MAX_NEW_TOKENS = 128
 N_QUERY = 4
+# the long realtime request: the ninth 644x644 frame of an episode, whose
+# prompt holds 8 history frames and the current one (9 x 529 image tokens),
+# bucketed to LONG_PROMPT_T tokens (past 4,096 - 132); the 8 frames before
+# it take WARMUP_NEW_TOKENS decode steps
+LONG_HW = 644
+LONG_FRAMES = 9
+LONG_PROMPT_T = 4864
+WARMUP_NEW_TOKENS = 4
 TRAIN_LEN = 8192
 TRAIN_LAYERS = 28
 TRAIN_HW = 224
@@ -473,50 +487,62 @@ def _bytes_bound(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _row(kernel, shape, err, ms, plain_ms, bound, library_ms=None, **extra):
+def _row(kernel, shape, err, ms, plain_ms, bound, library_ms=None, **launch):
+    """A checked row of the kernels line: measured numbers and the bound.
+    `launch` (the plan the wrapper hands the kernel) is printed on the
+    phase line only."""
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **extra}
+           "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
     print("phase kernels: " + " ".join(
-        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items())
-        + f" gpu={gpu_line()!r}")
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in {**row, **launch}.items()) + f" gpu={gpu_line()!r}")
     return row
 
 
 def int8_quantize_rows_rows(device, g):
     """K6a at the decode (M = 1) and prompt (M = PROMPT_T) rows of both input
-    widths: bitwise against the plain version."""
+    widths, bf16 rows (attention output, SwiGLU product) and fp32 rows (the
+    RMSNorm products): bitwise against the plain version."""
     import torch
 
     from internnav_tpu_torch.ops import quant
 
     rows = []
-    for M, K in ((1, 3584), (1, 18944), (PROMPT_T, 3584), (PROMPT_T, 18944)):
-        x = torch.randn((M, K), generator=g, device=device, dtype=torch.bfloat16) * 3
+    for M, K, dtype in ((1, 3584, torch.float32), (1, 3584, torch.bfloat16),
+                        (1, 18944, torch.bfloat16), (PROMPT_T, 3584, torch.float32),
+                        (PROMPT_T, 3584, torch.bfloat16), (PROMPT_T, 18944, torch.bfloat16)):
+        x = (torch.randn((M, K), generator=g, device=device) * 3).to(dtype)
         q, s = quant.quantize_rows_cuda(x)
         rq, rs = quant.quantize_rows(x)
         torch.cuda.synchronize()
         if not (torch.equal(q, rq) and torch.equal(s, rs)):
-            raise AssertionError(f"K6a M={M} K={K}: int8 codes or scales differ from the plain "
-                                 f"version ({int((q != rq).sum())} codes)")
-        rows.append(_row("K6a", f"M{M}_K{K}", 0.0, cuda_ms(lambda: quant.quantize_rows_cuda(x)),
+            raise AssertionError(f"K6a M={M} K={K} {dtype}: int8 codes or scales differ from the "
+                                 f"plain version ({int((q != rq).sum())} codes)")
+        nbytes = M * K * (x.element_size() + 1) + 4 * M
+        rows.append(_row("K6a", f"M{M}_K{K}_{str(dtype)[6:]}", 0.0,
+                         cuda_ms(lambda: quant.quantize_rows_cuda(x)),
                          cuda_ms(lambda: quant.quantize_rows(x)),
-                         _bytes_bound(3 * M * K + 4 * M, 0, PEAK_INT8_OPS)))
+                         _bytes_bound(nbytes, 0, PEAK_INT8_OPS)))
     return rows
 
 
 def int8_gemm_rows(device, g):
-    """K6b at every (N, K) of the 7B decoder and the lm_head, at M = 1
-    (decode), 4 (latent chunk) and PROMPT_T (prefill); one grouped g=128
-    row. torch._int_mm (an int32 product with no epilogue, not on the path)
-    is the yardstick where it takes the shape (M > 16)."""
+    """K6b at every (N, K) of the 7B decoder at M = 1 (decode), 4 (latent
+    chunk), PROMPT_T and LONG_PROMPT_T (prefill), the lm_head at M = 1, and
+    grouped g=128 rows at M = 1 and PROMPT_T. Per-channel rows must equal
+    the plain version bit for bit. The prefill tiles (M > 16; 128 or 256
+    wide, the kernel's choice from N) are timed beside torch._int_mm (an
+    int32 product with no epilogue, not on the path)."""
     import torch
 
     from internnav_tpu_torch.ops import quant
 
     shapes = [(3584, 3584, True), (512, 3584, True), (18944, 3584, False),
               (3584, 18944, False)]
-    cases = [(M, N, K, bias, None) for M in (1, 4, PROMPT_T) for N, K, bias in shapes]
-    cases += [(1, 152064, 3584, False, None), (1, 18944, 3584, False, 128)]
+    cases = [(M, N, K, bias, None) for M in (1, 4, PROMPT_T, LONG_PROMPT_T)
+             for N, K, bias in shapes]
+    cases += [(1, 152064, 3584, False, None), (1, 18944, 3584, False, 128),
+              (PROMPT_T, 18944, 3584, False, 128)]
     rows = []
     for M, N, K, bias, group in cases:
         xq, a = quant.quantize_rows(torch.randn((M, K), generator=g, device=device,
@@ -524,98 +550,125 @@ def int8_gemm_rows(device, g):
         w = torch.randint(-127, 128, (N, K), generator=g, device=device, dtype=torch.int8)
         s = torch.rand((K // group, N) if group else (N,), generator=g, device=device) * 1e-3
         b = torch.randn(N, generator=g, device=device) if bias else None
-        y = quant.w8a8_linear_cuda(xq, a, w, s, b)
         want = quant.w8a8_linear_reference(xq, a, w, s, b)
+        y = quant.w8a8_linear_cuda(xq, a, w, s, b)
         torch.cuda.synchronize()
         err = (y.float() - want.float()).abs().max().item()
-        tol = dict(atol=GROUPED_TOL, rtol=GROUPED_TOL) if group else dict(atol=0, rtol=GEMM_RTOL)
-        if not torch.allclose(y.float(), want.float(), **tol):
-            raise AssertionError(f"K6b M={M} N={N} K={K} group={group}: differs from the plain "
-                                 f"version by {err}")
+        ok = torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL) \
+            if group else torch.equal(y, want)
+        if not ok:
+            raise AssertionError(f"K6b M={M} N={N} K={K} group={group}: differs from the "
+                                 f"plain version by {err}")
+        del y
         nbytes = M * K + N * K + 4 * M + 4 * s.numel() + (4 * N if bias else 0) + 2 * M * N
         library = None
-        if M > 16:
+        if M > quant.GEMM_DECODE_MAX_M:
             wt = w.t()
             library = cuda_ms(lambda: torch._int_mm(xq, wt))
         rows.append(_row("K6b", f"M{M}_N{N}_K{K}" + (f"_g{group}" if group else ""), err,
                          cuda_ms(lambda: quant.w8a8_linear_cuda(xq, a, w, s, b)),
                          cuda_ms(lambda: quant.w8a8_linear_reference(xq, a, w, s, b), reps=5),
                          _bytes_bound(nbytes, 2.0 * M * N * K, PEAK_INT8_OPS), library))
-        del xq, a, w, s, b, y, want
-    torch.cuda.empty_cache()
+        del xq, a, w, s, b, want
+        torch.cuda.empty_cache()
     return rows
 
 
-def int8_cache(device, g, Tmax):
-    """(k, v) int8 cache entries (B=1, Tmax, 4 KV heads, D=128) of random
+def int8_cache(device, g, Tmax, B=1):
+    """(k, v) int8 cache entries (B, Tmax, 4 KV heads, D=128) of random
     codes and scales."""
     import torch
 
     def entry():
-        return (torch.randint(-127, 128, (1, Tmax, 4, 128), generator=g, device=device,
+        return (torch.randint(-127, 128, (B, Tmax, 4, 128), generator=g, device=device,
                               dtype=torch.int8),
-                torch.rand((1, Tmax, 4, 1), generator=g, device=device) * 0.05 + 1e-3)
+                torch.rand((B, Tmax, 4, 1), generator=g, device=device) * 0.05 + 1e-3)
 
     return entry(), entry()
 
 
+def _decode_cases():
+    """(kernel, Tmax, cache_len per row, n) of K4/K5's checked rows: the
+    realtime caches of the first, the fourth and the long request (Tmax =
+    prompt + 128 + 4) late in the decode; a ragged batch of 3; n = 8 (56
+    query rows a KV head, two row tiles)."""
+    cases = []
+    for T in (352, PROMPT_T, LONG_PROMPT_T):
+        Tmax = T + MAX_NEW_TOKENS + N_QUERY
+        cases += [("K4", Tmax, (Tmax - N_QUERY - 1,), 1), ("K5", Tmax, (Tmax - N_QUERY,), N_QUERY)]
+    Tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
+    cases += [("K4", Tmax, (PROMPT_T + 17, 17, 700), 1), ("K5", Tmax, (Tmax - 8,), 8)]
+    return cases
+
+
+def decode_shape(Tmax, lengths, n) -> str:
+    keys = "_".join(str(min(Tmax, x + n)) for x in lengths)  # keys each row's last query sees
+    return f"B{len(lengths)}_Tmax{Tmax}_keys{keys}_n{n}"
+
+
 def int8_decode_rows(device, g):
-    """K4 (n = 1) and K5 (n = N_QUERY) at the realtime caches of the first
-    and the fourth request (Tmax = prompt + 128 + 4), late in the decode."""
+    """K4 (n = 1) and K5 (n > 1) at `_decode_cases`, against the plain
+    version."""
     import torch
 
     from internnav_tpu_torch.ops import flash_attention as fa
 
     rows = []
-    for T in (352, PROMPT_T):
-        Tmax = T + MAX_NEW_TOKENS + N_QUERY
-        ke, ve = int8_cache(device, g, Tmax)
+    for kernel, Tmax, lengths, n in _decode_cases():
+        B = len(lengths)
+        ke, ve = int8_cache(device, g, Tmax, B)
         views = (ke[0].transpose(1, 2), ve[0].transpose(1, 2))
         sc = dict(k_scale=ke[1][..., 0].transpose(1, 2), v_scale=ve[1][..., 0].transpose(1, 2))
-        for kernel, n in (("K4", 1), ("K5", N_QUERY)):
-            cache_len = torch.tensor([Tmax - N_QUERY - 1 if n == 1 else Tmax - N_QUERY],
-                                     device=device)
-            if n == 1:
-                q = torch.randn((1, 28, 128), generator=g, device=device, dtype=torch.bfloat16)
-                lens = cache_len + 1
+        cache_len = torch.tensor(lengths, device=device)
+        if n == 1:
+            q = torch.randn((B, 28, 128), generator=g, device=device, dtype=torch.bfloat16)
+            lens = cache_len + 1
 
-                def run():
-                    return fa.gqa_decode_int8_cuda(q, *views, lens, **sc)
+            def run():
+                return fa.gqa_decode_int8_cuda(q, *views, lens, **sc)
 
-                def plain():
-                    return fa.gqa_decode_reference(q, *views, lens, **sc)
-            else:
-                q = torch.randn((1, 28, n, 128), generator=g, device=device, dtype=torch.bfloat16)
+            def plain():
+                return fa.gqa_decode_reference(q, *views, lens, **sc)
+        else:
+            q = torch.randn((B, 28, n, 128), generator=g, device=device, dtype=torch.bfloat16)
 
-                def run():
-                    return fa.gqa_chunk_decode_int8_cuda(q, *views, cache_len, **sc)
+            def run():
+                return fa.gqa_chunk_decode_int8_cuda(q, *views, cache_len, **sc)
 
-                def plain():
-                    return fa.gqa_chunk_decode_reference(q, *views, cache_len, **sc)
-            out, want = run(), plain()
-            torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs().max().item()
-            if not torch.allclose(out.float(), want.float(), atol=DECODE_TOL, rtol=DECODE_TOL):
-                raise AssertionError(f"{kernel} Tmax={Tmax}: differs from the plain version by "
-                                     f"{err}")
-            keys = int(cache_len) + n  # keys the last row sees
-            nbytes = 2 * 4 * keys * (128 + 4) + 2 * 2 * 28 * n * 128 + 8
-            rows.append(_row(kernel, f"Tmax{Tmax}_keys{keys}_n{n}", err, cuda_ms(run),
-                             cuda_ms(plain),
-                             _bytes_bound(nbytes, 4.0 * 28 * n * keys * 128, PEAK_FP32_FLOPS)))
+            def plain():
+                return fa.gqa_chunk_decode_reference(q, *views, cache_len, **sc)
+        out, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        if not torch.allclose(out.float(), want.float(), atol=DECODE_TOL, rtol=DECODE_TOL):
+            raise AssertionError(f"{kernel} B={B} Tmax={Tmax} n={n}: differs from the plain "
+                                 f"version by {err}")
+        # the keys each (batch, KV head) must read (K, V and their scales),
+        # q in and out once; the score and P.V flops of the live pairs, at
+        # the bf16 tensor-core peak (both products run as bf16 mma.sync)
+        live = fa.decode_live_keys(lengths, 0 if n == 1 else 1, n, Tmax)
+        nbytes = 2 * 4 * sum(live) * (128 + 4) + 2 * 2 * B * 28 * n * 128 + 8 * B
+        pairs = sum(28 * min(Tmax, x + 1 + i) for x in lengths for i in range(n))
+        rows.append(_row(kernel, decode_shape(Tmax, lengths, n), err, cuda_ms(run),
+                         cuda_ms(plain), _bytes_bound(nbytes, 4.0 * pairs * 128, PEAK_BF16_FLOPS),
+                         cluster=fa.decode_cluster_size(Tmax)))
+        del ke, ve, views, sc, q, out, want
     return rows
 
 
 def int8_kv_write_rows(device, g):
-    """K7 for one decode token, the latent chunk and the prompt (at 0):
-    bitwise against the plain version."""
+    """K7 for one decode token, the latent chunk, the prompt (at 0) and a
+    chunk that runs past the cache's end (the start clamped, as the JAX
+    package's dynamic_update_slice does): bitwise against the plain
+    version."""
     import torch
 
     from internnav_tpu_torch.ops import quant
 
     rows = []
     Tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
-    for n, pos in ((1, PROMPT_T + 17), (N_QUERY, PROMPT_T + MAX_NEW_TOKENS), (PROMPT_T, 0)):
+    for n, pos in ((1, PROMPT_T + 17), (N_QUERY, PROMPT_T + MAX_NEW_TOKENS), (PROMPT_T, 0),
+                   (N_QUERY, Tmax - 1)):
         k = torch.randn((1, n, 4, 128), generator=g, device=device, dtype=torch.bfloat16)
         v = torch.randn((1, n, 4, 128), generator=g, device=device, dtype=torch.bfloat16)
         cache_len = torch.tensor([pos], device=device)
@@ -625,7 +678,7 @@ def int8_kv_write_rows(device, g):
         quant.write_kv_cache_reference(k, v, *ref, cache_len)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip((*ke, *ve), (*ref[0], *ref[1]))):
-            raise AssertionError(f"K7 n={n}: the cache differs from the plain version's")
+            raise AssertionError(f"K7 n={n} pos={pos}: the cache differs from the plain version's")
         nbytes = 2 * n * 4 * 128 * 2 + 2 * n * 4 * (128 + 4) + 8
         rows.append(_row("K7", f"n{n}_pos{pos}", 0.0,
                          cuda_ms(lambda: quant.write_kv_cache_cuda(k, v, ke, ve, cache_len)),
@@ -716,17 +769,18 @@ def _count_calls(obj, names, calls):
 
 
 def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
-    """Launches of 4 requests, each with one prefill, steps[r] cached decode
-    steps and one traj-latent chunk, and `logits_calls` lm_head calls in
-    all: K1 once per prefill layer and once per windowed ViT block of the
-    new frame; with the realtime profile per layer pass 4 activation
-    quantizations (q/k/v share one, gate/up one, o and down one each), 7
-    W8A8 products and one K/V cache write, plus one of each of the first
-    two per lm_head call; K4 per decode layer, K5 per chunk layer."""
+    """Launches of len(steps) requests, request r with one prefill,
+    steps[r] cached decode steps and one traj-latent chunk, and
+    `logits_calls` lm_head calls in all: K1 once per prefill layer and once
+    per windowed ViT block of the request's new frame; with the realtime
+    profile per layer pass 4 activation quantizations (q/k/v share one,
+    gate/up one, o and down one each), 7 W8A8 products and one K/V cache
+    write, plus one of each of the first two per lm_head call; K4 per
+    decode layer, K5 per chunk layer."""
     L = cfg.text.num_hidden_layers
     windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
     want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7"), 0)
-    want["K1"] = 4 * L + 4 * windowed
+    want["K1"] = len(steps) * (L + windowed)
     if profile == "realtime":
         passes = sum(2 + s for s in steps)  # prefill + decode steps + chunk, per layer
         want.update(K4=L * sum(steps), K5=L * len(steps), K6a=4 * L * passes + logits_calls,
@@ -734,9 +788,57 @@ def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
     return want
 
 
+def long_request_frames(rng):
+    """LONG_FRAMES seeded 644x644 camera frames: uint8 rgb, depth."""
+    import numpy as np
+
+    return [(rng.integers(0, 256, (LONG_HW, LONG_HW, 3)).astype(np.uint8),
+             rng.uniform(0.0, 0.5, (LONG_HW, LONG_HW, 1)).astype(np.float32))
+            for _ in range(LONG_FRAMES)]
+
+
+def _eval_dual(port, policy, rgb, depth) -> float:
+    """One /eval_dual request; its latency, after checking for HTTP 200 and
+    a finite trajectory of the right shape."""
+    import numpy as np
+
+    from internnav_tpu_torch.realworld import serve
+
+    body = {"instruction": INSTRUCTION, "rgb": serve.encode_npy(rgb),
+            "depth": serve.encode_npy(depth)}
+    t = time.perf_counter()
+    code, resp = _post(port, "/eval_dual", body)
+    latency = time.perf_counter() - t
+    traj = np.asarray(resp.get("trajectory", []), np.float64)
+    if code != 200 or traj.shape != (policy.cfg.predict_step_nums, 3) \
+            or not np.isfinite(traj).all():
+        raise AssertionError(f"/eval_dual gave {code} with trajectory shape {traj.shape}")
+    return latency
+
+
+def _check_requests(policy, profile, what, calls, lm_calls, gen_tokens, steps, launches):
+    """The requests' System-2 steps, decode steps and lm_head calls follow
+    their generated lengths, and every kernel's launches equal
+    `expected_serve_launches`."""
+    n = len(steps)
+    if calls["s2_step"] != n or calls["s1_step_latent"] < 1 or lm_calls["decode_chunk"] != n:
+        raise AssertionError(f"{what}: main path calls {calls}, {lm_calls}: want {n} System-2 "
+                             f"({n} chunks) and >= 1 System-1")
+    # the decode loop runs until the stop token has been fed (its K/V is in
+    # the cache) or the budget is spent; every step but the last needs logits
+    if steps != [min(t + 1, MAX_NEW_TOKENS) for t in gen_tokens] \
+            or lm_calls["_logits"] != sum(steps):  # n prefills + sum(steps - 1)
+        raise AssertionError(f"{what}: decode steps {steps} / lm_head calls {lm_calls['_logits']} "
+                             f"do not follow the generated lengths {gen_tokens}")
+    want = expected_serve_launches(policy.cfg, profile, steps, lm_calls["_logits"])
+    if launches != want:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
+
+
 def phase_serve(device, profile: str) -> dict:
     """Serve the 7B policy of `profile` through the real-robot HTTP server;
-    returns every kernel's launches during the 4 requests, held equal to
+    returns every kernel's launches by path: the 4 requests, and with the
+    realtime profile also the long request, each held equal to
     `expected_serve_launches`."""
     import numpy as np
     import torch
@@ -751,13 +853,24 @@ def phase_serve(device, profile: str) -> dict:
     text = policy.cfg.text
     calls = {"s2_step": 0, "s1_step_latent": 0}
     _count_calls(policy, calls, calls)
+    lm = policy.model.language_model
     lm_calls = {"decode_step": 0, "decode_chunk": 0, "_logits": 0}
-    _count_calls(policy.model.language_model, lm_calls, lm_calls)
+    _count_calls(lm, lm_calls, lm_calls)
+    prompt_T = []  # each prefill's bucketed prompt length
+    forward = lm.forward
+
+    def recorded_forward(inputs_embeds, *args, **kwargs):
+        prompt_T.append(inputs_embeds.shape[1])
+        return forward(inputs_embeds, *args, **kwargs)
+
+    lm.forward = recorded_forward
     port = _free_port()
     server = serve.RealWorldServer(agent, "127.0.0.1", port)
     thread = server.run(background=True)
     rng = np.random.default_rng(0)
     latencies, gen_tokens, steps = [], [], []
+    by_path = {}
+    long = {}
     try:
         if _post(port, "/reset", {}) != (200, {"status": "ok"}):
             raise AssertionError("/reset failed")
@@ -765,47 +878,65 @@ def phase_serve(device, profile: str) -> dict:
         lm_calls["_logits"] = 0
         reset_launch_counts()  # count only the requests' launches
         for _ in range(4):
-            rgb, depth = request_frames(rng)
-            body = {"instruction": INSTRUCTION, "rgb": serve.encode_npy(rgb),
-                    "depth": serve.encode_npy(depth)}
             before = lm_calls["decode_step"]
-            t = time.perf_counter()
-            code, resp = _post(port, "/eval_dual", body)
-            latencies.append(time.perf_counter() - t)
-            traj = np.asarray(resp.get("trajectory", []), np.float64)
-            if code != 200 or traj.shape != (policy.cfg.predict_step_nums, 3) \
-                    or not np.isfinite(traj).all():
-                raise AssertionError(f"/eval_dual gave {code} with trajectory shape {traj.shape}")
+            latencies.append(_eval_dual(port, policy, *request_frames(rng)))
             gen_tokens.append(len(policy.last_gen_tokens))
             steps.append(lm_calls["decode_step"] - before)
-        launches = launch_counts()
+        by_path[f"serve_{profile}"] = launch_counts()
+        _check_requests(policy, profile, f"serve {profile}", calls, lm_calls, gen_tokens, steps,
+                        by_path[f"serve_{profile}"])
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+        if profile == "realtime":
+            # the long request: a new episode whose first 8 frames are
+            # stepped directly with a short decode budget (not counted),
+            # then the ninth through the server with the full budget
+            if _post(port, "/reset", {}) != (200, {"status": "ok"}):
+                raise AssertionError("/reset failed")
+            frames = long_request_frames(rng)
+            t = time.perf_counter()
+            for rgb, _ in frames[:-1]:
+                policy.s2_step(rgb, INSTRUCTION, max_new_tokens=WARMUP_NEW_TOKENS)
+            torch.cuda.synchronize()
+            long["warmup_s"] = time.perf_counter() - t
+            for d in (calls, lm_calls):
+                for k in d:
+                    d[k] = 0
+            prompt_T.clear()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            long["request_s"] = _eval_dual(port, policy, *frames[-1])
+            by_path["serve_realtime_long"] = launch_counts()
+            long["generated_tokens"] = len(policy.last_gen_tokens)
+            long["decode_steps"] = lm_calls["decode_step"]
+            long["prompt_T"] = prompt_T
+            long["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+            if prompt_T != [LONG_PROMPT_T]:
+                raise AssertionError(f"the long request prefilled {prompt_T} tokens, expected "
+                                     f"[{LONG_PROMPT_T}]")
+            _check_requests(policy, profile, "the long realtime request", calls, lm_calls,
+                            [long["generated_tokens"]], [long["decode_steps"]],
+                            by_path["serve_realtime_long"])
     finally:
         server.shutdown()
         thread.join(timeout=30)
         agent.close()
-    if calls["s2_step"] != 4 or calls["s1_step_latent"] < 1 or lm_calls["decode_chunk"] != 4:
-        raise AssertionError(f"main path calls {calls}, {lm_calls}: want 4 System-2 (4 chunks) "
-                             "and >= 1 System-1")
-    # the decode loop runs until the stop token has been fed (its K/V is in
-    # the cache) or the budget is spent; every step but the last needs logits
-    if steps != [min(n + 1, MAX_NEW_TOKENS) for n in gen_tokens] \
-            or lm_calls["_logits"] != sum(steps):  # 4 prefills + sum(steps - 1)
-        raise AssertionError(f"decode steps {steps} / lm_head calls {lm_calls['_logits']} do "
-                             f"not follow the generated lengths {gen_tokens}")
-    want = expected_serve_launches(policy.cfg, profile, steps, lm_calls["_logits"])
-    if launches != want:
-        raise AssertionError(f"serve {profile}: kernel launches {launches}, expected {want}")
-    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     L = text.num_hidden_layers
     per_step = {"K4": L, "K6a": 4 * L, "K6b": 7 * L, "K7": L} if profile == "realtime" else {}
     print(f"phase serve: profile={profile} weight_dtype={text.weight_dtype} "
           f"kv_dtype={text.kv_dtype} layers={text.num_hidden_layers} hidden={text.hidden_size} "
           f"build_s={build_s:.2f} resident_gib={build_mem_gib:.2f} "
           f"request_s={[round(x, 4) for x in latencies]} generated_tokens={gen_tokens} "
-          f"decode_steps={steps} calls={calls} launches={launches} "
+          f"decode_steps={steps} launches={by_path[f'serve_{profile}']} "
           f"launches_per_decode_step={per_step} "
           f"peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
-    return launches
+    if long:
+        print(f"phase serve: profile=realtime long_request frames={LONG_FRAMES}x{LONG_HW}px "
+              f"prompt_T={long['prompt_T']} cache_Tmax={LONG_PROMPT_T + MAX_NEW_TOKENS + N_QUERY} "
+              f"http=200 warmup_s={long['warmup_s']:.2f} request_s={long['request_s']:.4f} "
+              f"generated_tokens={long['generated_tokens']} decode_steps={long['decode_steps']} "
+              f"launches={by_path['serve_realtime_long']} peak_mem_gib={long['peak_mem_gib']:.2f} "
+              f"gpu={gpu_line()!r}")
+    return by_path
 
 
 # ----------------------------------------------------------------- train
@@ -955,8 +1086,8 @@ def main() -> int:
     kern = phase_kernels(device, store)
     int8 = phase_int8_kernels(device)
     by_path = {}
-    for path, profile in (("serve", "parity"), ("serve_realtime", "realtime")):
-        by_path[path] = phase_serve(device, profile)
+    for profile in ("parity", "realtime"):
+        by_path.update(phase_serve(device, profile))
         gc.collect()
         torch.cuda.empty_cache()
     by_path["train"] = phase_train(device, store)["launches"]
@@ -1014,10 +1145,11 @@ def main() -> int:
         # K4 and K5 are one kernel (decode_int8.cu), launched once per
         # layer by the decode step (n = 1) and by the latent chunk (n = 4)
         int8_entry("decode_int8", "K4", "cuda", DECODE_SOURCE, K4_REPLACES,
-                   f"Tmax{tmax}_keys{tmax - N_QUERY}_n1"),
+                   decode_shape(tmax, (tmax - N_QUERY - 1,), 1)),
         int8_entry("chunk_decode_int8", "K5", "cuda", DECODE_SOURCE, K5_REPLACES,
-                   f"Tmax{tmax}_keys{tmax}_n{N_QUERY}"),
-        int8_entry("quantize_rows", "K6a", "triton", QUANT_SOURCE, K6A_REPLACES, "M1_K3584"),
+                   decode_shape(tmax, (tmax - N_QUERY,), N_QUERY)),
+        int8_entry("quantize_rows", "K6a", "triton", QUANT_SOURCE, K6A_REPLACES,
+                   "M1_K3584_float32"),
         int8_entry("w8a8_gemm", "K6b", "cuda", GEMM_SOURCE, K6B_REPLACES, "M1_N18944_K3584"),
         int8_entry("kv_write_int8", "K7", "triton", QUANT_SOURCE, K7_REPLACES,
                    f"n1_pos{PROMPT_T + 17}"),

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile and bulk loads, 128-byte-swizzled wgmma descriptors, the wgmma
-// products the flash-attention kernels issue, register reallocation, the
-// live-tile list, the accumulator store, and host-side tensor maps.
+// products the flash-attention kernels (bf16) and the W8A8 GEMM (s8) issue,
+// register reallocation, the live-tile list, the accumulator store, and
+// host-side tensor maps (bf16 tiles; int8 rows of 128-byte lines).
 //
 // Layout convention. A tile is 64 rows of up to 128 bf16 columns, loaded by
 // TMA as two boxes of 64 x 64 elements (box 0: columns 0-63, box 1: 64-127,
@@ -82,6 +83,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// one box of a 2-D tensor map at coordinates (x, y), innermost first
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
       : "memory");
 }
 
@@ -189,6 +200,64 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 
 #undef HOPPER_F32
 #undef HOPPER_F4
+
+// int8 products (the W8A8 GEMM). 8-bit wgmma takes both operands K-major
+// from shared memory. An int8 tile is rows of one 128-byte line (128 k
+// values, `int8_map`), so k-step kk (32 values = 32 bytes) starts at byte
+// 32 kk of the line and the 8-row groups are SBO = 1024 bytes apart: the
+// K-major descriptors of the bf16 tiles, with 32-byte k-steps.
+__device__ __forceinline__ uint64_t desc_kmajor_s8(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 32, 16, 1024);
+}
+
+#define HOPPER_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define HOPPER_R32(o)                                                                     \
+  HOPPER_R4(o + 0), HOPPER_R4(o + 4), HOPPER_R4(o + 8), HOPPER_R4(o + 12), HOPPER_R4(o + 16), \
+      HOPPER_R4(o + 20), HOPPER_R4(o + 24), HOPPER_R4(o + 28)
+
+// d (64 x 128 s32) (+)= A (64 x 32 s8, smem, K-major) * B (32 x 128 s8, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : HOPPER_R32(0), HOPPER_R32(32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 256 s32) (+)= A (64 x 32 s8, smem, K-major) * B (32 x 256 s8, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
+      "%123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : HOPPER_R32(0), HOPPER_R32(32), HOPPER_R32(64), HOPPER_R32(96)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#undef HOPPER_R32
+#undef HOPPER_R4
 
 // --------------------------------------------------- register reallocation
 // Every warp of a warpgroup executes these together. A producer warpgroup
@@ -353,6 +422,25 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int slices, int 
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a row-major int8 (rows, cols) matrix as the 2-D (cols,
+// rows) with boxes of 128 columns (one 128-byte line) x `box_rows` rows and
+// 128-byte swizzle; cols * 1 byte must be a multiple of 16. A box that runs
+// past the last row or column is zero-filled.
+inline cudaError_t int8_map(CUtensorMap* map, const void* base, int rows, int cols,
+                            int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

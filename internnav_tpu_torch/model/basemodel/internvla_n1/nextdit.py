@@ -4,7 +4,10 @@ Port of internnav_tpu/model/basemodel/internvla_n1/nextdit.py: 12 layers
 of dim 384, RMSNorm with AdaLN-zero gates from a timestep + caption
 embedding, self-attention plus tanh-gated cross-attention onto the
 projected VLM latents, SwiGLU feed-forward, continuous LayerNorm output.
-Compute runs in `cfg.dtype`; softmax and norm statistics in fp32.
+The linear layers run in `cfg.dtype` (each casts its input once); softmax
+and norm statistics run in fp32, and the RMSNorm scales are fp32 with fp32
+products, as the JAX package's parameters are, so the residual stream is
+fp32 from the first gated sum on, as it is there.
 """
 
 from __future__ import annotations
@@ -79,6 +82,8 @@ class GQAAttention(nn.Module):
 
     def forward(self, x, kv):
         H = self.heads
+        dt = self.to_q.weight.dtype
+        x, kv = x.to(dt), kv.to(dt)
         B, T, E = x.shape
         S = kv.shape[1]
         D = E // H
@@ -102,6 +107,7 @@ class LuminaFeedForward(nn.Module):
         self.linear_2 = nn.Linear(inner, dim, bias=False, dtype=dtype)
 
     def forward(self, x):
+        x = x.to(self.linear_1.weight.dtype)
         return self.linear_2(F.silu(self.linear_1(x)) * self.linear_3(x))
 
 
@@ -111,16 +117,16 @@ class NextDiTBlock(nn.Module):
         c, dt = cfg, cfg.dtype
         self.cfg = cfg
         self.norm1_linear = nn.Linear(c.dim, 4 * c.dim, dtype=dt)
-        self.norm1_rms = RMSNorm(c.dim, c.norm_eps, dt)
+        self.norm1_rms = RMSNorm(c.dim, c.norm_eps)
         self.attn1 = GQAAttention(c.dim, c.n_heads, dt)
-        self.norm1_context = RMSNorm(c.dim, c.norm_eps, dt)
+        self.norm1_context = RMSNorm(c.dim, c.norm_eps)
         self.attn2 = GQAAttention(c.dim, c.n_heads, dt)
         self.gate = nn.Parameter(torch.zeros(c.n_heads, dtype=dt))
         self.to_out = nn.Linear(c.dim, c.dim, bias=False, dtype=dt)
-        self.norm2 = RMSNorm(c.dim, c.norm_eps, dt)
+        self.norm2 = RMSNorm(c.dim, c.norm_eps)
         self.feed_forward = LuminaFeedForward(c.dim, c.multiple_of, dt)
-        self.ffn_norm1 = RMSNorm(c.dim, c.norm_eps, dt)
-        self.ffn_norm2 = RMSNorm(c.dim, c.norm_eps, dt)
+        self.ffn_norm1 = RMSNorm(c.dim, c.norm_eps)
+        self.ffn_norm2 = RMSNorm(c.dim, c.norm_eps)
 
     def forward(self, x, cond, temb, num_samples: int = 1):
         """x (B*num_samples, T, dim); cond/temb at batch B (sample
@@ -175,4 +181,4 @@ class NextDiT(nn.Module):
         scale = self.norm_out_linear(F.silu(temb))
         if num_samples > 1:
             scale = scale.repeat_interleave(num_samples, dim=0)
-        return self.norm_out_linear2(self.norm_out_ln(x) * (1 + scale[:, None]))
+        return self.norm_out_linear2((self.norm_out_ln(x) * (1 + scale[:, None])).to(dt))

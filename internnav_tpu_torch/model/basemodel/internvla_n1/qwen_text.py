@@ -43,9 +43,11 @@ from internnav_tpu_torch.ops.flash_attention import (
     segment_tile_tables,
 )
 from internnav_tpu_torch.ops.quant import (
+    cache_write_slots,
     div127,
     grouped_scales,
     quantize_activations,
+    store_cache_rows_,
     w8a8_linear,
     write_kv_cache,
 )
@@ -107,10 +109,16 @@ class QwenTextConfig:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32):
+    """The JAX package's RMSNorm: an fp32 scale, and the product of the
+    normalised input (rounded to the input's dtype) and that scale in fp32.
+    A bf16 consumer casts the product once to its dtype (`project`), as a
+    flax Dense does with an fp32 input; the W8A8 projections quantize the
+    fp32 rows."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32))
 
     def forward(self, x):
         var = x.float().square().mean(-1, keepdim=True)
@@ -191,11 +199,13 @@ class QuantLinear(nn.Module):
 
 
 def project(x: torch.Tensor, *mods: nn.Module) -> List[torch.Tensor]:
-    """Each projection of one input. With `QuantLinear`s the input is
-    quantized once and shared (q/k/v, gate/up): the quantization is a
-    function of the input alone, so this equals the JAX package's
-    quantization inside every projection."""
+    """Each projection of one input. An nn.Linear takes the input cast to
+    its dtype (once, for all of them). With `QuantLinear`s the input, bf16
+    or fp32, is quantized once and shared (q/k/v, gate/up): the
+    quantization is a function of the input alone, so this equals the JAX
+    package's quantization inside every projection."""
     if not isinstance(mods[0], QuantLinear):
+        x = x.to(mods[0].weight.dtype)
         return [m(x) for m in mods]
     lead = x.shape[:-1]
     xq, a_scale = quantize_activations(x.reshape(-1, x.shape[-1]).contiguous())
@@ -253,10 +263,9 @@ class QwenAttention(nn.Module):
                 write_kv_cache(k.transpose(1, 2).contiguous(), v.contiguous(), k_cache, v_cache,
                                cache_len)
             else:
-                rows = torch.arange(B, device=x.device)[:, None]
-                cols = cache_len.reshape(B, 1) + torch.arange(n, device=x.device)[None]
-                k_cache[rows, cols] = k.transpose(1, 2).to(k_cache.dtype)
-                v_cache[rows, cols] = v.to(v_cache.dtype)
+                cols, keep = cache_write_slots(cache_len, n, k_cache.shape[1])
+                store_cache_rows_(k_cache, k.transpose(1, 2), cols, keep)
+                store_cache_rows_(v_cache, v, cols, keep)
             (kd, ks), (vd, vs) = _cache_kvtd(k_cache), _cache_kvtd(v_cache)
             if n == 1:
                 out = gqa_decode_attention(q[:, :, 0], kd, vd, cache_len + 1,
@@ -308,9 +317,9 @@ class QwenMLP(nn.Module):
 class QwenDecoderLayer(nn.Module):
     def __init__(self, cfg: QwenTextConfig):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.self_attn = QwenAttention(cfg)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = QwenMLP(cfg)
 
     def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None, kv_cache=None,
@@ -331,7 +340,7 @@ class QwenTextModel(nn.Module):
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
         self.layers = nn.ModuleList(QwenDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size, False)
 
     def embed(self, input_ids):
@@ -345,8 +354,8 @@ class QwenTextModel(nn.Module):
     def forward(self, inputs_embeds, position_ids, *, segment_ids=None, logits_indices=None,
                 compute_logits: bool = True):
         """Prefill. inputs_embeds (B, T, E); position_ids (3, B, T).
-        Returns (logits, hidden, caches), caches per layer (k, v) of
-        (B, T, KV, D); logits_indices (B,) computes the logits only at those
+        Returns (logits, hidden, caches): hidden (B, T, E) is the final
+        norm's fp32 product, caches per layer (k, v) of (B, T, KV, D); logits_indices (B,) computes the logits only at those
         positions ((B, 1, vocab)); compute_logits=False returns logits None
         (training with `chunked_ce` never builds the (B, T, vocab) logits).
         With cfg.remat and grad enabled each layer runs under checkpoint and
@@ -376,7 +385,7 @@ class QwenTextModel(nn.Module):
         return logits, hidden, caches
 
     def _logits(self, hidden):
-        return self.lm_head(hidden).float()
+        return project(hidden, self.lm_head)[0].float()
 
     def chunked_ce(self, hidden, labels, *, ignore_index: int, chunk: int = 1024):
         """Mean next-token cross-entropy over the full vocab without the
@@ -415,7 +424,7 @@ class QwenTextModel(nn.Module):
                     compute_logits: bool = True):
         """One cached decode step: token_embeds (B, 1, E); cache_len (B,) is
         where the new token goes. Returns (logits (B, vocab) or None,
-        hidden (B, E), caches) — the caches are updated in place."""
+        hidden (B, E) fp32, caches) — the caches are updated in place."""
         hidden = self._decode(token_embeds, position_ids, caches, cache_len)
         logits = self._logits(hidden)[:, 0] if compute_logits else None
         return logits, hidden[:, 0], caches
@@ -423,7 +432,7 @@ class QwenTextModel(nn.Module):
     def decode_chunk(self, token_embeds, position_ids, caches, cache_len):
         """Cached decode of n tokens with no sequential data dependence (the
         traj-latent queries): equal to n `decode_step` calls, one weight
-        pass. Returns (hidden (B, n, E), caches)."""
+        pass. Returns (hidden (B, n, E) fp32, caches)."""
         return self._decode(token_embeds, position_ids, caches, cache_len), caches
 
 

@@ -122,10 +122,10 @@ class VisionBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         E, I, dt = cfg.hidden_size, cfg.intermediate_size, cfg.dtype
-        self.norm1 = RMSNorm(E, 1e-6, dt)
+        self.norm1 = RMSNorm(E, 1e-6)
         self.qkv = nn.Linear(E, 3 * E, dtype=dt)
         self.proj = nn.Linear(E, E, dtype=dt)
-        self.norm2 = RMSNorm(E, 1e-6, dt)
+        self.norm2 = RMSNorm(E, 1e-6)
         self.gate_proj = nn.Linear(E, I, dtype=dt)
         self.up_proj = nn.Linear(E, I, dtype=dt)
         self.down_proj = nn.Linear(I, E, dtype=dt)
@@ -138,7 +138,8 @@ class VisionBlock(nn.Module):
         c = self.cfg
         H = c.num_heads
         D = c.hidden_size // H
-        q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
+        # the norms' fp32 products enter the bf16 Dense layers cast once
+        q, k, v = self.qkv(self.norm1(x).to(c.dtype)).chunk(3, dim=-1)
 
         def rope(t):  # fp32, as in the JAX tower
             t = t.reshape(-1, H, D).float()
@@ -164,7 +165,7 @@ class VisionBlock(nn.Module):
                                    tile_tables=tile_tables)
             out = attn[0].transpose(0, 1).reshape(-1, c.hidden_size)
         x = x + self.proj(out)
-        y = self.norm2(x)
+        y = self.norm2(x).to(c.dtype)
         return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
 
 
@@ -180,7 +181,7 @@ class QwenVisionTower(nn.Module):
         patch_dim = cfg.in_channels * cfg.temporal_patch_size * cfg.patch_size ** 2
         self.patch_embed = nn.Linear(patch_dim, E, bias=False, dtype=dt)
         self.blocks = nn.ModuleList(VisionBlock(cfg) for _ in range(cfg.depth))
-        self.merger_ln_q = RMSNorm(E, 1e-6, dt)
+        self.merger_ln_q = RMSNorm(E, 1e-6)
         self.merger_fc1 = nn.Linear(unit * E, unit * E, dtype=dt)
         self.merger_fc2 = nn.Linear(unit * E, cfg.out_hidden_size, dtype=dt)
 
@@ -202,7 +203,7 @@ class QwenVisionTower(nn.Module):
             full = i in c.fullatt_block_indexes
             x = blk(x, cos, sin, full_segments if full else window_segments,
                     block=full_block if full else window_block, tile_tables=tables[full])
-        x = self.merger_ln_q(x).reshape(S // unit, unit * c.hidden_size)
+        x = self.merger_ln_q(x).to(c.dtype).reshape(S // unit, unit * c.hidden_size)
         x = F.gelu(self.merger_fc1(x), approximate="tanh")  # flax nn.gelu default
         x = self.merger_fc2(x)
         return x[reverse_index.long()]

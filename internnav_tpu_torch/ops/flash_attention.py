@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -531,36 +531,43 @@ def _decode_int8_entry():
     from internnav_tpu_torch.ops._build import load_library
 
     fn = load_library("decode_int8.cu").decode_int8_attention
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-#: keys per block of K4/K5, the most query rows (G * n) a block holds, and
-#: the longest cache it combines (128 chunks)
-DECODE_CHUNK = 32
-DECODE_MAX_ROWS = 32
-DECODE_MAX_KEYS = 4096
-#: per device: K4/K5's zeroed per-(batch, KV head) completion counts (the
-#: last block of each resets its count, so one buffer serves every launch)
-_decode_counters: dict = {}
+#: K4/K5: a (batch, KV head) is one thread-block cluster of a block per 64
+#: cached keys, at most 16 blocks (the non-portable cluster size)
+DECODE_KEYS_PER_BLOCK = 64
+DECODE_MAX_CLUSTER = 16
+
+
+def decode_cluster_size(Tmax: int) -> int:
+    """K4/K5's blocks per (batch, KV head): one per 64 keys of the cache,
+    at most DECODE_MAX_CLUSTER."""
+    return max(1, min(DECODE_MAX_CLUSTER, -(-int(Tmax) // DECODE_KEYS_PER_BLOCK)))
+
+
+def decode_live_keys(lengths: Sequence[int], len_offset: int, n: int, Tmax: int) -> List[int]:
+    """Per batch row, the keys the last query row sees: min(Tmax, length +
+    len_offset + n - 1), the work K4/K5 must do for that row."""
+    return [max(0, min(Tmax, int(x) + len_offset + n - 1)) for x in lengths]
 
 
 def _decode_int8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths, len_offset, sm_scale):
     """Launch K4/K5: q (B, H, n, D) bf16; caches (B, KV, Tmax, D) int8 and
     scales (B, KV, Tmax) fp32, any strides with D contiguous (the model
     passes transposed views of its (B, Tmax, KV, D) cache); query row i sees
-    keys t < lengths[b] + len_offset + i. Returns bf16 (B, H, n, D)."""
+    keys t < lengths[b] + len_offset + i. Returns bf16 (B, H, n, D), the
+    only tensor it allocates."""
     B, H, n, D = q.shape
     KV, Tmax = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
     if q.dtype != torch.bfloat16 or not q.is_cuda:
         raise ValueError(f"int8 decode kernel takes bfloat16 CUDA queries, got {q.dtype} on {dev}")
-    if D != 128 or H % KV or (H // KV) * n > DECODE_MAX_ROWS or Tmax > DECODE_MAX_KEYS:
-        raise ValueError(f"int8 decode kernel: D={D} (needs 128), H={H}, KV={KV}, n={n} "
-                         f"(needs H/KV*n <= {DECODE_MAX_ROWS}), Tmax={Tmax} "
-                         f"(needs <= {DECODE_MAX_KEYS})")
+    if D != 128 or H % KV:
+        raise ValueError(f"int8 decode kernel: D={D} (needs 128), H={H} not a multiple of KV={KV}")
     for name, t, dtype, shape in (("k_cache", k_cache, torch.int8, (B, KV, Tmax, D)),
                                   ("v_cache", v_cache, torch.int8, (B, KV, Tmax, D)),
                                   ("k_scale", k_scale, torch.float32, (B, KV, Tmax)),
@@ -578,12 +585,6 @@ def _decode_int8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths, len_offset
     if q.data_ptr() % 16:
         raise ValueError("int8 decode kernel: q is not 16-byte aligned")
     lengths = lengths.to(torch.int64).contiguous()
-    chunks = -(-Tmax // DECODE_CHUNK)
-    o_part = torch.empty((B * KV, chunks, DECODE_MAX_ROWS, D), dtype=torch.float32, device=dev)
-    ml = torch.empty((B * KV, chunks, DECODE_MAX_ROWS, 2), dtype=torch.float32, device=dev)
-    counters = _decode_counters.get(dev)
-    if counters is None or counters.numel() < B * KV:
-        counters = _decode_counters[dev] = torch.zeros(B * KV, dtype=torch.int32, device=dev)
     out = torch.empty_like(q)
     strides = [*k_cache.stride()[:3], *v_cache.stride()[:3], *k_scale.stride(),
                *v_scale.stride()]
@@ -591,9 +592,8 @@ def _decode_int8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths, len_offset
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _decode_int8_entry()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), lengths.data_ptr(), o_part.data_ptr(), ml.data_ptr(),
-            counters.data_ptr(), out.data_ptr(), *strides, B, H, KV, n, Tmax, chunks,
-            len_offset, float(sm_scale), stream)
+            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), *strides, B, H, KV, n, Tmax,
+            decode_cluster_size(Tmax), len_offset, float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(f"int8 decode attention kernel launch failed: cudaError_t {err}")
     return out

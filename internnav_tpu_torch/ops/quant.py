@@ -12,7 +12,8 @@ Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
   `_write_cache` / `_write_cache_chunk` (`:556-583`): `write_kv_cache_reference`;
   kernel K7 (Triton, `_write_kv_kernel`), which quantizes K and V and stores
   them into the (B, Tmax, KV, D) int8 cache and its (B, Tmax, KV, 1) fp32
-  scales in place.
+  scales in place. Where a write lands, past Tmax too, is the JAX rule
+  (`cache_write_slots`), which the bf16 cache write shares.
 
 The dispatchers (`quantize_activations`, `w8a8_linear`, `write_kv_cache`)
 send a CPU tensor to the plain version and a CUDA tensor to the kernel, or
@@ -42,6 +43,9 @@ kv_write_launches = 0
 
 #: K6b takes K in 64-wide chunks; a grouped scale covers whole chunks
 GEMM_K_CHUNK = 64
+#: K6b's decode tiles serve M <= 16; above, its prefill tiles (128 output
+#: rows by 256 columns where N > 1024, else 128; chosen in w8a8_gemm.cu)
+GEMM_DECODE_MAX_M = 16
 
 KVEntry = Tuple[torch.Tensor, torch.Tensor]  # (int8 data (B, T, KV, D), fp32 scale (B, T, KV, 1))
 
@@ -108,23 +112,57 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
 
 
+def cache_write_slots(cache_len: torch.Tensor, n: int, Tmax: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where an n-token cache write at positions cache_len (B,) lands, by the
+    JAX package's rule (qwen_text.py `_write_cache_chunk` / `_write_cache`):
+    a chunk (n > 1), and the single token of a one-row batch, start at
+    min(cache_len, Tmax - n) (`dynamic_update_slice` clamps its start); the
+    single token of a row of a larger batch at or past Tmax is dropped
+    (`.at[].set`). Returns (cols (B, n) int64: the slots written, keep
+    (B, 1) bool: False for a dropped row, whose slot Tmax - 1 keeps its old
+    value)."""
+    B = cache_len.shape[0]
+    if n > Tmax:
+        raise ValueError(f"a write of {n} tokens does not fit a cache of {Tmax}")
+    pos = cache_len.reshape(B, 1).long()
+    if n == 1 and B > 1:
+        keep = pos < Tmax
+        start = pos.clamp(max=Tmax - 1)
+    else:
+        keep = torch.ones_like(pos, dtype=torch.bool)
+        start = pos.clamp(min=0, max=Tmax - n)
+    return start + torch.arange(n, device=pos.device), keep
+
+
+def store_cache_rows_(cache: torch.Tensor, new: torch.Tensor, cols: torch.Tensor,
+                      keep: torch.Tensor) -> None:
+    """cache (B, Tmax, ...)[b, cols[b]] = new (B, n, ...) in place, for the
+    rows `keep` marks (`cache_write_slots`); no host synchronisation."""
+    B, n = cols.shape
+    rows = torch.arange(B, device=cache.device)[:, None]
+    new = new.to(cache.dtype)
+    if n == 1 and B > 1:  # the only rule that drops rows
+        keep = keep.reshape(B, 1, *(1,) * (new.dim() - 2))
+        new = torch.where(keep, new, cache[rows, cols])
+    cache[rows, cols] = new
+
+
 def write_kv_cache_reference(k: torch.Tensor, v: torch.Tensor, k_entry: KVEntry,
                              v_entry: KVEntry, cache_len: torch.Tensor) -> None:
     """Quantize k/v (B, n, KV, D) and write them into the int8 cache entries
-    at positions cache_len[b] + i, in place."""
-    B, n = k.shape[:2]
-    rows = torch.arange(B, device=k.device)[:, None]
-    cols = cache_len.reshape(B, 1).long() + torch.arange(n, device=k.device)[None]
+    at positions cache_len[b] + i, in place, placed by `cache_write_slots`."""
+    cols, keep = cache_write_slots(cache_len, k.shape[1], k_entry[0].shape[1])
     for new, (data, scale) in ((k, k_entry), (v, v_entry)):
         q, s = quantize_kv(new)
-        data[rows, cols] = q
-        scale[rows, cols] = s
+        store_cache_rows_(data, q, cols, keep)
+        store_cache_rows_(scale, s, cols, keep)
 
 
 # ------------------------------------------------------------ dispatchers
 def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """`quantize_rows` of a (M, K) tensor: the plain version on the CPU,
-    K6a on CUDA (bf16 only)."""
+    K6a on CUDA (bf16 or fp32)."""
     if x.is_cuda:
         return quantize_rows_cuda(x)
     _require_cpu(x, "quantize_activations")
@@ -163,8 +201,9 @@ def _require_cpu(t, name):
 def _quantize_rows_kernel():
     """K6a, replacing the XLA activation quantization of `QuantDense`
     (qwen_text.py:173-176). One program per row: a pass for amax, a pass
-    that writes the int8 codes. Bound by bytes (2 read + 1 written per
-    element); the row stays in L1/L2 between the passes."""
+    that writes the int8 codes. Bound by bytes (the input read twice, bf16
+    or fp32, and one byte written per element); the row stays in L1/L2
+    between the passes."""
     import triton
     import triton.language as tl
     import triton.language.extra.libdevice as tld
@@ -189,12 +228,14 @@ def _quantize_rows_kernel():
 
 
 def quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6a on a contiguous bf16 (M, K) CUDA tensor: returns (int8
-    (M, K), fp32 (M, 1))."""
+    """Launch K6a on a contiguous bf16 or fp32 (M, K) CUDA tensor (the
+    RMSNorm products are fp32, other inputs bf16): returns (int8 (M, K),
+    fp32 (M, 1))."""
     global quantize_rows_launches
-    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("activation quantization kernel takes a contiguous bfloat16 (M, K) "
-                         f"CUDA tensor, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not x.is_cuda or x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2 \
+            or not x.is_contiguous():
+        raise ValueError("activation quantization kernel takes a contiguous bfloat16 or float32 "
+                         f"(M, K) CUDA tensor, got {x.dtype} {tuple(x.shape)} on {x.device}")
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
@@ -270,33 +311,42 @@ def _write_kv_kernel():
     """K7, replacing `quantize_kv` + `_write_cache` / `_write_cache_chunk`
     (qwen_text.py:527-583) for int8 entries. One program per (token, KV
     head, K or V): amax over D, the int8 codes and the scale stored at
-    position cache_len + i of the cache. Bound by bytes."""
+    slot cache_len + i of the cache, placed by `cache_write_slots`' rule on
+    the device (DROP: a single token of a multi-row batch, dropped at or
+    past Tmax; otherwise the start clamped to Tmax - n). Bound by bytes."""
     import triton
     import triton.language as tl
     import triton.language.extra.libdevice as tld
 
     @triton.jit
-    def quantize_store(src_ptr, data_ptr, scale_ptr, src_off, dst_row, offs, D: tl.constexpr):
+    def quantize_store(src_ptr, data_ptr, scale_ptr, src_off, dst_row, offs, keep,
+                       D: tl.constexpr):
         x = tl.load(src_ptr + src_off + offs).to(tl.float32)
         s = tl.maximum(tld.div_rn(tl.max(tl.abs(x), axis=0), 127.0), 1e-8)
         q = tl.minimum(tl.maximum(tld.rint(tld.div_rn(x, s)), -127.0), 127.0)
-        tl.store(data_ptr + dst_row * D + offs, q.to(tl.int8))
-        tl.store(scale_ptr + dst_row, s)
+        tl.store(data_ptr + dst_row * D + offs, q.to(tl.int8), mask=keep)
+        tl.store(scale_ptr + dst_row, s, mask=keep)
 
     @triton.jit
     def write_kv_kernel(k_ptr, v_ptr, kd_ptr, ks_ptr, vd_ptr, vs_ptr, pos_ptr, n, KV, Tmax,
-                        D: tl.constexpr):
+                        D: tl.constexpr, DROP: tl.constexpr):
         tok = tl.program_id(0)  # b * n + i
         h = tl.program_id(1)
         b = tok // n
-        p = tl.load(pos_ptr + b).to(tl.int64) + tok % n
+        pos = tl.load(pos_ptr + b).to(tl.int64)
+        if DROP:
+            keep = pos < Tmax
+            p = tl.minimum(pos, Tmax - 1)
+        else:
+            keep = pos == pos
+            p = tl.minimum(tl.maximum(pos, 0), Tmax - n) + tok % n
         offs = tl.arange(0, D)
         src_off = (tok.to(tl.int64) * KV + h) * D
         dst_row = (b.to(tl.int64) * Tmax + p) * KV + h
         if tl.program_id(2) == 0:
-            quantize_store(k_ptr, kd_ptr, ks_ptr, src_off, dst_row, offs, D)
+            quantize_store(k_ptr, kd_ptr, ks_ptr, src_off, dst_row, offs, keep, D)
         else:
-            quantize_store(v_ptr, vd_ptr, vs_ptr, src_off, dst_row, offs, D)
+            quantize_store(v_ptr, vd_ptr, vs_ptr, src_off, dst_row, offs, keep, D)
 
     return write_kv_kernel
 
@@ -305,7 +355,8 @@ def write_kv_cache_cuda(k, v, k_entry: KVEntry, v_entry: KVEntry, cache_len) -> 
     """Launch K7: k/v contiguous bf16 (B, n, KV, D) with D a power of two;
     entries contiguous int8 (B, Tmax, KV, D) and fp32 (B, Tmax, KV, 1);
     cache_len (B,) int32/int64 on the same device. One launch writes K and
-    V. The caller keeps cache_len + n <= Tmax (not checked on the device)."""
+    V, at the slots of `cache_write_slots` (the rule applied on the device,
+    with no host synchronisation)."""
     global kv_write_launches
     B, n, KV, D = k.shape
     dev = k.device
@@ -317,6 +368,8 @@ def write_kv_cache_cuda(k, v, k_entry: KVEntry, v_entry: KVEntry, cache_len) -> 
     if D & (D - 1):
         raise ValueError(f"KV write kernel: head dim {D} is not a power of two")
     Tmax = k_entry[0].shape[1]
+    if n > Tmax:
+        raise ValueError(f"KV write kernel: a write of {n} tokens does not fit a cache of {Tmax}")
     for name, (data, scale) in (("k", k_entry), ("v", v_entry)):
         if data.dtype != torch.int8 or tuple(data.shape) != (B, Tmax, KV, D) \
                 or scale.dtype != torch.float32 or tuple(scale.shape) != (B, Tmax, KV, 1) \
@@ -331,5 +384,5 @@ def write_kv_cache_cuda(k, v, k_entry: KVEntry, v_entry: KVEntry, cache_len) -> 
         with torch.cuda.device(dev):
             _write_kv_kernel()[(B * n, KV, 2)](
                 k, v, k_entry[0], k_entry[1], v_entry[0], v_entry[1], cache_len.contiguous(),
-                n, KV, Tmax, D=D, num_warps=1)
+                n, KV, Tmax, D=D, DROP=n == 1 and B > 1, num_warps=1)
     kv_write_launches += 1

@@ -382,12 +382,16 @@ def _int8_weight(device, N, K, seed, group=None):
     return w, s
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,K", [(1, 64), (3, 200), (1, 3584), (4, 3584), (1, 18944),
                                  (329, 3584), (1100, 18944)])
-def test_quantize_rows_kernel_is_bitwise(device, M, K):
+def test_quantize_rows_kernel_is_bitwise(device, M, K, dtype):
+    """bf16 rows (attention output, SwiGLU product) and fp32 rows (the
+    RMSNorm products)."""
     from internnav_tpu_torch.ops import quant
 
-    x = _rand(device, M, K, seed=M) * 3.0
+    x = (_rand(device, M, K, seed=M).float() * 3.0
+         + torch.randn((M, K), device=device) * 1e-3).to(dtype)
     x[0, : K // 2] = 0.0
     before = quant.quantize_rows_launches
     q, s = quant.quantize_activations(x)
@@ -427,6 +431,26 @@ def test_w8a8_gemm_grouped(device, M, N, K, bias):
     torch.testing.assert_close(y.float(), want.float(), atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("M", [17, 129, 1088, 1100])
+@pytest.mark.parametrize("N,K,bias", [(64, 128, True), (1024, 256, False), (1088, 256, True),
+                                      *W8A8_7B])
+def test_w8a8_gemm_prefill_tiles_are_bitwise(device, M, N, K, bias):
+    """The wgmma prefill tiles (M > 16) at both tile widths, which the
+    kernel picks from N (128 up to N = 1024, 256 above): exact int32 sums
+    and the plain version's epilogue, so equal bit for bit, also where M is
+    not a multiple of the 128-row tile or N of its width. The output starts
+    uninitialised, so a tile the grid missed would show."""
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=11))
+    w, s = _int8_weight(device, N, K, seed=N + K + 1)
+    b = torch.randn(N, device=device) if bias else None
+    y = quant.w8a8_linear_cuda(xq, a, w, s, b)
+    want = quant.w8a8_linear_reference(xq, a, w, s, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
 def test_w8a8_gemm_lm_head_at_decode(device):
     from internnav_tpu_torch.ops import quant
 
@@ -461,14 +485,24 @@ def _int8_kv_cache(device, B, Tmax, KV, D, seed):
     return data, scale
 
 
-@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("n", [1, 4, 8])
 @pytest.mark.parametrize("B,H,KV,Tmax,lens", [(1, 28, 4, 1260, (1100,)),
                                               (2, 28, 4, 460, (5, 329)),
                                               (2, 8, 2, 100, (31, 64)),
-                                              (1, 28, 4, 33, (0,))])
+                                              (1, 28, 4, 33, (0,)),
+                                              # 16 blocks a head over 16 / 17 live
+                                              # keys (n = 1): one key a block or two
+                                              (2, 28, 4, 1220, (15, 16)),
+                                              (1, 28, 4, 4893, (4761,)),
+                                              (1, 28, 4, 8192, (8000,)),
+                                              (3, 28, 4, 1220, (1088, 17, 700))])
 def test_int8_decode_kernel_matches_plain(device, n, B, H, KV, Tmax, lens):
-    """K4 (n = 1) and K5 (n = 4) on strided views of (B, Tmax, KV, D)
-    caches, cache lengths differing per row."""
+    """K4 (n = 1) and K5 (n = 4, and n = 8: 56 query rows a KV head, two
+    row tiles) on strided views of (B, Tmax, KV, D) caches, cache lengths
+    differing per row, past 4,096 keys (one cluster of 16 blocks a head),
+    and live ranges shorter than the cluster or just longer (blocks with no
+    key, or one): a key missed or walked twice by the cluster's split moves
+    the short rows' outputs past the tolerance."""
     D = 128
     kd, ks = _int8_kv_cache(device, B, Tmax, KV, D, seed=1)
     vd, vs = _int8_kv_cache(device, B, Tmax, KV, D, seed=2)
@@ -492,13 +526,17 @@ def test_int8_decode_kernel_matches_plain(device, n, B, H, KV, Tmax, lens):
                                              **{k: t.cpu() for k, t in scales.items()})
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float().cpu(), want.float(), atol=O_TOL, rtol=O_TOL)
-    # twice in a row: the chunks' completion counts were reset
+    # twice in a row: the same bits (no state is left between launches)
     again = (fa.gqa_decode_attention(q, *views, cache_len + 1, **scales) if n == 1 else
              fa.gqa_chunk_decode_attention(q, *views, cache_len, **scales))
     assert torch.equal(again, out)
 
 
-@pytest.mark.parametrize("n,pos", [(1, (0,)), (1, (17, 450)), (4, (3, 100)), (329, (0, 0))])
+@pytest.mark.parametrize("n,pos", [(1, (0,)), (1, (17, 450)), (4, (3, 100)), (329, (0, 0)),
+                                   # past Tmax = 460: a one-row token and a chunk clamp
+                                   # their start, a token of a batch of rows is dropped
+                                   (1, (470,)), (1, (455, 460, 471)), (4, (458, 3)),
+                                   (4, (900,))])
 def test_kv_write_kernel_is_bitwise(device, n, pos):
     from internnav_tpu_torch.ops import quant
 
