@@ -21,13 +21,17 @@ Phases, each printing its numbers:
                row (no segment ids, where no tile can be skipped: the rate)
                checked and timed beside SDPA with is_causal; then the int8
                kernels of the realtime profile at the 7B shapes: K6a
-               (activation quantization of bf16 and fp32 rows, Triton), K6b
-               (W8A8 GEMM at M = 1, 4, the 4th request's and the long
-               request's prompt; the prefill tiles at both widths beside
-               torch._int_mm), K4/K5 (int8 decode attention at the serving
-               caches, past 4,096 keys, a ragged batch of 3 and 8 queries
-               a head) and K7 (KV quantization + cache write, Triton, also
-               past the cache's end);
+               (activation quantization fused into the op before it: the
+               RMSNorm with and without the residual add, the SwiGLU
+               product, and bf16 / fp32 rows as they are; the differing
+               RMSNorm codes counted), K6b (W8A8 GEMM at M = 1, 4, the 4th
+               request's and the long request's prompt; the prefill tiles
+               at both widths beside torch._int_mm), K4/K5 (int8 decode
+               attention at the serving caches, past 4,096 keys, a ragged
+               batch of 3 and 8 queries a head) and K7 (rotary + KV
+               quantization + cache write for a token, the latent chunk, a
+               ragged batch of 3 with a dropped row and past the cache's
+               end; the prompt's write without rotary);
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy in the
                `parity` profile (bf16, random weights from a seeded
                generator), serve it through the real-robot HTTP server and
@@ -35,10 +39,11 @@ Phases, each printing its numbers:
                during the requests, and no int8 kernel;
   4. serve realtime — the same with `serve.build_policy("realtime")` (W8A8
                projections, int8 KV cache; the bf16 draws quantized on the
-               card): the launches of K1, K4, K5, K6a, K6b and K7 must equal
-               the counts computed from the layers and each request's
-               decode steps; then, after /reset and 8 uncounted 644x644
-               frames with a short decode budget, the long request (the
+               card): the launches of K1, K4, K5, K6a (and of each of its
+               prologues), K6b and K7 must equal the counts computed from
+               the layers and each request's decode steps; then, after
+               /reset and 8 uncounted 644x644 frames with a short decode
+               budget, the long request (the
                ninth frame: a 4,864-token prompt, a 4,996-key cache), its
                launches counted on their own;
   5. train   — with the serving policies freed: the full-width 7B
@@ -72,7 +77,8 @@ BWD_SOURCE = "internnav_tpu_torch/csrc/flash_bwd.cu"
 K1_REPLACES = "internnav_tpu/ops/flash_attention.py:79"
 K2_REPLACES = "internnav_tpu/ops/flash_attention.py:260"
 K3_REPLACES = "internnav_tpu/ops/flash_attention.py:314"
-QUANT_SOURCE = "internnav_tpu_torch/ops/quant.py"
+K6A_SOURCE = "internnav_tpu_torch/csrc/quantize_rows.cu"
+K7_SOURCE = "internnav_tpu_torch/csrc/rope_kv_write.cu"
 GEMM_SOURCE = "internnav_tpu_torch/csrc/w8a8_gemm.cu"
 DECODE_SOURCE = "internnav_tpu_torch/csrc/decode_int8.cu"
 QWEN_TEXT = "internnav_tpu/model/basemodel/internvla_n1/qwen_text.py"
@@ -88,10 +94,13 @@ LSE_ATOL = 1e-3            # lse: fp32 statistics from the same bf16 inputs
 # (at least 1e-2) plus rtol 2%
 BWD_ATOL_FRAC = 1e-2
 BWD_RTOL = 2e-2
-# K6a and K7 are bitwise (the plain versions' IEEE divisions and round half
-# to even); K6b per-channel bitwise too (exact int32 sums, the same fp32
-# epilogue in the same order), grouped at 1e-2 (the sum over groups in
-# another order); K4/K5 at 2e-2, as K1
+# K6a's SWIGLU and PLAIN prologues and K7 are bitwise (the plain versions'
+# expf / rsqrtf, IEEE divisions, bf16 roundings and round half to even);
+# K6a's RMSNORM codes within +-1 and scales within 2^-7 (its sum of squares
+# in another order than ATen's mean; x + h bitwise); K6b per-channel
+# bitwise (exact int32 sums, the same fp32 epilogue in the same order),
+# grouped at 1e-2 (the sum over groups in another order); K4/K5 at 2e-2,
+# as K1
 GROUPED_TOL = 1e-2
 DECODE_TOL = 2e-2
 INSTRUCTION = "go past the table and stop at the second door on the left"
@@ -150,7 +159,8 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def phase_build() -> None:
     from internnav_tpu_torch.ops import _build
 
-    sources = ("flash_fwd.cu", "flash_bwd.cu", "w8a8_gemm.cu", "decode_int8.cu")
+    sources = ("flash_fwd.cu", "flash_bwd.cu", "w8a8_gemm.cu", "decode_int8.cu",
+               "quantize_rows.cu", "rope_kv_write.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, sources))
@@ -487,42 +497,76 @@ def _bytes_bound(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _row(kernel, shape, err, ms, plain_ms, bound, library_ms=None, **launch):
-    """A checked row of the kernels line: measured numbers and the bound.
-    `launch` (the plan the wrapper hands the kernel) is printed on the
-    phase line only."""
+def _row(kernel, shape, err, ms, plain_ms, bound, library_ms=None, extra=None, **launch):
+    """A checked row of the kernels line: measured numbers, the bound and
+    `extra` counts of the check. `launch` (the plan the wrapper hands the
+    kernel) is printed on the phase line only."""
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+           "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **(extra or {})}
     print("phase kernels: " + " ".join(
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in {**row, **launch}.items()) + f" gpu={gpu_line()!r}")
     return row
 
 
-def int8_quantize_rows_rows(device, g):
-    """K6a at the decode (M = 1) and prompt (M = PROMPT_T) rows of both input
-    widths, bf16 rows (attention output, SwiGLU product) and fp32 rows (the
-    RMSNorm products): bitwise against the plain version."""
+def int8_k6a_rows(device, g):
+    """K6a's prologues at the 7B decode (M = 1) and prompt (M = PROMPT_T)
+    rows: RMSNORM on the hidden width with and without the residual (x + h
+    bitwise, codes within +-1 and scales within 2^-7, the differing codes
+    counted), SWIGLU on the intermediate width, PLAIN on the bf16 attention
+    output and on the final norm's fp32 row (the lm_head's input, M = 1);
+    the last two bitwise. The bound: each input read once (the norm scale
+    too), the codes, scales and x + h written once. No single PyTorch call
+    computes any of these functions, so there is no library time."""
     import torch
 
     from internnav_tpu_torch.ops import quant
 
+    E, I = 3584, 18944
+    w = torch.randn(E, generator=g, device=device) * 0.3 + 1.0
+
+    def rnd(M, K, dtype=torch.bfloat16):
+        return (torch.randn((M, K), generator=g, device=device) * 3.0).to(dtype)
+
     rows = []
-    for M, K, dtype in ((1, 3584, torch.float32), (1, 3584, torch.bfloat16),
-                        (1, 18944, torch.bfloat16), (PROMPT_T, 3584, torch.float32),
-                        (PROMPT_T, 3584, torch.bfloat16), (PROMPT_T, 18944, torch.bfloat16)):
-        x = (torch.randn((M, K), generator=g, device=device) * 3).to(dtype)
-        q, s = quant.quantize_rows_cuda(x)
-        rq, rs = quant.quantize_rows(x)
-        torch.cuda.synchronize()
-        if not (torch.equal(q, rq) and torch.equal(s, rs)):
-            raise AssertionError(f"K6a M={M} K={K} {dtype}: int8 codes or scales differ from the "
-                                 f"plain version ({int((q != rq).sum())} codes)")
-        nbytes = M * K * (x.element_size() + 1) + 4 * M
-        rows.append(_row("K6a", f"M{M}_K{K}_{str(dtype)[6:]}", 0.0,
-                         cuda_ms(lambda: quant.quantize_rows_cuda(x)),
-                         cuda_ms(lambda: quant.quantize_rows(x)),
-                         _bytes_bound(nbytes, 0, PEAK_INT8_OPS)))
+    for M in (1, PROMPT_T):
+        x, h = rnd(M, E), rnd(M, E)
+        for residual in (None, h):
+            (q, s, xs), (rq, rs, rxs) = (quant.rmsnorm_quantize_cuda(x, w, 1e-6, residual),
+                                         quant.rmsnorm_quantize_reference(x, w, 1e-6, residual))
+            torch.cuda.synchronize()
+            err = int((q.int() - rq.int()).abs().max())
+            if not torch.equal(xs, rxs) or err > 1 \
+                    or not torch.allclose(s, rs, atol=0, rtol=2 ** -7):
+                raise AssertionError(f"K6a RMSNORM M={M} residual={residual is not None}: "
+                                     f"differs from the plain version (codes by {err})")
+            nbytes = M * E * (2 + 1) + 4 * E + 4 * M + (2 * 2 * M * E if residual is not None
+                                                        else 0)
+            rows.append(_row(
+                "K6a", f"rmsnorm{'_residual' if residual is not None else ''}_M{M}_K{E}",
+                float(err), cuda_ms(lambda: quant.rmsnorm_quantize_cuda(x, w, 1e-6, residual)),
+                cuda_ms(lambda: quant.rmsnorm_quantize_reference(x, w, 1e-6, residual)),
+                _bytes_bound(nbytes, 0, PEAK_INT8_OPS),
+                extra={"differing_codes": int((q != rq).sum()), "codes": M * E}))
+        gate, up = rnd(M, I), rnd(M, I)
+        cases = [("swiglu", lambda: quant.swiglu_quantize_cuda(gate, up),
+                  lambda: quant.swiglu_quantize_reference(gate, up), M * I * (2 * 2 + 1)),
+                 ("plain", lambda: quant.quantize_rows_cuda(x), lambda: quant.quantize_rows(x),
+                  M * E * (2 + 1))]
+        if M == 1:
+            xf = rnd(M, E, torch.float32)
+            cases.append(("plain_fp32", lambda: quant.quantize_rows_cuda(xf),
+                          lambda: quant.quantize_rows(xf), M * E * (4 + 1)))
+        for name, run, plain, nbytes in cases:
+            (q, s), (rq, rs) = run(), plain()
+            torch.cuda.synchronize()
+            if not (torch.equal(q, rq) and torch.equal(s, rs)):
+                raise AssertionError(f"K6a {name} M={M}: int8 codes or scales differ from the "
+                                     f"plain version ({int((q != rq).sum())} codes)")
+            K = q.shape[1]
+            rows.append(_row("K6a", f"{name}_M{M}_K{K}", 0.0, cuda_ms(run), cuda_ms(plain),
+                             _bytes_bound(nbytes + 4 * M, 0, PEAK_INT8_OPS),
+                             extra={"differing_codes": 0, "codes": M * K}))
     return rows
 
 
@@ -656,35 +700,71 @@ def int8_decode_rows(device, g):
     return rows
 
 
+def kv_write_shape(rotary: bool, lengths, n) -> str:
+    return f"{'rotary' if rotary else 'no_rotary'}_B{len(lengths)}_n{n}_pos" + \
+        "_".join(map(str, lengths))
+
+
 def int8_kv_write_rows(device, g):
-    """K7 for one decode token, the latent chunk, the prompt (at 0) and a
-    chunk that runs past the cache's end (the start clamped, as the JAX
-    package's dynamic_update_slice does): bitwise against the plain
-    version."""
+    """K7 with rotary for one decode token, the latent chunk, a chunk that
+    runs past the cache's end (the start clamped, as the JAX package's
+    dynamic_update_slice does) and a ragged batch of 3 whose row past the
+    end is dropped; without rotary for the prompt's entries (at 0). The
+    rotated q, the codes and the scales bitwise against the plain version.
+    The bound: q, k, v and cos/sin read once; q rotated, the codes and
+    scales written once."""
     import torch
 
     from internnav_tpu_torch.ops import quant
+    from internnav_tpu_torch.ops.rope import mrope_cos_sin
 
-    rows = []
+    H, KV, D = 28, 4, 128
     Tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
-    for n, pos in ((1, PROMPT_T + 17), (N_QUERY, PROMPT_T + MAX_NEW_TOKENS), (PROMPT_T, 0),
-                   (N_QUERY, Tmax - 1)):
-        k = torch.randn((1, n, 4, 128), generator=g, device=device, dtype=torch.bfloat16)
-        v = torch.randn((1, n, 4, 128), generator=g, device=device, dtype=torch.bfloat16)
-        cache_len = torch.tensor([pos], device=device)
-        ke, ve = int8_cache(device, g, Tmax)
+    rows = []
+    for rotary, n, lengths in ((True, 1, (PROMPT_T + 17,)),
+                               (True, N_QUERY, (PROMPT_T + MAX_NEW_TOKENS,)),
+                               (True, N_QUERY, (Tmax - 1,)),
+                               (True, 1, (PROMPT_T + 17, 17, Tmax)),
+                               (False, PROMPT_T, (0,))):
+        B = len(lengths)
+
+        def rnd(width):
+            return torch.randn((B * n, width), generator=g, device=device, dtype=torch.bfloat16)
+
+        q, k, v = rnd(H * D), rnd(KV * D), rnd(KV * D)
+        pos = torch.randint(0, Tmax, (3, B, n), generator=g, device=device)
+        cos, sin = mrope_cos_sin(pos, D, (16, 24, 24))
+        cache_len = torch.tensor(lengths, device=device)
+        ke, ve = int8_cache(device, g, Tmax, B)
         ref = [tuple(t.clone() for t in e) for e in (ke, ve)]
-        quant.write_kv_cache_cuda(k, v, ke, ve, cache_len)
-        quant.write_kv_cache_reference(k, v, *ref, cache_len)
+        if rotary:
+            def run():
+                return quant.rope_kv_write_cuda(q, k, v, cos, sin, ke, ve, cache_len)
+
+            def plain():
+                return quant.rope_kv_write_reference(q, k, v, cos, sin, ke, ve, cache_len)
+        else:
+            kb, vb = k.view(B, n, KV, D), v.view(B, n, KV, D)
+
+            def run():
+                return quant.write_kv_cache_cuda(kb, vb, ke, ve, cache_len)
+
+            def plain():
+                return quant.write_kv_cache_reference(kb, vb, ke, ve, cache_len)
+        got = run()
+        want = (quant.rope_kv_write_reference(q, k, v, cos, sin, *ref, cache_len) if rotary
+                else quant.write_kv_cache_reference(kb, vb, *ref, cache_len))
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip((*ke, *ve), (*ref[0], *ref[1]))):
-            raise AssertionError(f"K7 n={n} pos={pos}: the cache differs from the plain version's")
-        nbytes = 2 * n * 4 * 128 * 2 + 2 * n * 4 * (128 + 4) + 8
-        rows.append(_row("K7", f"n{n}_pos{pos}", 0.0,
-                         cuda_ms(lambda: quant.write_kv_cache_cuda(k, v, ke, ve, cache_len)),
-                         cuda_ms(lambda: quant.write_kv_cache_reference(k, v, ke, ve,
-                                                                        cache_len)),
-                         _bytes_bound(nbytes, 0, PEAK_INT8_OPS)))
+        if not all(torch.equal(a, b) for a, b in zip((*ke, *ve), (*ref[0], *ref[1]))) \
+                or (rotary and not torch.equal(got, want)):
+            raise AssertionError(f"K7 rotary={rotary} n={n} lengths={lengths}: the rotated q or "
+                                 "the cache differs from the plain version's")
+        kv_elems = B * n * KV * D
+        nbytes = 2 * 2 * kv_elems + 2 * kv_elems + 2 * 4 * B * n * KV + 8 * B
+        if rotary:  # q in and out, cos and sin in
+            nbytes += 2 * 2 * B * n * H * D + 2 * 4 * B * n * D
+        rows.append(_row("K7", kv_write_shape(rotary, lengths, n), 0.0, cuda_ms(run),
+                         cuda_ms(plain), _bytes_bound(nbytes, 0, PEAK_INT8_OPS)))
     return rows
 
 
@@ -693,7 +773,7 @@ def phase_int8_kernels(device) -> dict:
     import torch
 
     g = torch.Generator(device=device).manual_seed(2)
-    rows = (int8_quantize_rows_rows(device, g) + int8_gemm_rows(device, g)
+    rows = (int8_k6a_rows(device, g) + int8_gemm_rows(device, g)
             + int8_decode_rows(device, g) + int8_kv_write_rows(device, g))
     return {name: [r for r in rows if r["kernel"] == name]
             for name in ("K4", "K5", "K6a", "K6b", "K7")}
@@ -743,7 +823,9 @@ def launch_counts() -> dict:
 
     return {"K1": fa.kernel_launches, "K2": fa.bwd_dkv_launches, "K3": fa.bwd_dq_launches,
             "K4": fa.decode_int8_launches, "K5": fa.chunk_decode_int8_launches,
-            "K6a": quant.quantize_rows_launches, "K6b": quant.w8a8_launches,
+            "K6a": quant.quantize_rows_launches, "K6a_rmsnorm": quant.rmsnorm_quantize_launches,
+            "K6a_swiglu": quant.swiglu_quantize_launches,
+            "K6a_plain": quant.plain_quantize_launches, "K6b": quant.w8a8_launches,
             "K7": quant.kv_write_launches}
 
 
@@ -754,6 +836,8 @@ def reset_launch_counts() -> None:
     fa.kernel_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
     fa.decode_int8_launches = fa.chunk_decode_int8_launches = 0
     quant.quantize_rows_launches = quant.w8a8_launches = quant.kv_write_launches = 0
+    quant.rmsnorm_quantize_launches = quant.swiglu_quantize_launches = 0
+    quant.plain_quantize_launches = 0
 
 
 def _count_calls(obj, names, calls):
@@ -773,18 +857,23 @@ def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
     steps[r] cached decode steps and one traj-latent chunk, and
     `logits_calls` lm_head calls in all: K1 once per prefill layer and once
     per windowed ViT block of the request's new frame; with the realtime
-    profile per layer pass 4 activation quantizations (q/k/v share one,
-    gate/up one, o and down one each), 7 W8A8 products and one K/V cache
-    write, plus one of each of the first two per lm_head call; K4 per
-    decode layer, K5 per chunk layer."""
+    profile per layer pass 4 activation quantizations (K6a: the two
+    RMSNorms, q/k/v sharing the first and gate/up the second; the SwiGLU
+    product for down; o_proj's input as it is), 7 W8A8 products and one
+    K7 launch (rotary + K/V cache write; the prefill's without rotary),
+    plus one plain K6a and one K6b per lm_head call; K4 per decode layer,
+    K5 per chunk layer."""
     L = cfg.text.num_hidden_layers
     windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
-    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7"), 0)
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu",
+                          "K6a_plain", "K6b", "K7"), 0)
     want["K1"] = len(steps) * (L + windowed)
     if profile == "realtime":
         passes = sum(2 + s for s in steps)  # prefill + decode steps + chunk, per layer
         want.update(K4=L * sum(steps), K5=L * len(steps), K6a=4 * L * passes + logits_calls,
-                    K6b=7 * L * passes + logits_calls, K7=L * passes)
+                    K6a_rmsnorm=2 * L * passes, K6a_swiglu=L * passes,
+                    K6a_plain=L * passes + logits_calls, K6b=7 * L * passes + logits_calls,
+                    K7=L * passes)
     return want
 
 
@@ -921,7 +1010,9 @@ def phase_serve(device, profile: str) -> dict:
         thread.join(timeout=30)
         agent.close()
     L = text.num_hidden_layers
-    per_step = {"K4": L, "K6a": 4 * L, "K6b": 7 * L, "K7": L} if profile == "realtime" else {}
+    # per decode step with its lm_head call
+    per_step = {"K4": L, "K6a": 4 * L + 1, "K6a_rmsnorm": 2 * L, "K6a_swiglu": L,
+                "K6a_plain": L + 1, "K6b": 7 * L + 1, "K7": L} if profile == "realtime" else {}
     print(f"phase serve: profile={profile} weight_dtype={text.weight_dtype} "
           f"kv_dtype={text.kv_dtype} layers={text.num_hidden_layers} hidden={text.hidden_size} "
           f"build_s={build_s:.2f} resident_gib={build_mem_gib:.2f} "
@@ -1125,8 +1216,12 @@ def main() -> int:
         "shapes"."""
         launches, by = paths(kernel)
         main = next(r for r in int8[kernel] if r["shape"] == shape)
+        extra = {}
+        if kernel == "K6a":
+            extra["launches_by_prologue"] = {p: paths(f"K6a_{p}")[0]
+                                             for p in ("rmsnorm", "swiglu", "plain")}
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": launches, "launches_by_path": by,
+                "launches": launches, "launches_by_path": by, **extra,
                 "max_abs_err": max(r["max_abs_err"] for r in int8[kernel]),
                 **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms", "shape")},
@@ -1148,11 +1243,11 @@ def main() -> int:
                    decode_shape(tmax, (tmax - N_QUERY - 1,), 1)),
         int8_entry("chunk_decode_int8", "K5", "cuda", DECODE_SOURCE, K5_REPLACES,
                    decode_shape(tmax, (tmax - N_QUERY,), N_QUERY)),
-        int8_entry("quantize_rows", "K6a", "triton", QUANT_SOURCE, K6A_REPLACES,
-                   "M1_K3584_float32"),
+        int8_entry("quantize_rows", "K6a", "cuda", K6A_SOURCE, K6A_REPLACES,
+                   "rmsnorm_residual_M1_K3584"),
         int8_entry("w8a8_gemm", "K6b", "cuda", GEMM_SOURCE, K6B_REPLACES, "M1_N18944_K3584"),
-        int8_entry("kv_write_int8", "K7", "triton", QUANT_SOURCE, K7_REPLACES,
-                   f"n1_pos{PROMPT_T + 17}"),
+        int8_entry("rope_kv_write", "K7", "cuda", K7_SOURCE, K7_REPLACES,
+                   kv_write_shape(True, (PROMPT_T + 17,), 1)),
     ]
     kernels[0]["shapes"] = shapes
     print(json.dumps({"kernels": kernels}))

@@ -16,19 +16,26 @@ cross-entropy (`chunked_ce`).
 - The int8 `realtime` formats: `weight_dtype="int8"` makes every
   projection (q/k/v/o, gate/up/down, lm_head; never the embedding) a
   `QuantLinear`, the port of `QuantDense` at 8 bits (W8A8: activations
-  quantized per token by K6a, the product by K6b); `kv_dtype="int8"` makes
-  each cache entry an (int8 data, fp32 scale) tuple, written by K7 and
-  read by the int8 decode attention K4/K5 (`ops/quant.py`,
-  `ops/flash_attention.py`). The prompt's attention runs over bf16 K/V;
-  only the stored cache is int8. Not yet ported (they raise): int4 / W4A8
-  weights, W8A16 decode (`decode_act_dtype="bf16"`) and the grouped decode
-  of several cache groups.
+  quantized per token by K6a, the product by K6b). K6a quantizes inside
+  the op that makes its input: the decoder layer's two RMSNorms (the
+  second with the residual add before it) and the SwiGLU product, so
+  those layers call neither `RMSNorm` nor `F.silu`; o_proj's and the
+  lm_head's inputs are quantized as they are. `kv_dtype="int8"` makes
+  each cache entry an (int8 data, fp32 scale) tuple, read by the int8
+  decode attention K4/K5; a decode step or chunk rotates q and k,
+  quantizes K/V and writes the cache in one K7 launch (`rope_kv_write`),
+  with no `apply_rotary`. The prompt's attention runs over bf16 K/V
+  (rotated by `apply_rotary`); only the stored cache is int8, written by
+  K7 without rotary (`ops/quant.py`, `ops/flash_attention.py`). Not yet
+  ported (they raise): int4 / W4A8 weights, W8A16 decode
+  (`decode_act_dtype="bf16"`) and the grouped decode of several cache
+  groups.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,11 +54,15 @@ from internnav_tpu_torch.ops.quant import (
     div127,
     grouped_scales,
     quantize_activations,
+    rms_norm,
+    rmsnorm_quantize,
+    rope_kv_write,
     store_cache_rows_,
+    swiglu_quantize,
     w8a8_linear,
     write_kv_cache,
 )
-from internnav_tpu_torch.ops.rope import mrope_cos_sin, rotate_half
+from internnav_tpu_torch.ops.rope import apply_rotary, mrope_cos_sin
 
 #: a cache entry: bf16 (B, T, KV, D), or (int8 (B, T, KV, D), fp32 scale
 #: (B, T, KV, 1)) with kv_dtype="int8"
@@ -121,17 +132,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32))
 
     def forward(self, x):
-        var = x.float().square().mean(-1, keepdim=True)
-        return (x.float() * torch.rsqrt(var + self.eps)).to(x.dtype) * self.weight
-
-
-def apply_rotary(q, k, cos, sin):
-    """q/k (B, H, T, D); cos/sin (B, T, D). Runs in the q/k dtype, like HF."""
-    cos = cos[:, None].to(q.dtype)
-    sin = sin[:, None].to(q.dtype)
-    q_out = q * cos + rotate_half(q) * sin
-    k_out = k * cos + rotate_half(k) * sin
-    return q_out, k_out.to(k.dtype)
+        return rms_norm(x, self.weight, self.eps)
 
 
 def quantize_weight(w: torch.Tensor, group_size: Optional[int] = None
@@ -198,17 +199,32 @@ class QuantLinear(nn.Module):
         return project(x, self)[0]
 
 
-def project(x: torch.Tensor, *mods: nn.Module) -> List[torch.Tensor]:
+class QuantizedRows(NamedTuple):
+    """An input already quantized for `QuantLinear`s (by the op that made
+    it: `rmsnorm_quantize`, `swiglu_quantize`): int8 codes (..., K) and
+    fp32 scales (..., 1)."""
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+def project(x: Union[torch.Tensor, QuantizedRows], *mods: nn.Module) -> List[torch.Tensor]:
     """Each projection of one input. An nn.Linear takes the input cast to
     its dtype (once, for all of them). With `QuantLinear`s the input, bf16
-    or fp32, is quantized once and shared (q/k/v, gate/up): the
-    quantization is a function of the input alone, so this equals the JAX
-    package's quantization inside every projection."""
+    or fp32, is quantized once and shared (q/k/v, gate/up), or comes
+    quantized as `QuantizedRows`: the quantization is a function of the
+    input alone, so this equals the JAX package's quantization inside every
+    projection."""
     if not isinstance(mods[0], QuantLinear):
         x = x.to(mods[0].weight.dtype)
         return [m(x) for m in mods]
-    lead = x.shape[:-1]
-    xq, a_scale = quantize_activations(x.reshape(-1, x.shape[-1]).contiguous())
+    if not isinstance(x, QuantizedRows):
+        x = QuantizedRows(*quantize_activations(x))
+    lead, K = x.shape[:-1], x.shape[-1]
+    xq, a_scale = x.q.reshape(-1, K), x.scale.reshape(-1, 1)
     return [m.forward_quantized(xq, a_scale).reshape(*lead, m.out_features) for m in mods]
 
 
@@ -237,13 +253,20 @@ class QwenAttention(nn.Module):
         of segment_ids (built by the kernel wrapper when None). Otherwise x
         holds n >= 1 new tokens whose K/V are written into kv_cache at
         cache_len (B,) in place, each attending stepwise-causally over the
-        cache. With kv_dtype="int8" the prefill attends over the bf16 K/V
-        and returns their quantized entries; decode writes through K7 and
-        attends through K4/K5 on strided views of the cache."""
+        cache. x is the normed input, or with W8A8 projections its
+        `QuantizedRows`. With kv_dtype="int8" the prefill attends over the
+        rotated bf16 K/V and returns their quantized entries; decode
+        rotates, quantizes and writes in one K7 launch (`rope_kv_write`)
+        and attends through K4/K5 on strided views of the cache."""
         c = self.cfg
         B, n = x.shape[:2]
         H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
         q, k, v = project(x, self.q_proj, self.k_proj, self.v_proj)
+        if kv_cache is not None and isinstance(kv_cache[0], tuple):
+            k_cache, v_cache = kv_cache
+            q = rope_kv_write(q, k, v, cos, sin, k_cache, v_cache, cache_len)
+            out = self._decode_attention(q, k_cache, v_cache, cache_len)
+            return self.o_proj(out.transpose(1, 2).reshape(B, n, H * D)), kv_cache
         q = q.reshape(B, n, H, D).transpose(1, 2)
         k = k.reshape(B, n, KV, D).transpose(1, 2)
         v = v.reshape(B, n, KV, D)
@@ -259,22 +282,24 @@ class QwenAttention(nn.Module):
                 new_cache = (k.transpose(1, 2), v)
         else:
             k_cache, v_cache = kv_cache
-            if isinstance(k_cache, tuple):
-                write_kv_cache(k.transpose(1, 2).contiguous(), v.contiguous(), k_cache, v_cache,
-                               cache_len)
-            else:
-                cols, keep = cache_write_slots(cache_len, n, k_cache.shape[1])
-                store_cache_rows_(k_cache, k.transpose(1, 2), cols, keep)
-                store_cache_rows_(v_cache, v, cols, keep)
-            (kd, ks), (vd, vs) = _cache_kvtd(k_cache), _cache_kvtd(v_cache)
-            if n == 1:
-                out = gqa_decode_attention(q[:, :, 0], kd, vd, cache_len + 1,
-                                           k_scale=ks, v_scale=vs)[:, :, None]
-            else:
-                out = gqa_chunk_decode_attention(q, kd, vd, cache_len, k_scale=ks, v_scale=vs)
+            cols, keep = cache_write_slots(cache_len, n, k_cache.shape[1])
+            store_cache_rows_(k_cache, k.transpose(1, 2), cols, keep)
+            store_cache_rows_(v_cache, v, cols, keep)
+            out = self._decode_attention(q, k_cache, v_cache, cache_len)
             new_cache = kv_cache
         out = out.transpose(1, 2).reshape(B, n, H * D)
         return self.o_proj(out), new_cache
+
+    @staticmethod
+    def _decode_attention(q, k_cache: CacheEntry, v_cache: CacheEntry, cache_len):
+        """q (B, H, n, D) over the cache written up to cache_len + n: one
+        token (K4 on an int8 cache) or a stepwise-causal chunk (K5)."""
+        n = q.shape[2]
+        (kd, ks), (vd, vs) = _cache_kvtd(k_cache), _cache_kvtd(v_cache)
+        if n == 1:
+            return gqa_decode_attention(q[:, :, 0], kd, vd, cache_len + 1,
+                                        k_scale=ks, v_scale=vs)[:, :, None]
+        return gqa_chunk_decode_attention(q, kd, vd, cache_len, k_scale=ks, v_scale=vs)
 
 
 def _int8_entries(k: torch.Tensor, v: torch.Tensor) -> KVCache:
@@ -310,7 +335,11 @@ class QwenMLP(nn.Module):
         self.down_proj = _proj(cfg, I, E, False)
 
     def forward(self, x):
+        """x: the normed input, or with W8A8 projections its `QuantizedRows`;
+        then the SwiGLU product is quantized as it is made (K6a)."""
         gate, up = project(x, self.gate_proj, self.up_proj)
+        if isinstance(self.down_proj, QuantLinear):
+            return project(QuantizedRows(*swiglu_quantize(gate, up)), self.down_proj)[0]
         return self.down_proj(F.silu(gate) * up)
 
 
@@ -324,11 +353,19 @@ class QwenDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None, kv_cache=None,
                 cache_len=None):
-        h, new_cache = self.self_attn(self.input_layernorm(x), cos, sin,
-                                      segment_ids=segment_ids, tile_tables=tile_tables,
-                                      kv_cache=kv_cache, cache_len=cache_len)
-        x = x + h
-        return x + self.mlp(self.post_attention_layernorm(x)), new_cache
+        kw = dict(segment_ids=segment_ids, tile_tables=tile_tables, kv_cache=kv_cache,
+                  cache_len=cache_len)
+        norm1, norm2 = self.input_layernorm, self.post_attention_layernorm
+        if not isinstance(self.mlp.down_proj, QuantLinear):
+            h, new_cache = self.self_attn(norm1(x), cos, sin, **kw)
+            x = x + h
+            return x + self.mlp(norm2(x)), new_cache
+        # W8A8: each norm quantizes the rows it makes (K6a), the second
+        # after adding the attention output to the residual stream
+        xq, scale, _ = rmsnorm_quantize(x, norm1.weight, norm1.eps)
+        h, new_cache = self.self_attn(QuantizedRows(xq, scale), cos, sin, **kw)
+        xq, scale, x = rmsnorm_quantize(h, norm2.weight, norm2.eps, residual=x)
+        return x + self.mlp(QuantizedRows(xq, scale)), new_cache
 
 
 class QwenTextModel(nn.Module):

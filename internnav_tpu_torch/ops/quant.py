@@ -4,26 +4,34 @@ versions and their hand-written Hopper kernels.
 Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
 
 - `quantize_rows`: the per-token activation quantization of `QuantDense`
-  (`:173-176`); kernel K6a (Triton, `_quantize_rows_kernel`).
+  (`:173-176`); kernel K6a (`csrc/quantize_rows.cu`, CUDA C++ for
+  sm_90a), which also computes the op that makes its input, chosen by its
+  prologue: the RMSNorm (`rmsnorm_quantize`, with the residual add before
+  the post-attention norm), the SwiGLU product (`swiglu_quantize`), or
+  none (`quantize_activations`).
 - `w8a8_linear_reference`: its int8 x int8 product and fp32 epilogue
   (`:177-199`), per-channel or grouped scales; kernel K6b
-  (`csrc/w8a8_gemm.cu`, CUDA C++ for sm_90a).
-- `quantize_kv` (`:527-537`) and the quantized cache write of
-  `_write_cache` / `_write_cache_chunk` (`:556-583`): `write_kv_cache_reference`;
-  kernel K7 (Triton, `_write_kv_kernel`), which quantizes K and V and stores
-  them into the (B, Tmax, KV, D) int8 cache and its (B, Tmax, KV, 1) fp32
-  scales in place. Where a write lands, past Tmax too, is the JAX rule
+  (`csrc/w8a8_gemm.cu`).
+- `apply_rotary` (`:375-387`), `quantize_kv` (`:527-537`) and the quantized
+  cache write of `_write_cache` / `_write_cache_chunk` (`:556-583`):
+  `rope_kv_write_reference`, and without the rotary
+  `write_kv_cache_reference`; kernel K7 (`csrc/rope_kv_write.cu`), which
+  rotates q and k, quantizes K and V and stores them into the (B, Tmax,
+  KV, D) int8 cache and its (B, Tmax, KV, 1) fp32 scales in place, in one
+  launch. Where a write lands, past Tmax too, is the JAX rule
   (`cache_write_slots`), which the bf16 cache write shares.
 
-The dispatchers (`quantize_activations`, `w8a8_linear`, `write_kv_cache`)
+The dispatchers (`rmsnorm_quantize`, `swiglu_quantize`,
+`quantize_activations`, `w8a8_linear`, `rope_kv_write`, `write_kv_cache`)
 send a CPU tensor to the plain version and a CUDA tensor to the kernel, or
 raise: there is no fallback from one to the other. Each kernel wrapper adds
-one to its launch count per launch. Triton is imported, and the kernels
-are built, on the first CUDA call, never when this module is imported.
+one to its launch count per launch. The kernels are built on the first
+CUDA call, never when this module is imported.
 
 Rounding is the JAX package's: `round` half to even (`rint` in the
-kernels), and every division IEEE-rounded (`div_rn` in Triton; the CUDA
-build has no fast-math flag), so that the int8 codes match bit for bit.
+kernels), and every division IEEE-rounded (the CUDA build has no fast-math
+flag), so that the int8 codes match bit for bit. The RMSNorm, SiLU and
+rotary steps round as the port's bf16 torch ops do.
 """
 
 from __future__ import annotations
@@ -33,19 +41,33 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from internnav_tpu_torch.ops.rope import apply_rotary
 
 #: launches of each kernel in this process (its CUDA wrapper adds one per
-#: launch; the plain versions never do): K6a activation quantization, K6b
-#: W8A8 GEMM, K7 KV quantization + cache write
+#: launch; the plain versions never do): K6a activation quantization (all
+#: prologues, then each prologue's own count), K6b W8A8 GEMM, K7 rotary +
+#: KV quantization + cache write
 quantize_rows_launches = 0
+rmsnorm_quantize_launches = 0
+swiglu_quantize_launches = 0
+plain_quantize_launches = 0
 w8a8_launches = 0
 kv_write_launches = 0
 
+#: K6a's prologues (csrc/quantize_rows.cu)
+PLAIN, RMSNORM, SWIGLU = 0, 1, 2
+#: K6a keeps a row in registers: at most 5 16-byte vectors a thread of
+#: 1,024 threads (K <= 40,960 bf16 or 20,480 fp32)
+K6A_MAX_ROW_BYTES = 1024 * 5 * 16
 #: K6b takes K in 64-wide chunks; a grouped scale covers whole chunks
 GEMM_K_CHUNK = 64
 #: K6b's decode tiles serve M <= 16; above, its prefill tiles (128 output
 #: rows by 256 columns where N > 1024, else 128; chosen in w8a8_gemm.cu)
 GEMM_DECODE_MAX_M = 16
+#: K7's head widths (one warp a row, D / 32 values a lane)
+KV_WRITE_HEAD_DIMS = (64, 128, 256)
 
 KVEntry = Tuple[torch.Tensor, torch.Tensor]  # (int8 data (B, T, KV, D), fp32 scale (B, T, KV, 1))
 
@@ -66,6 +88,30 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     amax = xf.abs().amax(-1, keepdim=True)
     a_scale = div127(amax.clamp(min=1e-8))
     return torch.round(xf / a_scale).clamp(-127, 127).to(torch.int8), a_scale
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """The JAX package's RMSNorm of x (..., K) with an fp32 scale (K,): the
+    normalised input rounded to x's dtype, times the scale in fp32."""
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def rmsnorm_quantize_reference(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                               residual: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`quantize_rows` of `rms_norm` of x, or of x + residual (bf16 (..., K)).
+    Returns (int8 (..., K), fp32 (..., 1), the normalised input: x +
+    residual, or x)."""
+    if residual is not None:
+        x = x + residual
+    return (*quantize_rows(rms_norm(x, weight, eps)), x)
+
+
+def swiglu_quantize_reference(gate: torch.Tensor, up: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_rows` of the bf16 SwiGLU product silu(gate) * up."""
+    return quantize_rows(F.silu(gate) * up)
 
 
 def grouped_scales(in_features: int, group_size: Optional[int]) -> Optional[int]:
@@ -159,12 +205,49 @@ def write_kv_cache_reference(k: torch.Tensor, v: torch.Tensor, k_entry: KVEntry,
         store_cache_rows_(scale, s, cols, keep)
 
 
+def rope_kv_write_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            cos: torch.Tensor, sin: torch.Tensor, k_entry: KVEntry,
+                            v_entry: KVEntry, cache_len: torch.Tensor) -> torch.Tensor:
+    """`apply_rotary` of q (B n, H D) and k (B n, KV D) at cos/sin (B, n,
+    D), then `write_kv_cache_reference` of the rotated k and of v (B n, KV
+    D) at cache_len (B,), in place. Returns the rotated q (B, H, n, D)."""
+    B, n, D = cos.shape
+    KV = k_entry[0].shape[2]
+    q_rot, k_rot = apply_rotary(q.reshape(B, n, -1, D).transpose(1, 2),
+                                k.reshape(B, n, KV, D).transpose(1, 2), cos, sin)
+    write_kv_cache_reference(k_rot.transpose(1, 2), v.reshape(B, n, KV, D), k_entry, v_entry,
+                             cache_len)
+    return q_rot
+
+
 # ------------------------------------------------------------ dispatchers
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`quantize_rows` of a (M, K) tensor: the plain version on the CPU,
-    K6a on CUDA (bf16 or fp32)."""
+def rmsnorm_quantize(x, weight, eps: float, residual=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`rmsnorm_quantize_reference` of bf16 rows x (..., K), or of x +
+    residual, with an fp32 scale (K,): the plain version on the CPU, K6a's
+    RMSNORM prologue on CUDA. Returns (int8 (..., K), fp32 (..., 1), x +
+    residual or x)."""
     if x.is_cuda:
-        return quantize_rows_cuda(x)
+        return rmsnorm_quantize_cuda(x.contiguous(), weight, eps,
+                                     None if residual is None else residual.contiguous())
+    _require_cpu(x, "rmsnorm_quantize")
+    return rmsnorm_quantize_reference(x, weight, eps, residual)
+
+
+def swiglu_quantize(gate, up) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_rows` of silu(gate) * up (bf16 (..., K)): the plain version
+    on the CPU, K6a's SWIGLU prologue on CUDA."""
+    if gate.is_cuda:
+        return swiglu_quantize_cuda(gate.contiguous(), up.contiguous())
+    _require_cpu(gate, "swiglu_quantize")
+    return swiglu_quantize_reference(gate, up)
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_rows` of (..., K) rows: the plain version on the CPU, K6a's
+    PLAIN prologue on CUDA (bf16 or fp32)."""
+    if x.is_cuda:
+        return quantize_rows_cuda(x.contiguous())
     _require_cpu(x, "quantize_activations")
     return quantize_rows(x)
 
@@ -181,11 +264,25 @@ def w8a8_linear(xq, a_scale, weight_q, scale_q, bias=None, *,
     return w8a8_linear_reference(xq, a_scale, weight_q, scale_q, bias, out_dtype=out_dtype)
 
 
+def rope_kv_write(q, k, v, cos, sin, k_entry: KVEntry, v_entry: KVEntry, cache_len
+                  ) -> torch.Tensor:
+    """Rotate q (B n, H D) and k (B n, KV D) at cos/sin (B, n, D), quantize
+    k and v (B n, KV D) into the int8 cache at cache_len (B,) in place, and
+    return the rotated q (B, H, n, D): the plain version on the CPU, K7 on
+    CUDA. q/k/v may carry their leading dims as (B, n, width)."""
+    if q.is_cuda:
+        return rope_kv_write_cuda(*(t.reshape(-1, t.shape[-1]).contiguous() for t in (q, k, v)),
+                                  cos.contiguous(), sin.contiguous(), k_entry, v_entry,
+                                  cache_len)
+    _require_cpu(q, "rope_kv_write")
+    return rope_kv_write_reference(q, k, v, cos, sin, k_entry, v_entry, cache_len)
+
+
 def write_kv_cache(k, v, k_entry: KVEntry, v_entry: KVEntry, cache_len) -> None:
     """Quantize k/v (B, n, KV, D) into the int8 cache at cache_len (B,), in
-    place: the plain version on the CPU, K7 on CUDA."""
+    place, without rotary: the plain version on the CPU, K7 on CUDA."""
     if k.is_cuda:
-        write_kv_cache_cuda(k, v, k_entry, v_entry, cache_len)
+        write_kv_cache_cuda(k.contiguous(), v.contiguous(), k_entry, v_entry, cache_len)
         return
     _require_cpu(k, "write_kv_cache")
     write_kv_cache_reference(k, v, k_entry, v_entry, cache_len)
@@ -196,54 +293,97 @@ def _require_cpu(t, name):
         raise ValueError(f"{name} has no path for device {t.device}")
 
 
-# ------------------------------------------------------ K6a (Triton, CUDA)
+def _check_cuda(name, t, dtype, shape, device, kernel="W8A8 kernel"):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {name} must be a contiguous, 16-byte aligned {dtype} "
+                         f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# --------------------------------------------------------- K6a (CUDA C++)
 @functools.lru_cache(maxsize=None)
-def _quantize_rows_kernel():
-    """K6a, replacing the XLA activation quantization of `QuantDense`
-    (qwen_text.py:173-176). One program per row: a pass for amax, a pass
-    that writes the int8 codes. Bound by bytes (the input read twice, bf16
-    or fp32, and one byte written per element); the row stays in L1/L2
-    between the passes."""
-    import triton
-    import triton.language as tl
-    import triton.language.extra.libdevice as tld
+def _quantize_rows_entry():
+    """K6a's C entry point, built and bound once per process."""
+    from internnav_tpu_torch.ops._build import load_library
 
-    @triton.jit
-    def quantize_rows_kernel(x_ptr, q_ptr, s_ptr, K, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        offs = tl.arange(0, BLOCK)
-        amax = tl.zeros((BLOCK,), tl.float32)
-        for k0 in range(0, K, BLOCK):
-            x = tl.load(x_ptr + row * K + k0 + offs, mask=k0 + offs < K, other=0.0)
-            amax = tl.maximum(amax, tl.abs(x.to(tl.float32)))
-        a_scale = tld.div_rn(tl.maximum(tl.max(amax, axis=0), 1e-8), 127.0)
-        for k0 in range(0, K, BLOCK):
-            m = k0 + offs < K
-            x = tl.load(x_ptr + row * K + k0 + offs, mask=m, other=0.0).to(tl.float32)
-            q = tl.minimum(tl.maximum(tld.rint(tld.div_rn(x, a_scale)), -127.0), 127.0)
-            tl.store(q_ptr + row * K + k0 + offs, q.to(tl.int8), mask=m)
-        tl.store(s_ptr + row, a_scale)
+    fn = load_library("quantize_rows.cu").quantize_rows
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
-    return quantize_rows_kernel
+
+def _quantize_rows_launch(prologue: int, a: torch.Tensor, b: Optional[torch.Tensor] = None,
+                          weight: Optional[torch.Tensor] = None, eps: float = 0.0):
+    """Launch K6a with `prologue` on contiguous (..., K) CUDA rows a (bf16;
+    fp32 too for PLAIN) and b (the RMSNORM residual or SWIGLU's up, bf16),
+    weight the RMSNORM scale (K,) fp32. Returns (int8 (..., K), fp32 (...,
+    1), x + residual bf16 (..., K) or None). Raises on anything else."""
+    global quantize_rows_launches, rmsnorm_quantize_launches, swiglu_quantize_launches, \
+        plain_quantize_launches
+    kernel = "activation quantization kernel"
+    dtypes = (torch.bfloat16, torch.float32) if prologue == PLAIN else (torch.bfloat16,)
+    if not a.is_cuda or a.dtype not in dtypes or a.dim() < 1:
+        raise ValueError(f"{kernel}: the input must be a {' or '.join(map(str, dtypes))} "
+                         f"(..., K) CUDA tensor, got {a.dtype} {tuple(a.shape)} on {a.device}")
+    dev, K = a.device, a.shape[-1]
+    _check_cuda("the input", a, a.dtype, a.shape, dev, kernel)
+    if K == 0 or (K * a.element_size()) % 16 or K * a.element_size() > K6A_MAX_ROW_BYTES:
+        raise ValueError(f"{kernel}: a row of K={K} {a.dtype} must be a positive multiple of 16 "
+                         f"bytes and at most {K6A_MAX_ROW_BYTES}")
+    if b is not None:
+        _check_cuda("the second input", b, torch.bfloat16, a.shape, dev, kernel)
+    if weight is not None:
+        _check_cuda("the norm scale", weight, torch.float32, (K,), dev, kernel)
+    M = a.numel() // K
+    q = torch.empty(a.shape, dtype=torch.int8, device=dev)
+    s = torch.empty((*a.shape[:-1], 1), dtype=torch.float32, device=dev)
+    xs = torch.empty_like(a) if prologue == RMSNORM and b is not None else None
+    if M:
+        with torch.cuda.device(dev):
+            err = _quantize_rows_entry()(
+                prologue, int(a.dtype == torch.float32), a.data_ptr(),
+                None if b is None else b.data_ptr(),
+                None if weight is None else weight.data_ptr(), float(eps), q.data_ptr(),
+                s.data_ptr(), None if xs is None else xs.data_ptr(), M, K, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"activation quantization kernel launch failed: cudaError_t {err}")
+        quantize_rows_launches += 1
+        if prologue == RMSNORM:
+            rmsnorm_quantize_launches += 1
+        elif prologue == SWIGLU:
+            swiglu_quantize_launches += 1
+        else:
+            plain_quantize_launches += 1
+    return q, s, xs
 
 
 def quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6a on a contiguous bf16 or fp32 (M, K) CUDA tensor (the
-    RMSNorm products are fp32, other inputs bf16): returns (int8 (M, K),
-    fp32 (M, 1))."""
-    global quantize_rows_launches
-    if not x.is_cuda or x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2 \
-            or not x.is_contiguous():
-        raise ValueError("activation quantization kernel takes a contiguous bfloat16 or float32 "
-                         f"(M, K) CUDA tensor, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    M, K = x.shape
-    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    if M:
-        with torch.cuda.device(x.device):
-            _quantize_rows_kernel()[(M,)](x, q, s, K, BLOCK=1024, num_warps=4)
-    quantize_rows_launches += 1
-    return q, s
+    """K6a's PLAIN prologue on contiguous bf16 or fp32 (..., K) CUDA rows
+    (the attention output; the final norm's fp32 product for the lm_head):
+    returns (int8 (..., K), fp32 (..., 1))."""
+    return _quantize_rows_launch(PLAIN, x)[:2]
+
+
+def rmsnorm_quantize_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                          residual: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6a's RMSNORM prologue: x (and residual) contiguous bf16 (..., K),
+    weight fp32 (K,). Returns (int8 (..., K), fp32 (..., 1), x + residual
+    (written by the kernel) or x)."""
+    q, s, xs = _quantize_rows_launch(RMSNORM, x, residual, weight, eps)
+    return q, s, x if xs is None else xs
+
+
+def swiglu_quantize_cuda(gate: torch.Tensor, up: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a's SWIGLU prologue: gate and up contiguous bf16 (..., K)."""
+    return _quantize_rows_launch(SWIGLU, gate, up)[:2]
 
 
 # --------------------------------------------------------- K6b (CUDA C++)
@@ -256,14 +396,6 @@ def _gemm_entry():
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check_cuda(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"W8A8 kernel: {name} must be a contiguous, 16-byte aligned {dtype} "
-                         f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
-                         f"on {t.device}")
 
 
 def w8a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias=None) -> torch.Tensor:
@@ -295,94 +427,94 @@ def w8a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias=None) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     if M:
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
             err = _gemm_entry()(xq.data_ptr(), a_scale.data_ptr(), weight_q.data_ptr(),
                                 scale_q.data_ptr(), None if bias is None else bias.data_ptr(),
-                                out.data_ptr(), M, N, K, group, stream)
+                                out.data_ptr(), M, N, K, group, _stream(dev))
         if err != 0:
             raise RuntimeError(f"W8A8 kernel launch failed: cudaError_t {err}")
     w8a8_launches += 1
     return out
 
 
-# ------------------------------------------------------- K7 (Triton, CUDA)
+# ---------------------------------------------------------- K7 (CUDA C++)
 @functools.lru_cache(maxsize=None)
-def _write_kv_kernel():
-    """K7, replacing `quantize_kv` + `_write_cache` / `_write_cache_chunk`
-    (qwen_text.py:527-583) for int8 entries. One program per (token, KV
-    head, K or V): amax over D, the int8 codes and the scale stored at
-    slot cache_len + i of the cache, placed by `cache_write_slots`' rule on
-    the device (DROP: a single token of a multi-row batch, dropped at or
-    past Tmax; otherwise the start clamped to Tmax - n). Bound by bytes."""
-    import triton
-    import triton.language as tl
-    import triton.language.extra.libdevice as tld
+def _kv_write_entry():
+    """K7's C entry point, built and bound once per process."""
+    from internnav_tpu_torch.ops._build import load_library
 
-    @triton.jit
-    def quantize_store(src_ptr, data_ptr, scale_ptr, src_off, dst_row, offs, keep,
-                       D: tl.constexpr):
-        x = tl.load(src_ptr + src_off + offs).to(tl.float32)
-        s = tl.maximum(tld.div_rn(tl.max(tl.abs(x), axis=0), 127.0), 1e-8)
-        q = tl.minimum(tl.maximum(tld.rint(tld.div_rn(x, s)), -127.0), 127.0)
-        tl.store(data_ptr + dst_row * D + offs, q.to(tl.int8), mask=keep)
-        tl.store(scale_ptr + dst_row, s, mask=keep)
+    fn = load_library("rope_kv_write.cu").rope_kv_write
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    @triton.jit
-    def write_kv_kernel(k_ptr, v_ptr, kd_ptr, ks_ptr, vd_ptr, vs_ptr, pos_ptr, n, KV, Tmax,
-                        D: tl.constexpr, DROP: tl.constexpr):
-        tok = tl.program_id(0)  # b * n + i
-        h = tl.program_id(1)
-        b = tok // n
-        pos = tl.load(pos_ptr + b).to(tl.int64)
-        if DROP:
-            keep = pos < Tmax
-            p = tl.minimum(pos, Tmax - 1)
-        else:
-            keep = pos == pos
-            p = tl.minimum(tl.maximum(pos, 0), Tmax - n) + tok % n
-        offs = tl.arange(0, D)
-        src_off = (tok.to(tl.int64) * KV + h) * D
-        dst_row = (b.to(tl.int64) * Tmax + p) * KV + h
-        if tl.program_id(2) == 0:
-            quantize_store(k_ptr, kd_ptr, ks_ptr, src_off, dst_row, offs, keep, D)
-        else:
-            quantize_store(v_ptr, vd_ptr, vs_ptr, src_off, dst_row, offs, keep, D)
 
-    return write_kv_kernel
+def _kv_write_launch(k, v, k_entry: KVEntry, v_entry: KVEntry, cache_len, B: int, n: int,
+                     rotary=None) -> Optional[torch.Tensor]:
+    """Launch K7: k/v bf16 with B n KV D elements, entries int8 (B, Tmax,
+    KV, D) + fp32 (B, Tmax, KV, 1), cache_len (B,) int32/int64, and
+    `rotary` (q (B n, H D) bf16, cos, sin fp32 (B, n, D)) or None. Returns
+    the rotated q (B, H, n, D), or None without rotary."""
+    global kv_write_launches
+    kernel = "KV write kernel"
+    dev = k.device
+    Tmax, KV, D = k_entry[0].shape[1:]
+    if D not in KV_WRITE_HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dim {D} is not one of {KV_WRITE_HEAD_DIMS}")
+    if n > Tmax:
+        raise ValueError(f"{kernel}: a write of {n} tokens does not fit a cache of {Tmax}")
+    for name, t in (("k", k), ("v", v)):
+        _check_cuda(name, t, torch.bfloat16, (B * n, KV * D), dev, kernel)
+    for name, (data, scale) in (("k", k_entry), ("v", v_entry)):
+        _check_cuda(f"the {name} cache", data, torch.int8, (B, Tmax, KV, D), dev, kernel)
+        _check_cuda(f"the {name} cache scale", scale, torch.float32, (B, Tmax, KV, 1), dev,
+                    kernel)
+    if cache_len.device != dev or tuple(cache_len.shape) != (B,) \
+            or cache_len.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{kernel}: cache_len must be int32/int64 ({B},) on {dev}")
+    cache_len = cache_len.contiguous()
+    q_rot = q = cos = sin = None
+    H = 0
+    if rotary is not None:
+        q, cos, sin = rotary
+        H = q.shape[-1] // D
+        _check_cuda("q", q, torch.bfloat16, (B * n, H * D), dev, kernel)
+        _check_cuda("cos", cos, torch.float32, (B, n, D), dev, kernel)
+        _check_cuda("sin", sin, torch.float32, (B, n, D), dev, kernel)
+        q_rot = torch.empty((B, H, n, D), dtype=torch.bfloat16, device=dev)
+    if B * n:
+        ptr = [None if t is None else t.data_ptr()
+               for t in (q, k, v, cos, sin, q_rot, *k_entry, *v_entry, cache_len)]
+        with torch.cuda.device(dev):
+            err = _kv_write_entry()(*ptr, int(cache_len.dtype == torch.int64), B, n, H, KV, D,
+                                    Tmax, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"KV write kernel launch failed: cudaError_t {err}")
+        kv_write_launches += 1
+    return q_rot
+
+
+def rope_kv_write_cuda(q, k, v, cos, sin, k_entry: KVEntry, v_entry: KVEntry, cache_len
+                       ) -> torch.Tensor:
+    """Launch K7 with rotary: q (B n, H D), k/v (B n, KV D) contiguous bf16,
+    cos/sin (B, n, D) fp32; entries contiguous int8 (B, Tmax, KV, D) and
+    fp32 (B, Tmax, KV, 1); cache_len (B,) int32/int64. Writes K and V at the
+    slots of `cache_write_slots` (the rule applied on the device, with no
+    host synchronisation) and returns the rotated q (B, H, n, D)."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("cos", cos)):
+        if not t.is_cuda:
+            raise ValueError(f"KV write kernel: {name} must be a CUDA tensor, got one on "
+                             f"{t.device}")
+    B, n = cos.shape[:2]
+    return _kv_write_launch(k, v, k_entry, v_entry, cache_len, B, n, rotary=(q, cos, sin))
 
 
 def write_kv_cache_cuda(k, v, k_entry: KVEntry, v_entry: KVEntry, cache_len) -> None:
-    """Launch K7: k/v contiguous bf16 (B, n, KV, D) with D a power of two;
-    entries contiguous int8 (B, Tmax, KV, D) and fp32 (B, Tmax, KV, 1);
-    cache_len (B,) int32/int64 on the same device. One launch writes K and
-    V, at the slots of `cache_write_slots` (the rule applied on the device,
-    with no host synchronisation)."""
-    global kv_write_launches
-    B, n, KV, D = k.shape
-    dev = k.device
+    """Launch K7 without rotary: k/v contiguous bf16 (B, n, KV, D); the rest
+    as `rope_kv_write_cuda`."""
+    if not k.is_cuda or k.dim() != 4:
+        raise ValueError(f"KV write kernel: k must be a bf16 (B, n, KV, D) CUDA tensor, got "
+                         f"{tuple(k.shape)} on {k.device}")
+    B, n = k.shape[:2]
     for name, t in (("k", k), ("v", v)):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or tuple(t.shape) != (B, n, KV, D) \
-                or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"KV write kernel: {name} must be contiguous bfloat16 "
-                             f"{(B, n, KV, D)} on {dev}")
-    if D & (D - 1):
-        raise ValueError(f"KV write kernel: head dim {D} is not a power of two")
-    Tmax = k_entry[0].shape[1]
-    if n > Tmax:
-        raise ValueError(f"KV write kernel: a write of {n} tokens does not fit a cache of {Tmax}")
-    for name, (data, scale) in (("k", k_entry), ("v", v_entry)):
-        if data.dtype != torch.int8 or tuple(data.shape) != (B, Tmax, KV, D) \
-                or scale.dtype != torch.float32 or tuple(scale.shape) != (B, Tmax, KV, 1) \
-                or not data.is_contiguous() or not scale.is_contiguous() \
-                or data.device != dev or scale.device != dev:
-            raise ValueError(f"KV write kernel: the {name} cache must be contiguous int8 "
-                             f"{(B, Tmax, KV, D)} + fp32 {(B, Tmax, KV, 1)} on {dev}")
-    if cache_len.device != dev or tuple(cache_len.shape) != (B,) \
-            or cache_len.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"KV write kernel: cache_len must be int32/int64 ({B},) on {dev}")
-    if B * n:
-        with torch.cuda.device(dev):
-            _write_kv_kernel()[(B * n, KV, 2)](
-                k, v, k_entry[0], k_entry[1], v_entry[0], v_entry[1], cache_len.contiguous(),
-                n, KV, Tmax, D=D, DROP=n == 1 and B > 1, num_warps=1)
-    kv_write_launches += 1
+        _check_cuda(name, t, torch.bfloat16, k.shape, k.device, "KV write kernel")
+    _kv_write_launch(k.view(B * n, -1), v.view(B * n, -1), k_entry, v_entry, cache_len, B, n)

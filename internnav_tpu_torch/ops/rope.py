@@ -33,6 +33,16 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def apply_rotary(q, k, cos, sin):
+    """q/k (B, H, T, D); cos/sin (B, T, D). Runs in the q/k dtype, like HF
+    (the text model's `apply_rotary`, internnav_tpu qwen_text.py:375-387)."""
+    cos = cos[:, None].to(q.dtype)
+    sin = sin[:, None].to(q.dtype)
+    q_out = q * cos + rotate_half(q) * sin
+    k_out = k * cos + rotate_half(k) * sin
+    return q_out, k_out.to(k.dtype)
+
+
 def mrope_cos_sin(position_ids: torch.Tensor, dim: int, mrope_section: Sequence[int],
                   theta: float = 1000000.0, dtype: torch.dtype = torch.float32
                   ) -> Tuple[torch.Tensor, torch.Tensor]:

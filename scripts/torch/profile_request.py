@@ -10,14 +10,19 @@ on every step as well (the action queue is cleared before each one). The
 history grows by one frame per step. Prints per step the wall time and the
 seconds spent in each stage (vision encode, text prefill, decode steps,
 lm_head, traj-latent chunk, System-1), each stage timed between device
-synchronisations. Then one more step under torch.profiler: device-busy
-seconds, the idle share of that step with the profiler on, and the top
-kernels.
+synchronisations, and the decode's host milliseconds per token. Then one
+more step under torch.profiler: device-busy seconds, the idle share of
+that step with the profiler on, the top kernels, and per decode token the
+device kernels launched, their device milliseconds and the host
+milliseconds (profiler on). A decode step's kernels are those that start
+on the device inside its range: each stage runs between two device
+synchronisations, so its kernels start and end inside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import sys
 import time
@@ -34,7 +39,8 @@ def main() -> None:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import INSTRUCTION, build_agent, gpu_line, request_frames
     from internnav_tpu_torch import require_cuda
@@ -48,11 +54,12 @@ def main() -> None:
         fn = getattr(obj, name)
 
         def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            seconds[label] += time.perf_counter() - t
+            with record_function(label):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                seconds[label] += time.perf_counter() - t
             calls[label] += 1
             return out
 
@@ -82,15 +89,51 @@ def main() -> None:
         wall = step()
         stages = " ".join(f"{k}={v:.4f}s/{calls[k]}" for k, v in seconds.items())
         print(f"step {i}: wall_s={wall:.4f} images={len(policy.input_images)} "
-              f"generated={len(policy.last_gen_tokens)} {stages}")
+              f"generated={len(policy.last_gen_tokens)} {stages} decode_host_ms_per_token="
+              f"{1e3 * seconds['decode_step'] / max(calls['decode_step'], 1):.4f}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = step()
     table = prof.key_averages()
-    busy_s = sum(e.self_device_time_total for e in table if e.device_type.name == "CUDA") / 1e6
+    # device rows; the stages' record_function ranges also show as device
+    # annotations spanning their kernels, which are not device work
+    busy_s = sum(e.self_device_time_total for e in table
+                 if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+                 and e.key not in calls) / 1e6
     print(f"profiled step: wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
           f"idle_share={1 - busy_s / wall:.3f} (profiler on)")
     print(table.table(sort_by="self_device_time_total", row_limit=20, max_name_column_width=60))
+    decode_token_kernels(prof, DeviceType)
     print(f"profile={args.profile} {gpu_line()}")
+
+
+def decode_token_kernels(prof, DeviceType) -> None:
+    """Per decode token of the profiled step: the device kernels that start
+    inside a `decode_step` range, their device time, the range's host
+    time, and the most launched kernels."""
+    events = prof.events()
+    windows = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.name == "decode_step" and e.device_type == DeviceType.CPU)
+    if not windows:
+        raise RuntimeError("the profiled step ran no decode step")
+    starts = [w[0] for w in windows]
+    per_name = collections.Counter()
+    n_kernels, device_us = 0, 0.0
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or e.name.startswith(("Memcpy", "Memset")) or e.name == "decode_step":
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= windows[i][1]:
+            n_kernels += 1
+            device_us += e.time_range.elapsed_us()
+            per_name[e.name] += 1
+    n = len(windows)
+    host_ms = sum(b - a for a, b in windows) / n / 1e3
+    print(f"profiled decode: tokens={n} kernels_per_token={n_kernels / n:.2f} "
+          f"device_ms_per_token={device_us / n / 1e3:.4f} host_ms_per_token={host_ms:.4f} "
+          f"idle_share={1 - device_us / n / 1e3 / host_ms:.3f} (profiler on)")
+    for name, count in per_name.most_common(12):
+        print(f"  per token {count / n:8.2f}  {name[:100]}")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ as HTTP 500 instead of a STOP action.
 
 import dataclasses
 import json
+import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -68,19 +70,41 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_port_int8_modules_import_without_triton():
-    """triton is imported only inside the CUDA path: with it unimportable,
-    the int8 ops and the text model import and run on the CPU."""
+def test_port_int8_modules_import_without_triton(tmp_path, monkeypatch):
+    """The int8 kernels are CUDA C++ built by nvcc on first use: with triton
+    unimportable and no CUDA device, the int8 ops and the text model import,
+    every int8 dispatcher runs its plain version on the CPU, and triton is
+    never loaded. Each kernel library is named by a hash of its source (an
+    edited source builds anew)."""
     code = ("import sys; sys.modules['triton'] = None\n"
             "import torch\n"
             "from internnav_tpu_torch.ops import quant\n"
             "from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text\n"
-            "q, s = quant.quantize_activations(torch.ones(2, 8))\n"
-            "assert q.dtype == torch.int8 and 'triton' not in [m for m in sys.modules\n"
-            "                                                  if sys.modules[m] is not None]\n")
+            "assert not torch.cuda.is_available()\n"
+            "x = torch.ones(2, 64, dtype=torch.bfloat16)\n"
+            "outs = [*quant.rmsnorm_quantize(x, torch.ones(64), 1e-6, residual=x)[:2],\n"
+            "        *quant.swiglu_quantize(x, x), *quant.quantize_activations(x)]\n"
+            "assert [t.dtype for t in outs] == [torch.int8, torch.float32] * 3\n"
+            "ke, ve = [(torch.zeros(1, 4, 1, 64, dtype=torch.int8), torch.zeros(1, 4, 1, 1))\n"
+            "          for _ in range(2)]\n"
+            "cos = torch.ones(1, 1, 64)\n"
+            "q = quant.rope_kv_write(x[:1], x[:1], x[:1], cos, cos * 0, ke, ve,\n"
+            "                        torch.zeros(1, dtype=torch.long))\n"
+            "assert q.shape == (1, 1, 1, 64) and int(ke[0][0, 0].abs().max()) == 127\n"
+            "assert 'triton' not in [m for m in sys.modules if sys.modules[m] is not None]\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
+    from internnav_tpu_torch.ops import _build
+
+    for src in ("quantize_rows.cu", "rope_kv_write.cu"):
+        assert _build.library_path(src).name.startswith(src.removesuffix(".cu") + "_")
+    shutil.copytree(_build.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    for src in ("quantize_rows.cu", "rope_kv_write.cu"):
+        before = _build.library_path(src)
+        (tmp_path / "csrc" / src).write_text((tmp_path / "csrc" / src).read_text() + "\n")
+        assert _build.library_path(src) != before
 
 
 def test_port_sources_never_import_jax():

@@ -367,10 +367,13 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(device):
 
 
 # ---------------------------------------------------------- int8 kernels
-# K6a and K7 bitwise (same IEEE divisions and round-half-even as the plain
-# versions); K6b per-channel within one bf16 ulp (exact int32 sums and the
-# same fp32 epilogue order), grouped at atol = rtol = 1e-2 (the sum over
-# groups in another order); K4/K5 at atol = rtol = 2e-2, as K1.
+# K6a's PLAIN and SWIGLU prologues and K7 bitwise (same IEEE divisions,
+# expf/rsqrtf and round-half-even as the plain versions); K6a's RMSNORM
+# prologue with codes within +-1 and scales within 2^-7 (its sum of squares
+# runs in another order than ATen's mean); K6b per-channel within one bf16
+# ulp (exact int32 sums and the same fp32 epilogue order), grouped at atol =
+# rtol = 1e-2 (the sum over groups in another order); K4/K5 at atol = rtol
+# = 2e-2, as K1.
 W8A8_7B = [(3584, 3584, True), (512, 3584, True), (18944, 3584, False), (3584, 18944, False)]
 
 
@@ -399,6 +402,80 @@ def test_quantize_rows_kernel_is_bitwise(device, M, K, dtype):
     rq, rs = quant.quantize_rows(x)
     torch.cuda.synchronize()
     assert torch.equal(s, rs) and torch.equal(q, rq)
+
+
+K6A_ROWS = [1, 4, 16, 17, 1088]
+
+
+def _norm_scale(device, K, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(K, generator=g, device=device) * 0.3 + 1.0  # N(1, 0.3), fp32
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("K", [64, 3584])
+@pytest.mark.parametrize("M", K6A_ROWS)
+def test_rmsnorm_quantize_kernel_matches_plain(device, M, K, residual):
+    """K6a's RMSNORM prologue at the tiny and 7B hidden widths: x + residual
+    bitwise; codes within +-1 and scales within 2^-7 of the plain version
+    (the kernel adds the squares in another order than ATen's mean, which
+    can move the norm's last bit). The count of differing codes is printed
+    and held under 1 in 1,000."""
+    from internnav_tpu_torch.ops import quant
+
+    x = _rand(device, M, K, seed=M + K) * 2.0
+    h = _rand(device, M, K, seed=M + K + 1) if residual else None
+    w = _norm_scale(device, K, seed=K)
+    before = (quant.quantize_rows_launches, quant.rmsnorm_quantize_launches)
+    q, s, xs = quant.rmsnorm_quantize(x, w, 1e-6, residual=h)
+    assert (quant.quantize_rows_launches, quant.rmsnorm_quantize_launches) == \
+        (before[0] + 1, before[1] + 1)
+    rq, rs, rxs = quant.rmsnorm_quantize_reference(x, w, 1e-6, residual=h)
+    torch.cuda.synchronize()
+    assert q.shape == (M, K) and s.shape == (M, 1) and torch.equal(xs, rxs)
+    differing = int((q != rq).sum())
+    print(f"RMSNORM M={M} K={K} residual={residual}: {differing} of {M * K} codes differ")
+    assert int((q.int() - rq.int()).abs().max()) <= 1
+    assert differing * 1000 <= M * K
+    torch.testing.assert_close(s, rs, atol=0, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("K", [128, 18944])
+@pytest.mark.parametrize("M", K6A_ROWS)
+def test_swiglu_quantize_kernel_is_bitwise(device, M, K):
+    """K6a's SWIGLU prologue at the tiny and 7B intermediate widths: the
+    same expf, IEEE division and bf16 roundings as F.silu(gate) * up."""
+    from internnav_tpu_torch.ops import quant
+
+    gate = _rand(device, M, K, seed=M + 2 * K) * 3.0
+    up = _rand(device, M, K, seed=M + 2 * K + 1)
+    gate[0, :8] = torch.tensor([0.0, -0.0, 88.0, -88.0, 100.0, -100.0, 1e-3, -1e-3])
+    before = (quant.quantize_rows_launches, quant.swiglu_quantize_launches)
+    q, s = quant.swiglu_quantize(gate, up)
+    assert (quant.quantize_rows_launches, quant.swiglu_quantize_launches) == \
+        (before[0] + 1, before[1] + 1)
+    rq, rs = quant.swiglu_quantize_reference(gate, up)
+    torch.cuda.synchronize()
+    assert torch.equal(s, rs) and torch.equal(q, rq)
+
+
+def test_k6a_wrappers_reject_what_they_do_not_take(device):
+    from internnav_tpu_torch.ops import quant
+
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device=device)
+    w = torch.ones(256, device=device)
+    with pytest.raises(ValueError, match="bfloat16"):  # RMSNORM takes bf16 rows only
+        quant.rmsnorm_quantize_cuda(x.float(), w, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):  # a strided view
+        quant.rmsnorm_quantize_cuda(x[:, ::2], w[::2], 1e-6)
+    with pytest.raises(ValueError, match="norm scale"):
+        quant.rmsnorm_quantize_cuda(x, w.bfloat16(), 1e-6)
+    with pytest.raises(ValueError, match="second input"):
+        quant.swiglu_quantize_cuda(x, x[:2])
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        quant.quantize_rows_cuda(torch.zeros((2, 12), dtype=torch.bfloat16, device=device))
+    with pytest.raises(ValueError, match="at most"):
+        quant.quantize_rows_cuda(torch.zeros((1, 32772), device=device))
 
 
 @pytest.mark.parametrize("M", [1, 4, 5, 329])
@@ -554,3 +631,68 @@ def test_kv_write_kernel_is_bitwise(device, n, pos):
     torch.cuda.synchronize()
     for got, want in zip((*ke, *ve), (*ref[0], *ref[1])):
         assert torch.equal(got, want)
+
+
+def _rotary_tables(device, B, n, D, seed):
+    """cos/sin (B, n, D) fp32 of random positions, as `mrope_cos_sin` makes
+    them (the frequencies duplicated over the two halves)."""
+    from internnav_tpu_torch.ops.rope import mrope_cos_sin
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    pos = torch.randint(0, 5000, (3, B, n), generator=g, device=device)
+    return mrope_cos_sin(pos, D, (16, 24, 24) if D == 128 else (D // 8, D // 8, D // 4))
+
+
+@pytest.mark.parametrize("n,pos", [(1, (17,)), (1, (455, 460, 471)), (4, (3, 100)),
+                                   (4, (458,)), (4, (900, 0, 5)), (1088, (0,))])
+@pytest.mark.parametrize("D", [64, 128])
+def test_rope_kv_write_kernel_is_bitwise(device, n, pos, D):
+    """K7 with rotary: one token, a ragged batch of 3 whose row past Tmax =
+    460 is dropped (and whose slot keeps its old codes), chunks clamped at
+    the cache's end, and a 1,088-token write at 0 (Tmax 1220 then): the
+    rotated q, the codes and the scales equal `rope_kv_write_reference`."""
+    from internnav_tpu_torch.ops import quant
+
+    B, H, KV = len(pos), 28, 4
+    Tmax = 460 if n < 1088 else 1220
+    q = _rand(device, B * n, H * D, seed=11) * 2.0
+    k = _rand(device, B * n, KV * D, seed=12) * 2.0
+    v = _rand(device, B * n, KV * D, seed=13)
+    v[0, :D] = 0.0  # a zero row takes the 1e-8 floor
+    cos, sin = _rotary_tables(device, B, n, D, seed=14)
+    cache_len = torch.tensor(pos, device=device, dtype=torch.int32 if B == 3 else torch.int64)
+    ke, ve = (_int8_kv_cache(device, B, Tmax, KV, D, 15), _int8_kv_cache(device, B, Tmax, KV,
+                                                                          D, 16))
+    ref = [tuple(t.clone() for t in e) for e in (ke, ve)]
+    before = quant.kv_write_launches
+    q_rot = quant.rope_kv_write(q, k, v, cos, sin, ke, ve, cache_len)
+    assert quant.kv_write_launches == before + 1
+    want = quant.rope_kv_write_reference(q, k, v, cos, sin, ref[0], ref[1], cache_len)
+    torch.cuda.synchronize()
+    assert q_rot.shape == (B, H, n, D) and q_rot.is_contiguous() and torch.equal(q_rot, want)
+    for got, exp in zip((*ke, *ve), (*ref[0], *ref[1])):
+        assert torch.equal(got, exp)
+
+
+def test_k7_wrappers_reject_what_they_do_not_take(device):
+    from internnav_tpu_torch.ops import quant
+
+    B, n, H, KV, D, Tmax = 1, 2, 8, 2, 128, 16
+    q = torch.zeros((B * n, H * D), dtype=torch.bfloat16, device=device)
+    k = torch.zeros((B * n, KV * D), dtype=torch.bfloat16, device=device)
+    cos = torch.zeros((B, n, D), device=device)
+    entry = (torch.zeros((B, Tmax, KV, D), dtype=torch.int8, device=device),
+             torch.zeros((B, Tmax, KV, 1), device=device))
+    cache_len = torch.zeros(B, dtype=torch.long, device=device)
+    with pytest.raises(ValueError, match="q must be"):
+        quant.rope_kv_write_cuda(q.float(), k, k, cos, cos, entry, entry, cache_len)
+    with pytest.raises(ValueError, match="cos must be"):
+        quant.rope_kv_write_cuda(q, k, k, cos.bfloat16(), cos, entry, entry, cache_len)
+    with pytest.raises(ValueError, match="k must be"):  # a strided view
+        quant.rope_kv_write_cuda(q, k.t().contiguous().t(), k, cos, cos, entry, entry,
+                                 cache_len)
+    with pytest.raises(ValueError, match="head dim"):
+        quant.rope_kv_write_cuda(q, k, k, cos, cos, tuple(t[..., :96] for t in entry[:1])
+                                 + entry[1:], entry, cache_len)
+    with pytest.raises(ValueError, match="cache_len"):
+        quant.rope_kv_write_cuda(q, k, k, cos, cos, entry, entry, cache_len.float())
