@@ -24,9 +24,13 @@ Phases, each printing its numbers:
                (activation quantization fused into the op before it: the
                RMSNorm with and without the residual add, the SwiGLU
                product, and bf16 / fp32 rows as they are; the differing
-               RMSNorm codes counted), K6b (W8A8 GEMM at M = 1, 4, the 4th
-               request's and the long request's prompt; the prefill tiles
-               at both widths beside torch._int_mm), K4/K5 (int8 decode
+               RMSNorm codes counted), K6b (W8A8 GEMM: the decode tiles at
+               M = 1, 4 and 12 per projection of a layer, q/k/v and
+               gate/up fused into one launch and held bitwise equal to
+               their separate launches, warm and with a cold L2; the
+               prefill tiles at M = 48, the 4th request's and the long
+               request's prompt beside torch._int_mm; odd N at decode and
+               prefill), K4/K5 (int8 decode
                attention at the serving caches, past 4,096 keys, a ragged
                batch of 3 and 8 queries a head) and K7 (rotary + KV
                quantization + cache write for a token, the latent chunk, a
@@ -41,7 +45,9 @@ Phases, each printing its numbers:
                projections, int8 KV cache; the bf16 draws quantized on the
                card): the launches of K1, K4, K5, K6a (and of each of its
                prologues), K6b and K7 must equal the counts computed from
-               the layers and each request's decode steps; then, after
+               the layers and each request's decode steps (K6b: 4 per
+               decode or chunk layer pass, 7 per prefill layer pass, one
+               per lm_head call); then, after
                /reset and 8 uncounted 644x644 frames with a short decode
                budget, the long request (the
                ninth frame: a 4,864-token prompt, a 4,996-key cache), its
@@ -134,20 +140,30 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+_FLUSH = []  # the buffer `cuda_ms(cold=True)` writes, made once
+
+
+def cuda_ms(fn, reps: int = 20, cold: bool = False) -> float:
     """Device milliseconds of one fn() call: the median of `reps` CUDA-event
     timings (after one warm-up). Each call is queued behind a device-side
     sleep (QUEUE_CYCLES, ~5 ms), so the host has enqueued the call's
     launches before the device reaches them, and the events time the
-    device's work alone rather than the host's launch overhead."""
+    device's work alone rather than the host's launch overhead. With
+    `cold`, a 128 MB buffer is written between the sleep and the start
+    event, so fn's operands come from device memory, not the 50 MB L2 (as
+    a decode step meets each layer's weights)."""
     import torch
 
+    if cold and not _FLUSH:
+        _FLUSH.append(torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda"))
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(QUEUE_CYCLES)
+        if cold:
+            _FLUSH[0].fill_(1)
         start.record()
         fn()
         end.record()
@@ -570,51 +586,112 @@ def int8_k6a_rows(device, g):
     return rows
 
 
+# K6b's projections per decoder layer of the 7B model: (name, widths, K,
+# bias); q/k/v and gate/up share an input and go to one launch at decode
+GEMM_LAYER = (("qkv", (3584, 512, 512), 3584, True), ("o", (3584,), 3584, False),
+              ("gate_up", (18944, 18944), 3584, False), ("down", (3584,), 18944, False))
+GEMM_DECODE_ROWS = (1, 4, 12)  # a token, the latent chunk, a grouped-decode cohort
+GEMM_PREFILL_ROWS = (48, PROMPT_T, LONG_PROMPT_T)  # 48: the grouped decode's shared rows
+GEMM_ODD_N = (63, 65, 4097)
+
+
 def int8_gemm_rows(device, g):
-    """K6b at every (N, K) of the 7B decoder at M = 1 (decode), 4 (latent
-    chunk), PROMPT_T and LONG_PROMPT_T (prefill), the lm_head at M = 1, and
-    grouped g=128 rows at M = 1 and PROMPT_T. Per-channel rows must equal
-    the plain version bit for bit. The prefill tiles (M > 16; 128 or 256
-    wide, the kernel's choice from N) are timed beside torch._int_mm (an
-    int32 product with no epilogue, not on the path)."""
+    """K6b at the 7B shapes, every row checked against the plain version
+    (per-channel bit for bit, grouped within GROUPED_TOL) and timed beside
+    its byte or operation bound:
+    - decode tiles (M in GEMM_DECODE_ROWS) for each projection of a layer,
+      q/k/v and gate/up as one fused launch (also held bitwise equal to
+      their separate launches, whose summed time is `separate_ms`), warm
+      and cold (`cold_ms`); the lm_head at M = 1; grouped g=128 at M = 1;
+    - prefill tiles (M in GEMM_PREFILL_ROWS) for each projection alone, as
+      the prefill launches them, beside torch._int_mm (an int32 product
+      with no epilogue, not on the path); grouped g=128 at PROMPT_T;
+    - odd N (GEMM_ODD_N) at M = 1, 4 (decode) and 17, 129 (prefill).
+    torch._int_mm is tried at M <= 16 too; where it refuses, the reason is
+    printed on a `phase kernels:` line and the row has no library time.
+    Outputs start uninitialised, so a tile the grid missed shows."""
     import torch
 
     from internnav_tpu_torch.ops import quant
 
-    shapes = [(3584, 3584, True), (512, 3584, True), (18944, 3584, False),
-              (3584, 18944, False)]
-    cases = [(M, N, K, bias, None) for M in (1, 4, PROMPT_T, LONG_PROMPT_T)
-             for N, K, bias in shapes]
-    cases += [(1, 152064, 3584, False, None), (1, 18944, 3584, False, 128),
-              (PROMPT_T, 18944, 3584, False, 128)]
-    rows = []
-    for M, N, K, bias, group in cases:
-        xq, a = quant.quantize_rows(torch.randn((M, K), generator=g, device=device,
-                                                dtype=torch.bfloat16))
+    def weights(N, K, bias, group=None):
         w = torch.randint(-127, 128, (N, K), generator=g, device=device, dtype=torch.int8)
         s = torch.rand((K // group, N) if group else (N,), generator=g, device=device) * 1e-3
-        b = torch.randn(N, generator=g, device=device) if bias else None
-        want = quant.w8a8_linear_reference(xq, a, w, s, b)
-        y = quant.w8a8_linear_cuda(xq, a, w, s, b)
+        return w, s, (torch.randn(N, generator=g, device=device) if bias else None)
+
+    int_mm_refusal = {}
+
+    def library(xq, segs):
+        """torch._int_mm's time for the same int32 products, or None."""
+        if len(segs) > 1:
+            return None
+        wt = segs[0][0].t()
+        try:
+            torch._int_mm(xq, wt)
+        except RuntimeError as e:
+            int_mm_refusal.setdefault(xq.shape[0], str(e).splitlines()[0])
+            return None
+        return cuda_ms(lambda: torch._int_mm(xq, wt))
+
+    rows = []
+
+    def check(M, widths, K, bias, group=None, separate=False):
+        xq, a = quant.quantize_rows(torch.randn((M, K), generator=g, device=device,
+                                                dtype=torch.bfloat16))
+        segs = [weights(N, K, bias, group) for N in widths]
+        run = (lambda: quant.w8a8_linear_multi(xq, a, segs))
+        plain = (lambda: [quant.w8a8_linear_reference(xq, a, *sg) for sg in segs])
+        ys, wants = run(), plain()
         torch.cuda.synchronize()
-        err = (y.float() - want.float()).abs().max().item()
-        ok = torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL) \
-            if group else torch.equal(y, want)
+        err = max((y.float() - want.float()).abs().max().item() for y, want in zip(ys, wants))
+        ok = all(torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL)
+                 if group else torch.equal(y, want) for y, want in zip(ys, wants))
+        extra = {}
+        if len(segs) > 1:  # the fused launch equals the separate ones
+            alone = [quant.w8a8_linear_cuda(xq, a, *sg) for sg in segs]
+            torch.cuda.synchronize()
+            ok = ok and all(torch.equal(y, z) for y, z in zip(ys, alone))
+            extra["separate_ms"] = cuda_ms(lambda: [quant.w8a8_linear_cuda(xq, a, *sg)
+                                                    for sg in segs])
         if not ok:
-            raise AssertionError(f"K6b M={M} N={N} K={K} group={group}: differs from the "
-                                 f"plain version by {err}")
-        del y
-        nbytes = M * K + N * K + 4 * M + 4 * s.numel() + (4 * N if bias else 0) + 2 * M * N
-        library = None
-        if M > quant.GEMM_DECODE_MAX_M:
-            wt = w.t()
-            library = cuda_ms(lambda: torch._int_mm(xq, wt))
-        rows.append(_row("K6b", f"M{M}_N{N}_K{K}" + (f"_g{group}" if group else ""), err,
-                         cuda_ms(lambda: quant.w8a8_linear_cuda(xq, a, w, s, b)),
-                         cuda_ms(lambda: quant.w8a8_linear_reference(xq, a, w, s, b), reps=5),
-                         _bytes_bound(nbytes, 2.0 * M * N * K, PEAK_INT8_OPS), library))
-        del xq, a, w, s, b, want
+            raise AssertionError(f"K6b M={M} N={widths} K={K} group={group}: differs from the "
+                                 f"plain version (or the separate launches) by {err}")
+        N = sum(widths)
+        nbytes = (M * K + N * K + 4 * M + sum(4 * sg[1].numel() for sg in segs)
+                  + (4 * N if bias else 0) + 2 * M * N)
+        decode = M <= quant.GEMM_DECODE_MAX_M
+        launch = {}
+        if decode:
+            plan = quant.gemm_decode_plan(tuple(widths), K, group or 0, M)
+            launch = {"split": plan.split, "grid": plan.grid, "stages": plan.stages}
+            extra["cold_ms"] = cuda_ms(run, cold=True)
+        del ys, wants
+        rows.append(_row("K6b", f"M{M}_N{'+'.join(map(str, widths))}_K{K}"
+                         + (f"_g{group}" if group else ""), err, cuda_ms(run),
+                         cuda_ms(plain, reps=5), _bytes_bound(nbytes, 2.0 * M * N * K,
+                                                             PEAK_INT8_OPS),
+                         library(xq, segs), extra=extra, **launch))
+        del xq, a, segs
         torch.cuda.empty_cache()
+
+    for M in GEMM_DECODE_ROWS:
+        for _, widths, K, bias in GEMM_LAYER:
+            check(M, widths, K, bias)
+    check(1, (152064,), 3584, False)
+    check(1, (18944,), 3584, False, group=128)
+    prefill_shapes = {}  # (N, K): bias, for q (= o), k (= v), gate (= up), down
+    for _, widths, K, bias in GEMM_LAYER:
+        for N in widths:
+            prefill_shapes.setdefault((N, K), bias)
+    for M in GEMM_PREFILL_ROWS:
+        for (N, K), bias in prefill_shapes.items():
+            check(M, (N,), K, bias)
+    check(PROMPT_T, (18944,), 3584, False, group=128)
+    for M in (1, 4, 17, 129):
+        for N in GEMM_ODD_N:
+            check(M, (N,), 3584, True)
+    for M, reason in sorted(int_mm_refusal.items()):
+        print(f"phase kernels: K6b library torch._int_mm refuses M={M}: {reason}")
     return rows
 
 
@@ -826,7 +903,7 @@ def launch_counts() -> dict:
             "K6a": quant.quantize_rows_launches, "K6a_rmsnorm": quant.rmsnorm_quantize_launches,
             "K6a_swiglu": quant.swiglu_quantize_launches,
             "K6a_plain": quant.plain_quantize_launches, "K6b": quant.w8a8_launches,
-            "K7": quant.kv_write_launches}
+            "K6b_fused": quant.w8a8_fused_launches, "K7": quant.kv_write_launches}
 
 
 def reset_launch_counts() -> None:
@@ -837,7 +914,7 @@ def reset_launch_counts() -> None:
     fa.decode_int8_launches = fa.chunk_decode_int8_launches = 0
     quant.quantize_rows_launches = quant.w8a8_launches = quant.kv_write_launches = 0
     quant.rmsnorm_quantize_launches = quant.swiglu_quantize_launches = 0
-    quant.plain_quantize_launches = 0
+    quant.plain_quantize_launches = quant.w8a8_fused_launches = 0
 
 
 def _count_calls(obj, names, calls):
@@ -859,21 +936,25 @@ def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
     per windowed ViT block of the request's new frame; with the realtime
     profile per layer pass 4 activation quantizations (K6a: the two
     RMSNorms, q/k/v sharing the first and gate/up the second; the SwiGLU
-    product for down; o_proj's input as it is), 7 W8A8 products and one
-    K7 launch (rotary + K/V cache write; the prefill's without rotary),
-    plus one plain K6a and one K6b per lm_head call; K4 per decode layer,
-    K5 per chunk layer."""
+    product for down; o_proj's input as it is) and one K7 launch (rotary +
+    K/V cache write; the prefill's without rotary); K6b 4 launches per
+    decode or chunk layer pass (q/k/v fused, o, gate/up fused, down: 2 of
+    them fused, K6b_fused) and 7 per prefill layer pass (each projection
+    alone on the prefill tiles); plus one plain K6a and one K6b per lm_head
+    call; K4 per decode layer, K5 per chunk layer."""
     L = cfg.text.num_hidden_layers
     windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
     want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu",
-                          "K6a_plain", "K6b", "K7"), 0)
+                          "K6a_plain", "K6b", "K6b_fused", "K7"), 0)
     want["K1"] = len(steps) * (L + windowed)
     if profile == "realtime":
-        passes = sum(2 + s for s in steps)  # prefill + decode steps + chunk, per layer
+        decode_passes = sum(1 + s for s in steps)  # decode steps + chunk, per layer
+        passes = len(steps) + decode_passes  # and the prefill
         want.update(K4=L * sum(steps), K5=L * len(steps), K6a=4 * L * passes + logits_calls,
                     K6a_rmsnorm=2 * L * passes, K6a_swiglu=L * passes,
-                    K6a_plain=L * passes + logits_calls, K6b=7 * L * passes + logits_calls,
-                    K7=L * passes)
+                    K6a_plain=L * passes + logits_calls,
+                    K6b=4 * L * decode_passes + 7 * L * len(steps) + logits_calls,
+                    K6b_fused=2 * L * decode_passes, K7=L * passes)
     return want
 
 
@@ -1012,7 +1093,8 @@ def phase_serve(device, profile: str) -> dict:
     L = text.num_hidden_layers
     # per decode step with its lm_head call
     per_step = {"K4": L, "K6a": 4 * L + 1, "K6a_rmsnorm": 2 * L, "K6a_swiglu": L,
-                "K6a_plain": L + 1, "K6b": 7 * L + 1, "K7": L} if profile == "realtime" else {}
+                "K6a_plain": L + 1, "K6b": 4 * L + 1, "K6b_fused": 2 * L,
+                "K7": L} if profile == "realtime" else {}
     print(f"phase serve: profile={profile} weight_dtype={text.weight_dtype} "
           f"kv_dtype={text.kv_dtype} layers={text.num_hidden_layers} hidden={text.hidden_size} "
           f"build_s={build_s:.2f} resident_gib={build_mem_gib:.2f} "
@@ -1131,7 +1213,7 @@ def phase_train(device, store) -> dict:
         else:
             first_s = dt
     totals = launch_counts()
-    if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K7")):
+    if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K6b_fused", "K7")):
         raise AssertionError(f"the bf16 train step launched an int8 kernel: {totals}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     for i, m in enumerate(metrics):
@@ -1220,6 +1302,8 @@ def main() -> int:
         if kernel == "K6a":
             extra["launches_by_prologue"] = {p: paths(f"K6a_{p}")[0]
                                              for p in ("rmsnorm", "swiglu", "plain")}
+        if kernel == "K6b":  # launches that computed several projections at once
+            extra["fused_launches"] = paths("K6b_fused")[0]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": by, **extra,
                 "max_abs_err": max(r["max_abs_err"] for r in int8[kernel]),
@@ -1245,7 +1329,8 @@ def main() -> int:
                    decode_shape(tmax, (tmax - N_QUERY,), N_QUERY)),
         int8_entry("quantize_rows", "K6a", "cuda", K6A_SOURCE, K6A_REPLACES,
                    "rmsnorm_residual_M1_K3584"),
-        int8_entry("w8a8_gemm", "K6b", "cuda", GEMM_SOURCE, K6B_REPLACES, "M1_N18944_K3584"),
+        int8_entry("w8a8_gemm", "K6b", "cuda", GEMM_SOURCE, K6B_REPLACES,
+                   "M1_N18944+18944_K3584"),
         int8_entry("rope_kv_write", "K7", "cuda", K7_SOURCE, K7_REPLACES,
                    kv_write_shape(True, (PROMPT_T + 17,), 1)),
     ]

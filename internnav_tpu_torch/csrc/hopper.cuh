@@ -1,4 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// split cluster barriers and stores into a cluster block's shared memory,
 // TMA tile and bulk loads, 128-byte-swizzled wgmma descriptors, the wgmma
 // products the flash-attention kernels (bf16) and the W8A8 GEMM (s8) issue,
 // register reallocation, the live-tile list, the accumulator store, and
@@ -73,6 +74,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (tries == (1u << 28)) __trap();
   }
+}
+
+// --------------------------------------------------------------- clusters
+// split cluster barrier: arrive early, wait (acquire) where needed; every
+// thread of every block of the cluster arrives once. The arrive is relaxed:
+// it orders only what a fence before it (fence_barrier_init) released
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of this block's shared `p` in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// store two words into a cluster block's shared memory (address from
+// cluster_addr) and count their 8 bytes on its mbarrier `bar` (ditto)
+__device__ __forceinline__ void st_async_v2(uint32_t addr, uint32_t x, uint32_t y,
+                                            uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];\n"
+               :: "r"(addr), "r"(x), "r"(y), "r"(bar)
+               : "memory");
 }
 
 // ------------------------------------------------------------------- TMA

@@ -16,10 +16,11 @@ cross-entropy (`chunked_ce`).
 - The int8 `realtime` formats: `weight_dtype="int8"` makes every
   projection (q/k/v/o, gate/up/down, lm_head; never the embedding) a
   `QuantLinear`, the port of `QuantDense` at 8 bits (W8A8: activations
-  quantized per token by K6a, the product by K6b). K6a quantizes inside
-  the op that makes its input: the decoder layer's two RMSNorms (the
-  second with the residual add before it) and the SwiGLU product, so
-  those layers call neither `RMSNorm` nor `F.silu`; o_proj's and the
+  quantized per token by K6a, the product by K6b: at decode rows the
+  projections of one input, q/k/v and gate/up, in one launch). K6a
+  quantizes inside the op that makes its input: the decoder layer's two
+  RMSNorms (the second with the residual add before it) and the SwiGLU
+  product, so those layers call neither `RMSNorm` nor `F.silu`; o_proj's and the
   lm_head's inputs are quantized as they are. `kv_dtype="int8"` makes
   each cache entry an (int8 data, fp32 scale) tuple, read by the int8
   decode attention K4/K5; a decode step or chunk rotates q and k,
@@ -59,7 +60,7 @@ from internnav_tpu_torch.ops.quant import (
     rope_kv_write,
     store_cache_rows_,
     swiglu_quantize,
-    w8a8_linear,
+    w8a8_linear_multi,
     write_kv_cache,
 )
 from internnav_tpu_torch.ops.rope import apply_rotary, mrope_cos_sin
@@ -162,9 +163,9 @@ class QuantLinear(nn.Module):
     int8, `scale_q` (N,) or grouped (K / g, N) fp32 and an optional fp32
     `bias`; w ≈ weight_q * scale. The input is quantized per token
     (`quantize_activations`) and multiplied in int8 with int32 sums
-    (`w8a8_linear`); the output has the module's dtype. The weight is
-    stored (N, K), K contiguous: the layout int8 tensor-core products take
-    for their B operand."""
+    (`w8a8_linear_multi`, through `project`); the output has the module's
+    dtype. The weight is stored (N, K), K contiguous: the layout int8
+    tensor-core products take for their B operand."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  group_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16):
@@ -190,11 +191,6 @@ class QuantLinear(nn.Module):
             out.bias = lin.bias.detach().float()
         return out
 
-    def forward_quantized(self, xq: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
-        """(M, K) int8 rows and their (M, 1) scales → (M, N)."""
-        return w8a8_linear(xq, a_scale, self.weight_q, self.scale_q, self.bias,
-                           out_dtype=self.dtype)
-
     def forward(self, x):
         return project(x, self)[0]
 
@@ -217,15 +213,18 @@ def project(x: Union[torch.Tensor, QuantizedRows], *mods: nn.Module) -> List[tor
     or fp32, is quantized once and shared (q/k/v, gate/up), or comes
     quantized as `QuantizedRows`: the quantization is a function of the
     input alone, so this equals the JAX package's quantization inside every
-    projection."""
+    projection. The products go to `w8a8_linear_multi` in one call: one
+    K6b launch for all of them at decode rows on CUDA."""
     if not isinstance(mods[0], QuantLinear):
         x = x.to(mods[0].weight.dtype)
         return [m(x) for m in mods]
     if not isinstance(x, QuantizedRows):
         x = QuantizedRows(*quantize_activations(x))
     lead, K = x.shape[:-1], x.shape[-1]
-    xq, a_scale = x.q.reshape(-1, K), x.scale.reshape(-1, 1)
-    return [m.forward_quantized(xq, a_scale).reshape(*lead, m.out_features) for m in mods]
+    outs = w8a8_linear_multi(x.q.reshape(-1, K), x.scale.reshape(-1, 1),
+                             [(m.weight_q, m.scale_q, m.bias) for m in mods],
+                             out_dtype=mods[0].dtype)
+    return [y.reshape(*lead, m.out_features) for y, m in zip(outs, mods)]
 
 
 def _proj(cfg: QwenTextConfig, in_features: int, out_features: int, bias: bool) -> nn.Module:

@@ -11,7 +11,9 @@ Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
   none (`quantize_activations`).
 - `w8a8_linear_reference`: its int8 x int8 product and fp32 epilogue
   (`:177-199`), per-channel or grouped scales; kernel K6b
-  (`csrc/w8a8_gemm.cu`).
+  (`csrc/w8a8_gemm.cu`). `w8a8_linear_multi` takes several projections
+  of one input (q/k/v, gate/up): at decode rows one K6b launch computes
+  them all, split over the SMs by `gemm_decode_plan`.
 - `apply_rotary` (`:375-387`), `quantize_kv` (`:527-537`) and the quantized
   cache write of `_write_cache` / `_write_cache_chunk` (`:556-583`):
   `rope_kv_write_reference`, and without the rotary
@@ -22,7 +24,8 @@ Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
   (`cache_write_slots`), which the bf16 cache write shares.
 
 The dispatchers (`rmsnorm_quantize`, `swiglu_quantize`,
-`quantize_activations`, `w8a8_linear`, `rope_kv_write`, `write_kv_cache`)
+`quantize_activations`, `w8a8_linear`, `w8a8_linear_multi`,
+`rope_kv_write`, `write_kv_cache`)
 send a CPU tensor to the plain version and a CUDA tensor to the kernel, or
 raise: there is no fallback from one to the other. Each kernel wrapper adds
 one to its launch count per launch. The kernels are built on the first
@@ -37,8 +40,10 @@ rotary steps round as the port's bf16 torch ops do.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional, Tuple
+import math
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,13 +52,15 @@ from internnav_tpu_torch.ops.rope import apply_rotary
 
 #: launches of each kernel in this process (its CUDA wrapper adds one per
 #: launch; the plain versions never do): K6a activation quantization (all
-#: prologues, then each prologue's own count), K6b W8A8 GEMM, K7 rotary +
-#: KV quantization + cache write
+#: prologues, then each prologue's own count), K6b W8A8 GEMM (all
+#: launches, then those that computed several projections at once), K7
+#: rotary + KV quantization + cache write
 quantize_rows_launches = 0
 rmsnorm_quantize_launches = 0
 swiglu_quantize_launches = 0
 plain_quantize_launches = 0
 w8a8_launches = 0
+w8a8_fused_launches = 0
 kv_write_launches = 0
 
 #: K6a's prologues (csrc/quantize_rows.cu)
@@ -66,6 +73,29 @@ GEMM_K_CHUNK = 64
 #: K6b's decode tiles serve M <= 16; above, its prefill tiles (128 output
 #: rows by 256 columns where N > 1024, else 128; chosen in w8a8_gemm.cu)
 GEMM_DECODE_MAX_M = 16
+#: K6b's decode tiles (csrc/w8a8_gemm.cu `DC_*`): 64 weight rows a column
+#: tile, streamed in 128-byte k-lines through a ring of at most 6 stages;
+#: a tile's K slices form one cluster of at most 8 blocks (the portable
+#: size); up to 3 projections a launch
+GEMM_DECODE_BLOCK_N = 64
+GEMM_LINE = 128
+GEMM_DECODE_MAX_STAGES = 6
+GEMM_DECODE_MAX_SPLIT = 8
+GEMM_DECODE_MAX_SEGMENTS = 3
+#: the SMs of an H100 SXM, over which the plan balances the weight bytes
+GEMM_SMS = 132
+#: a block's fixed cost (barriers, the cluster's sum, the epilogue) in
+#: weight bytes the SM could have streamed meanwhile: one stage
+GEMM_DECODE_BLOCK_COST = GEMM_DECODE_BLOCK_N * GEMM_LINE
+#: the plan's model of how many blocks the card holds at once: 228 KB of
+#: shared memory an SM (1 KB of it reserved per block), at most 12 blocks
+#: of 160 threads, and clusters placed within GPCs, taken as 8 of 16 SMs
+#: plus 4 SMs (an estimate: the card does not report its GPCs)
+GEMM_SM_SMEM = 228 * 1024
+GEMM_GPCS, GEMM_GPC_SMS = 8, 16
+#: weight bytes an SM keeps in flight to stream at the full rate, in the
+#: plan's model: two blocks' rings of 6 stages (an estimate)
+GEMM_SM_INFLIGHT = 2 * GEMM_DECODE_MAX_STAGES * GEMM_DECODE_BLOCK_N * GEMM_LINE
 #: K7's head widths (one warp a row, D / 32 values a lane)
 KV_WRITE_HEAD_DIMS = (64, 128, 256)
 
@@ -147,6 +177,146 @@ def w8a8_linear_reference(xq: torch.Tensor, a_scale: torch.Tensor, weight_q: tor
         y = y + bias.float()
     return y.to(out_dtype)
 
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How K6b's decode tiles split one launch: column tiles of `block_n`
+    weight rows over each segment (projection) in order, each tile's K in
+    `split` slices of whole units of `unit_lines` 128-byte lines (whole
+    scale groups when grouped), `stages` ring stages a block, `grid`
+    blocks. With split > 1 a tile is one cluster of `split` blocks, block
+    tile * split + rank; with split 1 block b walks tiles b, b + grid, ...
+    (`units`)."""
+    segments: Tuple[int, ...]  # N of each segment
+    K: int
+    group: int  # 0: per-channel scales
+    block_n: int
+    split: int
+    unit_lines: int
+    stages: int = 1
+    grid: int = 0
+
+    @property
+    def lines(self) -> int:
+        return -(-self.K // GEMM_LINE)
+
+    @property
+    def tiles(self) -> int:
+        return sum(-(-n // self.block_n) for n in self.segments)
+
+    def slice_lines(self, rank: int) -> Tuple[int, int]:
+        """Lines [l0, l1) of K slice `rank`: the kernel's rule."""
+        units = -(-self.lines // self.unit_lines)
+        l0 = min(self.lines, rank * units // self.split * self.unit_lines)
+        l1 = min(self.lines, (rank + 1) * units // self.split * self.unit_lines)
+        return l0, l1
+
+    def units(self) -> Iterator[Tuple[int, int, int, int, int, int]]:
+        """Every block's work: (block, segment, first column, end column,
+        first k, end k), columns and k clipped to the matrix."""
+        tile = 0
+        for seg, N in enumerate(self.segments):
+            for n0 in range(0, N, self.block_n):
+                for rank in range(self.split):
+                    l0, l1 = self.slice_lines(rank)
+                    block = tile * self.split + rank if self.split > 1 else tile % self.grid
+                    yield (block, seg, n0, min(N, n0 + self.block_n),
+                           min(self.K, l0 * GEMM_LINE), min(self.K, l1 * GEMM_LINE))
+                tile += 1
+
+    def smem_bytes(self, rows: int) -> int:
+        """A block's dynamic shared memory at `rows` rows (csrc/w8a8_gemm.cu
+        `dc_smem_bytes`): the ring (64 weight rows and 16 activation rows,
+        padded by 16 bytes, a stage), rank 0's S x rows x 64 partial words
+        (split launches) and the barriers."""
+        return (1024 + self.stages * (self.block_n * GEMM_LINE + GEMM_DECODE_MAX_M
+                                      * (GEMM_LINE + 16))
+                + (self.split * rows * self.block_n * 4 if self.split > 1 else 0)
+                + (2 * GEMM_DECODE_MAX_STAGES + 1) * 8)
+
+    def resident_blocks(self, rows: int) -> int:
+        """Blocks the card holds at once in the plan's model (GEMM_SM_SMEM,
+        GEMM_GPCS, GEMM_GPC_SMS): whole clusters of `split` within a GPC."""
+        per_sm = min(12, GEMM_SM_SMEM // (self.smem_bytes(rows) + 1024))
+        rest = GEMM_SMS - GEMM_GPCS * GEMM_GPC_SMS
+        clusters = (GEMM_GPCS * (GEMM_GPC_SMS * per_sm // self.split)
+                    + rest * per_sm // self.split)
+        return clusters * self.split
+
+    def sm_bytes(self, sms: int = GEMM_SMS, block_cost: int = 0) -> List[int]:
+        """Weight bytes each SM streams when block b runs on SM b % sms
+        (the launch order dealt round the SMs), plus `block_cost` a block
+        (a split launch's; a whole-K block pays it once)."""
+        load = [0] * sms
+        for block, _, c0, c1, k0, k1 in self.units():
+            load[block % sms] += (c1 - c0) * (k1 - k0)
+        for block in range(self.grid):
+            load[block % sms] += block_cost
+        return load
+
+    def model_time(self, rows: int) -> float:
+        """The plan's cost in the model: the busiest SM's bytes (with
+        GEMM_DECODE_BLOCK_COST a block) over its rate, the full rate where
+        its resident blocks keep GEMM_SM_INFLIGHT bytes in flight, else in
+        proportion."""
+        load = self.sm_bytes(block_cost=GEMM_DECODE_BLOCK_COST)
+        per_sm = max(1, self.resident_blocks(rows) // GEMM_SMS)
+        ring = self.stages * self.block_n * GEMM_LINE
+        time = 0.0
+        for sm, nbytes in enumerate(load):
+            blocks = len(range(sm, self.grid, GEMM_SMS))
+            if blocks:
+                rate = min(1.0, min(blocks, per_sm) * ring / GEMM_SM_INFLIGHT)
+                time = max(time, nbytes / rate)
+        return time
+
+
+def _decode_plan_fair(plan: DecodePlan) -> bool:
+    """No SM streams more than one tile's bytes above the mean: a block's
+    share of one column tile (one K slice) where split > 1, a whole tile
+    where split is 1."""
+    load = plan.sm_bytes()
+    biggest = max((c1 - c0) * (k1 - k0) for _, _, c0, c1, k0, k1 in plan.units())
+    return max(load) - sum(load) / len(load) <= biggest
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_decode_plan(segments: Tuple[int, ...], K: int, group: int = 0,
+                     rows: int = GEMM_DECODE_MAX_M) -> DecodePlan:
+    """K6b's decode plan for projections of widths `segments` of one (rows
+    <= 16, K) input, with scale groups of `group` inputs (0: per-channel):
+    the K split (1 to GEMM_DECODE_MAX_SPLIT, never inside a scale group)
+    of the least `model_time`, among the splits that give no SM more than
+    one block's bytes above the mean, and of those the ones whose blocks
+    the card holds at once (`resident_blocks`) where there are any; on a
+    tie the one whose busiest SM streams fewer weight bytes, then the
+    smaller split. The ring gets as many stages as a block's slice has
+    lines, at most GEMM_DECODE_MAX_STAGES; without a split the grid is the
+    tiles, at most the blocks the card holds at once (each then walks
+    several tiles)."""
+    segments = tuple(int(n) for n in segments)
+    if not 1 <= len(segments) <= GEMM_DECODE_MAX_SEGMENTS or min(segments) < 1:
+        raise ValueError(f"K6b decodes 1 to {GEMM_DECODE_MAX_SEGMENTS} projections of "
+                         f"positive width, got {segments}")
+    if K < 1 or K % GEMM_K_CHUNK or group % GEMM_K_CHUNK:
+        raise ValueError(f"K6b: K={K} and the group {group} must be multiples of {GEMM_K_CHUNK}")
+    unit_lines = group // math.gcd(group, GEMM_LINE) if group else 1  # lcm(group, line) / line
+    lines = -(-K // GEMM_LINE)
+    units = -(-lines // unit_lines)
+    candidates = []
+    for split in range(1, min(GEMM_DECODE_MAX_SPLIT, units) + 1):
+        plan = DecodePlan(segments, K, group, GEMM_DECODE_BLOCK_N, split, unit_lines)
+        most = max(l1 - l0 for l0, l1 in map(plan.slice_lines, range(split)))
+        plan = dataclasses.replace(plan, stages=min(GEMM_DECODE_MAX_STAGES, most))
+        resident = plan.resident_blocks(rows)
+        plan = dataclasses.replace(plan, grid=plan.tiles * split if split > 1
+                                   else min(plan.tiles, resident))
+        if split > 1 and not _decode_plan_fair(plan):
+            continue
+        cost = (plan.model_time(rows), max(plan.sm_bytes()))
+        candidates.append((plan.grid > resident, cost, plan))
+    fits = [c for c in candidates if not c[0]] or candidates
+    return min(fits, key=lambda c: c[1])[2]
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization over head_dim: x (..., D) → (int8
@@ -256,12 +426,26 @@ def w8a8_linear(xq, a_scale, weight_q, scale_q, bias=None, *,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The W8A8 product: plain version on the CPU, K6b on CUDA (bf16 out).
     scale_q (N,) is per-channel, (G, N) grouped over K / G inputs."""
+    return w8a8_linear_multi(xq, a_scale, [(weight_q, scale_q, bias)], out_dtype=out_dtype)[0]
+
+
+def w8a8_linear_multi(xq, a_scale, segments: Sequence[Tuple], *,
+                      out_dtype: torch.dtype = torch.bfloat16) -> List[torch.Tensor]:
+    """The W8A8 products of one input xq (M, K) int8, a_scale (M, 1) with
+    each (weight_q (N_i, K), scale_q, bias) of `segments` (1 to 3; all
+    per-channel or all grouped alike): one (M, N_i) output each. On the
+    CPU each segment's plain version; on CUDA at M <= 16 one launch of K6b's
+    decode tiles for all of them, above one launch of its prefill tiles a
+    segment."""
     if xq.is_cuda:
         if out_dtype != torch.bfloat16:
             raise TypeError(f"W8A8 kernel writes bfloat16, not {out_dtype}")
-        return w8a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias)
+        if xq.shape[0] <= GEMM_DECODE_MAX_M:
+            return w8a8_decode_cuda(xq, a_scale, segments)
+        return [w8a8_linear_cuda(xq, a_scale, *seg) for seg in segments]
     _require_cpu(xq, "w8a8_linear")
-    return w8a8_linear_reference(xq, a_scale, weight_q, scale_q, bias, out_dtype=out_dtype)
+    return [w8a8_linear_reference(xq, a_scale, w, s, b, out_dtype=out_dtype)
+            for w, s, b in segments]
 
 
 def rope_kv_write(q, k, v, cos, sin, k_entry: KVEntry, v_entry: KVEntry, cache_len
@@ -294,7 +478,7 @@ def _require_cpu(t, name):
 
 
 def _check_cuda(name, t, dtype, shape, device, kernel="W8A8 kernel"):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+    if t.dtype != dtype or t.shape != tuple(shape) or t.device != device \
             or not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{kernel}: {name} must be a contiguous, 16-byte aligned {dtype} "
                          f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
@@ -302,7 +486,9 @@ def _check_cuda(name, t, dtype, shape, device, kernel="W8A8 kernel"):
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of a CUDA device, by its index (a device object
+    takes PyTorch's slower lookup on every launch)."""
+    return torch.cuda.current_stream(device.index).cuda_stream
 
 
 # --------------------------------------------------------- K6a (CUDA C++)
@@ -345,7 +531,7 @@ def _quantize_rows_launch(prologue: int, a: torch.Tensor, b: Optional[torch.Tens
     s = torch.empty((*a.shape[:-1], 1), dtype=torch.float32, device=dev)
     xs = torch.empty_like(a) if prologue == RMSNORM and b is not None else None
     if M:
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev.index):
             err = _quantize_rows_entry()(
                 prologue, int(a.dtype == torch.float32), a.data_ptr(),
                 None if b is None else b.data_ptr(),
@@ -388,32 +574,36 @@ def swiglu_quantize_cuda(gate: torch.Tensor, up: torch.Tensor
 
 # --------------------------------------------------------- K6b (CUDA C++)
 @functools.lru_cache(maxsize=None)
-def _gemm_entry():
-    """K6b's C entry point, built and bound once per process."""
+def _gemm_entries():
+    """K6b's C entry points (prefill tiles, decode tiles), built and bound
+    once per process."""
     from internnav_tpu_torch.ops._build import load_library
 
-    fn = load_library("w8a8_gemm.cu").w8a8_gemm
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("w8a8_gemm.cu")
+    prefill, decode = lib.w8a8_gemm_prefill, lib.w8a8_gemm_decode
+    prefill.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    decode.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                       + ([ctypes.c_void_p] * 4 + [ctypes.c_int]) * GEMM_DECODE_MAX_SEGMENTS
+                       + [ctypes.c_void_p])
+    prefill.restype = decode.restype = ctypes.c_int
+    return prefill, decode
 
 
-def w8a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias=None) -> torch.Tensor:
-    """Launch K6b: xq (M, K) int8, a_scale (M, 1) fp32, weight_q (N, K)
-    int8 (K contiguous), scale_q (N,) or (G, N) fp32, bias (N,) fp32 or
-    None → bf16 (M, N). K must be a multiple of 64, a group a multiple of
-    64. Raises on anything else."""
-    global w8a8_launches
+def _check_gemm_input(xq, a_scale) -> Tuple[int, int]:
     if not xq.is_cuda:
         raise ValueError("W8A8 kernel: xq must be a CUDA tensor")
-    dev = xq.device
     M, K = xq.shape
-    N = weight_q.shape[0]
     if K % GEMM_K_CHUNK:
         raise ValueError(f"W8A8 kernel: K={K} is not a multiple of {GEMM_K_CHUNK}")
-    _check_cuda("xq", xq, torch.int8, (M, K), dev)
-    _check_cuda("a_scale", a_scale, torch.float32, (M, 1), dev)
-    _check_cuda("weight_q", weight_q, torch.int8, (N, K), dev)
+    _check_cuda("xq", xq, torch.int8, (M, K), xq.device)
+    _check_cuda("a_scale", a_scale, torch.float32, (M, 1), xq.device)
+    return M, K
+
+
+def _check_gemm_weight(weight_q, scale_q, bias, K: int, device) -> Tuple[int, int]:
+    """(N, group) of one projection, group 0 for per-channel scales."""
+    N = weight_q.shape[0]
+    _check_cuda("weight_q", weight_q, torch.int8, (N, K), device)
     group = 0
     if scale_q.dim() == 2:
         G = scale_q.shape[0]
@@ -421,19 +611,80 @@ def w8a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias=None) -> torch.Tensor:
         if not group or group % GEMM_K_CHUNK:
             raise ValueError(f"W8A8 kernel: {G} scale groups over K={K} are not whole "
                              f"{GEMM_K_CHUNK}-wide chunks")
-    _check_cuda("scale_q", scale_q, torch.float32, (K // group, N) if group else (N,), dev)
+    _check_cuda("scale_q", scale_q, torch.float32, (K // group, N) if group else (N,), device)
     if bias is not None:
-        _check_cuda("bias", bias, torch.float32, (N,), dev)
+        _check_cuda("bias", bias, torch.float32, (N,), device)
+    return N, group
+
+
+def w8a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias=None) -> torch.Tensor:
+    """Launch K6b: xq (M, K) int8, a_scale (M, 1) fp32, weight_q (N, K)
+    int8 (K contiguous), scale_q (N,) or (G, N) fp32, bias (N,) fp32 or
+    None → bf16 (M, N): the decode tiles at M <= 16, else the prefill
+    tiles. K must be a multiple of 64, a group a multiple of 64. Raises on
+    anything else."""
+    global w8a8_launches
+    M, K = _check_gemm_input(xq, a_scale)
+    if M <= GEMM_DECODE_MAX_M:
+        return _decode_launch(xq, a_scale, M, K, [(weight_q, scale_q, bias)])[0]
+    dev = xq.device
+    N, group = _check_gemm_weight(weight_q, scale_q, bias, K, dev)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    if M:
-        with torch.cuda.device(dev):
-            err = _gemm_entry()(xq.data_ptr(), a_scale.data_ptr(), weight_q.data_ptr(),
-                                scale_q.data_ptr(), None if bias is None else bias.data_ptr(),
-                                out.data_ptr(), M, N, K, group, _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"W8A8 kernel launch failed: cudaError_t {err}")
+    with torch.cuda.device(dev.index):
+        err = _gemm_entries()[0](xq.data_ptr(), a_scale.data_ptr(), weight_q.data_ptr(),
+                                 scale_q.data_ptr(), None if bias is None else bias.data_ptr(),
+                                 out.data_ptr(), M, N, K, group, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"W8A8 kernel launch failed: cudaError_t {err}")
     w8a8_launches += 1
     return out
+
+
+def w8a8_decode_cuda(xq, a_scale, segments: Sequence[Tuple]) -> List[torch.Tensor]:
+    """Launch K6b's decode tiles once for 1 to 3 projections of xq (M <=
+    16, K) int8 and a_scale (M, 1) fp32: segments of (weight_q (N_i, K)
+    int8, scale_q (N_i,) or (G, N_i) fp32, bias (N_i,) fp32 or None), all
+    per-channel or all with the same group. Returns bf16 (M, N_i) each,
+    split over the card by `gemm_decode_plan`. Raises on anything else."""
+    return _decode_launch(xq, a_scale, *_check_gemm_input(xq, a_scale), segments)
+
+
+def _decode_launch(xq, a_scale, M: int, K: int, segments: Sequence[Tuple]
+                   ) -> List[torch.Tensor]:
+    """`w8a8_decode_cuda` on checked xq (M, K) and a_scale."""
+    global w8a8_launches, w8a8_fused_launches
+    if M > GEMM_DECODE_MAX_M:
+        raise ValueError(f"W8A8 decode tiles take M <= {GEMM_DECODE_MAX_M} rows, got {M}")
+    if not 1 <= len(segments) <= GEMM_DECODE_MAX_SEGMENTS:
+        raise ValueError(f"W8A8 decode tiles take 1 to {GEMM_DECODE_MAX_SEGMENTS} projections, "
+                         f"got {len(segments)}")
+    dev = xq.device
+    shapes = [_check_gemm_weight(*seg, K, dev) for seg in segments]
+    group = shapes[0][1]
+    if any(g != group for _, g in shapes):
+        raise ValueError(f"W8A8 decode tiles: the projections' scale groups differ: {shapes}")
+    outs = [torch.empty((M, N), dtype=torch.bfloat16, device=dev) for N, _ in shapes]
+    if not M:
+        return outs
+    plan = gemm_decode_plan(tuple(N for N, _ in shapes), K, group, M)
+    args = []
+    for i in range(GEMM_DECODE_MAX_SEGMENTS):
+        if i < len(segments):
+            w, s, b = segments[i]
+            args += [w.data_ptr(), s.data_ptr(), None if b is None else b.data_ptr(),
+                     outs[i].data_ptr(), shapes[i][0]]
+        else:
+            args += [None, None, None, None, 0]
+    with torch.cuda.device(dev.index):
+        err = _gemm_entries()[1](xq.data_ptr(), a_scale.data_ptr(), M, K, group, len(segments),
+                                 plan.block_n, plan.split, plan.unit_lines, plan.stages,
+                                 plan.grid, *args, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"W8A8 decode kernel launch failed: cudaError_t {err}")
+    w8a8_launches += 1
+    if len(segments) > 1:
+        w8a8_fused_launches += 1
+    return outs
 
 
 # ---------------------------------------------------------- K7 (CUDA C++)
@@ -484,7 +735,7 @@ def _kv_write_launch(k, v, k_entry: KVEntry, v_entry: KVEntry, cache_len, B: int
     if B * n:
         ptr = [None if t is None else t.data_ptr()
                for t in (q, k, v, cos, sin, q_rot, *k_entry, *v_entry, cache_len)]
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev.index):
             err = _kv_write_entry()(*ptr, int(cache_len.dtype == torch.int64), B, n, H, KV, D,
                                     Tmax, _stream(dev))
         if err != 0:

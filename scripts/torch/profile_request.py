@@ -10,11 +10,15 @@ on every step as well (the action queue is cleared before each one). The
 history grows by one frame per step. Prints per step the wall time and the
 seconds spent in each stage (vision encode, text prefill, decode steps,
 lm_head, traj-latent chunk, System-1), each stage timed between device
-synchronisations, and the decode's host milliseconds per token. Then one
-more step under torch.profiler: device-busy seconds, the idle share of
-that step with the profiler on, the top kernels, and per decode token the
-device kernels launched, their device milliseconds and the host
-milliseconds (profiler on). A decode step's kernels are those that start
+synchronisations, and the decode's host milliseconds per token; with
+W8A8 projections also K6b's host microseconds per call (the Python
+wrapper and its C launch, timed on the host clock around the function that
+launches the kernel) and its calls per decode token. Then one more step
+under torch.profiler: device-busy seconds, the idle share of that step
+with the profiler on, the top kernels, and per decode token the device
+kernels launched, their device milliseconds and the host milliseconds
+(profiler on), and K6b's launches per token and device microseconds per
+launch. A decode step's kernels are those that start
 on the device inside its range: each stage runs between two device
 synchronisations, so its kernels start and end inside it.
 """
@@ -56,15 +60,18 @@ def main() -> None:
         def wrapper(*a, **k):
             with record_function(label):
                 torch.cuda.synchronize()
+                k6b["on"] = label == "decode_step"
                 t = time.perf_counter()
                 out = fn(*a, **k)
                 torch.cuda.synchronize()
                 seconds[label] += time.perf_counter() - t
+                k6b["on"] = False
             calls[label] += 1
             return out
 
         setattr(obj, name, wrapper)
 
+    k6b = k6b_host_timer()
     lm = policy.model.language_model
     for obj, name, label in ((policy, "_encode_image", "vision_encode"),
                              (lm, "forward", "text_prefill"), (lm, "decode_step", "decode_step"),
@@ -86,11 +93,15 @@ def main() -> None:
     for i in range(args.requests):
         seconds.clear()
         calls.clear()
+        k6b.update(calls=0, seconds=0.0)
         wall = step()
         stages = " ".join(f"{k}={v:.4f}s/{calls[k]}" for k, v in seconds.items())
+        tokens = max(calls["decode_step"], 1)
+        k6b_line = (f" k6b_calls_per_token={k6b['calls'] / tokens:.2f} k6b_host_us_per_call="
+                    f"{1e6 * k6b['seconds'] / k6b['calls']:.2f}" if k6b["calls"] else "")
         print(f"step {i}: wall_s={wall:.4f} images={len(policy.input_images)} "
               f"generated={len(policy.last_gen_tokens)} {stages} decode_host_ms_per_token="
-              f"{1e3 * seconds['decode_step'] / max(calls['decode_step'], 1):.4f}")
+              f"{1e3 * seconds['decode_step'] / tokens:.4f}{k6b_line}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = step()
     table = prof.key_averages()
@@ -106,6 +117,35 @@ def main() -> None:
     print(f"profile={args.profile} {gpu_line()}")
 
 
+def k6b_host_timer() -> dict:
+    """Wrap the functions of `ops.quant` that launch K6b (the decode
+    tiles' launch and the single-projection wrapper, whichever the tree
+    has) so that the host time of each outermost call made while
+    `state["on"]` is added to state["seconds"] and counted in
+    state["calls"]."""
+    from internnav_tpu_torch.ops import quant
+
+    state = {"on": False, "calls": 0, "seconds": 0.0, "depth": 0}
+    for name in ("_decode_launch", "w8a8_linear_cuda"):
+        fn = getattr(quant, name, None)
+        if fn is None:
+            continue
+
+        def wrapper(*a, _fn=fn, **k):
+            state["depth"] += 1
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                state["depth"] -= 1
+                if state["on"] and state["depth"] == 0:
+                    state["seconds"] += time.perf_counter() - t
+                    state["calls"] += 1
+
+        setattr(quant, name, wrapper)
+    return state
+
+
 def decode_token_kernels(prof, DeviceType) -> None:
     """Per decode token of the profiled step: the device kernels that start
     inside a `decode_step` range, their device time, the range's host
@@ -117,7 +157,7 @@ def decode_token_kernels(prof, DeviceType) -> None:
         raise RuntimeError("the profiled step ran no decode step")
     starts = [w[0] for w in windows]
     per_name = collections.Counter()
-    n_kernels, device_us = 0, 0.0
+    n_kernels, device_us, k6b, k6b_us = 0, 0.0, 0, 0.0
     for e in events:
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
                 or e.name.startswith(("Memcpy", "Memset")) or e.name == "decode_step":
@@ -127,11 +167,18 @@ def decode_token_kernels(prof, DeviceType) -> None:
             n_kernels += 1
             device_us += e.time_range.elapsed_us()
             per_name[e.name] += 1
+            if "w8a8" in e.name:  # K6b's kernels
+                k6b += 1
+                k6b_us += e.time_range.elapsed_us()
     n = len(windows)
     host_ms = sum(b - a for a, b in windows) / n / 1e3
     print(f"profiled decode: tokens={n} kernels_per_token={n_kernels / n:.2f} "
           f"device_ms_per_token={device_us / n / 1e3:.4f} host_ms_per_token={host_ms:.4f} "
           f"idle_share={1 - device_us / n / 1e3 / host_ms:.3f} (profiler on)")
+    if k6b:
+        print(f"profiled decode: k6b_launches_per_token={k6b / n:.2f} "
+              f"k6b_device_us_per_launch={k6b_us / k6b:.3f} "
+              f"k6b_device_ms_per_token={k6b_us / n / 1e3:.4f}")
     for name, count in per_name.most_common(12):
         print(f"  per token {count / n:8.2f}  {name[:100]}")
 

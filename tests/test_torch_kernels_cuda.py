@@ -539,6 +539,106 @@ def test_w8a8_gemm_lm_head_at_decode(device):
                                atol=0, rtol=2 ** -7)
 
 
+GEMM_DECODE_ROWS = [1, 4, 12, 16]
+ODD_N = [63, 65, 4097]
+
+
+def _w8a8_segments(device, widths, K, bias, seed, group=None):
+    segs = []
+    for i, N in enumerate(widths):
+        w, s = _int8_weight(device, N, K, seed=seed + i, group=group)
+        segs.append((w, s, torch.randn(N, device=device) if bias else None))
+    return segs
+
+
+@pytest.mark.parametrize("M", GEMM_DECODE_ROWS)
+@pytest.mark.parametrize("N,K,bias", [*W8A8_7B, *((n, 3584, True) for n in ODD_N)])
+def test_w8a8_decode_tiles_are_bitwise(device, M, N, K, bias):
+    """The decode tiles (TMA ring, K split over a cluster where the plan
+    asks) at the 7B shapes and at odd N: exact int32 sums in any split and
+    the plain version's epilogue, so equal bit for bit. The output starts
+    uninitialised, so a tile or a K slice the grid missed would show."""
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=13 + M))
+    (w, s, b), = _w8a8_segments(device, (N,), K, bias, seed=N + K + M)
+    before = quant.w8a8_launches
+    y = quant.w8a8_linear_cuda(xq, a, w, s, b)
+    assert quant.w8a8_launches == before + 1
+    want = quant.w8a8_linear_reference(xq, a, w, s, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("M", GEMM_DECODE_ROWS)
+@pytest.mark.parametrize("widths,bias", [((3584, 512, 512), True), ((18944, 18944), False),
+                                         ((63, 4097, 65), True)])
+def test_w8a8_multi_is_one_launch_equal_to_separate_calls(device, M, widths, bias):
+    """q/k/v and gate/up of one input in one decode launch, counted once
+    (and once as fused), bitwise equal to the projections' separate
+    launches and to the plain version."""
+    from internnav_tpu_torch.ops import quant
+
+    K = 3584
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=17 + M))
+    segs = _w8a8_segments(device, widths, K, bias, seed=len(widths) + M)
+    before = (quant.w8a8_launches, quant.w8a8_fused_launches)
+    ys = quant.w8a8_linear_multi(xq, a, segs)
+    assert (quant.w8a8_launches, quant.w8a8_fused_launches) == (before[0] + 1, before[1] + 1)
+    alone = [quant.w8a8_linear_cuda(xq, a, *sg) for sg in segs]
+    assert quant.w8a8_fused_launches == before[1] + 1
+    torch.cuda.synchronize()
+    for y, z, sg in zip(ys, alone, segs):
+        assert y.shape == (M, sg[0].shape[0])
+        assert torch.equal(y, z) and torch.equal(y, quant.w8a8_linear_reference(xq, a, *sg))
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("widths,K", [((3584, 512, 512), 3584), ((18944,), 3584),
+                                      ((3584,), 18944), ((65,), 256)])
+def test_w8a8_decode_tiles_grouped(device, M, widths, K):
+    """Grouped g=128 scales at decode rows, fused and alone: each group
+    folded in fp32 (K split only at whole groups), within GROUPED_TOL."""
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=19 + M))
+    segs = _w8a8_segments(device, widths, K, True, seed=K + M, group=128)
+    ys = quant.w8a8_linear_multi(xq, a, segs)
+    torch.cuda.synchronize()
+    for y, sg in zip(ys, segs):
+        want = quant.w8a8_linear_reference(xq, a, *sg)
+        torch.testing.assert_close(y.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("M", [17, 129])
+@pytest.mark.parametrize("N", ODD_N)
+def test_w8a8_prefill_tiles_at_odd_n_are_bitwise(device, M, N):
+    """F15: at odd N a bf16 pair is stored only where its address is 4-byte
+    aligned ((m N + n) even), else one value at a time."""
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, M, 3584, seed=23 + M))
+    (w, s, b), = _w8a8_segments(device, (N,), 3584, True, seed=N + M)
+    y = quant.w8a8_linear_cuda(xq, a, w, s, b)
+    want = quant.w8a8_linear_reference(xq, a, w, s, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+def test_w8a8_multi_rejects_what_it_does_not_take(device):
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, 2, 256, seed=29))
+    segs = _w8a8_segments(device, (64, 64, 64, 64), 256, False, seed=29)
+    with pytest.raises(ValueError, match="1 to 3 projections"):
+        quant.w8a8_decode_cuda(xq, a, segs)
+    grouped = _w8a8_segments(device, (64,), 256, False, seed=30, group=128)
+    with pytest.raises(ValueError, match="scale groups differ"):
+        quant.w8a8_decode_cuda(xq, a, [segs[0], grouped[0]])
+    with pytest.raises(ValueError, match="M <= 16"):
+        quant.w8a8_decode_cuda(*quant.quantize_rows(_rand(device, 17, 256, seed=31)), segs[:1])
+
+
 def test_w8a8_gemm_rejects_what_it_does_not_take(device):
     from internnav_tpu_torch.ops import quant
 
