@@ -7,8 +7,10 @@ Phases, each printing its numbers:
   1. build   — compile every CUDA kernel from csrc/ (one nvcc per source,
                all started together) and print ptxas registers / spills;
   2. kernels — hold each kernel against its plain PyTorch version and time
-               both: K1 at the serving shapes (beside SDPA with the same
-               boolean mask and the bound); K1, K2 and K3 at the training
+               both: K1 at the serving shapes (a prompt bucket, a ragged
+               prompt, a batched cohort's 12 prompts, a vision image;
+               beside SDPA with the same boolean mask and the bound); K1,
+               K2 and K3 at the training
                head shape (28 heads, 4 KV heads, D=128, causal, segment ids of
                a real packed row) at T=2048, a ragged T and T=8192 (K1's
                plain version in query chunks), with the live and causal
@@ -20,22 +22,27 @@ Phases, each printing its numbers:
                then a dense causal T=8192
                row (no segment ids, where no tile can be skipped: the rate)
                checked and timed beside SDPA with is_causal; then the int8
-               kernels of the realtime profile at the 7B shapes: K6a
+               kernels of the realtime profile at the 7B shapes, those of
+               the serve batched path (below) included: K6a
                (activation quantization fused into the op before it: the
                RMSNorm with and without the residual add, the SwiGLU
                product, and bf16 / fp32 rows as they are; the differing
-               RMSNorm codes counted), K6b (W8A8 GEMM: the decode tiles at
-               M = 1, 4 and 12 per projection of a layer, q/k/v and
-               gate/up fused into one launch and held bitwise equal to
-               their separate launches, warm and with a cold L2; the
-               prefill tiles at M = 48, the 4th request's and the long
-               request's prompt beside torch._int_mm; odd N at decode and
-               prefill), K4/K5 (int8 decode
-               attention at the serving caches, past 4,096 keys, a ragged
-               batch of 3 and 8 queries a head) and K7 (rotary + KV
-               quantization + cache write for a token, the latent chunk, a
-               ragged batch of 3 with a dropped row and past the cache's
-               end; the prompt's write without rotary);
+               RMSNorm codes counted) at a token, the shared decode and
+               its latent chunk, a prompt and a batched cohort's prefill;
+               K6b (W8A8 GEMM: the decode tiles at M = 1, 4 and 12 per
+               projection of a layer, q/k/v and gate/up fused into one
+               launch and held bitwise equal to their separate launches,
+               warm and with a cold L2; the prefill tiles at M = 48 and
+               192 (the shared decode and its latent chunk), the 4th
+               request's and the long request's prompt and a batched
+               cohort's prefill beside torch._int_mm; the lm_head at 1,
+               12 and 48 rows; odd N at decode and prefill), K4/K5 (int8
+               decode attention at the serving caches, past 4,096 keys, a
+               ragged batch of 3, 8 queries a head, and a batched cohort's
+               12 rows) and K7 (rotary + KV quantization + cache write for
+               a token, the latent chunk, a ragged batch of 3 with a
+               dropped row and past the cache's end, a batched cohort's
+               12 rows; the prompts' writes without rotary);
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy in the
                `parity` profile (bf16, random weights from a seeded
                generator), serve it through the real-robot HTTP server and
@@ -51,17 +58,29 @@ Phases, each printing its numbers:
                /reset and 8 uncounted 644x644 frames with a short decode
                budget, the long request (the
                ninth frame: a 4,864-token prompt, a 4,996-key cache), its
-               launches counted on their own;
-  5. train   — with the serving policies freed: the full-width 7B
+               launches counted on their own; the decode loop replays a
+               captured CUDA graph a step, and each request's replays,
+               captures and warm-up steps are checked;
+  5. serve batched — the JAX package's headline serving geometry: the 7B
+               realtime policy behind PipelinedN1Server, 4 cohorts x 12
+               streams, 224x224 frames, histories saturated at 9 frames,
+               shared grouped decode of 20 tokens (the stop id pinned so
+               that every cycle decodes them all), 2 System-1 calls a
+               cycle; checked cycles with every stream's own inputs (graph
+               replay bitwise equal to eager decode; shared decode equal
+               to per-cohort decode), then 3 timed streams of 5 cycles:
+               actions/s, host seconds by call, peak memory, and every
+               kernel's launches equal to the computed counts;
+  6. train   — with the serving policies freed: the full-width 7B
                `nextdit_async` policy at TRAIN_LAYERS decoder layers with
                remat, one packed 8192-token row from a synthetic store through
                `InternVLAN1Trainer.prepare_batch`, one untimed and 3 timed
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
                L times each.
-Every kernel's launch count is set to 0 just before each of the four
-paths (serve, serve realtime, the long realtime request, train) and read
-just after. Then one JSON
+Every kernel's launch count is set to 0 just before each of the five
+paths (serve, serve realtime, the long realtime request, serve batched's
+timed streams, train) and read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing any result.
@@ -69,6 +88,7 @@ non-zero; with no CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import statistics
@@ -127,6 +147,28 @@ LONG_HW = 644
 LONG_FRAMES = 9
 LONG_PROMPT_T = 4864
 WARMUP_NEW_TOKENS = 4
+# the batched serving headline (the JAX package's bench.py
+# `bench_pipelined`, docs/BENCH_METHOD.md): 4 cohorts x 12 streams
+BATCH_COHORTS = 4
+BATCH_ROWS = 12
+BATCH_HW = 224
+BATCH_NEW_TOKENS = 20
+BATCH_TRAJS = 32
+BATCH_S1_CALLS = 2
+BATCH_CYCLES = 5
+BATCH_STREAMS = 3
+ACTIONS_PER_CYCLE = 8
+# its prompt (9 frames of 64 image tokens and the instruction), the prompt's
+# 32-token bucket and the cache slots of a row (checked on the path)
+BATCH_PROMPT = 668
+BATCH_PROMPT_T = 672
+BATCH_TMAX = BATCH_PROMPT_T + BATCH_NEW_TOKENS + N_QUERY
+BATCH_DECODE_M = BATCH_COHORTS * BATCH_ROWS  # the shared decode's rows
+# the shared decode against the per-cohort decode: tokens exactly equal;
+# latents within this, for a row-wise reduction outside the hand-written
+# kernels (the final RMSNorm) may sum in another order at 48 rows than at
+# 12 (a bf16 ulp or two)
+SHARED_TOL = 1e-2
 TRAIN_LEN = 8192
 TRAIN_LAYERS = 28
 TRAIN_HW = 224
@@ -276,6 +318,13 @@ def k1_cases(device):
         seg[:, T - 23:] = 1  # right pad of the prompt bucket
         cases.append((f"text_T{T}", rnd(1, 28, T, 128), rnd(1, 4, T, 128),
                       rnd(1, 4, T, 128), seg, True))
+    # the batched prefill: a cohort's 12 prompts in their bucket
+    seg = torch.zeros((BATCH_ROWS, BATCH_PROMPT_T), dtype=torch.int32, device=device)
+    seg[:, BATCH_PROMPT:] = 1
+    cases.append((f"text_B{BATCH_ROWS}_T{BATCH_PROMPT_T}",
+                  rnd(BATCH_ROWS, 28, BATCH_PROMPT_T, 128),
+                  rnd(BATCH_ROWS, 4, BATCH_PROMPT_T, 128),
+                  rnd(BATCH_ROWS, 4, BATCH_PROMPT_T, 128), seg, True))
     win = vision_indices((14, 2, 112), ((1, 30, 30),))["window_segments"]
     seg = torch.as_tensor(np.asarray(win)[None], dtype=torch.int32, device=device)
     cases.append(("vision_S900", rnd(1, 16, 900, 80), rnd(1, 16, 900, 80),
@@ -525,13 +574,17 @@ def _row(kernel, shape, err, ms, plain_ms, bound, library_ms=None, extra=None, *
     return row
 
 
+# K6a's rows: a decode token, the shared decode and its latent chunk, a
+# realtime prompt and a batched cohort's prefill
+K6A_ROWS = (1, BATCH_DECODE_M, BATCH_DECODE_M * N_QUERY, PROMPT_T, BATCH_ROWS * BATCH_PROMPT_T)
+
+
 def int8_k6a_rows(device, g):
-    """K6a's prologues at the 7B decode (M = 1) and prompt (M = PROMPT_T)
-    rows: RMSNORM on the hidden width with and without the residual (x + h
+    """K6a's prologues at the 7B rows of K6A_ROWS: RMSNORM on the hidden width with and without the residual (x + h
     bitwise, codes within +-1 and scales within 2^-7, the differing codes
     counted), SWIGLU on the intermediate width, PLAIN on the bf16 attention
-    output and on the final norm's fp32 row (the lm_head's input, M = 1);
-    the last two bitwise. The bound: each input read once (the norm scale
+    output and on the final norm's fp32 rows (the lm_head's input, M = 1
+    and the shared decode's rows); the last two bitwise. The bound: each input read once (the norm scale
     too), the codes, scales and x + h written once. No single PyTorch call
     computes any of these functions, so there is no library time."""
     import torch
@@ -545,7 +598,7 @@ def int8_k6a_rows(device, g):
         return (torch.randn((M, K), generator=g, device=device) * 3.0).to(dtype)
 
     rows = []
-    for M in (1, PROMPT_T):
+    for M in K6A_ROWS:
         x, h = rnd(M, E), rnd(M, E)
         for residual in (None, h):
             (q, s, xs), (rq, rs, rxs) = (quant.rmsnorm_quantize_cuda(x, w, 1e-6, residual),
@@ -569,7 +622,7 @@ def int8_k6a_rows(device, g):
                   lambda: quant.swiglu_quantize_reference(gate, up), M * I * (2 * 2 + 1)),
                  ("plain", lambda: quant.quantize_rows_cuda(x), lambda: quant.quantize_rows(x),
                   M * E * (2 + 1))]
-        if M == 1:
+        if M in (1, BATCH_DECODE_M):  # the lm_head's rows
             xf = rnd(M, E, torch.float32)
             cases.append(("plain_fp32", lambda: quant.quantize_rows_cuda(xf),
                           lambda: quant.quantize_rows(xf), M * E * (4 + 1)))
@@ -590,8 +643,14 @@ def int8_k6a_rows(device, g):
 # bias); q/k/v and gate/up share an input and go to one launch at decode
 GEMM_LAYER = (("qkv", (3584, 512, 512), 3584, True), ("o", (3584,), 3584, False),
               ("gate_up", (18944, 18944), 3584, False), ("down", (3584,), 18944, False))
-GEMM_DECODE_ROWS = (1, 4, 12)  # a token, the latent chunk, a grouped-decode cohort
-GEMM_PREFILL_ROWS = (48, PROMPT_T, LONG_PROMPT_T)  # 48: the grouped decode's shared rows
+GEMM_DECODE_ROWS = (1, 4, BATCH_ROWS)  # a token, the latent chunk, a cohort's decode
+# the shared decode, its latent chunk, a realtime prompt, the long request's
+# prompt, a batched cohort's prefill
+GEMM_PREFILL_ROWS = (BATCH_DECODE_M, BATCH_DECODE_M * N_QUERY, PROMPT_T, LONG_PROMPT_T,
+                     BATCH_ROWS * BATCH_PROMPT_T)
+# the lm_head's rows: a token, a cohort's prefill (its last prompt tokens)
+# or decode, the shared decode
+GEMM_LM_HEAD_ROWS = (1, BATCH_ROWS, BATCH_DECODE_M)
 GEMM_ODD_N = (63, 65, 4097)
 
 
@@ -602,7 +661,8 @@ def int8_gemm_rows(device, g):
     - decode tiles (M in GEMM_DECODE_ROWS) for each projection of a layer,
       q/k/v and gate/up as one fused launch (also held bitwise equal to
       their separate launches, whose summed time is `separate_ms`), warm
-      and cold (`cold_ms`); the lm_head at M = 1; grouped g=128 at M = 1;
+      and cold (`cold_ms`); the lm_head at GEMM_LM_HEAD_ROWS; grouped
+      g=128 at M = 1;
     - prefill tiles (M in GEMM_PREFILL_ROWS) for each projection alone, as
       the prefill launches them, beside torch._int_mm (an int32 product
       with no epilogue, not on the path); grouped g=128 at PROMPT_T;
@@ -677,7 +737,8 @@ def int8_gemm_rows(device, g):
     for M in GEMM_DECODE_ROWS:
         for _, widths, K, bias in GEMM_LAYER:
             check(M, widths, K, bias)
-    check(1, (152064,), 3584, False)
+    for M in GEMM_LM_HEAD_ROWS:
+        check(M, (152064,), 3584, False)
     check(1, (18944,), 3584, False, group=128)
     prefill_shapes = {}  # (N, K): bias, for q (= o), k (= v), gate (= up), down
     for _, widths, K, bias in GEMM_LAYER:
@@ -712,18 +773,31 @@ def _decode_cases():
     """(kernel, Tmax, cache_len per row, n) of K4/K5's checked rows: the
     realtime caches of the first, the fourth and the long request (Tmax =
     prompt + 128 + 4) late in the decode; a ragged batch of 3; n = 8 (56
-    query rows a KV head, two row tiles)."""
+    query rows a KV head, two row tiles); a batched cohort's group (12
+    rows, BATCH_TMAX slots) at the last decode step and at the latent
+    chunk."""
     cases = []
     for T in (352, PROMPT_T, LONG_PROMPT_T):
         Tmax = T + MAX_NEW_TOKENS + N_QUERY
         cases += [("K4", Tmax, (Tmax - N_QUERY - 1,), 1), ("K5", Tmax, (Tmax - N_QUERY,), N_QUERY)]
     Tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
     cases += [("K4", Tmax, (PROMPT_T + 17, 17, 700), 1), ("K5", Tmax, (Tmax - 8,), 8)]
+    end = BATCH_PROMPT + BATCH_NEW_TOKENS
+    cases += [("K4", BATCH_TMAX, (end - 1,) * BATCH_ROWS, 1),
+              ("K5", BATCH_TMAX, (end,) * BATCH_ROWS, N_QUERY)]
     return cases
 
 
+def _lengths(values) -> str:
+    """Per-row values joined by _, or "vxB" for B rows of one value."""
+    values = list(values)
+    if len(values) > 1 and len(set(values)) == 1:
+        return f"{values[0]}x{len(values)}"
+    return "_".join(map(str, values))
+
+
 def decode_shape(Tmax, lengths, n) -> str:
-    keys = "_".join(str(min(Tmax, x + n)) for x in lengths)  # keys each row's last query sees
+    keys = _lengths(min(Tmax, x + n) for x in lengths)  # keys each row's last query sees
     return f"B{len(lengths)}_Tmax{Tmax}_keys{keys}_n{n}"
 
 
@@ -778,15 +852,16 @@ def int8_decode_rows(device, g):
 
 
 def kv_write_shape(rotary: bool, lengths, n) -> str:
-    return f"{'rotary' if rotary else 'no_rotary'}_B{len(lengths)}_n{n}_pos" + \
-        "_".join(map(str, lengths))
+    return f"{'rotary' if rotary else 'no_rotary'}_B{len(lengths)}_n{n}_pos{_lengths(lengths)}"
 
 
 def int8_kv_write_rows(device, g):
     """K7 with rotary for one decode token, the latent chunk, a chunk that
     runs past the cache's end (the start clamped, as the JAX package's
     dynamic_update_slice does) and a ragged batch of 3 whose row past the
-    end is dropped; without rotary for the prompt's entries (at 0). The
+    end is dropped; without rotary for the prompt's entries (at 0); a
+    batched cohort's 12 rows at the last decode token, the latent chunk
+    and the prompt (BATCH_TMAX slots). The
     rotated q, the codes and the scales bitwise against the plain version.
     The bound: q, k, v and cos/sin read once; q rotated, the codes and
     scales written once."""
@@ -796,13 +871,17 @@ def int8_kv_write_rows(device, g):
     from internnav_tpu_torch.ops.rope import mrope_cos_sin
 
     H, KV, D = 28, 4, 128
-    Tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
+    tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
+    end = BATCH_PROMPT + BATCH_NEW_TOKENS
     rows = []
-    for rotary, n, lengths in ((True, 1, (PROMPT_T + 17,)),
-                               (True, N_QUERY, (PROMPT_T + MAX_NEW_TOKENS,)),
-                               (True, N_QUERY, (Tmax - 1,)),
-                               (True, 1, (PROMPT_T + 17, 17, Tmax)),
-                               (False, PROMPT_T, (0,))):
+    for rotary, n, lengths, Tmax in ((True, 1, (PROMPT_T + 17,), tmax),
+                                     (True, N_QUERY, (PROMPT_T + MAX_NEW_TOKENS,), tmax),
+                                     (True, N_QUERY, (tmax - 1,), tmax),
+                                     (True, 1, (PROMPT_T + 17, 17, tmax), tmax),
+                                     (False, PROMPT_T, (0,), tmax),
+                                     (True, 1, (end - 1,) * BATCH_ROWS, BATCH_TMAX),
+                                     (True, N_QUERY, (end,) * BATCH_ROWS, BATCH_TMAX),
+                                     (False, BATCH_PROMPT_T, (0,) * BATCH_ROWS, BATCH_TMAX)):
         B = len(lengths)
 
         def rnd(width):
@@ -893,6 +972,10 @@ def build_agent(device, profile: str = "parity"):
     return policy, InternVLAN1Agent(policy, async_s2=False, sys2_max_forward_step=1)
 
 
+LAUNCH_KEYS = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu", "K6a_plain",
+               "K6b", "K6b_fused", "K7")
+
+
 def launch_counts() -> dict:
     """Every kernel's launch count, by name."""
     from internnav_tpu_torch.ops import flash_attention as fa
@@ -931,21 +1014,21 @@ def _count_calls(obj, names, calls):
 
 def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
     """Launches of len(steps) requests, request r with one prefill,
-    steps[r] cached decode steps and one traj-latent chunk, and
-    `logits_calls` lm_head calls in all: K1 once per prefill layer and once
-    per windowed ViT block of the request's new frame; with the realtime
-    profile per layer pass 4 activation quantizations (K6a: the two
-    RMSNorms, q/k/v sharing the first and gate/up the second; the SwiGLU
-    product for down; o_proj's input as it is) and one K7 launch (rotary +
-    K/V cache write; the prefill's without rotary); K6b 4 launches per
-    decode or chunk layer pass (q/k/v fused, o, gate/up fused, down: 2 of
-    them fused, K6b_fused) and 7 per prefill layer pass (each projection
-    alone on the prefill tiles); plus one plain K6a and one K6b per lm_head
-    call; K4 per decode layer, K5 per chunk layer."""
+    steps[r] decode steps run on the device (graph replays and the warm-up
+    step of each capture) and one traj-latent chunk, and `logits_calls`
+    lm_head calls in all: K1 once per prefill layer and once per windowed
+    ViT block of the request's new frame; with the realtime profile per
+    layer pass 4 activation quantizations (K6a: the two RMSNorms, q/k/v
+    sharing the first and gate/up the second; the SwiGLU product for down;
+    o_proj's input as it is) and one K7 launch (rotary + K/V cache write;
+    the prefill's without rotary); K6b 4 launches per decode or chunk layer
+    pass (q/k/v fused, o, gate/up fused, down: 2 of them fused, K6b_fused)
+    and 7 per prefill layer pass (each projection alone on the prefill
+    tiles); plus one plain K6a and one K6b per lm_head call; K4 per decode
+    layer, K5 per chunk layer."""
     L = cfg.text.num_hidden_layers
     windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
-    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu",
-                          "K6a_plain", "K6b", "K6b_fused", "K7"), 0)
+    want = dict.fromkeys(LAUNCH_KEYS, 0)
     want["K1"] = len(steps) * (L + windowed)
     if profile == "realtime":
         decode_passes = sum(1 + s for s in steps)  # decode steps + chunk, per layer
@@ -956,6 +1039,21 @@ def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
                     K6b=4 * L * decode_passes + 7 * L * len(steps) + logits_calls,
                     K6b_fused=2 * L * decode_passes, K7=L * passes)
     return want
+
+
+def loop_steps(generated: int) -> int:
+    """Decode steps the loop replays for a request that generated
+    `generated` tokens: it runs in chunks of DECODE_CHUNK steps, and stops
+    after the chunk in which the stop token was fed, or at the budget."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import DECODE_CHUNK
+
+    return min(MAX_NEW_TOKENS, -(-(generated + 1) // DECODE_CHUNK) * DECODE_CHUNK)
+
+
+def decode_stats():
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph
+
+    return collections.Counter(decode_graph.stats)
 
 
 def long_request_frames(rng):
@@ -986,23 +1084,30 @@ def _eval_dual(port, policy, rgb, depth) -> float:
     return latency
 
 
-def _check_requests(policy, profile, what, calls, lm_calls, gen_tokens, steps, launches):
-    """The requests' System-2 steps, decode steps and lm_head calls follow
-    their generated lengths, and every kernel's launches equal
-    `expected_serve_launches`."""
-    n = len(steps)
-    if calls["s2_step"] != n or calls["s1_step_latent"] < 1 or lm_calls["decode_chunk"] != n:
-        raise AssertionError(f"{what}: main path calls {calls}, {lm_calls}: want {n} System-2 "
-                             f"({n} chunks) and >= 1 System-1")
-    # the decode loop runs until the stop token has been fed (its K/V is in
-    # the cache) or the budget is spent; every step but the last needs logits
-    if steps != [min(t + 1, MAX_NEW_TOKENS) for t in gen_tokens] \
-            or lm_calls["_logits"] != sum(steps):  # n prefills + sum(steps - 1)
-        raise AssertionError(f"{what}: decode steps {steps} / lm_head calls {lm_calls['_logits']} "
-                             f"do not follow the generated lengths {gen_tokens}")
-    want = expected_serve_launches(policy.cfg, profile, steps, lm_calls["_logits"])
+def _check_requests(policy, profile, what, calls, chunks, gen_tokens, loop, launches):
+    """The requests' System-2 steps and latent chunks, their decode loops
+    (`loop`: per request the decode_graph stats it added) and every
+    kernel's launches, held to `expected_serve_launches`. Returns the
+    device decode steps of each request."""
+    n = len(gen_tokens)
+    if calls["s2_step"] != n or calls["s1_step_latent"] < 1 or chunks != n:
+        raise AssertionError(f"{what}: main path calls {calls}, {chunks} latent chunks: want "
+                             f"{n} System-2 ({n} chunks) and >= 1 System-1")
+    for t, st in zip(gen_tokens, loop):
+        # every step on the card is a graph replay, besides the one warm-up
+        # step of each new loop (whose two graphs are captured)
+        want_logits = loop_steps(t) - (loop_steps(t) == MAX_NEW_TOKENS) + st["warmup_steps"]
+        if st["replays"] != loop_steps(t) or st["captures"] != 2 * st["warmup_steps"] \
+                or st["steps"] != st["replays"] + st["warmup_steps"] \
+                or st["logits_steps"] != want_logits:
+            raise AssertionError(f"{what}: decode loop {dict(st)} does not follow the generated "
+                                 f"length {t} (replays {loop_steps(t)} expected)")
+    steps = [st["steps"] for st in loop]
+    logits_calls = n + sum(st["logits_steps"] for st in loop)  # the prefills' and the steps'
+    want = expected_serve_launches(policy.cfg, profile, steps, logits_calls)
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
+    return steps
 
 
 def phase_serve(device, profile: str) -> dict:
@@ -1024,7 +1129,7 @@ def phase_serve(device, profile: str) -> dict:
     calls = {"s2_step": 0, "s1_step_latent": 0}
     _count_calls(policy, calls, calls)
     lm = policy.model.language_model
-    lm_calls = {"decode_step": 0, "decode_chunk": 0, "_logits": 0}
+    lm_calls = {"decode_chunk_grouped": 0}
     _count_calls(lm, lm_calls, lm_calls)
     prompt_T = []  # each prefill's bucketed prompt length
     forward = lm.forward
@@ -1038,23 +1143,24 @@ def phase_serve(device, profile: str) -> dict:
     server = serve.RealWorldServer(agent, "127.0.0.1", port)
     thread = server.run(background=True)
     rng = np.random.default_rng(0)
-    latencies, gen_tokens, steps = [], [], []
+    latencies, gen_tokens, loop = [], [], []
     by_path = {}
     long = {}
     try:
         if _post(port, "/reset", {}) != (200, {"status": "ok"}):
             raise AssertionError("/reset failed")
         torch.cuda.reset_peak_memory_stats(device)
-        lm_calls["_logits"] = 0
+        lm_calls["decode_chunk_grouped"] = 0
         reset_launch_counts()  # count only the requests' launches
         for _ in range(4):
-            before = lm_calls["decode_step"]
+            before = decode_stats()
             latencies.append(_eval_dual(port, policy, *request_frames(rng)))
             gen_tokens.append(len(policy.last_gen_tokens))
-            steps.append(lm_calls["decode_step"] - before)
+            loop.append(decode_stats() - before)
         by_path[f"serve_{profile}"] = launch_counts()
-        _check_requests(policy, profile, f"serve {profile}", calls, lm_calls, gen_tokens, steps,
-                        by_path[f"serve_{profile}"])
+        steps = _check_requests(policy, profile, f"serve {profile}", calls,
+                                lm_calls["decode_chunk_grouped"], gen_tokens, loop,
+                                by_path[f"serve_{profile}"])
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
         if profile == "realtime":
             # the long request: a new episode whose first 8 frames are
@@ -1074,18 +1180,20 @@ def phase_serve(device, profile: str) -> dict:
             prompt_T.clear()
             torch.cuda.reset_peak_memory_stats(device)
             reset_launch_counts()
+            before = decode_stats()
             long["request_s"] = _eval_dual(port, policy, *frames[-1])
+            long["loop"] = decode_stats() - before
             by_path["serve_realtime_long"] = launch_counts()
             long["generated_tokens"] = len(policy.last_gen_tokens)
-            long["decode_steps"] = lm_calls["decode_step"]
             long["prompt_T"] = prompt_T
             long["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
             if prompt_T != [LONG_PROMPT_T]:
                 raise AssertionError(f"the long request prefilled {prompt_T} tokens, expected "
                                      f"[{LONG_PROMPT_T}]")
-            _check_requests(policy, profile, "the long realtime request", calls, lm_calls,
-                            [long["generated_tokens"]], [long["decode_steps"]],
-                            by_path["serve_realtime_long"])
+            long["decode_steps"] = _check_requests(
+                policy, profile, "the long realtime request", calls,
+                lm_calls["decode_chunk_grouped"], [long["generated_tokens"]], [long["loop"]],
+                by_path["serve_realtime_long"])[0]
     finally:
         server.shutdown()
         thread.join(timeout=30)
@@ -1099,7 +1207,8 @@ def phase_serve(device, profile: str) -> dict:
           f"kv_dtype={text.kv_dtype} layers={text.num_hidden_layers} hidden={text.hidden_size} "
           f"build_s={build_s:.2f} resident_gib={build_mem_gib:.2f} "
           f"request_s={[round(x, 4) for x in latencies]} generated_tokens={gen_tokens} "
-          f"decode_steps={steps} launches={by_path[f'serve_{profile}']} "
+          f"decode_steps={steps} decode_loop={[dict(st) for st in loop]} "
+          f"launches={by_path[f'serve_{profile}']} "
           f"launches_per_decode_step={per_step} "
           f"peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
     if long:
@@ -1107,9 +1216,263 @@ def phase_serve(device, profile: str) -> dict:
               f"prompt_T={long['prompt_T']} cache_Tmax={LONG_PROMPT_T + MAX_NEW_TOKENS + N_QUERY} "
               f"http=200 warmup_s={long['warmup_s']:.2f} request_s={long['request_s']:.4f} "
               f"generated_tokens={long['generated_tokens']} decode_steps={long['decode_steps']} "
+              f"decode_loop={dict(long['loop'])} "
               f"launches={by_path['serve_realtime_long']} peak_mem_gib={long['peak_mem_gib']:.2f} "
               f"gpu={gpu_line()!r}")
     return by_path
+
+
+# --------------------------------------------------------- serve batched
+# the checked cycles' instructions: one per stream, all of INSTRUCTION's
+# length (a word is a token), so every prompt stays BATCH_PROMPT tokens long
+OBJECTS = ("table", "sofa", "stairs", "plant")
+ORDINALS = ("first", "second", "third", "fourth")
+SIDES = ("left", "right", "end")
+
+
+def own_instruction(ci: int, r: int) -> str:
+    return (f"go past the {OBJECTS[ci % 4]} and stop at the {ORDINALS[r % 4]} door on the "
+            f"{SIDES[(r // 4) % 3]}")
+
+
+def expected_batched_launches(cfg, cycles: int, cohorts: int, rows: int,
+                              vision_k1: int) -> dict:
+    """Launches of `cycles` shared-decode cycles of `cohorts` cohorts of
+    `rows` rows, each decoding the full BATCH_NEW_TOKENS budget: a cycle is
+    each cohort's vision call (vision_k1 K1 launches) and prefill (K1 a
+    layer; per layer pass K6a 4 and K7 1, K6b 7 on the prefill tiles; one
+    lm_head call at its rows: K6a PLAIN 1, K6b 1), then one grouped decode
+    (BATCH_NEW_TOKENS steps over `cohorts` cache groups: K4 and K7 once a
+    group and layer; K6a 4 a layer; K6b 7 a layer at more than
+    GEMM_DECODE_MAX_M rows (the prefill tiles), else 4 with 2 fused; K6a
+    PLAIN and K6b one more a step with the lm_head, every step but the
+    last) and one grouped latent chunk (K5 and K7 once a group and layer,
+    K6a and K6b as a step at its rows x n_query rows)."""
+    from internnav_tpu_torch.ops.quant import GEMM_DECODE_MAX_M
+
+    L, G = cfg.text.num_hidden_layers, cohorts
+    prefills = cycles * cohorts
+    steps, logit_steps = cycles * BATCH_NEW_TOKENS, cycles * (BATCH_NEW_TOKENS - 1)
+    passes = prefills + steps + cycles
+
+    def k6b(M):  # K6b launches and fused launches a layer pass of M rows
+        return (7, 0) if M > GEMM_DECODE_MAX_M else (4, 2)
+
+    (dec, dec_fused), (chk, chk_fused) = k6b(G * rows), k6b(G * rows * cfg.n_query)
+    want = dict.fromkeys(LAUNCH_KEYS, 0)
+    want.update(K1=prefills * (L + vision_k1), K4=L * G * steps, K5=L * G * cycles,
+                K6a=4 * L * passes + prefills + logit_steps, K6a_rmsnorm=2 * L * passes,
+                K6a_swiglu=L * passes, K6a_plain=L * passes + prefills + logit_steps,
+                K6b=7 * L * prefills + L * (dec * steps + chk * cycles) + prefills + logit_steps,
+                K6b_fused=L * (dec_fused * steps + chk_fused * cycles),
+                K7=L * prefills + L * G * (steps + cycles))
+    return want
+
+
+def phase_serve_batched(device) -> dict:
+    """The headline serving geometry of the JAX package's bench.py
+    (`bench_pipelined`): the 7B realtime policy behind PipelinedN1Server,
+    BATCH_COHORTS cohorts of BATCH_ROWS streams, 224x224 frames, histories
+    saturated at 9 frames, shared grouped decode of BATCH_NEW_TOKENS tokens
+    (the stop id pinned to -7, which no token is, as bench.py pins it: every
+    cycle decodes the full budget), 32 sample trajectories, two System-1
+    calls a cycle. One warm cycle (the captures); then three checked
+    cycles in which every stream has its own frames, history and
+    instruction: with the graph, eagerly (tokens, latents and trajectories
+    bitwise equal to the graph's) and with a per-cohort decode
+    (`s2_submit`: tokens exactly equal to the shared decode's, latents
+    within SHARED_TOL); then BATCH_STREAMS timed streams of BATCH_CYCLES
+    cycles of the headline frames (one frame for every stream, as
+    bench.py), whose launches are held to `expected_batched_launches`.
+    Every prompt must be BATCH_PROMPT tokens in a BATCH_PROMPT_T bucket,
+    the shapes of the batched kernel rows. Returns the timed streams'
+    launches."""
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import DecodeLoop
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import to_device
+    from internnav_tpu_torch.model.basemodel.internvla_n1.serving import PipelinedN1Server
+    from internnav_tpu_torch.realworld import serve
+
+    t0 = time.perf_counter()
+    policy = serve.build_policy("realtime", device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    policy.tokenizer.eos_token_id = -7  # no token: the full decode budget
+    cfg = policy.cfg
+    server = PipelinedN1Server(policy, BATCH_ROWS, cohorts=BATCH_COHORTS)
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (BATCH_HW, BATCH_HW, 3)).astype(np.uint8)
+    imgs = np.stack([img] * BATCH_ROWS)
+    own_imgs = rng.integers(0, 256, (BATCH_COHORTS, BATCH_ROWS, BATCH_HW, BATCH_HW, 3),
+                            dtype=np.uint8)
+    own_hist = rng.integers(0, 256, (BATCH_COHORTS, BATCH_ROWS, 8, BATCH_HW, BATCH_HW, 3),
+                            dtype=np.uint8)
+    outputs, prompts = [], set()
+
+    def record_prompts(prep):
+        def wrapper(*a, **kw):
+            g = prep(*a, **kw)
+            prompts.add((g["T"], tuple(g["prompt_len"].tolist())))
+            return g
+        return wrapper
+
+    for pol in server.cohorts:
+        pol._prep_group = record_prompts(pol._prep_group)
+
+    def saturate(own: bool):
+        """Every slot mid-episode: 8 history frames, a memory frame on the
+        device; each cohort's noise generator from its seed again. `own`:
+        each stream its own history and instruction."""
+        for ci, pol in enumerate(server.cohorts):
+            pol.reset([own_instruction(ci, r) if own else INSTRUCTION
+                       for r in range(BATCH_ROWS)])
+            pol._generator.manual_seed(pol.seed)
+            for r, s in enumerate(pol.slots):
+                s.rgb_list = list(own_hist[ci, r]) if own else [img] * 8
+                s.episode_idx = 8
+                s.s1_mem_frame = to_device(s.rgb_list[-1], device)
+
+    def on_cycle(ci, t, s2out, s1res):
+        # kept, and checked after the stream (a check here would wait for
+        # the device inside the timed stream)
+        outputs.append((ci, t, [s.llm_output for s in server.cohorts[ci].slots], s2out, s1res))
+        for s in server.cohorts[ci].slots:  # a new latent: its memory frame is encoded next
+            s.s1_mem_feats = None
+
+    def checked():
+        """Every kept cycle's outputs well formed and finite; per cohort and
+        cycle its texts, latents and trajectories (on the host)."""
+        got = {}
+        for ci, t, texts, s2out, s1res in outputs:
+            lats = [o.output_latent for o in s2out]
+            if len(s2out) != BATCH_ROWS or len(s1res) != BATCH_S1_CALLS \
+                    or any(len(x.split()) != BATCH_NEW_TOKENS for x in texts) \
+                    or any(lat is None for lat in lats):
+                raise AssertionError(f"cohort {ci} cycle {t}: malformed S2 outputs {texts}")
+            lat = torch.cat(lats).cpu()
+            if tuple(lat.shape) != (BATCH_ROWS, cfg.n_query, cfg.text.hidden_size) \
+                    or not torch.isfinite(lat).all():
+                raise AssertionError(f"cohort {ci} cycle {t}: S2 latents {tuple(lat.shape)} "
+                                     "not finite / not well formed")
+            for call in s1res:
+                for o in call:
+                    if o.trajectory.shape != (BATCH_TRAJS, cfg.predict_step_nums, 3) \
+                            or not np.isfinite(o.trajectory).all():
+                        raise AssertionError(f"cohort {ci} cycle {t}: trajectory "
+                                             f"{o.trajectory.shape} not finite / well formed")
+            trajs = np.stack([o.trajectory for call in s1res for o in call])
+            got[(ci, t)] = (texts, lat, trajs)
+        outputs.clear()
+        return got
+
+    def stream(cycles, own=False, shared=True, host_stats=None):
+        frames = (lambda ci, t, ph: own_imgs[ci]) if own else (lambda ci, t, ph: imgs)
+        server.serve_stream(frames, cycles, max_new_tokens=BATCH_NEW_TOKENS,
+                            num_sample_trajs=BATCH_TRAJS, s1_calls=BATCH_S1_CALLS,
+                            on_cycle=on_cycle, shared_decode=shared, shared_s1=False,
+                            host_stats=host_stats)
+
+    saturate(own=False)
+    t = time.perf_counter()
+    stream(1)  # the captures
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    checked()
+    # the decode loop's seconds a token in each mode, between device
+    # synchronisations (in the checked cycles only)
+    loop_run, loop_s = DecodeLoop.run, {}
+
+    def timed_run(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = loop_run(self, *a, **kw)
+        torch.cuda.synchronize()
+        loop_s.setdefault(run_name, []).append((time.perf_counter() - t) / self.steps_run)
+        return out
+
+    runs = {}
+    DecodeLoop.run = timed_run
+    try:
+        for run_name, eager, shared in (("graph", False, True), ("eager", True, True),
+                                        ("per_cohort", False, False)):
+            saturate(own=True)
+            policy.eager_decode = eager
+            t = time.perf_counter()
+            stream(1, own=True, shared=shared)
+            runs[run_name] = (time.perf_counter() - t, checked())
+    finally:
+        DecodeLoop.run = loop_run
+        policy.eager_decode = False
+    graph = runs["graph"][1]
+    lat_all = torch.cat([graph[k][1] for k in sorted(graph)]).flatten(1)
+    if torch.unique(lat_all, dim=0).shape[0] != BATCH_DECODE_M:
+        raise AssertionError("serve batched: two streams with their own inputs gave one latent")
+    shared_err, shared_traj_err = 0.0, 0.0
+    for key, (texts, lat, trajs) in graph.items():
+        etexts, elat, etrajs = runs["eager"][1][key]
+        if texts != etexts or not torch.equal(lat, elat) or not np.array_equal(trajs, etrajs):
+            raise AssertionError(f"cohort/cycle {key}: graph replay and eager decode differ "
+                                 f"(tokens equal: {texts == etexts})")
+        ptexts, plat, ptrajs = runs["per_cohort"][1][key]
+        shared_err = max(shared_err, (lat.float() - plat.float()).abs().max().item())
+        shared_traj_err = max(shared_traj_err, float(np.abs(trajs - ptrajs).max()))
+        if texts != ptexts or not torch.allclose(lat.float(), plat.float(), atol=SHARED_TOL,
+                                                 rtol=SHARED_TOL):
+            raise AssertionError(f"cohort/cycle {key}: the shared decode and the per-cohort "
+                                 f"decode differ (tokens equal: {texts == ptexts}, latents by "
+                                 f"{shared_err})")
+
+    saturate(own=False)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    before = decode_stats()
+    walls, host_stats = [], {}
+    for rep in range(BATCH_STREAMS):
+        t = time.perf_counter()
+        stream(BATCH_CYCLES, host_stats=host_stats if rep == BATCH_STREAMS - 1 else None)
+        walls.append(time.perf_counter() - t)
+    loop = decode_stats() - before
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    checked()
+    cycles = BATCH_STREAMS * BATCH_CYCLES
+    if dict(loop) != {"steps": cycles * BATCH_NEW_TOKENS, "replays": cycles * BATCH_NEW_TOKENS,
+                      "logits_steps": cycles * (BATCH_NEW_TOKENS - 1)}:
+        raise AssertionError(f"serve batched: decode loop {dict(loop)} over {cycles} cycles")
+    if prompts != {(BATCH_PROMPT_T, (BATCH_PROMPT,) * BATCH_ROWS)}:
+        raise AssertionError(f"serve batched: prompt buckets and lengths {prompts}, the kernel "
+                             f"rows hold {BATCH_PROMPT} in {BATCH_PROMPT_T}")
+    window_block, full_block = policy._vision_host_indices(BATCH_HW, BATCH_HW, BATCH_ROWS)[1]
+    v = cfg.vision
+    vision_k1 = (0 if window_block else v.depth - len(v.fullatt_block_indexes)) + \
+        (0 if full_block else len(v.fullatt_block_indexes))
+    want = expected_batched_launches(cfg, cycles, BATCH_COHORTS, BATCH_ROWS, vision_k1)
+    if launches != want:
+        raise AssertionError(f"serve batched: kernel launches {launches}, expected {want}")
+    buffers = policy.decode_buffers
+    streams = BATCH_COHORTS * BATCH_ROWS
+    aps = [ACTIONS_PER_CYCLE * streams * BATCH_CYCLES / w for w in walls]
+    sums = {k: round(sum(x), 4) for k, x in host_stats.items()}
+    ms = {name: [round(1e3 * x, 4) for x in xs] for name, xs in loop_s.items()}
+    print(f"phase serve batched: profile=realtime cohorts={BATCH_COHORTS} rows={BATCH_ROWS} "
+          f"hw={BATCH_HW} history_frames=9 prompt={BATCH_PROMPT} prompt_T={BATCH_PROMPT_T} "
+          f"max_new_tokens={BATCH_NEW_TOKENS} stop_id=-7 sample_trajs={BATCH_TRAJS} "
+          f"s1_calls={BATCH_S1_CALLS} shared_decode=True shared_s1=False build_s={build_s:.2f} "
+          f"warm_cycle_s={warm_s:.4f} graph_cycle_s={runs['graph'][0]:.4f} "
+          f"eager_cycle_s={runs['eager'][0]:.4f} per_cohort_cycle_s={runs['per_cohort'][0]:.4f} "
+          f"graph_vs_eager=bitwise shared_vs_per_cohort_tokens=equal "
+          f"shared_vs_per_cohort_latent_max_abs_err={shared_err} "
+          f"shared_vs_per_cohort_traj_max_abs_err={shared_traj_err} "
+          f"decode_ms_per_token={ms} "
+          f"stream_wall_s={[round(w, 4) for w in walls]} "
+          f"actions_per_s={[round(a, 2) for a in aps]} actions_per_s_best={max(aps):.2f} "
+          f"host_stats_sum_s={sums} last_stream_wall_s={walls[-1]:.4f} "
+          f"decode_loop={dict(loop)} cache_sets={sum(len(x) for x in buffers._sets.values())} "
+          f"loops={len(buffers._loops)} vision_k1_per_call={vision_k1} launches={launches} "
+          f"peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
+    return {"serve_batched": launches}
 
 
 # ----------------------------------------------------------------- train
@@ -1263,6 +1626,9 @@ def main() -> int:
         by_path.update(phase_serve(device, profile))
         gc.collect()
         torch.cuda.empty_cache()
+    by_path.update(phase_serve_batched(device))
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path["train"] = phase_train(device, store)["launches"]
     rows = {r["shape"]: r for r in kern["train"]}
     main_row = rows[f"train_T{TRAIN_LEN}"]  # the training step's attention shape

@@ -10,10 +10,13 @@ Ported so far: the InternVLA-N1 single-robot serving path (vision tower,
 Qwen2.5 text prefill/decode, traj-latent chunk decode, System-1
 `nextdit_async`), its agent and its HTTP launcher, in both serving
 profiles: `parity` (bf16) and `realtime` (W8A8 projections and an int8 KV
-cache, with their Triton and CUDA kernels in `ops/quant.py`,
-`csrc/w8a8_gemm.cu` and `csrc/decode_int8.cu`); and the single-device N1
-finetune path (`trainer.train_n1`) with the flash-attention backward
-kernels.
+cache, with their CUDA kernels `csrc/quantize_rows.cu`,
+`csrc/w8a8_gemm.cu`, `csrc/rope_kv_write.cu` and `csrc/decode_int8.cu`);
+batched multi-cohort serving (`serving.py`: `BatchedN1Policy`, the shared
+grouped decode and `PipelinedN1Server`), whose greedy decode loop, like
+the single-stream one, replays a captured CUDA graph per step
+(`decode_graph.py`); and the single-device N1 finetune path
+(`trainer.train_n1`) with the flash-attention backward kernels.
 """
 
 from __future__ import annotations

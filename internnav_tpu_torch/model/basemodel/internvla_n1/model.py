@@ -236,6 +236,26 @@ class InternVLAN1Model(nn.Module):
         return self._denoise_hidden(hidden, guidance_scale, num_inference_steps,
                                     num_sample_trajs, x_init=x_init)
 
+    def generate_traj_nextdit_cached(self, traj_latents, mem_feats, current_images, *, x_init,
+                                     guidance_scale: float = 1.0,
+                                     num_inference_steps: int = 10,
+                                     num_sample_trajs: int = 32):
+        """`generate_traj_nextdit` with the memory frame's DINOv2 features
+        already computed (`rgb_feats`, (B, P, rgb_dim)): only the current
+        frames (B, H, W, 3), ImageNet-normalized, are encoded here. Equal to
+        passing both frames as pixels: the two frames' features are
+        concatenated either way. A non-async NextDiT conditions on the
+        latents alone. x_init (B*num_sample_trajs, P, 3) is the starting
+        noise; a grouped caller hands each cohort block its own draw."""
+        lat = self._project_latents(traj_latents)
+        if "async" in self.cfg.system1:
+            feats = torch.cat([mem_feats, self.rgb_feats(current_images)], dim=1)
+            hidden = torch.cat([self.memory_tokens_from_feats(feats), lat], dim=1)
+        else:
+            hidden = lat
+        return self._denoise_hidden(hidden, guidance_scale, num_inference_steps,
+                                    num_sample_trajs, x_init=x_init)
+
     def _denoise_hidden(self, hidden, guidance_scale, num_inference_steps,
                         num_sample_trajs, *, x_init):
         B = hidden.shape[0]

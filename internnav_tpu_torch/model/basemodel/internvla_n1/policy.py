@@ -30,13 +30,17 @@ import torch
 from torch import nn
 
 from internnav_tpu_torch import require_cuda
+from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import (
+    DecodeBuffers,
+    StaticCaches,
+)
 from internnav_tpu_torch.model.basemodel.internvla_n1.model import (
     InternVLAN1Config,
     InternVLAN1Model,
 )
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import (
     RMSNorm,
-    greedy_generate,
+    greedy_decode_grouped,
     quantize_qwen_text_,
 )
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
@@ -76,6 +80,10 @@ class SimpleTokenizer:
             self.SPECIALS = {name: vocab_size - len(self.QWEN_SPECIALS) + i
                              for i, name in enumerate(self.QWEN_SPECIALS)}
         self.eos_token_id = self.SPECIALS["<|im_end|>"]
+        #: the prompt bucket's pad id (the JAX policy pads with eos_token_id,
+        #: the same id unless a caller changes eos_token_id, as a benchmark
+        #: does to force the full decode budget)
+        self.pad_token_id = self.eos_token_id
         self._cache: Dict[str, int] = {}
 
     def encode(self, text: str) -> List[int]:
@@ -129,6 +137,17 @@ def _fit_s1_grid(frames: np.ndarray, hw: int) -> np.ndarray:
     return frames
 
 
+def to_device(arr, device) -> torch.Tensor:
+    """A host array as a tensor on `device`. To a GPU it goes through a
+    pinned host buffer with non_blocking=True, so the copy queues behind
+    the device's work instead of the host waiting for that work (a
+    pageable copy would wait)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t.clone().to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def build_model(cfg: InternVLAN1Config, device=None) -> InternVLAN1Model:
     """An uninitialized model on `device` (parameters allocated, not set).
     Without a device it goes to the GPU and raises when there is none; pass
@@ -180,6 +199,11 @@ class InternVLAN1Policy:
         self.num_history = cfg.num_history
         self.seed = seed
         self._index_cache: Dict[Tuple[int, int, int], tuple] = {}
+        #: the decode loop's static caches and captured graphs
+        self.decode_buffers = DecodeBuffers()
+        #: run the decode loop eagerly on the card instead of replaying its
+        #: graph: only for comparing the two (chip_smoke.py)
+        self.eager_decode = False
         self.reset()
 
     @classmethod
@@ -236,13 +260,14 @@ class InternVLAN1Policy:
         return self._encode_images(np.asarray(image)[None])[0]
 
     @torch.no_grad()
-    def _encode_images(self, images: np.ndarray):
-        """(N, H, W, 3) uint8 → ((N_tok, D) vision tokens, grid_thw (N, 3)),
-        the N images in one tower pass; normalization and patchification run
-        on the device."""
+    def _encode_images(self, images):
+        """(N, H, W, 3) uint8, a host array or a tensor on the device →
+        ((N_tok, D) vision tokens, grid_thw (N, 3)), the N images in one
+        tower pass; normalization and patchification run on the device."""
         n, h, w = images.shape[:3]
         dev_idx, (wblk, fblk) = self._vision_host_indices(h, w, n)
-        raw = torch.as_tensor(np.asarray(images, np.uint8), device=self.device)
+        raw = images if isinstance(images, torch.Tensor) else to_device(
+            np.asarray(images, np.uint8), self.device)
         patches = preprocess_images_device(raw, self.cfg.vision, self.CLIP_MEAN, self.CLIP_STD)
         tokens = self.model.encode_vision(patches, *dev_idx, window_block=wblk, full_block=fblk)
         p = self.cfg.vision.patch_size
@@ -323,31 +348,18 @@ class InternVLAN1Policy:
             image_token_id=cfg.image_token_index)
         B, P = input_ids.shape
         T = -(-P // self.PROMPT_BUCKET) * self.PROMPT_BUCKET
-        padded_ids = np.full((B, T), self.tokenizer.eos_token_id, np.int64)
+        padded_ids = np.full((B, T), self.tokenizer.pad_token_id, np.int64)
         padded_ids[:, :P] = input_ids
         pad_pos = pos_ids.max() + 1 + np.arange(T - P)
         padded_pos = np.concatenate([pos_ids, np.broadcast_to(pad_pos, (3, B, T - P))], axis=2)
         prompt_seg = np.zeros((B, T), np.int32)
         prompt_seg[:, P:] = 1
         prompt_len = torch.full((B,), P, dtype=torch.long, device=dev)
-        deltas = torch.as_tensor(rope_deltas[:, 0], device=dev)
+        deltas = to_device(rope_deltas[:, 0], dev)
 
-        ids = torch.as_tensor(padded_ids, device=dev)
-        embeds = self.model.embed_multimodal(ids, img_tokens)
-        tokens, lengths, caches = greedy_generate(
-            self.model.language_model, embeds, torch.as_tensor(padded_pos, device=dev),
-            max_new_tokens=max_new_tokens, eos_token_ids=self.stop_token_ids,
-            rope_deltas=deltas, prompt_lengths=prompt_len,
-            segment_ids=torch.as_tensor(prompt_seg, device=dev), extra_cache_slots=cfg.n_query)
-        # query i sits at position prompt_len + lengths + i; its K/V write
-        # overwrites the stale eos-pad slot there
-        n_q = cfg.n_query
-        q = self.model.traj_queries()
-        pos1 = (prompt_len + deltas + lengths)[None, :, None] + torch.arange(n_q, device=dev)
-        latents, _ = self.model.language_model.decode_chunk(
-            q.expand(B, n_q, q.shape[-1]).to(embeds.dtype), pos1.expand(3, B, n_q),
-            caches, prompt_len + lengths)
-
+        tokens, lengths, latents = self.fused_s2(
+            img_tokens, to_device(padded_ids, dev), to_device(padded_pos, dev), deltas, prompt_len,
+            to_device(prompt_seg, dev), max_new_tokens)
         gen = tokens[0, : int(lengths[0])].cpu().numpy()
         self.last_gen_tokens = gen
         self.llm_output = self.tokenizer.decode(gen)
@@ -362,6 +374,75 @@ class InternVLAN1Policy:
         return out
 
     @torch.inference_mode()
+    def fused_s2(self, img_tokens, input_ids, pos_ids, rope_deltas, prompt_len, prompt_seg,
+                 max_new_tokens: int):
+        """embed → bucketed prefill + greedy decode → one chunked decode of
+        the n_query traj queries over the generation's cache: `prefill_s2`
+        into a cache set of this policy's pool, then `grouped_tail` over that
+        one group. All inputs on the device: input_ids (B, T), pos_ids (3,
+        B, T), rope_deltas / prompt_len (B,), prompt_seg (B, T). Returns
+        (tokens, lengths, latents (B, n_query, E))."""
+        caches = self.s2_caches(*input_ids.shape, max_new_tokens)
+        try:
+            first = self.prefill_s2(img_tokens, input_ids, pos_ids, prompt_len, prompt_seg,
+                                    caches)
+            return self.grouped_tail([caches], first, rope_deltas, prompt_len, max_new_tokens)
+        finally:
+            self.decode_buffers.release(caches)
+
+    def s2_caches(self, B: int, T: int, max_new_tokens: int) -> StaticCaches:
+        """A free cache set of B rows for a T-token prompt bucket (T +
+        max_new_tokens + n_query slots) from this policy's pool; the caller
+        releases it (`decode_buffers.release`) once its `grouped_tail` is
+        enqueued."""
+        return self.decode_buffers.acquire(self.model.language_model.cfg, B,
+                                           T + max_new_tokens + self.cfg.n_query, self.device)
+
+    @torch.inference_mode()
+    def prefill_s2(self, img_tokens, input_ids, pos_ids, prompt_len, prompt_seg,
+                   caches: StaticCaches):
+        """The prefill half of `fused_s2`: embed → prefill into `caches`
+        (T + max_new_tokens + n_query slots) → the first greedy token (B,).
+        Paired with `grouped_tail`, which decodes several cohorts' caches
+        with one pass over the weights a token."""
+        embeds = self.model.embed_multimodal(input_ids, img_tokens)
+        logits, _, _ = self.model.language_model(
+            embeds, pos_ids, segment_ids=prompt_seg, logits_indices=prompt_len - 1,
+            caches_out=caches.entries)
+        return logits[:, 0].argmax(-1)
+
+    @torch.inference_mode()
+    def grouped_tail(self, groups: List[StaticCaches], first_tok, rope_deltas, prompt_len,
+                     max_new_tokens: int):
+        """Greedy decode (`greedy_decode_grouped`) and the traj-latent chunk
+        (`decode_chunk_grouped`) over several groups' prefilled caches, the
+        groups' rows stacked in order; row for row what each group gives
+        alone. Returns (tokens, lengths, latents)."""
+        tokens, lengths = greedy_decode_grouped(
+            self.model.language_model, first_tok, groups, prompt_lengths=prompt_len,
+            rope_deltas=rope_deltas, max_new_tokens=max_new_tokens,
+            eos_token_ids=self.stop_token_ids, buffers=self.decode_buffers,
+            eager=self.eager_decode)
+        return tokens, lengths, self._latent_chunk([g.entries for g in groups],
+                                                   [g.rows for g in groups], prompt_len,
+                                                   rope_deltas, lengths)
+
+    def _latent_chunk(self, trees, sizes, prompt_len, rope_deltas, lengths):
+        """The n_query traj queries decoded as one chunk over each row's
+        cache: query i sits at position prompt_len + lengths + i, and its
+        K/V write overwrites the stale eos-pad slot there. trees: per-group
+        caches (lists of per-layer entries) of `sizes` rows, stacked in
+        order."""
+        n_q, lm = self.cfg.n_query, self.model.language_model
+        B = prompt_len.shape[0]
+        q = self.model.traj_queries()
+        pos = (prompt_len + rope_deltas + lengths)[None, :, None] + torch.arange(
+            n_q, device=q.device)
+        e = q.expand(B, n_q, q.shape[-1]).to(lm.cfg.dtype)
+        lens = (prompt_len + lengths).split(list(sizes))
+        return lm.decode_chunk_grouped(e, pos.expand(3, B, n_q), trees, lens)[0]
+
+    @torch.inference_mode()
     def s1_step_latent(self, rgb: np.ndarray, depth: Optional[np.ndarray], latent,
                        num_sample_trajs: int = 32,
                        x_init: Optional[torch.Tensor] = None) -> S1Output:
@@ -373,7 +454,7 @@ class InternVLAN1Policy:
         rgb = _fit_s1_grid(rgb, self.model.s1_image_hw)
         if depth is not None:  # not read by NextDiT; fitted for the NavDP head
             depth = _fit_s1_grid(depth, self.model.s1_image_hw)
-        raw = torch.as_tensor(np.asarray(rgb, np.uint8), device=self.device)
+        raw = to_device(np.asarray(rgb, np.uint8), self.device)
         mean = torch.tensor(IMAGENET_MEAN, device=self.device)
         std = torch.tensor(IMAGENET_STD, device=self.device)
         images = (raw.float() / 255.0 - mean) / std

@@ -28,15 +28,21 @@ cross-entropy (`chunked_ce`).
   with no `apply_rotary`. The prompt's attention runs over bf16 K/V
   (rotated by `apply_rotary`); only the stored cache is int8, written by
   K7 without rotary (`ops/quant.py`, `ops/flash_attention.py`). Not yet
-  ported (they raise): int4 / W4A8 weights, W8A16 decode
-  (`decode_act_dtype="bf16"`) and the grouped decode of several cache
-  groups.
+  ported (they raise): int4 / W4A8 weights and W8A16 decode
+  (`decode_act_dtype="bf16"`).
+- The grouped decode (`decode_step_grouped`, `decode_chunk_grouped`,
+  `greedy_decode_grouped`) serves several prefill cohorts' caches with one
+  pass over the weights: the projections run once over the stacked rows,
+  the rotary, cache write and attention once per group on its own cache.
+- `greedy_generate` and `greedy_decode_grouped` drive their loop through
+  `decode_graph.DecodeLoop`: static caches the prefill writes into, and
+  on CUDA one captured CUDA graph per decode step, replayed in chunks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,6 +68,11 @@ from internnav_tpu_torch.ops.quant import (
     swiglu_quantize,
     w8a8_linear_multi,
     write_kv_cache,
+)
+from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import (
+    DecodeBuffers,
+    DecodeLoop,
+    StaticCaches,
 )
 from internnav_tpu_torch.ops.rope import apply_rotary, mrope_cos_sin
 
@@ -246,48 +257,80 @@ class QwenAttention(nn.Module):
         self.o_proj = _proj(cfg, H * D, E, False)
 
     def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None,
-                kv_cache: Optional[KVCache] = None, cache_len=None):
-        """Prefill when kv_cache is None: returns (out, (k, v)) with the new
-        cache entries (B, T, KV, D); tile_tables are `segment_tile_tables`
-        of segment_ids (built by the kernel wrapper when None). Otherwise x
-        holds n >= 1 new tokens whose K/V are written into kv_cache at
-        cache_len (B,) in place, each attending stepwise-causally over the
-        cache. x is the normed input, or with W8A8 projections its
-        `QuantizedRows`. With kv_dtype="int8" the prefill attends over the
-        rotated bf16 K/V and returns their quantized entries; decode
-        rotates, quantizes and writes in one K7 launch (`rope_kv_write`)
-        and attends through K4/K5 on strided views of the cache."""
+                kv_cache: Optional[KVCache] = None, cache_len=None, cache_out=None,
+                cache_groups: Optional[Sequence[KVCache]] = None, cache_len_groups=None):
+        """Prefill when kv_cache and cache_groups are None: returns (out,
+        (k, v)) with the new cache entries (B, T, KV, D), or, given
+        `cache_out` (entries of a longer cache, `StaticCaches`), with the
+        prompt's K/V written into its first T slots and cache_out returned;
+        tile_tables are `segment_tile_tables` of segment_ids (built by the
+        kernel wrapper when None). Otherwise x holds n >= 1 new tokens
+        whose K/V are written into kv_cache at cache_len (B,) in place, each
+        attending stepwise-causally over the cache. With cache_groups (a
+        list of per-group caches) and cache_len_groups (their (B_g,)
+        lengths), x stacks the groups' rows: the projections run once over
+        the stack and the rest per group on its own cache, row for row
+        what a call per group gives. x is the normed input, or with W8A8
+        projections its `QuantizedRows`. With kv_dtype="int8" the prefill
+        attends over the rotated bf16 K/V and writes their quantized
+        entries; decode rotates, quantizes and writes in one K7 launch
+        (`rope_kv_write`) and attends through K4/K5 on strided views of the
+        cache."""
         c = self.cfg
         B, n = x.shape[:2]
         H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
         q, k, v = project(x, self.q_proj, self.k_proj, self.v_proj)
-        if kv_cache is not None and isinstance(kv_cache[0], tuple):
-            k_cache, v_cache = kv_cache
-            q = rope_kv_write(q, k, v, cos, sin, k_cache, v_cache, cache_len)
-            out = self._decode_attention(q, k_cache, v_cache, cache_len)
-            return self.o_proj(out.transpose(1, 2).reshape(B, n, H * D)), kv_cache
+        if kv_cache is not None:
+            cache_groups, cache_len_groups = [kv_cache], [cache_len]
+        if cache_groups is not None:
+            outs, r = [], 0
+            for cache, cl in zip(cache_groups, cache_len_groups):
+                rows = slice(r, r + cl.shape[0])
+                outs.append(self._cached_attention(q[rows], k[rows], v[rows], cos[rows],
+                                                   sin[rows], cache, cl))
+                r += cl.shape[0]
+            out = outs[0] if len(outs) == 1 else torch.cat(outs)
+            out = self.o_proj(out.transpose(1, 2).reshape(B, n, H * D))
+            return out, (kv_cache if kv_cache is not None else cache_groups)
         q = q.reshape(B, n, H, D).transpose(1, 2)
         k = k.reshape(B, n, KV, D).transpose(1, 2)
         v = v.reshape(B, n, KV, D)
         q, k = apply_rotary(q, k, cos, sin)
-        if kv_cache is None:
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.transpose(1, 2).contiguous(),
-                                  causal=True, segment_ids=segment_ids,
-                                  tile_tables=tile_tables)
+        out = flash_attention(q.contiguous(), k.contiguous(), v.transpose(1, 2).contiguous(),
+                              causal=True, segment_ids=segment_ids, tile_tables=tile_tables)
+        k = k.transpose(1, 2)
+        if cache_out is not None:
             if c.kv_dtype == "int8":
-                new_cache = _int8_entries(k.transpose(1, 2), v)
+                write_kv_cache(k.contiguous(), v.contiguous(), *cache_out,
+                               torch.zeros(B, dtype=torch.long, device=k.device))
             else:
-                new_cache = (k.transpose(1, 2), v)
+                cache_out[0][:, :n].copy_(k)
+                cache_out[1][:, :n].copy_(v)
+            new_cache = cache_out
+        elif c.kv_dtype == "int8":
+            new_cache = _int8_entries(k, v)
         else:
-            k_cache, v_cache = kv_cache
-            cols, keep = cache_write_slots(cache_len, n, k_cache.shape[1])
-            store_cache_rows_(k_cache, k.transpose(1, 2), cols, keep)
-            store_cache_rows_(v_cache, v, cols, keep)
-            out = self._decode_attention(q, k_cache, v_cache, cache_len)
-            new_cache = kv_cache
+            new_cache = (k, v)
         out = out.transpose(1, 2).reshape(B, n, H * D)
         return self.o_proj(out), new_cache
+
+    def _cached_attention(self, q, k, v, cos, sin, cache: KVCache, cache_len):
+        """Attention of one cache group: q (B, n, H D), k/v (B, n, KV D)
+        projected rows, cos/sin (B, n, D); their K/V written into the cache
+        at cache_len (B,) in place. Returns (B, H, n, D)."""
+        c = self.cfg
+        B, n = q.shape[:2]
+        H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        k_cache, v_cache = cache
+        if isinstance(k_cache, tuple):
+            q = rope_kv_write(q, k, v, cos, sin, k_cache, v_cache, cache_len)
+            return self._decode_attention(q, k_cache, v_cache, cache_len)
+        q, k = apply_rotary(q.reshape(B, n, H, D).transpose(1, 2),
+                            k.reshape(B, n, KV, D).transpose(1, 2), cos, sin)
+        cols, keep = cache_write_slots(cache_len, n, k_cache.shape[1])
+        store_cache_rows_(k_cache, k.transpose(1, 2), cols, keep)
+        store_cache_rows_(v_cache, v.reshape(B, n, KV, D), cols, keep)
+        return self._decode_attention(q, k_cache, v_cache, cache_len)
 
     @staticmethod
     def _decode_attention(q, k_cache: CacheEntry, v_cache: CacheEntry, cache_len):
@@ -351,9 +394,10 @@ class QwenDecoderLayer(nn.Module):
         self.mlp = QwenMLP(cfg)
 
     def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None, kv_cache=None,
-                cache_len=None):
+                cache_len=None, cache_out=None, cache_groups=None, cache_len_groups=None):
         kw = dict(segment_ids=segment_ids, tile_tables=tile_tables, kv_cache=kv_cache,
-                  cache_len=cache_len)
+                  cache_len=cache_len, cache_out=cache_out, cache_groups=cache_groups,
+                  cache_len_groups=cache_len_groups)
         norm1, norm2 = self.input_layernorm, self.post_attention_layernorm
         if not isinstance(self.mlp.down_proj, QuantLinear):
             h, new_cache = self.self_attn(norm1(x), cos, sin, **kw)
@@ -388,10 +432,13 @@ class QwenTextModel(nn.Module):
         return mrope_cos_sin(position_ids, c.head_dim, c.mrope_section, c.rope_theta)
 
     def forward(self, inputs_embeds, position_ids, *, segment_ids=None, logits_indices=None,
-                compute_logits: bool = True):
+                compute_logits: bool = True, caches_out: Optional[List[KVCache]] = None):
         """Prefill. inputs_embeds (B, T, E); position_ids (3, B, T).
         Returns (logits, hidden, caches): hidden (B, T, E) is the final
-        norm's fp32 product, caches per layer (k, v) of (B, T, KV, D); logits_indices (B,) computes the logits only at those
+        norm's fp32 product, caches per layer (k, v) of (B, T, KV, D), or
+        `caches_out` (per-layer entries of (B, Tmax >= T, KV, D) static
+        caches) with the prompt's K/V written into their first T slots;
+        logits_indices (B,) computes the logits only at those
         positions ((B, 1, vocab)); compute_logits=False returns logits None
         (training with `chunked_ce` never builds the (B, T, vocab) logits).
         With cfg.remat and grad enabled each layer runs under checkpoint and
@@ -403,12 +450,13 @@ class QwenTextModel(nn.Module):
         x = inputs_embeds
         remat = self.cfg.remat and torch.is_grad_enabled()
         caches: Optional[List[KVCache]] = None if remat else []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             if remat:
                 x = checkpoint(_layer_hidden, layer, x, cos, sin, segment_ids, tile_tables,
                                use_reentrant=False)
             else:
-                x, cache = layer(x, cos, sin, segment_ids=segment_ids, tile_tables=tile_tables)
+                x, cache = layer(x, cos, sin, segment_ids=segment_ids, tile_tables=tile_tables,
+                                 cache_out=None if caches_out is None else caches_out[i])
                 caches.append(cache)
         hidden = self.norm(x)
         if not compute_logits:
@@ -449,11 +497,12 @@ class QwenTextModel(nn.Module):
         ce = torch.logsumexp(logits, dim=-1) - gold
         return (ce * valid).sum(), valid.sum().float()
 
-    def _decode(self, token_embeds, position_ids, caches, cache_len):
+    def _decode_grouped(self, token_embeds, position_ids, cache_trees, cache_lens):
         cos, sin = self._cos_sin(position_ids)
         x = token_embeds
-        for layer, cache in zip(self.layers, caches):
-            x, _ = layer(x, cos, sin, kv_cache=cache, cache_len=cache_len)
+        for li, layer in enumerate(self.layers):
+            x, _ = layer(x, cos, sin, cache_groups=[t[li] for t in cache_trees],
+                         cache_len_groups=cache_lens)
         return self.norm(x)
 
     def decode_step(self, token_embeds, position_ids, caches, cache_len,
@@ -461,7 +510,7 @@ class QwenTextModel(nn.Module):
         """One cached decode step: token_embeds (B, 1, E); cache_len (B,) is
         where the new token goes. Returns (logits (B, vocab) or None,
         hidden (B, E) fp32, caches) — the caches are updated in place."""
-        hidden = self._decode(token_embeds, position_ids, caches, cache_len)
+        hidden = self._decode_grouped(token_embeds, position_ids, [caches], [cache_len])
         logits = self._logits(hidden)[:, 0] if compute_logits else None
         return logits, hidden[:, 0], caches
 
@@ -469,7 +518,27 @@ class QwenTextModel(nn.Module):
         """Cached decode of n tokens with no sequential data dependence (the
         traj-latent queries): equal to n `decode_step` calls, one weight
         pass. Returns (hidden (B, n, E) fp32, caches)."""
-        return self._decode(token_embeds, position_ids, caches, cache_len), caches
+        return self._decode_grouped(token_embeds, position_ids, [caches], [cache_len]), caches
+
+    def decode_step_grouped(self, token_embeds, position_ids, cache_trees, cache_lens,
+                            compute_logits: bool = True):
+        """Grouped cached decode: one pass over the weights serves several
+        cache groups (serving cohorts). token_embeds (B_total, 1, E) stacks
+        the groups' rows in order; cache_trees is a list of per-group caches
+        (each a list of per-layer (k, v)), cache_lens a list of (B_g,).
+        Row for row what `decode_step` gives per group; the caches are
+        updated in place. Returns (logits or None, hidden (B_total, E),
+        cache_trees)."""
+        hidden = self._decode_grouped(token_embeds, position_ids, cache_trees, cache_lens)
+        logits = self._logits(hidden)[:, 0] if compute_logits else None
+        return logits, hidden[:, 0], cache_trees
+
+    def decode_chunk_grouped(self, token_embeds, position_ids, cache_trees, cache_lens):
+        """Grouped `decode_chunk`: n chunk tokens a row, one pass over the
+        weights for every group. Returns (hidden (B_total, n, E),
+        cache_trees)."""
+        return self._decode_grouped(token_embeds, position_ids, cache_trees, cache_lens), \
+            cache_trees
 
 
 def _layer_hidden(layer, x, cos, sin, segment_ids, tile_tables):
@@ -563,35 +632,39 @@ def greedy_generate(model: QwenTextModel, inputs_embeds, position_ids, *,
     real lengths and `segment_ids` put the pads in their own segment, so
     decoding starts from the last real token and new tokens overwrite the
     pad cache slots — the result equals the unpadded run. rope_deltas (B,)
-    is the M-RoPE decode offset (position = length + delta + step)."""
-    B, T, _ = inputs_embeds.shape
-    dev = inputs_embeds.device
-    prompt_lengths = prompt_lengths.long()
-    rope_deltas = rope_deltas.long()
+    is the M-RoPE decode offset (position = length + delta + step).
 
-    logits, _, caches = model(inputs_embeds, position_ids, segment_ids=segment_ids,
-                              logits_indices=prompt_lengths - 1)
-    caches = pad_caches(caches, T + max_new_tokens + extra_cache_slots)
-    eos = torch.as_tensor(eos_token_ids, device=dev)
-    tokens = torch.full((B, max_new_tokens), int(eos_token_ids[0]), dtype=torch.long, device=dev)
-    tokens[:, 0] = logits[:, 0].argmax(-1)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    step = 0
-    all_done = False
-    while step < max_new_tokens and not all_done:
-        cur = tokens[:, step]
-        done = done | torch.isin(cur, eos)
-        all_done = bool(done.all())
-        pos = (prompt_lengths + rope_deltas + step)[None, :, None].expand(3, B, 1)
-        _, hidden, caches = model.decode_step(model.embed(cur[:, None]), pos, caches,
-                                              prompt_lengths + step, compute_logits=False)
-        # the last step only writes the final token's K/V (the traj-latent
-        # chunk reads it); its logits would be discarded
-        if step + 1 < max_new_tokens and not all_done:
-            nxt = model._logits(hidden).argmax(-1)
-            tokens[:, step + 1] = torch.where(done, eos[0], nxt)
-        step += 1
-    is_eos = torch.isin(tokens, eos)
-    lengths = torch.where(is_eos.any(1), is_eos.int().argmax(1),
-                          torch.full_like(prompt_lengths, max_new_tokens))
-    return tokens, lengths, caches
+    The prefill writes into static caches of T + max_new_tokens +
+    extra_cache_slots slots made for this call, and the loop runs through
+    a `DecodeLoop` of its own (a captured CUDA graph per step on the
+    card). A server reuses its caches and graphs across requests instead
+    (`InternVLAN1Policy.prefill_s2` and `grouped_tail` on its
+    `DecodeBuffers`)."""
+    B, T, _ = inputs_embeds.shape
+    caches = StaticCaches(model.cfg, B, T + max_new_tokens + extra_cache_slots,
+                          inputs_embeds.device)
+    logits, _, _ = model(inputs_embeds, position_ids, segment_ids=segment_ids,
+                         logits_indices=prompt_lengths.long() - 1, caches_out=caches.entries)
+    loop = DecodeLoop(model, [caches], max_new_tokens, eos_token_ids)
+    tokens, lengths = loop.run(logits[:, 0].argmax(-1), prompt_lengths, rope_deltas)
+    return tokens, lengths, caches.entries
+
+
+@torch.no_grad()
+def greedy_decode_grouped(model: QwenTextModel, first_tok, cache_groups: Sequence[StaticCaches],
+                          *, prompt_lengths, rope_deltas, max_new_tokens: int = 128,
+                          eos_token_ids: Tuple[int, ...] = (151645,),
+                          buffers: Optional[DecodeBuffers] = None, eager: bool = False):
+    """Greedy decode over several prefilled cache groups in one loop: one
+    pass over the weights a token for every group (`decode_step_grouped`).
+    first_tok (B_total,) is the argmax of each row's prefill logits, the
+    groups' rows stacked in order; cache_groups hold each group's prompt
+    K/V (`StaticCaches` of T + max_new_tokens + n_query slots);
+    prompt_lengths / rope_deltas (B_total,). Each row's tokens equal
+    `greedy_generate` on its own group: the loop runs until every row of
+    every group is done, and a finished row keeps emitting EOS. Returns
+    (tokens (B_total, max_new_tokens), lengths (B_total,)); the caches are
+    written in place."""
+    buffers = buffers if buffers is not None else DecodeBuffers()
+    loop = buffers.loop(model, list(cache_groups), max_new_tokens, eos_token_ids, eager=eager)
+    return loop.run(first_tok, prompt_lengths, rope_deltas)

@@ -61,6 +61,10 @@ bwd_dkv_launches = 0
 bwd_dq_launches = 0
 decode_int8_launches = 0
 chunk_decode_int8_launches = 0
+#: the counters' names (`decode_graph` adds a captured step's launches to
+#: them at every replay of its graph)
+LAUNCH_COUNTERS = ("kernel_launches", "bwd_dkv_launches", "bwd_dq_launches",
+                   "decode_int8_launches", "chunk_decode_int8_launches")
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -584,6 +588,9 @@ def _decode_int8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths, len_offset
     q = q.contiguous()
     if q.data_ptr() % 16:
         raise ValueError("int8 decode kernel: q is not 16-byte aligned")
+    # capture-safe: the launch goes to the current (capturing) stream, and
+    # the cluster size depends on Tmax alone (`decode_cluster_size`), so a
+    # replay with new lengths on the device runs the captured plan
     lengths = lengths.to(torch.int64).contiguous()
     out = torch.empty_like(q)
     strides = [*k_cache.stride()[:3], *v_cache.stride()[:3], *k_scale.stride(),

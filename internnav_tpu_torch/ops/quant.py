@@ -62,6 +62,11 @@ plain_quantize_launches = 0
 w8a8_launches = 0
 w8a8_fused_launches = 0
 kv_write_launches = 0
+#: the counters' names (`decode_graph` adds a captured step's launches to
+#: them at every replay of its graph)
+LAUNCH_COUNTERS = ("quantize_rows_launches", "rmsnorm_quantize_launches",
+                   "swiglu_quantize_launches", "plain_quantize_launches", "w8a8_launches",
+                   "w8a8_fused_launches", "kv_write_launches")
 
 #: K6a's prologues (csrc/quantize_rows.cu)
 PLAIN, RMSNORM, SWIGLU = 0, 1, 2
@@ -487,7 +492,10 @@ def _check_cuda(name, t, dtype, shape, device, kernel="W8A8 kernel"):
 
 def _stream(device) -> int:
     """The current stream of a CUDA device, by its index (a device object
-    takes PyTorch's slower lookup on every launch)."""
+    takes PyTorch's slower lookup on every launch). Under CUDA graph
+    capture this is the capturing stream, so every launch wrapper of this
+    module is capture-safe: it launches on this stream, reads no tensor
+    on the host and takes its plan from shapes alone."""
     return torch.cuda.current_stream(device.index).cuda_stream
 
 
@@ -675,6 +683,10 @@ def _decode_launch(xq, a_scale, M: int, K: int, segments: Sequence[Tuple]
                      outs[i].data_ptr(), shapes[i][0]]
         else:
             args += [None, None, None, None, 0]
+    # the tensor maps of the weights are cached by pointer in the library
+    # and passed as __grid_constant__ parameters: a captured launch keeps
+    # the maps it was given, right as long as the weights stay where they
+    # are (module buffers, never moved while a graph lives)
     with torch.cuda.device(dev.index):
         err = _gemm_entries()[1](xq.data_ptr(), a_scale.data_ptr(), M, K, group, len(segments),
                                  plan.block_n, plan.split, plan.unit_lines, plan.stages,

@@ -7,6 +7,7 @@ shared).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -17,12 +18,18 @@ def rope_inv_freq(dim: int, theta: float = 10000.0) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq_tensor(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """`rope_inv_freq` as an fp32 tensor on `device`, uploaded once: a
+    decode step captured in a CUDA graph may not copy from the host."""
+    return torch.as_tensor(rope_inv_freq(dim, theta), dtype=torch.float32, device=device)
+
+
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 10000.0,
                  dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (..., T) → cos/sin (..., T, dim), frequencies duplicated
     [f0..f_{d/2-1}, f0..f_{d/2-1}] (HF convention)."""
-    inv = torch.as_tensor(rope_inv_freq(dim, theta), dtype=torch.float32,
-                          device=positions.device)
+    inv = _inv_freq_tensor(dim, float(theta), positions.device)
     ang = positions[..., None].float() * inv
     emb = torch.cat([ang, ang], dim=-1)
     return emb.cos().to(dtype), emb.sin().to(dtype)
@@ -51,8 +58,7 @@ def mrope_cos_sin(position_ids: torch.Tensor, dim: int, mrope_section: Sequence[
     sections = list(mrope_section)
     if sum(sections) != dim // 2:
         raise ValueError(f"mrope_section {sections} does not cover dim {dim}")
-    inv = torch.as_tensor(rope_inv_freq(dim, theta), dtype=torch.float32,
-                          device=position_ids.device)
+    inv = _inv_freq_tensor(dim, float(theta), position_ids.device)
     parts_c, parts_s = [], []
     start = 0
     for stream, sec in enumerate(sections):

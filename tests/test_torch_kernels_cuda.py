@@ -796,3 +796,160 @@ def test_k7_wrappers_reject_what_they_do_not_take(device):
                                  + entry[1:], entry, cache_len)
     with pytest.raises(ValueError, match="cache_len"):
         quant.rope_kv_write_cuda(q, k, k, cos, cos, entry, entry, cache_len.float())
+
+
+# ------------------------------------------------------ decode loop graphs
+def _decode_model(device, fmt, seed=0):
+    """A small text model whose shapes the int8 kernels take (head dim 128,
+    K multiples of 64): bf16, or W8A8 projections with an int8 KV cache."""
+    import dataclasses
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text as qt
+
+    cfg = dataclasses.replace(qt.QwenTextConfig.tiny(), hidden_size=256, intermediate_size=512,
+                              num_attention_heads=2, num_key_value_heads=1, head_dim=128,
+                              mrope_section=(16, 24, 24), dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(seed)
+    with torch.device(device):
+        model = qt.QwenTextModel(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" not in name:
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    if fmt == "int8":
+        qt.quantize_qwen_text_(model)
+        model.cfg = dataclasses.replace(model.cfg, kv_dtype="int8")
+        for mod in model.modules():
+            if isinstance(getattr(mod, "cfg", None), qt.QwenTextConfig):
+                mod.cfg = model.cfg
+    return model.eval()
+
+
+def _decode_prompts(device, groups, T=32, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for rows, P in groups:
+        emb = (0.5 * torch.randn((rows, T, 256), generator=g)).to(device, torch.bfloat16)
+        pos = torch.arange(T, device=device)[None, None].expand(3, rows, T).contiguous()
+        seg = torch.zeros((rows, T), dtype=torch.int32, device=device)
+        seg[:, P:] = 1
+        plen = torch.full((rows,), P, dtype=torch.long, device=device)
+        out.append((emb, pos, seg, plen, torch.zeros(rows, dtype=torch.long, device=device)))
+    return out
+
+
+def _decode(model, prompts, eager, buffers=None, max_new=12, n_q=2):
+    """Each group prefilled into a cache set of the pool, then one (grouped)
+    decode loop, the sets released: tokens, lengths and every group's
+    caches but their last slot, copied. (The warm-up step before a capture
+    writes that slot, which a request writes before it reads it.)"""
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text as qt
+    from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import DecodeBuffers
+
+    buffers = buffers or DecodeBuffers()
+    statics, firsts = [], []
+    with torch.inference_mode():
+        for emb, pos, seg, plen, _ in prompts:
+            caches = buffers.acquire(model.cfg, emb.shape[0], emb.shape[1] + max_new + n_q,
+                                     emb.device)
+            logits, _, _ = model(emb, pos, segment_ids=seg, logits_indices=plen - 1,
+                                 caches_out=caches.entries)
+            statics.append(caches)
+            firsts.append(logits[:, 0].argmax(-1))
+        tok, ln = qt.greedy_decode_grouped(
+            model, torch.cat(firsts), statics, prompt_lengths=torch.cat([p[3] for p in prompts]),
+            rope_deltas=torch.cat([p[4] for p in prompts]), max_new_tokens=max_new,
+            eos_token_ids=(7,), buffers=buffers, eager=eager)
+        torch.cuda.synchronize()
+        flat = [t[:, :-1].clone() for c in statics for layer in c.entries for e in layer
+                for t in (e if isinstance(e, tuple) else (e,))]
+    for c in statics:
+        buffers.release(c)
+    return tok, ln, flat
+
+
+@pytest.mark.parametrize("groups", [((1, 21),), ((2, 21), (3, 17))])
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_decode_graph_replay_is_bitwise_eager(device, fmt, groups):
+    """The captured step replayed equals the same step run eagerly, bit for
+    bit (the same kernels in the same order), single and grouped."""
+    model = _decode_model(device, fmt)
+    prompts = _decode_prompts(device, groups)
+    ref = _decode(model, prompts, eager=True)
+    got = _decode(model, prompts, eager=False)
+    for a, b in zip(got[:2] + tuple(got[2]), ref[:2] + tuple(ref[2])):
+        assert torch.equal(a, b)
+
+
+def test_decode_graph_replays_count_their_launches(device):
+    """Each replay adds its graph's captured launches to the wrappers'
+    counters: a replayed decode counts what the same decode counts eagerly."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph
+    from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import DecodeBuffers
+
+    model = _decode_model(device, "int8")
+    prompts = _decode_prompts(device, ((2, 21), (3, 17)))
+    counts = {}
+    for eager in (True, False):
+        buffers = DecodeBuffers()
+        _decode(model, prompts, eager, buffers)  # the capture (and its warm-up) first
+        before = decode_graph.launch_counters()
+        _decode(model, prompts, eager, buffers)
+        after = decode_graph.launch_counters()
+        counts[eager] = {k: after[k] - before[k] for k in after}
+    assert counts[False] == counts[True]
+    assert counts[False][("internnav_tpu_torch.ops.flash_attention", "decode_int8_launches")] \
+        == 2 * 2 * 12  # 2 layers x 2 groups x 12 steps
+
+
+def test_decode_graph_capture_after_cache_rebuild(device, monkeypatch):
+    """When a group's caches are made anew (a pool of one set: another
+    shape drops it, then the first shape comes again), the new capture
+    gives the same tokens."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph
+    from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import DecodeBuffers
+
+    monkeypatch.setattr(decode_graph, "MAX_CACHES", 1)
+    model = _decode_model(device, "int8")
+    prompts = _decode_prompts(device, ((2, 21),))
+    buffers = DecodeBuffers()
+    first = _decode(model, prompts, False, buffers)
+    decode_graph.reset_stats()
+    _decode(model, _decode_prompts(device, ((2, 40),), T=64), False, buffers)
+    again = _decode(model, prompts, False, buffers)
+    assert decode_graph.stats["captures"] == 4  # both shapes captured anew
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_decode_graph_one_token_budget(device):
+    """A one-token budget captures only the step without the lm_head (the
+    tokens buffer has no column for a next token), and its replay equals
+    the eager step."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph
+
+    model = _decode_model(device, "int8")
+    prompts = _decode_prompts(device, ((2, 21), (1, 17)))
+    ref = _decode(model, prompts, eager=True, max_new=1)
+    decode_graph.reset_stats()
+    got = _decode(model, prompts, eager=False, max_new=1)
+    assert decode_graph.stats["captures"] == 1 and decode_graph.stats["logits_steps"] == 0
+    assert got[0].shape == (3, 1)
+    for a, b in zip(got[:2] + tuple(got[2]), ref[:2] + tuple(ref[2])):
+        assert torch.equal(a, b)
+
+
+def test_decode_graph_reused_across_owners_of_one_layout(device):
+    """Two rounds of a two-group decode whose sets are acquired in the same
+    order by different callers replay the first round's graphs: one
+    capture in all."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph
+    from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import DecodeBuffers
+
+    model = _decode_model(device, "int8")
+    buffers = DecodeBuffers()
+    decode_graph.reset_stats()
+    prompts = _decode_prompts(device, ((2, 21), (2, 17)))
+    first = _decode(model, prompts, False, buffers)
+    second = _decode(model, prompts[::-1], False, buffers)
+    assert decode_graph.stats["warmup_steps"] == 1 and decode_graph.stats["captures"] == 2
+    assert torch.equal(first[0][:2], second[0][2:]) and torch.equal(first[0][2:], second[0][:2])
