@@ -68,19 +68,42 @@ Phases, each printing its numbers:
                that every cycle decodes them all), 2 System-1 calls a
                cycle; checked cycles with every stream's own inputs (graph
                replay bitwise equal to eager decode; shared decode equal
-               to per-cohort decode), then 3 timed streams of 5 cycles:
+               to per-cohort decode), then 1 timed stream of 5 cycles:
                actions/s, host seconds by call, peak memory, and every
                kernel's launches equal to the computed counts;
-  6. train   — with the serving policies freed: the full-width 7B
+  6. evaluate — the evaluator-path headline through the bench entry
+               (scripts/torch/bench_evaluator.py): VLNPipelinedEvaluator
+               over FakeEnv driving BatchedInternVLAN1Agent cohorts on the
+               7B realtime policy, 4 cohorts x 12 streams, 224x224,
+               max_step 24, shared grouped decode of 20 tokens (stop id
+               -7), per-cohort System-1, barrier env apply; one warm run
+               and 3 timed runs: actions/s per run and their median,
+               p50/p99 action latency, the agents' System-2 and System-1
+               calls, the decode graph's captures and replays, peak
+               memory; every episode must end, every action be one of the
+               four and every trajectory finite and well formed, K1, K4,
+               K5, K6a, K6b and K7 must launch in the timed runs, and no
+               plain version of a kernel (the `*_reference` functions of
+               ops/, and `quant.quantize_rows`) may run in the phase; the
+               warm run's launches are logged by signature (`ShapeLog`:
+               prompt buckets, decode groups' rows and Tmax, K6b's rows
+               and projections; every launch accounted for), and after the
+               timed runs each kernel is checked against its plain version
+               and timed at its most launched signatures (kernel rows
+               with path=evaluate). Python's str hash is pinned
+               (PYTHONHASHSEED=0; the script re-executes itself with it),
+               so FakeEnv draws the same frames in every run;
+  7. train   — with the serving policies freed: the full-width 7B
                `nextdit_async` policy at TRAIN_LAYERS decoder layers with
                remat, one packed 8192-token row from a synthetic store through
                `InternVLAN1Trainer.prepare_batch`, one untimed and 3 timed
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
                L times each.
-Every kernel's launch count is set to 0 just before each of the five
+Every kernel's launch count is set to 0 just before each of the six
 paths (serve, serve realtime, the long realtime request, serve batched's
-timed streams, train) and read just after. Then one JSON
+timed stream, the evaluate phase's timed runs, train) and read just
+after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing any result.
@@ -91,6 +114,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -156,7 +180,7 @@ BATCH_NEW_TOKENS = 20
 BATCH_TRAJS = 32
 BATCH_S1_CALLS = 2
 BATCH_CYCLES = 5
-BATCH_STREAMS = 3
+BATCH_STREAMS = 1
 ACTIONS_PER_CYCLE = 8
 # its prompt (9 frames of 64 image tokens and the instruction), the prompt's
 # 32-token bucket and the cache slots of a row (checked on the path)
@@ -174,6 +198,7 @@ TRAIN_LAYERS = 28
 TRAIN_HW = 224
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 QUEUE_CYCLES = 10_000_000  # device sleep ahead of each timed call (~5 ms at 1.98 GHz)
+HASH_SEED = "0"  # PYTHONHASHSEED of the run (the bench entry's HASH_SEED)
 
 
 def gpu_line() -> str:
@@ -466,29 +491,40 @@ def flash_backward_ms(q, k, v, seg, do) -> float:
     return cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
 
 
+def k1_row(name, q, k, v, seg, causal, extra=None) -> dict:
+    """K1 at one serving shape (segment ids `seg`): checked against the
+    plain version (`check_k1`), timed beside the plain version, SDPA and
+    the bound; the row, also printed."""
+    import torch
+
+    from internnav_tpu_torch.ops import flash_attention as fa
+
+    _, _, err, lse_err = check_k1(name, q, k, v, seg, causal)
+    tabs = fa.segment_tile_tables(seg)  # made once per segment set, as the model does
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal, segment_ids=seg,
+                                                 tile_tables=tabs))
+    plain_ms = cuda_ms(lambda: fa.mha_reference(q, k, v, causal=causal, segment_ids=seg))
+    live, causal_tiles = k1_tiles(q, k, seg, causal)
+    one_segment = torch.zeros(q.shape[0], q.shape[2])
+    bound_ms, bound_by = bound("fwd", q, k, valid_pairs(one_segment if seg is None
+                                                        else seg.cpu(), causal))
+    row = {"shape": name, "q": list(q.shape), "kv_heads": k.shape[1], "causal": causal,
+           "max_abs_err": err, "lse_max_abs_err": lse_err, "live_tiles": live,
+           "causal_tiles": causal_tiles, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": sdpa_fwd_ms(q, *_sdpa_args(q, k, v, seg, causal)), **(extra or {})}
+    print("phase kernels: K1 " + " ".join(
+        f"{key}={val:.4f}" if isinstance(val, float) else f"{key}={val}"
+        for key, val in row.items()) + f" gpu={gpu_line()!r}")
+    return row
+
+
 def phase_kernels(device, store) -> dict:
     import torch
 
     from internnav_tpu_torch.ops import flash_attention as fa
 
-    k1_rows = []
-    for name, q, k, v, seg, causal in k1_cases(device):
-        _, _, err, lse_err = check_k1(name, q, k, v, seg, causal)
-        tabs = fa.segment_tile_tables(seg)  # made once per segment set, as the model does
-        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal, segment_ids=seg,
-                                                     tile_tables=tabs))
-        plain_ms = cuda_ms(lambda: fa.mha_reference(q, k, v, causal=causal, segment_ids=seg))
-        live, causal_tiles = k1_tiles(q, k, seg, causal)
-        bound_ms, bound_by = bound("fwd", q, k, valid_pairs(seg.cpu(), causal))
-        row = {"shape": name, "q": list(q.shape), "kv_heads": k.shape[1], "causal": causal,
-               "max_abs_err": err, "lse_max_abs_err": lse_err, "live_tiles": live,
-               "causal_tiles": causal_tiles, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": sdpa_fwd_ms(q, *_sdpa_args(q, k, v, seg, causal))}
-        k1_rows.append(row)
-        print("phase kernels: K1 " + " ".join(
-            f"{key}={val:.4f}" if isinstance(val, float) else f"{key}={val}"
-            for key, val in row.items()) + f" gpu={gpu_line()!r}")
+    k1_rows = [k1_row(*case) for case in k1_cases(device)]
 
     g = torch.Generator(device=device).manual_seed(1)
 
@@ -579,63 +615,75 @@ def _row(kernel, shape, err, ms, plain_ms, bound, library_ms=None, extra=None, *
 K6A_ROWS = (1, BATCH_DECODE_M, BATCH_DECODE_M * N_QUERY, PROMPT_T, BATCH_ROWS * BATCH_PROMPT_T)
 
 
-def int8_k6a_rows(device, g):
-    """K6a's prologues at the 7B rows of K6A_ROWS: RMSNORM on the hidden width with and without the residual (x + h
-    bitwise, codes within +-1 and scales within 2^-7, the differing codes
-    counted), SWIGLU on the intermediate width, PLAIN on the bf16 attention
-    output and on the final norm's fp32 rows (the lm_head's input, M = 1
-    and the shared decode's rows); the last two bitwise. The bound: each input read once (the norm scale
-    too), the codes, scales and x + h written once. No single PyTorch call
-    computes any of these functions, so there is no library time."""
+K6A_E, K6A_I = 3584, 18944  # the 7B hidden and intermediate widths
+
+
+def k6a_row(device, g, kind, M, K, extra=None) -> dict:
+    """K6a's prologue `kind` on M rows of width K against its plain
+    version: "rmsnorm" and "rmsnorm_residual" (x + h bitwise, codes within
+    +-1 and scales within 2^-7, the differing codes counted), "swiglu",
+    "plain" (bf16 rows) and "plain_fp32" (the final norm's fp32 rows, the
+    lm_head's input), the last three bitwise. The bound: each input read
+    once (the norm scale too), the codes, scales and x + h written once.
+    No single PyTorch call computes any of these functions, so there is no
+    library time."""
     import torch
 
     from internnav_tpu_torch.ops import quant
 
-    E, I = 3584, 18944
-    w = torch.randn(E, generator=g, device=device) * 0.3 + 1.0
-
-    def rnd(M, K, dtype=torch.bfloat16):
+    def rnd(dtype=torch.bfloat16):
         return (torch.randn((M, K), generator=g, device=device) * 3.0).to(dtype)
 
+    if kind.startswith("rmsnorm"):
+        x, w = rnd(), torch.randn(K, generator=g, device=device) * 0.3 + 1.0
+        residual = rnd() if kind == "rmsnorm_residual" else None
+        (q, s, xs), (rq, rs, rxs) = (quant.rmsnorm_quantize_cuda(x, w, 1e-6, residual),
+                                     quant.rmsnorm_quantize_reference(x, w, 1e-6, residual))
+        torch.cuda.synchronize()
+        err = int((q.int() - rq.int()).abs().max())
+        if not torch.equal(xs, rxs) or err > 1 \
+                or not torch.allclose(s, rs, atol=0, rtol=2 ** -7):
+            raise AssertionError(f"K6a {kind} M={M}: differs from the plain version (codes by "
+                                 f"{err})")
+        nbytes = M * K * (2 + 1) + 4 * K + 4 * M + (2 * 2 * M * K if residual is not None
+                                                    else 0)
+        return _row("K6a", f"{kind}_M{M}_K{K}", float(err),
+                    cuda_ms(lambda: quant.rmsnorm_quantize_cuda(x, w, 1e-6, residual)),
+                    cuda_ms(lambda: quant.rmsnorm_quantize_reference(x, w, 1e-6, residual)),
+                    _bytes_bound(nbytes, 0, PEAK_INT8_OPS),
+                    extra={"differing_codes": int((q != rq).sum()), "codes": M * K,
+                           **(extra or {})})
+    if kind == "swiglu":
+        gate, up = rnd(), rnd()
+        run, plain = (lambda: quant.swiglu_quantize_cuda(gate, up),
+                      lambda: quant.swiglu_quantize_reference(gate, up))
+        nbytes = M * K * (2 * 2 + 1)
+    else:
+        x = rnd(torch.float32 if kind == "plain_fp32" else torch.bfloat16)
+        run, plain = lambda: quant.quantize_rows_cuda(x), lambda: quant.quantize_rows(x)
+        nbytes = M * K * (x.element_size() + 1)
+    (q, s), (rq, rs) = run(), plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(q, rq) and torch.equal(s, rs)):
+        raise AssertionError(f"K6a {kind} M={M}: int8 codes or scales differ from the plain "
+                             f"version ({int((q != rq).sum())} codes)")
+    return _row("K6a", f"{kind}_M{M}_K{K}", 0.0, cuda_ms(run), cuda_ms(plain),
+                _bytes_bound(nbytes + 4 * M, 0, PEAK_INT8_OPS),
+                extra={"differing_codes": 0, "codes": M * K, **(extra or {})})
+
+
+def int8_k6a_rows(device, g):
+    """K6a's prologues at the 7B rows of K6A_ROWS (`k6a_row`): RMSNORM on
+    the hidden width with and without the residual, SWIGLU on the
+    intermediate width, PLAIN on the bf16 attention output and, at M = 1
+    and the shared decode's rows (the lm_head's input), on fp32 rows."""
     rows = []
     for M in K6A_ROWS:
-        x, h = rnd(M, E), rnd(M, E)
-        for residual in (None, h):
-            (q, s, xs), (rq, rs, rxs) = (quant.rmsnorm_quantize_cuda(x, w, 1e-6, residual),
-                                         quant.rmsnorm_quantize_reference(x, w, 1e-6, residual))
-            torch.cuda.synchronize()
-            err = int((q.int() - rq.int()).abs().max())
-            if not torch.equal(xs, rxs) or err > 1 \
-                    or not torch.allclose(s, rs, atol=0, rtol=2 ** -7):
-                raise AssertionError(f"K6a RMSNORM M={M} residual={residual is not None}: "
-                                     f"differs from the plain version (codes by {err})")
-            nbytes = M * E * (2 + 1) + 4 * E + 4 * M + (2 * 2 * M * E if residual is not None
-                                                        else 0)
-            rows.append(_row(
-                "K6a", f"rmsnorm{'_residual' if residual is not None else ''}_M{M}_K{E}",
-                float(err), cuda_ms(lambda: quant.rmsnorm_quantize_cuda(x, w, 1e-6, residual)),
-                cuda_ms(lambda: quant.rmsnorm_quantize_reference(x, w, 1e-6, residual)),
-                _bytes_bound(nbytes, 0, PEAK_INT8_OPS),
-                extra={"differing_codes": int((q != rq).sum()), "codes": M * E}))
-        gate, up = rnd(M, I), rnd(M, I)
-        cases = [("swiglu", lambda: quant.swiglu_quantize_cuda(gate, up),
-                  lambda: quant.swiglu_quantize_reference(gate, up), M * I * (2 * 2 + 1)),
-                 ("plain", lambda: quant.quantize_rows_cuda(x), lambda: quant.quantize_rows(x),
-                  M * E * (2 + 1))]
-        if M in (1, BATCH_DECODE_M):  # the lm_head's rows
-            xf = rnd(M, E, torch.float32)
-            cases.append(("plain_fp32", lambda: quant.quantize_rows_cuda(xf),
-                          lambda: quant.quantize_rows(xf), M * E * (4 + 1)))
-        for name, run, plain, nbytes in cases:
-            (q, s), (rq, rs) = run(), plain()
-            torch.cuda.synchronize()
-            if not (torch.equal(q, rq) and torch.equal(s, rs)):
-                raise AssertionError(f"K6a {name} M={M}: int8 codes or scales differ from the "
-                                     f"plain version ({int((q != rq).sum())} codes)")
-            K = q.shape[1]
-            rows.append(_row("K6a", f"{name}_M{M}_K{K}", 0.0, cuda_ms(run), cuda_ms(plain),
-                             _bytes_bound(nbytes + 4 * M, 0, PEAK_INT8_OPS),
-                             extra={"differing_codes": 0, "codes": M * K}))
+        for kind, K in (("rmsnorm", K6A_E), ("rmsnorm_residual", K6A_E), ("swiglu", K6A_I),
+                        ("plain", K6A_E)):
+            rows.append(k6a_row(device, g, kind, M, K))
+        if M in (1, BATCH_DECODE_M):
+            rows.append(k6a_row(device, g, "plain_fp32", M, K6A_E))
     return rows
 
 
@@ -654,85 +702,89 @@ GEMM_LM_HEAD_ROWS = (1, BATCH_ROWS, BATCH_DECODE_M)
 GEMM_ODD_N = (63, 65, 4097)
 
 
-def int8_gemm_rows(device, g):
-    """K6b at the 7B shapes, every row checked against the plain version
-    (per-channel bit for bit, grouped within GROUPED_TOL) and timed beside
-    its byte or operation bound:
-    - decode tiles (M in GEMM_DECODE_ROWS) for each projection of a layer,
-      q/k/v and gate/up as one fused launch (also held bitwise equal to
-      their separate launches, whose summed time is `separate_ms`), warm
-      and cold (`cold_ms`); the lm_head at GEMM_LM_HEAD_ROWS; grouped
-      g=128 at M = 1;
-    - prefill tiles (M in GEMM_PREFILL_ROWS) for each projection alone, as
-      the prefill launches them, beside torch._int_mm (an int32 product
-      with no epilogue, not on the path); grouped g=128 at PROMPT_T;
-    - odd N (GEMM_ODD_N) at M = 1, 4 (decode) and 17, 129 (prefill).
-    torch._int_mm is tried at M <= 16 too; where it refuses, the reason is
-    printed on a `phase kernels:` line and the row has no library time.
-    Outputs start uninitialised, so a tile the grid missed shows."""
+def gemm_row(device, g, M, widths, K, bias, group=None, int_mm_refusal=None,
+             extra=None) -> dict:
+    """K6b on M rows of width K against one (per-channel or g=`group`)
+    projection a width of `widths` (several: one fused launch, also held
+    bitwise equal to their separate launches, whose summed time is
+    `separate_ms`): per-channel bit for bit, grouped within GROUPED_TOL.
+    Timed beside the plain version and the byte or operation bound; the
+    decode tiles (M <= 16) also with a cold L2 (`cold_ms`), the prefill
+    tiles beside torch._int_mm (an int32 product with no epilogue, not on
+    the path; where it refuses, the reason goes to int_mm_refusal and the
+    row has no library time). Outputs start uninitialised, so a tile the
+    grid missed shows."""
     import torch
 
     from internnav_tpu_torch.ops import quant
 
-    def weights(N, K, bias, group=None):
+    def weights(N):
         w = torch.randint(-127, 128, (N, K), generator=g, device=device, dtype=torch.int8)
         s = torch.rand((K // group, N) if group else (N,), generator=g, device=device) * 1e-3
         return w, s, (torch.randn(N, generator=g, device=device) if bias else None)
 
-    int_mm_refusal = {}
-
-    def library(xq, segs):
-        """torch._int_mm's time for the same int32 products, or None."""
-        if len(segs) > 1:
-            return None
+    xq, a = quant.quantize_rows(torch.randn((M, K), generator=g, device=device,
+                                            dtype=torch.bfloat16))
+    segs = [weights(N) for N in widths]
+    run = (lambda: quant.w8a8_linear_multi(xq, a, segs))
+    plain = (lambda: [quant.w8a8_linear_reference(xq, a, *sg) for sg in segs])
+    ys, wants = run(), plain()
+    torch.cuda.synchronize()
+    err = max((y.float() - want.float()).abs().max().item() for y, want in zip(ys, wants))
+    ok = all(torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL)
+             if group else torch.equal(y, want) for y, want in zip(ys, wants))
+    extra = dict(extra or {})
+    if len(segs) > 1:  # the fused launch equals the separate ones
+        alone = [quant.w8a8_linear_cuda(xq, a, *sg) for sg in segs]
+        torch.cuda.synchronize()
+        ok = ok and all(torch.equal(y, z) for y, z in zip(ys, alone))
+        extra["separate_ms"] = cuda_ms(lambda: [quant.w8a8_linear_cuda(xq, a, *sg)
+                                                for sg in segs])
+    if not ok:
+        raise AssertionError(f"K6b M={M} N={widths} K={K} group={group}: differs from the "
+                             f"plain version (or the separate launches) by {err}")
+    N = sum(widths)
+    nbytes = (M * K + N * K + 4 * M + sum(4 * sg[1].numel() for sg in segs)
+              + (4 * N if bias else 0) + 2 * M * N)
+    launch, library_ms = {}, None
+    if M <= quant.GEMM_DECODE_MAX_M:
+        plan = quant.gemm_decode_plan(tuple(widths), K, group or 0, M)
+        launch = {"split": plan.split, "grid": plan.grid, "stages": plan.stages}
+        extra["cold_ms"] = cuda_ms(run, cold=True)
+    del ys, wants
+    if len(segs) == 1:  # torch._int_mm's time for the same int32 product
         wt = segs[0][0].t()
         try:
             torch._int_mm(xq, wt)
+            library_ms = cuda_ms(lambda: torch._int_mm(xq, wt))
         except RuntimeError as e:
-            int_mm_refusal.setdefault(xq.shape[0], str(e).splitlines()[0])
-            return None
-        return cuda_ms(lambda: torch._int_mm(xq, wt))
+            if int_mm_refusal is not None:
+                int_mm_refusal.setdefault(M, str(e).splitlines()[0])
+    row = _row("K6b", f"M{M}_N{'+'.join(map(str, widths))}_K{K}" + (f"_g{group}" if group else ""),
+               err, cuda_ms(run), cuda_ms(plain, reps=5),
+               _bytes_bound(nbytes, 2.0 * M * N * K, PEAK_INT8_OPS), library_ms, extra=extra,
+               **launch)
+    del xq, a, segs
+    torch.cuda.empty_cache()
+    return row
 
+
+def int8_gemm_rows(device, g):
+    """K6b at the 7B shapes (`gemm_row`):
+    - decode tiles (M in GEMM_DECODE_ROWS) for each projection of a layer,
+      q/k/v and gate/up as one fused launch, warm and cold; the lm_head at
+      GEMM_LM_HEAD_ROWS; grouped g=128 at M = 1;
+    - prefill tiles (M in GEMM_PREFILL_ROWS) for each projection alone, as
+      the prefill launches them, beside torch._int_mm; grouped g=128 at
+      PROMPT_T;
+    - odd N (GEMM_ODD_N) at M = 1, 4 (decode) and 17, 129 (prefill).
+    torch._int_mm is tried at M <= 16 too; where it refuses, the reason is
+    printed on a `phase kernels:` line."""
+    int_mm_refusal = {}
     rows = []
 
-    def check(M, widths, K, bias, group=None, separate=False):
-        xq, a = quant.quantize_rows(torch.randn((M, K), generator=g, device=device,
-                                                dtype=torch.bfloat16))
-        segs = [weights(N, K, bias, group) for N in widths]
-        run = (lambda: quant.w8a8_linear_multi(xq, a, segs))
-        plain = (lambda: [quant.w8a8_linear_reference(xq, a, *sg) for sg in segs])
-        ys, wants = run(), plain()
-        torch.cuda.synchronize()
-        err = max((y.float() - want.float()).abs().max().item() for y, want in zip(ys, wants))
-        ok = all(torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL)
-                 if group else torch.equal(y, want) for y, want in zip(ys, wants))
-        extra = {}
-        if len(segs) > 1:  # the fused launch equals the separate ones
-            alone = [quant.w8a8_linear_cuda(xq, a, *sg) for sg in segs]
-            torch.cuda.synchronize()
-            ok = ok and all(torch.equal(y, z) for y, z in zip(ys, alone))
-            extra["separate_ms"] = cuda_ms(lambda: [quant.w8a8_linear_cuda(xq, a, *sg)
-                                                    for sg in segs])
-        if not ok:
-            raise AssertionError(f"K6b M={M} N={widths} K={K} group={group}: differs from the "
-                                 f"plain version (or the separate launches) by {err}")
-        N = sum(widths)
-        nbytes = (M * K + N * K + 4 * M + sum(4 * sg[1].numel() for sg in segs)
-                  + (4 * N if bias else 0) + 2 * M * N)
-        decode = M <= quant.GEMM_DECODE_MAX_M
-        launch = {}
-        if decode:
-            plan = quant.gemm_decode_plan(tuple(widths), K, group or 0, M)
-            launch = {"split": plan.split, "grid": plan.grid, "stages": plan.stages}
-            extra["cold_ms"] = cuda_ms(run, cold=True)
-        del ys, wants
-        rows.append(_row("K6b", f"M{M}_N{'+'.join(map(str, widths))}_K{K}"
-                         + (f"_g{group}" if group else ""), err, cuda_ms(run),
-                         cuda_ms(plain, reps=5), _bytes_bound(nbytes, 2.0 * M * N * K,
-                                                             PEAK_INT8_OPS),
-                         library(xq, segs), extra=extra, **launch))
-        del xq, a, segs
-        torch.cuda.empty_cache()
+    def check(M, widths, K, bias, group=None):
+        rows.append(gemm_row(device, g, M, widths, K, bias, group, int_mm_refusal))
 
     for M in GEMM_DECODE_ROWS:
         for _, widths, K, bias in GEMM_LAYER:
@@ -801,127 +853,136 @@ def decode_shape(Tmax, lengths, n) -> str:
     return f"B{len(lengths)}_Tmax{Tmax}_keys{keys}_n{n}"
 
 
-def int8_decode_rows(device, g):
-    """K4 (n = 1) and K5 (n > 1) at `_decode_cases`, against the plain
-    version."""
+def decode_row(device, g, kernel, Tmax, lengths, n, extra=None) -> dict:
+    """K4 (n = 1) or K5 (n > 1) over a random int8 cache of len(lengths)
+    rows and Tmax slots, row b's new queries at positions lengths[b] on,
+    against the plain version (within DECODE_TOL). The bound: the keys
+    each (batch, KV head) must read (K, V and their scales), q in and out
+    once; the score and P.V flops of the live pairs at the bf16
+    tensor-core peak (both products run as bf16 mma.sync)."""
     import torch
 
     from internnav_tpu_torch.ops import flash_attention as fa
 
-    rows = []
-    for kernel, Tmax, lengths, n in _decode_cases():
-        B = len(lengths)
-        ke, ve = int8_cache(device, g, Tmax, B)
-        views = (ke[0].transpose(1, 2), ve[0].transpose(1, 2))
-        sc = dict(k_scale=ke[1][..., 0].transpose(1, 2), v_scale=ve[1][..., 0].transpose(1, 2))
-        cache_len = torch.tensor(lengths, device=device)
-        if n == 1:
-            q = torch.randn((B, 28, 128), generator=g, device=device, dtype=torch.bfloat16)
-            lens = cache_len + 1
+    B = len(lengths)
+    ke, ve = int8_cache(device, g, Tmax, B)
+    views = (ke[0].transpose(1, 2), ve[0].transpose(1, 2))
+    sc = dict(k_scale=ke[1][..., 0].transpose(1, 2), v_scale=ve[1][..., 0].transpose(1, 2))
+    cache_len = torch.tensor(lengths, device=device)
+    if n == 1:
+        q = torch.randn((B, 28, 128), generator=g, device=device, dtype=torch.bfloat16)
+        lens = cache_len + 1
 
-            def run():
-                return fa.gqa_decode_int8_cuda(q, *views, lens, **sc)
+        def run():
+            return fa.gqa_decode_int8_cuda(q, *views, lens, **sc)
 
-            def plain():
-                return fa.gqa_decode_reference(q, *views, lens, **sc)
-        else:
-            q = torch.randn((B, 28, n, 128), generator=g, device=device, dtype=torch.bfloat16)
+        def plain():
+            return fa.gqa_decode_reference(q, *views, lens, **sc)
+    else:
+        q = torch.randn((B, 28, n, 128), generator=g, device=device, dtype=torch.bfloat16)
 
-            def run():
-                return fa.gqa_chunk_decode_int8_cuda(q, *views, cache_len, **sc)
+        def run():
+            return fa.gqa_chunk_decode_int8_cuda(q, *views, cache_len, **sc)
 
-            def plain():
-                return fa.gqa_chunk_decode_reference(q, *views, cache_len, **sc)
-        out, want = run(), plain()
-        torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
-        if not torch.allclose(out.float(), want.float(), atol=DECODE_TOL, rtol=DECODE_TOL):
-            raise AssertionError(f"{kernel} B={B} Tmax={Tmax} n={n}: differs from the plain "
-                                 f"version by {err}")
-        # the keys each (batch, KV head) must read (K, V and their scales),
-        # q in and out once; the score and P.V flops of the live pairs, at
-        # the bf16 tensor-core peak (both products run as bf16 mma.sync)
-        live = fa.decode_live_keys(lengths, 0 if n == 1 else 1, n, Tmax)
-        nbytes = 2 * 4 * sum(live) * (128 + 4) + 2 * 2 * B * 28 * n * 128 + 8 * B
-        pairs = sum(28 * min(Tmax, x + 1 + i) for x in lengths for i in range(n))
-        rows.append(_row(kernel, decode_shape(Tmax, lengths, n), err, cuda_ms(run),
-                         cuda_ms(plain), _bytes_bound(nbytes, 4.0 * pairs * 128, PEAK_BF16_FLOPS),
-                         cluster=fa.decode_cluster_size(Tmax)))
-        del ke, ve, views, sc, q, out, want
-    return rows
+        def plain():
+            return fa.gqa_chunk_decode_reference(q, *views, cache_len, **sc)
+    out, want = run(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    if not torch.allclose(out.float(), want.float(), atol=DECODE_TOL, rtol=DECODE_TOL):
+        raise AssertionError(f"{kernel} B={B} Tmax={Tmax} n={n}: differs from the plain "
+                             f"version by {err}")
+    live = fa.decode_live_keys(lengths, 0 if n == 1 else 1, n, Tmax)
+    nbytes = 2 * 4 * sum(live) * (128 + 4) + 2 * 2 * B * 28 * n * 128 + 8 * B
+    pairs = sum(28 * min(Tmax, x + 1 + i) for x in lengths for i in range(n))
+    return _row(kernel, decode_shape(Tmax, lengths, n), err, cuda_ms(run), cuda_ms(plain),
+                _bytes_bound(nbytes, 4.0 * pairs * 128, PEAK_BF16_FLOPS), extra=extra,
+                cluster=fa.decode_cluster_size(Tmax))
+
+
+def int8_decode_rows(device, g):
+    """K4 (n = 1) and K5 (n > 1) at `_decode_cases` (`decode_row`)."""
+    return [decode_row(device, g, kernel, Tmax, lengths, n)
+            for kernel, Tmax, lengths, n in _decode_cases()]
 
 
 def kv_write_shape(rotary: bool, lengths, n) -> str:
     return f"{'rotary' if rotary else 'no_rotary'}_B{len(lengths)}_n{n}_pos{_lengths(lengths)}"
 
 
-def int8_kv_write_rows(device, g):
-    """K7 with rotary for one decode token, the latent chunk, a chunk that
-    runs past the cache's end (the start clamped, as the JAX package's
-    dynamic_update_slice does) and a ragged batch of 3 whose row past the
-    end is dropped; without rotary for the prompt's entries (at 0); a
-    batched cohort's 12 rows at the last decode token, the latent chunk
-    and the prompt (BATCH_TMAX slots). The
-    rotated q, the codes and the scales bitwise against the plain version.
-    The bound: q, k, v and cos/sin read once; q rotated, the codes and
-    scales written once."""
+def kv_write_row(device, g, rotary, n, lengths, Tmax, extra=None) -> dict:
+    """K7 on len(lengths) rows of n new tokens at positions lengths into a
+    random int8 cache of Tmax slots, with rotary (`rope_kv_write_cuda`) or
+    without (`write_kv_cache_cuda`, the prompt's entries): the rotated q,
+    the codes and the scales bitwise against the plain version. The
+    bound: q, k, v and cos/sin read once; q rotated, the codes and scales
+    written once."""
     import torch
 
     from internnav_tpu_torch.ops import quant
     from internnav_tpu_torch.ops.rope import mrope_cos_sin
 
     H, KV, D = 28, 4, 128
+    B = len(lengths)
+
+    def rnd(width):
+        return torch.randn((B * n, width), generator=g, device=device, dtype=torch.bfloat16)
+
+    q, k, v = rnd(H * D), rnd(KV * D), rnd(KV * D)
+    pos = torch.randint(0, Tmax, (3, B, n), generator=g, device=device)
+    cos, sin = mrope_cos_sin(pos, D, (16, 24, 24))
+    cache_len = torch.tensor(lengths, device=device)
+    ke, ve = int8_cache(device, g, Tmax, B)
+    ref = [tuple(t.clone() for t in e) for e in (ke, ve)]
+    if rotary:
+        def run():
+            return quant.rope_kv_write_cuda(q, k, v, cos, sin, ke, ve, cache_len)
+
+        def plain():
+            return quant.rope_kv_write_reference(q, k, v, cos, sin, ke, ve, cache_len)
+    else:
+        kb, vb = k.view(B, n, KV, D), v.view(B, n, KV, D)
+
+        def run():
+            return quant.write_kv_cache_cuda(kb, vb, ke, ve, cache_len)
+
+        def plain():
+            return quant.write_kv_cache_reference(kb, vb, ke, ve, cache_len)
+    got = run()
+    want = (quant.rope_kv_write_reference(q, k, v, cos, sin, *ref, cache_len) if rotary
+            else quant.write_kv_cache_reference(kb, vb, *ref, cache_len))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((*ke, *ve), (*ref[0], *ref[1]))) \
+            or (rotary and not torch.equal(got, want)):
+        raise AssertionError(f"K7 rotary={rotary} n={n} lengths={lengths}: the rotated q or "
+                             "the cache differs from the plain version's")
+    kv_elems = B * n * KV * D
+    nbytes = 2 * 2 * kv_elems + 2 * kv_elems + 2 * 4 * B * n * KV + 8 * B
+    if rotary:  # q in and out, cos and sin in
+        nbytes += 2 * 2 * B * n * H * D + 2 * 4 * B * n * D
+    return _row("K7", kv_write_shape(rotary, lengths, n), 0.0, cuda_ms(run), cuda_ms(plain),
+                _bytes_bound(nbytes, 0, PEAK_INT8_OPS), extra=extra)
+
+
+def int8_kv_write_rows(device, g):
+    """K7 (`kv_write_row`) with rotary for one decode token, the latent
+    chunk, a chunk that runs past the cache's end (the start clamped, as
+    the JAX package's dynamic_update_slice does) and a ragged batch of 3
+    whose row past the end is dropped; without rotary for the prompt's
+    entries (at 0); a batched cohort's 12 rows at the last decode token,
+    the latent chunk and the prompt (BATCH_TMAX slots)."""
     tmax = PROMPT_T + MAX_NEW_TOKENS + N_QUERY
     end = BATCH_PROMPT + BATCH_NEW_TOKENS
-    rows = []
-    for rotary, n, lengths, Tmax in ((True, 1, (PROMPT_T + 17,), tmax),
-                                     (True, N_QUERY, (PROMPT_T + MAX_NEW_TOKENS,), tmax),
-                                     (True, N_QUERY, (tmax - 1,), tmax),
-                                     (True, 1, (PROMPT_T + 17, 17, tmax), tmax),
-                                     (False, PROMPT_T, (0,), tmax),
-                                     (True, 1, (end - 1,) * BATCH_ROWS, BATCH_TMAX),
-                                     (True, N_QUERY, (end,) * BATCH_ROWS, BATCH_TMAX),
-                                     (False, BATCH_PROMPT_T, (0,) * BATCH_ROWS, BATCH_TMAX)):
-        B = len(lengths)
-
-        def rnd(width):
-            return torch.randn((B * n, width), generator=g, device=device, dtype=torch.bfloat16)
-
-        q, k, v = rnd(H * D), rnd(KV * D), rnd(KV * D)
-        pos = torch.randint(0, Tmax, (3, B, n), generator=g, device=device)
-        cos, sin = mrope_cos_sin(pos, D, (16, 24, 24))
-        cache_len = torch.tensor(lengths, device=device)
-        ke, ve = int8_cache(device, g, Tmax, B)
-        ref = [tuple(t.clone() for t in e) for e in (ke, ve)]
-        if rotary:
-            def run():
-                return quant.rope_kv_write_cuda(q, k, v, cos, sin, ke, ve, cache_len)
-
-            def plain():
-                return quant.rope_kv_write_reference(q, k, v, cos, sin, ke, ve, cache_len)
-        else:
-            kb, vb = k.view(B, n, KV, D), v.view(B, n, KV, D)
-
-            def run():
-                return quant.write_kv_cache_cuda(kb, vb, ke, ve, cache_len)
-
-            def plain():
-                return quant.write_kv_cache_reference(kb, vb, ke, ve, cache_len)
-        got = run()
-        want = (quant.rope_kv_write_reference(q, k, v, cos, sin, *ref, cache_len) if rotary
-                else quant.write_kv_cache_reference(kb, vb, *ref, cache_len))
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip((*ke, *ve), (*ref[0], *ref[1]))) \
-                or (rotary and not torch.equal(got, want)):
-            raise AssertionError(f"K7 rotary={rotary} n={n} lengths={lengths}: the rotated q or "
-                                 "the cache differs from the plain version's")
-        kv_elems = B * n * KV * D
-        nbytes = 2 * 2 * kv_elems + 2 * kv_elems + 2 * 4 * B * n * KV + 8 * B
-        if rotary:  # q in and out, cos and sin in
-            nbytes += 2 * 2 * B * n * H * D + 2 * 4 * B * n * D
-        rows.append(_row("K7", kv_write_shape(rotary, lengths, n), 0.0, cuda_ms(run),
-                         cuda_ms(plain), _bytes_bound(nbytes, 0, PEAK_INT8_OPS)))
-    return rows
+    return [kv_write_row(device, g, rotary, n, lengths, Tmax)
+            for rotary, n, lengths, Tmax in (
+                (True, 1, (PROMPT_T + 17,), tmax),
+                (True, N_QUERY, (PROMPT_T + MAX_NEW_TOKENS,), tmax),
+                (True, N_QUERY, (tmax - 1,), tmax),
+                (True, 1, (PROMPT_T + 17, 17, tmax), tmax),
+                (False, PROMPT_T, (0,), tmax),
+                (True, 1, (end - 1,) * BATCH_ROWS, BATCH_TMAX),
+                (True, N_QUERY, (end,) * BATCH_ROWS, BATCH_TMAX),
+                (False, BATCH_PROMPT_T, (0,) * BATCH_ROWS, BATCH_TMAX))]
 
 
 def phase_int8_kernels(device) -> dict:
@@ -1475,6 +1536,408 @@ def phase_serve_batched(device) -> dict:
     return {"serve_batched": launches}
 
 
+# -------------------------------------------------------------- evaluate
+EVAL_RUNS = 3  # timed evaluator runs after the warm one
+#: the plain versions of the kernels, by ops module: none may run on the card
+PLAIN_VERSIONS = {
+    "flash_attention": ("mha_reference", "flash_backward_reference", "gqa_decode_reference",
+                        "gqa_chunk_decode_reference"),
+    "quant": ("quantize_rows", "rmsnorm_quantize_reference", "swiglu_quantize_reference",
+              "w8a8_linear_reference", "write_kv_cache_reference", "rope_kv_write_reference"),
+}
+EVAL_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7")
+
+
+def bench_entry():
+    """scripts/torch/bench_evaluator.py, the evaluator path's bench entry."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch" / "bench_evaluator.py"
+    spec = importlib.util.spec_from_file_location("bench_evaluator", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _spy(obj, name, counter, key, seconds=None):
+    """Replace obj.name by a wrapper that counts its calls under key (and
+    adds their host seconds to seconds[key]); returns the original."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        counter[key] += 1
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if seconds is not None:
+                seconds[key] += time.perf_counter() - t
+
+    setattr(obj, name, wrapper)
+    return fn
+
+
+#: the evaluate path's shapes checked after its timed runs: each kernel's
+#: most launched signatures in the warm run, until they cover this share
+#: of its launches, at least EVAL_SHAPES_MIN and at most EVAL_SHAPES_MAX
+#: (K6a and K6b: a layer pass's prologues or projections at two row counts)
+EVAL_SHAPE_SHARE = 0.75
+EVAL_SHAPES_MIN = 2
+EVAL_SHAPES_MAX = {"K1": 4, "K4": 4, "K5": 4, "K6a": 8, "K6b": 10, "K7": 4}
+
+
+def _tensor_arg(t):
+    """A small device tensor kept from a launch: its values, read later."""
+    return t.detach().clone() if t is not None else None
+
+
+class ShapeLog:
+    """The evaluate path's kernel launches by signature: the shapes a
+    kernel's plan and cost depend on. Spies on the kernels' CUDA wrappers
+    record each launch (and, from the first launch of a signature outside
+    a decode step, its segment ids or cache lengths). A decode step
+    captured into a CUDA graph records its signatures once, under its
+    loop and step variant, and each replay counts them again, as the
+    launch counters do; the decode loop's own rows are taken at each
+    group's prompt lengths plus half the steps it ran. `install` returns
+    the (object, name, original) triples to restore."""
+
+    def __init__(self):
+        self.launches = collections.Counter()
+        self.inputs = {}      # signature -> {name: tensor} of its first launch
+        self.captured = collections.defaultdict(list)  # (loop, logits) -> signatures
+        self.loop_lengths = {}  # (rows, Tmax) of a decode group -> positions mid-decode
+        self.decode_rows = collections.Counter()  # a decode loop's rows -> its runs
+        self._step = None     # (loop, logits) while a decode step runs
+
+    def _record(self, sig, **inputs):
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            self.captured[self._step].append(sig)
+            return
+        self.launches[sig] += 1
+        if self._step is None and sig not in self.inputs:
+            self.inputs[sig] = {k: _tensor_arg(v) for k, v in inputs.items()}
+
+    def _spy(self, obj, name, signature):
+        fn = getattr(obj, name)
+
+        def wrapper(*args, **kwargs):
+            sig, inputs = signature(*args, **kwargs)
+            self._record(sig, **inputs)
+            return fn(*args, **kwargs)
+
+        setattr(obj, name, wrapper)
+        return obj, name, fn
+
+    def install(self):
+        import torch
+
+        from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph as dg
+        from internnav_tpu_torch.ops import flash_attention as fa
+        from internnav_tpu_torch.ops import quant
+
+        def k1(q, k, v, *, causal=False, segment_ids=None, **_):
+            return (("K1", tuple(q.shape), k.shape[1], bool(causal)), {"seg": segment_ids})
+
+        def k4(q, k_cache, v_cache, cache_len, *_, **__):
+            return ("K4", q.shape[0], k_cache.shape[2], 1), {}
+
+        def k5(q, k_cache, v_cache, cache_len, *_, **__):
+            return ("K5", q.shape[0], k_cache.shape[2], q.shape[2]), {"lengths": cache_len}
+
+        def rows(x):
+            return x.numel() // x.shape[-1], x.shape[-1]
+
+        def rmsnorm(x, weight, eps, residual=None):
+            kind = "rmsnorm" if residual is None else "rmsnorm_residual"
+            return ("K6a", kind, *rows(x)), {}
+
+        def swiglu(gate, up):
+            return ("K6a", "swiglu", *rows(gate)), {}
+
+        def plain(x):
+            return ("K6a", "plain_fp32" if x.dtype == torch.float32 else "plain", *rows(x)), {}
+
+        def gemm_sig(xq, segments):
+            w, s, b = segments[0]
+            group = xq.shape[1] // s.shape[0] if s.dim() == 2 else None
+            return (("K6b", xq.shape[0], tuple(sg[0].shape[0] for sg in segments), xq.shape[1],
+                     b is not None, group), {})
+
+        def gemm(xq, a_scale, weight_q, scale_q, bias=None):
+            return gemm_sig(xq, [(weight_q, scale_q, bias)])
+
+        def gemm_decode(xq, a_scale, segments):
+            return gemm_sig(xq, segments)
+
+        def rope_kv(q, k, v, cos, sin, k_entry, v_entry, cache_len):
+            return (("K7", True, cos.shape[0], cos.shape[1], k_entry[0].shape[1]),
+                    {"lengths": cache_len})
+
+        def kv(k, v, k_entry, v_entry, cache_len):
+            return (("K7", False, k.shape[0], k.shape[1], k_entry[0].shape[1]),
+                    {"lengths": cache_len})
+
+        restore = [self._spy(mod, name, sig) for mod, name, sig in (
+            (fa, "flash_attention_cuda", k1), (fa, "gqa_decode_int8_cuda", k4),
+            (fa, "gqa_chunk_decode_int8_cuda", k5), (quant, "rmsnorm_quantize_cuda", rmsnorm),
+            (quant, "swiglu_quantize_cuda", swiglu), (quant, "quantize_rows_cuda", plain),
+            (quant, "w8a8_linear_cuda", gemm), (quant, "w8a8_decode_cuda", gemm_decode),
+            (quant, "rope_kv_write_cuda", rope_kv), (quant, "write_kv_cache_cuda", kv))]
+        loop = dg.DecodeLoop
+        step, run_step, run, capture = loop._step, loop._run_step, loop.run, loop._capture
+
+        def capture_spy(this, dev):
+            for logits in (True, False):  # a new loop may take a dropped one's id
+                self.captured.pop((id(this), logits), None)
+            return capture(this, dev)
+
+        def step_spy(this, logits):
+            self._step = (id(this), logits)
+            try:
+                return step(this, logits)
+            finally:
+                self._step = None
+
+        def run_step_spy(this, logits):
+            if this.graphs:
+                self.launches.update(self.captured[(id(this), logits)])
+            return run_step(this, logits)
+
+        def run_spy(this, first_tok, prompt_lengths, rope_deltas):
+            out = run(this, first_tok, prompt_lengths, rope_deltas)
+            self.decode_rows[sum(g.rows for g in this.groups)] += 1
+            at = [int(x) + this.steps_run // 2 for x in prompt_lengths.tolist()]
+            r = 0
+            for g in this.groups:
+                self.loop_lengths.setdefault((g.rows, g.Tmax), tuple(at[r:r + g.rows]))
+                r += g.rows
+            return out
+
+        for name, fn in (("_step", step_spy), ("_run_step", run_step_spy), ("run", run_spy),
+                         ("_capture", capture_spy)):
+            restore.append((loop, name, getattr(loop, name)))
+            setattr(loop, name, fn)
+        return restore
+
+    def by_kernel(self) -> dict:
+        out = collections.defaultdict(list)
+        for sig, n in self.launches.most_common():
+            out[sig[0]].append((sig, n))
+        return out
+
+    def chosen(self) -> dict:
+        """kernel -> [(signature, launches)] to check (EVAL_SHAPE_SHARE)."""
+        picked = {}
+        for kernel, sigs in self.by_kernel().items():
+            total, covered, take = sum(n for _, n in sigs), 0, []
+            for sig, n in sigs:
+                if len(take) >= EVAL_SHAPES_MAX[kernel] or (
+                        covered >= EVAL_SHAPE_SHARE * total and len(take) >= EVAL_SHAPES_MIN):
+                    break
+                take.append((sig, n))
+                covered += n
+            picked[kernel] = take
+        return picked
+
+    def lengths(self, sig):
+        """Positions of a signature's rows: a decode group's from its loop,
+        else those of its first launch (a token's keys for K4)."""
+        kernel = sig[0]
+        if kernel in ("K4", "K7") and (kernel == "K4" or sig[3] == 1):
+            B, Tmax = (sig[1], sig[2]) if kernel == "K4" else (sig[2], sig[4])
+            if (B, Tmax) in self.loop_lengths:
+                return self.loop_lengths[(B, Tmax)]
+        return tuple(int(x) for x in self.inputs[sig]["lengths"].tolist())
+
+
+def eval_kernel_rows(device, log: ShapeLog) -> dict:
+    """Each kernel of EVAL_KERNELS at the evaluate path's most launched
+    signatures (`ShapeLog.chosen`), checked against its plain version and
+    timed like the rows of phase kernels, on fresh random inputs (the
+    segment ids and positions of the path); rows by kernel, each with the
+    signature's warm-run launches and share."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(3)
+    by_kernel = log.by_kernel()
+    rows = collections.defaultdict(list)
+    for kernel, picked in log.chosen().items():
+        total = sum(n for _, n in by_kernel[kernel])
+        for sig, n in picked:
+            extra = {"path": "evaluate", "warm_run_launches": n, "share": n / total}
+            if kernel == "K1":
+                (B, H, T, D), KV, causal = sig[1], sig[2], sig[3]
+                seg = log.inputs[sig]["seg"]
+
+                def rnd(*shape):
+                    return torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
+
+                name = f"eval_{'text' if D == 128 else 'vision'}_B{B}_T{T}"
+                rows[kernel].append(k1_row(name, rnd(B, H, T, D), rnd(B, KV, T, D),
+                                           rnd(B, KV, T, D), seg, causal, extra))
+            elif kernel in ("K4", "K5"):
+                rows[kernel].append(decode_row(device, g, kernel, sig[2], log.lengths(sig),
+                                               sig[3], extra))
+            elif kernel == "K6a":
+                rows[kernel].append(k6a_row(device, g, sig[1], sig[2], sig[3], extra))
+            elif kernel == "K6b":
+                _, M, widths, K, bias, group = sig
+                rows[kernel].append(gemm_row(device, g, M, widths, K, bias, group, extra=extra))
+            else:
+                _, rotary, B, n, Tmax = sig
+                rows[kernel].append(kv_write_row(device, g, rotary, n, log.lengths(sig), Tmax,
+                                                 extra))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_evaluate(device) -> dict:
+    """The evaluator-path headline through the bench entry's functions
+    (`build_inner`, `evaluator_run`, `assemble`): one warm run, then
+    EVAL_RUNS timed runs of the same episodes, with each run's host
+    seconds by call (System-2 submits, the shared decode's flush, System-2
+    and System-1 collects, System-1 submits, and the env apply: FakeEnv
+    stepping and the evaluator's bookkeeping). Checks every agent output
+    as the evaluator applies it (one action of the four, a finite
+    trajectory of BATCH_TRAJS x predict_step_nums x 3), every episode's
+    end, each kernel of EVAL_KERNELS launched in the timed runs, and no
+    call of a plain version in the whole phase (PLAIN_VERSIONS, spied on
+    from the policy's build on). Returns the timed runs' launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.evaluator import vln_pipelined_evaluator as pipe
+    from internnav_tpu_torch.model.basemodel.internvla_n1.serving import (
+        BatchedN1Policy,
+        SharedDecodePool,
+    )
+    from internnav_tpu_torch.ops import flash_attention as fa
+    from internnav_tpu_torch.ops import quant
+
+    bench = bench_entry()
+    if os.environ.get("PYTHONHASHSEED") != bench.HASH_SEED:
+        raise AssertionError("evaluate: str hashing is not pinned to the bench entry's seed")
+    t0 = time.perf_counter()
+    inner = bench.build_inner(device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    traj_shape = (bench.NUM_SAMPLE_TRAJS, inner.cfg.predict_step_nums, 3)
+    bad, calls, plain = [], collections.Counter(), collections.Counter()
+    host_s = collections.Counter()
+    apply = pipe._Cohort.apply
+
+    def checked_apply(self, agent_out):
+        for o in agent_out:
+            traj = o.get("trajectory")
+            if len(o["action"]) != 1 or o["action"][0] not in (0, 1, 2, 3) or (
+                    traj is not None and (traj.shape != traj_shape
+                                          or not np.isfinite(traj).all())):
+                bad.append((o["action"], None if traj is None else traj.shape))
+        return apply(self, agent_out)
+
+    modules = {"flash_attention": fa, "quant": quant}
+    restore = [(modules[m], name, _spy(modules[m], name, plain, f"{m}.{name}"))
+               for m, names in PLAIN_VERSIONS.items() for name in names]
+    pipe._Cohort.apply = checked_apply
+    restore += [(cls, name, _spy(cls, name, calls, key, host_s)) for cls, name, key in (
+        (BatchedN1Policy, "s2_prefill_submit", "s2_submit"),
+        (BatchedN1Policy, "s2_submit", "s2_submit"), (SharedDecodePool, "flush", "shared_decode"),
+        (BatchedN1Policy, "s2_collect", "s2_collect"), (BatchedN1Policy, "s1_submit", "s1_submit"),
+        (BatchedN1Policy, "s1_collect", "s1_collect"), (pipe._Cohort, "apply", "env_apply"))]
+    out_dir = WORK_DIR / "evaluate"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    runs, per_run = [], []
+    shapes = ShapeLog()
+    try:
+        # the warm run's launches by signature; its spies go before the timed runs
+        before, undo = launch_counts(), shapes.install()
+        try:
+            t = time.perf_counter()
+            warm = bench.evaluator_run(inner, str(out_dir / "warm"))
+            warm_s = time.perf_counter() - t
+        finally:
+            for obj, name, fn in reversed(undo):
+                setattr(obj, name, fn)
+        warm_launches = {k: v - before[k] for k, v in launch_counts().items()}
+        warm_calls = dict(calls)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        for i in range(EVAL_RUNS):
+            calls.clear()
+            host_s.clear()
+            before = decode_stats()
+            runs.append(bench.evaluator_run(inner, str(out_dir / f"run{i}")))
+            per_run.append({"calls": dict(calls), "decode": dict(decode_stats() - before),
+                            "host_s": {k: round(v, 4) for k, v in host_s.items()}})
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        for obj, name, fn in reversed(restore):
+            setattr(obj, name, fn)
+        pipe._Cohort.apply = apply
+    if bad:
+        raise AssertionError(f"evaluate: {len(bad)} malformed agent outputs, e.g. {bad[:3]}")
+    if plain:
+        raise AssertionError(f"evaluate: plain versions ran on the card: {dict(plain)}")
+    missing = [k for k in EVAL_KERNELS if not launches[k]]
+    if missing or launches["K2"] or launches["K3"]:
+        raise AssertionError(f"evaluate: kernels {missing} never launched, or a backward "
+                             f"kernel did: {launches}")
+    n = bench.BATCH * bench.COHORTS
+    for r in (warm, *runs):
+        ends = collections.Counter(e["fail_reason"] for e in r["records"])
+        if len(r["records"]) != n or set(ends) - {"", "exceed_max_step"} \
+                or not all(1 <= e["steps"] <= bench.MAX_STEP for e in r["records"]):
+            raise AssertionError(f"evaluate: episodes did not all end: {dict(ends)}")
+        if r["episode_steps"] != warm["episode_steps"]:
+            raise AssertionError("evaluate: a timed run took other episodes than the warm run")
+    logged = shapes.by_kernel()
+    for k in EVAL_KERNELS:  # every launch of the warm run has its signature
+        if sum(n for _, n in logged[k]) != warm_launches[k]:
+            raise AssertionError(f"evaluate: {k} launched {warm_launches[k]} times in the warm "
+                                 f"run, the shape log holds {sum(n for _, n in logged[k])}")
+    for k in EVAL_KERNELS:
+        print(f"phase evaluate: shapes {k} signatures={len(logged[k])} launches="
+              f"{warm_launches[k]} most_launched={[(list(s[1:]), n) for s, n in logged[k][:12]]}")
+    print(f"phase evaluate: shapes decode_runs_by_rows={sorted(shapes.decode_rows.items())} "
+          f"group_positions(rows,Tmax)={sorted(shapes.loop_lengths.items())}")
+    result = bench.assemble(runs)
+    steps = collections.Counter(warm["episode_steps"])
+    print(f"phase evaluate: profile=realtime cohorts={bench.COHORTS} rows={bench.BATCH} "
+          f"hw={bench.IMAGE_HW} episodes={n} max_step={bench.MAX_STEP} "
+          f"max_new_tokens={bench.DECODE_TOKENS} stop_id={bench.STOP_ID} "
+          f"sample_trajs={bench.NUM_SAMPLE_TRAJS} shared_decode=True shared_s1=False "
+          f"overlap_apply=False build_s={build_s:.2f} warm_run_s={warm_s:.4f} "
+          f"warm_actions_per_s={warm['actions_per_sec']:.4f} warm_calls={warm_calls} "
+          f"actions_per_s={[round(r['actions_per_sec'], 4) for r in runs]} "
+          f"actions_per_s_median={result['value']:.4f} "
+          f"vs_a100_estimate={result['vs_baseline']:.4f} "
+          f"wall_clock_s={[round(r['wall_clock_s'], 4) for r in runs]} "
+          f"actions_timed={[r['actions_timed'] for r in runs]} "
+          f"action_latency_ms_p50={[r['action_latency_p50_ms'] for r in runs]} "
+          f"action_latency_ms_p99={[r['action_latency_p99_ms'] for r in runs]} "
+          f"calls_per_run={[c['calls'] for c in per_run]} "
+          f"host_s_per_run={[c['host_s'] for c in per_run]} "
+          f"decode_graph_per_run={[c['decode'] for c in per_run]} "
+          f"captures_per_run={[c['decode'].get('captures', 0) for c in per_run]} "
+          f"replays_per_run={[c['decode'].get('replays', 0) for c in per_run]} "
+          f"cache_sets={sum(len(x) for x in inner.decode_buffers._sets.values())} "
+          f"loops={len(inner.decode_buffers._loops)} "
+          f"episode_steps={dict(sorted(steps.items()))} launches={launches} "
+          f"plain_version_calls=0 peak_mem_gib={peak_gib:.2f} "
+          f"python_hash_seed={os.environ.get('PYTHONHASHSEED')} gpu={gpu_line()!r}")
+    print(f"phase evaluate: headline {json.dumps(result)}")
+    del inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"evaluate": launches}, eval_kernel_rows(device, shapes)
+
+
 # ----------------------------------------------------------------- train
 def train_flops(cfg, batch) -> float:
     """Model flops of one step, bench.py's accounting: 8 per trainable
@@ -1604,6 +2067,12 @@ def phase_train(device, store) -> dict:
 
 
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        # FakeEnv seeds each episode's frames with hash(path_key): with str
+        # hashing pinned, every run of the evaluate phase sees the same frames
+        sys.stdout.flush()
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": HASH_SEED})
     import torch
 
     if not torch.cuda.is_available():
@@ -1627,6 +2096,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     by_path.update(phase_serve_batched(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    evaluate_launches, eval_rows = phase_evaluate(device)
+    by_path.update(evaluate_launches)
+    kern["k1_serve"] += eval_rows.pop("K1", [])
+    for kernel, rows in eval_rows.items():
+        int8[kernel] += rows
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train"] = phase_train(device, store)["launches"]

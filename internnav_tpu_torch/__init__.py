@@ -2,9 +2,10 @@
 
 The JAX package `internnav_tpu` stays the reference. This package mirrors its
 layout (`ops/`, `model/basemodel/internvla_n1/`, `model/encoder/`, `agent/`,
-`realworld/`, `dataset/`, `trainer/`, `configs/`), imports torch and never
-jax nor the JAX package, and carries its hand-written CUDA kernels under
-`csrc/` (built on first use, see `ops/_build.py`).
+`realworld/`, `dataset/`, `trainer/`, `configs/`, `env/`, `evaluator/`),
+imports torch and never jax nor the JAX package, and carries its
+hand-written CUDA kernels under `csrc/` (built on first use, see
+`ops/_build.py`).
 
 Ported so far: the InternVLA-N1 single-robot serving path (vision tower,
 Qwen2.5 text prefill/decode, traj-latent chunk decode, System-1
@@ -15,7 +16,10 @@ cache, with their CUDA kernels `csrc/quantize_rows.cu`,
 batched multi-cohort serving (`serving.py`: `BatchedN1Policy`, the shared
 grouped decode and `PipelinedN1Server`), whose greedy decode loop, like
 the single-stream one, replays a captured CUDA graph per step
-(`decode_graph.py`); and the single-device N1 finetune path
+(`decode_graph.py`); the evaluator path of the headline
+(`evaluator.VLNPipelinedEvaluator` over `env.FakeEnv`, driving
+`agent.BatchedInternVLAN1Agent` cohorts; `scripts/torch/bench_evaluator.py`
+measures it); and the single-device N1 finetune path
 (`trainer.train_n1`) with the flash-attention backward kernels.
 """
 

@@ -115,7 +115,9 @@ struct DecodeSegment {
   const float* bias;
   __nv_bfloat16* out;
   int N;
-  int tile_end;  // column tiles of this segment and the ones before it
+  int full_end;  // full-width column tiles of this segment and the ones before it
+  int edge_end;  // all full-width tiles, then the edge tiles of this segment and the
+                 // ones before it
 };
 
 struct DecodeParams {
@@ -130,14 +132,19 @@ struct DecodeParams {
   int stages;
 };
 
-// the segment of column tile `tile` and the tile's first column in it; the
-// parameter loads are independent (each a constant-cache miss at first)
+// the segment of column tile `tile` and the tile's first column in it. The
+// tiles run every segment's full-width tiles in segment order, then the
+// narrow edge tiles of ragged widths (`quant.DecodePlan.tile_order`): dealt
+// round the SMs, the edge tiles land on the SMs that take an extra tile.
+// The parameter loads are independent (each a constant-cache miss at first)
 __device__ __forceinline__ void dc_segment(const DecodeParams& p, int tile, int& sg, int& n0,
                                            int& N) {
-  const int end0 = p.seg[0].tile_end, end1 = p.seg[1].tile_end;
-  sg = (tile >= end0) + (tile >= end1);
-  n0 = (tile - (sg == 0 ? 0 : sg == 1 ? end0 : end1)) * DC_BN;
+  const int f0 = p.seg[0].full_end, f1 = p.seg[1].full_end, f2 = p.seg[2].full_end;
+  const int e0 = p.seg[0].edge_end, e1 = p.seg[1].edge_end;
+  const bool edge = tile >= f2;
+  sg = edge ? (tile >= e0) + (tile >= e1) : (tile >= f0) + (tile >= f1);
   N = sg == 0 ? p.seg[0].N : sg == 1 ? p.seg[1].N : p.seg[2].N;
+  n0 = edge ? N / DC_BN * DC_BN : (tile - (sg == 0 ? 0 : sg == 1 ? f0 : f1)) * DC_BN;
 }
 
 // the producer warp's load of k-line `l` of the tile at column n0 of
@@ -346,7 +353,7 @@ __global__ void __launch_bounds__(DC_THREADS)
 }
 
 // Whole-K launches (p.split == 1): persistent blocks, block b walking the
-// column tiles b, b + gridDim.x, ...; the ring runs on from one tile to
+// column tiles b, b + gridDim.x, ... (in `dc_segment`'s order); the ring runs on from one tile to
 // the next, and each consumer warp writes its 16 columns from registers.
 template <bool GROUPED>
 __global__ void __launch_bounds__(DC_THREADS)
@@ -743,19 +750,24 @@ extern "C" int w8a8_gemm_decode(const void* xq, const void* a_scale, int M, int 
   void* o[DC_MAX_SEGMENTS] = {o0, o1, o2};
   const int n[DC_MAX_SEGMENTS] = {N0, N1, N2};
   DecodeParams p;
-  int tiles = 0;
+  int full = 0;
   for (int i = 0; i < DC_MAX_SEGMENTS; ++i) {
     if (i < nseg) {
       if (n[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
       const cudaError_t err = weight_map(&p.w[i], w[i], n[i], K);
       if (err != cudaSuccess) return static_cast<int>(err);
-      tiles += (n[i] + DC_BN - 1) / DC_BN;
+      full += n[i] / DC_BN;
     }
     p.seg[i].scale = static_cast<const float*>(sc[i]);
     p.seg[i].bias = static_cast<const float*>(b[i]);
     p.seg[i].out = static_cast<__nv_bfloat16*>(o[i]);
     p.seg[i].N = n[i];
-    p.seg[i].tile_end = tiles;
+    p.seg[i].full_end = full;
+  }
+  int tiles = full;
+  for (int i = 0; i < DC_MAX_SEGMENTS; ++i) {
+    tiles += i < nseg && n[i] % DC_BN != 0;
+    p.seg[i].edge_end = tiles;
   }
   if (split > 1 ? blocks != tiles * split : blocks < 1 || blocks > tiles) {
     return static_cast<int>(cudaErrorInvalidValue);

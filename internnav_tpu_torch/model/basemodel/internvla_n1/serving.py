@@ -371,7 +371,7 @@ class BatchedN1Policy:
     def _check_system1(self) -> None:
         if "navdp" in self.cfg.system1:
             raise NotImplementedError("batched serving of the navdp System-1 is not yet ported "
-                                      "(ROADMAP §1 item 5)")
+                                      "(ROADMAP §1 item 4)")
         if "nextdit" not in self.cfg.system1:
             raise NotImplementedError(f"batched serving takes the nextdit System-1, got "
                                       f"system1={self.cfg.system1!r}")

@@ -186,7 +186,7 @@ def w8a8_linear_reference(xq: torch.Tensor, a_scale: torch.Tensor, weight_q: tor
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
     """How K6b's decode tiles split one launch: column tiles of `block_n`
-    weight rows over each segment (projection) in order, each tile's K in
+    weight rows over each segment (projection), in `tile_order`, each tile's K in
     `split` slices of whole units of `unit_lines` 128-byte lines (whole
     scale groups when grouped), `stages` ring stages a block, `grid`
     blocks. With split > 1 a tile is one cluster of `split` blocks, block
@@ -216,18 +216,27 @@ class DecodePlan:
         l1 = min(self.lines, (rank + 1) * units // self.split * self.unit_lines)
         return l0, l1
 
+    def tile_order(self) -> List[Tuple[int, int]]:
+        """The column tiles as (segment, first column) in the kernel's order
+        (csrc/w8a8_gemm.cu `dc_segment`): every segment's full-width tiles
+        in segment order, then the narrow edge tiles of the ragged widths.
+        Dealt round the SMs, the edge tiles land on the last SMs served, the
+        ones that take an extra tile."""
+        bn = self.block_n
+        full = [(seg, n0) for seg, N in enumerate(self.segments)
+                for n0 in range(0, N // bn * bn, bn)]
+        return full + [(seg, N // bn * bn) for seg, N in enumerate(self.segments) if N % bn]
+
     def units(self) -> Iterator[Tuple[int, int, int, int, int, int]]:
         """Every block's work: (block, segment, first column, end column,
         first k, end k), columns and k clipped to the matrix."""
-        tile = 0
-        for seg, N in enumerate(self.segments):
-            for n0 in range(0, N, self.block_n):
-                for rank in range(self.split):
-                    l0, l1 = self.slice_lines(rank)
-                    block = tile * self.split + rank if self.split > 1 else tile % self.grid
-                    yield (block, seg, n0, min(N, n0 + self.block_n),
-                           min(self.K, l0 * GEMM_LINE), min(self.K, l1 * GEMM_LINE))
-                tile += 1
+        for tile, (seg, n0) in enumerate(self.tile_order()):
+            N = self.segments[seg]
+            for rank in range(self.split):
+                l0, l1 = self.slice_lines(rank)
+                block = tile * self.split + rank if self.split > 1 else tile % self.grid
+                yield (block, seg, n0, min(N, n0 + self.block_n),
+                       min(self.K, l0 * GEMM_LINE), min(self.K, l1 * GEMM_LINE))
 
     def smem_bytes(self, rows: int) -> int:
         """A block's dynamic shared memory at `rows` rows (csrc/w8a8_gemm.cu
@@ -279,7 +288,17 @@ class DecodePlan:
 def _decode_plan_fair(plan: DecodePlan) -> bool:
     """No SM streams more than one tile's bytes above the mean: a block's
     share of one column tile (one K slice) where split > 1, a whole tile
-    where split is 1."""
+    where split is 1.
+
+    Split 1 always passes. Tile i runs on SM i % GEMM_SMS (the grid is the
+    tiles or a multiple of the SMs), so with T = q * GEMM_SMS + r tiles the
+    SMs that take q + 1 are the ones of the last r tiles, where
+    `tile_order` puts the e <= 3 edge tiles, short of full width by D <
+    64 e columns in all. Where r > e the busiest SM holds q + 1 full tiles,
+    (64 - (64 r - D) / GEMM_SMS) K bytes above the mean, under a tile; where
+    1 <= r <= e it holds one edge tile short by d >= 1 columns, 64 - d + (D
+    - 64 r) / GEMM_SMS <= 64 above it; where r = 0 it is D / GEMM_SMS
+    above."""
     load = plan.sm_bytes()
     biggest = max((c1 - c0) * (k1 - k0) for _, _, c0, c1, k0, k1 in plan.units())
     return max(load) - sum(load) / len(load) <= biggest
@@ -292,7 +311,8 @@ def gemm_decode_plan(segments: Tuple[int, ...], K: int, group: int = 0,
     <= 16, K) input, with scale groups of `group` inputs (0: per-channel):
     the K split (1 to GEMM_DECODE_MAX_SPLIT, never inside a scale group)
     of the least `model_time`, among the splits that give no SM more than
-    one block's bytes above the mean, and of those the ones whose blocks
+    one block's bytes above the mean (`_decode_plan_fair`; split 1 always
+    does), and of those the ones whose blocks
     the card holds at once (`resident_blocks`) where there are any; on a
     tie the one whose busiest SM streams fewer weight bytes, then the
     smaller split. The ring gets as many stages as a block's slice has
@@ -316,7 +336,7 @@ def gemm_decode_plan(segments: Tuple[int, ...], K: int, group: int = 0,
         resident = plan.resident_blocks(rows)
         plan = dataclasses.replace(plan, grid=plan.tiles * split if split > 1
                                    else min(plan.tiles, resident))
-        if split > 1 and not _decode_plan_fair(plan):
+        if not _decode_plan_fair(plan):
             continue
         cost = (plan.model_time(rows), max(plan.sm_bytes()))
         candidates.append((plan.grid > resident, cost, plan))

@@ -40,6 +40,8 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PORT_SOURCES = [*(REPO / "internnav_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
                 *(REPO / "scripts" / "torch").glob("*.py")]
+#: the port's bench entry of the evaluator path (a script, not a module)
+BENCH_ENTRY = REPO / "scripts" / "torch" / "bench_evaluator.py"
 #: every module of the port, by its file
 PORT_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -53,16 +55,25 @@ def test_port_modules_cover_the_package():
     assert "internnav_tpu_torch.trainer.internvla_n1_trainer" in PORT_MODULES
     assert "internnav_tpu_torch.realworld.server" in PORT_MODULES
     assert "internnav_tpu_torch.dataset.traj_store" in PORT_MODULES
+    for mod in ("env.fake_env", "env.episodes", "env.metrics", "env.controllers",
+                "evaluator.base", "evaluator.vln_evaluator", "evaluator.vln_pipelined_evaluator",
+                "evaluator.utils.data_collector", "evaluator.utils.latency", "configs.agent",
+                "configs.evaluator", "agent.base", "utils.registry", "graft_entry"):
+        assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
+    assert BENCH_ENTRY in PORT_SOURCES
     assert len(PORT_MODULES) > 40
     assert not any(m.split(".")[0] != "internnav_tpu_torch" for m in PORT_MODULES)
 
 
 def test_port_imports_with_jax_blocked():
     """In a fresh interpreter (this one already imported jax): with jax and
-    internnav_tpu made unimportable, every port module imports and neither
-    jax, flax nor internnav_tpu loads."""
+    internnav_tpu made unimportable, every port module and the bench entry
+    import and neither jax, flax nor internnav_tpu loads."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['internnav_tpu'] = None\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
+            + "import importlib.util\n"
+              f"spec = importlib.util.spec_from_file_location('bench_entry', {str(BENCH_ENTRY)!r})\n"
+              "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             + "assert not any(m.split('.')[0] in ('jax', 'flax', 'internnav_tpu') "
               "for m in sys.modules if sys.modules[m] is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -116,6 +127,8 @@ def test_port_sources_never_import_jax():
     for path in PORT_SOURCES:
         for line in path.read_text().splitlines():
             assert not FORBIDDEN_IMPORT.match(line), (path, line)
+    # nor bench.py, whose functions import the JAX package
+    assert not re.search(r"^\s*(import|from)\s+bench\b", BENCH_ENTRY.read_text(), re.M)
 
 
 # ------------------------------------------------- copies equal originals

@@ -570,6 +570,24 @@ def test_w8a8_decode_tiles_are_bitwise(device, M, N, K, bias):
     assert torch.equal(y, want)
 
 
+def test_w8a8_decode_tiles_walk_edge_tiles_last(device):
+    """F16: a whole-K plan over ragged widths walks every segment's full
+    tiles, then the three narrow edge tiles (`DecodePlan.tile_order`, the
+    kernel's `dc_segment`), so the SMs that take an extra tile take the
+    narrow ones. Each projection equals the plain version bit for bit."""
+    from internnav_tpu_torch.ops import quant
+
+    widths, K, M = (15169, 7917, 2252), 16576, 5
+    plan = quant.gemm_decode_plan(widths, K, 0, M)
+    assert plan.split == 1 and plan.tile_order()[-3:] == [(0, 15168), (1, 7872), (2, 2240)]
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=29))
+    segs = _w8a8_segments(device, widths, K, True, seed=31)
+    ys = quant.w8a8_linear_multi(xq, a, segs)
+    torch.cuda.synchronize()
+    for y, sg in zip(ys, segs):
+        assert torch.equal(y, quant.w8a8_linear_reference(xq, a, *sg))
+
+
 @pytest.mark.parametrize("M", GEMM_DECODE_ROWS)
 @pytest.mark.parametrize("widths,bias", [((3584, 512, 512), True), ((18944, 18944), False),
                                          ((63, 4097, 65), True)])
@@ -953,3 +971,28 @@ def test_decode_graph_reused_across_owners_of_one_layout(device):
     second = _decode(model, prompts[::-1], False, buffers)
     assert decode_graph.stats["warmup_steps"] == 1 and decode_graph.stats["captures"] == 2
     assert torch.equal(first[0][:2], second[0][2:]) and torch.equal(first[0][2:], second[0][:2])
+
+
+# ------------------------------------------------------------- graft entry
+#: `graft_entry.entry()` on the card against the same forward on the host
+#: (the same seed-0 weights, drawn on the host): bf16 activations through
+#: 4 layers, K1 against the plain attention and the card's GEMMs against
+#: the host's round in other places, so each output is held within 3% of
+#: its largest entry
+ENTRY_TOL_FRAC = 3e-2
+
+
+def test_graft_entry_on_the_card_matches_the_host(device):
+    from internnav_tpu_torch import graft_entry
+
+    before = fa.kernel_launches
+    fn, args = graft_entry.entry()
+    logits, traj = fn(*args)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches > before  # the prefill went through K1
+    ref_logits, ref_traj = (lambda f, a: f(*a))(*graft_entry.entry(device="cpu"))
+    for got, want in ((logits, ref_logits), (traj, ref_traj)):
+        got, want = got.float().cpu(), want.float()
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        atol = ENTRY_TOL_FRAC * want.abs().max().item()
+        assert torch.allclose(got, want, atol=atol, rtol=0), (got - want).abs().max().item()

@@ -4,7 +4,9 @@ input, checked on the CPU (the kernel runs only on the card, where
 
 - `gemm_decode_plan` (hypothesis): the blocks cover every (column, 64-wide
   k-chunk) of every projection exactly once, split K only at whole scale
-  groups, and give no SM more than one tile's bytes above the mean.
+  groups, and give no SM more than one tile's bytes above the mean; the
+  draws are derandomized, so every run checks the same plans, with F16's
+  three ragged-width inputs among them.
 - `w8a8_linear_reference` equals JAX's `QuantDense` at odd N (F15),
   per-channel and grouped g=128, at rtol 1e-5 in fp32 (the same integer
   product; the grouped sum over groups in another order).
@@ -15,7 +17,7 @@ input, checked on the CPU (the kernel runs only on the card, where
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 import jax
@@ -50,7 +52,10 @@ def _covers_once(plan, widths, K) -> bool:
     return True
 
 
-@settings(max_examples=150, deadline=None)
+@settings(max_examples=150, deadline=None, derandomize=True)
+@example(widths=[7950, 17026, 330], K=512, group=64, rows=5)
+@example(widths=[524, 16613, 16647], K=12288, group=256, rows=6)
+@example(widths=[15169, 7917, 2252], K=16576, group=0, rows=5)
 @given(widths=st.lists(st.integers(1, 20000), min_size=1, max_size=3),
        K=st.integers(1, 300).map(lambda k: 64 * k),
        group=st.sampled_from([0, 64, 128, 192, 256]),
