@@ -42,16 +42,36 @@ Phases, each printing its numbers:
                12 rows) and K7 (rotary + KV quantization + cache write for
                a token, the latent chunk, a ragged batch of 3 with a
                dropped row and past the cache's end, a batched cohort's
-               12 rows; the prompts' writes without rotary);
+               12 rows; the prompts' writes without rotary), and K8 (the
+               bf16 SiLU with XLA's roundings, alone or times up, bitwise)
+               at a parity decode token's, a parity prompt's and the train
+               row's SwiGLU, a frame's vision MLP, a stream's NextDiT
+               feed-forward and the time embedding, at a length that is no
+               multiple of 8 and on inputs no 16-byte boundary aligns;
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy in the
                `parity` profile (bf16, random weights from a seeded
                generator), serve it through the real-robot HTTP server and
                POST /reset + 4 /eval_dual requests; K1 must have launched
-               during the requests, and no int8 kernel;
-  4. serve realtime — the same with `serve.build_policy("realtime")` (W8A8
-               projections, int8 KV cache; the bf16 draws quantized on the
-               card): the launches of K1, K4, K5, K6a (and of each of its
-               prologues), K6b and K7 must equal the counts computed from
+               during the requests, and no int8 kernel; K8 as computed
+               from the frames, layer passes and System-1 calls;
+  checkpoint — the parity policy written as an HF-layout sharded
+               safetensors checkpoint (`convert.hf_state_dict`, 5 GiB
+               shards and the index) in TMPDIR (or build/chip_smoke when
+               TMPDIR lacks the room; the run fails when neither has
+               it), after each tensor's sha256 is taken; then the realtime
+               policy of seed 0 built (its digests and peak device
+               memory) and freed, and the realtime policy loaded from the
+               checkpoint, quantized on load: every tensor equal by
+               digest, the load's peak device memory at most the build's;
+               GB, seconds and GB/s of the write and the load; after serve
+               realtime the loaded int8 policy saved natively
+               (`save_pretrained`). The directories are removed at the
+               end, whatever happens;
+  4. serve realtime — the same with the policy loaded from the checkpoint
+               through `serve.build_policy("realtime", ckpt=...)` (W8A8
+               projections, int8 KV cache): the launches of K1, K4, K5,
+               K6a (and of each of its prologues), K6b and K7 must equal
+               the counts computed from
                the layers and each request's decode steps (K6b: 4 per
                decode or chunk layer pass, 7 per prefill layer pass, one
                per lm_head call); then, after
@@ -70,9 +90,12 @@ Phases, each printing its numbers:
                replay bitwise equal to eager decode; shared decode equal
                to per-cohort decode), then 1 timed stream of 5 cycles:
                actions/s, host seconds by call, peak memory, and every
-               kernel's launches equal to the computed counts;
+               kernel's launches, K8's (the vision tower's and System-1's
+               SiLU) included, equal to the computed counts;
   6. evaluate — the evaluator-path headline through the bench entry
-               (scripts/torch/bench_evaluator.py): VLNPipelinedEvaluator
+               (scripts/torch/bench_evaluator.py), its policy loaded from
+               the native int8 checkpoint and held equal by digest to the
+               realtime build: VLNPipelinedEvaluator
                over FakeEnv driving BatchedInternVLAN1Agent cohorts on the
                7B realtime policy, 4 cohorts x 12 streams, 224x224,
                max_step 24, shared grouped decode of 20 tokens (stop id
@@ -82,12 +105,13 @@ Phases, each printing its numbers:
                calls, the decode graph's captures and replays, peak
                memory; every episode must end, every action be one of the
                four and every trajectory finite and well formed, K1, K4,
-               K5, K6a, K6b and K7 must launch in the timed runs, and no
+               K5, K6a, K6b, K7 and K8 must launch in the timed runs, and no
                plain version of a kernel (the `*_reference` functions of
                ops/, and `quant.quantize_rows`) may run in the phase; the
                warm run's launches are logged by signature (`ShapeLog`:
                prompt buckets, decode groups' rows and Tmax, K6b's rows
-               and projections; every launch accounted for), and after the
+               and projections, K8's rows and widths; every launch
+               accounted for), and after the
                timed runs each kernel is checked against its plain version
                and timed at its most launched signatures (kernel rows
                with path=evaluate). Python's str hash is pinned
@@ -95,7 +119,10 @@ Phases, each printing its numbers:
                so FakeEnv draws the same frames in every run;
   7. train   — with the serving policies freed: the full-width 7B
                `nextdit_async` policy at TRAIN_LAYERS decoder layers with
-               remat, one packed 8192-token row from a synthetic store through
+               remat, loaded from the HF-layout checkpoint through the
+               train launcher's `--ckpt` route (`train_n1.build_policy`)
+               and held equal by digest to the parity build, one packed
+               8192-token row from a synthetic store through
                `InternVLAN1Trainer.prepare_batch`, one untimed and 3 timed
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
@@ -137,6 +164,7 @@ K5_REPLACES = "internnav_tpu/ops/flash_attention.py:589"
 K6A_REPLACES = f"{QWEN_TEXT}:173"
 K6B_REPLACES = f"{QWEN_TEXT}:177"
 K7_REPLACES = f"{QWEN_TEXT}:527"
+K8_REPLACES = f"{QWEN_TEXT}:597"
 K1_ATOL = K1_RTOL = 2e-2   # o: bf16 output rounding + bf16 P in the P.V product
 LSE_ATOL = 1e-3            # lse: fp32 statistics from the same bf16 inputs
 # dq/dk/dv: bf16 outputs, and P / dS rounded to bf16 as tensor-core operands
@@ -158,6 +186,7 @@ INSTRUCTION = "go past the table and stop at the second door on the left"
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core peak
+PEAK_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
 # realtime serving shapes: a bucketed prompt at the 4th request, the decode
 # budget and the traj-latent chunk
 PROMPT_T = 1088
@@ -985,15 +1014,64 @@ def int8_kv_write_rows(device, g):
                 (False, BATCH_PROMPT_T, (0,) * BATCH_ROWS, BATCH_TMAX))]
 
 
+#: K8's rows (kind, M, K, offset): a parity decode token's, a parity
+#: prompt's and the train row's SwiGLU, a 420x420 frame's vision MLP, a
+#: stream's 32 NextDiT samples' feed-forward and the time embedding's
+#: SiLU; then a length that is no multiple of 8 (the vector loop and its
+#: tail) and inputs 3 elements into their buffers (no pointer 16-byte
+#: aligned: the element loop)
+K8_ROWS = (("silu_mul", 1, K6A_I, 0), ("silu_mul", PROMPT_T, K6A_I, 0),
+           ("silu_mul", 8192, K6A_I, 0), ("silu_mul", 900, 3420, 0),
+           ("silu_mul", 1024, 1024, 0), ("silu", 1, 384, 0), ("silu_mul", 3, 1001, 0),
+           ("silu_mul", 7, 1280, 3), ("silu", 7, 1280, 3))
+#: fp32 operations K8 takes an element (flush test, exp, add, division,
+#: threshold, product with the gate, product with up, four roundings)
+K8_OPS = 12
+
+
+def k8_row(device, g, kind, M, K, offset=0, extra=None) -> dict:
+    """K8 (`activations.silu_cuda`) on M x K bf16 inputs that start
+    `offset` elements into their buffers, against its plain version
+    (`silu_mul_reference` / `silu_reference`), bitwise. The bound: the
+    inputs read once and the output written once, or K8_OPS fp32
+    operations an element. No single PyTorch call computes it."""
+    import torch
+
+    from internnav_tpu_torch.ops import activations as act
+
+    def rnd(scale):
+        buf = (torch.randn(M * K + offset, generator=g, device=device) * scale).bfloat16()
+        return buf[offset:].view(M, K)
+
+    gate = rnd(3.0)
+    up = rnd(1.0) if kind == "silu_mul" else None
+    run = lambda: act.silu_cuda(gate, up)  # noqa: E731
+    plain = (lambda: act.silu_mul_reference(gate, up)) if up is not None \
+        else (lambda: act.silu_reference(gate))
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError(f"K8 {kind} M={M} K={K}: differs from the plain version in "
+                             f"{int((out.view(torch.int16) != ref.view(torch.int16)).sum())} "
+                             "elements")
+    n = M * K
+    return _row("K8", f"{kind}_M{M}_K{K}" + (f"_offset{offset}" if offset else ""), 0.0,
+                cuda_ms(run), cuda_ms(plain),
+                _bytes_bound(n * 2 * (3 if up is not None else 2), K8_OPS * n, PEAK_FP32_FLOPS),
+                extra=extra)
+
+
 def phase_int8_kernels(device) -> dict:
-    """The realtime profile's kernels at the 7B shapes; rows by kernel."""
+    """The realtime profile's kernels at the 7B shapes, and K8 at the bf16
+    paths' SiLU shapes; rows by kernel."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(2)
     rows = (int8_k6a_rows(device, g) + int8_gemm_rows(device, g)
-            + int8_decode_rows(device, g) + int8_kv_write_rows(device, g))
+            + int8_decode_rows(device, g) + int8_kv_write_rows(device, g)
+            + [k8_row(device, g, *shape) for shape in K8_ROWS])
     return {name: [r for r in rows if r["kernel"] == name]
-            for name in ("K4", "K5", "K6a", "K6b", "K7")}
+            for name in ("K4", "K5", "K6a", "K6b", "K7", "K8")}
 
 
 # ----------------------------------------------------------------- serve
@@ -1022,14 +1100,15 @@ def request_frames(rng):
             rng.uniform(0.0, 0.5, (420, 420, 1)).astype(np.float32))
 
 
-def build_agent(device, profile: str = "parity"):
+def build_agent(device, profile: str = "parity", policy=None):
     """The full-width 7B policy of a serving profile (random weights, seed
-    0) and its agent, synchronous and re-planning System-2 after every
-    action."""
+    0, unless `policy` is given) and its agent, synchronous and re-planning
+    System-2 after every action."""
     from internnav_tpu_torch.agent.internvla_n1_agent import InternVLAN1Agent
     from internnav_tpu_torch.realworld import serve
 
-    policy = serve.build_policy(profile, device=device)
+    if policy is None:
+        policy = serve.build_policy(profile, device=device)
     return policy, InternVLAN1Agent(policy, async_s2=False, sys2_max_forward_step=1)
 
 
@@ -1038,11 +1117,13 @@ LAUNCH_KEYS = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu",
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count, by name."""
+    """Every kernel's launch count, by name: LAUNCH_KEYS and K8."""
+    from internnav_tpu_torch.ops import activations as act
     from internnav_tpu_torch.ops import flash_attention as fa
     from internnav_tpu_torch.ops import quant
 
-    return {"K1": fa.kernel_launches, "K2": fa.bwd_dkv_launches, "K3": fa.bwd_dq_launches,
+    return {"K8": act.silu_launches,
+            "K1": fa.kernel_launches, "K2": fa.bwd_dkv_launches, "K3": fa.bwd_dq_launches,
             "K4": fa.decode_int8_launches, "K5": fa.chunk_decode_int8_launches,
             "K6a": quant.quantize_rows_launches, "K6a_rmsnorm": quant.rmsnorm_quantize_launches,
             "K6a_swiglu": quant.swiglu_quantize_launches,
@@ -1051,9 +1132,11 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    from internnav_tpu_torch.ops import activations as act
     from internnav_tpu_torch.ops import flash_attention as fa
     from internnav_tpu_torch.ops import quant
 
+    act.silu_launches = 0
     fa.kernel_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
     fa.decode_int8_launches = fa.chunk_decode_int8_launches = 0
     quant.quantize_rows_launches = quant.w8a8_launches = quant.kv_write_launches = 0
@@ -1073,13 +1156,18 @@ def _count_calls(obj, names, calls):
         setattr(obj, name, wrapper)
 
 
-def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
+def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
+                            dit_layers) -> dict:
     """Launches of len(steps) requests, request r with one prefill,
     steps[r] decode steps run on the device (graph replays and the warm-up
-    step of each capture) and one traj-latent chunk, and `logits_calls`
-    lm_head calls in all: K1 once per prefill layer and once per windowed
-    ViT block of the request's new frame; with the realtime profile per
-    layer pass 4 activation quantizations (K6a: the two RMSNorms, q/k/v
+    step of each capture) and one traj-latent chunk, `logits_calls`
+    lm_head calls and `s1_calls` System-1 denoises over NextDiT's
+    `dit_layers` in all: K1 once per prefill layer and once per windowed
+    ViT block of the request's new frame; K8 once per ViT block of that
+    frame, per parity decoder layer pass (the SwiGLU), and per System-1
+    velocity 2 per NextDiT layer and 2 more (the time embedding's and the
+    output norm's SiLU); with the realtime profile per layer pass 4
+    activation quantizations (K6a: the two RMSNorms, q/k/v
     sharing the first and gate/up the second; the SwiGLU product for down;
     o_proj's input as it is) and one K7 launch (rotary + K/V cache write;
     the prefill's without rotary); K6b 4 launches per decode or chunk layer
@@ -1091,15 +1179,22 @@ def expected_serve_launches(cfg, profile, steps, logits_calls) -> dict:
     windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
     want = dict.fromkeys(LAUNCH_KEYS, 0)
     want["K1"] = len(steps) * (L + windowed)
+    decode_passes = sum(1 + s for s in steps)  # decode steps + chunk, per layer
+    passes = len(steps) + decode_passes  # and the prefill
+    velocity = 2 * dit_layers + 2
+    want["K8"] = (len(steps) * cfg.vision.depth + s1_calls * S1_STEPS * velocity
+                  + (L * passes if profile == "parity" else 0))
     if profile == "realtime":
-        decode_passes = sum(1 + s for s in steps)  # decode steps + chunk, per layer
-        passes = len(steps) + decode_passes  # and the prefill
         want.update(K4=L * sum(steps), K5=L * len(steps), K6a=4 * L * passes + logits_calls,
                     K6a_rmsnorm=2 * L * passes, K6a_swiglu=L * passes,
                     K6a_plain=L * passes + logits_calls,
                     K6b=4 * L * decode_passes + 7 * L * len(steps) + logits_calls,
                     K6b_fused=2 * L * decode_passes, K7=L * passes)
     return want
+
+
+#: the System-1 denoise's Euler steps (`generate_traj_nextdit`'s default)
+S1_STEPS = 10
 
 
 def loop_steps(generated: int) -> int:
@@ -1165,26 +1260,24 @@ def _check_requests(policy, profile, what, calls, chunks, gen_tokens, loop, laun
                                  f"length {t} (replays {loop_steps(t)} expected)")
     steps = [st["steps"] for st in loop]
     logits_calls = n + sum(st["logits_steps"] for st in loop)  # the prefills' and the steps'
-    want = expected_serve_launches(policy.cfg, profile, steps, logits_calls)
+    want = expected_serve_launches(policy.cfg, profile, steps, logits_calls,
+                                   calls["s1_step_latent"], len(policy.model.traj_dit.layers))
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
     return steps
 
 
-def phase_serve(device, profile: str) -> dict:
-    """Serve the 7B policy of `profile` through the real-robot HTTP server;
-    returns every kernel's launches by path: the 4 requests, and with the
-    realtime profile also the long request, each held equal to
-    `expected_serve_launches`."""
+def phase_serve(device, profile: str, policy, build_s: float) -> dict:
+    """Serve `policy`, the 7B policy of `profile` (built or loaded in
+    build_s), through the real-robot HTTP server; returns every kernel's
+    launches by path: the 4 requests, and with the realtime profile also
+    the long request, each held equal to `expected_serve_launches`."""
     import numpy as np
     import torch
 
     from internnav_tpu_torch.realworld import serve
 
-    t0 = time.perf_counter()
-    policy, agent = build_agent(device, profile)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    policy, agent = build_agent(device, profile, policy)
     build_mem_gib = torch.cuda.memory_allocated(device) / 2**30
     text = policy.cfg.text
     calls = {"s2_step": 0, "s1_step_latent": 0}
@@ -1283,6 +1376,161 @@ def phase_serve(device, profile: str) -> dict:
     return by_path
 
 
+# ------------------------------------------------------------ checkpoint
+#: RAM kept free beside checkpoints on a RAM-backed file system
+CKPT_RAM_HEADROOM = 16 * 2**30
+
+
+def _file_system(path: Path) -> str:
+    """The type of the file system that holds path (/proc/mounts)."""
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            mount, fs = line.split()[1:3]
+            if len(mount) > len(best) and (str(path) + "/").startswith(mount.rstrip("/") + "/"):
+                best, kind = mount, fs
+    return kind
+
+
+def checkpoint_root(need_bytes: int) -> Path:
+    """A new directory for the run's checkpoints: in the process's temporary
+    directory (TMPDIR), else in build/chip_smoke of the checkout, on the
+    first with room for the bf16 checkpoint and the int8 one (at most as
+    large) with 10% to spare, and on a RAM-backed file system also in free
+    RAM; raises when neither has it. Nothing outside the checkout and
+    TMPDIR is written, so a run killed before its clean-up leaves nothing
+    behind that outlives them."""
+    import shutil
+    import tempfile
+
+    seen = []
+    for root in (Path(tempfile.gettempdir()).resolve(), WORK_DIR):
+        root.mkdir(parents=True, exist_ok=True)
+        free, fs = shutil.disk_usage(root).free, _file_system(root)
+        if fs in ("tmpfs", "ramfs"):
+            with open("/proc/meminfo") as f:
+                avail = next(int(line.split()[1]) * 1024 for line in f
+                             if line.startswith("MemAvailable:"))
+            free = min(free, avail - CKPT_RAM_HEADROOM)
+        seen.append(f"{root} ({fs}): {free / 1e9:.1f} GB")
+        if free >= 1.1 * need_bytes:
+            path = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root))
+            print(f"phase checkpoint: root={path} file_system={fs} free_gb={free / 1e9:.1f} "
+                  f"need_gb={need_bytes / 1e9:.1f} candidates={seen}")
+            return path
+    raise AssertionError(f"no room for {need_bytes / 1e9:.1f} GB of checkpoints: {seen}")
+
+
+def state_digests(module) -> dict:
+    """sha256 of every state tensor's bit pattern (with its dtype and
+    shape), by name; copied to the host and hashed by 8 threads."""
+    import hashlib
+
+    import torch
+
+    def digest(item):
+        name, t = item
+        h = hashlib.sha256(f"{t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+        return name, h.hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(digest, module.state_dict().items()))
+
+
+def check_digests(what: str, got: dict, want: dict) -> None:
+    bad = sorted(k for k in want.keys() | got.keys() if got.get(k) != want.get(k))
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(want)} tensors differ from the seed-0 "
+                             f"build by digest, e.g. {bad[:5]}")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def phase_checkpoint_write(policy, root: Path) -> dict:
+    """Write the parity phase's 7B bf16 policy as an HF-layout sharded
+    safetensors checkpoint (`convert.hf_state_dict`, HF's 5 GiB shards and
+    index) under root, after taking every tensor's digest. Returns the
+    directory, the digests and the byte count."""
+    import torch
+
+    from internnav_tpu_torch.model.weights.convert import hf_state_dict
+    from internnav_tpu_torch.model.weights.safetensors_io import save_sharded
+
+    t0 = time.perf_counter()
+    digests = state_digests(policy.model)
+    digest_s = time.perf_counter() - t0
+    hf_dir = root / "hf"
+    t0 = time.perf_counter()
+    files = save_sharded(hf_state_dict(policy.model), str(hf_dir))
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    nbytes = dir_bytes(hf_dir)
+    print(f"phase checkpoint: write layout=hf dir={hf_dir} files={len(files)} "
+          f"tensors={len(digests)} gb={nbytes / 1e9:.3f} write_s={write_s:.2f} "
+          f"write_gb_per_s={nbytes / 1e9 / write_s:.3f} digest_s={digest_s:.2f} "
+          f"gpu={gpu_line()!r}")
+    return {"dir": hf_dir, "digests": digests, "bytes": nbytes}
+
+
+def phase_checkpoint_load_realtime(device, hf: dict):
+    """The realtime policy from the HF-layout checkpoint, quantized on load
+    (`serve.build_policy("realtime", ckpt=...)`), held bitwise equal by
+    digest to `InternVLAN1Policy.build` of the realtime profile from seed
+    0, which is built first (its digests and peak device memory taken, then
+    freed). The load's peak device memory must not exceed the build's.
+    Returns (the loaded policy, its load seconds, the realtime digests)."""
+    import torch
+
+    from internnav_tpu_torch.realworld import serve
+
+    torch.cuda.reset_peak_memory_stats(device)
+    base_gib = torch.cuda.memory_allocated(device) / 2**30
+    t0 = time.perf_counter()
+    built = serve.build_policy("realtime", device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    want = state_digests(built.model)
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    loaded = serve.build_policy("realtime", device=device, ckpt=str(hf["dir"]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    resident_gib = torch.cuda.memory_allocated(device) / 2**30
+    check_digests("serve realtime from the HF-layout checkpoint", state_digests(loaded.model),
+                  want)
+    if load_peak_gib > build_peak_gib:
+        raise AssertionError(f"the int8 load peaked at {load_peak_gib:.2f} GiB, above the random "
+                             f"realtime build's {build_peak_gib:.2f} GiB")
+    print(f"phase checkpoint: load layout=hf profile=realtime quantized_on_load=True "
+          f"read_gb={hf['bytes'] / 1e9:.3f} load_s={load_s:.2f} "
+          f"load_gb_per_s={hf['bytes'] / 1e9 / load_s:.3f} load_peak_mem_gib={load_peak_gib:.2f} "
+          f"random_build_s={build_s:.2f} random_build_peak_mem_gib={build_peak_gib:.2f} "
+          f"resident_gib={resident_gib:.2f} before_gib={base_gib:.2f} "
+          f"digests_equal={len(want)}/{len(want)} gpu={gpu_line()!r}")
+    return loaded, load_s, want
+
+
+def phase_checkpoint_save_native(policy, root: Path) -> Path:
+    """`save_pretrained` of the loaded int8 policy into root/native."""
+    native = root / "native"
+    t0 = time.perf_counter()
+    policy.save_pretrained(str(native))
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(native)
+    print(f"phase checkpoint: save layout=native weight_dtype={policy.cfg.text.weight_dtype} "
+          f"dir={native} gb={nbytes / 1e9:.3f} save_s={save_s:.2f} "
+          f"save_gb_per_s={nbytes / 1e9 / save_s:.3f} gpu={gpu_line()!r}")
+    return native
+
+
 # --------------------------------------------------------- serve batched
 # the checked cycles' instructions: one per stream, all of INSTRUCTION's
 # length (a word is a token), so every prompt stays BATCH_PROMPT tokens long
@@ -1297,10 +1545,12 @@ def own_instruction(ci: int, r: int) -> str:
 
 
 def expected_batched_launches(cfg, cycles: int, cohorts: int, rows: int,
-                              vision_k1: int) -> dict:
+                              vision_k1: int, dit_layers: int) -> dict:
     """Launches of `cycles` shared-decode cycles of `cohorts` cohorts of
     `rows` rows, each decoding the full BATCH_NEW_TOKENS budget: a cycle is
-    each cohort's vision call (vision_k1 K1 launches) and prefill (K1 a
+    each cohort's vision call (vision_k1 K1 launches, K8 once a ViT block)
+    and its BATCH_S1_CALLS System-1 denoises (S1_STEPS velocities over
+    NextDiT's `dit_layers`, K8 as in `expected_serve_launches`) and prefill (K1 a
     layer; per layer pass K6a 4 and K7 1, K6b 7 on the prefill tiles; one
     lm_head call at its rows: K6a PLAIN 1, K6b 1), then one grouped decode
     (BATCH_NEW_TOKENS steps over `cohorts` cache groups: K4 and K7 once a
@@ -1326,7 +1576,9 @@ def expected_batched_launches(cfg, cycles: int, cohorts: int, rows: int,
                 K6a_swiglu=L * passes, K6a_plain=L * passes + prefills + logit_steps,
                 K6b=7 * L * prefills + L * (dec * steps + chk * cycles) + prefills + logit_steps,
                 K6b_fused=L * (dec_fused * steps + chk_fused * cycles),
-                K7=L * prefills + L * G * (steps + cycles))
+                K7=L * prefills + L * G * (steps + cycles),
+                K8=prefills * (cfg.vision.depth
+                               + BATCH_S1_CALLS * S1_STEPS * (2 * dit_layers + 2)))
     return want
 
 
@@ -1509,7 +1761,8 @@ def phase_serve_batched(device) -> dict:
     v = cfg.vision
     vision_k1 = (0 if window_block else v.depth - len(v.fullatt_block_indexes)) + \
         (0 if full_block else len(v.fullatt_block_indexes))
-    want = expected_batched_launches(cfg, cycles, BATCH_COHORTS, BATCH_ROWS, vision_k1)
+    want = expected_batched_launches(cfg, cycles, BATCH_COHORTS, BATCH_ROWS, vision_k1,
+                                     len(policy.model.traj_dit.layers))
     if launches != want:
         raise AssertionError(f"serve batched: kernel launches {launches}, expected {want}")
     buffers = policy.decode_buffers
@@ -1544,8 +1797,9 @@ PLAIN_VERSIONS = {
                         "gqa_chunk_decode_reference"),
     "quant": ("quantize_rows", "rmsnorm_quantize_reference", "swiglu_quantize_reference",
               "w8a8_linear_reference", "write_kv_cache_reference", "rope_kv_write_reference"),
+    "activations": ("silu_reference", "silu_mul_reference"),
 }
-EVAL_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7")
+EVAL_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
 
 
 def bench_entry():
@@ -1580,10 +1834,12 @@ def _spy(obj, name, counter, key, seconds=None):
 #: the evaluate path's shapes checked after its timed runs: each kernel's
 #: most launched signatures in the warm run, until they cover this share
 #: of its launches, at least EVAL_SHAPES_MIN and at most EVAL_SHAPES_MAX
-#: (K6a and K6b: a layer pass's prologues or projections at two row counts)
+#: (K6a and K6b: a layer pass's prologues or projections at two row counts;
+#: K8: System-1's SiLUs at each row count of a denoise, spread over 21
+#: signatures)
 EVAL_SHAPE_SHARE = 0.75
 EVAL_SHAPES_MIN = 2
-EVAL_SHAPES_MAX = {"K1": 4, "K4": 4, "K5": 4, "K6a": 8, "K6b": 10, "K7": 4}
+EVAL_SHAPES_MAX = {"K1": 4, "K4": 4, "K5": 4, "K6a": 8, "K6b": 10, "K7": 4, "K8": 10}
 
 
 def _tensor_arg(t):
@@ -1635,6 +1891,7 @@ class ShapeLog:
         import torch
 
         from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph as dg
+        from internnav_tpu_torch.ops import activations as act
         from internnav_tpu_torch.ops import flash_attention as fa
         from internnav_tpu_torch.ops import quant
 
@@ -1680,12 +1937,16 @@ class ShapeLog:
             return (("K7", False, k.shape[0], k.shape[1], k_entry[0].shape[1]),
                     {"lengths": cache_len})
 
+        def silu(gate, up=None):
+            return ("K8", "silu" if up is None else "silu_mul", *rows(gate)), {}
+
         restore = [self._spy(mod, name, sig) for mod, name, sig in (
             (fa, "flash_attention_cuda", k1), (fa, "gqa_decode_int8_cuda", k4),
             (fa, "gqa_chunk_decode_int8_cuda", k5), (quant, "rmsnorm_quantize_cuda", rmsnorm),
             (quant, "swiglu_quantize_cuda", swiglu), (quant, "quantize_rows_cuda", plain),
             (quant, "w8a8_linear_cuda", gemm), (quant, "w8a8_decode_cuda", gemm_decode),
-            (quant, "rope_kv_write_cuda", rope_kv), (quant, "write_kv_cache_cuda", kv))]
+            (quant, "rope_kv_write_cuda", rope_kv), (quant, "write_kv_cache_cuda", kv),
+            (act, "silu_cuda", silu))]
         loop = dg.DecodeLoop
         step, run_step, run, capture = loop._step, loop._run_step, loop.run, loop._capture
 
@@ -1786,6 +2047,8 @@ def eval_kernel_rows(device, log: ShapeLog) -> dict:
             elif kernel == "K6b":
                 _, M, widths, K, bias, group = sig
                 rows[kernel].append(gemm_row(device, g, M, widths, K, bias, group, extra=extra))
+            elif kernel == "K8":
+                rows[kernel].append(k8_row(device, g, *sig[1:], extra=extra))
             else:
                 _, rotary, B, n, Tmax = sig
                 rows[kernel].append(kv_write_row(device, g, rotary, n, log.lengths(sig), Tmax,
@@ -1794,9 +2057,11 @@ def eval_kernel_rows(device, log: ShapeLog) -> dict:
     return rows
 
 
-def phase_evaluate(device) -> dict:
+def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
     """The evaluator-path headline through the bench entry's functions
-    (`build_inner`, `evaluator_run`, `assemble`): one warm run, then
+    (`build_inner` from the native int8 checkpoint `ckpt`, held equal to
+    the realtime seed-0 build by digest (`want`), `evaluator_run`,
+    `assemble`): one warm run, then
     EVAL_RUNS timed runs of the same episodes, with each run's host
     seconds by call (System-2 submits, the shared decode's flush, System-2
     and System-1 collects, System-1 submits, and the env apply: FakeEnv
@@ -1816,6 +2081,7 @@ def phase_evaluate(device) -> dict:
         BatchedN1Policy,
         SharedDecodePool,
     )
+    from internnav_tpu_torch.ops import activations as act
     from internnav_tpu_torch.ops import flash_attention as fa
     from internnav_tpu_torch.ops import quant
 
@@ -1823,9 +2089,10 @@ def phase_evaluate(device) -> dict:
     if os.environ.get("PYTHONHASHSEED") != bench.HASH_SEED:
         raise AssertionError("evaluate: str hashing is not pinned to the bench entry's seed")
     t0 = time.perf_counter()
-    inner = bench.build_inner(device)
+    inner = bench.build_inner(device, ckpt=str(ckpt))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    check_digests("evaluate from the native checkpoint", state_digests(inner.model), want)
     traj_shape = (bench.NUM_SAMPLE_TRAJS, inner.cfg.predict_step_nums, 3)
     bad, calls, plain = [], collections.Counter(), collections.Counter()
     host_s = collections.Counter()
@@ -1840,7 +2107,7 @@ def phase_evaluate(device) -> dict:
                 bad.append((o["action"], None if traj is None else traj.shape))
         return apply(self, agent_out)
 
-    modules = {"flash_attention": fa, "quant": quant}
+    modules = {"flash_attention": fa, "quant": quant, "activations": act}
     restore = [(modules[m], name, _spy(modules[m], name, plain, f"{m}.{name}"))
                for m, names in PLAIN_VERSIONS.items() for name in names]
     pipe._Cohort.apply = checked_apply
@@ -1912,7 +2179,8 @@ def phase_evaluate(device) -> dict:
           f"hw={bench.IMAGE_HW} episodes={n} max_step={bench.MAX_STEP} "
           f"max_new_tokens={bench.DECODE_TOKENS} stop_id={bench.STOP_ID} "
           f"sample_trajs={bench.NUM_SAMPLE_TRAJS} shared_decode=True shared_s1=False "
-          f"overlap_apply=False build_s={build_s:.2f} warm_run_s={warm_s:.4f} "
+          f"overlap_apply=False weights=native_checkpoint load_s={build_s:.2f} "
+          f"digests_equal={len(want)}/{len(want)} warm_run_s={warm_s:.4f} "
           f"warm_actions_per_s={warm['actions_per_sec']:.4f} warm_calls={warm_calls} "
           f"actions_per_s={[round(r['actions_per_sec'], 4) for r in runs]} "
           f"actions_per_s_median={result['value']:.4f} "
@@ -1957,18 +2225,20 @@ def train_flops(cfg, batch) -> float:
     return (8 * L * per_layer + 8 * d * v) * batch["input_ids"].shape[1] + attn
 
 
-def build_trainer(device):
-    """The full-width 7B `nextdit_async` policy (bf16, random N(0, 0.02)
-    weights, seed 0) at TRAIN_LAYERS decoder layers with remat, and its trainer:
-    chunked CE 1024, bf16 Adam moments, LLM trained, vision frozen."""
+def build_trainer(device, ckpt=None):
+    """The full-width 7B `nextdit_async` policy (bf16) at TRAIN_LAYERS
+    decoder layers with remat, through the train launcher's policy route
+    (`train_n1.build_policy`: from the checkpoint `ckpt`, else random
+    N(0, 0.02) weights from seed 0), and its trainer: chunked CE 1024, bf16
+    Adam moments, LLM trained, vision frozen."""
     from internnav_tpu_torch.configs.trainer import ExpCfg
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
-    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
+    from internnav_tpu_torch.trainer import train_n1
     from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
 
     cfg = InternVLAN1Config.qwen25vl_7b("nextdit_async", remat=True,
                                         num_hidden_layers=TRAIN_LAYERS)
-    policy = InternVLAN1Policy.build(cfg, device=device)
+    policy = train_n1.build_policy(cfg, device, None if ckpt is None else str(ckpt))
     exp = ExpCfg(name="chip_smoke_train", model_name="internvla_n1",
                  output_dir=str(WORK_DIR / "train_out"))
     exp.il.ce_chunk = 1024
@@ -1977,19 +2247,22 @@ def build_trainer(device):
     return InternVLAN1Trainer(exp, policy, total_steps=4, tune_llm=True, tune_mm_vision=False)
 
 
-def phase_train(device, store) -> dict:
-    """Optimizer steps of the full-width 7B policy on one packed row;
-    returns the kernel launches of the four steps."""
+def phase_train(device, store, ckpt: Path, want: dict) -> dict:
+    """Optimizer steps of the full-width 7B policy, loaded from the
+    HF-layout checkpoint `ckpt` and held equal to the parity build by
+    digest (`want`), on one packed row; returns the kernel launches of the
+    four steps."""
     import torch
 
     from internnav_tpu_torch.ops import flash_attention as fa
 
     L = TRAIN_LAYERS
     t0 = time.perf_counter()
-    trainer = build_trainer(device)
+    trainer = build_trainer(device, ckpt)
     policy, cfg = trainer.policy, trainer.policy.cfg
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    check_digests("train from the HF-layout checkpoint", state_digests(policy.model), want)
     batch = packed_row(store, TRAIN_LEN)
     t0 = time.perf_counter()
     prepared = trainer.prepare_batch(batch)
@@ -2041,6 +2314,8 @@ def phase_train(device, store) -> dict:
     totals = launch_counts()
     if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K6b_fused", "K7")):
         raise AssertionError(f"the bf16 train step launched an int8 kernel: {totals}")
+    if not totals["K8"]:
+        raise AssertionError(f"the bf16 train steps' SwiGLU never launched K8: {totals}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     for i, m in enumerate(metrics):
         bad = [k for k in ("lm_loss", "s1_loss", "loss", "grad_norm")
@@ -2054,7 +2329,8 @@ def phase_train(device, store) -> dict:
     last = metrics[-1]
     print(f"phase train: layers={L} (of 28) hidden={cfg.text.hidden_size} seq={TRAIN_LEN} "
           f"packed_samples={batch['num_packed']} traj_rows={int(batch['traj_mask'].sum())} "
-          f"params={n_all} trainable={n_train} build_s={build_s:.2f} "
+          f"params={n_all} trainable={n_train} weights=hf_checkpoint load_s={build_s:.2f} "
+          f"digests_equal={len(want)}/{len(want)} "
           f"vision_encode_s={vision_s:.4f} first_step_s={first_s:.4f} "
           f"step_s={[round(x, 4) for x in times]} step_s_median={step_s:.4f} "
           f"tokens_per_s={TRAIN_LEN / step_s:.1f} lm_loss={last['lm_loss']:.4f} "
@@ -2090,22 +2366,44 @@ def main() -> int:
     store = synthetic_store()
     kern = phase_kernels(device, store)
     int8 = phase_int8_kernels(device)
+    from internnav_tpu_torch.realworld import serve
+
     by_path = {}
-    for profile in ("parity", "realtime"):
-        by_path.update(phase_serve(device, profile))
+    t0 = time.perf_counter()
+    parity = serve.build_policy("parity", device=device)
+    torch.cuda.synchronize()
+    by_path.update(phase_serve(device, "parity", parity, time.perf_counter() - t0))
+    # the parity policy's bf16 weights as a checkpoint: the realtime and
+    # evaluate paths and training start from it (HF layout) or from the
+    # int8 policy loaded from it (native)
+    root = checkpoint_root(2 * sum(t.numel() * t.element_size()
+                                   for t in parity.model.state_dict().values()))
+    try:
+        hf = phase_checkpoint_write(parity, root)
+        del parity
         gc.collect()
         torch.cuda.empty_cache()
-    by_path.update(phase_serve_batched(device))
-    gc.collect()
-    torch.cuda.empty_cache()
-    evaluate_launches, eval_rows = phase_evaluate(device)
-    by_path.update(evaluate_launches)
-    kern["k1_serve"] += eval_rows.pop("K1", [])
-    for kernel, rows in eval_rows.items():
-        int8[kernel] += rows
-    gc.collect()
-    torch.cuda.empty_cache()
-    by_path["train"] = phase_train(device, store)["launches"]
+        realtime, load_s, realtime_digests = phase_checkpoint_load_realtime(device, hf)
+        by_path.update(phase_serve(device, "realtime", realtime, load_s))
+        native = phase_checkpoint_save_native(realtime, root)
+        del realtime
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(phase_serve_batched(device))
+        gc.collect()
+        torch.cuda.empty_cache()
+        evaluate_launches, eval_rows = phase_evaluate(device, native, realtime_digests)
+        by_path.update(evaluate_launches)
+        kern["k1_serve"] += eval_rows.pop("K1", [])
+        for kernel, rows in eval_rows.items():
+            int8[kernel] += rows
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["train"] = phase_train(device, store, hf["dir"], hf["digests"])["launches"]
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
     rows = {r["shape"]: r for r in kern["train"]}
     main_row = rows[f"train_T{TRAIN_LEN}"]  # the training step's attention shape
     dense_row = rows[f"dense_causal_T{TRAIN_LEN}"]
@@ -2175,6 +2473,10 @@ def main() -> int:
                    "M1_N18944+18944_K3584"),
         int8_entry("rope_kv_write", "K7", "cuda", K7_SOURCE, K7_REPLACES,
                    kv_write_shape(True, (PROMPT_T + 17,), 1)),
+        # the bf16 SiLU of every path: a parity decode token's SwiGLU is its
+        # most frequent shape
+        int8_entry("silu_bf16", "K8", "cuda", K6A_SOURCE, K8_REPLACES,
+                   f"silu_mul_M1_K{K6A_I}"),
     ]
     kernels[0]["shapes"] = shapes
     print(json.dumps({"kernels": kernels}))

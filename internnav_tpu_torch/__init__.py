@@ -19,8 +19,10 @@ the single-stream one, replays a captured CUDA graph per step
 (`decode_graph.py`); the evaluator path of the headline
 (`evaluator.VLNPipelinedEvaluator` over `env.FakeEnv`, driving
 `agent.BatchedInternVLAN1Agent` cohorts; `scripts/torch/bench_evaluator.py`
-measures it); and the single-device N1 finetune path
-(`trainer.train_n1`) with the flash-attention backward kernels.
+measures it); the single-device N1 finetune path
+(`trainer.train_n1`) with the flash-attention backward kernels; and
+checkpoint loading (`model/weights/`: HF-layout InternVLA-N1 checkpoints,
+quantized on load for `realtime`, and the port's native format).
 """
 
 from __future__ import annotations

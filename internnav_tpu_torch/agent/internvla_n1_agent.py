@@ -10,8 +10,9 @@ Port of internnav_tpu/agent/internvla_n1_agent.py:
   slots stepped through one batched System-2 call and one batched System-1
   denoise a macro-step (`serving.BatchedN1Policy`), with the JAX agent's
   per-slot schedule, and `step_coroutine`, the form the pipelined
-  evaluator interleaves across cohorts. The navdp System-1 is not ported
-  yet and raises.
+  evaluator interleaves across cohorts, its policy built by
+  `_build_n1_policy` (from `AgentCfg.ckpt_path` when set). The navdp
+  System-1 is not ported yet and raises.
 
 Deviation: the JAX agent turns any exception in System-2 into a STOP
 action, which hides a kernel or device failure. Here an exception raised
@@ -34,6 +35,26 @@ from internnav_tpu_torch.model.utils.vln_utils import S2Input, S2Output
 
 LOOK_DOWN_ACTION = 5
 S2Result = Union[S2Output, Exception]
+
+
+def _build_n1_policy(cfg: AgentCfg, settings: Dict[str, Any]):
+    """The dual-system agents' policy (the JAX package's `_build_n1_policy`),
+    through `realworld.serve.build_policy`: model_settings["profile"]'s
+    formats ("realtime" by default), at 7B dims or model_settings["config"];
+    from cfg.ckpt_path when it is set (a native directory keeps its recorded
+    weight dtype, ROADMAP F4; a reference-format checkpoint is quantized on
+    load under an int8 profile; a path that does not exist raises: there is
+    no fallback to random weights), else random weights (seed 0). On
+    model_settings["device"]: the GPU by default, "cpu" when asked for."""
+    from internnav_tpu_torch import require_cuda
+    from internnav_tpu_torch.realworld.serve import build_policy
+
+    dev = settings.get("device")
+    device = torch.device("cpu") if dev == "cpu" else require_cuda(dev)
+    return build_policy(settings.get("profile", "realtime"), device=device,
+                        ckpt=cfg.ckpt_path or None,
+                        system1=settings.get("system1", "nextdit_async"),
+                        config=settings.get("config"))
 
 
 class S2Mailbox:
@@ -233,22 +254,20 @@ class BatchedInternVLAN1Agent(Agent):
     partial_async mode with synchronous S2 ('sync' re-plans whenever a
     slot's queue is empty).
 
-    policy=None builds the 7B policy of model_settings["profile"]
-    (`realworld.serve.build_policy`, "realtime" by default, random weights)
-    on model_settings["device"] (the GPU by default; raises without one)."""
+    policy=None builds the policy with `_build_n1_policy`: the
+    model_settings["profile"]'s formats ("realtime" by default), from
+    cfg.ckpt_path when set, else random 7B weights; on the GPU unless
+    model_settings["device"] is "cpu"."""
 
     def __init__(self, cfg: AgentCfg, policy=None):
         super().__init__(cfg)
         settings = cfg.model_settings or {}
         self.batch_size = int(settings.get("batch_size", 8))
         if policy is None:
-            from internnav_tpu_torch import require_cuda
             from internnav_tpu_torch.model.basemodel.internvla_n1.serving import BatchedN1Policy
-            from internnav_tpu_torch.realworld.serve import build_policy
 
-            inner = build_policy(settings.get("profile", "realtime"),
-                                 device=require_cuda(settings.get("device")))
-            policy = BatchedN1Policy(inner, self.batch_size, seed=int(settings.get("seed", 0)))
+            policy = BatchedN1Policy(_build_n1_policy(cfg, settings), self.batch_size,
+                                     seed=int(settings.get("seed", 0)))
         self.policy = policy
         self.mode = settings.get("infer_mode", "partial_async")
         self.sys2_max_forward_step = int(settings.get("sys2_max_forward_step", 8))

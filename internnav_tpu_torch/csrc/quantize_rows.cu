@@ -1,5 +1,7 @@
 // K6a: the per-token int8 activation quantization of the W8A8 `realtime`
 // profile, fused into the op that makes its input; CUDA C++ for sm_90a.
+// The file also holds K8 (`silu_bf16`, below), the bf16 SiLU of the other
+// paths with the same `silu_xla` arithmetic as K6a's SWIGLU prologue.
 //
 // Replaces the XLA activation quantization of internnav_tpu/model/basemodel/
 // internvla_n1/qwen_text.py `QuantDense.__call__` (:173-176):
@@ -11,12 +13,14 @@
 //   product. With a residual h the row is first x' = bf16(x + h), stored,
 //   and normalized: the decoder layer's `x = x + h` before the
 //   post-attention norm.
-// - SWIGLU (down input): y = bf16(bf16(silu(gate)) * up), torch's
-//   `F.silu(gate) * up` in bf16.
+// - SWIGLU (down input): y = silu(gate) * up in fp32, with silu(gate) as
+//   XLA rounds it on bf16 (`silu_xla`: four bf16 roundings). XLA fuses the
+//   product into the quantization's fp32 convert and does not round it to
+//   bf16 (`ops/quant.swiglu_quantize_reference`).
 // - PLAIN (o_proj and lm_head inputs): y is the bf16 or fp32 row itself.
 // The arithmetic is ATen's op for op, so that the codes match the plain
 // versions (ops/quant.py): the fp32 sum of squares times fl(1/K) (ATen's
-// CUDA `mean`), + eps, `rsqrtf`, silu as g / (1 + expf(-g)), IEEE divisions
+// CUDA `mean`), + eps, `rsqrtf`, `expf` in `silu_xla`, IEEE divisions
 // (the build has no fast-math flag), round-to-nearest-even bf16 casts, and
 // no multiply-add contraction where ATen rounds between two kernels. SWIGLU
 // and PLAIN are bitwise; RMSNORM adds its squares in another order than
@@ -34,6 +38,7 @@
 // one shared-memory step each), and one store round. At the prompt (M =
 // 1,088-4,864 rows) one block a row fills the 132 SMs and bytes set the time.
 
+#include <algorithm>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +51,19 @@ constexpr int kMaxVectors = 5;
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// jax.nn.silu of a bf16 value as XLA computes it (ops/activations.py
+// `silu`): g * (1 / (1 + exp(-g))) with every step rounded to bf16, and
+// subnormals flushed: |g| < 2^-125 gives a signed zero, and so does a
+// sigmoid below 2^-126.
+__device__ __forceinline__ float silu_xla(float g) {
+  g = fabsf(g) >= 0x1p-125f ? g : __fmul_rn(g, 0.0f);
+  const float ex = bf16_round(expf(-g));
+  const float d = bf16_round(__fadd_rn(ex, 1.0f));
+  float s = bf16_round(__fdiv_rn(1.0f, d));
+  s = s >= 0x1p-126f ? s : 0.0f;
+  return bf16_round(__fmul_rn(g, s));
 }
 
 // 16 bytes of input as floats: 8 bf16 or 4 fp32
@@ -100,8 +118,11 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
 // (j < NV) of E elements. a: x (RMSNORM), gate (SWIGLU) or the row (PLAIN);
 // b: the residual (RMSNORM with RES) or up (SWIGLU); w: the fp32 norm scale.
 // The row stays packed in registers (4 a vector: the bf16 row, x + h, or
-// the bf16 SwiGLU product); RMSNORM's fp32 product is recomputed from it in
-// the amax and the code passes rather than held (8 registers a vector).
+// silu(gate)); RMSNORM's and SWIGLU's fp32 products are recomputed from it
+// in the code pass rather than held (8 registers a vector). SWIGLU takes
+// its amax in the first pass, while up is in registers, and reads up again
+// (from L1) in the code pass, so up's registers are free after the first
+// pass, as in the other prologues.
 template <int PRO, typename T, bool RES, int NV>
 __global__ void __launch_bounds__(kMaxThreads)
     quantize_rows_kernel(const T* __restrict__ a, const __nv_bfloat16* __restrict__ b,
@@ -132,7 +153,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
 
-  float r = 0.f;  // RMSNORM: rsqrt(mean(x^2) + eps)
+  float r = 0.f;     // RMSNORM: rsqrt(mean(x^2) + eps)
+  float amax = 0.f;  // SWIGLU: taken in the first pass
   if constexpr (PRO == kSwiGlu || PRO == kRmsNorm) {
     float ss = 0.f;
 #pragma unroll
@@ -146,9 +168,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           if constexpr (PRO == kSwiGlu) {
-            const float g = x[e];
-            const float s = bf16_round(g / (1.0f + expf(-g)));  // ATen's silu, to bf16
-            x[e] = __fmul_rn(s, y[e]);  // rounded to bf16 by narrow_bf16
+            x[e] = silu_xla(x[e]);  // a bf16 value: narrow_bf16 keeps it exactly
+            amax = fmaxf(amax, fabsf(__fmul_rn(x[e], y[e])));
           } else {
             x[e] = __fadd_rn(x[e], y[e]);
           }
@@ -169,9 +190,16 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
 
-  // y: the row as quantized (RMSNORM: bf16(x * r) * w in fp32)
+  // y: the row as quantized (RMSNORM: bf16(x * r) * w in fp32; SWIGLU:
+  // silu(gate) * up in fp32, up read again)
   auto row = [&](int j, float (&y)[E]) {
     widen(ra[j], y);
+    if constexpr (PRO == kSwiGlu) {
+      float u[E];
+      widen(bv[threadIdx.x + j * blockDim.x], u);
+#pragma unroll
+      for (int e = 0; e < E; ++e) y[e] = __fmul_rn(y[e], u[e]);
+    }
     if constexpr (PRO == kRmsNorm) {
       float w0[4], w1[4];
       widen(rw[j][0], w0);
@@ -182,14 +210,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   };
 
-  float amax = 0.f;
+  if constexpr (PRO != kSwiGlu) {
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    if (threadIdx.x + j * blockDim.x >= nvec) continue;
-    float y[E];
-    row(j, y);
+    for (int j = 0; j < NV; ++j) {
+      if (threadIdx.x + j * blockDim.x >= nvec) continue;
+      float y[E];
+      row(j, y);
 #pragma unroll
-    for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(y[e]));
+      for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(y[e]));
+    }
   }
   const float a_scale = __fdiv_rn(fmaxf(block_reduce<true>(amax, red), 1e-8f), 127.0f);
 
@@ -239,7 +268,75 @@ cudaError_t launch(const void* a, const void* b, const void* w, float eps, void*
   return cudaGetLastError();
 }
 
+// K8: silu(gate), or silu(gate) * up, of bf16 tensors with XLA's roundings
+// (`silu_xla`, then the product rounded to bf16), n elements. Replaces the
+// XLA fusion of `nn.silu(gate) * up` (internnav_tpu/model/basemodel/
+// internvla_n1/qwen_text.py:597, qwen_vision.py:199, nextdit.py:146) and of
+// `nn.silu(t)` (nextdit.py:81,169,234), which eager torch would run as ten
+// elementwise kernels (`ops/activations.silu_reference`). Bound by bytes:
+// each input read once, the output written once. Grid-stride over 16-byte
+// vectors of 8 elements when every pointer is 16-byte aligned (the first
+// threads then take the n % 8 tail), else one element a thread.
+template <bool kUp, bool kVec>
+__global__ void __launch_bounds__(256)
+    silu_bf16_kernel(const __nv_bfloat16* __restrict__ gate, const __nv_bfloat16* __restrict__ up,
+                     __nv_bfloat16* __restrict__ out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long scalar_from = 0;
+  if constexpr (kVec) {
+    const long long nvec = n / 8;
+    for (long long i = first; i < nvec; i += stride) {
+      float g[8];
+      widen(reinterpret_cast<const uint4*>(gate)[i], g);
+      if constexpr (kUp) {
+        float u[8];
+        widen(reinterpret_cast<const uint4*>(up)[i], u);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) g[e] = __fmul_rn(silu_xla(g[e]), u[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) g[e] = silu_xla(g[e]);
+      }
+      reinterpret_cast<uint4*>(out)[i] = narrow_bf16(g);
+    }
+    scalar_from = nvec * 8;
+  }
+  for (long long i = scalar_from + first; i < n; i += stride) {
+    float y = silu_xla(__bfloat162float(gate[i]));
+    if constexpr (kUp) y = __fmul_rn(y, __bfloat162float(up[i]));
+    out[i] = __float2bfloat16_rn(y);
+  }
+}
+
+template <bool kUp>
+cudaError_t launch_silu(const void* gate, const void* up, void* out, long long n,
+                        cudaStream_t stream) {
+  const bool vec = (reinterpret_cast<uintptr_t>(gate) | reinterpret_cast<uintptr_t>(up) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const long long work = vec ? (n + 7) / 8 : n;
+  const int blocks = static_cast<int>(std::min<long long>((work + 255) / 256, 132 * 16));
+  const auto* g = static_cast<const __nv_bfloat16*>(gate);
+  const auto* u = static_cast<const __nv_bfloat16*>(up);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (vec)
+    silu_bf16_kernel<kUp, true><<<blocks, 256, 0, stream>>>(g, u, o, n);
+  else
+    silu_bf16_kernel<kUp, false><<<blocks, 256, 0, stream>>>(g, u, o, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// K8: out = silu(gate) * up (up non-null) or silu(gate), n bf16 elements
+// each, contiguous.
+extern "C" int silu_bf16(const void* gate, const void* up, void* out, long long n,
+                         void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(up ? launch_silu<true>(gate, up, out, n, s)
+                             : launch_silu<false>(gate, up, out, n, s));
+}
 
 // prologue: 0 PLAIN, 1 RMSNORM, 2 SWIGLU. a: (M, K) bf16, or fp32 for PLAIN
 // with fp32_input; b: the residual (RMSNORM, or null) or up (SWIGLU), bf16

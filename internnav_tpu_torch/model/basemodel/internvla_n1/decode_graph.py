@@ -68,9 +68,9 @@ def reset_stats() -> None:
 
 
 def _counter_modules():
-    from internnav_tpu_torch.ops import flash_attention, quant
+    from internnav_tpu_torch.ops import activations, flash_attention, quant
 
-    return (flash_attention, quant)
+    return (activations, flash_attention, quant)
 
 
 def launch_counters() -> Dict[Tuple[str, str], int]:

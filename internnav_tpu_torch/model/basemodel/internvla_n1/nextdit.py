@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import RMSNorm
+from internnav_tpu_torch.ops.activations import silu, silu_mul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +62,7 @@ class TimeCaptionEmbed(nn.Module):
         """timestep (B,); captions (B, L, dim), every token valid."""
         dt = self.time_fc1.weight.dtype
         tf = _timestep_freqs(timestep, self.freq_dim).to(dt)
-        t = self.time_fc2(F.silu(self.time_fc1(tf)))
+        t = self.time_fc2(silu(self.time_fc1(tf)))
         pooled = captions.float().mean(1)
         return t + self.cap_fc(self.cap_ln(pooled.to(dt)))
 
@@ -108,7 +109,7 @@ class LuminaFeedForward(nn.Module):
 
     def forward(self, x):
         x = x.to(self.linear_1.weight.dtype)
-        return self.linear_2(F.silu(self.linear_1(x)) * self.linear_3(x))
+        return self.linear_2(silu_mul(self.linear_1(x), self.linear_3(x)))
 
 
 class NextDiTBlock(nn.Module):
@@ -138,7 +139,7 @@ class NextDiTBlock(nn.Module):
         def bc(g):  # (B, dim) → (B*ns, 1, dim)
             return g.repeat_interleave(ns, dim=0)[:, None] if ns > 1 else g[:, None]
 
-        scale_msa, gate_msa, scale_mlp, gate_mlp = self.norm1_linear(F.silu(temb)).chunk(4, -1)
+        scale_msa, gate_msa, scale_mlp, gate_mlp = self.norm1_linear(silu(temb)).chunk(4, -1)
         xn = self.norm1_rms(x) * (1 + bc(scale_msa))
         self_out = self.attn1(xn, xn)
         cond_n = self.norm1_context(cond)
@@ -178,7 +179,7 @@ class NextDiT(nn.Module):
         temb = self.time_caption_embed(timestep, cond).to(dt)
         for layer in self.layers:
             x = layer(x, cond, temb, num_samples)
-        scale = self.norm_out_linear(F.silu(temb))
+        scale = self.norm_out_linear(silu(temb))
         if num_samples > 1:
             scale = scale.repeat_interleave(num_samples, dim=0)
         return self.norm_out_linear2((self.norm_out_ln(x) * (1 + scale[:, None])).to(dt))

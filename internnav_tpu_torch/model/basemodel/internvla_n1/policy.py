@@ -14,13 +14,21 @@ Differences from the JAX policy:
 - `s1_step_latent` takes an optional `x_init` (the denoise's starting
   noise); without it the noise is drawn from the policy's torch.Generator;
 - only the fused System-2 step and the NextDiT System-1 with continuous
-  trajectories are ported (`from_pretrained*`, `generate_latents`, the
-  unfused step, `chunk_token` actions and NavDP are not).
+  trajectories are ported (`generate_latents`, the unfused step,
+  `chunk_token` actions and NavDP are not);
+- checkpoints (`from_pretrained_torch`, `save_pretrained`,
+  `from_pretrained`) stream to the device one tensor at a time, and an
+  int8 policy quantizes each projection as it lands; the native format is
+  the port's state_dict in safetensors (`NATIVE_WEIGHTS`) beside the JAX
+  package's config.json, not its params.msgpack; a tokenizer directory
+  that fails to load raises instead of falling back to `SimpleTokenizer`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import re
 import zlib
 from typing import Dict, List, Optional, Tuple
@@ -49,6 +57,7 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
     vision_indices,
 )
 from internnav_tpu_torch.model.encoder.vit import IMAGENET_MEAN, IMAGENET_STD
+from internnav_tpu_torch.model.utils.tokenization import has_tokenizer_files, load_hf_tokenizer
 from internnav_tpu_torch.model.utils.vln_utils import (
     S1Output,
     S2Output,
@@ -56,6 +65,12 @@ from internnav_tpu_torch.model.utils.vln_utils import (
     split_and_clean,
     traj_to_actions,
 )
+from internnav_tpu_torch.model.weights.convert import (
+    NATIVE_WEIGHTS,
+    load_into_,
+    load_torch_state_dict,
+)
+from internnav_tpu_torch.model.weights.safetensors_io import read_safetensors, write_safetensors
 from internnav_tpu_torch.ops.rope import get_rope_index_25
 
 IM_START, IM_END = "<|im_start|>", "<|im_end|>"
@@ -173,6 +188,67 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+#: the JAX package's native weights file, which the port does not read
+JAX_NATIVE_WEIGHTS = "params.msgpack"
+_TORCH_WEIGHT_SUFFIXES = (".safetensors", ".bin", ".pth")
+
+
+def checkpoint_format(path: str) -> str:
+    """"native" for a directory written by `save_pretrained`, "hf" for a
+    reference-format checkpoint (a file or a directory). Raises for a
+    missing path, and for a directory that holds the JAX package's
+    params.msgpack and no torch weights."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"checkpoint {path} does not exist")
+    if not os.path.isdir(path):
+        return "hf"
+    if os.path.exists(os.path.join(path, NATIVE_WEIGHTS)):
+        return "native"
+    if os.path.exists(os.path.join(path, JAX_NATIVE_WEIGHTS)) and not any(
+            f.endswith(_TORCH_WEIGHT_SUFFIXES) for f in os.listdir(path)):
+        raise ValueError(
+            f"{path} holds the JAX package's {JAX_NATIVE_WEIGHTS}, which the PyTorch port does "
+            "not read: load the reference-format torch checkpoint it was converted from "
+            "(InternVLAN1Policy.from_pretrained_torch), or convert that torch source into a "
+            "native directory of the port with scripts/torch/convert_checkpoint.py")
+    return "hf"
+
+
+def native_weight_dtype(path: str) -> str:
+    """The weight_dtype a native directory's config.json records."""
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)["weight_dtype"]
+
+
+def checkpoint_tokenizer(path: str, vocab_size: int):
+    """The HF tokenizer of a checkpoint directory that holds tokenizer
+    files (raising if they do not load), else `SimpleTokenizer`."""
+    if has_tokenizer_files(path):
+        return load_hf_tokenizer(path)
+    return SimpleTokenizer(vocab_size)
+
+
+def _with_tied_embeddings(cfg: InternVLAN1Config, tied: bool) -> InternVLAN1Config:
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, tie_word_embeddings=tied))
+
+
+@torch.no_grad()
+def _load_native_(model: InternVLAN1Model, sd, path: str) -> None:
+    """The port's own state_dict into a built model: the same names,
+    shapes and dtypes, or it raises."""
+    state = model.state_dict(keep_vars=True)
+    if set(sd) != set(state):
+        raise KeyError(f"{path}: native weights differ from the model's state: missing "
+                       f"{sorted(set(state) - set(sd))[:8]}, unexpected "
+                       f"{sorted(set(sd) - set(state))[:8]}")
+    for name, target in state.items():
+        value = sd[name]
+        if value.dtype != target.dtype or value.shape != target.shape:
+            raise ValueError(f"{path}: {name} is {value.dtype} {tuple(value.shape)}, the model "
+                             f"has {target.dtype} {tuple(target.shape)}")
+        target.copy_(value)
+
+
 class InternVLAN1Policy:
     """An InternVLAN1Model + the host-side prompt and history bookkeeping."""
 
@@ -191,11 +267,12 @@ class InternVLAN1Policy:
     #: segment ids), as in the JAX policy
     PROMPT_BUCKET = 32
 
-    def __init__(self, model: InternVLAN1Model, seed: int = 0):
+    def __init__(self, model: InternVLAN1Model, seed: int = 0, tokenizer=None):
         self.model = model.eval()
         self.cfg = cfg = model.cfg
         self.device = next(model.parameters()).device
-        self.tokenizer = SimpleTokenizer(cfg.text.vocab_size)
+        self.tokenizer = tokenizer if tokenizer is not None else SimpleTokenizer(
+            cfg.text.vocab_size)
         self.num_history = cfg.num_history
         self.seed = seed
         self._index_cache: Dict[Tuple[int, int, int], tuple] = {}
@@ -226,6 +303,75 @@ class InternVLAN1Policy:
             quantize_qwen_text_(model.language_model, text.quant_group_size)
         model.cfg = cfg
         return cls(model, seed=seed)
+
+    @classmethod
+    def from_pretrained_torch(cls, path: str, cfg: InternVLAN1Config, *, device=None,
+                              tokenizer=None, seed: int = 0) -> "InternVLAN1Policy":
+        """A reference-format InternVLA-N1 checkpoint (safetensors, sharded
+        or not, or .bin / .pth; `convert.load_torch_state_dict`) in cfg's
+        formats on `device` (the GPU when None; raises without one). The
+        model is allocated in its served format and filled one tensor at a
+        time from the memory-mapped file: with weight_dtype="int8" each
+        decoder projection is quantized as it lands (the arithmetic of
+        `quantize_qwen_text_`, bit for bit), so no bf16 copy of the decoder
+        is ever resident. Without `lm_head.weight` the text model ties its
+        embeddings. The tokenizer is the directory's (`checkpoint_tokenizer`)
+        unless one is given. Any unmatched, missing or misshapen tensor
+        raises (`convert.load_into_`)."""
+        device = require_cuda() if device is None else device
+        if checkpoint_format(path) == "native":
+            raise ValueError(f"{path} is a native directory of the port: load it with "
+                             "from_pretrained")
+        sd = load_torch_state_dict(path)
+        cfg = _with_tied_embeddings(cfg, "lm_head.weight" not in sd)
+        model = build_model(cfg, device=device)
+        load_into_(model, sd)
+        return cls(model, seed=seed, tokenizer=tokenizer if tokenizer is not None else
+                   checkpoint_tokenizer(path, cfg.text.vocab_size))
+
+    def save_pretrained(self, path: str) -> None:
+        """A native checkpoint directory: config.json with the JAX
+        package's keys (informational, but `from_pretrained` holds the
+        weight dtype to it) and the model's state_dict as it is served
+        (int8 `weight_q` and fp32 `scale_q` in the int8 format) in
+        `NATIVE_WEIGHTS`, copied to the host one tensor at a time."""
+        os.makedirs(path, exist_ok=True)
+        text = self.cfg.text
+        info = {"policy": "InternVLAN1_Policy", "system1": self.cfg.system1,
+                "weight_dtype": text.weight_dtype,
+                "text": {k: str(v) for k, v in dataclasses.asdict(text).items()},
+                "note": "config.json is informational; pass the InternVLAN1Config to "
+                        "from_pretrained"}
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(info, f, indent=2)
+        write_safetensors(os.path.join(path, NATIVE_WEIGHTS), self.model.state_dict(),
+                          {"format": "pt"})
+
+    @classmethod
+    def from_pretrained(cls, path: str, cfg: InternVLAN1Config, *, device=None,
+                        tokenizer=None, seed: int = 0) -> "InternVLAN1Policy":
+        """A native `save_pretrained` directory on `device` (the GPU when
+        None). cfg must ask for the weight dtype the directory records (the
+        JAX package's check and message; config.json must be there); every
+        tensor must match the model's name, shape and dtype."""
+        device = require_cuda() if device is None else device
+        if checkpoint_format(path) != "native":
+            raise ValueError(f"{path} has no {NATIVE_WEIGHTS}: not a native directory of the "
+                             "port (a reference-format checkpoint loads through "
+                             "from_pretrained_torch)")
+        saved, want = native_weight_dtype(path), cfg.text.weight_dtype
+        if saved != want:
+            raise ValueError(
+                f"checkpoint at {path} was saved with weight_dtype={saved!r} but the config "
+                f"asks for {want!r} — pass a matching InternVLAN1Config (e.g. "
+                f"qwen25vl_7b(weight_dtype={saved!r})) or re-convert the checkpoint")
+        sd = read_safetensors(os.path.join(path, NATIVE_WEIGHTS))
+        cfg = _with_tied_embeddings(
+            cfg, not any(k.startswith("language_model.lm_head.") for k in sd))
+        model = build_model(cfg, device=device)
+        _load_native_(model, sd, path)
+        return cls(model, seed=seed, tokenizer=tokenizer if tokenizer is not None else
+                   checkpoint_tokenizer(path, cfg.text.vocab_size))
 
     @property
     def stop_token_ids(self) -> tuple:

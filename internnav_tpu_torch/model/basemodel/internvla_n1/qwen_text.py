@@ -1,9 +1,10 @@
 """Qwen2.5 text decoder — the InternVLA-N1 System-2 LLM.
 
 Port of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
-RMSNorm, SwiGLU MLP, GQA attention with q/k/v biases, M-RoPE, untied LM
-head, cached greedy decode with the rope-delta fast path, the chunked
-decode of the traj-latent queries, and for training the per-layer
+RMSNorm, SwiGLU MLP (XLA's bf16 SiLU, `ops/activations.py`), GQA attention
+with q/k/v biases, M-RoPE, the LM head (or tied embeddings), cached greedy
+decode with the rope-delta fast path, the chunked decode of the
+traj-latent queries, and for training the per-layer
 rematerialization (`QwenTextConfig.remat`) and the chunked full-vocab
 cross-entropy (`chunked_ce`).
 
@@ -20,8 +21,8 @@ cross-entropy (`chunked_ce`).
   projections of one input, q/k/v and gate/up, in one launch). K6a
   quantizes inside the op that makes its input: the decoder layer's two
   RMSNorms (the second with the residual add before it) and the SwiGLU
-  product, so those layers call neither `RMSNorm` nor `F.silu`; o_proj's and the
-  lm_head's inputs are quantized as they are. `kv_dtype="int8"` makes
+  product, so those layers call neither `RMSNorm` nor `silu_mul`; o_proj's
+  and the lm_head's inputs are quantized as they are. `kv_dtype="int8"` makes
   each cache entry an (int8 data, fp32 scale) tuple, read by the int8
   decode attention K4/K5; a decode step or chunk rotates q and k,
   quantizes K/V and writes the cache in one K7 launch (`rope_kv_write`),
@@ -50,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from internnav_tpu_torch.ops.activations import silu_mul
 from internnav_tpu_torch.ops.flash_attention import (
     flash_attention,
     gqa_chunk_decode_attention,
@@ -94,6 +96,9 @@ class QwenTextConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 1000000.0
     mrope_section: Tuple[int, ...] = (16, 24, 24)
+    #: no lm_head: the logits are the fp32 product of the final hidden
+    #: state and the embedding table (a checkpoint without lm_head.weight)
+    tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     #: projection weights: "bf16" (nn.Linear) or "int8" (`QuantLinear`,
     #: W8A8); "int4" (W4A8) is not yet ported
@@ -113,7 +118,8 @@ class QwenTextConfig:
 
     def __post_init__(self):
         if self.weight_dtype == "int4":
-            raise NotImplementedError("weight_dtype='int4' (W4A8) is not yet ported")
+            raise NotImplementedError("weight_dtype='int4' (W4A8) is not yet ported "
+                                      "(ROADMAP §1 item 3)")
         if self.weight_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown weight_dtype {self.weight_dtype!r}")
         if self.kv_dtype not in ("bf16", "int8"):
@@ -182,6 +188,7 @@ class QuantLinear(nn.Module):
                  group_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.in_features, self.out_features, self.dtype = in_features, out_features, dtype
+        self.group_size = group_size
         g = grouped_scales(in_features, group_size)
         self.register_buffer("weight_q", torch.zeros((out_features, in_features),
                                                      dtype=torch.int8))
@@ -201,6 +208,25 @@ class QuantLinear(nn.Module):
         if lin.bias is not None:
             out.bias = lin.bias.detach().float()
         return out
+
+    @torch.no_grad()
+    def load_weight_(self, w: torch.Tensor) -> None:
+        """Set weight_q / scale_q to the quantization of the (N, K) weight
+        w (any device and float dtype; cast to the module's dtype first, as
+        the bf16 weights of a random build are), streamed through the
+        module's device a block of rows at a time: every row's scales and
+        codes depend on that row alone, so this equals `quantize_weight` of
+        the whole matrix, bit for bit, without its fp32 copy."""
+        N, K = w.shape
+        if (N, K) != tuple(self.weight_q.shape):
+            raise ValueError(f"weight {tuple(w.shape)} for a QuantLinear of "
+                             f"{tuple(self.weight_q.shape)}")
+        step = max(1, 2**25 // K)
+        for r in range(0, N, step):
+            rows = w[r:r + step].to(self.weight_q.device, self.dtype)
+            q, s = quantize_weight(rows, self.group_size)
+            self.weight_q[r:r + step] = q
+            self.scale_q[..., r:r + step] = s
 
     def forward(self, x):
         return project(x, self)[0]
@@ -382,7 +408,7 @@ class QwenMLP(nn.Module):
         gate, up = project(x, self.gate_proj, self.up_proj)
         if isinstance(self.down_proj, QuantLinear):
             return project(QuantizedRows(*swiglu_quantize(gate, up)), self.down_proj)[0]
-        return self.down_proj(F.silu(gate) * up)
+        return self.down_proj(silu_mul(gate, up))
 
 
 class QwenDecoderLayer(nn.Module):
@@ -421,7 +447,8 @@ class QwenTextModel(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
         self.layers = nn.ModuleList(QwenDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size, False)
+        self.lm_head = (None if cfg.tie_word_embeddings
+                        else _proj(cfg, cfg.hidden_size, cfg.vocab_size, False))
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids.long())
@@ -469,6 +496,8 @@ class QwenTextModel(nn.Module):
         return logits, hidden, caches
 
     def _logits(self, hidden):
+        if self.lm_head is None:  # tied: never quantized, as in the JAX package
+            return hidden.float() @ self.embed_tokens.weight.float().T
         return project(hidden, self.lm_head)[0].float()
 
     def chunked_ce(self, hidden, labels, *, ignore_index: int, chunk: int = 1024):

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import RMSNorm
+from internnav_tpu_torch.ops.activations import silu_mul
 from internnav_tpu_torch.ops.flash_attention import flash_attention, segment_tile_tables
 
 
@@ -166,7 +167,7 @@ class VisionBlock(nn.Module):
             out = attn[0].transpose(0, 1).reshape(-1, c.hidden_size)
         x = x + self.proj(out)
         y = self.norm2(x).to(c.dtype)
-        return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+        return x + self.down_proj(silu_mul(self.gate_proj(y), self.up_proj(y)))
 
 
 class QwenVisionTower(nn.Module):

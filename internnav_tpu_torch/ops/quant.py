@@ -46,8 +46,8 @@ import math
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from internnav_tpu_torch.ops.activations import silu_reference
 from internnav_tpu_torch.ops.rope import apply_rotary
 
 #: launches of each kernel in this process (its CUDA wrapper adds one per
@@ -145,8 +145,11 @@ def rmsnorm_quantize_reference(x: torch.Tensor, weight: torch.Tensor, eps: float
 
 def swiglu_quantize_reference(gate: torch.Tensor, up: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`quantize_rows` of the bf16 SwiGLU product silu(gate) * up."""
-    return quantize_rows(F.silu(gate) * up)
+    """`quantize_rows` of the SwiGLU product of bf16 gate and up as the JAX
+    package quantizes it: silu(gate) with XLA's bf16 roundings
+    (`activations.silu_reference`), times up in fp32. XLA fuses the product
+    into the quantization's fp32 convert, so it is not rounded to bf16."""
+    return quantize_rows(silu_reference(gate).float() * up.float())
 
 
 def grouped_scales(in_features: int, group_size: Optional[int]) -> Optional[int]:

@@ -5,16 +5,17 @@
 
 Port of scripts/train/train_n1.py with the same flags plus `--device`: a
 config file or `--name` gives the ExpCfg, the policy is built at `--tiny`
-or full Qwen2.5-VL-7B dims with random weights (seed 0), packed SFT rows
-from the trajectory store feed `InternVLAN1Trainer`. `--device` defaults
-to `cuda` and refuses without a GPU; `--device cpu` runs the tiny config
-on the CPU (the plain attention path):
+or full Qwen2.5-VL-7B dims, from `--ckpt` (a reference-format checkpoint,
+or a bf16 native directory of the port) or with random weights (seed 0),
+and packed SFT rows from the trajectory store feed `InternVLAN1Trainer`.
+`--device` defaults to `cuda` and refuses without a GPU; `--device cpu`
+runs the tiny config on the CPU (the plain attention path):
 
     python -m internnav_tpu_torch.trainer.train_n1 --tiny --device cpu \
         --store /tmp/n1_store.bin --steps 2 --batch-size 2 --max-len 256
 
-Not ported yet, and refused: `--tp`, `--fsdp` (one device only) and
-`--ckpt` (loading a checkpoint into the port).
+Not ported yet, and refused: `--tp` and `--fsdp` (one device only). An
+int8 native directory is refused too: training needs bf16 weights.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="python file exposing exp_cfg (ExpCfg); CLI flags override its "
                          "il/mesh fields")
     ap.add_argument("--store", required=True, help="trajectory store file")
-    ap.add_argument("--ckpt", default=None, help="checkpoint dir (not yet ported: raises)")
+    ap.add_argument("--ckpt", default=None,
+                    help="reference-format checkpoint or bf16 native directory to start from")
     ap.add_argument("--tiny", action="store_true", help="tiny dims smoke config")
     ap.add_argument("--system1", default="nextdit", choices=["nextdit", "nextdit_async"])
     ap.add_argument("--steps", type=int, default=1000)
@@ -62,6 +64,27 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device; a CUDA device unless `cpu` is asked for")
     return ap
+
+
+def build_policy(cfg_model, device, ckpt: Optional[str] = None):
+    """The policy to train, in bf16 (or the tiny config's dtype): from
+    `ckpt` (`from_pretrained_torch`, or `from_pretrained` for a native
+    directory, which must record bf16 weights), else random (seed 0)."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import (
+        InternVLAN1Policy,
+        checkpoint_format,
+        native_weight_dtype,
+    )
+
+    if not ckpt:
+        return InternVLAN1Policy.build(cfg_model, device=device)
+    if checkpoint_format(ckpt) == "native":
+        wdt = native_weight_dtype(ckpt)
+        if wdt != "bf16":
+            raise ValueError(f"--ckpt {ckpt} records {wdt} weights: training needs bf16 "
+                             "weights (pass the reference-format checkpoint)")
+        return InternVLAN1Policy.from_pretrained(ckpt, cfg_model, device=device)
+    return InternVLAN1Policy.from_pretrained_torch(ckpt, cfg_model, device=device)
 
 
 def make_batch_iter(store_path: str, policy, cfg_model, batch_size: int, max_len: int,
@@ -101,13 +124,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from internnav_tpu_torch import require_cuda
     from internnav_tpu_torch.configs.trainer import ExpCfg
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
-    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
     from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
 
     if args.tp > 1 or args.fsdp:
         raise NotImplementedError("--tp / --fsdp: sharded training is not yet ported")
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: loading a checkpoint into the port is not yet ported")
     device = torch.device(args.device)
     if device.type != "cpu":
         device = require_cuda(device)
@@ -144,7 +164,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg_model = InternVLAN1Config.qwen25vl_7b(args.system1)
     if args.num_history is not None:
         cfg_model = dataclasses.replace(cfg_model, num_history=args.num_history)
-    policy = InternVLAN1Policy.build(cfg_model, device=device)
+    policy = build_policy(cfg_model, device, args.ckpt)
     trainer = InternVLAN1Trainer(exp, policy, total_steps=args.steps,
                                  tune_llm=args.tune_llm, tune_mm_vision=args.tune_mm_vision)
     raw = make_batch_iter(args.store, policy, cfg_model, args.batch_size, args.max_len,

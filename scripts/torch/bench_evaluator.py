@@ -10,7 +10,7 @@ and the progress log) driving `BatchedInternVLAN1Agent` cohorts that share
 one policy. The configuration:
 
 - the 7B `realtime` policy (`realworld.serve.build_policy`: W8A8
-  projections, int8 KV cache; random weights from seed 0);
+  projections, int8 KV cache; random weights from seed 0, or `--ckpt`'s);
 - 4 cohorts x 12 streams at 224x224, the shared grouped decode, System-1
   per cohort, the barrier env apply (`overlap_apply=False`);
 - 20 new tokens with the stop id pinned to -7, which no token is, so every
@@ -207,15 +207,16 @@ def gpu_line() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def build_inner(device, tiny: bool = False):
-    """The headline's policy (7B realtime, random weights from seed 0), or
-    the tiny test model, with the stop id pinned to STOP_ID."""
+def build_inner(device, tiny: bool = False, ckpt: Optional[str] = None):
+    """The headline's policy (7B realtime, random weights from seed 0 or
+    the checkpoint `ckpt`), or the tiny test model, with the stop id pinned
+    to STOP_ID."""
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
     from internnav_tpu_torch.realworld.serve import build_policy
 
     inner = (InternVLAN1Policy.build(InternVLAN1Config.tiny(), device=device) if tiny
-             else build_policy("realtime", device=device))
+             else build_policy("realtime", device=device, ckpt=ckpt))
     inner.tokenizer.eos_token_id = STOP_ID
     return inner
 
@@ -229,14 +230,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiny", action="store_true",
                     help="the tiny test model on the CPU (the tests); no device measurement")
+    ap.add_argument("--ckpt", default=None,
+                    help="the 7B policy's checkpoint (reference format or native; random "
+                         "weights without it)")
     args = ap.parse_args(argv)
+    if args.tiny and args.ckpt:
+        ap.error("--ckpt loads the 7B policy; --tiny builds the tiny test model")
 
     import torch
 
     from internnav_tpu_torch import require_cuda
 
     device = torch.device("cpu") if args.tiny else require_cuda()
-    inner = build_inner(device, tiny=args.tiny)
+    inner = build_inner(device, tiny=args.tiny, ckpt=args.ckpt)
     shape = TINY_SHAPE if args.tiny else {}
     (REPO / "build").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="bench_evaluator_", dir=REPO / "build")
@@ -255,7 +261,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise RuntimeError("the timed runs took other episodes than the warm run")
     config = {"profile": "realtime", "batch": BATCH, "cohorts": COHORTS, "max_step": MAX_STEP,
               "hw": IMAGE_HW, "max_new_tokens": DECODE_TOKENS,
-              "num_sample_trajs": NUM_SAMPLE_TRAJS}
+              "num_sample_trajs": NUM_SAMPLE_TRAJS, "weights": args.ckpt or "random (seed 0)"}
     if args.tiny:
         config.update(profile="tiny", **TINY_SHAPE)
     extra = {

@@ -6,12 +6,14 @@ post-attention norm; `quant.swiglu_quantize`; `quant.quantize_activations`
 for the rows it takes as they are) and rotates q/k, quantizes K/V and
 writes the cache in one call (`quant.rope_kv_write`). On the CPU these
 dispatchers run their plain versions, which must equal the composition the
-decoder ran before the fusion bit for bit (written out below as it was),
+decoder ran before the fusion bit for bit (written out below as it was; for
+the SwiGLU the JAX package's: XLA's bf16 SiLU times up in fp32, ROADMAP
+F14),
 and the JAX package's RMSNorm -> QuantDense codes and apply_rotary +
 quantize_kv + cache writes: int8 codes, scales, rotated q and caches
 bitwise, as in tests/test_torch_quant.py. A spy on the tiny int8 model's
 decode step and chunk checks which of them each layer calls, and that it
-calls no `RMSNorm`, `apply_rotary` or `F.silu` of its own.
+calls no `RMSNorm`, `apply_rotary` or SwiGLU (`silu_mul`) of its own.
 """
 
 import dataclasses
@@ -19,7 +21,6 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -28,6 +29,7 @@ import jax.numpy as jnp
 
 from internnav_tpu.model.basemodel.internvla_n1 import qwen_text as jqt
 from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text as qt
+from internnav_tpu_torch.ops.activations import silu
 from internnav_tpu_torch.ops import quant
 from internnav_tpu_torch.ops.rope import mrope_cos_sin
 
@@ -108,7 +110,7 @@ def test_fused_plain_versions_equal_the_composition(M, K, residual, seed):
     gate[-1, :4] = 16.0
     up[-1, :4] = _bf16([127.0 / 16, 0.5 / 16, 2.5 / 16, -3.5 / 16])
     got = quant.swiglu_quantize(gate, up)
-    want = quant.quantize_rows(F.silu(gate) * up)
+    want = quant.quantize_rows(silu(gate).float() * up.float())
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(quant.quantize_activations(x),
                                                  quant.quantize_rows(x)))
@@ -230,25 +232,11 @@ def _count(monkeypatch, obj, name, counts, key):
     monkeypatch.setattr(obj, name, wrapper)
 
 
-class _SiluCounter:
-    """torch.nn.functional as the text model sees it, counting `silu`."""
-
-    def __init__(self, counts):
-        self._counts = counts
-
-    def __getattr__(self, name):
-        return getattr(F, name)
-
-    def silu(self, *args, **kwargs):
-        self._counts["F.silu"] += 1
-        return F.silu(*args, **kwargs)
-
-
 def _spied_decode(monkeypatch, tm):
     """Run one decode step (with its logits) and a 3-token chunk of the tiny
     model over a prefilled cache; returns the calls of each spied name."""
     names = ("rmsnorm_quantize", "swiglu_quantize", "quantize_activations", "rope_kv_write",
-             "apply_rotary", "layer RMSNorm.forward", "F.silu")
+             "apply_rotary", "silu_mul", "layer RMSNorm.forward")
     counts = dict.fromkeys(names, 0)
     rng = np.random.default_rng(3)
     B, T, E = 2, 8, tm.cfg.hidden_size
@@ -256,9 +244,8 @@ def _spied_decode(monkeypatch, tm):
     with torch.no_grad():
         _, _, caches = tm(_bf16(rng.standard_normal((B, T, E))).to(tm.cfg.dtype), pos)
         caches = qt.pad_caches(caches, T + 6)
-        for name in names[:5]:
+        for name in names[:6]:
             _count(monkeypatch, qt, name, counts, name)
-        monkeypatch.setattr(qt, "F", _SiluCounter(counts))
         for layer in tm.layers:
             for norm in (layer.input_layernorm, layer.post_attention_layernorm):
                 _count(monkeypatch, norm, "forward", counts, "layer RMSNorm.forward")
@@ -276,14 +263,14 @@ def _spied_decode(monkeypatch, tm):
 def test_int8_decoder_layers_call_the_fused_dispatchers(monkeypatch):
     """Each int8 layer of a decode step and of a chunk: rmsnorm_quantize
     twice, swiglu_quantize, quantize_activations (o_proj) and
-    rope_kv_write once each, and no RMSNorm, apply_rotary or F.silu of its
+    rope_kv_write once each, and no RMSNorm, apply_rotary or silu_mul of its
     own; the step's lm_head adds one quantize_activations."""
     cfg = dataclasses.replace(qt.QwenTextConfig.tiny(), weight_dtype="int8", kv_dtype="int8")
     tm = qt.QwenTextModel(cfg)
     L = cfg.num_hidden_layers
     step, chunk = _spied_decode(monkeypatch, tm)
     want = {"rmsnorm_quantize": 2 * L, "swiglu_quantize": L, "quantize_activations": L,
-            "rope_kv_write": L, "apply_rotary": 0, "layer RMSNorm.forward": 0, "F.silu": 0}
+            "rope_kv_write": L, "apply_rotary": 0, "layer RMSNorm.forward": 0, "silu_mul": 0}
     assert chunk == want
     assert step == {**want, "quantize_activations": L + 1}
 
@@ -293,5 +280,5 @@ def test_bf16_decoder_layers_keep_the_unfused_path(monkeypatch):
     L = tm.cfg.num_hidden_layers
     step, chunk = _spied_decode(monkeypatch, tm)
     want = {"rmsnorm_quantize": 0, "swiglu_quantize": 0, "quantize_activations": 0,
-            "rope_kv_write": 0, "apply_rotary": L, "layer RMSNorm.forward": 2 * L, "F.silu": L}
+            "rope_kv_write": 0, "apply_rotary": L, "layer RMSNorm.forward": 2 * L, "silu_mul": L}
     assert step == want and chunk == want

@@ -440,16 +440,21 @@ def test_rmsnorm_quantize_kernel_matches_plain(device, M, K, residual):
     torch.testing.assert_close(s, rs, atol=0, rtol=2 ** -7)
 
 
-@pytest.mark.parametrize("K", [128, 18944])
+@pytest.mark.parametrize("K", [128, 12000, 18944, 40960])
 @pytest.mark.parametrize("M", K6A_ROWS)
 def test_swiglu_quantize_kernel_is_bitwise(device, M, K):
-    """K6a's SWIGLU prologue at the tiny and 7B intermediate widths: the
-    same expf, IEEE division and bf16 roundings as F.silu(gate) * up."""
+    """K6a's SWIGLU prologue at the tiny and 7B intermediate widths and at
+    2 and 5 vectors a thread (the widest row it takes): the
+    same expf, IEEE division, bf16 roundings and subnormal flushes as the
+    plain version (XLA's SiLU on bf16, times up in fp32), also at inputs
+    whose SiLU flushes to zero (subnormal and tiny gates, gates at or
+    below -87.5)."""
     from internnav_tpu_torch.ops import quant
 
     gate = _rand(device, M, K, seed=M + 2 * K) * 3.0
     up = _rand(device, M, K, seed=M + 2 * K + 1)
     gate[0, :8] = torch.tensor([0.0, -0.0, 88.0, -88.0, 100.0, -100.0, 1e-3, -1e-3])
+    gate[0, 8:14] = torch.tensor([1e-39, -1e-39, 1.5e-38, -1.5e-38, -87.0, -87.5])
     before = (quant.quantize_rows_launches, quant.swiglu_quantize_launches)
     q, s = quant.swiglu_quantize(gate, up)
     assert (quant.quantize_rows_launches, quant.swiglu_quantize_launches) == \
@@ -457,6 +462,58 @@ def test_swiglu_quantize_kernel_is_bitwise(device, M, K):
     rq, rs = quant.swiglu_quantize_reference(gate, up)
     torch.cuda.synchronize()
     assert torch.equal(s, rs) and torch.equal(q, rq)
+
+
+@pytest.mark.parametrize("n", [65280, 8 * 18944, 3420 * 3 + 5])
+@pytest.mark.parametrize("with_up", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_silu_kernel_is_bitwise(device, n, with_up, offset):
+    """K8: every finite bf16 bit pattern (n = 65280), a 7B SwiGLU row block
+    and a length off the 8-element vectors, from 16-byte aligned storage
+    (vector path) and one element past it (element path), silu alone and
+    times up, bitwise against the plain version."""
+    from internnav_tpu_torch.ops import activations as act
+
+    bits = torch.arange(-(2**15), 2**15, dtype=torch.int32, device=device).to(torch.int16)
+    finite = bits.view(torch.bfloat16)
+    finite = finite[torch.isfinite(finite)]
+    if n == finite.numel():
+        gate = torch.cat([finite[:offset], finite])[offset:]
+    else:
+        gate = _rand(device, n + offset, seed=n) * 3.0
+        gate[offset:offset + 8] = torch.tensor([1e-39, -1e-39, 1.5e-38, -1.5e-38, -87.0, -87.5,
+                                                88.0, -100.0])
+        gate = gate[offset:]
+    up = _rand(device, gate.numel() + offset, seed=n + 1)[offset:] if with_up else None
+    before = act.silu_launches
+    out = act.silu_cuda(gate, up)
+    assert act.silu_launches == before + 1
+    ref = act.silu_mul_reference(gate, up) if with_up else act.silu_reference(gate)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+def test_silu_dispatch_launches_the_kernel_on_cuda(device):
+    """silu / silu_mul of bf16 CUDA tensors run K8 (one launch each, the
+    autograd path too); fp32 tensors go to F.silu; the wrapper refuses
+    what the kernel does not take."""
+    import torch.nn.functional as F
+
+    from internnav_tpu_torch.ops import activations as act
+
+    g, u = _rand(device, 4, 96, seed=1), _rand(device, 4, 96, seed=2)
+    before = act.silu_launches
+    act.silu(g)
+    act.silu_mul(g, u)
+    gr = g.clone().requires_grad_(True)
+    act.silu_mul(gr, u).sum().backward()  # forward, and silu(gate) in the backward
+    assert act.silu_launches == before + 4
+    assert torch.equal(act.silu(g.float()), F.silu(g.float()))
+    for bad in (g.float(), g.t(), g.cpu()):
+        with pytest.raises(ValueError):
+            act.silu_cuda(bad)
+    with pytest.raises(ValueError):
+        act.silu_cuda(g, u[:2])
 
 
 def test_k6a_wrappers_reject_what_they_do_not_take(device):
@@ -996,3 +1053,48 @@ def test_graft_entry_on_the_card_matches_the_host(device):
         assert got.shape == want.shape and torch.isfinite(got).all()
         atol = ENTRY_TOL_FRAC * want.abs().max().item()
         assert torch.allclose(got, want, atol=atol, rtol=0), (got - want).abs().max().item()
+
+
+# ------------------------------------------------------------- checkpoints
+def test_checkpoint_round_trips_decode_the_same_tokens(device, tmp_path):
+    """The small policy written as an HF-layout sharded checkpoint and
+    loaded on the card, bf16 and quantized on load to int8, then the int8
+    policy saved natively and loaded again: every tensor equals the random
+    build of its format, and each System-2 step decodes the same tokens
+    and latents as the original on the same frame."""
+    import dataclasses
+
+    import numpy as np
+
+    from internnav_tpu_torch.graft_entry import small_n1_config
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
+    from internnav_tpu_torch.model.weights.convert import hf_state_dict
+    from internnav_tpu_torch.model.weights.safetensors_io import save_sharded
+
+    cfg = small_n1_config()
+    int8 = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, weight_dtype="int8",
+                                                             kv_dtype="int8"))
+    frame = np.random.default_rng(0).integers(0, 256, (56, 56, 3)).astype(np.uint8)
+
+    def step(policy):
+        policy.reset()
+        out = policy.s2_step(frame, "go to the door", max_new_tokens=8)
+        torch.cuda.synchronize()
+        return policy.last_gen_tokens, out.output_latent
+
+    def same(a, b):
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        assert sa.keys() == sb.keys()
+        assert all(sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+        (ta, la), (tb, lb) = step(a), step(b)
+        assert np.array_equal(ta, tb)
+        assert (la is None) == (lb is None) and (la is None or torch.equal(la, lb))
+
+    original = InternVLAN1Policy.build(cfg, device=device)
+    hf = tmp_path / "hf"
+    save_sharded(hf_state_dict(original.model), str(hf), max_shard_bytes=2**23)
+    same(original, InternVLAN1Policy.from_pretrained_torch(str(hf), cfg, device=device))
+    loaded = InternVLAN1Policy.from_pretrained_torch(str(hf), int8, device=device)
+    same(InternVLAN1Policy.build(int8, device=device), loaded)
+    loaded.save_pretrained(str(tmp_path / "native"))
+    same(loaded, InternVLAN1Policy.from_pretrained(str(tmp_path / "native"), int8, device=device))

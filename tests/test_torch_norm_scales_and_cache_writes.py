@@ -11,11 +11,12 @@ the int8 format the logits within INT8_LOGIT_TOL; the vision tower within
 1e-4 in fp32 and 3e-2 in bf16.
 
 INT8_LOGIT_TOL (0.1, a few bf16 ulps at the tiny model's |logit| ~ 3): the
-two packages round a bf16 SwiGLU differently (XLA rounds the sigmoid to
-bf16 before the product, torch's SiLU rounds once), and an int8 code flips
-wherever its bf16 input moves by one ulp: layer 1's K/V codes differ in
-about half the elements with unit scales as with these, so the W8A8
-logits carry int8 steps that bf16 logits do not.
+two packages' prefill attention reads the rotated q/k at different
+precisions (XLA keeps them at fp32, the port rounds them to bf16; ROADMAP
+F17), and an int8 code flips wherever its bf16 input moves by one ulp:
+layer 1's K/V codes differ in about half the elements with unit scales as
+with these (tests/test_torch_silu.py pins the count), so the W8A8 logits
+carry int8 steps that bf16 logits do not (0.047 apart here).
 
 Cache writes past Tmax: a chunk, and one token of a one-row batch, start at
 min(pos, Tmax - n) (`dynamic_update_slice`); one token of a row of a larger

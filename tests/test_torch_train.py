@@ -328,9 +328,13 @@ def test_unported_options_raise(tmp_path):
     pol = tpolicy.InternVLAN1Policy.build(InternVLAN1Config.tiny("nextdit"), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         InternVLAN1Trainer(ExpCfg(mesh=MeshCfg(axes={"dp": 4}, param_sharding="fsdp")), pol)
-    for flags in (["--tp", "2"], ["--fsdp"], ["--ckpt", str(tmp_path)]):
+    for flags in (["--tp", "2"], ["--fsdp"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train_n1.main(["--store", "x", "--device", "cpu", *flags])
+    # --ckpt is ported: a directory without weights raises, never trains
+    # random weights in their place
+    with pytest.raises(FileNotFoundError, match="no reference-format weights"):
+        train_n1.main(["--store", "x", "--device", "cpu", "--tiny", "--ckpt", str(tmp_path)])
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
