@@ -47,7 +47,17 @@ Phases, each printing its numbers:
                at a parity decode token's, a parity prompt's and the train
                row's SwiGLU, a frame's vision MLP, a stream's NextDiT
                feed-forward and the time embedding, at a length that is no
-               multiple of 8 and on inputs no 16-byte boundary aligns;
+               multiple of 8 and on inputs no 16-byte boundary aligns; K9
+               (W4A8 GEMM, packed int4 codes) for each projection of a
+               layer, grouped-128, at M = 1, 4, 12, 48, 192, 1088 and
+               4864, per channel bitwise, odd N (63, 65, 4097); K10
+               (W8A16 / W4A16 GEMM) at M = 1, 4, 12, 48 and 192 with int8
+               per-channel and int4 grouped codes, and the lm_head at 1,
+               12 and 48 rows (int8 per channel, 8-bit grouped); K10
+               beside torch._weight_int8pack_mm (per-channel int8) and
+               torch._weight_int4pack_mm (grouped int4), each checked
+               against the plain version, and K9's grouped rows beside
+               the latter on the same rows in bf16;
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy in the
                `parity` profile (bf16, random weights from a seeded
                generator), serve it through the real-robot HTTP server and
@@ -80,7 +90,23 @@ Phases, each printing its numbers:
                ninth frame: a 4,864-token prompt, a 4,996-key cache), its
                launches counted on their own; the decode loop replays a
                captured CUDA graph a step, and each request's replays,
-               captures and warm-up steps are checked;
+               captures and warm-up steps are checked; then W8A16 decode
+               on the same policy (decode_act_dtype="bf16": 2 requests,
+               K10 for every decode and chunk projection and each decode
+               step's lm_head, no K6a at decode; one request replayed
+               from the graph and run eagerly, bit for bit); a decode
+               step against a re-prefill of the same tokens (bf16 KV,
+               plain prefill attention) within 2e-2, and with K1 in the
+               re-prefill within half the largest logit;
+  int4     — the HF checkpoint loaded again quantized on load to int4
+               (W4A8: packed codes, grouped-128 scales, the lm_head at 8
+               bits), held equal by digest to the int4 seed-0 build,
+               saved natively and served from that directory through
+               `serve.build_policy("realtime", ckpt=...)`: 4 requests, K9
+               7 a layer pass and K6b only for the lm_head, K10 none; a
+               decode step against a re-prefill of the same tokens (bf16
+               KV, plain prefill attention) within 2e-2, with K1 within
+               twice the W8A8 policy's gap; W4A16 decode as above;
   5. serve batched — the JAX package's headline serving geometry: the 7B
                realtime policy behind PipelinedN1Server, 4 cohorts x 12
                streams, 224x224 frames, histories saturated at 9 frames,
@@ -114,7 +140,10 @@ Phases, each printing its numbers:
                accounted for), and after the
                timed runs each kernel is checked against its plain version
                and timed at its most launched signatures (kernel rows
-               with path=evaluate). Python's str hash is pinned
+               with path=evaluate); then the int4 loop (`bench_evaluator.py
+               --weight-dtype int4 --ckpt <native int4>`): a warm run and
+               one timed run, K9 and the lm_head's K6b launched, no K10,
+               no plain version. Python's str hash is pinned
                (PYTHONHASHSEED=0; the script re-executes itself with it),
                so FakeEnv draws the same frames in every run;
   7. train   — with the serving policies freed: the full-width 7B
@@ -127,10 +156,11 @@ Phases, each printing its numbers:
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
                L times each.
-Every kernel's launch count is set to 0 just before each of the six
-paths (serve, serve realtime, the long realtime request, serve batched's
-timed stream, the evaluate phase's timed runs, train) and read just
-after. Then one JSON
+Every kernel's launch count is set to 0 just before each of the ten
+paths (serve, serve realtime, the long realtime request, serve realtime
+W8A16, serve int4, serve W4A16, serve batched's timed stream, the
+evaluate phase's timed runs, the int4 evaluate's timed run, train) and
+read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing any result.
@@ -139,8 +169,11 @@ non-zero; with no CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -165,6 +198,10 @@ K6A_REPLACES = f"{QWEN_TEXT}:173"
 K6B_REPLACES = f"{QWEN_TEXT}:177"
 K7_REPLACES = f"{QWEN_TEXT}:527"
 K8_REPLACES = f"{QWEN_TEXT}:597"
+K9_SOURCE = "internnav_tpu_torch/csrc/w4a8_gemm.cu"
+K10_SOURCE = "internnav_tpu_torch/csrc/w8a16_gemm.cu"
+K9_REPLACES = f"{QWEN_TEXT}:140"  # the s4 -> s8 widening, then the int8 dot of :177-196
+K10_REPLACES = f"{QWEN_TEXT}:153"
 K1_ATOL = K1_RTOL = 2e-2   # o: bf16 output rounding + bf16 P in the P.V product
 LSE_ATOL = 1e-3            # lse: fp32 statistics from the same bf16 inputs
 # dq/dk/dv: bf16 outputs, and P / dS rounded to bf16 as tensor-core operands
@@ -181,6 +218,14 @@ BWD_RTOL = 2e-2
 # as K1
 GROUPED_TOL = 1e-2
 DECODE_TOL = 2e-2
+REPREFILL_TOL = 2e-2  # decode against re-prefill: JAX's tests/test_int8_decode.py:268-270
+# the same gap with K1 in the re-prefill: K1 rounds P to bf16 (as the
+# Pallas kernel does, flash_attention.py:143), which the int8 codes of 28
+# layers carry to about 1.2 of logits up to 5.3 on an H100 (W8A8 1.256,
+# W4A8 1.14-1.18): held within this share of the largest logit,
+# and the int4 policy's within K1_GAP_FACTOR times the W8A8 policy's
+K1_GAP_LOGIT_FRAC = 0.5
+K1_GAP_FACTOR = 2.0
 INSTRUCTION = "go past the table and stop at the second door on the left"
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -272,7 +317,7 @@ def phase_build() -> None:
     from internnav_tpu_torch.ops import _build
 
     sources = ("flash_fwd.cu", "flash_bwd.cu", "w8a8_gemm.cu", "decode_int8.cu",
-               "quantize_rows.cu", "rope_kv_write.cu")
+               "quantize_rows.cu", "rope_kv_write.cu", "w4a8_gemm.cu", "w8a16_gemm.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, sources))
@@ -837,6 +882,164 @@ def int8_gemm_rows(device, g):
     return rows
 
 
+# K9's rows: each projection of a 7B layer alone (K9 takes one a launch),
+# grouped-128 as the int4 path holds them, at a token, the latent chunk, a
+# cohort's decode, the shared decode and its latent chunk, a realtime
+# prompt and the long request's prompt; K10's at the decode rows alone
+QGEMM_LAYER = (("q", 3584, 3584, True), ("k", 512, 3584, True), ("o", 3584, 3584, False),
+               ("gate", 18944, 3584, False), ("down", 3584, 18944, False))
+K9_ROWS = (1, N_QUERY, BATCH_ROWS, BATCH_DECODE_M, BATCH_DECODE_M * N_QUERY, PROMPT_T,
+           LONG_PROMPT_T)
+K10_ROWS = (1, N_QUERY, BATCH_ROWS, BATCH_DECODE_M, BATCH_DECODE_M * N_QUERY)
+#: rows a block of the plain versions' run (a grouped plain product holds a
+#: (G, rows, N) float64 tensor)
+PLAIN_ROW_BLOCK = 512
+
+
+def qgemm_row(device, g, kernel, M, N, K, bias, bits, group, extra=None) -> dict:
+    """K9 (`kernel` "K9": K6a's int8 rows times packed int4 codes) or K10
+    ("K10": bf16 rows times int8 or packed int4 codes) on M rows of width K
+    against its plain version, run in blocks of PLAIN_ROW_BLOCK rows: K9
+    per-channel bit for bit (exact integer sums, K6b's epilogue), K9
+    grouped and K10 within GROUPED_TOL (the sum over groups, and K10's fp32
+    sums, in other orders). Timed warm, at M <= 16 also with a cold L2; the
+    bound: each input read once (the codes at bits / 8 bytes a weight), the
+    output written once, or the operations at the int8 (K9) or bf16 (K10)
+    tensor-core peak. K10's library time is `w16_library`'s call where
+    there is one (the reason is kept where there is none or it refuses);
+    no PyTorch call takes K9's int8 rows with packed int4 codes, so K9 has
+    none, and its grouped rows carry the int4 library call's time on the
+    same rows in bf16 (`w4a16_library_ms`: the same weight stream)."""
+    import torch
+
+    from internnav_tpu_torch.ops import quant
+
+    qmax = quant.QMAX[bits]
+    codes = torch.randint(-qmax, qmax + 1, (N, K), generator=g, device=device, dtype=torch.int8)
+    w = quant.pack_int4(codes) if bits == 4 else codes
+    s = torch.rand((K // group, N) if group else (N,), generator=g, device=device) * 1e-3 + 1e-4
+    b = torch.randn(N, generator=g, device=device) if bias else None
+    x = torch.randn((M, K), generator=g, device=device, dtype=torch.bfloat16)
+    if kernel == "K9":
+        xq, a = quant.quantize_rows(x)
+        run = (lambda: quant.w4a8_linear_cuda(xq, a, w, s, b))
+        one = (lambda r: quant.w4a8_linear_reference(xq[r], a[r], w, s, b))
+        in_bytes, peak = M * K + 4 * M, PEAK_INT8_OPS
+    else:
+        run = (lambda: quant.w8a16_linear_cuda(x, w, s, b))
+        one = (lambda r: quant.w8a16_linear_reference(x[r], w, s, b))
+        in_bytes, peak = 2 * M * K, PEAK_BF16_FLOPS
+
+    def plain():
+        return torch.cat([one(slice(i, i + PLAIN_ROW_BLOCK))
+                          for i in range(0, M, PLAIN_ROW_BLOCK)])
+
+    y, want = run(), plain()
+    torch.cuda.synchronize()
+    err = (y.float() - want.float()).abs().max().item()
+    ok = (torch.equal(y, want) if kernel == "K9" and not group
+          else torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL))
+    if not ok:
+        raise AssertionError(f"{kernel} M={M} N={N} K={K} bits={bits} group={group}: differs "
+                             f"from the plain version by {err}")
+    del y
+    extra = {"bits": bits, **(extra or {})}
+    library_ms = None
+    if kernel == "K10" or group:
+        call, why = w16_library(x, codes, s, bits, group)
+        if call is not None:
+            try:
+                got = call().float()
+            except RuntimeError as e:  # the library's own limits
+                call, why = None, f"refuses: {str(e).splitlines()[0]}"
+        if call is None:
+            extra["library"] = why
+        else:
+            lib_err = (got + (b if bias else 0.0) - want.float()).abs().max().item()
+            if not lib_err <= LIBRARY_TOL * want.float().abs().max().item():
+                raise AssertionError(f"{kernel} M={M} N={N} bits={bits} group={group}: the "
+                                     f"library call differs from the plain version by {lib_err}")
+            extra["library_max_abs_err"] = lib_err
+            lib_ms = cuda_ms(call)
+            if kernel == "K10":
+                library_ms = lib_ms
+            else:
+                extra["w4a16_library_ms"] = lib_ms
+            del got
+    del want
+    nbytes = in_bytes + N * K * bits // 8 + 4 * s.numel() + (4 * N if bias else 0) + 2 * M * N
+    if M <= quant.GEMM_DECODE_MAX_M:  # the decode rows, whose weights come cold
+        extra["cold_ms"] = cuda_ms(run, cold=True)
+    shape = f"M{M}_N{N}_K{K}" + (f"_g{group}" if group else "") + f"_int{bits}"
+    row = _row(kernel, shape, err, cuda_ms(run), cuda_ms(plain, reps=5),
+               _bytes_bound(nbytes, 2.0 * M * N * K, peak), library_ms, extra=extra)
+    torch.cuda.empty_cache()
+    return row
+
+
+#: how far a library call's product may sit from the plain version, over
+#: the plain output's largest magnitude: the calls take bf16 scales, the
+#: int4 one rounds each code times its scale to bf16, and against K9 they
+#: take the rows unquantized, each a rounding of about 2^-8 of an entry;
+#: a packing or layout mistake gives errors of the outputs' own size
+LIBRARY_TOL = 2.0 ** -5
+
+
+def w16_library(x, codes, s, bits, group):
+    """(call, None): the one PyTorch call that computes K10's function
+    (bf16 rows x times int8 or int4 codes (N, K) with their fp32 scales s)
+    on the same inputs; (None, reason) where there is none. Per-channel
+    int8: `torch._weight_int8pack_mm` (the scales in bf16). Grouped int4
+    at 32-256: `torch._weight_int4pack_mm` (tinygemm), the codes packed
+    once by `_convert_weight_to_int4pack` as it takes them (code + 8 in
+    [1, 15], the even k in the high nibble; scales and zero points 0 as
+    (G, N, 2) bf16; 8 inner k-tiles; N a multiple of 8). Timed only: the
+    port never calls either, and keeps its own packing."""
+    import torch
+
+    if bits == 8 and not group:
+        sb = s.to(torch.bfloat16)
+        return (lambda: torch._weight_int8pack_mm(x, codes, sb)), None
+    if bits == 4 and group in (32, 64, 128, 256):
+        if codes.shape[0] % 8:  # asked only where its packing's checks allow
+            return None, f"refuses: tinygemm packs N in multiples of 8, N={codes.shape[0]}"
+        u = (codes.to(torch.int16) + 8).to(torch.uint8)
+        packed = torch._convert_weight_to_int4pack((u[:, 0::2] << 4) | u[:, 1::2], 8)
+        sz = torch.stack([s, torch.zeros_like(s)], -1).to(torch.bfloat16).contiguous()
+        return (lambda: torch._weight_int4pack_mm(x, packed, group, sz)), None
+    return None, (f"none: no PyTorch call takes {bits}-bit codes with "
+                  f"{'grouped-' + str(group) if group else 'per-channel'} scales")
+
+
+def int4_gemm_rows(device, g):
+    """K9 and K10 at the 7B shapes (`qgemm_row`): K9 for each projection
+    of a layer at K9_ROWS (grouped-128 int4), per channel at M = 1 and
+    PROMPT_T, odd N (GEMM_ODD_N) at M = 1, 4, 17 and 129; K10 for each
+    projection at K10_ROWS with per-channel int8 codes (W8A16 over the int8
+    realtime weights) and grouped-128 int4 codes (W4A16), the other two
+    layouts at M = 1, and the lm_head at GEMM_LM_HEAD_ROWS per-channel int8
+    and 8-bit grouped-128 (the int4 format's lm_head)."""
+    rows = []
+    for M in K9_ROWS:
+        for _, N, K, bias in QGEMM_LAYER:
+            rows.append(qgemm_row(device, g, "K9", M, N, K, bias, 4, 128))
+    for M in (1, PROMPT_T):
+        rows.append(qgemm_row(device, g, "K9", M, 18944, 3584, False, 4, None))
+    for M in (1, 4, 17, 129):
+        for N in GEMM_ODD_N:
+            rows.append(qgemm_row(device, g, "K9", M, N, 3584, True, 4, 128))
+    for M in K10_ROWS:
+        for _, N, K, bias in QGEMM_LAYER:
+            rows.append(qgemm_row(device, g, "K10", M, N, K, bias, 8, None))
+            rows.append(qgemm_row(device, g, "K10", M, N, K, bias, 4, 128))
+    rows.append(qgemm_row(device, g, "K10", 1, 18944, 3584, False, 8, 128))
+    rows.append(qgemm_row(device, g, "K10", 1, 18944, 3584, False, 4, None))
+    for M in GEMM_LM_HEAD_ROWS:
+        rows.append(qgemm_row(device, g, "K10", M, 152064, 3584, False, 8, None))
+        rows.append(qgemm_row(device, g, "K10", M, 152064, 3584, False, 8, 128))
+    return rows
+
+
 def int8_cache(device, g, Tmax, B=1):
     """(k, v) int8 cache entries (B, Tmax, 4 KV heads, D=128) of random
     codes and scales."""
@@ -1062,16 +1265,17 @@ def k8_row(device, g, kind, M, K, offset=0, extra=None) -> dict:
 
 
 def phase_int8_kernels(device) -> dict:
-    """The realtime profile's kernels at the 7B shapes, and K8 at the bf16
-    paths' SiLU shapes; rows by kernel."""
+    """The realtime profile's kernels at the 7B shapes, K8 at the bf16
+    paths' SiLU shapes, and the int4 / W8A16 GEMMs K9 and K10; rows by
+    kernel."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(2)
     rows = (int8_k6a_rows(device, g) + int8_gemm_rows(device, g)
             + int8_decode_rows(device, g) + int8_kv_write_rows(device, g)
-            + [k8_row(device, g, *shape) for shape in K8_ROWS])
+            + [k8_row(device, g, *shape) for shape in K8_ROWS] + int4_gemm_rows(device, g))
     return {name: [r for r in rows if r["kernel"] == name]
-            for name in ("K4", "K5", "K6a", "K6b", "K7", "K8")}
+            for name in ("K4", "K5", "K6a", "K6b", "K7", "K8", "K9", "K10")}
 
 
 # ----------------------------------------------------------------- serve
@@ -1113,7 +1317,7 @@ def build_agent(device, profile: str = "parity", policy=None):
 
 
 LAUNCH_KEYS = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu", "K6a_plain",
-               "K6b", "K6b_fused", "K7")
+               "K6b", "K6b_fused", "K7", "K9", "K10")
 
 
 def launch_counts() -> dict:
@@ -1128,7 +1332,8 @@ def launch_counts() -> dict:
             "K6a": quant.quantize_rows_launches, "K6a_rmsnorm": quant.rmsnorm_quantize_launches,
             "K6a_swiglu": quant.swiglu_quantize_launches,
             "K6a_plain": quant.plain_quantize_launches, "K6b": quant.w8a8_launches,
-            "K6b_fused": quant.w8a8_fused_launches, "K7": quant.kv_write_launches}
+            "K6b_fused": quant.w8a8_fused_launches, "K7": quant.kv_write_launches,
+            "K9": quant.w4a8_launches, "K10": quant.w8a16_launches}
 
 
 def reset_launch_counts() -> None:
@@ -1142,6 +1347,7 @@ def reset_launch_counts() -> None:
     quant.quantize_rows_launches = quant.w8a8_launches = quant.kv_write_launches = 0
     quant.rmsnorm_quantize_launches = quant.swiglu_quantize_launches = 0
     quant.plain_quantize_launches = quant.w8a8_fused_launches = 0
+    quant.w4a8_launches = quant.w8a16_launches = 0
 
 
 def _count_calls(obj, names, calls):
@@ -1174,8 +1380,13 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
     pass (q/k/v fused, o, gate/up fused, down: 2 of them fused, K6b_fused)
     and 7 per prefill layer pass (each projection alone on the prefill
     tiles); plus one plain K6a and one K6b per lm_head call; K4 per decode
-    layer, K5 per chunk layer."""
+    layer, K5 per chunk layer. With int4 weights K9 takes each layer
+    pass's 7 projections, one launch each, and K6b only the lm_head (8
+    bits). With decode_act_dtype="bf16" every decode or chunk layer pass
+    runs its 7 projections on K10, its SwiGLU on K8 and no K6a, and so does
+    each decode step's lm_head call (K10); the prefills stay as above."""
     L = cfg.text.num_hidden_layers
+    text = cfg.text
     windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
     want = dict.fromkeys(LAUNCH_KEYS, 0)
     want["K1"] = len(steps) * (L + windowed)
@@ -1185,11 +1396,21 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
     want["K8"] = (len(steps) * cfg.vision.depth + s1_calls * S1_STEPS * velocity
                   + (L * passes if profile == "parity" else 0))
     if profile == "realtime":
-        want.update(K4=L * sum(steps), K5=L * len(steps), K6a=4 * L * passes + logits_calls,
-                    K6a_rmsnorm=2 * L * passes, K6a_swiglu=L * passes,
-                    K6a_plain=L * passes + logits_calls,
-                    K6b=4 * L * decode_passes + 7 * L * len(steps) + logits_calls,
-                    K6b_fused=2 * L * decode_passes, K7=L * passes)
+        n = len(steps)
+        # layer passes and lm_head calls whose activations K6a quantizes
+        act_passes, act_logits = (n, n) if text.decode_bf16_act else (passes, logits_calls)
+        w8a8_passes = act_passes - n  # decode or chunk layer passes on W8A8 / W4A8
+        want.update(K4=L * sum(steps), K5=L * n, K6a=4 * L * act_passes + act_logits,
+                    K6a_rmsnorm=2 * L * act_passes, K6a_swiglu=L * act_passes,
+                    K6a_plain=L * act_passes + act_logits, K7=L * passes)
+        if text.weight_dtype == "int4":
+            want.update(K9=7 * L * (w8a8_passes + n), K6b=act_logits)
+        else:
+            want.update(K6b=4 * L * w8a8_passes + 7 * L * n + act_logits,
+                        K6b_fused=2 * L * w8a8_passes)
+        if text.decode_bf16_act:
+            want["K10"] = 7 * L * decode_passes + logits_calls - n
+            want["K8"] += L * decode_passes
     return want
 
 
@@ -1267,11 +1488,13 @@ def _check_requests(policy, profile, what, calls, chunks, gen_tokens, loop, laun
     return steps
 
 
-def phase_serve(device, profile: str, policy, build_s: float) -> dict:
+def phase_serve(device, profile: str, policy, build_s: float, *, label: str = "",
+                requests: int = 4, long_request: bool = True) -> dict:
     """Serve `policy`, the 7B policy of `profile` (built or loaded in
     build_s), through the real-robot HTTP server; returns every kernel's
-    launches by path: the 4 requests, and with the realtime profile also
-    the long request, each held equal to `expected_serve_launches`."""
+    launches by path (`label`, by default serve_<profile>): the `requests`
+    requests, and with the realtime profile and `long_request` also the
+    long request, each held equal to `expected_serve_launches`."""
     import numpy as np
     import torch
 
@@ -1300,23 +1523,24 @@ def phase_serve(device, profile: str, policy, build_s: float) -> dict:
     latencies, gen_tokens, loop = [], [], []
     by_path = {}
     long = {}
+    label = label or f"serve_{profile}"
     try:
         if _post(port, "/reset", {}) != (200, {"status": "ok"}):
             raise AssertionError("/reset failed")
         torch.cuda.reset_peak_memory_stats(device)
         lm_calls["decode_chunk_grouped"] = 0
         reset_launch_counts()  # count only the requests' launches
-        for _ in range(4):
+        for _ in range(requests):
             before = decode_stats()
             latencies.append(_eval_dual(port, policy, *request_frames(rng)))
             gen_tokens.append(len(policy.last_gen_tokens))
             loop.append(decode_stats() - before)
-        by_path[f"serve_{profile}"] = launch_counts()
-        steps = _check_requests(policy, profile, f"serve {profile}", calls,
+        by_path[label] = launch_counts()
+        steps = _check_requests(policy, profile, label, calls,
                                 lm_calls["decode_chunk_grouped"], gen_tokens, loop,
-                                by_path[f"serve_{profile}"])
+                                by_path[label])
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-        if profile == "realtime":
+        if profile == "realtime" and long_request:
             # the long request: a new episode whose first 8 frames are
             # stepped directly with a short decode budget (not counted),
             # then the ninth through the server with the full budget
@@ -1352,17 +1576,16 @@ def phase_serve(device, profile: str, policy, build_s: float) -> dict:
         server.shutdown()
         thread.join(timeout=30)
         agent.close()
-    L = text.num_hidden_layers
     # per decode step with its lm_head call
-    per_step = {"K4": L, "K6a": 4 * L + 1, "K6a_rmsnorm": 2 * L, "K6a_swiglu": L,
-                "K6a_plain": L + 1, "K6b": 4 * L + 1, "K6b_fused": 2 * L,
-                "K7": L} if profile == "realtime" else {}
-    print(f"phase serve: profile={profile} weight_dtype={text.weight_dtype} "
+    one, none = (expected_serve_launches(policy.cfg, profile, [s], s + 1, 0, 0) for s in (1, 0))
+    per_step = {k: one[k] - none[k] for k in one if one[k] != none[k]}
+    print(f"phase serve: path={label} profile={profile} weight_dtype={text.weight_dtype} "
+          f"decode_act_dtype={text.decode_act_dtype} "
           f"kv_dtype={text.kv_dtype} layers={text.num_hidden_layers} hidden={text.hidden_size} "
           f"build_s={build_s:.2f} resident_gib={build_mem_gib:.2f} "
           f"request_s={[round(x, 4) for x in latencies]} generated_tokens={gen_tokens} "
           f"decode_steps={steps} decode_loop={[dict(st) for st in loop]} "
-          f"launches={by_path[f'serve_{profile}']} "
+          f"launches={by_path[label]} "
           f"launches_per_decode_step={per_step} "
           f"peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
     if long:
@@ -1395,8 +1618,8 @@ def _file_system(path: Path) -> str:
 def checkpoint_root(need_bytes: int) -> Path:
     """A new directory for the run's checkpoints: in the process's temporary
     directory (TMPDIR), else in build/chip_smoke of the checkout, on the
-    first with room for the bf16 checkpoint and the int8 one (at most as
-    large) with 10% to spare, and on a RAM-backed file system also in free
+    first with room for `need_bytes` (the bf16 checkpoint, the int8 and
+    the int4 one) with 10% to spare, and on a RAM-backed file system also in free
     RAM; raises when neither has it. Nothing outside the checkout and
     TMPDIR is written, so a run killed before its clean-up leaves nothing
     behind that outlives them."""
@@ -1475,13 +1698,14 @@ def phase_checkpoint_write(policy, root: Path) -> dict:
     return {"dir": hf_dir, "digests": digests, "bytes": nbytes}
 
 
-def phase_checkpoint_load_realtime(device, hf: dict):
+def phase_checkpoint_load_realtime(device, hf: dict, weight_dtype: str = "int8"):
     """The realtime policy from the HF-layout checkpoint, quantized on load
-    (`serve.build_policy("realtime", ckpt=...)`), held bitwise equal by
-    digest to `InternVLAN1Policy.build` of the realtime profile from seed
-    0, which is built first (its digests and peak device memory taken, then
-    freed). The load's peak device memory must not exceed the build's.
-    Returns (the loaded policy, its load seconds, the realtime digests)."""
+    to `weight_dtype` (`serve.build_policy("realtime", ckpt=...,
+    weight_dtype=...)`), held bitwise equal by digest to
+    `InternVLAN1Policy.build` of the realtime profile in that format from
+    seed 0, which is built first (its digests and peak device memory taken,
+    then freed). The load's peak device memory must not exceed the build's.
+    Returns (the loaded policy, its load seconds, the build's digests)."""
     import torch
 
     from internnav_tpu_torch.realworld import serve
@@ -1489,7 +1713,7 @@ def phase_checkpoint_load_realtime(device, hf: dict):
     torch.cuda.reset_peak_memory_stats(device)
     base_gib = torch.cuda.memory_allocated(device) / 2**30
     t0 = time.perf_counter()
-    built = serve.build_policy("realtime", device=device)
+    built = serve.build_policy("realtime", device=device, weight_dtype=weight_dtype)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
@@ -1499,17 +1723,19 @@ def phase_checkpoint_load_realtime(device, hf: dict):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    loaded = serve.build_policy("realtime", device=device, ckpt=str(hf["dir"]))
+    loaded = serve.build_policy("realtime", device=device, ckpt=str(hf["dir"]),
+                                weight_dtype=weight_dtype)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     load_peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     resident_gib = torch.cuda.memory_allocated(device) / 2**30
-    check_digests("serve realtime from the HF-layout checkpoint", state_digests(loaded.model),
-                  want)
+    check_digests(f"serve realtime {weight_dtype} from the HF-layout checkpoint",
+                  state_digests(loaded.model), want)
     if load_peak_gib > build_peak_gib:
-        raise AssertionError(f"the int8 load peaked at {load_peak_gib:.2f} GiB, above the random "
-                             f"realtime build's {build_peak_gib:.2f} GiB")
-    print(f"phase checkpoint: load layout=hf profile=realtime quantized_on_load=True "
+        raise AssertionError(f"the {weight_dtype} load peaked at {load_peak_gib:.2f} GiB, above "
+                             f"the random realtime build's {build_peak_gib:.2f} GiB")
+    print(f"phase checkpoint: load layout=hf profile=realtime weight_dtype={weight_dtype} "
+          f"quantized_on_load=True "
           f"read_gb={hf['bytes'] / 1e9:.3f} load_s={load_s:.2f} "
           f"load_gb_per_s={hf['bytes'] / 1e9 / load_s:.3f} load_peak_mem_gib={load_peak_gib:.2f} "
           f"random_build_s={build_s:.2f} random_build_peak_mem_gib={build_peak_gib:.2f} "
@@ -1518,9 +1744,9 @@ def phase_checkpoint_load_realtime(device, hf: dict):
     return loaded, load_s, want
 
 
-def phase_checkpoint_save_native(policy, root: Path) -> Path:
-    """`save_pretrained` of the loaded int8 policy into root/native."""
-    native = root / "native"
+def phase_checkpoint_save_native(policy, root: Path, name: str = "native") -> Path:
+    """`save_pretrained` of a loaded quantized policy into root/name."""
+    native = root / name
     t0 = time.perf_counter()
     policy.save_pretrained(str(native))
     save_s = time.perf_counter() - t0
@@ -1529,6 +1755,211 @@ def phase_checkpoint_save_native(policy, root: Path) -> Path:
           f"dir={native} gb={nbytes / 1e9:.3f} save_s={save_s:.2f} "
           f"save_gb_per_s={nbytes / 1e9 / save_s:.3f} gpu={gpu_line()!r}")
     return native
+
+
+# ------------------------------------------------------- int4 and W8A16
+@contextlib.contextmanager
+def text_format(policy, **changes):
+    """`policy` with its text config's fields changed (decode_act_dtype,
+    kv_dtype) on the policy and on every module that holds the config,
+    restored on the way out: the same weights in another decode or cache
+    format, without a second 7B build."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import QwenTextConfig
+
+    lm = policy.model.language_model
+    old_cfg, old_text = policy.cfg, lm.cfg
+    mods = [m for m in lm.modules() if isinstance(getattr(m, "cfg", None), QwenTextConfig)]
+    text = dataclasses.replace(old_text, **changes)
+    for m in mods:
+        m.cfg = text
+    policy.cfg = policy.model.cfg = dataclasses.replace(old_cfg, text=text)
+    try:
+        yield policy
+    finally:
+        for m in mods:
+            m.cfg = old_text
+        policy.cfg = policy.model.cfg = old_cfg
+
+
+@contextlib.contextmanager
+def plain_prefill_attention():
+    """The text model's prefill attention on its plain version
+    (`mha_reference`) instead of K1, on the card: the arithmetic of the
+    bf16-cache decode attention (also a plain version there)."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text as qt
+    from internnav_tpu_torch.ops import flash_attention as fa
+
+    kernel = qt.flash_attention
+    qt.flash_attention = (lambda q, k, v, causal=False, segment_ids=None, tile_tables=None:
+                          fa.mha_reference(q, k, v, causal=causal, segment_ids=segment_ids))
+    try:
+        yield
+    finally:
+        qt.flash_attention = kernel
+
+
+def check_decode_equals_reprefill(device, policy, T: int = 96,
+                                  k1_gap_limit: float | None = None) -> dict:
+    """JAX's decode invariant (tests/test_int8_decode.py:248-270) on the 7B
+    policy's text model, with a bf16 KV cache as there: the cached
+    decode_step of token T gives the logits of an uncached prefill of the
+    T + 1 tokens within rtol = atol = REPREFILL_TOL (that test's). The
+    prefills attend through the plain version, the arithmetic of the
+    bf16-cache decode attention: K1 rounds P to bf16 for its P V product,
+    and through 28 layers of int8 codes that alone moves the W8A8 and
+    W4A8 logits by about 1 on an H100. So the check holds the decode
+    path's own work: the cache writes and positions, K6b's or K9's decode
+    tiles against their prefill tiles, the lm_head, K7-free bf16 caches.
+    The gap with K1 in the prefills (the real path) is held too: within
+    K1_GAP_LOGIT_FRAC of the largest logit, and within `k1_gap_limit`
+    where given (the int4 policy's: K1_GAP_FACTOR times the W8A8
+    policy's gap in the same run), so it cannot grow unseen."""
+    import torch
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import pad_caches
+
+    lm = policy.model.language_model
+    g = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, lm.cfg.vocab_size, (1, T + 1), generator=g).to(device)
+    pos = torch.arange(T + 1, device=device)[None, None].expand(3, 1, T + 1)
+
+    def gap():
+        with torch.no_grad():
+            _, _, caches = lm(lm.embed(ids[:, :T]), pos[..., :T].contiguous())
+            dec, _, _ = lm.decode_step(lm.embed(ids[:, T:]), pos[..., T:].contiguous(),
+                                       pad_caches(caches, T + 1),
+                                       torch.full((1,), T, device=device))
+            full, _, _ = lm(lm.embed(ids), pos,
+                            logits_indices=torch.full((1,), T, device=device))
+        return dec.float(), full[:, 0].float()
+
+    with text_format(policy, kv_dtype="bf16"):
+        k1_dec, k1_full = gap()
+        with plain_prefill_attention():
+            dec, full = gap()
+    err = (dec - full).abs().max().item()
+    if not torch.allclose(dec, full, atol=REPREFILL_TOL, rtol=REPREFILL_TOL) \
+            or not torch.isfinite(dec).all():
+        raise AssertionError(f"{lm.cfg.weight_dtype} decode_step differs from the re-prefill "
+                             f"by {err} (max |logit| {full.abs().max().item():.4f})")
+    out = {"max_abs_err": err, "max_abs_logit": full.abs().max().item(),
+           "argmax_equal": bool(dec.argmax() == full.argmax()),
+           "with_k1_max_abs_err": (k1_dec - k1_full).abs().max().item(),
+           "with_k1_argmax_equal": bool(k1_dec.argmax() == k1_full.argmax()),
+           "with_k1_limit": min(K1_GAP_LOGIT_FRAC * k1_full.abs().max().item(),
+                                math.inf if k1_gap_limit is None else k1_gap_limit)}
+    print(f"phase serve: decode_equals_reprefill weight_dtype={lm.cfg.weight_dtype} T={T} "
+          f"kv_dtype=bf16 prefill_attention=plain tol={REPREFILL_TOL} "
+          f"{' '.join(f'{k}={v}' for k, v in out.items())} gpu={gpu_line()!r}")
+    if not out["with_k1_max_abs_err"] <= out["with_k1_limit"]:
+        raise AssertionError(f"{lm.cfg.weight_dtype} decode_step differs from the re-prefill "
+                             f"through K1 by {out['with_k1_max_abs_err']}, past "
+                             f"{out['with_k1_limit']}")
+    return out
+
+
+def check_graph_equals_eager(policy, what: str) -> None:
+    """The same request twice from a reset episode: its decode loop
+    replayed from the captured graphs, then run eagerly
+    (`policy.eager_decode`); tokens and the traj latents bit for bit."""
+    import numpy as np
+    import torch
+
+    frame, _ = request_frames(np.random.default_rng(5))
+    out = []
+    for eager in (False, True):
+        policy.reset()
+        policy.eager_decode = eager
+        try:
+            o = policy.s2_step(frame, INSTRUCTION, max_new_tokens=MAX_NEW_TOKENS)
+            torch.cuda.synchronize()
+        finally:
+            policy.eager_decode = False
+        latent = None if o.output_latent is None else o.output_latent.clone()
+        out.append((list(policy.last_gen_tokens), latent))
+    (tg, lg), (te, le) = out
+    if tg != te or (lg is None) != (le is None) or (lg is not None and not torch.equal(lg, le)):
+        raise AssertionError(f"{what}: the graph decode differs from the eager one")
+    print(f"phase serve: {what} graph_equals_eager=True generated_tokens={len(tg)} "
+          f"latent={None if lg is None else tuple(lg.shape)}")
+
+
+def phase_w8a16(device, policy, label: str) -> dict:
+    """W8A16 (int8 weights) or W4A16 (int4) decode on the same policy
+    (`text_format(decode_act_dtype="bf16")`): 2 requests through the server
+    with their launches held to `expected_serve_launches` (K10 for every
+    decode and chunk projection and each decode step's lm_head, no K6a at
+    decode, the prefill on K6b or K9), then one request through the graph
+    and eagerly, bit for bit. Returns the launches by path."""
+    with text_format(policy, decode_act_dtype="bf16"):
+        by_path = phase_serve(device, "realtime", policy, 0.0, label=label, requests=2,
+                              long_request=False)
+        check_graph_equals_eager(policy, label)
+    return by_path
+
+
+def phase_evaluate_int4(device, ckpt: Path, want: dict) -> dict:
+    """The evaluator loop of `scripts/torch/bench_evaluator.py
+    --weight-dtype int4 --ckpt <native int4 dir>` (4 cohorts x 12 streams,
+    str hashing pinned): the policy held equal by digest to the int4
+    seed-0 build, one warm run and one timed run of the same episodes;
+    every episode ends, K9 and K6b (the 8-bit lm_head) launch, K10 does
+    not, and no plain version runs. Returns the timed run's launches."""
+    import shutil
+
+    import torch
+
+    from internnav_tpu_torch.ops import activations as act
+    from internnav_tpu_torch.ops import flash_attention as fa
+    from internnav_tpu_torch.ops import quant
+
+    bench = bench_entry()
+    t0 = time.perf_counter()
+    inner = bench.build_inner(device, ckpt=str(ckpt), weight_dtype="int4")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check_digests("evaluate int4 from the native checkpoint", state_digests(inner.model), want)
+    plain = collections.Counter()
+    modules = {"flash_attention": fa, "quant": quant, "activations": act}
+    restore = [(modules[m], name, _spy(modules[m], name, plain, f"{m}.{name}"))
+               for m, names in PLAIN_VERSIONS.items() for name in names]
+    out_dir = WORK_DIR / "evaluate_int4"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        warm = bench.evaluator_run(inner, str(out_dir / "warm"))
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        run = bench.evaluator_run(inner, str(out_dir / "run0"))
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        for obj, name, fn in reversed(restore):
+            setattr(obj, name, fn)
+    if plain:
+        raise AssertionError(f"evaluate int4: plain versions ran on the card: {dict(plain)}")
+    n = bench.BATCH * bench.COHORTS
+    for r in (warm, run):
+        ends = collections.Counter(e["fail_reason"] for e in r["records"])
+        if len(r["records"]) != n or set(ends) - {"", "exceed_max_step"}:
+            raise AssertionError(f"evaluate int4: episodes did not all end: {dict(ends)}")
+    if run["episode_steps"] != warm["episode_steps"]:
+        raise AssertionError("evaluate int4: the timed run took other episodes")
+    if not launches["K9"] or not launches["K6b"] or launches["K10"] or launches["K6b_fused"]:
+        raise AssertionError(f"evaluate int4: K9 and the lm_head's K6b must launch, K10 and "
+                             f"fused K6b not: {launches}")
+    print(f"phase evaluate: path=evaluate_int4 weight_dtype=int4 cohorts={bench.COHORTS} "
+          f"rows={bench.BATCH} episodes={n} load_s={build_s:.2f} "
+          f"digests_equal={len(want)}/{len(want)} "
+          f"warm_actions_per_s={warm['actions_per_sec']:.4f} "
+          f"actions_per_s={run['actions_per_sec']:.4f} wall_clock_s={run['wall_clock_s']:.4f} "
+          f"actions_timed={run['actions_timed']} "
+          f"action_latency_ms_p50={run['action_latency_p50_ms']} "
+          f"action_latency_ms_p99={run['action_latency_p99_ms']} launches={launches} "
+          f"plain_version_calls=0 peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
+    del inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"evaluate_int4": launches}
 
 
 # --------------------------------------------------------- serve batched
@@ -1796,7 +2227,8 @@ PLAIN_VERSIONS = {
     "flash_attention": ("mha_reference", "flash_backward_reference", "gqa_decode_reference",
                         "gqa_chunk_decode_reference"),
     "quant": ("quantize_rows", "rmsnorm_quantize_reference", "swiglu_quantize_reference",
-              "w8a8_linear_reference", "write_kv_cache_reference", "rope_kv_write_reference"),
+              "w8a8_linear_reference", "write_kv_cache_reference", "rope_kv_write_reference",
+              "w4a8_linear_reference", "w8a16_linear_reference"),
     "activations": ("silu_reference", "silu_mul_reference"),
 }
 EVAL_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
@@ -2376,8 +2808,8 @@ def main() -> int:
     # the parity policy's bf16 weights as a checkpoint: the realtime and
     # evaluate paths and training start from it (HF layout) or from the
     # int8 policy loaded from it (native)
-    root = checkpoint_root(2 * sum(t.numel() * t.element_size()
-                                   for t in parity.model.state_dict().values()))
+    root = checkpoint_root(2.25 * sum(t.numel() * t.element_size()
+                                      for t in parity.model.state_dict().values()))
     try:
         hf = phase_checkpoint_write(parity, root)
         del parity
@@ -2385,8 +2817,30 @@ def main() -> int:
         torch.cuda.empty_cache()
         realtime, load_s, realtime_digests = phase_checkpoint_load_realtime(device, hf)
         by_path.update(phase_serve(device, "realtime", realtime, load_s))
+        by_path.update(phase_w8a16(device, realtime, "serve_realtime_w8a16"))
+        w8a8_gap = check_decode_equals_reprefill(device, realtime)["with_k1_max_abs_err"]
         native = phase_checkpoint_save_native(realtime, root)
         del realtime
+        gc.collect()
+        torch.cuda.empty_cache()
+        # int4: quantized on load from the same checkpoint, saved natively,
+        # and served from the native directory (its recorded format wins)
+        int4, _, int4_digests = phase_checkpoint_load_realtime(device, hf, "int4")
+        native_int4 = phase_checkpoint_save_native(int4, root, "native_int4")
+        del int4
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        int4 = serve.build_policy("realtime", device=device, ckpt=str(native_int4))
+        torch.cuda.synchronize()
+        int4_load_s = time.perf_counter() - t0
+        check_digests("serve int4 from the native checkpoint", state_digests(int4.model),
+                      int4_digests)
+        by_path.update(phase_serve(device, "realtime", int4, int4_load_s,
+                                   label="serve_realtime_int4", long_request=False))
+        check_decode_equals_reprefill(device, int4, k1_gap_limit=K1_GAP_FACTOR * w8a8_gap)
+        by_path.update(phase_w8a16(device, int4, "serve_realtime_w4a16"))
+        del int4
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(phase_serve_batched(device))
@@ -2399,6 +2853,7 @@ def main() -> int:
             int8[kernel] += rows
         gc.collect()
         torch.cuda.empty_cache()
+        by_path.update(phase_evaluate_int4(device, native_int4, int4_digests))
         by_path["train"] = phase_train(device, store, hf["dir"], hf["digests"])["launches"]
     finally:
         import shutil
@@ -2477,6 +2932,11 @@ def main() -> int:
         # most frequent shape
         int8_entry("silu_bf16", "K8", "cuda", K6A_SOURCE, K8_REPLACES,
                    f"silu_mul_M1_K{K6A_I}"),
+        # K9 and K10 at a decode token's gate projection of the int4 format
+        int8_entry("w4a8_gemm", "K9", "cuda", K9_SOURCE, K9_REPLACES,
+                   "M1_N18944_K3584_g128_int4"),
+        int8_entry("w8a16_gemm", "K10", "cuda", K10_SOURCE, K10_REPLACES,
+                   "M1_N18944_K3584_g128_int4"),
     ]
     kernels[0]["shapes"] = shapes
     print(json.dumps({"kernels": kernels}))

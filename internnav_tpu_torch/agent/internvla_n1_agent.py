@@ -40,7 +40,10 @@ S2Result = Union[S2Output, Exception]
 def _build_n1_policy(cfg: AgentCfg, settings: Dict[str, Any]):
     """The dual-system agents' policy (the JAX package's `_build_n1_policy`),
     through `realworld.serve.build_policy`: model_settings["profile"]'s
-    formats ("realtime" by default), at 7B dims or model_settings["config"];
+    formats ("realtime" by default; model_settings["weight_dtype"], "int8"
+    or "int4", and ["kv_dtype"] stand in for the profile's where given), at
+    7B dims or model_settings["config"] (W8A16 decode through its
+    `decode_act_dtype`);
     from cfg.ckpt_path when it is set (a native directory keeps its recorded
     weight dtype, ROADMAP F4; a reference-format checkpoint is quantized on
     load under an int8 profile; a path that does not exist raises: there is
@@ -54,7 +57,9 @@ def _build_n1_policy(cfg: AgentCfg, settings: Dict[str, Any]):
     return build_policy(settings.get("profile", "realtime"), device=device,
                         ckpt=cfg.ckpt_path or None,
                         system1=settings.get("system1", "nextdit_async"),
-                        config=settings.get("config"))
+                        config=settings.get("config"),
+                        weight_dtype=settings.get("weight_dtype"),
+                        kv_dtype=settings.get("kv_dtype"))
 
 
 class S2Mailbox:

@@ -152,7 +152,7 @@ class DecodeLoop:
                                                  [g.entries for g in self.groups], lens,
                                                  compute_logits=False)
         if logits:
-            nxt = model._logits(hidden).argmax(-1)
+            nxt = model._logits(hidden, decode=True).argmax(-1)
             self.tokens.scatter_(1, idx + 1, torch.where(done, self.eos[0], nxt)[:, None])
         self.step.add_(1)
 
@@ -296,9 +296,11 @@ class DecodeBuffers:
     def loop(self, model, groups: List[StaticCaches], max_new_tokens: int,
              eos_token_ids: Sequence[int], *, eager: bool = False) -> DecodeLoop:
         """The loop over these cache groups (by identity), made (and on CUDA
-        captured) when missing."""
+        captured) when missing. The key holds the model's weight and decode
+        formats: a captured step launches the kernels of the format it was
+        captured in."""
         key = (tuple(id(g) for g in groups), int(max_new_tokens), tuple(eos_token_ids),
-               bool(eager), id(model))
+               bool(eager), id(model), model.cfg.weight_dtype, model.cfg.decode_act_dtype)
         hit = self._loops.pop(key, None)
         if hit is None:
             while len(self._loops) >= MAX_LOOPS:

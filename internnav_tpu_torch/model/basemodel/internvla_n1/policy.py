@@ -288,19 +288,20 @@ class InternVLAN1Policy:
               seed: int = 0) -> "InternVLAN1Policy":
         """Random-weight policy on `device` (the GPU when None; raises
         without one), drawn from a torch.Generator seeded with `seed` on
-        that device. With weight_dtype="int8" the bf16 weights are drawn
-        as for bf16 and then quantized on the device (`quantize_qwen_text_`,
-        each bf16 projection freed as its int8 copy lands), so the served
-        scales are those of real weights; kv_dtype="int8" gives tuple
-        caches."""
+        that device. With weight_dtype "int8" or "int4" the bf16 weights are
+        drawn as for bf16 and then quantized on the device
+        (`quantize_qwen_text_`, each bf16 projection freed as its quantized
+        copy lands), so the served scales are those of real weights;
+        kv_dtype="int8" gives tuple caches."""
         cfg = cfg or InternVLAN1Config.tiny()
         device = require_cuda() if device is None else device
         text = cfg.text
         bf16_text = dataclasses.replace(text, weight_dtype="bf16", quant_group_size=None)
         model = build_model(dataclasses.replace(cfg, text=bf16_text), device=device)
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
-        if text.weight_dtype == "int8":
-            quantize_qwen_text_(model.language_model, text.quant_group_size)
+        if text.weight_dtype in ("int8", "int4"):
+            quantize_qwen_text_(model.language_model, text.quant_group_size,
+                                4 if text.weight_dtype == "int4" else 8)
         model.cfg = cfg
         return cls(model, seed=seed)
 
@@ -311,9 +312,10 @@ class InternVLAN1Policy:
         or not, or .bin / .pth; `convert.load_torch_state_dict`) in cfg's
         formats on `device` (the GPU when None; raises without one). The
         model is allocated in its served format and filled one tensor at a
-        time from the memory-mapped file: with weight_dtype="int8" each
-        decoder projection is quantized as it lands (the arithmetic of
-        `quantize_qwen_text_`, bit for bit), so no bf16 copy of the decoder
+        time from the memory-mapped file: with weight_dtype "int8" or "int4"
+        each decoder projection is quantized as it lands (the arithmetic of
+        `quantize_qwen_text_`, bit for bit; under int4 the lm_head at 8
+        bits, JAX `policy.py:315-320`), so no bf16 copy of the decoder
         is ever resident. Without `lm_head.weight` the text model ties its
         embeddings. The tokenizer is the directory's (`checkpoint_tokenizer`)
         unless one is given. Any unmatched, missing or misshapen tensor
@@ -333,8 +335,9 @@ class InternVLAN1Policy:
         """A native checkpoint directory: config.json with the JAX
         package's keys (informational, but `from_pretrained` holds the
         weight dtype to it) and the model's state_dict as it is served
-        (int8 `weight_q` and fp32 `scale_q` in the int8 format) in
-        `NATIVE_WEIGHTS`, copied to the host one tensor at a time."""
+        (int8 `weight_q` and fp32 `scale_q` in the int8 format; packed int4
+        codes, uint8 (N, K / 2), in the int4 format) in `NATIVE_WEIGHTS`,
+        copied to the host one tensor at a time."""
         os.makedirs(path, exist_ok=True)
         text = self.cfg.text
         info = {"policy": "InternVLAN1_Policy", "system1": self.cfg.system1,

@@ -14,11 +14,20 @@ cross-entropy (`chunked_ce`).
   once per forward and shared by every layer (and their backward).
 - Decode writes the new K/V into the preallocated cache IN PLACE (the JAX
   package returns updated copies); the cache is owned by the decode loop.
-- The int8 `realtime` formats: `weight_dtype="int8"` makes every
-  projection (q/k/v/o, gate/up/down, lm_head; never the embedding) a
-  `QuantLinear`, the port of `QuantDense` at 8 bits (W8A8: activations
-  quantized per token by K6a, the product by K6b: at decode rows the
-  projections of one input, q/k/v and gate/up, in one launch). K6a
+- The quantized formats: `weight_dtype="int8"` makes every projection
+  (q/k/v/o, gate/up/down, lm_head; never the embedding) a `QuantLinear`,
+  the port of `QuantDense` at 8 bits (W8A8: activations quantized per
+  token by K6a, the product by K6b: at decode rows the projections of one
+  input, q/k/v and gate/up, in one launch). `weight_dtype="int4"` (W4A8)
+  stores the layers' projections as packed int4 codes with grouped-128
+  scales (per channel where 128 does not divide the input width), their
+  products by K9, and keeps the lm_head at 8 bits with grouped-128 scales
+  (K6b; JAX `_wbits_for`, `_effective_group`). With
+  `decode_act_dtype="bf16"` (W8A16 / W4A16) the projections of a step that
+  reads a cache (`decode_step`, `decode_chunk` and their grouped forms)
+  take bf16 activations, unquantized, through K10, the lm_head at decode
+  too; such a layer runs the plain RMSNorm and `silu_mul` (K8), and no
+  K6a. The prefill keeps W8A8 / W4A8. K6a
   quantizes inside the op that makes its input: the decoder layer's two
   RMSNorms (the second with the residual add before it) and the SwiGLU
   product, so those layers call neither `RMSNorm` nor `silu_mul`; o_proj's
@@ -28,9 +37,7 @@ cross-entropy (`chunked_ce`).
   quantizes K/V and writes the cache in one K7 launch (`rope_kv_write`),
   with no `apply_rotary`. The prompt's attention runs over bf16 K/V
   (rotated by `apply_rotary`); only the stored cache is int8, written by
-  K7 without rotary (`ops/quant.py`, `ops/flash_attention.py`). Not yet
-  ported (they raise): int4 / W4A8 weights and W8A16 decode
-  (`decode_act_dtype="bf16"`).
+  K7 without rotary (`ops/quant.py`, `ops/flash_attention.py`).
 - The grouped decode (`decode_step_grouped`, `decode_chunk_grouped`,
   `greedy_decode_grouped`) serves several prefill cohorts' caches with one
   pass over the weights: the projections run once over the stacked rows,
@@ -59,16 +66,21 @@ from internnav_tpu_torch.ops.flash_attention import (
     segment_tile_tables,
 )
 from internnav_tpu_torch.ops.quant import (
+    QMAX,
     cache_write_slots,
-    div127,
+    div_qmax,
+    effective_group,
     grouped_scales,
+    pack_int4,
     quantize_activations,
     rms_norm,
     rmsnorm_quantize,
     rope_kv_write,
     store_cache_rows_,
     swiglu_quantize,
+    w4a8_linear,
     w8a8_linear_multi,
+    w8a16_linear,
     write_kv_cache,
 )
 from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import (
@@ -76,7 +88,7 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import (
     DecodeLoop,
     StaticCaches,
 )
-from internnav_tpu_torch.ops.rope import apply_rotary, mrope_cos_sin
+from internnav_tpu_torch.ops.rope import apply_rotary, mrope_cos_sin, rope_cos_sin
 
 #: a cache entry: bf16 (B, T, KV, D), or (int8 (B, T, KV, D), fp32 scale
 #: (B, T, KV, 1)) with kv_dtype="int8"
@@ -100,14 +112,17 @@ class QwenTextConfig:
     #: state and the embedding table (a checkpoint without lm_head.weight)
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
-    #: projection weights: "bf16" (nn.Linear) or "int8" (`QuantLinear`,
-    #: W8A8); "int4" (W4A8) is not yet ported
+    #: projection weights: "bf16" (nn.Linear), "int8" (`QuantLinear`,
+    #: W8A8) or "int4" (W4A8: packed int4 codes, grouped-128 scales by
+    #: default, the lm_head kept at 8 bits)
     weight_dtype: str = "bf16"
-    #: int8 scale granularity: None per output channel; g per (g inputs x
-    #: output channel) where g divides the input width, else per channel
+    #: scale granularity: None per output channel (int4: 128); g per (g
+    #: inputs x output channel) where g divides the input width, else per
+    #: channel
     quant_group_size: Optional[int] = None
-    #: cached-decode activations with int8 weights: "int8" (W8A8, as the
-    #: prefill); "bf16" (W8A16) is not yet ported
+    #: cached-decode activations with quantized weights: "int8" (W8A8 /
+    #: W4A8, as the prefill) or "bf16" (W8A16 / W4A16: bf16 activations
+    #: times the widened codes, K10)
     decode_act_dtype: str = "int8"
     #: KV cache storage: "bf16", or "int8" with one fp32 scale per (token,
     #: KV head)
@@ -117,17 +132,18 @@ class QwenTextConfig:
     remat: bool = False
 
     def __post_init__(self):
-        if self.weight_dtype == "int4":
-            raise NotImplementedError("weight_dtype='int4' (W4A8) is not yet ported "
-                                      "(ROADMAP §1 item 3)")
-        if self.weight_dtype not in ("bf16", "int8"):
+        if self.weight_dtype not in ("bf16", "int8", "int4"):
             raise ValueError(f"unknown weight_dtype {self.weight_dtype!r}")
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
         if self.decode_act_dtype not in ("int8", "bf16"):
             raise ValueError(f"unknown decode_act_dtype {self.decode_act_dtype!r}")
-        if self.weight_dtype == "int8" and self.decode_act_dtype == "bf16":
-            raise NotImplementedError("decode_act_dtype='bf16' (W8A16 decode) is not yet ported")
+
+    @property
+    def decode_bf16_act(self) -> bool:
+        """W8A16 / W4A16 decode: quantized weights with
+        decode_act_dtype="bf16" (JAX `_decode_bf16_act`)."""
+        return self.weight_dtype in ("int8", "int4") and self.decode_act_dtype == "bf16"
 
     @classmethod
     def tiny(cls) -> "QwenTextConfig":
@@ -153,45 +169,63 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
-def quantize_weight(w: torch.Tensor, group_size: Optional[int] = None
+def _wbits_for(name: str, weight_bits: int) -> int:
+    """The W4A8 rule of the JAX package (`_wbits_for`): the lm_head stays
+    at 8 bits under int4."""
+    return 8 if weight_bits == 4 and name == "lm_head" else weight_bits
+
+
+def quantize_weight(w: torch.Tensor, group_size: Optional[int] = None, bits: int = 8
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 weight quantization of a torch-layout (N, K) weight,
-    on its device: per output channel, scale (N,) = max|w| / 127 over K;
-    or, when group_size divides K, per (group, channel), scale (K / g, N).
-    A zero scale becomes 1e-8. The math of `quantize_qwen_text_params`."""
+    """Symmetric weight quantization of a torch-layout (N, K) weight, on
+    its device, to `bits` (8: codes in [-127, 127] as int8 (N, K); 4: codes
+    in [-7, 7] packed two a byte, `pack_int4`, uint8 (N, K / 2)): per output
+    channel, scale (N,) = max|w| / qmax over K; or, when group_size divides
+    K, per (group, channel), scale (K / g, N). A zero scale becomes 1e-8.
+    The math of `quantize_qwen_text_params`; the caller picks the group
+    (`effective_group`)."""
     w32 = w.float()
     N, K = w32.shape
+    qmax = QMAX[bits]
     g = grouped_scales(K, group_size)
     if g:
         wg = w32.view(N, K // g, g)
-        s = div127(wg.abs().amax(-1))
+        s = div_qmax(wg.abs().amax(-1), bits)
         s = torch.where(s == 0, 1e-8, s)
-        q = torch.round(wg / s[..., None]).clamp(-127, 127).view(N, K)
+        q = torch.round(wg / s[..., None]).clamp(-qmax, qmax).view(N, K)
         s = s.T.contiguous()
     else:
-        s = div127(w32.abs().amax(1))
+        s = div_qmax(w32.abs().amax(1), bits)
         s = torch.where(s == 0, 1e-8, s)
-        q = torch.round(w32 / s[:, None]).clamp(-127, 127)
-    return q.to(torch.int8), s
+        q = torch.round(w32 / s[:, None]).clamp(-qmax, qmax)
+    q = q.to(torch.int8)
+    return (pack_int4(q) if bits == 4 else q), s
 
 
 class QuantLinear(nn.Module):
-    """Port of `QuantDense` at 8 bits (W8A8): buffers `weight_q` (N, K)
-    int8, `scale_q` (N,) or grouped (K / g, N) fp32 and an optional fp32
-    `bias`; w ≈ weight_q * scale. The input is quantized per token
-    (`quantize_activations`) and multiplied in int8 with int32 sums
-    (`w8a8_linear_multi`, through `project`); the output has the module's
-    dtype. The weight is stored (N, K), K contiguous: the layout int8
-    tensor-core products take for their B operand."""
+    """Port of `QuantDense`: buffers `weight_q`, `scale_q` (N,) or grouped
+    (K / g, N) fp32 and an optional fp32 `bias`; w ≈ codes * scale. At
+    weight_bits=8 `weight_q` is int8 (N, K); at 4 it holds codes in [-7, 7]
+    packed two a byte along K (`pack_int4`), uint8 (N, K / 2). The input is
+    quantized per token (`quantize_activations`) and multiplied in int8
+    with int32 sums (W8A8 `w8a8_linear_multi`, W4A8 `w4a8_linear`), or at
+    decode under decode_act_dtype="bf16" taken as bf16 (`w8a16_linear`),
+    through `project`; the output has the module's dtype. The weight is
+    stored (N, K), K contiguous: the layout int8 tensor-core products take
+    for their B operand."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 group_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16):
+                 group_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16,
+                 weight_bits: int = 8):
         super().__init__()
+        if weight_bits not in QMAX or (weight_bits == 4 and in_features % 2):
+            raise ValueError(f"QuantLinear: {weight_bits}-bit weights of {in_features} inputs")
         self.in_features, self.out_features, self.dtype = in_features, out_features, dtype
-        self.group_size = group_size
+        self.group_size, self.weight_bits = group_size, weight_bits
         g = grouped_scales(in_features, group_size)
-        self.register_buffer("weight_q", torch.zeros((out_features, in_features),
-                                                     dtype=torch.int8))
+        self.register_buffer("weight_q", torch.zeros(
+            (out_features, in_features // 2) if weight_bits == 4 else (out_features, in_features),
+            dtype=torch.uint8 if weight_bits == 4 else torch.int8))
         self.register_buffer("scale_q", torch.ones(
             (in_features // g, out_features) if g else (out_features,), dtype=torch.float32))
         self.register_buffer("bias", torch.zeros(out_features, dtype=torch.float32)
@@ -199,12 +233,13 @@ class QuantLinear(nn.Module):
 
     @classmethod
     @torch.no_grad()
-    def from_linear(cls, lin: nn.Linear, group_size: Optional[int] = None) -> "QuantLinear":
+    def from_linear(cls, lin: nn.Linear, group_size: Optional[int] = None,
+                    weight_bits: int = 8) -> "QuantLinear":
         """The quantized copy of a Linear, on its device."""
         with torch.device(lin.weight.device):
             out = cls(lin.in_features, lin.out_features, lin.bias is not None, group_size,
-                      dtype=lin.weight.dtype)
-        out.weight_q, out.scale_q = quantize_weight(lin.weight, group_size)
+                      dtype=lin.weight.dtype, weight_bits=weight_bits)
+        out.weight_q, out.scale_q = quantize_weight(lin.weight, group_size, weight_bits)
         if lin.bias is not None:
             out.bias = lin.bias.detach().float()
         return out
@@ -218,13 +253,13 @@ class QuantLinear(nn.Module):
         codes depend on that row alone, so this equals `quantize_weight` of
         the whole matrix, bit for bit, without its fp32 copy."""
         N, K = w.shape
-        if (N, K) != tuple(self.weight_q.shape):
+        if (N, K) != (self.out_features, self.in_features):
             raise ValueError(f"weight {tuple(w.shape)} for a QuantLinear of "
-                             f"{tuple(self.weight_q.shape)}")
+                             f"{(self.out_features, self.in_features)}")
         step = max(1, 2**25 // K)
         for r in range(0, N, step):
             rows = w[r:r + step].to(self.weight_q.device, self.dtype)
-            q, s = quantize_weight(rows, self.group_size)
+            q, s = quantize_weight(rows, self.group_size, self.weight_bits)
             self.weight_q[r:r + step] = q
             self.scale_q[..., r:r + step] = s
 
@@ -244,28 +279,53 @@ class QuantizedRows(NamedTuple):
         return self.q.shape
 
 
-def project(x: Union[torch.Tensor, QuantizedRows], *mods: nn.Module) -> List[torch.Tensor]:
+def project(x: Union[torch.Tensor, QuantizedRows], *mods: nn.Module,
+            bf16_act: bool = False) -> List[torch.Tensor]:
     """Each projection of one input. An nn.Linear takes the input cast to
-    its dtype (once, for all of them). With `QuantLinear`s the input, bf16
-    or fp32, is quantized once and shared (q/k/v, gate/up), or comes
-    quantized as `QuantizedRows`: the quantization is a function of the
-    input alone, so this equals the JAX package's quantization inside every
-    projection. The products go to `w8a8_linear_multi` in one call: one
-    K6b launch for all of them at decode rows on CUDA."""
+    its dtype (once, for all of them). `QuantLinear`s with bf16_act (W8A16 /
+    W4A16) take it cast to bf16, unquantized, one K10 launch each
+    (`w8a16_linear`). Otherwise the input, bf16 or fp32, is quantized once
+    and shared (q/k/v, gate/up), or comes quantized as `QuantizedRows`: the
+    quantization is a function of the input alone, so this equals the JAX
+    package's quantization inside every projection. 8-bit products go to
+    `w8a8_linear_multi` in one call (one K6b launch for all of them at
+    decode rows on CUDA), 4-bit ones to `w4a8_linear` (one K9 launch
+    each)."""
     if not isinstance(mods[0], QuantLinear):
         x = x.to(mods[0].weight.dtype)
         return [m(x) for m in mods]
+    bits = {m.weight_bits for m in mods}
+    if len(bits) != 1:
+        raise ValueError(f"project: one input's projections mix weight widths {sorted(bits)}")
+    if bf16_act:
+        if isinstance(x, QuantizedRows):
+            raise ValueError("project: W8A16 takes the bf16 rows, not their quantized codes")
+        lead, K = x.shape[:-1], x.shape[-1]
+        xb = x.reshape(-1, K).to(torch.bfloat16)
+        return [w8a16_linear(xb, m.weight_q, m.scale_q, m.bias, out_dtype=m.dtype)
+                .reshape(*lead, m.out_features) for m in mods]
     if not isinstance(x, QuantizedRows):
         x = QuantizedRows(*quantize_activations(x))
     lead, K = x.shape[:-1], x.shape[-1]
-    outs = w8a8_linear_multi(x.q.reshape(-1, K), x.scale.reshape(-1, 1),
-                             [(m.weight_q, m.scale_q, m.bias) for m in mods],
-                             out_dtype=mods[0].dtype)
+    xq, a_scale = x.q.reshape(-1, K), x.scale.reshape(-1, 1)
+    if bits == {4}:
+        outs = [w4a8_linear(xq, a_scale, m.weight_q, m.scale_q, m.bias, out_dtype=m.dtype)
+                for m in mods]
+    else:
+        outs = w8a8_linear_multi(xq, a_scale, [(m.weight_q, m.scale_q, m.bias) for m in mods],
+                                 out_dtype=mods[0].dtype)
     return [y.reshape(*lead, m.out_features) for y, m in zip(outs, mods)]
 
 
-def _proj(cfg: QwenTextConfig, in_features: int, out_features: int, bias: bool) -> nn.Module:
-    """nn.Linear, or QuantLinear with weight_dtype="int8"."""
+def _proj(cfg: QwenTextConfig, in_features: int, out_features: int, bias: bool,
+          name: str) -> nn.Module:
+    """nn.Linear, or a QuantLinear with weight_dtype "int8" or "int4" (the
+    JAX `_proj`: under int4 every projection takes `effective_group`'s
+    scales, and `name` "lm_head" stays at 8 bits)."""
+    if cfg.weight_dtype == "int4":
+        return QuantLinear(in_features, out_features, bias,
+                           effective_group(cfg.quant_group_size, 4), cfg.dtype,
+                           weight_bits=_wbits_for(name, 4))
     if cfg.weight_dtype == "int8":
         return QuantLinear(in_features, out_features, bias, cfg.quant_group_size, cfg.dtype)
     return nn.Linear(in_features, out_features, bias=bias, dtype=cfg.dtype)
@@ -277,14 +337,15 @@ class QwenAttention(nn.Module):
         self.cfg = cfg
         H, KV, D, E = (cfg.num_attention_heads, cfg.num_key_value_heads,
                        cfg.head_dim, cfg.hidden_size)
-        self.q_proj = _proj(cfg, E, H * D, True)
-        self.k_proj = _proj(cfg, E, KV * D, True)
-        self.v_proj = _proj(cfg, E, KV * D, True)
-        self.o_proj = _proj(cfg, H * D, E, False)
+        self.q_proj = _proj(cfg, E, H * D, True, "q_proj")
+        self.k_proj = _proj(cfg, E, KV * D, True, "k_proj")
+        self.v_proj = _proj(cfg, E, KV * D, True, "v_proj")
+        self.o_proj = _proj(cfg, H * D, E, False, "o_proj")
 
     def forward(self, x, cos, sin, *, segment_ids=None, tile_tables=None,
                 kv_cache: Optional[KVCache] = None, cache_len=None, cache_out=None,
-                cache_groups: Optional[Sequence[KVCache]] = None, cache_len_groups=None):
+                cache_groups: Optional[Sequence[KVCache]] = None, cache_len_groups=None,
+                bf16_act: bool = False):
         """Prefill when kv_cache and cache_groups are None: returns (out,
         (k, v)) with the new cache entries (B, T, KV, D), or, given
         `cache_out` (entries of a longer cache, `StaticCaches`), with the
@@ -296,8 +357,10 @@ class QwenAttention(nn.Module):
         list of per-group caches) and cache_len_groups (their (B_g,)
         lengths), x stacks the groups' rows: the projections run once over
         the stack and the rest per group on its own cache, row for row
-        what a call per group gives. x is the normed input, or with W8A8
-        projections its `QuantizedRows`. With kv_dtype="int8" the prefill
+        what a call per group gives. x is the normed input, or with W8A8 /
+        W4A8 projections its `QuantizedRows`; bf16_act (a cached step under
+        decode_act_dtype="bf16") runs every projection W8A16 on the normed
+        input. With kv_dtype="int8" the prefill
         attends over the rotated bf16 K/V and writes their quantized
         entries; decode rotates, quantizes and writes in one K7 launch
         (`rope_kv_write`) and attends through K4/K5 on strided views of the
@@ -305,7 +368,7 @@ class QwenAttention(nn.Module):
         c = self.cfg
         B, n = x.shape[:2]
         H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
-        q, k, v = project(x, self.q_proj, self.k_proj, self.v_proj)
+        q, k, v = project(x, self.q_proj, self.k_proj, self.v_proj, bf16_act=bf16_act)
         if kv_cache is not None:
             cache_groups, cache_len_groups = [kv_cache], [cache_len]
         if cache_groups is not None:
@@ -316,7 +379,8 @@ class QwenAttention(nn.Module):
                                                    sin[rows], cache, cl))
                 r += cl.shape[0]
             out = outs[0] if len(outs) == 1 else torch.cat(outs)
-            out = self.o_proj(out.transpose(1, 2).reshape(B, n, H * D))
+            out = project(out.transpose(1, 2).reshape(B, n, H * D), self.o_proj,
+                          bf16_act=bf16_act)[0]
             return out, (kv_cache if kv_cache is not None else cache_groups)
         q = q.reshape(B, n, H, D).transpose(1, 2)
         k = k.reshape(B, n, KV, D).transpose(1, 2)
@@ -398,17 +462,19 @@ class QwenMLP(nn.Module):
     def __init__(self, cfg: QwenTextConfig):
         super().__init__()
         E, I = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _proj(cfg, E, I, False)
-        self.up_proj = _proj(cfg, E, I, False)
-        self.down_proj = _proj(cfg, I, E, False)
+        self.gate_proj = _proj(cfg, E, I, False, "gate_proj")
+        self.up_proj = _proj(cfg, E, I, False, "up_proj")
+        self.down_proj = _proj(cfg, I, E, False, "down_proj")
 
-    def forward(self, x):
-        """x: the normed input, or with W8A8 projections its `QuantizedRows`;
-        then the SwiGLU product is quantized as it is made (K6a)."""
-        gate, up = project(x, self.gate_proj, self.up_proj)
-        if isinstance(self.down_proj, QuantLinear):
+    def forward(self, x, bf16_act: bool = False):
+        """x: the normed input, or with W8A8 / W4A8 projections its
+        `QuantizedRows`; then the SwiGLU product is quantized as it is made
+        (K6a). With bf16_act (W8A16 / W4A16) the product is the bf16
+        `silu_mul` (K8), taken as it is by down_proj."""
+        gate, up = project(x, self.gate_proj, self.up_proj, bf16_act=bf16_act)
+        if isinstance(self.down_proj, QuantLinear) and not bf16_act:
             return project(QuantizedRows(*swiglu_quantize(gate, up)), self.down_proj)[0]
-        return self.down_proj(silu_mul(gate, up))
+        return project(silu_mul(gate, up), self.down_proj, bf16_act=bf16_act)[0]
 
 
 class QwenDecoderLayer(nn.Module):
@@ -425,12 +491,15 @@ class QwenDecoderLayer(nn.Module):
                   cache_len=cache_len, cache_out=cache_out, cache_groups=cache_groups,
                   cache_len_groups=cache_len_groups)
         norm1, norm2 = self.input_layernorm, self.post_attention_layernorm
-        if not isinstance(self.mlp.down_proj, QuantLinear):
-            h, new_cache = self.self_attn(norm1(x), cos, sin, **kw)
+        # W8A16 / W4A16 exactly where a cache is read (JAX `decoding`)
+        bf16_act = (kv_cache is not None or cache_groups is not None) \
+            and self.self_attn.cfg.decode_bf16_act
+        if bf16_act or not isinstance(self.mlp.down_proj, QuantLinear):
+            h, new_cache = self.self_attn(norm1(x), cos, sin, bf16_act=bf16_act, **kw)
             x = x + h
-            return x + self.mlp(norm2(x)), new_cache
-        # W8A8: each norm quantizes the rows it makes (K6a), the second
-        # after adding the attention output to the residual stream
+            return x + self.mlp(norm2(x), bf16_act=bf16_act), new_cache
+        # W8A8 / W4A8: each norm quantizes the rows it makes (K6a), the
+        # second after adding the attention output to the residual stream
         xq, scale, _ = rmsnorm_quantize(x, norm1.weight, norm1.eps)
         h, new_cache = self.self_attn(QuantizedRows(xq, scale), cos, sin, **kw)
         xq, scale, x = rmsnorm_quantize(h, norm2.weight, norm2.eps, residual=x)
@@ -448,19 +517,22 @@ class QwenTextModel(nn.Module):
         self.layers = nn.ModuleList(QwenDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = (None if cfg.tie_word_embeddings
-                        else _proj(cfg, cfg.hidden_size, cfg.vocab_size, False))
+                        else _proj(cfg, cfg.hidden_size, cfg.vocab_size, False, "lm_head"))
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids.long())
 
     def _cos_sin(self, position_ids):
-        """M-RoPE tables for (3, B, T) t/h/w position ids."""
+        """Rotary tables: M-RoPE for (3, B, T) t/h/w position ids, 1-D RoPE
+        for (B, T) ones (JAX `_cos_sin`)."""
         c = self.cfg
-        return mrope_cos_sin(position_ids, c.head_dim, c.mrope_section, c.rope_theta)
+        if position_ids.dim() == 3:
+            return mrope_cos_sin(position_ids, c.head_dim, c.mrope_section, c.rope_theta)
+        return rope_cos_sin(position_ids, c.head_dim, c.rope_theta)
 
     def forward(self, inputs_embeds, position_ids, *, segment_ids=None, logits_indices=None,
                 compute_logits: bool = True, caches_out: Optional[List[KVCache]] = None):
-        """Prefill. inputs_embeds (B, T, E); position_ids (3, B, T).
+        """Prefill. inputs_embeds (B, T, E); position_ids (3, B, T) or (B, T).
         Returns (logits, hidden, caches): hidden (B, T, E) is the final
         norm's fp32 product, caches per layer (k, v) of (B, T, KV, D), or
         `caches_out` (per-layer entries of (B, Tmax >= T, KV, D) static
@@ -495,10 +567,13 @@ class QwenTextModel(nn.Module):
             logits = self._logits(hidden)
         return logits, hidden, caches
 
-    def _logits(self, hidden):
+    def _logits(self, hidden, *, decode: bool = False):
+        """fp32 logits of the final norm's rows; at a decode step (`decode`)
+        under decode_act_dtype="bf16" the lm_head runs W8A16 (K10)."""
         if self.lm_head is None:  # tied: never quantized, as in the JAX package
             return hidden.float() @ self.embed_tokens.weight.float().T
-        return project(hidden, self.lm_head)[0].float()
+        return project(hidden, self.lm_head,
+                       bf16_act=decode and self.cfg.decode_bf16_act)[0].float()
 
     def chunked_ce(self, hidden, labels, *, ignore_index: int, chunk: int = 1024):
         """Mean next-token cross-entropy over the full vocab without the
@@ -540,7 +615,7 @@ class QwenTextModel(nn.Module):
         where the new token goes. Returns (logits (B, vocab) or None,
         hidden (B, E) fp32, caches) — the caches are updated in place."""
         hidden = self._decode_grouped(token_embeds, position_ids, [caches], [cache_len])
-        logits = self._logits(hidden)[:, 0] if compute_logits else None
+        logits = self._logits(hidden, decode=True)[:, 0] if compute_logits else None
         return logits, hidden[:, 0], caches
 
     def decode_chunk(self, token_embeds, position_ids, caches, cache_len):
@@ -559,7 +634,7 @@ class QwenTextModel(nn.Module):
         updated in place. Returns (logits or None, hidden (B_total, E),
         cache_trees)."""
         hidden = self._decode_grouped(token_embeds, position_ids, cache_trees, cache_lens)
-        logits = self._logits(hidden)[:, 0] if compute_logits else None
+        logits = self._logits(hidden, decode=True)[:, 0] if compute_logits else None
         return logits, hidden[:, 0], cache_trees
 
     def decode_chunk_grouped(self, token_embeds, position_ids, cache_trees, cache_lens):
@@ -586,32 +661,39 @@ def pad_caches(caches: List[KVCache], max_len: int) -> List[KVCache]:
     return [(pad(k), pad(v)) for k, v in caches]
 
 
-def quantize_qwen_text_params(params: Dict, group_size: Optional[int] = None) -> Dict:
+def quantize_qwen_text_params(params: Dict, group_size: Optional[int] = None,
+                              weight_bits: int = 8) -> Dict:
     """A JAX-layout QwenTextModel param tree (nested dicts of numpy
-    arrays, Dense kernels (in, out)) → its int8 tree: every Dense `kernel`
-    but the embedding's becomes `kernel_q` int8 (in, out) + `scale_q` fp32,
-    (out,) per channel or (in / g, out) when group_size divides the input
-    width; biases, norms and embeddings pass through. The port's own copy
-    of the JAX package's `quantize_qwen_text_params` at 8 bits."""
+    arrays, Dense kernels (in, out)) → its quantized tree: every Dense
+    `kernel` but the embedding's becomes `kernel_q` (in, out) codes + `scale_q`
+    fp32, (out,) per channel or (in / g, out) when the group divides the
+    input width; biases, norms and embeddings pass through. weight_bits=4
+    gives codes in [-7, 7] with grouped-128 scales by default
+    (`effective_group`) and keeps the lm_head at 8 bits with the same
+    groups (`_wbits_for`). Codes are int8 numpy arrays at either width (the
+    JAX package stores int4 leaves as jnp.int4; `from_jax` packs them).
+    The port's own copy of the JAX package's `quantize_qwen_text_params`."""
+    group_size = effective_group(group_size, weight_bits)
 
-    def quantize(w):
+    def quantize(w, bits):
+        qmax = float(QMAX[bits])
         if group_size and w.shape[0] % int(group_size) == 0:
             K, N = w.shape
             wg = w.reshape(K // int(group_size), int(group_size), N)
-            s = np.abs(wg).max(axis=1) / 127.0
+            s = np.abs(wg).max(axis=1) / qmax
             s = np.where(s == 0, 1e-8, s)
-            q = np.clip(np.round(wg / s[:, None]), -127.0, 127.0).reshape(K, N)
+            q = np.clip(np.round(wg / s[:, None]), -qmax, qmax).reshape(K, N)
         else:
-            s = np.abs(w).max(axis=0) / 127.0
+            s = np.abs(w).max(axis=0) / qmax
             s = np.where(s == 0, 1e-8, s)
-            q = np.clip(np.round(w / s[None]), -127.0, 127.0)
+            q = np.clip(np.round(w / s[None]), -qmax, qmax)
         return q.astype(np.int8), s.astype(np.float32)
 
     def convert(tree):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict) and "kernel" in v and k != "embed_tokens":
-                q, s = quantize(np.asarray(v["kernel"], np.float32))
+                q, s = quantize(np.asarray(v["kernel"], np.float32), _wbits_for(k, weight_bits))
                 out[k] = {"kernel_q": q, "scale_q": s, **({"bias": v["bias"]} if "bias" in v
                                                          else {})}
             elif isinstance(v, dict):
@@ -624,21 +706,27 @@ def quantize_qwen_text_params(params: Dict, group_size: Optional[int] = None) ->
 
 
 @torch.no_grad()
-def quantize_qwen_text_(model: QwenTextModel, group_size: Optional[int] = None) -> QwenTextModel:
-    """Quantize a built bf16 text model to the W8A8 format in place, on its
-    device: every nn.Linear (the projections and the lm_head; the
-    embedding is not a Linear) becomes a `QuantLinear`, and each bf16
-    weight is released as its int8 copy lands, so the peak stays near one
-    bf16 copy plus one matrix. The modules' configs become
-    weight_dtype="int8" with this group size. Counterpart of the JAX
+def quantize_qwen_text_(model: QwenTextModel, group_size: Optional[int] = None,
+                        weight_bits: int = 8) -> QwenTextModel:
+    """Quantize a built bf16 text model in place, on its device, to the
+    W8A8 (weight_bits=8) or W4A8 (4) format: every nn.Linear (the
+    projections and the lm_head; the embedding is not a Linear) becomes a
+    `QuantLinear` (at 4 bits with `effective_group`'s scales and the
+    lm_head at 8), and each bf16 weight is released as its quantized copy
+    lands, so the peak stays near one bf16 copy plus one matrix. The
+    modules' configs become weight_dtype "int8" or "int4" with this group
+    size. Counterpart of the JAX
     `quantize_qwen_text_params_device(free_source=True)`."""
     # (parent, name) pairs only: a list of the Linears would keep every
     # bf16 weight alive until the end
     targets = [(mod, name) for mod in model.modules()
                for name, child in mod.named_children() if isinstance(child, nn.Linear)]
+    group = effective_group(group_size, weight_bits)
     for mod, name in targets:
-        setattr(mod, name, QuantLinear.from_linear(getattr(mod, name), group_size))
-    cfg = dataclasses.replace(model.cfg, weight_dtype="int8", quant_group_size=group_size)
+        setattr(mod, name, QuantLinear.from_linear(getattr(mod, name), group,
+                                                   _wbits_for(name, weight_bits)))
+    cfg = dataclasses.replace(model.cfg, weight_dtype="int4" if weight_bits == 4 else "int8",
+                              quant_group_size=group_size)
     for mod in model.modules():
         if isinstance(getattr(mod, "cfg", None), QwenTextConfig):
             mod.cfg = cfg

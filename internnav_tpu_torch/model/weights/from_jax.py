@@ -5,7 +5,10 @@ so the mapping is by rule, per leaf:
 
 - Dense `kernel` (in, out)  → `weight` (out, in)
 - int8 Dense `kernel_q` (in, out) → `weight_q` (out, in); its `scale_q`
-  keeps name and layout
+  ((out,) or grouped (in / g, out)) keeps name and layout. An int4
+  `kernel_q` (`jnp.int4`, which numpy holds as `ml_dtypes.int4`) is widened
+  to int8 codes and packed two a byte (`ops.quant.pack_int4`) into the
+  port's uint8 (out, in / 2) `weight_q`
 - Conv `kernel` HWIO        → `weight` OIHW
 - Embed `embedding`         → `weight`
 - RMSNorm/LayerNorm `scale` → `weight`
@@ -26,6 +29,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from internnav_tpu_torch.ops.quant import pack_int4
 
 _LIST_ENTRY = re.compile(r"^(.+)_(\d+)$")
 
@@ -88,10 +93,14 @@ def state_dict_from_jax(params: Mapping[str, Any], module: nn.Module) -> Dict[st
         if key in out:
             raise KeyError(f"port parameter {key} set twice (last from {'/'.join(path)})")
         want = target[key]
-        if tuple(arr.shape) != tuple(want.shape):
+        if want.dtype == torch.uint8 and leaf == "weight_q":  # packed int4 codes
+            value = pack_int4(torch.from_numpy(np.asarray(arr).astype(np.int8)))
+        else:
+            # through float32: exact for every float and int8 leaf
+            value = torch.from_numpy(np.array(arr, np.float32)).to(want.dtype)
+        if tuple(value.shape) != tuple(want.shape):
             raise ValueError(f"{'/'.join(path)} {arr.shape} → {key} {tuple(want.shape)}: shape differs")
-        # through float32: exact for every float and int8 leaf
-        out[key] = torch.from_numpy(np.array(arr, np.float32)).to(want.dtype)
+        out[key] = value
     missing = sorted(names - set(out))
     if missing:
         raise KeyError(f"port parameters not set by the JAX tree: {missing}")

@@ -24,7 +24,8 @@ import torch
 
 #: the dtypes the port reads and writes, by their safetensors name
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
-          "I8": torch.int8, "I32": torch.int32, "I64": torch.int64, "BOOL": torch.bool}
+          "I8": torch.int8, "U8": torch.uint8, "I32": torch.int32, "I64": torch.int64,
+          "BOOL": torch.bool}
 _NAMES = {v: k for k, v in DTYPES.items()}
 INDEX_FILE = "model.safetensors.index.json"
 SINGLE_FILE = "model.safetensors"

@@ -1,5 +1,5 @@
-"""int8 quantization ops of the `realtime` serving profile: plain PyTorch
-versions and their hand-written Hopper kernels.
+"""int8 and int4 quantization ops of the quantized serving formats: plain
+PyTorch versions and their hand-written Hopper kernels.
 
 Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
 
@@ -14,6 +14,17 @@ Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
   (`csrc/w8a8_gemm.cu`). `w8a8_linear_multi` takes several projections
   of one input (q/k/v, gate/up): at decode rows one K6b launch computes
   them all, split over the SMs by `gemm_decode_plan`.
+- int4 storage (`weight_dtype="int4"`, W4A8): `pack_int4` / `unpack_int4`
+  keep two signed codes in [-7, 7] a byte along K, the low nibble the even
+  k, in an (N, K / 2) uint8 buffer (K contiguous, as K6b's B operand).
+  `w4a8_linear_reference` is the W4A8 product (`:140-143` with `:177-196`
+  at `weight_bits=4`): the codes widened to int8, then K6b's arithmetic;
+  kernel K9 (`csrc/w4a8_gemm.cu`).
+- `w8a16_linear_reference`: the `bf16_act` product (`:153-171`, the
+  cached-decode projections under `decode_act_dtype="bf16"`): bf16
+  activations times int8 or int4 codes widened to bf16, fp32 sums, the
+  scale per channel or per group after that group's sum; kernel K10
+  (`csrc/w8a16_gemm.cu`).
 - `apply_rotary` (`:375-387`), `quantize_kv` (`:527-537`) and the quantized
   cache write of `_write_cache` / `_write_cache_chunk` (`:556-583`):
   `rope_kv_write_reference`, and without the rotary
@@ -24,8 +35,8 @@ Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
   (`cache_write_slots`), which the bf16 cache write shares.
 
 The dispatchers (`rmsnorm_quantize`, `swiglu_quantize`,
-`quantize_activations`, `w8a8_linear`, `w8a8_linear_multi`,
-`rope_kv_write`, `write_kv_cache`)
+`quantize_activations`, `w8a8_linear`, `w8a8_linear_multi`, `w4a8_linear`,
+`w8a16_linear`, `rope_kv_write`, `write_kv_cache`)
 send a CPU tensor to the plain version and a CUDA tensor to the kernel, or
 raise: there is no fallback from one to the other. Each kernel wrapper adds
 one to its launch count per launch. The kernels are built on the first
@@ -54,7 +65,8 @@ from internnav_tpu_torch.ops.rope import apply_rotary
 #: launch; the plain versions never do): K6a activation quantization (all
 #: prologues, then each prologue's own count), K6b W8A8 GEMM (all
 #: launches, then those that computed several projections at once), K7
-#: rotary + KV quantization + cache write
+#: rotary + KV quantization + cache write, K9 W4A8 GEMM, K10 W8A16 /
+#: W4A16 GEMM
 quantize_rows_launches = 0
 rmsnorm_quantize_launches = 0
 swiglu_quantize_launches = 0
@@ -62,11 +74,14 @@ plain_quantize_launches = 0
 w8a8_launches = 0
 w8a8_fused_launches = 0
 kv_write_launches = 0
+w4a8_launches = 0
+w8a16_launches = 0
 #: the counters' names (`decode_graph` adds a captured step's launches to
 #: them at every replay of its graph)
 LAUNCH_COUNTERS = ("quantize_rows_launches", "rmsnorm_quantize_launches",
                    "swiglu_quantize_launches", "plain_quantize_launches", "w8a8_launches",
-                   "w8a8_fused_launches", "kv_write_launches")
+                   "w8a8_fused_launches", "kv_write_launches", "w4a8_launches",
+                   "w8a16_launches")
 
 #: K6a's prologues (csrc/quantize_rows.cu)
 PLAIN, RMSNORM, SWIGLU = 0, 1, 2
@@ -103,16 +118,54 @@ GEMM_GPCS, GEMM_GPC_SMS = 8, 16
 GEMM_SM_INFLIGHT = 2 * GEMM_DECODE_MAX_STAGES * GEMM_DECODE_BLOCK_N * GEMM_LINE
 #: K7's head widths (one warp a row, D / 32 values a lane)
 KV_WRITE_HEAD_DIMS = (64, 128, 256)
+#: the largest code of each weight width (symmetric: [-qmax, qmax])
+QMAX = {8: 127, 4: 7}
+#: the scale group int4 weights take when none is given (JAX
+#: `_effective_group`)
+INT4_GROUP = 128
 
 KVEntry = Tuple[torch.Tensor, torch.Tensor]  # (int8 data (B, T, KV, D), fp32 scale (B, T, KV, 1))
 
 
 # ---------------------------------------------------------- plain versions
-def div127(t: torch.Tensor) -> torch.Tensor:
-    """t / 127, IEEE-rounded on every device. The divisor is a tensor of
-    t's shape: PyTorch's CUDA division by a Python scalar multiplies by its
-    reciprocal, which differs from the division in the last bit."""
-    return t / torch.full_like(t, 127.0)
+def div_qmax(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """t / QMAX[bits], IEEE-rounded on every device. The divisor is a
+    tensor of t's shape: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which differs from the division in the
+    last bit."""
+    return t / torch.full_like(t, float(QMAX[bits]))
+
+
+def effective_group(group_size: Optional[int], bits: int) -> Optional[int]:
+    """The scale group a projection of `bits`-bit weights asks for: int4
+    takes INT4_GROUP when none is given, int8 the caller's (JAX
+    `_effective_group`). `grouped_scales` then falls back to per-channel
+    where it does not divide the input width."""
+    return INT4_GROUP if bits == 4 and group_size is None else group_size
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """int8 codes (..., K) in [-7, 7], K even → (..., K / 2) uint8: two
+    codes a byte along K, the even k in the low nibble."""
+    if codes.dtype != torch.int8 or codes.shape[-1] % 2:
+        raise ValueError(f"pack_int4 takes int8 codes of even width, got {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    nib = codes.view(torch.uint8) & 0xF
+    return nib[..., 0::2] | (nib[..., 1::2] << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., K / 2) uint8 of `pack_int4` → int8 codes (..., K)."""
+    if packed.dtype != torch.uint8:
+        raise ValueError(f"unpack_int4 takes uint8, got {packed.dtype}")
+    nib = torch.stack([packed & 0xF, packed >> 4], -1).to(torch.int16)
+    return (nib - 16 * (nib >= 8)).to(torch.int8).reshape(*packed.shape[:-1], -1)
+
+
+def weight_codes(weight_q: torch.Tensor) -> torch.Tensor:
+    """A quantized weight's int8 codes (N, K): int8 as it is, packed int4
+    (uint8 (N, K / 2)) unpacked."""
+    return unpack_int4(weight_q) if weight_q.dtype == torch.uint8 else weight_q
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -121,7 +174,7 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     Returns (q int8 (..., K), a_scale fp32 (..., 1))."""
     xf = x.float()
     amax = xf.abs().amax(-1, keepdim=True)
-    a_scale = div127(amax.clamp(min=1e-8))
+    a_scale = div_qmax(amax.clamp(min=1e-8), 8)
     return torch.round(xf / a_scale).clamp(-127, 127).to(torch.int8), a_scale
 
 
@@ -173,7 +226,7 @@ def w8a8_linear_reference(xq: torch.Tensor, a_scale: torch.Tensor, weight_q: tor
     a_scale, then + bias, all in fp32, cast to out_dtype."""
     M, K = xq.shape
     N = weight_q.shape[0]
-    xd, wd = xq.double(), weight_q.double()
+    xd, wd = xq.double(), weight_codes(weight_q).double()
     if scale_q.dim() == 2:
         G = scale_q.shape[0]
         g = K // G
@@ -181,6 +234,45 @@ def w8a8_linear_reference(xq: torch.Tensor, a_scale: torch.Tensor, weight_q: tor
         y = (y32.float() * scale_q[:, None, :]).sum(0) * a_scale
     else:
         y = (xd @ wd.T).float() * a_scale * scale_q
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+def w4a8_linear_reference(xq: torch.Tensor, a_scale: torch.Tensor, weight_q: torch.Tensor,
+                          scale_q: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                          out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The W4A8 product, K9's plain version: packed int4 weight_q (N, K /
+    2) uint8 widened to int8 codes (JAX widens s4 to s8 for its integer
+    dot, `:140-143`), then `w8a8_linear_reference`: an exact integer sum a
+    scale group, the fp32 epilogue in the JAX order."""
+    if weight_q.dtype != torch.uint8:
+        raise ValueError(f"W4A8: weight_q must be packed int4 (uint8), got {weight_q.dtype}")
+    return w8a8_linear_reference(xq, a_scale, weight_q, scale_q, bias, out_dtype)
+
+
+def w8a16_linear_reference(x: torch.Tensor, weight_q: torch.Tensor, scale_q: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None,
+                           out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The `bf16_act` product of `QuantDense` (JAX `:153-171`), K10's plain
+    version: x (M, K) cast to bf16, times the codes of weight_q (int8 (N,
+    K) or packed int4 (N, K / 2)) widened to bf16, summed in fp32 (each
+    product of two bf16 values is exact in fp32); per channel y * scale
+    (N,), grouped sum_g(y_g * scale[g]) over (K / G, N) scales; then + the
+    fp32 bias, cast to out_dtype. The fp32 sums run in the CPU's order,
+    so the kernel agrees to fp32 rounding, not bit for bit."""
+    M, K = x.shape
+    w = weight_codes(weight_q)
+    N = w.shape[0]
+    xf = x.to(torch.bfloat16).float()
+    wf = w.float()
+    if scale_q.dim() == 2:
+        G = scale_q.shape[0]
+        g = K // G
+        yg = torch.einsum("mgk,ngk->gmn", xf.view(M, G, g), wf.view(N, G, g))
+        y = (yg * scale_q[:, None, :]).sum(0)
+    else:
+        y = (xf @ wf.T) * scale_q
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
@@ -352,7 +444,7 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     the activation scale's expression: the clamp comes after the
     division)."""
     xf = x.float()
-    s = div127(xf.abs().amax(-1, keepdim=True)).clamp(min=1e-8)
+    s = div_qmax(xf.abs().amax(-1, keepdim=True), 8).clamp(min=1e-8)
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
 
 
@@ -474,6 +566,32 @@ def w8a8_linear_multi(xq, a_scale, segments: Sequence[Tuple], *,
     _require_cpu(xq, "w8a8_linear")
     return [w8a8_linear_reference(xq, a_scale, w, s, b, out_dtype=out_dtype)
             for w, s, b in segments]
+
+
+def w4a8_linear(xq, a_scale, weight_q, scale_q, bias=None, *,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The W4A8 product of xq (M, K) int8, a_scale (M, 1) and packed int4
+    weight_q (N, K / 2): the plain version on the CPU, K9 on CUDA (bf16
+    out)."""
+    if xq.is_cuda:
+        if out_dtype != torch.bfloat16:
+            raise TypeError(f"W4A8 kernel writes bfloat16, not {out_dtype}")
+        return w4a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias)
+    _require_cpu(xq, "w4a8_linear")
+    return w4a8_linear_reference(xq, a_scale, weight_q, scale_q, bias, out_dtype)
+
+
+def w8a16_linear(x, weight_q, scale_q, bias=None, *,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The W8A16 / W4A16 product of x (M, K) (cast to bf16) and int8 (N, K)
+    or packed int4 (N, K / 2) codes: the plain version on the CPU, K10 on
+    CUDA (bf16 out)."""
+    if x.is_cuda:
+        if out_dtype != torch.bfloat16:
+            raise TypeError(f"W8A16 kernel writes bfloat16, not {out_dtype}")
+        return w8a16_linear_cuda(x.to(torch.bfloat16).contiguous(), weight_q, scale_q, bias)
+    _require_cpu(x, "w8a16_linear")
+    return w8a16_linear_reference(x, weight_q, scale_q, bias, out_dtype)
 
 
 def rope_kv_write(q, k, v, cos, sin, k_entry: KVEntry, v_entry: KVEntry, cache_len
@@ -631,20 +749,28 @@ def _check_gemm_input(xq, a_scale) -> Tuple[int, int]:
     return M, K
 
 
-def _check_gemm_weight(weight_q, scale_q, bias, K: int, device) -> Tuple[int, int]:
-    """(N, group) of one projection, group 0 for per-channel scales."""
+def _check_gemm_weight(weight_q, scale_q, bias, K: int, device, bits: int = 8,
+                       kernel: str = "W8A8 kernel") -> Tuple[int, int]:
+    """(N, group) of one projection, group 0 for per-channel scales: an
+    int8 (N, K) weight, or at 4 bits a packed uint8 (N, K / 2) one."""
+    if weight_q.dim() != 2:
+        raise ValueError(f"{kernel}: weight_q must be 2-d, got {tuple(weight_q.shape)}")
     N = weight_q.shape[0]
-    _check_cuda("weight_q", weight_q, torch.int8, (N, K), device)
+    if bits == 4:
+        _check_cuda("weight_q", weight_q, torch.uint8, (N, K // 2), device, kernel)
+    else:
+        _check_cuda("weight_q", weight_q, torch.int8, (N, K), device, kernel)
     group = 0
     if scale_q.dim() == 2:
         G = scale_q.shape[0]
         group = K // G if G and K % G == 0 else 0
         if not group or group % GEMM_K_CHUNK:
-            raise ValueError(f"W8A8 kernel: {G} scale groups over K={K} are not whole "
+            raise ValueError(f"{kernel}: {G} scale groups over K={K} are not whole "
                              f"{GEMM_K_CHUNK}-wide chunks")
-    _check_cuda("scale_q", scale_q, torch.float32, (K // group, N) if group else (N,), device)
+    _check_cuda("scale_q", scale_q, torch.float32, (K // group, N) if group else (N,), device,
+                kernel)
     if bias is not None:
-        _check_cuda("bias", bias, torch.float32, (N,), device)
+        _check_cuda("bias", bias, torch.float32, (N,), device, kernel)
     return N, group
 
 
@@ -720,6 +846,85 @@ def _decode_launch(xq, a_scale, M: int, K: int, segments: Sequence[Tuple]
     if len(segments) > 1:
         w8a8_fused_launches += 1
     return outs
+
+
+# ------------------------------------------------------ K9, K10 (CUDA C++)
+@functools.lru_cache(maxsize=None)
+def _w4a8_entry():
+    """K9's C entry point, built and bound once per process."""
+    from internnav_tpu_torch.ops._build import load_library
+
+    fn = load_library("w4a8_gemm.cu").w4a8_gemm
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _w8a16_entry():
+    """K10's C entry point, built and bound once per process."""
+    from internnav_tpu_torch.ops._build import load_library
+
+    fn = load_library("w8a16_gemm.cu").w8a16_gemm
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def w4a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias=None) -> torch.Tensor:
+    """Launch K9: xq (M, K) int8, a_scale (M, 1) fp32, weight_q (N, K / 2)
+    packed int4 (`pack_int4`), scale_q (N,) or (G, N) fp32, bias (N,) fp32
+    or None → bf16 (M, N). K must be a multiple of 64, a group a multiple
+    of 64. Raises on anything else."""
+    global w4a8_launches
+    kernel = "W4A8 kernel"
+    if not xq.is_cuda or xq.dim() != 2:
+        raise ValueError(f"{kernel}: xq must be a 2-d CUDA tensor")
+    M, K = xq.shape
+    if K % GEMM_K_CHUNK:
+        raise ValueError(f"{kernel}: K={K} is not a multiple of {GEMM_K_CHUNK}")
+    dev = xq.device
+    _check_cuda("xq", xq, torch.int8, (M, K), dev, kernel)
+    _check_cuda("a_scale", a_scale, torch.float32, (M, 1), dev, kernel)
+    N, group = _check_gemm_weight(weight_q, scale_q, bias, K, dev, 4, kernel)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if M and N:
+        with torch.cuda.device(dev.index):
+            err = _w4a8_entry()(xq.data_ptr(), a_scale.data_ptr(), weight_q.data_ptr(),
+                                scale_q.data_ptr(), None if bias is None else bias.data_ptr(),
+                                out.data_ptr(), M, N, K, group, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"W4A8 kernel launch failed: cudaError_t {err}")
+        w4a8_launches += 1
+    return out
+
+
+def w8a16_linear_cuda(x, weight_q, scale_q, bias=None) -> torch.Tensor:
+    """Launch K10: x (M, K) bf16, weight_q int8 (N, K) or packed int4 (N, K
+    / 2) uint8, scale_q (N,) or (G, N) fp32, bias (N,) fp32 or None → bf16
+    (M, N). K must be a multiple of 64, a group a multiple of 64. Raises on
+    anything else."""
+    global w8a16_launches
+    kernel = "W8A16 kernel"
+    if not x.is_cuda or x.dim() != 2:
+        raise ValueError(f"{kernel}: x must be a 2-d CUDA tensor")
+    M, K = x.shape
+    if K % GEMM_K_CHUNK:
+        raise ValueError(f"{kernel}: K={K} is not a multiple of {GEMM_K_CHUNK}")
+    dev = x.device
+    _check_cuda("x", x, torch.bfloat16, (M, K), dev, kernel)
+    bits = 4 if weight_q.dtype == torch.uint8 else 8
+    N, group = _check_gemm_weight(weight_q, scale_q, bias, K, dev, bits, kernel)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if M and N:
+        with torch.cuda.device(dev.index):
+            err = _w8a16_entry()(x.data_ptr(), weight_q.data_ptr(), scale_q.data_ptr(),
+                                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                                 M, N, K, group, bits, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"W8A16 kernel launch failed: cudaError_t {err}")
+        w8a16_launches += 1
+    return out
 
 
 # ---------------------------------------------------------- K7 (CUDA C++)

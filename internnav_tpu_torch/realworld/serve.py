@@ -39,12 +39,18 @@ PROFILES = {
 
 
 def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optional[str] = None,
-                 system1: str = "nextdit_async", config=None):
+                 system1: str = "nextdit_async", config=None,
+                 weight_dtype: Optional[str] = None, kv_dtype: Optional[str] = None):
     """The served policy in the profile's formats: at Qwen2.5-VL-7B dims
     (or `config`'s), random weights from seed 0 without `ckpt`, else the
-    checkpoint's. A native directory keeps the weight dtype it records
-    (F4); an HF-layout checkpoint takes the profile's, quantized on load
-    for int8. Prints the weight and KV formats chosen and why."""
+    checkpoint's. `weight_dtype` ("bf16", "int8" or "int4") and `kv_dtype`
+    ("bf16" or "int8") stand in for the profile's where given (the JAX
+    agent's `settings['weight_dtype']`, bench.py's `--weight-dtype` /
+    `--kv-dtype`). A native directory keeps the weight dtype it records
+    (F4); an HF-layout checkpoint takes the asked one, quantized on load
+    for int8 and int4. W8A16 / W4A16 decode comes with `config`
+    (`decode_act_dtype="bf16"`), as the JAX package selects it. Prints the
+    weight and KV formats chosen and why."""
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import (
         InternVLAN1Policy,
@@ -54,8 +60,12 @@ def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optio
 
     if profile not in PROFILES:
         raise ValueError(f"unknown profile {profile!r}")
-    fmt = PROFILES[profile]
+    fmt = dict(PROFILES[profile])
     weight, why = fmt["weight_dtype"], f"the {profile} profile's"
+    if weight_dtype is not None:
+        weight, why = weight_dtype, "asked for"
+    kv = fmt["kv_dtype"] if kv_dtype is None else kv_dtype
+    kv_why = f"the {profile} profile's" if kv_dtype is None else "asked for"
     kind = checkpoint_format(ckpt) if ckpt else None
     if kind == "native":
         recorded = native_weight_dtype(ckpt)
@@ -66,12 +76,12 @@ def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optio
         weight = recorded
     cfg = config if config is not None else InternVLAN1Config.qwen25vl_7b(system1)
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, weight_dtype=weight, kv_dtype=fmt["kv_dtype"]))
+        cfg.text, weight_dtype=weight, kv_dtype=kv))
     source = {None: "random weights (seed 0)", "native": f"native checkpoint {ckpt}",
               "hf": f"reference-format checkpoint {ckpt}" + (
-                  ", quantized on load" if weight == "int8" else "")}[kind]
-    print(f"serve: weight_dtype={weight} ({why}), kv_dtype={fmt['kv_dtype']} (the {profile} "
-          f"profile's), {source}", flush=True)
+                  ", quantized on load" if weight in ("int8", "int4") else "")}[kind]
+    print(f"serve: weight_dtype={weight} ({why}), kv_dtype={kv} ({kv_why}), "
+          f"decode_act_dtype={cfg.text.decode_act_dtype}, {source}", flush=True)
     if kind is None:
         return InternVLAN1Policy.build(cfg, device=device)
     if kind == "native":

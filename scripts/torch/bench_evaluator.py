@@ -32,6 +32,11 @@ samples, their spread, the median run, peak device memory and the device
 (`nvidia-smi` name and power limit). A failed run raises and exits
 non-zero: no value is printed without a measurement.
 
+`--weight-dtype {int8,int4}` and `--kv-dtype {bf16,int8}` pick the
+decoder's weight and KV formats, as bench.py's flags (by default the
+realtime profile's, int8 and int8; with `--tiny` the tiny model's own); a
+native `--ckpt` keeps the weight dtype it records.
+
 `--tiny` runs the same loop with the tiny model on the CPU, 2 cohorts x 2
 streams (the tests); its numbers are no device measurement and carry no
 baseline.
@@ -207,16 +212,26 @@ def gpu_line() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def build_inner(device, tiny: bool = False, ckpt: Optional[str] = None):
-    """The headline's policy (7B realtime, random weights from seed 0 or
-    the checkpoint `ckpt`), or the tiny test model, with the stop id pinned
-    to STOP_ID."""
+def build_inner(device, tiny: bool = False, ckpt: Optional[str] = None,
+                weight_dtype: Optional[str] = None, kv_dtype: Optional[str] = None):
+    """The headline's policy (7B realtime, in these weight and KV formats
+    where given, random weights from seed 0 or the checkpoint `ckpt`), or
+    the tiny test model, with the stop id pinned to STOP_ID."""
+    import dataclasses
+
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
     from internnav_tpu_torch.realworld.serve import build_policy
 
-    inner = (InternVLAN1Policy.build(InternVLAN1Config.tiny(), device=device) if tiny
-             else build_policy("realtime", device=device, ckpt=ckpt))
+    if tiny:
+        cfg = InternVLAN1Config.tiny()
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, weight_dtype=weight_dtype or cfg.text.weight_dtype,
+            kv_dtype=kv_dtype or cfg.text.kv_dtype))
+        inner = InternVLAN1Policy.build(cfg, device=device)
+    else:
+        inner = build_policy("realtime", device=device, ckpt=ckpt, weight_dtype=weight_dtype,
+                             kv_dtype=kv_dtype)
     inner.tokenizer.eos_token_id = STOP_ID
     return inner
 
@@ -233,6 +248,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--ckpt", default=None,
                     help="the 7B policy's checkpoint (reference format or native; random "
                          "weights without it)")
+    ap.add_argument("--weight-dtype", default=None, choices=("int8", "int4"),
+                    help="the decoder projections: int8 = W8A8 (the realtime profile's "
+                         "default); int4 = W4A8 (grouped-128 scales, the lm_head at 8 bits)")
+    ap.add_argument("--kv-dtype", default=None, choices=("bf16", "int8"),
+                    help="the decode KV cache's storage (the realtime profile's int8 by "
+                         "default)")
     args = ap.parse_args(argv)
     if args.tiny and args.ckpt:
         ap.error("--ckpt loads the 7B policy; --tiny builds the tiny test model")
@@ -242,7 +263,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from internnav_tpu_torch import require_cuda
 
     device = torch.device("cpu") if args.tiny else require_cuda()
-    inner = build_inner(device, tiny=args.tiny, ckpt=args.ckpt)
+    inner = build_inner(device, tiny=args.tiny, ckpt=args.ckpt, weight_dtype=args.weight_dtype,
+                        kv_dtype=args.kv_dtype)
     shape = TINY_SHAPE if args.tiny else {}
     (REPO / "build").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="bench_evaluator_", dir=REPO / "build")
@@ -261,7 +283,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise RuntimeError("the timed runs took other episodes than the warm run")
     config = {"profile": "realtime", "batch": BATCH, "cohorts": COHORTS, "max_step": MAX_STEP,
               "hw": IMAGE_HW, "max_new_tokens": DECODE_TOKENS,
-              "num_sample_trajs": NUM_SAMPLE_TRAJS, "weights": args.ckpt or "random (seed 0)"}
+              "num_sample_trajs": NUM_SAMPLE_TRAJS, "weights": args.ckpt or "random (seed 0)",
+              "weight_dtype": inner.cfg.text.weight_dtype, "kv_dtype": inner.cfg.text.kv_dtype}
     if args.tiny:
         config.update(profile="tiny", **TINY_SHAPE)
     extra = {

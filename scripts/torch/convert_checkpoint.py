@@ -2,17 +2,19 @@
 directory of the PyTorch port.
 
     python scripts/torch/convert_checkpoint.py --model internvla_n1 \
-        --src /path/to/InternVLA-N1 --dst converted/n1 [--int8]
+        --src /path/to/InternVLA-N1 --dst converted/n1 [--int8 | --int4]
 
 The port's counterpart of scripts/tools/convert_checkpoint.py's
 internvla_n1 branch: `InternVLAN1Policy.from_pretrained_torch` at the
 Qwen2.5-VL-7B dims (with --int8 the decoder projections quantized to the
-W8A8 `realtime` format as they load), then `save_pretrained`, and the
+W8A8 `realtime` format as they load; with --int4 to W4A8: packed int4
+codes with grouped-128 scales, the lm_head at 8 bits), then
+`save_pretrained`, and the
 tokenizer assets copied over so that the native directory loads the same
 tokenizer. `realworld.serve --ckpt` and the agents load either format
 directly; a native directory skips the conversion and, in int8, holds a
 bit more than half the bytes. The conversion runs on the GPU (`--device`);
-`--int4` and the other models of the JAX tool are not ported yet and raise.
+the other models of the JAX tool are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -33,15 +35,16 @@ TOKENIZER_ASSETS = ("tokenizer.json", "tokenizer_config.json", "vocab.json", "me
                     "preprocessor_config.json", "generation_config.json")
 
 
-def convert_n1(src: str, dst: str, *, int8: bool, device, cfg=None):
-    """`src` (reference format) → the native directory `dst`, bf16 or
-    int8, at 7B dims or `cfg`'s; returns the loaded policy."""
+def convert_n1(src: str, dst: str, *, int8: bool = False, int4: bool = False, device,
+               cfg=None):
+    """`src` (reference format) → the native directory `dst`, bf16, int8
+    or int4, at 7B dims or `cfg`'s; returns the loaded policy."""
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
 
     cfg = cfg if cfg is not None else InternVLAN1Config.qwen25vl_7b()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, weight_dtype="int8" if int8 else "bf16"))
+        cfg.text, weight_dtype="int4" if int4 else "int8" if int8 else "bf16"))
     policy = InternVLAN1Policy.from_pretrained_torch(src, cfg, device=device)
     policy.save_pretrained(dst)
     if os.path.isdir(src):
@@ -60,15 +63,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--dst", required=True, help="output directory")
     ap.add_argument("--int8", action="store_true",
                     help="quantize the decoder to the W8A8 serving format before saving")
-    ap.add_argument("--int4", action="store_true", help="W4A8 (not yet ported)")
+    ap.add_argument("--int4", action="store_true",
+                    help="quantize the decoder to W4A8 (int4, grouped-128 scales, the "
+                         "lm_head at 8 bits) before saving")
     ap.add_argument("--device", default="cuda", help="a CUDA device, or cpu")
     args = ap.parse_args(argv)
     if args.int8 and args.int4:
         ap.error("--int8 and --int4 are mutually exclusive")
     if (args.int8 or args.int4) and args.model != "internvla_n1":
         ap.error("--int8/--int4 apply only to --model internvla_n1")
-    if args.int4:
-        raise NotImplementedError("--int4 (W4A8) is not yet ported (ROADMAP §1 item 3)")
     if args.model != "internvla_n1":
         raise NotImplementedError(f"--model {args.model} is not yet ported (ROADMAP §1 item 6)")
 
@@ -77,7 +80,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from internnav_tpu_torch import require_cuda
 
     device = torch.device("cpu") if args.device == "cpu" else require_cuda(args.device)
-    convert_n1(args.src, args.dst, int8=args.int8, device=device)
+    convert_n1(args.src, args.dst, int8=args.int8, int4=args.int4, device=device)
     print(f"converted {args.model}: {args.src} -> {args.dst}")
     return 0
 

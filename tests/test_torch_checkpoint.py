@@ -328,7 +328,33 @@ def test_from_pretrained_torch_int8_equals_jax(tmp_path):
     assert isinstance(policy.model.language_model.lm_head, qt.QuantLinear)
 
 
-@pytest.mark.parametrize("weight_dtype", ["bf16", "int8"])
+def test_from_pretrained_torch_int4_equals_jax(tmp_path):
+    """int4 quantized on load (JAX `policy.py:315-320`): the packed codes,
+    grouped-128 scales where 128 divides the input (down_proj, K=128) and
+    per channel elsewhere (K=64), and the lm_head at 8 bits, bitwise JAX's
+    `from_pretrained_torch` mapped by `from_jax` (which packs its jnp.int4
+    leaves)."""
+    cfg = n1_config(dtype=torch.bfloat16, weight_dtype="int4", kv_dtype="int8")
+    sd = _bf16_exact_checkpoint(tmp_path, n1_config())
+    policy = InternVLAN1Policy.from_pretrained_torch(str(tmp_path), cfg, device="cpu")
+    jcfg = jmodel.InternVLAN1Config.tiny()
+    jcfg = dataclasses.replace(
+        jcfg, text=dataclasses.replace(jcfg.text, dtype=jnp.bfloat16, weight_dtype="int4",
+                                       kv_dtype="int8"),
+        image_token_index=IMG_TOK, traj_token_index=TRAJ_TOK)
+    jpol = JPolicy.from_pretrained_torch(str(tmp_path), jcfg)
+    assert jpol.params["language_model"]["layers_0"]["mlp"]["down_proj"]["kernel_q"].dtype \
+        == jnp.int4
+    jtree = _jax_tree_with_memory_proj(jax.tree_util.tree_map(np.asarray, jpol.params), sd)
+    target = build_model(cfg, device="cpu")
+    _assert_state_equal(policy.model.state_dict(), state_dict_from_jax(jtree, target))
+    lm = policy.model.language_model
+    assert lm.layers[0].mlp.down_proj.scale_q.shape == (1, 64)  # one group of 128
+    assert lm.layers[0].mlp.up_proj.scale_q.shape == (128,)  # K=64: per channel
+    assert lm.lm_head.weight_bits == 8 and lm.lm_head.weight_q.dtype == torch.int8
+
+
+@pytest.mark.parametrize("weight_dtype", ["bf16", "int8", "int4"])
 def test_native_round_trip_is_bitwise(tmp_path, weight_dtype):
     cfg = n1_config(dtype=torch.bfloat16, weight_dtype=weight_dtype)
     policy = InternVLAN1Policy.build(cfg, device="cpu", seed=3)
@@ -374,8 +400,10 @@ def test_jax_native_directory_is_refused(tmp_path):
                                                         config=cfg)):
         with pytest.raises(ValueError, match="params.msgpack.*convert_checkpoint.py"):
             load(str(tmp_path), n1_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §1 item 3\)"):
-        n1_config(weight_dtype="int4")
+    # the int4 format builds; its JAX native directory is refused all the same
+    with pytest.raises(ValueError, match="params.msgpack.*convert_checkpoint.py"):
+        InternVLAN1Policy.from_pretrained(str(tmp_path), n1_config(weight_dtype="int4"),
+                                          device="cpu")
 
 
 # ---------------------------------------------------------- F4, agents
@@ -475,9 +503,21 @@ def test_convert_checkpoint_cli(tmp_path):
     loaded = InternVLAN1Policy.from_pretrained(str(tmp_path / "dst"), cfg8, device="cpu")
     want = InternVLAN1Policy.from_pretrained_torch(str(src), cfg8, device="cpu")
     _assert_state_equal(loaded.model.state_dict(), want.model.state_dict())
+    cli.convert_n1(str(src), str(tmp_path / "dst4"), int4=True, device="cpu", cfg=cfg)
+    cfg4 = n1_config(weight_dtype="int4")
+    loaded = InternVLAN1Policy.from_pretrained(str(tmp_path / "dst4"), cfg4, device="cpu")
+    want = InternVLAN1Policy.from_pretrained_torch(str(src), cfg4, device="cpu")
+    _assert_state_equal(loaded.model.state_dict(), want.model.state_dict())
+    assert loaded.model.language_model.layers[0].mlp.up_proj.weight_q.dtype == torch.uint8
     base = ["--src", str(src), "--dst", str(tmp_path / "x"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 3"):
-        cli.main(["--model", "internvla_n1", "--int4", *base])
+    seen = {}
+    real = cli.convert_n1
+    cli.convert_n1 = lambda *a, **kw: seen.update(kw)  # the 7B conversion is the card's
+    try:
+        assert cli.main(["--model", "internvla_n1", "--int4", *base]) == 0
+    finally:
+        cli.convert_n1 = real
+    assert seen["int4"] and not seen["int8"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--model", "cma", *base])
     with pytest.raises(SystemExit):

@@ -258,17 +258,23 @@ def _jax_launcher():
 
 def test_launcher_refuses_unported_profile_and_missing_gpu(monkeypatch):
     """The launcher serves the JAX launcher's profiles (realtime by
-    default); the formats not ported yet raise; no GPU raises."""
+    default, no others); the int4 and W8A16 formats build, int4 through
+    build_policy's weight_dtype; no GPU raises."""
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config as Cfg
 
     assert serve.PROFILES == _jax_launcher().PROFILES
     assert serve.build_policy.__defaults__ == ("realtime",)
     with pytest.raises(ValueError, match="unknown profile"):
         serve.build_policy("fp8", device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Cfg.qwen25vl_7b(weight_dtype="int4")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        dataclasses.replace(Cfg.qwen25vl_7b(weight_dtype="int8").text, decode_act_dtype="bf16")
+    assert Cfg.qwen25vl_7b(weight_dtype="int4").text.weight_dtype == "int4"
+    w16 = dataclasses.replace(Cfg.qwen25vl_7b(weight_dtype="int8").text, decode_act_dtype="bf16")
+    assert w16.decode_bf16_act
+    tiny = Cfg.tiny()
+    pol = serve.build_policy("realtime", device=torch.device("cpu"), config=tiny,
+                             weight_dtype="int4")
+    lm = pol.model.language_model
+    assert lm.cfg.weight_dtype == "int4" and lm.cfg.kv_dtype == "int8"
+    assert lm.layers[0].self_attn.q_proj.weight_bits == 4 and lm.lm_head.weight_bits == 8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--device", "cuda"])

@@ -192,18 +192,37 @@ def test_text_model_builds_tile_tables_once_for_all_layers(text_pair, monkeypatc
 
 
 def test_quantized_formats_are_not_silently_bf16():
-    """int8 weights and KV build QuantLinear projections and tuple caches;
-    the formats not ported yet raise instead of running as something else."""
+    """int8 and int4 weights and int8 KV build QuantLinear projections (int4
+    layers packed, the lm_head at 8 bits) and tuple caches; W8A16 decode
+    builds and runs; unknown formats raise instead of running as something
+    else."""
     cfg = dataclasses.replace(qt.QwenTextConfig.tiny(), weight_dtype="int8", kv_dtype="int8")
     tm = qt.QwenTextModel(cfg)
     assert isinstance(tm.lm_head, qt.QuantLinear)
     assert isinstance(tm.layers[0].mlp.down_proj, qt.QuantLinear)
     assert isinstance(tm.embed_tokens, torch.nn.Embedding)
     assert not any(isinstance(m, torch.nn.Linear) for m in tm.modules())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        qt.QwenTextConfig(weight_dtype="int4")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        qt.QwenTextConfig(weight_dtype="int8", decode_act_dtype="bf16")
+    t4 = qt.QwenTextModel(dataclasses.replace(cfg, weight_dtype="int4"))
+    assert not any(isinstance(m, torch.nn.Linear) for m in t4.modules())
+    assert t4.layers[0].mlp.down_proj.weight_q.dtype == torch.uint8
+    assert t4.lm_head.weight_bits == 8 and t4.lm_head.weight_q.dtype == torch.int8
+    for wdt in ("int8", "int4"):
+        w16 = dataclasses.replace(cfg, weight_dtype=wdt, decode_act_dtype="bf16")
+        assert w16.decode_bf16_act
+        m = qt.QwenTextModel(w16)
+        B, T = 1, 5
+        pos = torch.arange(T)[None, None].expand(3, B, T)
+        with torch.no_grad():
+            _, _, caches = m(m.embed(torch.ones(B, T, dtype=torch.long)), pos)
+            caches = qt.pad_caches(caches, T + 1)
+            logits, _, _ = m.decode_step(m.embed(torch.ones(B, 1, dtype=torch.long)),
+                                         torch.full((3, B, 1), T), caches,
+                                         torch.full((B,), T))
+        assert logits.shape == (B, cfg.vocab_size) and torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="weight_dtype"):
+        qt.QwenTextConfig(weight_dtype="int2")
+    with pytest.raises(ValueError, match="decode_act_dtype"):
+        qt.QwenTextConfig(weight_dtype="int8", decode_act_dtype="fp8")
     with pytest.raises(ValueError, match="kv_dtype"):
         qt.QwenTextConfig(kv_dtype="fp8")
 
