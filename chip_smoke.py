@@ -48,16 +48,21 @@ Phases, each printing its numbers:
                row's SwiGLU, a frame's vision MLP, a stream's NextDiT
                feed-forward and the time embedding, at a length that is no
                multiple of 8 and on inputs no 16-byte boundary aligns; K9
-               (W4A8 GEMM, packed int4 codes) for each projection of a
-               layer, grouped-128, at M = 1, 4, 12, 48, 192, 1088 and
-               4864, per channel bitwise, odd N (63, 65, 4097); K10
-               (W8A16 / W4A16 GEMM) at M = 1, 4, 12, 48 and 192 with int8
-               per-channel and int4 grouped codes, and the lm_head at 1,
-               12 and 48 rows (int8 per channel, 8-bit grouped); K10
-               beside torch._weight_int8pack_mm (per-channel int8) and
-               torch._weight_int4pack_mm (grouped int4), each checked
-               against the plain version, and K9's grouped rows beside
-               the latter on the same rows in bf16;
+               (W4A8 GEMM, packed int4 codes, grouped-128) for a layer's
+               q/k/v and gate/up fused and o and down at M = 1, 4, 12 and
+               48 (its decode ring, warm and cold), each projection alone
+               at 192, 1088 and 4864 (its prefill tiles), per channel
+               bitwise, odd N (63, 65, 4097); K10 (W8A16 / W4A16 GEMM)
+               fused likewise at M = 1, 4, 12, 48 and 192 with int8
+               per-channel and int4 grouped codes, the gate alone at M =
+               1, and the lm_head at 1, 12 and 48 rows (int8 per channel,
+               8-bit grouped); K10 beside torch._weight_int8pack_mm
+               (per-channel int8) and torch._weight_int4pack_mm (grouped
+               int4), each checked against the plain version, and K9's
+               grouped rows beside the latter on the same rows in bf16 (a
+               fused row's call on its projections' codes stacked along
+               N); then a row's bits held equal across M, whole-K and
+               split plans and fused and separate launches (K9, K10);
   3. serve   — build the full-width Qwen2.5-VL-7B InternVLA-N1 policy in the
                `parity` profile (bf16, random weights from a seeded
                generator), serve it through the real-robot HTTP server and
@@ -103,7 +108,8 @@ Phases, each printing its numbers:
                bits), held equal by digest to the int4 seed-0 build,
                saved natively and served from that directory through
                `serve.build_policy("realtime", ckpt=...)`: 4 requests, K9
-               7 a layer pass and K6b only for the lm_head, K10 none; a
+               4 a decode layer pass (2 fused) and 7 a prefill one, K6b
+               only for the lm_head, K10 none; a
                decode step against a re-prefill of the same tokens (bf16
                KV, plain prefill attention) within 2e-2, with K1 within
                twice the W8A8 policy's gap; W4A16 decode as above;
@@ -882,30 +888,68 @@ def int8_gemm_rows(device, g):
     return rows
 
 
-# K9's rows: each projection of a 7B layer alone (K9 takes one a launch),
-# grouped-128 as the int4 path holds them, at a token, the latent chunk, a
-# cohort's decode, the shared decode and its latent chunk, a realtime
-# prompt and the long request's prompt; K10's at the decode rows alone
+# K9's and K10's rows. A layer's projections as the decode runs them (q/k/v
+# and gate/up fused, `GEMM_LAYER`): K9 at a token, the latent chunk, a
+# cohort's decode and the shared decode (its decode ring runs up to 64
+# rows), K10 there and at the shared decode's latent chunk (its ring runs
+# up to 192 rows); K9's prefill tiles take each projection alone
+# (`QGEMM_LAYER`) at the shared decode's latent chunk, a realtime prompt
+# and the long request's prompt
 QGEMM_LAYER = (("q", 3584, 3584, True), ("k", 512, 3584, True), ("o", 3584, 3584, False),
                ("gate", 18944, 3584, False), ("down", 3584, 18944, False))
-K9_ROWS = (1, N_QUERY, BATCH_ROWS, BATCH_DECODE_M, BATCH_DECODE_M * N_QUERY, PROMPT_T,
-           LONG_PROMPT_T)
+K9_DECODE_ROWS = (1, N_QUERY, BATCH_ROWS, BATCH_DECODE_M)
+K9_PREFILL_ROWS = (BATCH_DECODE_M * N_QUERY, PROMPT_T, LONG_PROMPT_T)
 K10_ROWS = (1, N_QUERY, BATCH_ROWS, BATCH_DECODE_M, BATCH_DECODE_M * N_QUERY)
 #: rows a block of the plain versions' run (a grouped plain product holds a
 #: (G, rows, N) float64 tensor)
 PLAIN_ROW_BLOCK = 512
+#: timings a K9/K10 row's median takes (each behind a ~5 ms device sleep):
+#: half `cuda_ms`'s default, so that the rows added with the fused launches
+#: cost the run no more time than the rows before them
+QGEMM_REPS = 10
 
 
-def qgemm_row(device, g, kernel, M, N, K, bias, bits, group, extra=None) -> dict:
+def qgemm_weights(g, device, N, K, bits, group, bias):
+    """A random `bits`-bit projection of N outputs over K inputs: (int8
+    codes (N, K), (the codes as the kernels take them (int4 packed),
+    scales (N,) or (K / group, N) fp32, bias (N,) fp32 or None))."""
+    import torch
+
+    from internnav_tpu_torch.ops import quant
+
+    qmax = quant.QMAX[bits]
+    codes = torch.randint(-qmax, qmax + 1, (N, K), generator=g, device=device, dtype=torch.int8)
+    s = torch.rand((K // group, N) if group else (N,), generator=g, device=device) * 1e-3
+    b = torch.randn(N, generator=g, device=device) if bias else None
+    return codes, (quant.pack_int4(codes) if bits == 4 else codes, s + 1e-4, b)
+
+
+def qgemm_bytes(kernel, M, K, bits, segs) -> int:
+    """The bytes a K9 ("K9": int8 rows and their fp32 scales) or K10 (bf16
+    rows) launch over M rows must move, each once: the rows, the codes at
+    bits / 8 bytes a weight, the scales and biases of `segs`, the bf16
+    outputs."""
+    N = sum(s.shape[-1] for _, s, _ in segs)
+    rows = M * K + 4 * M if kernel == "K9" else 2 * M * K
+    return (rows + N * K * bits // 8 + sum(4 * s.numel() for _, s, _ in segs)
+            + sum(4 * b.numel() for _, _, b in segs if b is not None) + 2 * M * N)
+
+
+def qgemm_row(device, g, kernel, M, widths, K, bias, bits, group, extra=None) -> dict:
     """K9 (`kernel` "K9": K6a's int8 rows times packed int4 codes) or K10
     ("K10": bf16 rows times int8 or packed int4 codes) on M rows of width K
-    against its plain version, run in blocks of PLAIN_ROW_BLOCK rows: K9
-    per-channel bit for bit (exact integer sums, K6b's epilogue), K9
-    grouped and K10 within GROUPED_TOL (the sum over groups, and K10's fp32
-    sums, in other orders). Timed warm, at M <= 16 also with a cold L2; the
-    bound: each input read once (the codes at bits / 8 bytes a weight), the
-    output written once, or the operations at the int8 (K9) or bf16 (K10)
-    tensor-core peak. K10's library time is `w16_library`'s call where
+    against one projection a width of `widths` (several: one fused launch,
+    also held bitwise equal to their separate launches, whose summed time
+    is `separate_ms`), against the plain version run in blocks of
+    PLAIN_ROW_BLOCK rows: K9 per-channel bit for bit (exact integer sums,
+    K6b's epilogue), K9 grouped and K10 within GROUPED_TOL (the sum over
+    groups, and K10's fp32 sums, in other orders). Timed warm (medians of
+    QGEMM_REPS), at M <= 16 also with a cold L2; the bound: each input read
+    once (the codes at
+    bits / 8 bytes a weight), the outputs written once, or the operations
+    at the int8 (K9) or bf16 (K10) tensor-core peak. The library time, on
+    the codes and scales of every projection stacked along N (one call
+    for a fused launch's function): K10's is `w16_library`'s call where
     there is one (the reason is kept where there is none or it refuses);
     no PyTorch call takes K9's int8 rows with packed int4 codes, so K9 has
     none, and its grouped rows carry the int4 library call's time on the
@@ -914,38 +958,47 @@ def qgemm_row(device, g, kernel, M, N, K, bias, bits, group, extra=None) -> dict
 
     from internnav_tpu_torch.ops import quant
 
-    qmax = quant.QMAX[bits]
-    codes = torch.randint(-qmax, qmax + 1, (N, K), generator=g, device=device, dtype=torch.int8)
-    w = quant.pack_int4(codes) if bits == 4 else codes
-    s = torch.rand((K // group, N) if group else (N,), generator=g, device=device) * 1e-3 + 1e-4
-    b = torch.randn(N, generator=g, device=device) if bias else None
+    made = [qgemm_weights(g, device, N, K, bits, group, bias) for N in widths]
+    segs = [seg for _, seg in made]
     x = torch.randn((M, K), generator=g, device=device, dtype=torch.bfloat16)
     if kernel == "K9":
         xq, a = quant.quantize_rows(x)
-        run = (lambda: quant.w4a8_linear_cuda(xq, a, w, s, b))
-        one = (lambda r: quant.w4a8_linear_reference(xq[r], a[r], w, s, b))
-        in_bytes, peak = M * K + 4 * M, PEAK_INT8_OPS
+        run = (lambda: quant.w4a8_linear_multi(xq, a, segs))
+        alone = (lambda: [quant.w4a8_linear_multi(xq, a, [sg])[0] for sg in segs])
+        one = (lambda r, sg: quant.w4a8_linear_reference(xq[r], a[r], *sg))
+        peak = PEAK_INT8_OPS
     else:
-        run = (lambda: quant.w8a16_linear_cuda(x, w, s, b))
-        one = (lambda r: quant.w8a16_linear_reference(x[r], w, s, b))
-        in_bytes, peak = 2 * M * K, PEAK_BF16_FLOPS
+        run = (lambda: quant.w8a16_linear_multi(x, segs))
+        alone = (lambda: [quant.w8a16_linear_multi(x, [sg])[0] for sg in segs])
+        one = (lambda r, sg: quant.w8a16_linear_reference(x[r], *sg))
+        peak = PEAK_BF16_FLOPS
 
     def plain():
-        return torch.cat([one(slice(i, i + PLAIN_ROW_BLOCK))
-                          for i in range(0, M, PLAIN_ROW_BLOCK)])
+        return [torch.cat([one(slice(i, i + PLAIN_ROW_BLOCK), sg)
+                           for i in range(0, M, PLAIN_ROW_BLOCK)]) for sg in segs]
 
-    y, want = run(), plain()
+    ys, wants = run(), plain()
     torch.cuda.synchronize()
-    err = (y.float() - want.float()).abs().max().item()
-    ok = (torch.equal(y, want) if kernel == "K9" and not group
-          else torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL))
-    if not ok:
-        raise AssertionError(f"{kernel} M={M} N={N} K={K} bits={bits} group={group}: differs "
-                             f"from the plain version by {err}")
-    del y
+    err = max((y.float() - want.float()).abs().max().item() for y, want in zip(ys, wants))
+    ok = all(torch.equal(y, want) if kernel == "K9" and not group
+             else torch.allclose(y.float(), want.float(), atol=GROUPED_TOL, rtol=GROUPED_TOL)
+             for y, want in zip(ys, wants))
     extra = {"bits": bits, **(extra or {})}
+    if len(segs) > 1:  # the fused launch equals the separate ones
+        ok = ok and all(torch.equal(y, z) for y, z in zip(ys, alone()))
+        extra["separate_ms"] = cuda_ms(alone, reps=QGEMM_REPS)
+    if not ok:
+        raise AssertionError(f"{kernel} M={M} N={widths} K={K} bits={bits} group={group}: "
+                             f"differs from the plain version (or the separate launches) "
+                             f"by {err}")
+    del ys
     library_ms = None
     if kernel == "K10" or group:
+        # one call on the projections' codes and scales stacked along N:
+        # the same function as the fused launch
+        codes = torch.cat([c for c, _ in made])
+        s = torch.cat([sg[1] for sg in segs], dim=-1)
+        b = torch.cat([sg[2] for sg in segs]) if bias else None
         call, why = w16_library(x, codes, s, bits, group)
         if call is not None:
             try:
@@ -955,26 +1008,103 @@ def qgemm_row(device, g, kernel, M, N, K, bias, bits, group, extra=None) -> dict
         if call is None:
             extra["library"] = why
         else:
-            lib_err = (got + (b if bias else 0.0) - want.float()).abs().max().item()
-            if not lib_err <= LIBRARY_TOL * want.float().abs().max().item():
-                raise AssertionError(f"{kernel} M={M} N={N} bits={bits} group={group}: the "
-                                     f"library call differs from the plain version by {lib_err}")
+            want = torch.cat([w.float() for w in wants], dim=1)
+            lib_err = (got + (b if bias else 0.0) - want).abs().max().item()
+            if not lib_err <= LIBRARY_TOL * want.abs().max().item():
+                raise AssertionError(f"{kernel} M={M} N={widths} bits={bits} group={group}: "
+                                     f"the library call differs from the plain version by "
+                                     f"{lib_err}")
             extra["library_max_abs_err"] = lib_err
-            lib_ms = cuda_ms(call)
+            lib_ms = cuda_ms(call, reps=QGEMM_REPS)
             if kernel == "K10":
                 library_ms = lib_ms
             else:
                 extra["w4a16_library_ms"] = lib_ms
-            del got
-    del want
-    nbytes = in_bytes + N * K * bits // 8 + 4 * s.numel() + (4 * N if bias else 0) + 2 * M * N
+            del got, want
+        del codes
+    del wants
+    N = sum(widths)
+    nbytes = qgemm_bytes(kernel, M, K, bits, segs)
+    launch = {}
+    geometry = quant.K9_GEOMETRY if kernel == "K9" else quant.K10_GEOMETRY[bits]
+    if M <= geometry.max_rows:  # the decode ring's launch
+        plan = quant.gemm_decode_plan(tuple(widths), K, group or 0, M, geometry)
+        launch = {"split": plan.split, "grid": plan.grid, "stages": plan.stages}
     if M <= quant.GEMM_DECODE_MAX_M:  # the decode rows, whose weights come cold
-        extra["cold_ms"] = cuda_ms(run, cold=True)
-    shape = f"M{M}_N{N}_K{K}" + (f"_g{group}" if group else "") + f"_int{bits}"
-    row = _row(kernel, shape, err, cuda_ms(run), cuda_ms(plain, reps=5),
-               _bytes_bound(nbytes, 2.0 * M * N * K, peak), library_ms, extra=extra)
+        extra["cold_ms"] = cuda_ms(run, reps=QGEMM_REPS, cold=True)
+    shape = (f"M{M}_N{'+'.join(map(str, widths))}_K{K}" + (f"_g{group}" if group else "")
+             + f"_int{bits}")
+    row = _row(kernel, shape, err, cuda_ms(run, reps=QGEMM_REPS), cuda_ms(plain, reps=3),
+               _bytes_bound(nbytes, 2.0 * M * N * K, peak), library_ms, extra=extra, **launch)
     torch.cuda.empty_cache()
     return row
+
+
+def ring_bits_check(device, g) -> None:
+    """K9 and K10 (int8 and int4 codes, per channel and grouped-128) on a
+    7B layer's q/k/v: row r of a launch of M rows, for M in RING_BITS_ROWS
+    (K9 above 64 rows on its prefill tiles), equals row r of the
+    192-row launch bit for bit; up to 64 rows each projection alone, and
+    the fused launch under a whole-K plan and a K split of 7, equal it
+    too. Prints one `phase kernels:` line; raises where a bit differs."""
+    import dataclasses
+
+    import torch
+
+    from internnav_tpu_torch.ops import quant
+
+    K, widths = 3584, (3584, 512, 512)
+    planner = quant.gemm_decode_plan
+
+    def forced(split):
+        def plan(segments, K, group, rows, geometry):
+            p = dataclasses.replace(planner(segments, K, group, rows, geometry), split=split)
+            most = max(l1 - l0 for l0, l1 in map(p.slice_lines, range(split)))
+            p = dataclasses.replace(p, stages=min(geometry.max_stages, most))
+            while p.stages > 1 and p.smem_bytes(rows) > quant.GEMM_BLOCK_SMEM:
+                p = dataclasses.replace(p, stages=p.stages - 1)
+            if p.smem_bytes(rows) > quant.GEMM_BLOCK_SMEM:  # too many partials: as planned
+                return planner(segments, K, group, rows, geometry)
+            return dataclasses.replace(p, grid=p.tiles * split if split > 1 else
+                                       min(p.tiles, p.resident_blocks(rows)))
+        return plan
+
+    checked = 0
+    for kernel, bits in (("K9", 4), ("K10", 8), ("K10", 4)):
+        for group in (None, 128):
+            segs = [qgemm_weights(g, device, N, K, bits, group, True)[1] for N in widths]
+            x = torch.randn((max(RING_BITS_ROWS), K), generator=g, device=device,
+                            dtype=torch.bfloat16)
+            if kernel == "K9":
+                xq, a = quant.quantize_rows(x)
+                multi = (lambda M, sg: quant.w4a8_linear_multi(xq[:M], a[:M], sg))
+            else:
+                multi = (lambda M, sg: quant.w8a16_linear_multi(x[:M], sg))
+            ref = multi(max(RING_BITS_ROWS), segs)
+            for M in RING_BITS_ROWS:
+                outs = [multi(M, segs)]
+                if M <= quant.GEMM_SPLIT_MAX_M:
+                    outs.append([multi(M, [sg])[0] for sg in segs])
+                    for split in (1, 7):
+                        quant.gemm_decode_plan = forced(split)
+                        try:
+                            outs.append(multi(M, segs))
+                        finally:
+                            quant.gemm_decode_plan = planner
+                for ys in outs:
+                    for y, r in zip(ys, ref):
+                        if not torch.equal(y, r[:M]):
+                            raise AssertionError(
+                                f"{kernel} int{bits} group={group} M={M}: a row's bits depend on "
+                                f"M, the plan or the fusion (max diff "
+                                f"{(y.float() - r[:M].float()).abs().max().item()})")
+                    checked += 1
+    print(f"phase kernels: K9/K10 rows bitwise equal across M={list(RING_BITS_ROWS)}, whole-K "
+          f"and split-7 plans, fused and separate launches ({checked} launches checked)")
+
+
+#: the rows `ring_bits_check` holds row for row against the 192-row launch
+RING_BITS_ROWS = (1, 4, 12, 16, 17, 48, 64, 65, 192)
 
 
 #: how far a library call's product may sit from the plain version, over
@@ -1012,31 +1142,40 @@ def w16_library(x, codes, s, bits, group):
 
 
 def int4_gemm_rows(device, g):
-    """K9 and K10 at the 7B shapes (`qgemm_row`): K9 for each projection
-    of a layer at K9_ROWS (grouped-128 int4), per channel at M = 1 and
-    PROMPT_T, odd N (GEMM_ODD_N) at M = 1, 4, 17 and 129; K10 for each
-    projection at K10_ROWS with per-channel int8 codes (W8A16 over the int8
-    realtime weights) and grouped-128 int4 codes (W4A16), the other two
-    layouts at M = 1, and the lm_head at GEMM_LM_HEAD_ROWS per-channel int8
-    and 8-bit grouped-128 (the int4 format's lm_head)."""
+    """K9 and K10 at the 7B shapes (`qgemm_row`): K9's decode ring for each
+    projection group of a layer (`GEMM_LAYER`: q/k/v and gate/up fused) at
+    K9_DECODE_ROWS, its prefill tiles for each projection alone at
+    K9_PREFILL_ROWS (grouped-128 int4), the gate alone at M = 1 (beside the
+    int4 library call), per channel at M = 1 and PROMPT_T, odd N
+    (GEMM_ODD_N) at M = 1 (the ring) and 129 (the prefill tiles); K10 for
+    each projection group at K10_ROWS with per-channel int8 codes (W8A16
+    over the int8 realtime weights) and grouped-128 int4 codes (W4A16), the
+    gate alone at M = 1 in all four layouts (beside the library calls where
+    they exist), and the lm_head at GEMM_LM_HEAD_ROWS per-channel int8 and
+    8-bit grouped-128 (the int4 format's lm_head); then `ring_bits_check`."""
     rows = []
-    for M in K9_ROWS:
+    for M in K9_DECODE_ROWS:
+        for _, widths, K, bias in GEMM_LAYER:
+            rows.append(qgemm_row(device, g, "K9", M, widths, K, bias, 4, 128))
+    for M in K9_PREFILL_ROWS:
         for _, N, K, bias in QGEMM_LAYER:
-            rows.append(qgemm_row(device, g, "K9", M, N, K, bias, 4, 128))
+            rows.append(qgemm_row(device, g, "K9", M, (N,), K, bias, 4, 128))
+    rows.append(qgemm_row(device, g, "K9", 1, (18944,), 3584, False, 4, 128))
     for M in (1, PROMPT_T):
-        rows.append(qgemm_row(device, g, "K9", M, 18944, 3584, False, 4, None))
-    for M in (1, 4, 17, 129):
+        rows.append(qgemm_row(device, g, "K9", M, (18944,), 3584, False, 4, None))
+    for M in (1, 129):
         for N in GEMM_ODD_N:
-            rows.append(qgemm_row(device, g, "K9", M, N, 3584, True, 4, 128))
+            rows.append(qgemm_row(device, g, "K9", M, (N,), 3584, True, 4, 128))
     for M in K10_ROWS:
-        for _, N, K, bias in QGEMM_LAYER:
-            rows.append(qgemm_row(device, g, "K10", M, N, K, bias, 8, None))
-            rows.append(qgemm_row(device, g, "K10", M, N, K, bias, 4, 128))
-    rows.append(qgemm_row(device, g, "K10", 1, 18944, 3584, False, 8, 128))
-    rows.append(qgemm_row(device, g, "K10", 1, 18944, 3584, False, 4, None))
+        for _, widths, K, bias in GEMM_LAYER:
+            rows.append(qgemm_row(device, g, "K10", M, widths, K, bias, 8, None))
+            rows.append(qgemm_row(device, g, "K10", M, widths, K, bias, 4, 128))
+    for bits, group in ((8, None), (4, 128), (8, 128), (4, None)):
+        rows.append(qgemm_row(device, g, "K10", 1, (18944,), 3584, False, bits, group))
     for M in GEMM_LM_HEAD_ROWS:
-        rows.append(qgemm_row(device, g, "K10", M, 152064, 3584, False, 8, None))
-        rows.append(qgemm_row(device, g, "K10", M, 152064, 3584, False, 8, 128))
+        rows.append(qgemm_row(device, g, "K10", M, (152064,), 3584, False, 8, None))
+        rows.append(qgemm_row(device, g, "K10", M, (152064,), 3584, False, 8, 128))
+    ring_bits_check(device, g)
     return rows
 
 
@@ -1317,7 +1456,7 @@ def build_agent(device, profile: str = "parity", policy=None):
 
 
 LAUNCH_KEYS = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu", "K6a_plain",
-               "K6b", "K6b_fused", "K7", "K9", "K10")
+               "K6b", "K6b_fused", "K7", "K9", "K9_fused", "K10", "K10_fused")
 
 
 def launch_counts() -> dict:
@@ -1333,7 +1472,8 @@ def launch_counts() -> dict:
             "K6a_swiglu": quant.swiglu_quantize_launches,
             "K6a_plain": quant.plain_quantize_launches, "K6b": quant.w8a8_launches,
             "K6b_fused": quant.w8a8_fused_launches, "K7": quant.kv_write_launches,
-            "K9": quant.w4a8_launches, "K10": quant.w8a16_launches}
+            "K9": quant.w4a8_launches, "K9_fused": quant.w4a8_fused_launches,
+            "K10": quant.w8a16_launches, "K10_fused": quant.w8a16_fused_launches}
 
 
 def reset_launch_counts() -> None:
@@ -1348,6 +1488,7 @@ def reset_launch_counts() -> None:
     quant.rmsnorm_quantize_launches = quant.swiglu_quantize_launches = 0
     quant.plain_quantize_launches = quant.w8a8_fused_launches = 0
     quant.w4a8_launches = quant.w8a16_launches = 0
+    quant.w4a8_fused_launches = quant.w8a16_fused_launches = 0
 
 
 def _count_calls(obj, names, calls):
@@ -1380,11 +1521,13 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
     pass (q/k/v fused, o, gate/up fused, down: 2 of them fused, K6b_fused)
     and 7 per prefill layer pass (each projection alone on the prefill
     tiles); plus one plain K6a and one K6b per lm_head call; K4 per decode
-    layer, K5 per chunk layer. With int4 weights K9 takes each layer
-    pass's 7 projections, one launch each, and K6b only the lm_head (8
-    bits). With decode_act_dtype="bf16" every decode or chunk layer pass
-    runs its 7 projections on K10, its SwiGLU on K8 and no K6a, and so does
-    each decode step's lm_head call (K10); the prefills stay as above."""
+    layer, K5 per chunk layer. With int4 weights K9 takes the layers'
+    projections as K6b takes them at 8 bits (4 launches a decode or chunk
+    layer pass, 2 fused, K9_fused; 7 a prefill layer pass) and K6b only the
+    lm_head (8 bits). With decode_act_dtype="bf16" every decode or chunk
+    layer pass runs its projections on K10 (4 launches, 2 fused,
+    K10_fused), its SwiGLU on K8 and no K6a, and so does each decode
+    step's lm_head call (K10); the prefills stay as above."""
     L = cfg.text.num_hidden_layers
     text = cfg.text
     windowed = cfg.vision.depth - len(cfg.vision.fullatt_block_indexes)
@@ -1403,13 +1546,13 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
         want.update(K4=L * sum(steps), K5=L * n, K6a=4 * L * act_passes + act_logits,
                     K6a_rmsnorm=2 * L * act_passes, K6a_swiglu=L * act_passes,
                     K6a_plain=L * act_passes + act_logits, K7=L * passes)
-        if text.weight_dtype == "int4":
-            want.update(K9=7 * L * (w8a8_passes + n), K6b=act_logits)
-        else:
-            want.update(K6b=4 * L * w8a8_passes + 7 * L * n + act_logits,
-                        K6b_fused=2 * L * w8a8_passes)
+        gemm = "K9" if text.weight_dtype == "int4" else "K6b"
+        want[gemm] = 4 * L * w8a8_passes + 7 * L * n
+        want[f"{gemm}_fused"] = 2 * L * w8a8_passes
+        want["K6b"] += act_logits
         if text.decode_bf16_act:
-            want["K10"] = 7 * L * decode_passes + logits_calls - n
+            want.update(K10=4 * L * decode_passes + logits_calls - n,
+                        K10_fused=2 * L * decode_passes)
             want["K8"] += L * decode_passes
     return want
 
@@ -2794,10 +2937,20 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     device = torch.device("cuda", 0)
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):  # the wall seconds of each group of phases
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     phase_build()
+    lap("build")
     store = synthetic_store()
     kern = phase_kernels(device, store)
+    lap("kernels_attention")
     int8 = phase_int8_kernels(device)
+    lap("kernels_int8_k9_k10")
     from internnav_tpu_torch.realworld import serve
 
     by_path = {}
@@ -2843,7 +2996,9 @@ def main() -> int:
         del int4
         gc.collect()
         torch.cuda.empty_cache()
+        lap("serve_checkpoint_w8a16_int4")
         by_path.update(phase_serve_batched(device))
+        lap("serve_batched")
         gc.collect()
         torch.cuda.empty_cache()
         evaluate_launches, eval_rows = phase_evaluate(device, native, realtime_digests)
@@ -2853,8 +3008,11 @@ def main() -> int:
             int8[kernel] += rows
         gc.collect()
         torch.cuda.empty_cache()
+        lap("evaluate")
         by_path.update(phase_evaluate_int4(device, native_int4, int4_digests))
+        lap("evaluate_int4")
         by_path["train"] = phase_train(device, store, hf["dir"], hf["digests"])["launches"]
+        lap("train")
     finally:
         import shutil
 
@@ -2897,8 +3055,8 @@ def main() -> int:
         if kernel == "K6a":
             extra["launches_by_prologue"] = {p: paths(f"K6a_{p}")[0]
                                              for p in ("rmsnorm", "swiglu", "plain")}
-        if kernel == "K6b":  # launches that computed several projections at once
-            extra["fused_launches"] = paths("K6b_fused")[0]
+        if kernel in ("K6b", "K9", "K10"):  # launches that computed several projections
+            extra["fused_launches"] = paths(f"{kernel}_fused")[0]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": by, **extra,
                 "max_abs_err": max(r["max_abs_err"] for r in int8[kernel]),
@@ -2939,6 +3097,7 @@ def main() -> int:
                    "M1_N18944_K3584_g128_int4"),
     ]
     kernels[0]["shapes"] = shapes
+    print(f"phase timing: seconds={json.dumps(laps)} total={sum(laps.values()):.1f}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

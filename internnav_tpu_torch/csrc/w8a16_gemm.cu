@@ -12,116 +12,70 @@
 // then bf16. x (M, K) bf16; weight (N, K) int8, or (N, K / 2) uint8 with
 // two signed codes a byte, the even k in the low nibble.
 //
-// What bounds it: the weight bytes. It runs only at decode (M <= 192: a
-// token, the 4-query latent chunk, 12 to 192 grouped rows, and the
-// lm_head's 152,064 x 3,584 int8 weights at a decode step), where a
-// product does at most 2 M bf16 operations per int8 weight byte (4 M per
+// What bounds it: the weight bytes at decode rows. It runs at cached passes
+// (a token, the 4-query latent chunk, 12 to 192 grouped rows, and the
+// lm_head's 152,064 x 3,584 int8 weights at a decode step; a pass of more
+// than 192 rows takes one launch per 192 rows, `quant.w8a16_decode_cuda`), where
+// a product does at most 2 M bf16 operations per int8 weight byte (4 M per
 // int4 byte) against the ~295 per byte (989 TFLOP/s over 3.35 TB/s) at
-// which the tensor cores would set the pace.
+// which the tensor cores would set the pace; above ~48 rows the consumers'
+// products and the M activation rows each tile re-reads set it.
 //
-// Design (wgemm_tiles.cuh): a simple right kernel first. Each lane widens
-// its 16 codes of a weight row to 8 bf16 pairs in registers (int4 first
-// to int8 by mask, per-byte sign fix and byte permutes), exact since
-// |code| <= 127, and mma.sync m16n8k16 bf16 takes them with the
-// activation rows, both straight from global memory; no dequantized copy
-// of the weight exists. The decode tiles split K over 8 warps of a block
-// (whole scale groups each; partials added in shared memory in a fixed
-// order, so a launch's bits never change), and each warp keeps its next
-// chunk's loads in flight. Above 16 rows the 64 x 64 prefill tiles run.
-// Within a 64-wide chunk the fp32 sums run in the tensor cores' order;
-// the chunks' (per channel) or the groups' scaled sums (grouped) are added
-// in fp64 (exact in practice, so in any order: the decode and prefill
-// tiles agree bit for bit) and rounded once. So the kernel agrees with
-// its plain version to fp32 rounding, not bit for bit.
+// Design: K6b's decode ring (quant_gemm.cuh) with bf16 rows. A producer
+// warp streams 128-byte k-lines of the codes by TMA (128 int8 or 256 int4
+// k a line), the rows' bf16 values of the same k by bulk copies and the
+// group scale rows by cp.async into a ring of at most 3 stages; the
+// consumers widen the codes to bf16 in registers (int4 first to int8, each
+// times 16, by two masks and byte permutes; int8 to bf16 by a byte permute
+// under an fp32 exponent and one subtraction, no conversion instruction;
+// all exact since |code| <= 127) and run mma.sync m16n8k16 bf16 from
+// shared memory. One launch serves the projections of one input (q/k/v,
+// gate/up: `quant.w8a16_linear_multi`), split over the SMs by
+// `quant.gemm_decode_plan` at K10's line geometry: a K split over a
+// thread-block cluster (to 64 rows) or persistent whole-K blocks. Up to 16
+// rows 8 warps of 8 columns take a tile; above, two rows of 4 warps of 16
+// columns, each warp up to 6 m-tiles, so every code is read once a launch
+// at every M <= 192. At 17 to 64 rows (two m-tiles a warp) the launch
+// bounds ask for two blocks an SM (at most 113 registers a thread):
+// one block's consumers alone left the SM waiting on their products
+// (PERF.md §6). No dequantized copy of the weight exists.
+//
+// The sums. One instruction family (mma.sync m16n8k16) serves every M, so
+// a 16-k step rounds alike for every row. A scale group's fp32 sum (per
+// channel: a line's) is multiplied by its scale exactly in fp64 and added
+// there, and rounded to fp32 once; int4 sums, of codes taken 16 times, are
+// scaled back by 1/16 exactly first. The fp64 sum is exact in practice, so
+// order-free: a row's bits do not depend on M, the split, the tile or the
+// launch's other projections, and the kernel agrees with its plain version
+// (whose fp32 sums run in the CPU's order) to fp32 rounding, not bit for
+// bit.
 
-#include "wgemm_tiles.cuh"
+#include "quant_gemm.cuh"
 
-namespace {
-
-template <int BITS>
-struct W8A16Op {
-  using Acc = float;
-  static constexpr bool kFoldChunks = true;  // per channel: chunk sums added in fp64
-  // the bytes of 16 k of a weight row: 16 int8 or 8 packed int4
-  using WeightBytes = typename std::conditional<BITS == 4, uint2, uint4>::type;
-  template <int NT>
-  struct Chunk {
-    uint4 a0[2], a1[2];  // 16 k of activation rows g and g + 8 (bf16)
-    WeightBytes b[NT];   // 16 k of weight row g of each n8 tile
-  };
-
-  template <int NT>
-  __device__ __forceinline__ static void load(Chunk<NT>& c, const wgemm::Params& p, int r0,
-                                              int r1, int n0, int kc, int g, int t) {
-    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-    const int k = kc + 16 * t;
-    const __nv_bfloat16* x0 = x + static_cast<size_t>(r0) * p.K + k;
-    const __nv_bfloat16* x1 = x + static_cast<size_t>(r1) * p.K + k;
-    c.a0[0] = wgemm::load_or_zero<uint4>(x0, r0 < p.M);
-    c.a0[1] = wgemm::load_or_zero<uint4>(x0 + 8, r0 < p.M);
-    c.a1[0] = wgemm::load_or_zero<uint4>(x1, r1 < p.M);
-    c.a1[1] = wgemm::load_or_zero<uint4>(x1 + 8, r1 < p.M);
-    const size_t row_bytes = BITS == 4 ? p.K / 2 : p.K;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = n0 + nt * 8 + g;
-      c.b[nt] = wgemm::load_or_zero<WeightBytes>(
-          p.w + static_cast<size_t>(n) * row_bytes + (BITS == 4 ? k / 2 : k), n < p.N);
-    }
+// x (M, K) bf16 (1 <= M <= 192), up to 3 segments (projections of x),
+// segment i with codes wi (Ni, K) int8 (bits 8) or (Ni, K / 2) packed int4
+// (bits 4), scale si (Ni,) or (K / group, Ni) fp32, bias bi (Ni,) fp32 or
+// null, out oi (M, Ni) bf16. The plan is `quant.gemm_decode_plan` at K10's
+// geometry; the arguments as K6b's `w8a8_gemm_decode` (split 1 above 64
+// rows). K a multiple of 64, group 0 or a multiple of 64 dividing K, every
+// pointer 16-byte aligned (checked by the wrapper). Returns a cudaError_t.
+extern "C" int w8a16_gemm_decode(const void* x, int M, int K, int group, int bits, int nseg,
+                                 int block_n, int split, int unit_lines, int stages, int blocks,
+                                 const void* w0, const void* s0, const void* b0, void* o0,
+                                 int N0, const void* w1, const void* s1, const void* b1,
+                                 void* o1, int N1, const void* w2, const void* s2,
+                                 const void* b2, void* o2, int N2, void* stream) {
+  if (bits == 4) {
+    return qgemm::decode_entry<qgemm::W16<4>>(x, nullptr, M, K, group, nseg, block_n, split,
+                                              unit_lines, stages, blocks, {w0, w1, w2},
+                                              {s0, s1, s2}, {b0, b1, b2}, {o0, o1, o2},
+                                              {N0, N1, N2}, stream);
   }
-
-  template <int NT>
-  __device__ __forceinline__ static void mma(float (&acc)[NT][4], const Chunk<NT>& c) {
-    const uint32_t a0[8] = {c.a0[0].x, c.a0[0].y, c.a0[0].z, c.a0[0].w,
-                            c.a0[1].x, c.a0[1].y, c.a0[1].z, c.a0[1].w};
-    const uint32_t a1[8] = {c.a1[0].x, c.a1[0].y, c.a1[0].z, c.a1[0].w,
-                            c.a1[1].x, c.a1[1].y, c.a1[1].z, c.a1[1].w};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t w[4];  // int8 codes of k 4j .. 4j + 3 in word j
-      if constexpr (BITS == 4) {
-        wgemm::unpack_int4x16(c.b[nt], w);
-      } else {
-        w[0] = c.b[nt].x;
-        w[1] = c.b[nt].y;
-        w[2] = c.b[nt].z;
-        w[3] = c.b[nt].w;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wgemm::mma_bf16(acc[nt], a0[2 * j], a1[2 * j], a0[2 * j + 1], a1[2 * j + 1],
-                        wgemm::s8x2_to_bf16x2(w[j], 0), wgemm::s8x2_to_bf16x2(w[j], 1));
-      }
-    }
+  if (bits == 8) {
+    return qgemm::decode_entry<qgemm::W16<8>>(x, nullptr, M, K, group, nseg, block_n, split,
+                                              unit_lines, stages, blocks, {w0, w1, w2},
+                                              {s0, s1, s2}, {b0, b1, b2}, {o0, o1, o2},
+                                              {N0, N1, N2}, stream);
   }
-
-  // no per-row factor: the activations were not quantized
-  __device__ __forceinline__ static float finish(float v, const wgemm::Params&, int) {
-    return v;
-  }
-};
-
-}  // namespace
-
-// x (M, K) bf16, weight (N, K) int8 (bits 8) or (N, K / 2) packed int4
-// (bits 4), scale (N,) or (K / group, N) fp32, bias (N,) fp32 or null, out
-// (M, N) bf16; K a multiple of 64, group 0 or a multiple of 64 dividing K,
-// every pointer 16-byte aligned (checked by the wrapper). Returns the
-// launch's cudaError_t.
-extern "C" int w8a16_gemm(const void* x, const void* weight, const void* scale,
-                          const void* bias, void* out, int M, int N, int K, int group, int bits,
-                          void* stream) {
-  const wgemm::Params p{x,
-                        nullptr,
-                        static_cast<const uint8_t*>(weight),
-                        static_cast<const float*>(scale),
-                        static_cast<const float*>(bias),
-                        static_cast<__nv_bfloat16*>(out),
-                        M,
-                        N,
-                        K,
-                        group};
-  if (bits == 4) return wgemm::launch<W8A16Op<4>>(p, stream);
-  if (bits == 8) return wgemm::launch<W8A16Op<8>>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -78,9 +78,9 @@ from internnav_tpu_torch.ops.quant import (
     rope_kv_write,
     store_cache_rows_,
     swiglu_quantize,
-    w4a8_linear,
+    w4a8_linear_multi,
     w8a8_linear_multi,
-    w8a16_linear,
+    w8a16_linear_multi,
     write_kv_cache,
 )
 from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import (
@@ -208,9 +208,9 @@ class QuantLinear(nn.Module):
     weight_bits=8 `weight_q` is int8 (N, K); at 4 it holds codes in [-7, 7]
     packed two a byte along K (`pack_int4`), uint8 (N, K / 2). The input is
     quantized per token (`quantize_activations`) and multiplied in int8
-    with int32 sums (W8A8 `w8a8_linear_multi`, W4A8 `w4a8_linear`), or at
-    decode under decode_act_dtype="bf16" taken as bf16 (`w8a16_linear`),
-    through `project`; the output has the module's dtype. The weight is
+    with int32 sums (W8A8 `w8a8_linear_multi`, W4A8 `w4a8_linear_multi`),
+    or at decode under decode_act_dtype="bf16" taken as bf16
+    (`w8a16_linear_multi`), through `project`; the output has the module's dtype. The weight is
     stored (N, K), K contiguous: the layout int8 tensor-core products take
     for their B operand."""
 
@@ -281,39 +281,38 @@ class QuantizedRows(NamedTuple):
 
 def project(x: Union[torch.Tensor, QuantizedRows], *mods: nn.Module,
             bf16_act: bool = False) -> List[torch.Tensor]:
-    """Each projection of one input. An nn.Linear takes the input cast to
-    its dtype (once, for all of them). `QuantLinear`s with bf16_act (W8A16 /
-    W4A16) take it cast to bf16, unquantized, one K10 launch each
-    (`w8a16_linear`). Otherwise the input, bf16 or fp32, is quantized once
-    and shared (q/k/v, gate/up), or comes quantized as `QuantizedRows`: the
-    quantization is a function of the input alone, so this equals the JAX
-    package's quantization inside every projection. 8-bit products go to
-    `w8a8_linear_multi` in one call (one K6b launch for all of them at
-    decode rows on CUDA), 4-bit ones to `w4a8_linear` (one K9 launch
-    each)."""
+    """Each projection of one input, in one call for all of them. An
+    nn.Linear takes the input cast to its dtype (once, for all of them).
+    `QuantLinear`s with bf16_act (W8A16 / W4A16) take it cast to bf16,
+    unquantized (`w8a16_linear_multi`: one K10 launch on CUDA). Otherwise
+    the input, bf16 or fp32, is quantized once and shared (q/k/v, gate/up),
+    or comes quantized as `QuantizedRows`: the quantization is a function
+    of the input alone, so this equals the JAX package's quantization
+    inside every projection. 8-bit products go to `w8a8_linear_multi`, 4-bit
+    ones to `w4a8_linear_multi`: on CUDA one K6b or K9 launch for all of
+    them at decode rows (M <= 16), one prefill launch a projection above.
+    So a decode layer pass launches 4 GEMMs (q/k/v and gate/up fused, o,
+    down) in every format; an int8 or int4 prefill layer pass 7."""
     if not isinstance(mods[0], QuantLinear):
         x = x.to(mods[0].weight.dtype)
         return [m(x) for m in mods]
     bits = {m.weight_bits for m in mods}
     if len(bits) != 1:
         raise ValueError(f"project: one input's projections mix weight widths {sorted(bits)}")
+    segments = [(m.weight_q, m.scale_q, m.bias) for m in mods]
     if bf16_act:
         if isinstance(x, QuantizedRows):
             raise ValueError("project: W8A16 takes the bf16 rows, not their quantized codes")
         lead, K = x.shape[:-1], x.shape[-1]
-        xb = x.reshape(-1, K).to(torch.bfloat16)
-        return [w8a16_linear(xb, m.weight_q, m.scale_q, m.bias, out_dtype=m.dtype)
-                .reshape(*lead, m.out_features) for m in mods]
-    if not isinstance(x, QuantizedRows):
-        x = QuantizedRows(*quantize_activations(x))
-    lead, K = x.shape[:-1], x.shape[-1]
-    xq, a_scale = x.q.reshape(-1, K), x.scale.reshape(-1, 1)
-    if bits == {4}:
-        outs = [w4a8_linear(xq, a_scale, m.weight_q, m.scale_q, m.bias, out_dtype=m.dtype)
-                for m in mods]
+        outs = w8a16_linear_multi(x.reshape(-1, K).to(torch.bfloat16), segments,
+                                  out_dtype=mods[0].dtype)
     else:
-        outs = w8a8_linear_multi(xq, a_scale, [(m.weight_q, m.scale_q, m.bias) for m in mods],
-                                 out_dtype=mods[0].dtype)
+        if not isinstance(x, QuantizedRows):
+            x = QuantizedRows(*quantize_activations(x))
+        lead, K = x.shape[:-1], x.shape[-1]
+        xq, a_scale = x.q.reshape(-1, K), x.scale.reshape(-1, 1)
+        linear = w4a8_linear_multi if bits == {4} else w8a8_linear_multi
+        outs = linear(xq, a_scale, segments, out_dtype=mods[0].dtype)
     return [y.reshape(*lead, m.out_features) for y, m in zip(outs, mods)]
 
 

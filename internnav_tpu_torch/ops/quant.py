@@ -19,12 +19,14 @@ Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
   k, in an (N, K / 2) uint8 buffer (K contiguous, as K6b's B operand).
   `w4a8_linear_reference` is the W4A8 product (`:140-143` with `:177-196`
   at `weight_bits=4`): the codes widened to int8, then K6b's arithmetic;
-  kernel K9 (`csrc/w4a8_gemm.cu`).
+  kernel K9 (`csrc/w4a8_gemm.cu`: K6b's decode ring and prefill tiles at
+  4 bits; `w4a8_linear_multi` takes q/k/v or gate/up in one decode launch).
 - `w8a16_linear_reference`: the `bf16_act` product (`:153-171`, the
   cached-decode projections under `decode_act_dtype="bf16"`): bf16
   activations times int8 or int4 codes widened to bf16, fp32 sums, the
   scale per channel or per group after that group's sum; kernel K10
-  (`csrc/w8a16_gemm.cu`).
+  (`csrc/w8a16_gemm.cu`: K6b's decode ring with bf16 rows, 192 a launch;
+  `w8a16_linear_multi` takes q/k/v or gate/up in one launch).
 - `apply_rotary` (`:375-387`), `quantize_kv` (`:527-537`) and the quantized
   cache write of `_write_cache` / `_write_cache_chunk` (`:556-583`):
   `rope_kv_write_reference`, and without the rotary
@@ -35,8 +37,8 @@ Ports the XLA math of internnav_tpu/model/basemodel/internvla_n1/qwen_text.py:
   (`cache_write_slots`), which the bf16 cache write shares.
 
 The dispatchers (`rmsnorm_quantize`, `swiglu_quantize`,
-`quantize_activations`, `w8a8_linear`, `w8a8_linear_multi`, `w4a8_linear`,
-`w8a16_linear`, `rope_kv_write`, `write_kv_cache`)
+`quantize_activations`, `w8a8_linear(_multi)`, `w4a8_linear(_multi)`,
+`w8a16_linear(_multi)`, `rope_kv_write`, `write_kv_cache`)
 send a CPU tensor to the plain version and a CUDA tensor to the kernel, or
 raise: there is no fallback from one to the other. Each kernel wrapper adds
 one to its launch count per launch. The kernels are built on the first
@@ -63,10 +65,10 @@ from internnav_tpu_torch.ops.rope import apply_rotary
 
 #: launches of each kernel in this process (its CUDA wrapper adds one per
 #: launch; the plain versions never do): K6a activation quantization (all
-#: prologues, then each prologue's own count), K6b W8A8 GEMM (all
-#: launches, then those that computed several projections at once), K7
-#: rotary + KV quantization + cache write, K9 W4A8 GEMM, K10 W8A16 /
-#: W4A16 GEMM
+#: prologues, then each prologue's own count), K6b W8A8 GEMM, K7 rotary +
+#: KV quantization + cache write, K9 W4A8 GEMM, K10 W8A16 / W4A16 GEMM;
+#: each GEMM's `_fused_` count holds its launches that computed several
+#: projections at once
 quantize_rows_launches = 0
 rmsnorm_quantize_launches = 0
 swiglu_quantize_launches = 0
@@ -75,13 +77,15 @@ w8a8_launches = 0
 w8a8_fused_launches = 0
 kv_write_launches = 0
 w4a8_launches = 0
+w4a8_fused_launches = 0
 w8a16_launches = 0
+w8a16_fused_launches = 0
 #: the counters' names (`decode_graph` adds a captured step's launches to
 #: them at every replay of its graph)
 LAUNCH_COUNTERS = ("quantize_rows_launches", "rmsnorm_quantize_launches",
                    "swiglu_quantize_launches", "plain_quantize_launches", "w8a8_launches",
                    "w8a8_fused_launches", "kv_write_launches", "w4a8_launches",
-                   "w8a16_launches")
+                   "w4a8_fused_launches", "w8a16_launches", "w8a16_fused_launches")
 
 #: K6a's prologues (csrc/quantize_rows.cu)
 PLAIN, RMSNORM, SWIGLU = 0, 1, 2
@@ -90,10 +94,17 @@ PLAIN, RMSNORM, SWIGLU = 0, 1, 2
 K6A_MAX_ROW_BYTES = 1024 * 5 * 16
 #: K6b takes K in 64-wide chunks; a grouped scale covers whole chunks
 GEMM_K_CHUNK = 64
-#: K6b's decode tiles serve M <= 16; above, its prefill tiles (128 output
-#: rows by 256 columns where N > 1024, else 128; chosen in w8a8_gemm.cu)
+#: K6b's decode ring serves M <= 16, K9's M <= 64 and K10's M <= 192 (rows
+#: of warps over the m-tiles above 16); above, K6b's and K9's prefill tiles
+#: (K6b: 128 output rows by 256 columns where N > 1024, else 128; K9: 128 x
+#: 128, 128 x 64 grouped; chosen in csrc/quant_gemm.cuh); K10 has none and
+#: launches its ring once per 192 rows
 GEMM_DECODE_MAX_M = 16
-#: K6b's decode tiles (csrc/w8a8_gemm.cu `DC_*`): 64 weight rows a column
+W4A8_MAX_M = 64
+#: rows a K split over a cluster takes (rank 0 holds S x rows x 64 partials)
+GEMM_SPLIT_MAX_M = 64
+W8A16_MAX_M = 192
+#: the decode ring (csrc/quant_gemm.cuh `DC_*`): 64 weight rows a column
 #: tile, streamed in 128-byte k-lines through a ring of at most 6 stages;
 #: a tile's K slices form one cluster of at most 8 blocks (the portable
 #: size); up to 3 projections a launch
@@ -108,10 +119,13 @@ GEMM_SMS = 132
 #: weight bytes the SM could have streamed meanwhile: one stage
 GEMM_DECODE_BLOCK_COST = GEMM_DECODE_BLOCK_N * GEMM_LINE
 #: the plan's model of how many blocks the card holds at once: 228 KB of
-#: shared memory an SM (1 KB of it reserved per block), at most 12 blocks
-#: of 160 threads, and clusters placed within GPCs, taken as 8 of 16 SMs
-#: plus 4 SMs (an estimate: the card does not report its GPCs)
+#: shared memory an SM (1 KB of it reserved per block), 2,048 threads (12
+#: blocks of 160), and clusters placed within GPCs, taken as 8 of 16 SMs
+#: plus 4 SMs (an estimate: the card does not report its GPCs); a block may
+#: take at most GEMM_BLOCK_SMEM
 GEMM_SM_SMEM = 228 * 1024
+GEMM_SM_THREADS = 2048
+GEMM_BLOCK_SMEM = 232448
 GEMM_GPCS, GEMM_GPC_SMS = 8, 16
 #: weight bytes an SM keeps in flight to stream at the full rate, in the
 #: plan's model: two blocks' rings of 6 stages (an estimate)
@@ -279,14 +293,78 @@ def w8a16_linear_reference(x: torch.Tensor, weight_q: torch.Tensor, scale_q: tor
 
 
 @dataclasses.dataclass(frozen=True)
+class DecodeGeometry:
+    """The operand formats and block layout of a decode-ring kernel
+    (csrc/quant_gemm.cuh `Format`, `launch_decode_rows`):
+
+    - `wbits`: the code width (8, or 4 packed two a byte: a 128-byte line
+      then carries 256 k); `act_bytes`: the activation bytes a k (int8 1,
+      bf16 2); `max_rows`: the most rows a launch takes.
+    - `fp64`: whether the sums that span units (K9's grouped terms, all of
+      K10's) are added in fp64, which makes a split launch's partial words
+      8 bytes (`red_bytes`).
+    - `consumer_warps`: a block's consumer warps (K6b 4 of 16 columns; K9
+      and K10 8, of 8 columns up to 16 rows, two rows of 4 warps of 16
+      columns above), beside one producer warp.
+    - `mid_blocks`, `mid_stages`: at 17 to 64 rows, the blocks an SM
+      holds, fixed by registers in the kernel's launch bounds
+      (`dc_min_blocks`), and the deepest ring there (0: no such rows).
+    - `a_row_step`: the activation rows a stage holds, rounded up to it.
+    - `max_stages`, `search_depth`: the deepest ring a plan gives, and
+      whether the depth is chosen with the split (K9 and K10: their
+      consumers, not the bytes in flight, set their pace, and on the H100
+      a ring deeper than 3 stages only kept blocks off the SMs, in forced
+      plans at the 7B shapes) or is always the deepest (K6b)."""
+    name: str
+    wbits: int
+    act_bytes: int
+    max_rows: int
+    fp64: bool
+    consumer_warps: int
+    mid_blocks: int
+    mid_stages: int
+    a_row_step: int
+    max_stages: int
+    search_depth: bool
+
+    @property
+    def line_k(self) -> int:
+        return GEMM_LINE * 8 // self.wbits
+
+    def red_bytes(self, group: int) -> int:
+        return 8 if self.fp64 and (group or self.act_bytes == 2) else 4
+
+    def register_blocks(self, rows: int) -> int:
+        """Blocks an SM holds at `rows` rows by registers where the launch
+        bounds fix it (`mid_blocks`), else 0 (not modelled)."""
+        return self.mid_blocks if GEMM_DECODE_MAX_M < rows <= GEMM_SPLIT_MAX_M else 0
+
+    def deepest_ring(self, rows: int) -> int:
+        """The most stages a plan at `rows` rows may give a block."""
+        return self.mid_stages if self.register_blocks(rows) else self.max_stages
+
+
+#: K6b (int8 rows x int8 codes), K9 (int8 rows x int4 codes), K10 (bf16
+#: rows x int8 or int4 codes)
+#: (at 17 to 64 rows two blocks of K9 or K10 share an SM, and their rings
+#: go 2 deep: on the H100 a third stage gained nothing at the 7B shapes
+#: with int8 codes and cost K10's int4 gate/up at 48 rows 13%)
+K6B_GEOMETRY = DecodeGeometry("K6b", 8, 1, GEMM_DECODE_MAX_M, False, 4, 0, 0, 16,
+                              GEMM_DECODE_MAX_STAGES, False)
+K9_GEOMETRY = DecodeGeometry("K9", 4, 1, W4A8_MAX_M, True, 8, 2, 2, 8, 3, True)
+K10_GEOMETRY = {bits: DecodeGeometry("K10", bits, 2, W8A16_MAX_M, True, 8, 2, 2, 8, 3, True)
+                for bits in (8, 4)}
+
+
+@dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """How K6b's decode tiles split one launch: column tiles of `block_n`
-    weight rows over each segment (projection), in `tile_order`, each tile's K in
-    `split` slices of whole units of `unit_lines` 128-byte lines (whole
-    scale groups when grouped), `stages` ring stages a block, `grid`
-    blocks. With split > 1 a tile is one cluster of `split` blocks, block
-    tile * split + rank; with split 1 block b walks tiles b, b + grid, ...
-    (`units`)."""
+    """How a decode-ring launch (K6b, K9 or K10: `geometry`) splits: column
+    tiles of `block_n` weight rows over each segment (projection), in
+    `tile_order`, each tile's K in `split` slices of whole units of
+    `unit_lines` 128-byte weight lines (whole scale groups when grouped),
+    `stages` ring stages a block, `grid` blocks. With split > 1 a tile is
+    one cluster of `split` blocks, block tile * split + rank; with split 1
+    block b walks tiles b, b + grid, ... (`units`)."""
     segments: Tuple[int, ...]  # N of each segment
     K: int
     group: int  # 0: per-channel scales
@@ -295,10 +373,11 @@ class DecodePlan:
     unit_lines: int
     stages: int = 1
     grid: int = 0
+    geometry: DecodeGeometry = K6B_GEOMETRY
 
     @property
     def lines(self) -> int:
-        return -(-self.K // GEMM_LINE)
+        return -(-self.K // self.geometry.line_k)
 
     @property
     def tiles(self) -> int:
@@ -313,7 +392,7 @@ class DecodePlan:
 
     def tile_order(self) -> List[Tuple[int, int]]:
         """The column tiles as (segment, first column) in the kernel's order
-        (csrc/w8a8_gemm.cu `dc_segment`): every segment's full-width tiles
+        (csrc/quant_gemm.cuh `dc_segment`): every segment's full-width tiles
         in segment order, then the narrow edge tiles of the ragged widths.
         Dealt round the SMs, the edge tiles land on the last SMs served, the
         ones that take an extra tile."""
@@ -330,23 +409,40 @@ class DecodePlan:
             for rank in range(self.split):
                 l0, l1 = self.slice_lines(rank)
                 block = tile * self.split + rank if self.split > 1 else tile % self.grid
+                line_k = self.geometry.line_k
                 yield (block, seg, n0, min(N, n0 + self.block_n),
-                       min(self.K, l0 * GEMM_LINE), min(self.K, l1 * GEMM_LINE))
+                       min(self.K, l0 * line_k), min(self.K, l1 * line_k))
+
+    def unit_bytes(self, c0: int, c1: int, k0: int, k1: int) -> int:
+        """The weight bytes of columns [c0, c1) over k [k0, k1)."""
+        return (c1 - c0) * (k1 - k0) * self.geometry.wbits // 8
 
     def smem_bytes(self, rows: int) -> int:
-        """A block's dynamic shared memory at `rows` rows (csrc/w8a8_gemm.cu
-        `dc_smem_bytes`): the ring (64 weight rows and 16 activation rows,
-        padded by 16 bytes, a stage), rank 0's S x rows x 64 partial words
-        (split launches) and the barriers."""
-        return (1024 + self.stages * (self.block_n * GEMM_LINE + GEMM_DECODE_MAX_M
-                                      * (GEMM_LINE + 16))
-                + (self.split * rows * self.block_n * 4 if self.split > 1 else 0)
+        """A block's dynamic shared memory at `rows` rows (csrc/quant_gemm.cuh
+        `dc_smem_bytes`): the ring (a stage: 64 weight rows, the activation
+        rows (K6b 16, or `rows` rounded up to 16 above; K9 and K10 `rows`
+        rounded up to 8), padded by 16 bytes, and with
+        grouped scales a 64-column scale row for each 64-k chunk), rank 0's
+        S x rows x 64 partial words (split launches) and the barriers."""
+        geo = self.geometry
+        a_rows = -(-rows // geo.a_row_step) * geo.a_row_step
+        scales = geo.line_k // GEMM_K_CHUNK * self.block_n * 4 if self.group else 0
+        return (1024 + self.stages * (self.block_n * GEMM_LINE
+                                      + a_rows * (geo.line_k * geo.act_bytes + 16) + scales)
+                + (self.split * rows * self.block_n * geo.red_bytes(self.group)
+                   if self.split > 1 else 0)
                 + (2 * GEMM_DECODE_MAX_STAGES + 1) * 8)
 
     def resident_blocks(self, rows: int) -> int:
         """Blocks the card holds at once in the plan's model (GEMM_SM_SMEM,
-        GEMM_GPCS, GEMM_GPC_SMS): whole clusters of `split` within a GPC."""
-        per_sm = min(12, GEMM_SM_SMEM // (self.smem_bytes(rows) + 1024))
+        GEMM_SM_THREADS, GEMM_GPCS, GEMM_GPC_SMS, and the registers where
+        the geometry's launch bounds fix them): whole clusters of `split`
+        within a GPC."""
+        geo = self.geometry
+        threads = 32 * (geo.consumer_warps + 1)
+        per_sm = min(GEMM_SM_THREADS // threads, GEMM_SM_SMEM // (self.smem_bytes(rows) + 1024))
+        if geo.register_blocks(rows):
+            per_sm = min(per_sm, geo.register_blocks(rows))
         rest = GEMM_SMS - GEMM_GPCS * GEMM_GPC_SMS
         clusters = (GEMM_GPCS * (GEMM_GPC_SMS * per_sm // self.split)
                     + rest * per_sm // self.split)
@@ -358,7 +454,7 @@ class DecodePlan:
         (a split launch's; a whole-K block pays it once)."""
         load = [0] * sms
         for block, _, c0, c1, k0, k1 in self.units():
-            load[block % sms] += (c1 - c0) * (k1 - k0)
+            load[block % sms] += self.unit_bytes(c0, c1, k0, k1)
         for block in range(self.grid):
             load[block % sms] += block_cost
         return load
@@ -395,48 +491,67 @@ def _decode_plan_fair(plan: DecodePlan) -> bool:
     - 64 r) / GEMM_SMS <= 64 above it; where r = 0 it is D / GEMM_SMS
     above."""
     load = plan.sm_bytes()
-    biggest = max((c1 - c0) * (k1 - k0) for _, _, c0, c1, k0, k1 in plan.units())
+    biggest = max(plan.unit_bytes(c0, c1, k0, k1) for _, _, c0, c1, k0, k1 in plan.units())
     return max(load) - sum(load) / len(load) <= biggest
 
 
 @functools.lru_cache(maxsize=None)
 def gemm_decode_plan(segments: Tuple[int, ...], K: int, group: int = 0,
-                     rows: int = GEMM_DECODE_MAX_M) -> DecodePlan:
-    """K6b's decode plan for projections of widths `segments` of one (rows
-    <= 16, K) input, with scale groups of `group` inputs (0: per-channel):
-    the K split (1 to GEMM_DECODE_MAX_SPLIT, never inside a scale group)
+                     rows: int = GEMM_DECODE_MAX_M,
+                     geometry: DecodeGeometry = K6B_GEOMETRY) -> DecodePlan:
+    """The decode-ring plan of `geometry` (K6b by default; K9, K10) for
+    projections of widths `segments` of one (rows, K) input, with scale
+    groups of `group` inputs (0: per-channel): the K split (1 to
+    GEMM_DECODE_MAX_SPLIT, never inside a scale group, only 1 above
+    GEMM_SPLIT_MAX_M rows)
     of the least `model_time`, among the splits that give no SM more than
     one block's bytes above the mean (`_decode_plan_fair`; split 1 always
-    does), and of those the ones whose blocks
-    the card holds at once (`resident_blocks`) where there are any; on a
-    tie the one whose busiest SM streams fewer weight bytes, then the
-    smaller split. The ring gets as many stages as a block's slice has
-    lines, at most GEMM_DECODE_MAX_STAGES; without a split the grid is the
-    tiles, at most the blocks the card holds at once (each then walks
-    several tiles)."""
+    does), and of those the ones whose blocks the card holds at once
+    (`resident_blocks`) where there are any; on a tie the one whose busiest
+    SM streams fewer weight bytes, then the smaller split, then the deeper
+    ring. K6b's ring gets as many stages as a block's slice has lines, at
+    most its geometry's `max_stages`; K9's and K10's depth, up to their
+    `deepest_ring(rows)`, is chosen with the split (`search_depth`); a
+    block's shared memory stays within GEMM_BLOCK_SMEM. Without a split the
+    grid is the tiles, at most the blocks the card holds at once (each then
+    walks several tiles)."""
     segments = tuple(int(n) for n in segments)
     if not 1 <= len(segments) <= GEMM_DECODE_MAX_SEGMENTS or min(segments) < 1:
-        raise ValueError(f"K6b decodes 1 to {GEMM_DECODE_MAX_SEGMENTS} projections of "
-                         f"positive width, got {segments}")
+        raise ValueError(f"{geometry.name} decodes 1 to {GEMM_DECODE_MAX_SEGMENTS} projections "
+                         f"of positive width, got {segments}")
     if K < 1 or K % GEMM_K_CHUNK or group % GEMM_K_CHUNK:
-        raise ValueError(f"K6b: K={K} and the group {group} must be multiples of {GEMM_K_CHUNK}")
-    unit_lines = group // math.gcd(group, GEMM_LINE) if group else 1  # lcm(group, line) / line
-    lines = -(-K // GEMM_LINE)
+        raise ValueError(f"{geometry.name}: K={K} and the group {group} must be multiples of "
+                         f"{GEMM_K_CHUNK}")
+    if not 1 <= rows <= geometry.max_rows:
+        raise ValueError(f"{geometry.name}'s decode ring takes 1 to {geometry.max_rows} rows, "
+                         f"got {rows}")
+    line_k = geometry.line_k
+    unit_lines = group // math.gcd(group, line_k) if group else 1  # lcm(group, line) / line
+    lines = -(-K // line_k)
     units = -(-lines // unit_lines)
+    splits = min(GEMM_DECODE_MAX_SPLIT, units) if rows <= GEMM_SPLIT_MAX_M else 1
     candidates = []
-    for split in range(1, min(GEMM_DECODE_MAX_SPLIT, units) + 1):
-        plan = DecodePlan(segments, K, group, GEMM_DECODE_BLOCK_N, split, unit_lines)
+    for split in range(1, splits + 1):
+        plan = DecodePlan(segments, K, group, GEMM_DECODE_BLOCK_N, split, unit_lines,
+                          geometry=geometry)
         most = max(l1 - l0 for l0, l1 in map(plan.slice_lines, range(split)))
-        plan = dataclasses.replace(plan, stages=min(GEMM_DECODE_MAX_STAGES, most))
-        resident = plan.resident_blocks(rows)
-        plan = dataclasses.replace(plan, grid=plan.tiles * split if split > 1
-                                   else min(plan.tiles, resident))
-        if not _decode_plan_fair(plan):
-            continue
-        cost = (plan.model_time(rows), max(plan.sm_bytes()))
-        candidates.append((plan.grid > resident, cost, plan))
+        deepest = min(geometry.deepest_ring(rows), most)
+        # K6b's ring is as deep as it may be; K9's and K10's depth is chosen
+        # with the split (a shallower ring lets more blocks share an SM)
+        for stages in range(deepest, 0 if geometry.search_depth else deepest - 1, -1):
+            plan = dataclasses.replace(plan, stages=stages, grid=0)
+            if plan.smem_bytes(rows) > GEMM_BLOCK_SMEM:
+                continue
+            resident = plan.resident_blocks(rows)
+            plan = dataclasses.replace(plan, grid=plan.tiles * split if split > 1
+                                       else min(plan.tiles, resident))
+            if not _decode_plan_fair(plan):
+                continue
+            cost = (plan.model_time(rows), max(plan.sm_bytes()), -stages)
+            candidates.append((plan.grid > resident, cost, plan))
     fits = [c for c in candidates if not c[0]] or candidates
     return min(fits, key=lambda c: c[1])[2]
+
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization over head_dim: x (..., D) → (int8
@@ -573,12 +688,25 @@ def w4a8_linear(xq, a_scale, weight_q, scale_q, bias=None, *,
     """The W4A8 product of xq (M, K) int8, a_scale (M, 1) and packed int4
     weight_q (N, K / 2): the plain version on the CPU, K9 on CUDA (bf16
     out)."""
+    return w4a8_linear_multi(xq, a_scale, [(weight_q, scale_q, bias)], out_dtype=out_dtype)[0]
+
+
+def w4a8_linear_multi(xq, a_scale, segments: Sequence[Tuple], *,
+                      out_dtype: torch.dtype = torch.bfloat16) -> List[torch.Tensor]:
+    """The W4A8 products of one input xq (M, K) int8, a_scale (M, 1) with
+    each (packed int4 weight_q (N_i, K / 2), scale_q, bias) of `segments`
+    (1 to 3; all per-channel or all grouped alike). On the CPU each
+    segment's plain version; on CUDA at M <= W4A8_MAX_M one launch of K9's
+    decode ring for all of them, above one launch of its prefill tiles a
+    segment."""
     if xq.is_cuda:
         if out_dtype != torch.bfloat16:
             raise TypeError(f"W4A8 kernel writes bfloat16, not {out_dtype}")
-        return w4a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias)
+        if xq.shape[0] <= W4A8_MAX_M:
+            return w4a8_decode_cuda(xq, a_scale, segments)
+        return [w4a8_linear_cuda(xq, a_scale, *seg) for seg in segments]
     _require_cpu(xq, "w4a8_linear")
-    return w4a8_linear_reference(xq, a_scale, weight_q, scale_q, bias, out_dtype)
+    return [w4a8_linear_reference(xq, a_scale, w, s, b, out_dtype) for w, s, b in segments]
 
 
 def w8a16_linear(x, weight_q, scale_q, bias=None, *,
@@ -586,12 +714,22 @@ def w8a16_linear(x, weight_q, scale_q, bias=None, *,
     """The W8A16 / W4A16 product of x (M, K) (cast to bf16) and int8 (N, K)
     or packed int4 (N, K / 2) codes: the plain version on the CPU, K10 on
     CUDA (bf16 out)."""
+    return w8a16_linear_multi(x, [(weight_q, scale_q, bias)], out_dtype=out_dtype)[0]
+
+
+def w8a16_linear_multi(x, segments: Sequence[Tuple], *,
+                       out_dtype: torch.dtype = torch.bfloat16) -> List[torch.Tensor]:
+    """The W8A16 / W4A16 products of one input x (M, K) (cast to bf16) with
+    each (weight_q, scale_q, bias) of `segments` (1 to 3, all int8 or all
+    packed int4 codes, all per-channel or all grouped alike). On the CPU
+    each segment's plain version; on CUDA one launch of K10 for all of
+    them, per W8A16_MAX_M rows."""
     if x.is_cuda:
         if out_dtype != torch.bfloat16:
             raise TypeError(f"W8A16 kernel writes bfloat16, not {out_dtype}")
-        return w8a16_linear_cuda(x.to(torch.bfloat16).contiguous(), weight_q, scale_q, bias)
+        return w8a16_decode_cuda(x.to(torch.bfloat16).contiguous(), segments)
     _require_cpu(x, "w8a16_linear")
-    return w8a16_linear_reference(x, weight_q, scale_q, bias, out_dtype)
+    return [w8a16_linear_reference(x, w, s, b, out_dtype) for w, s, b in segments]
 
 
 def rope_kv_write(q, k, v, cos, sin, k_entry: KVEntry, v_entry: KVEntry, cache_len
@@ -738,14 +876,18 @@ def _gemm_entries():
     return prefill, decode
 
 
-def _check_gemm_input(xq, a_scale) -> Tuple[int, int]:
-    if not xq.is_cuda:
-        raise ValueError("W8A8 kernel: xq must be a CUDA tensor")
+def _check_gemm_input(xq, a_scale, kernel: str = "W8A8 kernel", name: str = "xq",
+                      dtype: torch.dtype = torch.int8) -> Tuple[int, int]:
+    """(M, K) of a GEMM's 2-d CUDA input `name` of `dtype`, K a multiple of
+    64, with its (M, 1) fp32 row scales where it has them."""
+    if not xq.is_cuda or xq.dim() != 2:
+        raise ValueError(f"{kernel}: {name} must be a 2-d CUDA tensor")
     M, K = xq.shape
     if K % GEMM_K_CHUNK:
-        raise ValueError(f"W8A8 kernel: K={K} is not a multiple of {GEMM_K_CHUNK}")
-    _check_cuda("xq", xq, torch.int8, (M, K), xq.device)
-    _check_cuda("a_scale", a_scale, torch.float32, (M, 1), xq.device)
+        raise ValueError(f"{kernel}: K={K} is not a multiple of {GEMM_K_CHUNK}")
+    _check_cuda(name, xq, dtype, (M, K), xq.device, kernel)
+    if a_scale is not None:
+        _check_cuda("a_scale", a_scale, torch.float32, (M, 1), xq.device, kernel)
     return M, K
 
 
@@ -810,20 +952,38 @@ def _decode_launch(xq, a_scale, M: int, K: int, segments: Sequence[Tuple]
                    ) -> List[torch.Tensor]:
     """`w8a8_decode_cuda` on checked xq (M, K) and a_scale."""
     global w8a8_launches, w8a8_fused_launches
-    if M > GEMM_DECODE_MAX_M:
-        raise ValueError(f"W8A8 decode tiles take M <= {GEMM_DECODE_MAX_M} rows, got {M}")
+    outs = _ring_launch(K6B_GEOMETRY, "W8A8 decode tiles", _gemm_entries()[1], xq, a_scale,
+                        M, K, segments)
+    if M:
+        w8a8_launches += 1
+        w8a8_fused_launches += len(segments) > 1
+    return outs
+
+
+def _ring_launch(geometry: DecodeGeometry, kernel: str, entry, x, a_scale, M: int, K: int,
+                 segments: Sequence[Tuple], outs: Optional[List[torch.Tensor]] = None
+                 ) -> List[torch.Tensor]:
+    """One decode-ring launch of `geometry` (K6b, K9 or K10; `entry` its C
+    function) over x (M, K) (int8 with a_scale (M, 1), or bf16 with
+    a_scale None) and 1 to 3 segments of (weight_q, scale_q, bias) sharing
+    one scale group, checked here; returns the bf16 (M, N_i) outputs,
+    written into `outs` where given (contiguous, as allocated here).
+    Raises on anything the kernel does not take."""
+    if M > geometry.max_rows:
+        raise ValueError(f"{kernel} take M <= {geometry.max_rows} rows, got {M}")
     if not 1 <= len(segments) <= GEMM_DECODE_MAX_SEGMENTS:
-        raise ValueError(f"W8A8 decode tiles take 1 to {GEMM_DECODE_MAX_SEGMENTS} projections, "
+        raise ValueError(f"{kernel} take 1 to {GEMM_DECODE_MAX_SEGMENTS} projections, "
                          f"got {len(segments)}")
-    dev = xq.device
-    shapes = [_check_gemm_weight(*seg, K, dev) for seg in segments]
+    dev = x.device
+    shapes = [_check_gemm_weight(*seg, K, dev, geometry.wbits, kernel) for seg in segments]
     group = shapes[0][1]
     if any(g != group for _, g in shapes):
-        raise ValueError(f"W8A8 decode tiles: the projections' scale groups differ: {shapes}")
-    outs = [torch.empty((M, N), dtype=torch.bfloat16, device=dev) for N, _ in shapes]
+        raise ValueError(f"{kernel}: the projections' scale groups differ: {shapes}")
+    if outs is None:
+        outs = [torch.empty((M, N), dtype=torch.bfloat16, device=dev) for N, _ in shapes]
     if not M:
         return outs
-    plan = gemm_decode_plan(tuple(N for N, _ in shapes), K, group, M)
+    plan = gemm_decode_plan(tuple(N for N, _ in shapes), K, group, M, geometry)
     args = []
     for i in range(GEMM_DECODE_MAX_SEGMENTS):
         if i < len(segments):
@@ -836,28 +996,31 @@ def _decode_launch(xq, a_scale, M: int, K: int, segments: Sequence[Tuple]
     # and passed as __grid_constant__ parameters: a captured launch keeps
     # the maps it was given, right as long as the weights stay where they
     # are (module buffers, never moved while a graph lives)
+    head = ([x.data_ptr(), a_scale.data_ptr(), M, K, group] if a_scale is not None
+            else [x.data_ptr(), M, K, group, geometry.wbits])
     with torch.cuda.device(dev.index):
-        err = _gemm_entries()[1](xq.data_ptr(), a_scale.data_ptr(), M, K, group, len(segments),
-                                 plan.block_n, plan.split, plan.unit_lines, plan.stages,
-                                 plan.grid, *args, _stream(dev))
+        err = entry(*head, len(segments), plan.block_n, plan.split, plan.unit_lines,
+                    plan.stages, plan.grid, *args, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"W8A8 decode kernel launch failed: cudaError_t {err}")
-    w8a8_launches += 1
-    if len(segments) > 1:
-        w8a8_fused_launches += 1
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
     return outs
 
 
 # ------------------------------------------------------ K9, K10 (CUDA C++)
 @functools.lru_cache(maxsize=None)
-def _w4a8_entry():
-    """K9's C entry point, built and bound once per process."""
+def _w4a8_entries():
+    """K9's C entry points (prefill tiles, decode ring), built and bound
+    once per process."""
     from internnav_tpu_torch.ops._build import load_library
 
-    fn = load_library("w4a8_gemm.cu").w4a8_gemm
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("w4a8_gemm.cu")
+    prefill, decode = lib.w4a8_gemm_prefill, lib.w4a8_gemm_decode
+    prefill.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    decode.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                       + ([ctypes.c_void_p] * 4 + [ctypes.c_int]) * GEMM_DECODE_MAX_SEGMENTS
+                       + [ctypes.c_void_p])
+    prefill.restype = decode.restype = ctypes.c_int
+    return prefill, decode
 
 
 @functools.lru_cache(maxsize=None)
@@ -865,8 +1028,10 @@ def _w8a16_entry():
     """K10's C entry point, built and bound once per process."""
     from internnav_tpu_torch.ops._build import load_library
 
-    fn = load_library("w8a16_gemm.cu").w8a16_gemm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = load_library("w8a16_gemm.cu").w8a16_gemm_decode
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 10
+                   + ([ctypes.c_void_p] * 4 + [ctypes.c_int]) * GEMM_DECODE_MAX_SEGMENTS
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -874,57 +1039,81 @@ def _w8a16_entry():
 def w4a8_linear_cuda(xq, a_scale, weight_q, scale_q, bias=None) -> torch.Tensor:
     """Launch K9: xq (M, K) int8, a_scale (M, 1) fp32, weight_q (N, K / 2)
     packed int4 (`pack_int4`), scale_q (N,) or (G, N) fp32, bias (N,) fp32
-    or None → bf16 (M, N). K must be a multiple of 64, a group a multiple
-    of 64. Raises on anything else."""
+    or None → bf16 (M, N): the decode ring at M <= W4A8_MAX_M, else the
+    prefill tiles. K must be a multiple of 64, a group a multiple of 64.
+    Raises on anything else."""
     global w4a8_launches
     kernel = "W4A8 kernel"
-    if not xq.is_cuda or xq.dim() != 2:
-        raise ValueError(f"{kernel}: xq must be a 2-d CUDA tensor")
-    M, K = xq.shape
-    if K % GEMM_K_CHUNK:
-        raise ValueError(f"{kernel}: K={K} is not a multiple of {GEMM_K_CHUNK}")
+    M, K = _check_gemm_input(xq, a_scale, kernel)
+    if M <= W4A8_MAX_M:
+        return w4a8_decode_cuda(xq, a_scale, [(weight_q, scale_q, bias)])[0]
     dev = xq.device
-    _check_cuda("xq", xq, torch.int8, (M, K), dev, kernel)
-    _check_cuda("a_scale", a_scale, torch.float32, (M, 1), dev, kernel)
     N, group = _check_gemm_weight(weight_q, scale_q, bias, K, dev, 4, kernel)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    if M and N:
-        with torch.cuda.device(dev.index):
-            err = _w4a8_entry()(xq.data_ptr(), a_scale.data_ptr(), weight_q.data_ptr(),
-                                scale_q.data_ptr(), None if bias is None else bias.data_ptr(),
-                                out.data_ptr(), M, N, K, group, _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"W4A8 kernel launch failed: cudaError_t {err}")
-        w4a8_launches += 1
+    with torch.cuda.device(dev.index):
+        err = _w4a8_entries()[0](xq.data_ptr(), a_scale.data_ptr(), weight_q.data_ptr(),
+                                 scale_q.data_ptr(), None if bias is None else bias.data_ptr(),
+                                 out.data_ptr(), M, N, K, group, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"W4A8 kernel launch failed: cudaError_t {err}")
+    w4a8_launches += 1
     return out
+
+
+def w4a8_decode_cuda(xq, a_scale, segments: Sequence[Tuple]) -> List[torch.Tensor]:
+    """Launch K9's decode ring once for 1 to 3 projections of xq (M <= 64,
+    K) int8 and a_scale (M, 1) fp32: segments of (weight_q (N_i, K / 2)
+    packed int4, scale_q (N_i,) or (G, N_i) fp32, bias (N_i,) fp32 or
+    None), all per-channel or all with the same group. Returns bf16 (M,
+    N_i) each, split over the card by `gemm_decode_plan` at K9's geometry.
+    Raises on anything else."""
+    global w4a8_launches, w4a8_fused_launches
+    kernel = "W4A8 decode ring"
+    M, K = _check_gemm_input(xq, a_scale, kernel)
+    outs = _ring_launch(K9_GEOMETRY, kernel, _w4a8_entries()[1], xq, a_scale, M, K, segments)
+    if M:
+        w4a8_launches += 1
+        w4a8_fused_launches += len(segments) > 1
+    return outs
 
 
 def w8a16_linear_cuda(x, weight_q, scale_q, bias=None) -> torch.Tensor:
     """Launch K10: x (M, K) bf16, weight_q int8 (N, K) or packed int4 (N, K
     / 2) uint8, scale_q (N,) or (G, N) fp32, bias (N,) fp32 or None → bf16
-    (M, N). K must be a multiple of 64, a group a multiple of 64. Raises on
-    anything else."""
-    global w8a16_launches
+    (M, N), one launch per W8A16_MAX_M rows. K must be a multiple of 64, a
+    group a multiple of 64. Raises on anything else."""
+    return w8a16_decode_cuda(x, [(weight_q, scale_q, bias)])[0]
+
+
+def w8a16_decode_cuda(x, segments: Sequence[Tuple]) -> List[torch.Tensor]:
+    """Launch K10 for 1 to 3 projections of x (M, K) bf16: segments of
+    (weight_q, scale_q, bias), all int8 (N_i, K) or all packed int4 (N_i,
+    K / 2) codes, all per-channel or all with the same group. One launch
+    (counted) per W8A16_MAX_M rows, each writing its rows of the outputs:
+    a row's bits do not depend on the rows launched with it. Returns bf16
+    (M, N_i) each, split over the card by `gemm_decode_plan` at K10's
+    geometry. Raises on anything else."""
+    global w8a16_launches, w8a16_fused_launches
     kernel = "W8A16 kernel"
-    if not x.is_cuda or x.dim() != 2:
-        raise ValueError(f"{kernel}: x must be a 2-d CUDA tensor")
-    M, K = x.shape
-    if K % GEMM_K_CHUNK:
-        raise ValueError(f"{kernel}: K={K} is not a multiple of {GEMM_K_CHUNK}")
-    dev = x.device
-    _check_cuda("x", x, torch.bfloat16, (M, K), dev, kernel)
-    bits = 4 if weight_q.dtype == torch.uint8 else 8
-    N, group = _check_gemm_weight(weight_q, scale_q, bias, K, dev, bits, kernel)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    if M and N:
-        with torch.cuda.device(dev.index):
-            err = _w8a16_entry()(x.data_ptr(), weight_q.data_ptr(), scale_q.data_ptr(),
-                                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                                 M, N, K, group, bits, _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"W8A16 kernel launch failed: cudaError_t {err}")
-        w8a16_launches += 1
-    return out
+    M, K = _check_gemm_input(x, None, kernel, "x", torch.bfloat16)
+    kinds = {w.dtype for w, _, _ in segments}
+    if len(kinds) != 1 or not kinds <= {torch.int8, torch.uint8}:
+        raise ValueError(f"{kernel}: the codes must be all int8 or all packed int4 (uint8), "
+                         f"got {sorted(map(str, kinds))}")
+    geometry = K10_GEOMETRY[4 if kinds == {torch.uint8} else 8]
+    if M <= geometry.max_rows:
+        outs = _ring_launch(geometry, kernel, _w8a16_entry(), x, None, M, K, segments)
+    else:
+        outs = [torch.empty((M, w.shape[0]), dtype=torch.bfloat16, device=x.device)
+                for w, _, _ in segments]
+        for m0 in range(0, M, geometry.max_rows):
+            rows = slice(m0, m0 + geometry.max_rows)
+            _ring_launch(geometry, kernel, _w8a16_entry(), x[rows], None,
+                         min(M - m0, geometry.max_rows), K, segments, [o[rows] for o in outs])
+    launches = -(-M // geometry.max_rows)
+    w8a16_launches += launches
+    w8a16_fused_launches += launches if len(segments) > 1 else 0
+    return outs
 
 
 # ---------------------------------------------------------- K7 (CUDA C++)

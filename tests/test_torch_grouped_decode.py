@@ -12,8 +12,8 @@ others run on. Tolerances:
   atol/rtol 1e-6, because the CPU's fp32 matrix product sums a row in an
   order that depends on the number of rows;
 - against JAX: fp32 latents at 1e-4 (another summation order), int8
-  latents at 2e-2 (F13: an fp32 difference in the last bit flips an int8
-  activation code at a rounding tie).
+  latents at 2e-2 (F13, settled: the two frameworks' fp32 RMSNorms differ in
+  the last bit, which flips an int8 activation code at a rounding tie).
 JAX's grouped decode compiles slowly (its own test is `slow`), so the
 JAX side runs `greedy_generate` per group.
 """

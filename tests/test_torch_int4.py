@@ -314,3 +314,47 @@ def test_1d_rope_path_matches_jax():
         tstep, _, _ = tm.decode_step(_t(new), _t(npos), tc, torch.full((B,), T))
     _close(tl, jl)
     _close(tstep, jstep)
+
+
+def _random_quant_layer(cfg, seed):
+    """A tiny layer's attention and MLP with random codes, scales and biases."""
+    attn, mlp = qt.QwenAttention(cfg), qt.QwenMLP(cfg)
+    g = torch.Generator().manual_seed(seed)
+    for mod in (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj, mlp.gate_proj, mlp.up_proj,
+                mlp.down_proj):
+        qmax = quant.QMAX[mod.weight_bits]
+        codes = torch.randint(-qmax, qmax + 1, (mod.out_features, mod.in_features), generator=g,
+                              dtype=torch.int8)
+        mod.weight_q = quant.pack_int4(codes) if mod.weight_bits == 4 else codes
+        mod.scale_q = torch.rand(mod.scale_q.shape, generator=g) * 1e-2 + 1e-3
+        if mod.bias is not None:
+            mod.bias = torch.randn(mod.bias.shape, generator=g)
+    return attn, mlp
+
+
+@pytest.mark.parametrize("bf16_act", [False, True], ids=["w4a8", "w4a16"])
+@pytest.mark.parametrize("group", [None, 32])
+def test_project_fused_plain_path_equals_per_projection(monkeypatch, bf16_act, group):
+    """q/k/v and gate/up of a tiny int4 layer each go to one call of the
+    4-bit dispatcher (`w4a8_linear_multi`; with bf16_act `w8a16_linear_multi`,
+    one K9 or K10 launch on the card), which on the CPU runs each segment's
+    plain version: bit for bit what each projection gives alone, and no
+    kernel counted."""
+    cfg = dataclasses.replace(qt.QwenTextConfig.tiny(), weight_dtype="int4",
+                              quant_group_size=group, dtype=torch.float32)
+    attn, mlp = _random_quant_layer(cfg, seed=3 + bool(bf16_act))
+    name = "w8a16_linear_multi" if bf16_act else "w4a8_linear_multi"
+    calls = []
+    multi = getattr(qt, name)
+    monkeypatch.setattr(qt, name, lambda *a, **k: calls.append(len(a[-1])) or multi(*a, **k))
+    x = torch.randn((2, 3, cfg.hidden_size), generator=torch.Generator().manual_seed(4))
+    before = [getattr(quant, c) for c in quant.LAUNCH_COUNTERS]
+    with torch.no_grad():
+        for mods in ((attn.q_proj, attn.k_proj, attn.v_proj), (mlp.gate_proj, mlp.up_proj)):
+            calls.clear()
+            fused = qt.project(x, *mods, bf16_act=bf16_act)
+            alone = [qt.project(x, m, bf16_act=bf16_act)[0] for m in mods]
+            assert calls == [len(mods)] + [1] * len(mods)
+            for y, z, m in zip(fused, alone, mods):
+                assert y.shape == (2, 3, m.out_features) and torch.equal(y, z)
+    assert before == [getattr(quant, c) for c in quant.LAUNCH_COUNTERS]

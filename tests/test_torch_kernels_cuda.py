@@ -1302,3 +1302,253 @@ def test_int4_and_w8a16_text_model_on_card_matches_cpu(device, monkeypatch):
     for wdt, bound in (("int8", 0.15), ("int4", 0.5)):
         assert err[wdt, "bf16"].max() / top < bound
         assert err[wdt, "bf16"].mean() <= err[wdt, "int8"].mean() * 1.05
+
+
+# -------------------------------------------- K9, K10 on the decode ring
+# The formats of the ring: (kernel, code bits). K9 takes int8 rows, K10
+# bf16 rows; above 16 rows both run rows of warps on the ring (K9 to 64
+# rows, then its wgmma prefill tiles; K10 to 192). A row's bits must not
+# depend on M, the plan, the tile or the launch's other projections
+# (csrc/quant_gemm.cuh).
+RING_FORMATS = [("K9", 4), ("K10", 8), ("K10", 4)]
+RING_ROWS = [1, 12, 16, 17, 48, 64, 65, 192]
+
+
+def _ring_segments(device, kernel, bits, widths, K, group, seed):
+    make = _int4_weight if bits == 4 else _int8_weight
+    segs = []
+    for i, N in enumerate(widths):
+        w, s = make(device, N, K, seed=seed + i, group=group)
+        segs.append((w, s, torch.randn(N, device=device)))
+    return segs
+
+
+def _ring_inputs(device, kernel, M, K, seed):
+    from internnav_tpu_torch.ops import quant
+
+    x = _rand(device, M, K, seed=seed)
+    return quant.quantize_rows(x) if kernel == "K9" else (x, None)
+
+
+def _ring_multi(kernel, x, a, segs):
+    from internnav_tpu_torch.ops import quant
+
+    if kernel == "K9":
+        return quant.w4a8_linear_multi(x, a, segs)
+    return quant.w8a16_linear_multi(x, segs)
+
+
+def _ring_reference(kernel, x, a, seg):
+    from internnav_tpu_torch.ops import quant
+
+    if kernel == "K9":
+        return quant.w4a8_linear_reference(x, a, *seg)
+    return quant.w8a16_linear_reference(x, *seg)
+
+
+def _with_split(plan, split, rows):
+    """`plan` with its K cut into `split` slices (1: whole-K persistent
+    blocks) at `rows` rows: as deep a ring as fits, and the grid the
+    planner would give that split; `plan` itself where the split's
+    partials do not fit a block's shared memory."""
+    import dataclasses
+
+    from internnav_tpu_torch.ops import quant
+
+    forced = dataclasses.replace(plan, split=split)
+    most = max(l1 - l0 for l0, l1 in map(forced.slice_lines, range(split)))
+    forced = dataclasses.replace(forced, stages=min(plan.geometry.max_stages, most))
+    while forced.stages > 1 and forced.smem_bytes(rows) > quant.GEMM_BLOCK_SMEM:
+        forced = dataclasses.replace(forced, stages=forced.stages - 1)
+    if forced.smem_bytes(rows) > quant.GEMM_BLOCK_SMEM:
+        return plan
+    return dataclasses.replace(forced, grid=forced.tiles * split if split > 1 else
+                               min(forced.tiles, forced.resident_blocks(rows)))
+
+
+@pytest.mark.parametrize("group", [None, 128])
+@pytest.mark.parametrize("kernel,bits", RING_FORMATS)
+def test_ring_row_bits_do_not_depend_on_m_plan_or_fusion(device, monkeypatch, kernel, bits,
+                                                         group):
+    """q/k/v of a 7B layer: row r of every M in RING_ROWS equals row r of
+    the 192-row launch bit for bit; on the ring the fused launch (one
+    launch, counted once as fused) equals each projection alone, and up
+    to 64 rows the whole-K plan equals splits of 2 and 7."""
+    from internnav_tpu_torch.ops import quant
+
+    K, widths = 3584, (3584, 512, 512)
+    segs = _ring_segments(device, kernel, bits, widths, K, group, seed=40 + bits)
+    x, a = _ring_inputs(device, kernel, max(RING_ROWS), K, seed=41)
+    ref = _ring_multi(kernel, x, a, segs)
+    counters = ("w4a8_launches", "w4a8_fused_launches") if kernel == "K9" else \
+        ("w8a16_launches", "w8a16_fused_launches")
+    for M in RING_ROWS[:-1]:
+        xs, as_ = x[:M], None if a is None else a[:M]
+        before = [getattr(quant, c) for c in counters]
+        ys = _ring_multi(kernel, xs, as_, segs)
+        ring = M <= (quant.W4A8_MAX_M if kernel == "K9" else quant.W8A16_MAX_M)
+        if ring:
+            assert [getattr(quant, c) for c in counters] == [before[0] + 1, before[1] + 1]
+        for y, r in zip(ys, ref):
+            assert torch.equal(y, r[:M]), (M, (y.float() - r[:M].float()).abs().max())
+        if not ring:
+            continue
+        for seg, r in zip(segs, ref):
+            assert torch.equal(_ring_multi(kernel, xs, as_, [seg])[0], r[:M])
+        if M > quant.GEMM_SPLIT_MAX_M:  # whole-K plans only above 64 rows
+            continue
+        planner = quant.gemm_decode_plan
+        for split in (1, 2, 7):
+            monkeypatch.setattr(quant, "gemm_decode_plan", lambda *args, split=split:
+                                _with_split(planner(*args), split, args[3]))
+            for y, r in zip(_ring_multi(kernel, xs, as_, segs), ref):
+                assert torch.equal(y, r[:M]), (M, split)
+            monkeypatch.setattr(quant, "gemm_decode_plan", planner)
+    torch.cuda.synchronize()
+    for r, seg in zip(ref, segs):
+        want = _ring_reference(kernel, x, a, seg)
+        if kernel == "K9" and not group:
+            assert torch.equal(r, want)
+        else:
+            torch.testing.assert_close(r.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("M", [1, 4, 17, 48])
+@pytest.mark.parametrize("group", [None, 64])
+@pytest.mark.parametrize("kernel,bits", RING_FORMATS)
+def test_ring_at_odd_n_and_a_partial_line(device, kernel, bits, group, M):
+    """Odd N (63, 65, 4097) in one launch and K = 320, which ends inside a
+    128-k int8 line and a 256-k int4 line: K9 per channel bitwise, the rest
+    within GROUPED_TOL of the plain versions."""
+    K = 320
+    segs = _ring_segments(device, kernel, bits, (63, 65, 4097), K, group, seed=50 + M)
+    x, a = _ring_inputs(device, kernel, M, K, seed=51 + M)
+    ys = _ring_multi(kernel, x, a, segs)
+    torch.cuda.synchronize()
+    for y, seg in zip(ys, segs):
+        want = _ring_reference(kernel, x, a, seg)
+        if kernel == "K9" and not group:
+            assert torch.equal(y, want)
+        else:
+            torch.testing.assert_close(y.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("M", [4, 48])
+@pytest.mark.parametrize("kernel,bits", RING_FORMATS)
+def test_ring_fused_launches_replay_in_a_graph_bitwise(device, kernel, bits, M):
+    """gate/up in one launch on the ring, captured and replayed: the eager
+    call's bits."""
+    K = 3584
+    segs = _ring_segments(device, kernel, bits, (18944, 18944), K, 128, seed=60)
+    x, a = _ring_inputs(device, kernel, M, K, seed=61)
+    eager = _ring_multi(kernel, x, a, segs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _ring_multi(kernel, x, a, segs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _ring_multi(kernel, x, a, segs)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+@pytest.mark.parametrize("bits,group", [(8, None), (4, 128)])
+@pytest.mark.parametrize("M", [193, 256])
+def test_w8a16_above_one_launch_of_rows(device, M, bits, group):
+    """Above W8A16_MAX_M rows K10 launches once per 192 rows, each launch
+    counted (fused ones too): the q/k/v of a 7B layer within GROUPED_TOL
+    of the plain version, and the rows past 192 bitwise equal to the same
+    rows launched alone."""
+    from internnav_tpu_torch.ops import quant
+
+    K = 3584
+    segs = _ring_segments(device, "K10", bits, (3584, 512, 512), K, group, seed=70 + bits)
+    x, _ = _ring_inputs(device, "K10", M, K, seed=71)
+    before = (quant.w8a16_launches, quant.w8a16_fused_launches)
+    ys = quant.w8a16_linear_multi(x, segs)
+    assert (quant.w8a16_launches - before[0], quant.w8a16_fused_launches - before[1]) == (2, 2)
+    tail = quant.w8a16_linear_multi(x[quant.W8A16_MAX_M:].contiguous(), segs)
+    torch.cuda.synchronize()
+    for y, t, seg in zip(ys, tail, segs):
+        assert torch.equal(y[quant.W8A16_MAX_M:], t)
+        want = _ring_reference("K10", x, None, seg)
+        torch.testing.assert_close(y.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("N,K", [(65, 768), (3584, 1536)])
+@pytest.mark.parametrize("group", [64, 192, 256])
+@pytest.mark.parametrize("M", [65, 129, 1088])
+def test_w4a8_prefill_tiles_at_other_groups(device, M, group, N, K):
+    """K9's prompt tiles with scale groups other than 128 (their fold as
+    each group ends, not pipelined): within GROUPED_TOL of the plain
+    version."""
+    from internnav_tpu_torch.ops import quant
+
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=80 + M))
+    w, s = _int4_weight(device, N, K, seed=N + group, group=group)
+    b = torch.randn(N, device=device)
+    before = quant.w4a8_launches
+    y = quant.w4a8_linear(xq, a, w, s, b)
+    assert quant.w4a8_launches == before + 1
+    want = quant.w4a8_linear_reference(xq, a, w, s, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("group", [64, 256])
+def test_w4a8_ring_and_prefill_rows_agree_at_other_groups(device, group):
+    """A row's bits are the same from K9's decode ring (up to 64 rows) and
+    its prompt tiles (129 rows) at groups other than 128."""
+    from internnav_tpu_torch.ops import quant
+
+    K, N = 1536, 3584
+    xq, a = quant.quantize_rows(_rand(device, 129, K, seed=90))
+    w, s = _int4_weight(device, N, K, seed=91, group=group)
+    b = torch.randn(N, device=device)
+    full = quant.w4a8_linear(xq, a, w, s, b)
+    for M in (1, 17, 64):
+        assert torch.equal(quant.w4a8_linear(xq[:M], a[:M], w, s, b), full[:M]), M
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("widths,K", [((3584, 512, 512), 3584), ((3584,), 18944),
+                                      ((65,), 512)])
+def test_w8a8_decode_grouped_fold_keeps_k6b_bits(device, M, widths, K):
+    """K6b's grouped decode keeps its own arithmetic under the shared ring
+    (quant_gemm.cuh): in each K slice of its plan, the groups' terms
+    folded in order into an fp32 sum with one rounding a group (an FMA of
+    float(acc_g) and the scale), the slices' partials added in fp32 in rank
+    order, times the activation scale, + bias, to bf16. Emulated here in
+    float64 (each step exact there but for the one fp32 rounding)."""
+    import numpy as np
+
+    from internnav_tpu_torch.ops import quant
+
+    group = 128
+    xq, a = quant.quantize_rows(_rand(device, M, K, seed=70 + M))
+    segs = _w8a8_segments(device, widths, K, True, seed=K + M, group=group)
+    ys = quant.w8a8_linear_multi(xq, a, segs)
+    plan = quant.gemm_decode_plan(widths, K, group, M)
+    torch.cuda.synchronize()
+    xd = xq.cpu().double().numpy().reshape(M, K // group, group)
+    av = a.cpu().numpy()[:, 0]
+    for y, (w, s, b) in zip(ys, segs):
+        N = w.shape[0]
+        wd = w.cpu().double().numpy().reshape(N, K // group, group)
+        acc = np.einsum("mgk,ngk->gmn", xd, wd)  # exact integer sums a group
+        sv = s.cpu().numpy().astype(np.float64)
+        total = np.zeros((M, N), np.float32)
+        for rank in range(plan.split):
+            l0, l1 = plan.slice_lines(rank)
+            part = np.zeros((M, N), np.float32)
+            for gi in range(l0 * quant.GEMM_LINE // group, min(K, l1 * quant.GEMM_LINE) // group):
+                part = (part.astype(np.float64) + acc[gi] * sv[gi][None]).astype(np.float32)
+            total = (total.astype(np.float64) + part).astype(np.float32)
+        want = (total.astype(np.float64) * av[:, None]).astype(np.float32)
+        want = (want.astype(np.float64) + b.cpu().numpy()[None]).astype(np.float32)
+        want = torch.from_numpy(want).to(torch.bfloat16)
+        assert torch.equal(y.cpu(), want)

@@ -13,9 +13,9 @@ SiLU sum and round in other orders) the cast may land one bf16 ulp
 (2^-8 relative) apart on an element, which moves every output of that
 product by up to |w| |x| 2^-8 (measured: 1.2e-3 on the logits); int8 KV
 codes equal, greedy tokens exactly; the grouped decode's
-and the batched policy's latents at 2e-2 against JAX (F13: an fp32
-difference in the last bit flips an int8 activation code of the prefill
-at a rounding tie), tokens exactly.
+and the batched policy's latents at 2e-2 against JAX (F13, settled:
+the two frameworks' fp32 RMSNorms differ in the last bit, which flips an
+int8 activation code of the prefill at a rounding tie), tokens exactly.
 """
 
 import dataclasses
@@ -143,15 +143,16 @@ def _spy(monkeypatch, module, name, calls):
 def test_w8a16_layer_runs_bf16_products_and_no_activation_quantization(monkeypatch, bits):
     """The decoding switch (JAX `:413-417`, `:612-616`): the prefill that
     writes the cache runs W8A8 / W4A8 with K6a's fused prologues; a decode
-    step runs 7 W8A16 products a layer plus the lm_head's, the plain
-    RMSNorm and `silu_mul`, and no activation quantization."""
+    step runs a layer's 7 W8A16 products in 4 calls (q/k/v and gate/up one
+    call each, one K10 launch each on the card) plus the lm_head's, the
+    plain RMSNorm and `silu_mul`, and no activation quantization."""
     _, _, tm = w16_pair("w128", bits)
     emb, pos, seg, plen, _ = _inputs("w128")
     B, T = seg.shape
     L = tm.cfg.num_hidden_layers
     calls = {}
-    for name in ("w8a16_linear", "rmsnorm_quantize", "swiglu_quantize", "quantize_activations",
-                 "w4a8_linear", "w8a8_linear_multi", "silu_mul"):
+    for name in ("w8a16_linear_multi", "rmsnorm_quantize", "swiglu_quantize",
+                 "quantize_activations", "w4a8_linear_multi", "w8a8_linear_multi", "silu_mul"):
         _spy(monkeypatch, qt, name, calls)
     with torch.no_grad():
         _, _, tc = tm(_t(emb), _t(pos), segment_ids=_t(seg), logits_indices=_t(plen - 1).long())
@@ -159,9 +160,9 @@ def test_w8a16_layer_runs_bf16_products_and_no_activation_quantization(monkeypat
         calls.clear()
         tm.decode_step(_t(emb[:, :1]), _t(pos[:, :, :1]), qt.pad_caches(tc, T + 1),
                        _t(plen).long())
-    assert prefill.get("w8a16_linear", 0) == 0 and prefill["rmsnorm_quantize"] == 2 * L
+    assert prefill.get("w8a16_linear_multi", 0) == 0 and prefill["rmsnorm_quantize"] == 2 * L
     assert prefill["swiglu_quantize"] == L
-    assert calls == {"w8a16_linear": 7 * L + 1, "silu_mul": L}
+    assert calls == {"w8a16_linear_multi": 4 * L + 1, "silu_mul": L}
 
 
 # --------------------------------------------------- grouped, batched
@@ -301,3 +302,31 @@ def test_w8a16_decode_tracks_the_bf16_model():
     e16 = (decode_logits(weight_dtype="int8", decode_act_dtype="bf16") - ref).abs()
     assert e16.mean() <= e8.mean() * 1.05
     assert e16.max() / (ref.abs().max() + 1e-9) < 0.15
+
+
+@pytest.mark.parametrize("group", [None, 32])
+def test_w8a16_project_fused_plain_path_equals_per_projection(monkeypatch, group):
+    """W8A16 over int8 codes: q/k/v and gate/up each one `w8a16_linear_multi`
+    call (one K10 launch on the card), on the CPU each segment's plain
+    version, bit for bit what each projection gives alone."""
+    from test_torch_int4 import _random_quant_layer
+
+    cfg = dataclasses.replace(qt.QwenTextConfig.tiny(), weight_dtype="int8",
+                              quant_group_size=group, dtype=torch.float32)
+    attn, mlp = _random_quant_layer(cfg, seed=5)
+    calls = []
+    multi = qt.w8a16_linear_multi
+    monkeypatch.setattr(qt, "w8a16_linear_multi",
+                        lambda *a, **k: calls.append(len(a[-1])) or multi(*a, **k))
+    x = torch.randn((4, cfg.hidden_size), generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        for mods in ((attn.q_proj, attn.k_proj, attn.v_proj), (mlp.gate_proj, mlp.up_proj)):
+            calls.clear()
+            fused = qt.project(x, *mods, bf16_act=True)
+            alone = [qt.project(x, m, bf16_act=True)[0] for m in mods]
+            assert calls == [len(mods)] + [1] * len(mods)
+            for y, z in zip(fused, alone):
+                assert torch.equal(y, z)
+            want = quant.w8a16_linear_reference(x, mods[0].weight_q, mods[0].scale_q,
+                                                mods[0].bias, out_dtype=torch.float32)
+            assert torch.equal(fused[0], want)

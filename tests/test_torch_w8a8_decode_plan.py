@@ -172,3 +172,78 @@ def test_from_jax_loads_quant_linear_unchanged():
     load_from_jax(lin, params)
     np.testing.assert_array_equal(lin.weight_q.numpy(), params["kernel_q"].T)
     assert lin.weight_q.is_contiguous() and tuple(lin.scale_q.shape) == (65,)
+
+
+GEOMETRIES = {"K9": quant.K9_GEOMETRY, "K10_int8": quant.K10_GEOMETRY[8],
+              "K10_int4": quant.K10_GEOMETRY[4]}
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+@settings(max_examples=100, deadline=None, derandomize=True)
+@example(widths=[7950, 17026, 330], K=512, group=64, rows=5)
+@example(widths=[524, 16613, 16647], K=12288, group=256, rows=6)
+@example(widths=[15169, 7917, 2252], K=16576, group=0, rows=5)
+@example(widths=[3584, 512, 512], K=3584, group=128, rows=1)
+@example(widths=[18944, 18944], K=3584, group=128, rows=48)
+@example(widths=[3584], K=18944, group=128, rows=192)
+@given(widths=st.lists(st.integers(1, 20000), min_size=1, max_size=3),
+       K=st.integers(1, 300).map(lambda k: 64 * k),
+       group=st.sampled_from([0, 64, 128, 192, 256]),
+       rows=st.integers(1, quant.W8A16_MAX_M))
+def test_k9_k10_decode_plans_cover_every_line_once_and_balance_the_sms(geometry, widths, K,
+                                                                       group, rows):
+    """K9's and K10's ring geometry (256 k a line for int4 codes, bf16 rows
+    for K10, up to 192 rows): every (column, k) once, K slices at whole
+    lines and whole scale groups, no SM more than one block's weight bytes
+    above the mean, a block's shared memory within the card's, rings no
+    deeper and blocks an SM no more than the geometry gives those rows, and
+    only whole-K plans above GEMM_SPLIT_MAX_M rows."""
+    geo = GEOMETRIES[geometry]
+    rows = min(rows, geo.max_rows)
+    if group and K % group:
+        group = 0
+    plan = quant.gemm_decode_plan(tuple(widths), K, group, rows, geo)
+    assert plan.geometry == geo and plan.block_n == quant.GEMM_DECODE_BLOCK_N
+    assert 1 <= plan.split <= (quant.GEMM_DECODE_MAX_SPLIT if rows <= quant.GEMM_SPLIT_MAX_M
+                               else 1)
+    assert 1 <= plan.stages <= geo.deepest_ring(rows) <= geo.max_stages
+    assert plan.smem_bytes(rows) <= quant.GEMM_BLOCK_SMEM
+    if geo.register_blocks(rows):  # the launch bounds' blocks an SM, at most
+        assert plan.resident_blocks(rows) <= geo.register_blocks(rows) * quant.GEMM_SMS
+    assert plan.grid == (plan.tiles * plan.split if plan.split > 1
+                         else min(plan.tiles, plan.resident_blocks(rows)))
+    assert _covers_once(plan, widths, K)
+    for _, _, _, _, k0, k1 in plan.units():  # whole lines, whole scale groups
+        assert k0 % geo.line_k == 0 and (k1 == K or k1 % geo.line_k == 0)
+        assert k0 % (group or 64) == 0 and (k1 == K or k1 % (group or 64) == 0)
+    biggest = max(plan.unit_bytes(c0, c1, k0, k1) for _, _, c0, c1, k0, k1 in plan.units())
+    load = plan.sm_bytes()
+    assert max(load) - sum(load) / len(load) <= biggest
+    assert sum(load) == sum(widths) * K * geo.wbits // 8
+
+
+def test_k9_k10_plans_at_the_7b_shapes():
+    """One token: K9 (grouped-128 int4, 256 k a line) and K10 split q/k/v 5
+    ways, o 7 ways and down 8 ways over clusters, and stream gate/up's 592
+    column tiles whole-K, each ring at most 3 stages deep. The shared
+    decode's 48 rows split q/k/v, o and down 2 ways (rank 0 holds 2 x 48 x
+    64 partials) and stream gate/up over 264 persistent blocks, two an SM
+    (the registers of the 17-64 row layout), every ring 2 stages deep."""
+    layer = (("qkv", (3584, 512, 512), 3584), ("o", (3584,), 3584),
+             ("gate_up", (18944, 18944), 3584), ("down", (3584,), 18944))
+
+    def plans(geo, rows, group):
+        return {name: (p.split, p.grid) for name, widths, K in layer
+                for p in [quant.gemm_decode_plan(widths, K, group, rows, geo)]}
+
+    one = {"qkv": (5, 360), "o": (7, 392), "gate_up": (1, 592), "down": (8, 448)}
+    assert plans(quant.K9_GEOMETRY, 1, 128) == one
+    assert plans(quant.K10_GEOMETRY[4], 1, 128) == one
+    assert plans(quant.K10_GEOMETRY[8], 48, 0) == {"qkv": (2, 144), "o": (2, 112),
+                                                   "gate_up": (1, 264), "down": (2, 112)}
+    assert all(quant.gemm_decode_plan(w, K, 0, 48, quant.K10_GEOMETRY[8]).stages == 2
+               for _, w, K in layer)
+    assert all(quant.gemm_decode_plan(w, K, 128, 1, quant.K9_GEOMETRY).stages <= 3
+               for _, w, K in layer)
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        quant.gemm_decode_plan((64,), 128, 0, 65, quant.K9_GEOMETRY)
