@@ -152,6 +152,30 @@ Phases, each printing its numbers:
                no plain version. Python's str hash is pinned
                (PYTHONHASHSEED=0; the script re-executes itself with it),
                so FakeEnv draws the same frames in every run;
+  navdp    — the NavDP System-1 (`navdp_async`: the fp32 NavDP head with
+               its RGBD backbone and 20-step DDPM) on one 7B realtime
+               policy (random weights, seed 0): serve navdp, 4
+               /eval_dual requests with depth at 420x420 (System-1's
+               frames fitted to 224), every trajectory finite, K1 and
+               K4-K8 held to the computed counts (the head has no SiLU),
+               no plain version run, each System-1 call's seconds; the
+               head on the card against its copy on the host (1 stream,
+               32 samples, injected noise, fp32, cuDNN TF32 at PyTorch's
+               default so the head's own guard keeps the towers fp32)
+               within NAVDP_TOL, beside two unchecked TF32 control
+               readings of the same call; serve
+               batched navdp (PipelinedN1Server, 4 cohorts x 12 streams of
+               224x224 RGBD pairs, the shared grouped decode and the shared
+               grouped System-1): a warm cycle, a checked cycle (launches
+               held to the computed counts, each grouped 48-stream call
+               timed), the same cycle with per-cohort System-1
+               (trajectories within NAVDP_GROUPED_TOL, action differences
+               counted), the warm cycle's last grouped call profiled
+               (device ms, launches);
+               evaluate navdp (`bench_evaluator.py --system1 navdp_async`'s
+               functions, 4 x 12, a warm and one timed run: actions/s,
+               System-1's host seconds, K1 and K4-K8 launched, no plain
+               version);
   7. train   — with the serving policies freed: the full-width 7B
                `nextdit_async` policy at TRAIN_LAYERS decoder layers with
                remat, loaded from the HF-layout checkpoint through the
@@ -162,11 +186,12 @@ Phases, each printing its numbers:
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
                L times each.
-Every kernel's launch count is set to 0 just before each of the ten
-paths (serve, serve realtime, the long realtime request, serve realtime
-W8A16, serve int4, serve W4A16, serve batched's timed stream, the
-evaluate phase's timed runs, the int4 evaluate's timed run, train) and
-read just after. Then one JSON
+Every kernel's launch count is set to 0 just before each of the
+thirteen paths (serve, serve realtime, the long realtime request, serve
+realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
+evaluate phase's timed runs, the int4 evaluate's timed run, serve navdp,
+serve batched navdp's checked cycle, evaluate navdp's timed run, train)
+and read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing any result.
@@ -1535,8 +1560,7 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
     want["K1"] = len(steps) * (L + windowed)
     decode_passes = sum(1 + s for s in steps)  # decode steps + chunk, per layer
     passes = len(steps) + decode_passes  # and the prefill
-    velocity = 2 * dit_layers + 2
-    want["K8"] = (len(steps) * cfg.vision.depth + s1_calls * S1_STEPS * velocity
+    want["K8"] = (len(steps) * cfg.vision.depth + s1_calls * s1_silu_launches(cfg, dit_layers)
                   + (L * passes if profile == "parity" else 0))
     if profile == "realtime":
         n = len(steps)
@@ -1559,6 +1583,19 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
 
 #: the System-1 denoise's Euler steps (`generate_traj_nextdit`'s default)
 S1_STEPS = 10
+
+
+def s1_silu_launches(cfg, dit_layers: int) -> int:
+    """K8 launches of one System-1 denoise: NextDiT's S1_STEPS velocities,
+    2 a layer and 2 more (the time embedding's and the output norm's SiLU);
+    none for the NavDP head (fp32 GELU and ReLU, no SiLU)."""
+    return 0 if "navdp" in cfg.system1 else S1_STEPS * (2 * dit_layers + 2)
+
+
+def dit_layers(policy) -> int:
+    """NextDiT's layers (0 for a NavDP System-1)."""
+    dit = getattr(policy.model, "traj_dit", None)
+    return 0 if dit is None else len(dit.layers)
 
 
 def loop_steps(generated: int) -> int:
@@ -1625,7 +1662,7 @@ def _check_requests(policy, profile, what, calls, chunks, gen_tokens, loop, laun
     steps = [st["steps"] for st in loop]
     logits_calls = n + sum(st["logits_steps"] for st in loop)  # the prefills' and the steps'
     want = expected_serve_launches(policy.cfg, profile, steps, logits_calls,
-                                   calls["s1_step_latent"], len(policy.model.traj_dit.layers))
+                                   calls["s1_step_latent"], dit_layers(policy))
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
     return steps
@@ -2052,10 +2089,6 @@ def phase_evaluate_int4(device, ckpt: Path, want: dict) -> dict:
 
     import torch
 
-    from internnav_tpu_torch.ops import activations as act
-    from internnav_tpu_torch.ops import flash_attention as fa
-    from internnav_tpu_torch.ops import quant
-
     bench = bench_entry()
     t0 = time.perf_counter()
     inner = bench.build_inner(device, ckpt=str(ckpt), weight_dtype="int4")
@@ -2063,9 +2096,7 @@ def phase_evaluate_int4(device, ckpt: Path, want: dict) -> dict:
     build_s = time.perf_counter() - t0
     check_digests("evaluate int4 from the native checkpoint", state_digests(inner.model), want)
     plain = collections.Counter()
-    modules = {"flash_attention": fa, "quant": quant, "activations": act}
-    restore = [(modules[m], name, _spy(modules[m], name, plain, f"{m}.{name}"))
-               for m, names in PLAIN_VERSIONS.items() for name in names]
+    restore = _plain_spies(plain)
     out_dir = WORK_DIR / "evaluate_int4"
     shutil.rmtree(out_dir, ignore_errors=True)
     try:
@@ -2076,8 +2107,7 @@ def phase_evaluate_int4(device, ckpt: Path, want: dict) -> dict:
         launches = launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     finally:
-        for obj, name, fn in reversed(restore):
-            setattr(obj, name, fn)
+        _restore(restore)
     if plain:
         raise AssertionError(f"evaluate int4: plain versions ran on the card: {dict(plain)}")
     n = bench.BATCH * bench.COHORTS
@@ -2152,7 +2182,7 @@ def expected_batched_launches(cfg, cycles: int, cohorts: int, rows: int,
                 K6b_fused=L * (dec_fused * steps + chk_fused * cycles),
                 K7=L * prefills + L * G * (steps + cycles),
                 K8=prefills * (cfg.vision.depth
-                               + BATCH_S1_CALLS * S1_STEPS * (2 * dit_layers + 2)))
+                               + BATCH_S1_CALLS * s1_silu_launches(cfg, dit_layers)))
     return want
 
 
@@ -2336,7 +2366,7 @@ def phase_serve_batched(device) -> dict:
     vision_k1 = (0 if window_block else v.depth - len(v.fullatt_block_indexes)) + \
         (0 if full_block else len(v.fullatt_block_indexes))
     want = expected_batched_launches(cfg, cycles, BATCH_COHORTS, BATCH_ROWS, vision_k1,
-                                     len(policy.model.traj_dit.layers))
+                                     dit_layers(policy))
     if launches != want:
         raise AssertionError(f"serve batched: kernel launches {launches}, expected {want}")
     buffers = policy.decode_buffers
@@ -2404,6 +2434,47 @@ def _spy(obj, name, counter, key, seconds=None):
 
     setattr(obj, name, wrapper)
     return fn
+
+
+def _plain_spies(counter):
+    """Spy on every plain version of a kernel (PLAIN_VERSIONS), counting
+    their calls in `counter`; returns the (module, name, original)
+    triples for `_restore`."""
+    from internnav_tpu_torch.ops import activations as act
+    from internnav_tpu_torch.ops import flash_attention as fa
+    from internnav_tpu_torch.ops import quant
+
+    modules = {"flash_attention": fa, "quant": quant, "activations": act}
+    return [(modules[m], name, _spy(modules[m], name, counter, f"{m}.{name}"))
+            for m, names in PLAIN_VERSIONS.items() for name in names]
+
+
+def _check_outputs(traj_shape, bad):
+    """Check every agent output as the pipelined evaluator applies it (one
+    action of the four, a finite trajectory of traj_shape), the malformed
+    ones into `bad`; returns the original apply's triple for `_restore`."""
+    import numpy as np
+
+    from internnav_tpu_torch.evaluator import vln_pipelined_evaluator as pipe
+
+    apply = pipe._Cohort.apply
+
+    def checked_apply(self, agent_out):
+        for o in agent_out:
+            traj = o.get("trajectory")
+            if len(o["action"]) != 1 or o["action"][0] not in (0, 1, 2, 3) or (
+                    traj is not None and (traj.shape != traj_shape
+                                          or not np.isfinite(traj).all())):
+                bad.append((o["action"], None if traj is None else traj.shape))
+        return apply(self, agent_out)
+
+    pipe._Cohort.apply = checked_apply
+    return pipe._Cohort, "apply", apply
+
+
+def _restore(spies) -> None:
+    for obj, name, fn in reversed(spies):
+        setattr(obj, name, fn)
 
 
 #: the evaluate path's shapes checked after its timed runs: each kernel's
@@ -2648,7 +2719,6 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
     from the policy's build on). Returns the timed runs' launches."""
     import shutil
 
-    import numpy as np
     import torch
 
     from internnav_tpu_torch.evaluator import vln_pipelined_evaluator as pipe
@@ -2656,9 +2726,6 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
         BatchedN1Policy,
         SharedDecodePool,
     )
-    from internnav_tpu_torch.ops import activations as act
-    from internnav_tpu_torch.ops import flash_attention as fa
-    from internnav_tpu_torch.ops import quant
 
     bench = bench_entry()
     if os.environ.get("PYTHONHASHSEED") != bench.HASH_SEED:
@@ -2671,21 +2738,7 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
     traj_shape = (bench.NUM_SAMPLE_TRAJS, inner.cfg.predict_step_nums, 3)
     bad, calls, plain = [], collections.Counter(), collections.Counter()
     host_s = collections.Counter()
-    apply = pipe._Cohort.apply
-
-    def checked_apply(self, agent_out):
-        for o in agent_out:
-            traj = o.get("trajectory")
-            if len(o["action"]) != 1 or o["action"][0] not in (0, 1, 2, 3) or (
-                    traj is not None and (traj.shape != traj_shape
-                                          or not np.isfinite(traj).all())):
-                bad.append((o["action"], None if traj is None else traj.shape))
-        return apply(self, agent_out)
-
-    modules = {"flash_attention": fa, "quant": quant, "activations": act}
-    restore = [(modules[m], name, _spy(modules[m], name, plain, f"{m}.{name}"))
-               for m, names in PLAIN_VERSIONS.items() for name in names]
-    pipe._Cohort.apply = checked_apply
+    restore = [_check_outputs(traj_shape, bad), *_plain_spies(plain)]
     restore += [(cls, name, _spy(cls, name, calls, key, host_s)) for cls, name, key in (
         (BatchedN1Policy, "s2_prefill_submit", "s2_submit"),
         (BatchedN1Policy, "s2_submit", "s2_submit"), (SharedDecodePool, "flush", "shared_decode"),
@@ -2719,9 +2772,7 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
         launches = launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     finally:
-        for obj, name, fn in reversed(restore):
-            setattr(obj, name, fn)
-        pipe._Cohort.apply = apply
+        _restore(restore)
     if bad:
         raise AssertionError(f"evaluate: {len(bad)} malformed agent outputs, e.g. {bad[:3]}")
     if plain:
@@ -2779,6 +2830,382 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"evaluate": launches}, eval_kernel_rows(device, shapes)
+
+
+# ----------------------------------------------------------------- navdp
+#: the NavDP head on the card against the same module on the host, both
+#: fp32: 20 DDPM steps of a 16-layer decoder, two ViT-S towers and the
+#: former, each product summed in another order by cuBLAS and by the CPU.
+#: 8.2e-6 was read on an H100; the phase also prints the same call with
+#: TF32 let into the towers' convolutions and into the products, which
+#: this limit is meant to catch
+NAVDP_TOL = 1e-4
+#: grouped against per-cohort System-1: the same draws and inputs, cuBLAS
+#: at 48 streams' rows against 12 streams' (2.3e-5 read on an H100)
+NAVDP_GROUPED_TOL = 1e-4
+NAVDP_REQUESTS = 4
+
+
+def profile_call(fn):
+    """One fn() call under torch.profiler: (its device kernels' summed
+    milliseconds, their launches), or None when the trace holds no device
+    time (the profiler cannot trace the card here). Only the device is
+    traced: host events cost seconds a call at ~14,000 launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy_us += getattr(e, "self_device_time_total", 0.0) or getattr(
+                e, "self_cuda_time_total", 0.0)
+            launches += e.count
+    return (busy_us / 1e3, launches) if busy_us > 0 else None
+
+
+def _profiled(fn) -> str:
+    got = profile_call(fn)
+    return "not_measured(no device time in the trace)" if got is None else \
+        f"{got[0]:.4f}ms/{got[1]}launches"
+
+
+def phase_serve_navdp(device):
+    """The 7B `navdp_async` policy in the realtime profile (W8A8, int8 KV;
+    random weights from seed 0), served through the real-robot HTTP server:
+    NAVDP_REQUESTS /eval_dual requests with depth at 420 x 420 (System-1's
+    frames fitted to 224; the agent re-plans System-2 every request and
+    runs System-1 whenever its action queue is empty, at least once),
+    each trajectory finite, K1 and K4-K8 held to
+    `expected_serve_launches` (no SiLU in the NavDP head), no plain
+    version of a kernel run. Prints each request's and each NavDP S1
+    call's seconds. Returns (the policy, the launches by path)."""
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.realworld import serve
+
+    t0 = time.perf_counter()
+    policy = serve.build_policy("realtime", device=device, system1="navdp_async")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not hasattr(policy.model, "navdp") or hasattr(policy.model, "traj_dit"):
+        raise AssertionError("serve navdp: the policy has no NavDP head, or a NextDiT")
+    head_params = sum(p.numel() for p in policy.model.navdp.parameters())
+    head_dtypes = sorted({str(p.dtype) for p in policy.model.navdp.parameters()})
+    s1_s, s1_call = [], policy.s1_step_latent
+
+    def timed_s1(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = s1_call(*a, **kw)  # ends in the trajectory's copy to the host
+        s1_s.append(time.perf_counter() - t)
+        if not np.isfinite(out.trajectory).all():
+            raise AssertionError("serve navdp: a non-finite trajectory")
+        return out
+
+    policy.s1_step_latent = timed_s1
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    try:
+        by_path = phase_serve(device, "realtime", policy, build_s, label="serve_navdp",
+                              requests=NAVDP_REQUESTS, long_request=False)
+    finally:
+        _restore(spies)
+        # phase_serve's counters and recorders go; the policy serves on
+        for name in ("s2_step", "s1_step_latent"):
+            policy.__dict__.pop(name, None)
+        for name in ("forward", "decode_chunk_grouped"):
+            policy.model.language_model.__dict__.pop(name, None)
+    if plain:
+        raise AssertionError(f"serve navdp: plain versions ran on the card: {dict(plain)}")
+    if not s1_s:  # the agent runs System-1 when its action queue is empty
+        raise AssertionError(f"serve navdp: no System-1 call in {NAVDP_REQUESTS} requests")
+    print(f"phase serve: path=serve_navdp system1=navdp_async head_params={head_params} "
+          f"head_dtypes={head_dtypes} s1_calls={len(s1_s)} "
+          f"s1_call_s={[round(x, 4) for x in s1_s]} plain_version_calls=0 gpu={gpu_line()!r}")
+    return policy, by_path
+
+
+def phase_navdp_card_vs_host(device, policy) -> dict:
+    """One NavDP System-1 call (1 stream, BATCH_TRAJS samples, 224 x 224
+    RGBD pair, injected x_init and step noises) through the card's head and
+    through the same module's copy on the host, both fp32: the largest
+    absolute difference held to NAVDP_TOL. cuDNN's TF32 is left at
+    PyTorch's default (on) here, so that the head's own guard is what keeps
+    the towers' convolutions fp32. Two control readings of the same call
+    follow, neither held to a limit: the guard taken out (TF32
+    convolutions), and TF32 products. Prints the card call's host seconds
+    and its profiled device time and launches."""
+    import contextlib
+    import copy
+
+    import torch
+
+    from internnav_tpu_torch.model.encoder import navdp_backbone
+
+    head = policy.model.navdp
+    host = copy.deepcopy(head).cpu()
+    g = torch.Generator().manual_seed(0)
+    hw = policy.model.s1_image_hw
+    lat = (0.5 * torch.randn(1, N_QUERY, policy.cfg.text.hidden_size, generator=g)).to(
+        torch.bfloat16)
+    rgb = torch.randint(0, 256, (1, 2, hw, hw, 3), generator=g, dtype=torch.uint8)
+    depth = 5.0 * torch.rand(1, 2, hw, hw, 1, generator=g)
+    P = policy.cfg.predict_step_nums
+    x0 = torch.randn(BATCH_TRAJS, P, 3, generator=g)
+    zs = torch.randn(head.denoise_steps, BATCH_TRAJS, P, 3, generator=g)
+    args = [t.to(device) for t in (lat, rgb, depth, x0, zs)]
+
+    def card():
+        return head.predict_pointgoal_action_async(
+            args[0], args[1].float() / 255.0, args[2], x_init=args[3], step_noises=args[4])
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    guard = navdp_backbone._fp32_convolutions
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        with torch.inference_mode():
+            card()  # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = card()
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t
+            prof = _profiled(card)
+            navdp_backbone._fp32_convolutions = contextlib.nullcontext
+            tf32_conv = card().cpu()
+            navdp_backbone._fp32_convolutions = guard
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32_matmul = card().cpu()
+            t = time.perf_counter()
+            ref = host.predict_pointgoal_action_async(lat, rgb.float() / 255.0, depth,
+                                                      x_init=x0, step_noises=zs)
+            host_s = time.perf_counter() - t
+    finally:
+        navdp_backbone._fp32_convolutions = guard
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    got = got.cpu()
+    err = (got - ref).abs().max().item()
+    if got.shape != ref.shape or not torch.isfinite(got).all() or not err <= NAVDP_TOL:
+        raise AssertionError(f"navdp card vs host: {tuple(got.shape)} max_abs_err {err} "
+                             f"(tolerance {NAVDP_TOL})")
+    controls = {name: (out - ref).abs().max().item()
+                for name, out in (("tf32_convolutions", tf32_conv), ("tf32_products", tf32_matmul))}
+    print(f"phase navdp: card_vs_host streams=1 samples={BATCH_TRAJS} hw={hw} "
+          f"steps={head.denoise_steps} cudnn.allow_tf32=True max_abs_err={err} "
+          f"tol={NAVDP_TOL} traj_max_abs={ref.abs().max().item():.4f} card_call_s={card_s:.4f} "
+          f"card_call_profiled={prof} host_call_s={host_s:.2f} "
+          f"bitwise={torch.equal(got, ref)} control_max_abs_err={controls} "
+          f"controls_over_tol={ {k: v > NAVDP_TOL for k, v in controls.items()} } "
+          f"gpu={gpu_line()!r}")
+    return {"max_abs_err": err, "card_s": card_s}
+
+
+def phase_serve_batched_navdp(device, policy) -> dict:
+    """PipelinedN1Server over the NavDP policy: BATCH_COHORTS cohorts of
+    BATCH_ROWS streams, 224 x 224 frames and RGBD pairs, histories
+    saturated at 9 frames, the shared grouped decode of BATCH_NEW_TOKENS
+    tokens (stop id -7), BATCH_S1_CALLS System-1 calls a cycle through the
+    shared grouped System-1 (`s1_grouped_dispatch`: one denoise of the 48
+    streams). A warm cycle; then one checked cycle with every launch held
+    to `expected_batched_launches`, its grouped calls timed; then the same
+    cycle with per-cohort System-1: trajectories within NAVDP_GROUPED_TOL,
+    action differences counted. Returns the checked cycle's launches."""
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import serving
+
+    policy.tokenizer.eos_token_id = -7  # no token: the full decode budget
+    cfg = policy.cfg
+    server = serving.PipelinedN1Server(policy, BATCH_ROWS, cohorts=BATCH_COHORTS)
+    rng = np.random.default_rng(1)
+    hist = rng.integers(0, 256, (BATCH_COHORTS, BATCH_ROWS, 8, BATCH_HW, BATCH_HW, 3),
+                        dtype=np.uint8)
+    s2_frames = rng.integers(0, 256, (BATCH_COHORTS, BATCH_ROWS, BATCH_HW, BATCH_HW, 3),
+                             dtype=np.uint8)
+    s1_rgb = rng.integers(0, 256, (BATCH_COHORTS, BATCH_S1_CALLS, BATCH_ROWS, 2, BATCH_HW,
+                                   BATCH_HW, 3), dtype=np.uint8)
+    s1_depth = rng.uniform(0.0, 5.0, (BATCH_COHORTS, BATCH_S1_CALLS, BATCH_ROWS, 2, BATCH_HW,
+                                      BATCH_HW, 1)).astype(np.float32)
+
+    def frames(ci, t, ph):
+        return s2_frames[ci] if ph == 0 else (s1_rgb[ci, ph - 1], s1_depth[ci, ph - 1])
+
+    def saturate():
+        for ci, pol in enumerate(server.cohorts):
+            pol.reset([own_instruction(ci, r) for r in range(BATCH_ROWS)])
+            pol._generator.manual_seed(pol.seed)
+            for r, s in enumerate(pol.slots):
+                s.rgb_list = list(hist[ci, r])
+                s.episode_idx = 8
+
+    def stream(shared_s1, host_stats=None):
+        out = {}
+        server.serve_stream(frames, 1, max_new_tokens=BATCH_NEW_TOKENS,
+                            num_sample_trajs=BATCH_TRAJS, s1_calls=BATCH_S1_CALLS,
+                            shared_decode=True, shared_s1=shared_s1, host_stats=host_stats,
+                            on_cycle=lambda ci, t, s2, s1: out.setdefault(ci, (s2, s1)))
+        return out
+
+    grouped_s, warm_calls, profiled, dispatch = [], [], [], serving.s1_grouped_dispatch
+
+    def timed_dispatch(specs):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        dispatch(specs)
+        end.record()
+        end.synchronize()
+        grouped_s.append((time.perf_counter() - t, start.elapsed_time(end) / 1e3,
+                          sum(s["Bp"] for s in specs if s is not None)))
+
+    def profiled_dispatch(specs):  # the warm cycle's last call, under the profiler
+        warm_calls.append(1)
+        if len(warm_calls) == BATCH_S1_CALLS:
+            profiled.append(_profiled(lambda: dispatch(specs)))
+        else:
+            dispatch(specs)
+
+    saturate()
+    serving.s1_grouped_dispatch = profiled_dispatch
+    try:
+        t = time.perf_counter()
+        stream(True)  # the decode loop's captures
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+    finally:
+        serving.s1_grouped_dispatch = dispatch
+    saturate()
+    serving.s1_grouped_dispatch = timed_dispatch
+    host_stats = {}
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        t = time.perf_counter()
+        grouped = stream(True, host_stats)
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        serving.s1_grouped_dispatch = dispatch
+    saturate()
+    t = time.perf_counter()
+    per_cohort = stream(False)
+    torch.cuda.synchronize()
+    per_cohort_s = time.perf_counter() - t
+    window_block, full_block = policy._vision_host_indices(BATCH_HW, BATCH_HW, BATCH_ROWS)[1]
+    v = cfg.vision
+    vision_k1 = (0 if window_block else v.depth - len(v.fullatt_block_indexes)) + \
+        (0 if full_block else len(v.fullatt_block_indexes))
+    want = expected_batched_launches(cfg, 1, BATCH_COHORTS, BATCH_ROWS, vision_k1, 0)
+    if launches != want:
+        raise AssertionError(f"serve batched navdp: kernel launches {launches}, expected {want}")
+    err, actions, differ = 0.0, 0, 0
+    for ci in range(BATCH_COHORTS):
+        (gs2, gs1), (ps2, ps1) = grouped[ci], per_cohort[ci]
+        if [o.output_latent is None for o in gs2] != [False] * BATCH_ROWS or \
+                len(gs1) != BATCH_S1_CALLS:
+            raise AssertionError(f"serve batched navdp: cohort {ci} malformed outputs")
+        for gcall, pcall in zip(gs1, ps1):
+            for go, po in zip(gcall, pcall):
+                if go.trajectory.shape != (BATCH_TRAJS, cfg.predict_step_nums, 3) \
+                        or not np.isfinite(go.trajectory).all():
+                    raise AssertionError(f"serve batched navdp: trajectory {go.trajectory.shape}"
+                                         " not finite / well formed")
+                err = max(err, float(np.abs(go.trajectory - po.trajectory).max()))
+                actions += max(len(go.idx), len(po.idx))
+                differ += sum(a != b for a, b in zip(go.idx, po.idx)) + abs(
+                    len(go.idx) - len(po.idx))
+    if not err <= NAVDP_GROUPED_TOL:
+        raise AssertionError(f"serve batched navdp: grouped and per-cohort System-1 differ by "
+                             f"{err} (tolerance {NAVDP_GROUPED_TOL})")
+    sums = {k: round(sum(x), 4) for k, x in host_stats.items()}
+    print(f"phase serve batched: path=serve_batched_navdp system1=navdp_async "
+          f"cohorts={BATCH_COHORTS} rows={BATCH_ROWS} hw={BATCH_HW} history_frames=9 "
+          f"max_new_tokens={BATCH_NEW_TOKENS} stop_id=-7 sample_trajs={BATCH_TRAJS} "
+          f"s1_calls={BATCH_S1_CALLS} shared_decode=True shared_s1=True "
+          f"warm_cycle_s={warm_s:.4f} grouped_cycle_s={cycle_s:.4f} "
+          f"per_cohort_cycle_s={per_cohort_s:.4f} "
+          f"grouped_call_host_s={[round(x[0], 4) for x in grouped_s]} "
+          f"grouped_call_event_s={[round(x[1], 4) for x in grouped_s]} "
+          f"grouped_call_streams={[x[2] for x in grouped_s]} "
+          f"warm_last_grouped_call_profiled={profiled} "
+          f"grouped_vs_per_cohort_traj_max_abs_err={err} tol={NAVDP_GROUPED_TOL} "
+          f"actions={actions} actions_differing={differ} host_stats_sum_s={sums} "
+          f"launches={launches} peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
+    return {"serve_batched_navdp": launches}
+
+
+def phase_evaluate_navdp(device, policy) -> dict:
+    """The evaluator loop of `scripts/torch/bench_evaluator.py --system1
+    navdp_async` (its functions: 4 cohorts x 12 streams, str hashing
+    pinned, FakeEnv's depth at 224) on the NavDP policy: one warm run and
+    one timed run of the same episodes; every agent output well formed,
+    every episode ended, K1 and K4-K8 launched, no backward kernel, no
+    plain version. Prints actions/s, System-1's host seconds and the peak
+    memory. Returns the timed run's launches."""
+    import shutil
+
+    import torch
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1.serving import BatchedN1Policy
+
+    bench = bench_entry()
+    if os.environ.get("PYTHONHASHSEED") != bench.HASH_SEED:
+        raise AssertionError("evaluate navdp: str hashing is not pinned to the bench entry's seed")
+    policy.tokenizer.eos_token_id = bench.STOP_ID
+    traj_shape = (bench.NUM_SAMPLE_TRAJS, policy.cfg.predict_step_nums, 3)
+    bad, calls, host_s, plain = [], collections.Counter(), collections.Counter(), \
+        collections.Counter()
+    spies = [_check_outputs(traj_shape, bad), *_plain_spies(plain)]
+    spies += [(BatchedN1Policy, name, _spy(BatchedN1Policy, name, calls, name, host_s))
+              for name in ("s2_prefill_submit", "s2_collect", "s1_submit", "s1_collect")]
+    out_dir = WORK_DIR / "evaluate_navdp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        warm = bench.evaluator_run(policy, str(out_dir / "warm"))
+        calls.clear()
+        host_s.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        run = bench.evaluator_run(policy, str(out_dir / "run0"))
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        _restore(spies)
+    if bad:
+        raise AssertionError(f"evaluate navdp: {len(bad)} malformed agent outputs: {bad[:3]}")
+    if plain:
+        raise AssertionError(f"evaluate navdp: plain versions ran on the card: {dict(plain)}")
+    missing = [k for k in EVAL_KERNELS if not launches[k]]
+    if missing or launches["K2"] or launches["K3"]:
+        raise AssertionError(f"evaluate navdp: kernels {missing} never launched, or a backward "
+                             f"kernel did: {launches}")
+    n = bench.BATCH * bench.COHORTS
+    for r in (warm, run):
+        ends = collections.Counter(e["fail_reason"] for e in r["records"])
+        if len(r["records"]) != n or set(ends) - {"", "exceed_max_step"}:
+            raise AssertionError(f"evaluate navdp: episodes did not all end: {dict(ends)}")
+    if run["episode_steps"] != warm["episode_steps"]:
+        raise AssertionError("evaluate navdp: the timed run took other episodes")
+    print(f"phase evaluate: path=evaluate_navdp system1=navdp_async cohorts={bench.COHORTS} "
+          f"rows={bench.BATCH} episodes={n} max_step={bench.MAX_STEP} "
+          f"warm_actions_per_s={warm['actions_per_sec']:.4f} "
+          f"actions_per_s={run['actions_per_sec']:.4f} wall_clock_s={run['wall_clock_s']:.4f} "
+          f"actions_timed={run['actions_timed']} "
+          f"action_latency_ms_p50={run['action_latency_p50_ms']} "
+          f"action_latency_ms_p99={run['action_latency_p99_ms']} calls={dict(calls)} "
+          f"host_s={ {k: round(v, 4) for k, v in host_s.items()} } "
+          f"s1_host_s={host_s['s1_submit'] + host_s['s1_collect']:.4f} launches={launches} "
+          f"plain_version_calls=0 peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
+    return {"evaluate_navdp": launches}
 
 
 # ----------------------------------------------------------------- train
@@ -3011,6 +3438,19 @@ def main() -> int:
         lap("evaluate")
         by_path.update(phase_evaluate_int4(device, native_int4, int4_digests))
         lap("evaluate_int4")
+        # the NavDP System-1 at 7B: one realtime policy serves, is held
+        # against the host, serves batched and evaluates
+        navdp, navdp_paths = phase_serve_navdp(device)
+        by_path.update(navdp_paths)
+        phase_navdp_card_vs_host(device, navdp)
+        lap("serve_navdp")
+        by_path.update(phase_serve_batched_navdp(device, navdp))
+        lap("serve_batched_navdp")
+        by_path.update(phase_evaluate_navdp(device, navdp))
+        del navdp
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("evaluate_navdp")
         by_path["train"] = phase_train(device, store, hf["dir"], hf["digests"])["launches"]
         lap("train")
     finally:

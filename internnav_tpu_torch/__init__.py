@@ -22,7 +22,10 @@ the single-stream one, replays a captured CUDA graph per step
 measures it); the single-device N1 finetune path
 (`trainer.train_n1`) with the flash-attention backward kernels; and
 checkpoint loading (`model/weights/`: HF-layout InternVLA-N1 checkpoints,
-quantized on load for `realtime`, and the port's native format).
+quantized on load for `realtime`, and the port's native format); the int4
+and W8A16 formats; and the NavDP System-1 (`navdp_async`, `navdp`:
+`model/basemodel/internvla_n1/navdp_head.py`), served single-stream,
+batched and through the evaluator.
 """
 
 from __future__ import annotations

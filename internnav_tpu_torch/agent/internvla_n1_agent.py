@@ -11,8 +11,11 @@ Port of internnav_tpu/agent/internvla_n1_agent.py:
   denoise a macro-step (`serving.BatchedN1Policy`), with the JAX agent's
   per-slot schedule, and `step_coroutine`, the form the pipelined
   evaluator interleaves across cohorts, its policy built by
-  `_build_n1_policy` (from `AgentCfg.ckpt_path` when set). The navdp
-  System-1 is not ported yet and raises.
+  `_build_n1_policy` (from `AgentCfg.ckpt_path` when set). With the
+  navdp System-1 it hands the policy [memory, current] RGBD pairs per
+  slot: depth x depth_scale clamped to depth_clip_m (zeros where the
+  observation has none), the current depth standing in for the memory
+  frame's, as in the JAX agent.
 
 Deviation: the JAX agent turns any exception in System-2 into a STOP
 action, which hides a kernel or device failure. Here an exception raised
@@ -56,7 +59,7 @@ def _build_n1_policy(cfg: AgentCfg, settings: Dict[str, Any]):
     device = torch.device("cpu") if dev == "cpu" else require_cuda(dev)
     return build_policy(settings.get("profile", "realtime"), device=device,
                         ckpt=cfg.ckpt_path or None,
-                        system1=settings.get("system1", "nextdit_async"),
+                        system1=settings.get("system1"),
                         config=settings.get("config"),
                         weight_dtype=settings.get("weight_dtype"),
                         kv_dtype=settings.get("kv_dtype"))
@@ -321,6 +324,24 @@ class BatchedInternVLAN1Agent(Agent):
             st.memory_frame = np.asarray(rgb)
         st.steps_since_s2 = 0
 
+    def _rgbd_pairs(self, obs, s1_ids, cur):
+        """(rgb (N, 2, H, W, 3), depth (N, 2, H, W, 1)): each slot's memory
+        frame (its current frame when it has none) and current frame, and
+        its current depth x depth_scale clamped to [0, depth_clip_m] (zeros
+        without one) for both frames."""
+        rgb_pairs, depth_pairs = [], []
+        for k, i in enumerate(s1_ids):
+            mem = self.states[i].memory_frame
+            rgb_pairs.append(np.stack([cur[k] if mem is None else mem, cur[k]]))
+            d = obs[i].get("depth")
+            if d is None:
+                d = np.zeros(cur[k].shape[:2] + (1,), np.float32)
+            d = np.clip(np.asarray(d, np.float32) * self.depth_scale, 0.0, self.depth_clip_m)
+            if d.ndim == 2:
+                d = d[..., None]
+            depth_pairs.append(np.stack([d, d]))
+        return np.stack(rgb_pairs), np.stack(depth_pairs)
+
     # ------------------------------------------------------------------ api
     def step_coroutine(self, obs: List[Dict[str, Any]]):
         """Generator form of `step`: yields where a device submit has
@@ -366,15 +387,16 @@ class BatchedInternVLAN1Agent(Agent):
                   if not st.action_queue and st.latent is not None]
         if s1_ids:
             system1 = getattr(getattr(self.policy, "cfg", None), "system1", "") or ""
-            if "navdp" in system1:
-                raise NotImplementedError("the batched agent's navdp System-1 is not yet ported "
-                                          "(ROADMAP §1 item 4)")
             cur = np.stack([np.asarray(obs[i]["rgb"]) for i in s1_ids])
             lat = torch.cat([torch.as_tensor(self.states[i].latent, device=self.policy.device)
                              for i in s1_ids], dim=0)
+            rgbd = {}
+            if "navdp" in system1:
+                # the NavDP head takes explicit [memory, current] RGBD pairs
+                cur, rgbd["depth"] = self._rgbd_pairs(obs, s1_ids, cur)
             if self.s1_pool is not None:
                 spec = self.policy.s1_prepare(
-                    cur, lat, num_sample_trajs=self.num_sample_trajs, slot_ids=s1_ids)
+                    cur, lat, num_sample_trajs=self.num_sample_trajs, slot_ids=s1_ids, **rgbd)
                 self.s1_pool.add(spec)
                 yield  # uploads queued; the pool gathers the other cohorts' denoises
                 # the first cohort to resume dispatches the grouped denoise
@@ -383,7 +405,7 @@ class BatchedInternVLAN1Agent(Agent):
                 h1 = spec["handle"]
             else:
                 h1 = self.policy.s1_submit(
-                    cur, lat, num_sample_trajs=self.num_sample_trajs, slot_ids=s1_ids)
+                    cur, lat, num_sample_trajs=self.num_sample_trajs, slot_ids=s1_ids, **rgbd)
                 yield  # S1 denoise queued
             s1_outs = self.policy.s1_collect(h1)
             for i, s1 in zip(s1_ids, s1_outs):

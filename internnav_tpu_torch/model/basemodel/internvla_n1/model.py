@@ -5,11 +5,13 @@ Port of internnav_tpu/model/basemodel/internvla_n1/model.py
 System-2 is Qwen2.5-VL (text + vision) with learned traj-latent query
 tokens; System-1 `nextdit` / `nextdit_async` is the NextDiT flow-matching
 Euler denoise conditioned on the projected latents (and, async, on
-DINOv2 → MemoryEncoder → QFormer memory tokens). Submodule and parameter
-names follow the JAX module tree, so `model/weights/from_jax.py` maps one
-onto the other. Training: `traj_loss_nextdit` (flow-matching velocity MSE)
-with the timesteps and noise passed in. The NavDP System-1 (`navdp*`) is
-not ported yet.
+DINOv2 → MemoryEncoder → QFormer memory tokens); `navdp_async` / `navdp`
+is the embedded NavDP head's DDPM denoise (`navdp_head.py`; fp32, async
+with an RGBD [memory, current] pair, sync on the latents alone).
+Submodule and parameter names follow the JAX module tree, so
+`model/weights/from_jax.py` maps one onto the other. Training:
+`traj_loss_nextdit` (flow-matching velocity MSE) with the timesteps and
+noise passed in; NavDP's loss is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from internnav_tpu_torch.model.basemodel.internvla_n1.navdp_head import NavDPHead
 from internnav_tpu_torch.model.basemodel.internvla_n1.nextdit import NextDiT, NextDiTConfig
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import (
     QwenTextConfig,
@@ -45,14 +48,14 @@ LATENT_EMB_SIZE = 768
 class InternVLAN1Config:
     text: QwenTextConfig = dataclasses.field(default_factory=QwenTextConfig)
     vision: QwenVisionConfig = dataclasses.field(default_factory=QwenVisionConfig)
-    system1: str = "nextdit_async"  # nextdit | nextdit_async
+    system1: str = "nextdit_async"  # nextdit | nextdit_async | navdp_async | navdp
     n_query: int = 4
     traj_token_index: int = TRAJ_TOKEN_INDEX
     image_token_index: int = IMAGE_TOKEN_INDEX
     num_history: int = 8
     predict_step_nums: int = 32
-    #: System-1 frame resolution the DinoViT pos embed is built for; frames
-    #: of another grid are resized to it
+    #: System-1 frame resolution the DinoViT pos embeds are built for;
+    #: frames of another grid are resized to it
     s1_image_hw: int = 56
 
     @classmethod
@@ -131,11 +134,19 @@ class InternVLAN1Model(nn.Module):
         self.language_model = QwenTextModel(c.text)
         self.visual = QwenVisionTower(c.vision)
         self.latent_queries = nn.Parameter(torch.zeros(1, c.n_query, c.text.hidden_size, dtype=dt))
-        if "navdp" in c.system1:
-            raise NotImplementedError("the NavDP System-1 is not ported yet")
-        if "nextdit" not in c.system1:
-            raise ValueError(c.system1)
         big = c.text.hidden_size > 512
+        if "navdp" in c.system1:
+            # fp32 whatever the text model's dtype, as the JAX init makes it
+            if big:
+                self.navdp = NavDPHead(memory_size=2, vlm_token_dim=c.text.hidden_size,
+                                       image_hw=self.s1_image_hw)
+            else:
+                self.navdp = NavDPHead(memory_size=2, predict_size=8, temporal_depth=2,
+                                       token_dim=32, heads=4, vlm_token_dim=c.text.hidden_size,
+                                       image_hw=self.s1_image_hw)
+            return
+        if "nextdit" not in c.system1:
+            raise ValueError(f"unknown system1 {c.system1!r}")
         dit_cfg = dataclasses.replace(
             NextDiTConfig(latent_embedding_size=LATENT_EMB_SIZE) if big else NextDiTConfig.tiny(),
             dtype=dt)
@@ -274,6 +285,30 @@ class InternVLAN1Model(nn.Module):
                 return v_u + guidance_scale * (v_c - v_u)
 
         return self.noise_scheduler.denoise(velocity, x_init.float(), num_inference_steps)
+
+    def generate_traj_navdp(self, traj_latents, images_dp=None, depths_dp=None, *, x_init,
+                            step_noises):
+        """The NavDP System-1 of the first stream: async on its RGBD pair
+        (images_dp (1, 2, H, W, 3) in [0, 1], depths_dp (1, 2, H, W, 1)),
+        sync on its latents alone → (sample_num, P, 3) from x_init
+        (sample_num, P, 3) and step_noises (steps, sample_num, P, 3)."""
+        if "async" in self.cfg.system1:
+            return self.navdp.predict_pointgoal_action_async(
+                traj_latents, images_dp, depths_dp, x_init=x_init, step_noises=step_noises)
+        return self.navdp.predict_pointgoal_action(traj_latents, x_init=x_init,
+                                                   step_noises=step_noises)
+
+    def generate_traj_navdp_batched(self, traj_latents, images_dp=None, depths_dp=None, *,
+                                    x_init, step_noises, sample_num: int = 32):
+        """B streams through one NavDP denoise: traj_latents (B, L, D),
+        images / depths (B, 2, H, W, C) for the async variant → (B·sample_num,
+        P, 3), row block i conditioned on stream i."""
+        if "async" in self.cfg.system1:
+            return self.navdp.predict_pointgoal_action_async_batched(
+                traj_latents, images_dp, depths_dp, x_init=x_init, step_noises=step_noises,
+                sample_num=sample_num)
+        return self.navdp.predict_pointgoal_action_batched(
+            traj_latents, x_init=x_init, step_noises=step_noises, sample_num=sample_num)
 
     # ------------------------------------------------------------- training
     def traj_loss_nextdit(self, traj_hidden, traj_poses, *, t, noise, images_dp=None,

@@ -12,16 +12,23 @@ Differences from the JAX policy:
   are each resized on their own grid mismatch (the JAX policy decides from
   the rgb grid alone and can pass a mismatched depth through);
 - `s1_step_latent` takes an optional `x_init` (the denoise's starting
-  noise); without it the noise is drawn from the policy's torch.Generator;
-- only the fused System-2 step and the NextDiT System-1 with continuous
-  trajectories are ported (`generate_latents`, the unfused step,
-  `chunk_token` actions and NavDP are not);
+  noise) and, for NavDP, `step_noises` (its per-step ancestral noise);
+  without them the noise is drawn from the policy's torch.Generator,
+  x_init first;
+- `navdp_async` without depth raises ValueError (the JAX policy fails
+  there too, converting None to an array); the sync `navdp` reads no
+  frames and takes no depth;
+- only the fused System-2 step and the NextDiT and NavDP System-1 with
+  continuous trajectories are ported (`generate_latents`, the unfused
+  step and `chunk_token` actions are not);
 - checkpoints (`from_pretrained_torch`, `save_pretrained`,
   `from_pretrained`) stream to the device one tensor at a time, and an
   int8 policy quantizes each projection as it lands; the native format is
   the port's state_dict in safetensors (`NATIVE_WEIGHTS`) beside the JAX
   package's config.json, not its params.msgpack; a tokenizer directory
-  that fails to load raises instead of falling back to `SimpleTokenizer`.
+  that fails to load raises instead of falling back to `SimpleTokenizer`;
+  `from_pretrained_torch` refuses a NavDP config (the reference-format
+  converter maps no NavDP head; the native format carries it).
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
     rotary_table,
     vision_indices,
 )
-from internnav_tpu_torch.model.encoder.vit import IMAGENET_MEAN, IMAGENET_STD
+from internnav_tpu_torch.model.encoder.vit import imagenet_normalize
 from internnav_tpu_torch.model.utils.tokenization import has_tokenizer_files, load_hf_tokenizer
 from internnav_tpu_torch.model.utils.vln_utils import (
     S1Output,
@@ -324,6 +331,12 @@ class InternVLAN1Policy:
         if checkpoint_format(path) == "native":
             raise ValueError(f"{path} is a native directory of the port: load it with "
                              "from_pretrained")
+        if "navdp" in cfg.system1:
+            raise ValueError(
+                f"system1={cfg.system1!r}: a reference-format checkpoint carries no NavDP head "
+                "the port can map (the JAX package's convert_internvla_n1 converts System-2 and "
+                "the NextDiT System-1 only, and would leave the head random); save a NavDP "
+                "policy with save_pretrained and load it with from_pretrained")
         sd = load_torch_state_dict(path)
         cfg = _with_tied_embeddings(cfg, "lm_head.weight" not in sd)
         model = build_model(cfg, device=device)
@@ -362,6 +375,11 @@ class InternVLAN1Policy:
             raise ValueError(f"{path} has no {NATIVE_WEIGHTS}: not a native directory of the "
                              "port (a reference-format checkpoint loads through "
                              "from_pretrained_torch)")
+        with open(os.path.join(path, "config.json")) as f:
+            saved_system1 = json.load(f).get("system1", cfg.system1)
+        if saved_system1 != cfg.system1:
+            raise ValueError(f"checkpoint at {path} holds a system1={saved_system1!r} policy, "
+                             f"the config asks for {cfg.system1!r}")
         saved, want = native_weight_dtype(path), cfg.text.weight_dtype
         if saved != want:
             raise ValueError(
@@ -593,26 +611,40 @@ class InternVLAN1Policy:
 
     @torch.inference_mode()
     def s1_step_latent(self, rgb: np.ndarray, depth: Optional[np.ndarray], latent,
-                       num_sample_trajs: int = 32,
-                       x_init: Optional[torch.Tensor] = None) -> S1Output:
+                       num_sample_trajs: int = 32, x_init: Optional[torch.Tensor] = None,
+                       step_noises: Optional[torch.Tensor] = None) -> S1Output:
         """rgb (B, 2, H, W, 3) [memory frame, current]; depth (B, 2, H, W, 1)
-        or None; latent from `s2_step`. x_init (B*num_sample_trajs, P, 3)
-        is the denoise's starting noise (drawn from the policy's generator
-        when None)."""
+        or None (NavDP's async head needs it); latent from `s2_step`. x_init
+        (B·num_sample_trajs, P, 3; NavDP: the first stream's
+        num_sample_trajs rows) is the denoise's starting noise and
+        step_noises (steps, rows, P, 3) NavDP's ancestral noise, each drawn
+        from the policy's generator when None, x_init first."""
         cfg = self.cfg
+        navdp = "navdp" in cfg.system1
+        if navdp and "async" in cfg.system1 and depth is None:
+            raise ValueError(f"system1={cfg.system1!r} needs depth: the NavDP head encodes an "
+                             "RGBD [memory, current] pair")
         rgb = _fit_s1_grid(rgb, self.model.s1_image_hw)
         if depth is not None:  # not read by NextDiT; fitted for the NavDP head
             depth = _fit_s1_grid(depth, self.model.s1_image_hw)
         raw = to_device(np.asarray(rgb, np.uint8), self.device)
-        mean = torch.tensor(IMAGENET_MEAN, device=self.device)
-        std = torch.tensor(IMAGENET_STD, device=self.device)
-        images = (raw.float() / 255.0 - mean) / std
-        B = raw.shape[0]
+        rows = num_sample_trajs if navdp else raw.shape[0] * num_sample_trajs
         if x_init is None:
-            x_init = torch.randn((B * num_sample_trajs, cfg.predict_step_nums, 3),
-                                 generator=self._generator, device=self.device)
-        traj = self.model.generate_traj_nextdit(
-            latent, images, x_init=x_init.to(self.device), num_sample_trajs=num_sample_trajs)
+            x_init = torch.randn((rows, cfg.predict_step_nums, 3), generator=self._generator,
+                                 device=self.device)
+        x_init = x_init.to(self.device)
+        if navdp:
+            if step_noises is None:
+                step_noises = torch.randn(
+                    (self.model.navdp.denoise_steps, rows, cfg.predict_step_nums, 3),
+                    generator=self._generator, device=self.device)
+            de = None if depth is None else to_device(np.asarray(depth, np.float32), self.device)
+            traj = self.model.generate_traj_navdp(latent, raw.float() / 255.0, de, x_init=x_init,
+                                                  step_noises=step_noises.to(self.device))
+        else:
+            images = imagenet_normalize(raw.float() / 255.0)
+            traj = self.model.generate_traj_nextdit(latent, images, x_init=x_init,
+                                                    num_sample_trajs=num_sample_trajs)
         dp = traj.float().cpu().numpy()
         action_list = [a for a in traj_to_actions(dp) if a != 0]
         return S1Output(idx=action_list[:4], trajectory=dp)

@@ -1,7 +1,7 @@
 """Batched multi-episode, multi-cohort dual-system serving.
 
-Port of internnav_tpu/model/basemodel/internvla_n1/serving.py (nextdit
-System-1 only; a navdp System-1 raises). Every decoded token streams the
+Port of internnav_tpu/model/basemodel/internvla_n1/serving.py (the
+nextdit and navdp System-1 heads). Every decoded token streams the
 whole decoder's weights whatever the batch, so stepping B episode streams
 through one System-2 call, and several cohorts through one shared decode,
 multiplies actions per second per GPU.
@@ -21,15 +21,21 @@ multiplies actions per second per GPU.
 - `shared_decode_handles` decodes several cohorts' prefilled caches with
   one pass over the weights a token (`InternVLAN1Policy.grouped_tail`);
   `s1_grouped_dispatch` denoises several cohorts' System-1 rows at once,
-  each cohort block with its own noise draw. Both are row for row what the
-  per-cohort calls give.
+  each cohort block with its own noise draw (NavDP: its starting noise and
+  its per-step ancestral noise, joined along the rows). Both are row for
+  row what the per-cohort calls give.
+- NavDP cohorts take explicit [memory, current] RGBD pairs, rgb (B, 2, H,
+  W, 3) uint8 and depth (B, 2, H, W, 1) fp32, padded to the compute bucket
+  by repeating row 0 and not resized (as the JAX module); the sync `navdp`
+  reads the latents alone.
 - `PipelinedN1Server` interleaves the cohorts' phases on one host thread:
   while the host prepares one cohort, the device runs the others' queued
   work.
 
 Differences from the JAX module: a cohort draws its System-1 noise from
 its own `torch.Generator` (or from `noise_fn`, which tests set to hand in
-the JAX draws); the constructors take an `InternVLAN1Policy`.
+the JAX draws), NavDP's starting noise first, then its step noise; the
+constructors take an `InternVLAN1Policy`.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.policy import (
     InternVLAN1Policy,
     to_device,
 )
-from internnav_tpu_torch.model.encoder.vit import IMAGENET_MEAN, IMAGENET_STD
+from internnav_tpu_torch.model.encoder.vit import imagenet_normalize
 from internnav_tpu_torch.model.utils.vln_utils import (
     S1Output,
     S2Output,
@@ -113,12 +119,12 @@ class BatchedN1Policy:
         self.slots = [_Slot() for _ in range(batch_size)]
         self.seed = seed
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
-        #: when set, shape -> the System-1 starting noise of one call
-        #: (tests hand in the JAX package's draws); else `_generator` draws
+        #: when set, shape -> a System-1 noise draw of one call: the
+        #: starting noise (rows, P, 3) and, for NavDP, then the step noise
+        #: (steps, rows, P, 3) (tests hand in the JAX package's draws);
+        #: else `_generator` draws
         self.noise_fn: Optional[Callable[[tuple], torch.Tensor]] = None
         self._meta_cache: "collections.OrderedDict" = collections.OrderedDict()
-        self._mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=self.device)
-        self._std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------ lifecycle
     def reset_slot(self, i: int, instruction: str) -> None:
@@ -353,39 +359,43 @@ class BatchedN1Policy:
         return self.s2_collect(self.s2_submit(images, max_new_tokens, slot_ids))
 
     # ------------------------------------------------------------- System-1
-    def _s1_norm(self, raw: torch.Tensor) -> torch.Tensor:
-        return (raw.float() / 255.0 - self._mean) / self._std
+    @staticmethod
+    def _s1_norm(raw: torch.Tensor) -> torch.Tensor:
+        return imagenet_normalize(raw.float() / 255.0)
 
     def _pad_rows(self, t: torch.Tensor, Bp: int) -> torch.Tensor:
         if t.shape[0] == Bp:
             return t
         return torch.cat([t, t[:1].expand(Bp - t.shape[0], *t.shape[1:])], dim=0)
 
-    def _draw(self, rows: int, nst: int) -> torch.Tensor:
-        """One call's starting noise (rows*nst, P, 3)."""
-        shape = (rows * nst, self.cfg.predict_step_nums, 3)
+    def _noise(self, shape: tuple) -> torch.Tensor:
+        """One System-1 noise draw of `shape` (`noise_fn`'s or the
+        generator's)."""
         if self.noise_fn is not None:
             return self.noise_fn(shape).to(self.device)
         return torch.randn(shape, generator=self._generator, device=self.device)
 
+    def _draw(self, rows: int, nst: int) -> torch.Tensor:
+        """One call's starting noise (rows*nst, P, 3)."""
+        return self._noise((rows * nst, self.cfg.predict_step_nums, 3))
+
     def _check_system1(self) -> None:
-        if "navdp" in self.cfg.system1:
-            raise NotImplementedError("batched serving of the navdp System-1 is not yet ported "
-                                      "(ROADMAP §1 item 4)")
-        if "nextdit" not in self.cfg.system1:
-            raise NotImplementedError(f"batched serving takes the nextdit System-1, got "
+        if "nextdit" not in self.cfg.system1 and "navdp" not in self.cfg.system1:
+            raise NotImplementedError(f"batched serving takes the nextdit and navdp System-1, got "
                                       f"system1={self.cfg.system1!r}")
 
     @torch.inference_mode()
     def s1_submit(self, rgb: np.ndarray, latents, num_sample_trajs: int = 32,
                   slot_ids: Optional[List[int]] = None, depth=None) -> Dict[str, Any]:
         """Dispatch one batched System-1 denoise; returns a handle for
-        `s1_collect`. rgb (B, H, W, 3): the current frames (the serving
-        path; each slot's memory frame and its features are on the
-        device); or rgb (B, 2, H, W, 3): explicit [memory, current] pairs
-        (the single-stream policy's form). depth is not read by NextDiT."""
+        `s1_collect`. nextdit: rgb (B, H, W, 3), the current frames (the
+        serving path; each slot's memory frame and its features are on the
+        device), or rgb (B, 2, H, W, 3), explicit [memory, current] pairs
+        (the single-stream policy's form); depth is not read. navdp: rgb
+        (B, 2, H, W, 3) uint8 and depth (B, 2, H, W, 1) [memory, current]
+        RGBD pairs (the sync variant reads neither)."""
         self._check_system1()
-        if np.ndim(rgb) == 5:
+        if "nextdit" in self.cfg.system1 and np.ndim(rgb) == 5:
             B = rgb.shape[0]
             Bp = self._pow2_bucket(B)
             lat = self._pad_rows(latents, Bp)
@@ -394,20 +404,23 @@ class BatchedN1Policy:
                 lat, self._s1_norm(pairs), x_init=self._draw(Bp, num_sample_trajs),
                 num_sample_trajs=num_sample_trajs)
             return {"B": B, "Bp": Bp, "nst": num_sample_trajs, "dp": dp}
-        spec = self.s1_prepare(rgb, latents, num_sample_trajs, slot_ids)
+        spec = self.s1_prepare(rgb, latents, num_sample_trajs, slot_ids, depth=depth)
         self._s1_dispatch(spec)
         return spec["handle"]
 
     @torch.inference_mode()
     def s1_prepare(self, rgb: np.ndarray, latents, num_sample_trajs: int = 32,
                    slot_ids: Optional[List[int]] = None, depth=None) -> Dict[str, Any]:
-        """Host prep, uploads and the noise draw of one cohort's System-1,
+        """Host prep, uploads and the noise draws of one cohort's System-1,
         without the denoise: the spec goes to `_s1_dispatch` (this cohort
         alone) or, with other cohorts' specs, to `s1_grouped_dispatch`.
         Mode `full` encodes the memory frames too (the first call of a
         latent), `cached` reuses their features, `noimg` (a non-async
-        NextDiT) reads the latents alone."""
+        NextDiT) reads the latents alone; `navdp` and `navdp_noimg` are
+        the NavDP head's (`_s1_navdp_prepare`)."""
         self._check_system1()
+        if "navdp" in self.cfg.system1:
+            return self._s1_navdp_prepare(rgb, depth, latents, num_sample_trajs)
         B = rgb.shape[0]
         if slot_ids is None:
             slot_ids = list(range(B))
@@ -434,24 +447,60 @@ class BatchedN1Policy:
             spec["mem"] = self._pad_rows(torch.stack([s.s1_mem_feats for s in slots]), Bp)
         return spec
 
-    def _s1_run(self, mode: str, lat, mem, cur, x_init, nst: int):
-        """The denoise of one mode → (trajectories, the memory features
-        computed in `full` mode or None)."""
-        model = self.inner.model
+    def _s1_navdp_prepare(self, rgb, depth, latents, num_sample_trajs: int) -> Dict[str, Any]:
+        """The NavDP spec: latents padded to the compute bucket, the starting
+        noise and then the step noise drawn for the bucket's rows, and for
+        `navdp_async` the RGBD pairs uploaded (uint8 pixels, scaled to [0,
+        1] on the device; fp32 depth), padded by repeating row 0. No grid
+        fitting: the frames must already be on the head's grid."""
+        B = latents.shape[0]
+        Bp = self._pow2_bucket(B)
+        rows, P = Bp * num_sample_trajs, self.cfg.predict_step_nums
+        spec: Dict[str, Any] = {"handle": {"B": B, "Bp": Bp, "nst": num_sample_trajs},
+                                "latents": self._pad_rows(latents, Bp), "Bp": Bp,
+                                "nst": num_sample_trajs, "policy": self}
+        spec["x_init"] = self._noise((rows, P, 3))
+        spec["step_noises"] = self._noise((self.inner.model.navdp.denoise_steps, rows, P, 3))
+        if "async" not in self.cfg.system1:
+            spec["mode"] = "navdp_noimg"
+            return spec
+        if rgb is None or depth is None or np.ndim(rgb) != 5:
+            raise ValueError(f"system1={self.cfg.system1!r} takes rgb (B, 2, H, W, 3) and depth "
+                             f"(B, 2, H, W, 1) pairs, got rgb "
+                             f"{None if rgb is None else np.shape(rgb)} and depth "
+                             f"{None if depth is None else np.shape(depth)}")
+        spec["mode"] = "navdp"
+        spec["rgb"] = self._pad_rows(to_device(np.asarray(rgb, np.uint8), self.device), Bp)
+        spec["depth"] = self._pad_rows(to_device(np.asarray(depth, np.float32), self.device), Bp)
+        spec["hw"] = tuple(np.shape(rgb)[1:])
+        return spec
+
+    def _s1_run(self, spec: Dict[str, Any]):
+        """The denoise of one spec's mode (or of several specs' inputs
+        joined) → (trajectories, the memory features computed in `full`
+        mode or None)."""
+        model, mode, nst = self.inner.model, spec["mode"], spec["nst"]
+        lat, x_init = spec["latents"], spec["x_init"]
+        if mode == "navdp":
+            return model.generate_traj_navdp_batched(
+                lat, spec["rgb"].float() / 255.0, spec["depth"], x_init=x_init,
+                step_noises=spec["step_noises"], sample_num=nst), None
+        if mode == "navdp_noimg":
+            return model.generate_traj_navdp_batched(
+                lat, x_init=x_init, step_noises=spec["step_noises"], sample_num=nst), None
         if mode == "noimg":
             return model.generate_traj_nextdit(lat, None, x_init=x_init,
                                                num_sample_trajs=nst), None
-        feats = model.rgb_feats(self._s1_norm(mem)) if mode == "full" else mem
-        dp = model.generate_traj_nextdit_cached(lat, feats, self._s1_norm(cur), x_init=x_init,
-                                                num_sample_trajs=nst)
+        feats = model.rgb_feats(self._s1_norm(spec["mem"])) if mode == "full" else spec["mem"]
+        dp = model.generate_traj_nextdit_cached(lat, feats, self._s1_norm(spec["cur"]),
+                                                x_init=x_init, num_sample_trajs=nst)
         return dp, feats if mode == "full" else None
 
     @torch.inference_mode()
     def _s1_dispatch(self, spec: Dict[str, Any]) -> None:
         """Run one cohort's prepared System-1 (fills spec["handle"]["dp"];
         `full` mode caches the memory features on the slots)."""
-        dp, feats = self._s1_run(spec["mode"], spec["latents"], spec.get("mem"),
-                                 spec.get("cur"), spec["x_init"], spec["nst"])
+        dp, feats = self._s1_run(spec)
         if feats is not None:
             for r, s in enumerate(spec["slots"]):
                 s.s1_mem_feats = feats[r]
@@ -479,11 +528,16 @@ class BatchedN1Policy:
         return outs
 
 
+#: a spec's tensors joined along the rows by `s1_grouped_dispatch` (NavDP's
+#: step noise along axis 1: its leading axis is the step)
+_S1_ROW_INPUTS = ("latents", "mem", "cur", "x_init", "rgb", "depth")
+
+
 @torch.inference_mode()
 def s1_grouped_dispatch(specs: List[Optional[Dict[str, Any]]]) -> None:
     """Complete `s1_prepare` specs of several cohorts with one denoise per
     (mode, frame shape, samples) bucket. Each cohort block keeps its own
-    noise draw and every op is row-independent, so the rows equal the
+    noise draws and every op is row-independent, so the rows equal the
     per-cohort `_s1_dispatch` up to the products' summation order at the
     larger batch."""
     buckets: Dict[tuple, list] = {}
@@ -495,11 +549,13 @@ def s1_grouped_dispatch(specs: List[Optional[Dict[str, Any]]]) -> None:
         if len(items) == 1:
             pol._s1_dispatch(items[0])
             continue
-
-        def cat(name):
-            return None if name not in items[0] else torch.cat([s[name] for s in items])
-
-        dp, feats = pol._s1_run(mode, cat("latents"), cat("mem"), cat("cur"), cat("x_init"), nst)
+        joined = {"mode": mode, "nst": nst}
+        for name in _S1_ROW_INPUTS:
+            if name in items[0]:
+                joined[name] = torch.cat([s[name] for s in items])
+        if "step_noises" in items[0]:
+            joined["step_noises"] = torch.cat([s["step_noises"] for s in items], dim=1)
+        dp, feats = pol._s1_run(joined)
         rows = b = 0
         for s in items:
             Bp = s["Bp"]

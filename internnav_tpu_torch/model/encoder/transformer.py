@@ -1,5 +1,6 @@
 """Transformer building blocks (port of internnav_tpu/model/encoder/
-transformer.py: `MultiHeadAttention`, `TransformerEncoderLayer`)."""
+transformer.py: `MultiHeadAttention`, `TransformerEncoderLayer`,
+`TransformerDecoderLayer`, `SinusoidalPosEmb`, `causal_mask`)."""
 
 from __future__ import annotations
 
@@ -77,3 +78,48 @@ class TransformerEncoderLayer(nn.Module):
             return x + self.linear2(self.act(self.linear1(self.norm2(x))))
         x = self.norm1(x + self.self_attn(x, x, x, key_padding_mask, attn_mask))
         return self.norm2(x + self.linear2(self.act(self.linear1(x))))
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Pre-norm decoder layer (torch TransformerDecoderLayer, norm_first):
+    LayerNorm eps 1e-5, exact-erf GELU, FF 4 x d_model."""
+
+    def __init__(self, d_model: int, n_head: int, dim_feedforward: Optional[int] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        ff = dim_feedforward or 4 * d_model
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.self_attn = MultiHeadAttention(d_model, n_head, dtype)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.cross_attn = MultiHeadAttention(d_model, n_head, dtype)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5, dtype=dtype)
+        self.linear1 = nn.Linear(d_model, ff, dtype=dtype)
+        self.linear2 = nn.Linear(ff, d_model, dtype=dtype)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_key_padding_mask=None,
+                memory_mask=None):
+        tn = self.norm1(tgt)
+        x = tgt + self.self_attn(tn, tn, tn, None, tgt_mask)
+        mn = self.norm2(x)
+        x = x + self.cross_attn(mn, memory, memory, memory_key_padding_mask, memory_mask)
+        return x + self.linear2(F.gelu(self.linear1(self.norm3(x))))
+
+
+class SinusoidalPosEmb(nn.Module):
+    """Diffusion timestep embedding: (B,) timesteps → (B, dim), sin before
+    cos, frequencies exp(-log(10000) · i / (dim/2 - 1))."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, t):
+        half = self.dim // 2
+        freqs = torch.exp(-math.log(10000) * torch.arange(half, device=t.device) / (half - 1))
+        ang = t.float()[:, None] * freqs[None]
+        return torch.cat([ang.sin(), ang.cos()], dim=-1)
+
+
+def causal_mask(T: int, device=None) -> torch.Tensor:
+    """(T, T) boolean, True = attend (the lower triangle)."""
+    return torch.ones((T, T), dtype=torch.bool, device=device).tril()

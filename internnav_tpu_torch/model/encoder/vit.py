@@ -1,5 +1,5 @@
 """DINOv2-style ViT trunk (port of internnav_tpu/model/encoder/vit.py
-`DinoViT`, `DinoBlock`). Input is NHWC like the JAX module; the patch
+`DinoViT`, `DinoBlock`, `imagenet_normalize`). Input is NHWC like the JAX module; the patch
 embed pads SAME, as flax `nn.Conv` does."""
 
 from __future__ import annotations
@@ -66,3 +66,17 @@ class DinoViT(nn.Module):
         for blk in self.block:
             x = blk(x)
         return self.norm(x)[:, 1:]
+
+
+_IMAGENET_STATS = {}  # device → (mean, std), uploaded once
+
+
+def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
+    """(..., 3) float images in [0, 1] → ImageNet-normalized (fp32 mean and
+    std, a division as in the JAX module)."""
+    stats = _IMAGENET_STATS.get(images.device)
+    if stats is None:
+        stats = _IMAGENET_STATS[images.device] = tuple(
+            torch.tensor(v, dtype=torch.float32, device=images.device)
+            for v in (IMAGENET_MEAN, IMAGENET_STD))
+    return (images - stats[0]) / stats[1]

@@ -1,7 +1,8 @@
 """Real-robot inference server launcher for the PyTorch port.
 
     python -m internnav_tpu_torch.realworld.serve --port 5801 \
-        [--ckpt checkpoints/InternVLA-N1] [--system1 nextdit_async] [--profile realtime|parity]
+        [--ckpt checkpoints/InternVLA-N1] [--system1 nextdit_async|navdp_async|navdp] \
+        [--profile realtime|parity]
 
 Builds the InternVLA-N1 policy at the full Qwen2.5-VL-7B width, wraps it in
 the dual-system agent and serves it through `RealWorldServer`
@@ -15,9 +16,13 @@ the port (`scripts/torch/convert_checkpoint.py`, `save_pretrained`); a
 native directory's recorded weight dtype wins over the profile's, and the
 KV cache stays the profile's (ROADMAP F4: the JAX launcher forces the
 profile's weight dtype and then refuses a bf16 native checkpoint). Without
-`--ckpt` the weights are random, drawn from a seeded generator. The
-`nextdit_async` System-1 is the one ported; `navdp*` raises. `--device
-cuda` without a GPU raises: there is no CPU fallback.
+`--ckpt` the weights are random, drawn from a seeded generator.
+`--system1` picks the System-1 head: `nextdit_async` (the default),
+`navdp_async` (the embedded NavDP head, fp32, on the request's rgb and
+depth; a NavDP policy loads only from a native directory, since the
+reference-format converter maps no NavDP head) or `navdp` (NavDP on the
+latents alone). `--device cuda` without a GPU raises: there is no CPU
+fallback; `--device cpu` runs on the host only when asked for.
 """
 
 from __future__ import annotations
@@ -39,11 +44,12 @@ PROFILES = {
 
 
 def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optional[str] = None,
-                 system1: str = "nextdit_async", config=None,
+                 system1: Optional[str] = None, config=None,
                  weight_dtype: Optional[str] = None, kv_dtype: Optional[str] = None):
     """The served policy in the profile's formats: at Qwen2.5-VL-7B dims
     (or `config`'s), random weights from seed 0 without `ckpt`, else the
-    checkpoint's. `weight_dtype` ("bf16", "int8" or "int4") and `kv_dtype`
+    checkpoint's; `system1` stands in for the config's System-1 head
+    where given (`nextdit_async` at 7B by default). `weight_dtype` ("bf16", "int8" or "int4") and `kv_dtype`
     ("bf16" or "int8") stand in for the profile's where given (the JAX
     agent's `settings['weight_dtype']`, bench.py's `--weight-dtype` /
     `--kv-dtype`). A native directory keeps the weight dtype it records
@@ -74,14 +80,14 @@ def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optio
         else:
             why = "recorded by the native checkpoint"
         weight = recorded
-    cfg = config if config is not None else InternVLAN1Config.qwen25vl_7b(system1)
-    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+    cfg = config if config is not None else InternVLAN1Config.qwen25vl_7b()
+    cfg = dataclasses.replace(cfg, system1=system1 or cfg.system1, text=dataclasses.replace(
         cfg.text, weight_dtype=weight, kv_dtype=kv))
     source = {None: "random weights (seed 0)", "native": f"native checkpoint {ckpt}",
               "hf": f"reference-format checkpoint {ckpt}" + (
                   ", quantized on load" if weight in ("int8", "int4") else "")}[kind]
-    print(f"serve: weight_dtype={weight} ({why}), kv_dtype={kv} ({kv_why}), "
-          f"decode_act_dtype={cfg.text.decode_act_dtype}, {source}", flush=True)
+    print(f"serve: system1={cfg.system1}, weight_dtype={weight} ({why}), kv_dtype={kv} "
+          f"({kv_why}), decode_act_dtype={cfg.text.decode_act_dtype}, {source}", flush=True)
     if kind is None:
         return InternVLAN1Policy.build(cfg, device=device)
     if kind == "native":
@@ -97,15 +103,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="reference-format checkpoint or native directory (random weights "
                          "without it)")
     ap.add_argument("--system1", default="nextdit_async",
-                    help="System-1 head: nextdit_async (navdp* is not ported and raises)")
+                    choices=("nextdit_async", "navdp_async", "navdp"),
+                    help="System-1 head: nextdit_async (NextDiT on the latents and the memory "
+                         "frames), navdp_async (the NavDP head on the latents and an RGBD "
+                         "[memory, current] pair: send depth) or navdp (NavDP on the latents)")
     ap.add_argument("--profile", default="realtime", choices=sorted(PROFILES))
-    ap.add_argument("--device", default="cuda", help="a CUDA device (no CPU fallback)")
+    ap.add_argument("--device", default="cuda",
+                    help="a CUDA device (no CPU fallback), or cpu when asked for")
     args = ap.parse_args(argv)
 
     from internnav_tpu_torch import require_cuda
     from internnav_tpu_torch.agent.internvla_n1_agent import InternVLAN1Agent
 
-    policy = build_policy(args.profile, device=require_cuda(args.device), ckpt=args.ckpt or None,
+    device = torch.device("cpu") if args.device == "cpu" else require_cuda(args.device)
+    policy = build_policy(args.profile, device=device, ckpt=args.ckpt or None,
                           system1=args.system1)
     RealWorldServer(InternVLAN1Agent(policy), args.host, args.port).run()
 

@@ -27,7 +27,8 @@ one policy. The configuration:
 Actions/s counts the live streams' actions over the evaluator's wall time
 (`actions_timed` / `wall_clock_s`, as bench.py's `bench_evaluator_path`).
 Prints one JSON line: `metric`, `value` (the median of the runs), `unit`,
-`vs_baseline` (against the A100 estimate below), and `detail` with the
+`vs_baseline` (against the A100 estimate below, whose System-1 is
+NextDiT: the nextdit_async head only), and `detail` with the
 samples, their spread, the median run, peak device memory and the device
 (`nvidia-smi` name and power limit). A failed run raises and exits
 non-zero: no value is printed without a measurement.
@@ -35,7 +36,11 @@ non-zero: no value is printed without a measurement.
 `--weight-dtype {int8,int4}` and `--kv-dtype {bf16,int8}` pick the
 decoder's weight and KV formats, as bench.py's flags (by default the
 realtime profile's, int8 and int8; with `--tiny` the tiny model's own); a
-native `--ckpt` keeps the weight dtype it records.
+native `--ckpt` keeps the weight dtype it records. `--system1
+{nextdit_async,navdp_async,navdp}` picks the System-1 head (the agents'
+`model_settings["system1"]`, as the JAX evaluator's config passes it;
+nextdit_async by default); the NavDP head takes each stream's [memory,
+current] RGBD pair, FakeEnv's depth at the rgb resolution.
 
 `--tiny` runs the same loop with the tiny model on the CPU, 2 cohorts x 2
 streams (the tests); its numbers are no device measurement and carry no
@@ -124,7 +129,7 @@ def make_episodes(n: int) -> list:
 
 
 def headline_cfg(out_dir: str, *, batch: int, cohorts: int, max_step: int, hw: int,
-                 max_new_tokens: int, num_sample_trajs: int):
+                 max_new_tokens: int, num_sample_trajs: int, system1: str = "nextdit_async"):
     """The evaluator config of the headline: the pipelined evaluator over
     FakeEnv cohorts, shared decode, per-cohort System-1, barrier apply."""
     from internnav_tpu_torch.configs import (
@@ -133,7 +138,7 @@ def headline_cfg(out_dir: str, *, batch: int, cohorts: int, max_step: int, hw: i
 
     settings = {"batch_size": batch, "max_new_tokens": max_new_tokens,
                 "num_sample_trajs": num_sample_trajs, "sys2_max_forward_step": 8,
-                "max_local_steps": 4}
+                "max_local_steps": 4, "system1": system1}
     return EvalCfg(
         agent=AgentCfg(model_name="internvla_n1_batched", model_settings=settings),
         env=EnvCfg(env_type="fake", env_num=batch,
@@ -157,7 +162,8 @@ def evaluator_run(inner, out_dir: str, *, batch: int = BATCH, cohorts: int = COH
     from internnav_tpu_torch.model.basemodel.internvla_n1.serving import BatchedN1Policy
 
     cfg = headline_cfg(out_dir, batch=batch, cohorts=cohorts, max_step=max_step, hw=hw,
-                       max_new_tokens=max_new_tokens, num_sample_trajs=num_sample_trajs)
+                       max_new_tokens=max_new_tokens, num_sample_trajs=num_sample_trajs,
+                       system1=inner.cfg.system1)
     agent = BatchedInternVLAN1Agent(cfg.agent, policy=BatchedN1Policy(inner, batch, seed=0))
     n = batch * cohorts
     ev = VLNPipelinedEvaluator(cfg, episodes=make_episodes(n), agent=agent)
@@ -180,9 +186,11 @@ def evaluator_run(inner, out_dir: str, *, batch: int = BATCH, cohorts: int = COH
 
 
 def assemble(runs: List[Dict[str, Any]], *, tiny: bool = False,
-             extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+             extra: Optional[Dict[str, Any]] = None,
+             system1: str = "nextdit_async") -> Dict[str, Any]:
     """bench.py's one-line contract for the timed runs: the median
-    actions/s, every sample, their spread and the run nearest the median.
+    actions/s, every sample, their spread and the run nearest the median;
+    another System-1 head than the headline's names itself in the metric.
     Raises when the median is not positive."""
     vals = sorted(r["actions_per_sec"] for r in runs)
     med = median(vals)
@@ -197,10 +205,11 @@ def assemble(runs: List[Dict[str, Any]], *, tiny: bool = False,
         **(extra or {}),
     }
     size = "tiny" if tiny else "7b"
+    head = "" if system1 == "nextdit_async" else f"_{system1}"
     result = {"metric": f"internvla_n1_dual_system_actions_per_sec_per_chip_{size}"
-                        f"_evaluator_median{len(runs)}",
+                        f"_evaluator_median{len(runs)}{head}",
               "value": med, "unit": "actions/s", "detail": detail}
-    if not tiny:
+    if not tiny and system1 == "nextdit_async":  # the estimate's System-1 is NextDiT
         result["vs_baseline"] = med / REF_ACTIONS_PER_SEC
     return result
 
@@ -213,10 +222,12 @@ def gpu_line() -> str:
 
 
 def build_inner(device, tiny: bool = False, ckpt: Optional[str] = None,
-                weight_dtype: Optional[str] = None, kv_dtype: Optional[str] = None):
-    """The headline's policy (7B realtime, in these weight and KV formats
-    where given, random weights from seed 0 or the checkpoint `ckpt`), or
-    the tiny test model, with the stop id pinned to STOP_ID."""
+                weight_dtype: Optional[str] = None, kv_dtype: Optional[str] = None,
+                system1: str = "nextdit_async"):
+    """The headline's policy (7B realtime with the `system1` head, in these
+    weight and KV formats where given, random weights from seed 0 or the
+    checkpoint `ckpt`), or the tiny test model, with the stop id pinned to
+    STOP_ID."""
     import dataclasses
 
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
@@ -224,14 +235,14 @@ def build_inner(device, tiny: bool = False, ckpt: Optional[str] = None,
     from internnav_tpu_torch.realworld.serve import build_policy
 
     if tiny:
-        cfg = InternVLAN1Config.tiny()
+        cfg = InternVLAN1Config.tiny(system1)
         cfg = dataclasses.replace(cfg, text=dataclasses.replace(
             cfg.text, weight_dtype=weight_dtype or cfg.text.weight_dtype,
             kv_dtype=kv_dtype or cfg.text.kv_dtype))
         inner = InternVLAN1Policy.build(cfg, device=device)
     else:
         inner = build_policy("realtime", device=device, ckpt=ckpt, weight_dtype=weight_dtype,
-                             kv_dtype=kv_dtype)
+                             kv_dtype=kv_dtype, system1=system1)
     inner.tokenizer.eos_token_id = STOP_ID
     return inner
 
@@ -254,6 +265,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--kv-dtype", default=None, choices=("bf16", "int8"),
                     help="the decode KV cache's storage (the realtime profile's int8 by "
                          "default)")
+    ap.add_argument("--system1", default="nextdit_async",
+                    choices=("nextdit_async", "navdp_async", "navdp"),
+                    help="the System-1 head (nextdit_async by default)")
     args = ap.parse_args(argv)
     if args.tiny and args.ckpt:
         ap.error("--ckpt loads the 7B policy; --tiny builds the tiny test model")
@@ -264,7 +278,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     device = torch.device("cpu") if args.tiny else require_cuda()
     inner = build_inner(device, tiny=args.tiny, ckpt=args.ckpt, weight_dtype=args.weight_dtype,
-                        kv_dtype=args.kv_dtype)
+                        kv_dtype=args.kv_dtype, system1=args.system1)
     shape = TINY_SHAPE if args.tiny else {}
     (REPO / "build").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="bench_evaluator_", dir=REPO / "build")
@@ -284,7 +298,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     config = {"profile": "realtime", "batch": BATCH, "cohorts": COHORTS, "max_step": MAX_STEP,
               "hw": IMAGE_HW, "max_new_tokens": DECODE_TOKENS,
               "num_sample_trajs": NUM_SAMPLE_TRAJS, "weights": args.ckpt or "random (seed 0)",
-              "weight_dtype": inner.cfg.text.weight_dtype, "kv_dtype": inner.cfg.text.kv_dtype}
+              "weight_dtype": inner.cfg.text.weight_dtype, "kv_dtype": inner.cfg.text.kv_dtype,
+              "system1": inner.cfg.system1}
     if args.tiny:
         config.update(profile="tiny", **TINY_SHAPE)
     extra = {
@@ -297,7 +312,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(device),
             "nvidia_smi": gpu_line()},
     }
-    print(json.dumps(assemble(runs, tiny=args.tiny, extra=extra)))
+    print(json.dumps(assemble(runs, tiny=args.tiny, extra=extra, system1=args.system1)))
     return 0
 
 

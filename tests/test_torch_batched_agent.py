@@ -239,6 +239,19 @@ def test_bench_entry_runs_the_tiny_evaluator_on_the_cpu(capsys):
     assert d["peak_mem_gib"] == "not measured"
 
 
+def test_bench_entry_runs_the_navdp_system1_on_the_cpu(capsys):
+    """`--system1 navdp_async`: the agents hand the NavDP head RGBD pairs;
+    the metric names the head and carries no baseline (the A100
+    estimate's System-1 is NextDiT)."""
+    assert bench.main(["--tiny", "--system1", "navdp_async"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"].endswith("_tiny_evaluator_median3_navdp_async") and out["value"] > 0
+    assert out["detail"]["config"]["system1"] == "navdp_async"
+    seven_b = bench.assemble([_run(20.0)], system1="navdp_async")
+    assert seven_b["metric"].endswith("_7b_evaluator_median1_navdp_async")
+    assert "vs_baseline" not in seven_b
+
+
 def test_a_failing_bench_run_prints_no_value(monkeypatch, capsys):
     run = bench.evaluator_run
 

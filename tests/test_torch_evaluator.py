@@ -18,9 +18,10 @@ against the JAX package's, and the host-only modules the port copied.
   schemas equal their originals.
 - One process: rank 0 of 1 and the local list back from the gather, with
   no process group.
-- No silent fallback: the remote agent, the navdp System-1, a shared
-  pool that the agents cannot take, a cohort agent with no policy to share
-  and an env type that is not ported each raise.
+- No silent fallback: the remote agent, a shared pool that the agents
+  cannot take, a cohort agent with no policy to share and an env type that
+  is not ported each raise. (The navdp System-1 is held against the JAX
+  evaluator in tests/test_torch_navdp_serving.py.)
 """
 
 import json
@@ -445,28 +446,6 @@ def test_unported_env_type_is_not_replaced_by_the_fake_env(tmp_path, eval_type):
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
         tbase.Evaluator.init(cfg, episodes=episodes(tepisodes, 4),
                              agent=_NotDualSystem(policy=object()))
-
-
-def test_navdp_system1_raises_in_the_agent():
-    class Cfg:
-        system1 = "navdp_async"
-
-    class Policy:
-        cfg, device = Cfg(), torch.device("cpu")
-        slots = [tserving._Slot()]
-
-        def reset_slot(self, i, instruction):
-            pass
-
-        def s2_submit(self, images, max_new_tokens=128, slot_ids=None):
-            return slot_ids
-
-        def s2_collect(self, ids):
-            return [tserving.S2Output(idx=i, output_latent=torch.zeros(1, 2, 4)) for i in ids]
-
-    agent = TAgent(tconfigs.AgentCfg(model_settings={"batch_size": 1}), policy=Policy())
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        agent.step([{"rgb": np.zeros((8, 8, 3), np.uint8), "instruction_text": "go"}])
 
 
 def test_agent_without_a_policy_asks_for_the_gpu(monkeypatch):

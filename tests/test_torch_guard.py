@@ -58,7 +58,10 @@ def test_port_modules_cover_the_package():
     for mod in ("env.fake_env", "env.episodes", "env.metrics", "env.controllers",
                 "evaluator.base", "evaluator.vln_evaluator", "evaluator.vln_pipelined_evaluator",
                 "evaluator.utils.data_collector", "evaluator.utils.latency", "configs.agent",
-                "configs.evaluator", "agent.base", "utils.registry", "graft_entry"):
+                "configs.evaluator", "agent.base", "utils.registry", "graft_entry",
+                # the NavDP System-1 (head, RGBD backbone, DDPM scheduler)
+                "model.basemodel.internvla_n1.navdp_head", "model.encoder.navdp_backbone",
+                "model.encoder.transformer", "model.encoder.vit", "ops.schedulers"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
     assert BENCH_ENTRY in PORT_SOURCES
     assert len(PORT_MODULES) > 40

@@ -1552,3 +1552,76 @@ def test_w8a8_decode_grouped_fold_keeps_k6b_bits(device, M, widths, K):
         want = (want.astype(np.float64) + b.cpu().numpy()[None]).astype(np.float32)
         want = torch.from_numpy(want).to(torch.bfloat16)
         assert torch.equal(y.cpu(), want)
+
+
+# ----------------------------------------------------------------- NavDP
+#: the fp32 NavDP head on the card against the same module on the host:
+#: 20 DDPM steps of a 16-layer fp32 decoder and two ViT-S towers, cuBLAS
+#: and the CPU summing each product in another order (TF32 products off
+#: and cuDNN's TF32 at PyTorch's default, which the head's own guard
+#: turns off while the towers run)
+NAVDP_TOL = 1e-4
+
+
+def _navdp_draws(rows, P, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(rows, P, 3, generator=g), torch.randn(20, rows, P, 3, generator=g)
+
+
+def test_navdp_head_on_the_card_matches_the_host(device):
+    """The 7B NavDP head (384 wide, 16 layers, 224 x 224 RGBD pairs), one
+    stream of 32 samples with injected noise, on the card and on the host."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.navdp_head import NavDPHead
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import init_random_
+
+    head = init_random_(NavDPHead(vlm_token_dim=3584), torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    lat = torch.randn(1, 4, 3584, generator=g).to(torch.bfloat16)
+    im = torch.rand(1, 2, 224, 224, 3, generator=g)
+    de = 5.0 * torch.rand(1, 2, 224, 224, 1, generator=g)
+    x0, zs = _navdp_draws(32, 32, 2)
+    with torch.no_grad():
+        ref = head.predict_pointgoal_action_async(lat, im, de, x_init=x0, step_noises=zs)
+        head.to(device)
+        got = head.predict_pointgoal_action_async(
+            *(t.to(device) for t in (lat, im, de)), x_init=x0.to(device),
+            step_noises=zs.to(device)).cpu()
+    assert got.shape == (32, 32, 3) and torch.isfinite(got).all()
+    assert torch.allclose(got, ref, atol=NAVDP_TOL, rtol=0), (got - ref).abs().max().item()
+
+
+def test_navdp_grouped_equals_per_cohort_on_the_card(device):
+    """Four cohorts of 3 streams (the bucket of 3) at 224 x 224: one grouped
+    denoise against each cohort's own, the same draws; trajectories within
+    NAVDP_TOL, actions equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import serving
+    from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
+
+    cfg = dataclasses.replace(InternVLAN1Config.tiny("navdp_async"), s1_image_hw=224)
+    inner = InternVLAN1Policy.build(cfg, device=device)
+    r = np.random.default_rng(3)
+    rgb = r.integers(0, 256, (12, 2, 224, 224, 3)).astype(np.uint8)
+    depth = r.uniform(0, 5, (12, 2, 224, 224, 1)).astype(np.float32)
+    lat = torch.randn(12, cfg.n_query, cfg.text.hidden_size, device=device,
+                      generator=torch.Generator(device=device).manual_seed(4))
+
+    def specs():
+        return [serving.BatchedN1Policy(inner, 3, seed=c).s1_prepare(
+            rgb[3 * c:3 * c + 3], lat[3 * c:3 * c + 3], 32, depth=depth[3 * c:3 * c + 3])
+            for c in range(4)]
+
+    per, grouped = specs(), specs()
+    for s in per:
+        s["policy"]._s1_dispatch(s)
+    serving.s1_grouped_dispatch(grouped)
+    for a, b in zip(per, grouped):
+        outs = [s["policy"].s1_collect(s["handle"]) for s in (a, b)]
+        for x, y in zip(*outs):
+            assert np.isfinite(x.trajectory).all()
+            np.testing.assert_allclose(y.trajectory, x.trajectory, atol=NAVDP_TOL, rtol=0)
+            assert x.idx == y.idx

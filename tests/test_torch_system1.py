@@ -216,6 +216,8 @@ def test_embed_multimodal_matches_jax(n1_pair):
     _close(out, ref)
 
 
-def test_navdp_system1_is_not_silently_replaced():
-    with pytest.raises(NotImplementedError, match="NavDP"):
-        tmodel.InternVLAN1Model(tmodel.InternVLAN1Config.tiny("navdp_async"))
+def test_unknown_system1_still_raises():
+    """An unknown System-1 head is refused (the NavDP heads are ported:
+    tests/test_torch_navdp*.py)."""
+    with pytest.raises(ValueError, match="unknown system1"):
+        tmodel.InternVLAN1Model(tmodel.InternVLAN1Config.tiny("diffusion_policy"))
