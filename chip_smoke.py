@@ -185,13 +185,34 @@ Phases, each printing its numbers:
                `InternVLAN1Trainer.prepare_batch`, one untimed and 3 timed
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
-               L times each.
+               L times each;
+  8. train sharded — the same policy through the sharded trainer on this
+               one card: a one-rank NCCL process group (MASTER_ADDR and
+               MASTER_PORT set where absent), mesh {"dp": 1, "tp": 1},
+               param_sharding "tp" with fsdp_rest (the decoder's
+               projections, the embedding and the lm_head tensor-parallel
+               DTensors, the rest under FSDP2), grad_accum_steps 2 and the
+               EMA; at every layer unless its peak, reckoned from phase
+               train's measured peak of a micro-batch accumulated into
+               held gradients plus the bf16 EMA, passes
+               SHARDED_PEAK_LIMIT_GIB (then the fewest layers cut); two
+               optimizer steps over two packed 8192-token rows, one
+               micro-batch a row. Held: K1/K2/K3 launched (2·L, L, L) times a
+               micro-batch; step 1's lm_loss against the two rows'
+               forward-only token mean with the same parameters
+               (SHARDED_LOSS_RTOL), which the mean of the two rows' own
+               means, the reduction a per-row loss would give, must miss
+               (a control); the EMA equal to the parameters after
+               step 1 (decay 0) and to d·e + (1 − d)·p after step 2 on the
+               sampled parameters (EMA_BF16_TOL); the frozen tower
+               unchanged; no plain version run; step s, tokens/s, MFU and
+               peak memory printed.
 Every kernel's launch count is set to 0 just before each of the
-thirteen paths (serve, serve realtime, the long realtime request, serve
+fourteen paths (serve, serve realtime, the long realtime request, serve
 realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
 evaluate phase's timed runs, the int4 evaluate's timed run, serve navdp,
-serve batched navdp's checked cycle, evaluate navdp's timed run, train)
-and read just after. Then one JSON
+serve batched navdp's checked cycle, evaluate navdp's timed run, train,
+train sharded's two steps) and read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing any result.
@@ -3227,13 +3248,18 @@ def train_flops(cfg, batch) -> float:
     return (8 * L * per_layer + 8 * d * v) * batch["input_ids"].shape[1] + attn
 
 
-def build_trainer(device, ckpt=None):
-    """The full-width 7B `nextdit_async` policy (bf16) at TRAIN_LAYERS
-    decoder layers with remat, through the train launcher's policy route
-    (`train_n1.build_policy`: from the checkpoint `ckpt`, else random
-    N(0, 0.02) weights from seed 0), and its trainer: chunked CE 1024, bf16
-    Adam moments, LLM trained, vision frozen."""
-    from internnav_tpu_torch.configs.trainer import ExpCfg
+def build_trainer(device, ckpt=None, layers: int = TRAIN_LAYERS, want=None, mesh=None,
+                  grad_accum: int = 1, use_ema: bool = False):
+    """The full-width 7B `nextdit_async` policy (bf16) with remat, through
+    the train launcher's policy route (`train_n1.build_policy`: from the
+    checkpoint `ckpt`, else random N(0, 0.02) weights from seed 0) at
+    TRAIN_LAYERS decoder layers, held equal by digest to `want` when given,
+    then cut to its first `layers` decoder layers; and its trainer: chunked
+    CE 1024, bf16 Adam moments, LLM trained, vision frozen; `mesh` (MeshCfg
+    fields), grad_accum and use_ema as given."""
+    import torch
+
+    from internnav_tpu_torch.configs.trainer import ExpCfg, MeshCfg
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.trainer import train_n1
     from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
@@ -3241,11 +3267,22 @@ def build_trainer(device, ckpt=None):
     cfg = InternVLAN1Config.qwen25vl_7b("nextdit_async", remat=True,
                                         num_hidden_layers=TRAIN_LAYERS)
     policy = train_n1.build_policy(cfg, device, None if ckpt is None else str(ckpt))
+    if want is not None:
+        check_digests("train from the HF-layout checkpoint", state_digests(policy.model), want)
+    if layers < TRAIN_LAYERS:  # the checkpoint's loader takes every layer it holds
+        lm = policy.model.language_model
+        lm.layers = torch.nn.ModuleList(list(lm.layers)[:layers])
+        text = dataclasses.replace(cfg.text, num_hidden_layers=layers)
+        policy.cfg = policy.model.cfg = dataclasses.replace(cfg, text=text)
+        lm.cfg = text
+        torch.cuda.empty_cache()
     exp = ExpCfg(name="chip_smoke_train", model_name="internvla_n1",
-                 output_dir=str(WORK_DIR / "train_out"))
+                 output_dir=str(WORK_DIR / "train_out"), mesh=MeshCfg(**(mesh or {})))
     exp.il.ce_chunk = 1024
     exp.il.remat = True
     exp.il.opt_state_dtype = "bf16"
+    exp.il.grad_accum_steps = grad_accum
+    exp.il.use_ema = use_ema
     return InternVLAN1Trainer(exp, policy, total_steps=4, tune_llm=True, tune_mm_vision=False)
 
 
@@ -3290,6 +3327,25 @@ def phase_train(device, store, ckpt: Path, want: dict) -> dict:
     n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
     n_all = sum(p.numel() for p in model.parameters())
 
+    # the peak of a second accumulated micro-batch, for phase train
+    # sharded's reckoning: one untimed forward and backward into gradients
+    # already held (zeros; no optimizer step follows), System-1 draws
+    # handed in so that the generator's sequence stays the steps'
+    n_rows = prepared["traj_poses"].shape[0]
+    draws = (torch.zeros(n_rows, dtype=torch.int32, device=device),
+             torch.zeros(n_rows, cfg.predict_step_nums, 3, device=device))
+    torch.cuda.synchronize()
+    static = torch.cuda.memory_allocated(device)
+    for p in model.parameters():
+        if p.requires_grad:
+            p.grad = torch.zeros_like(p)
+    torch.cuda.reset_peak_memory_stats(device)
+    loss, _ = trainer.loss_fn(prepared, draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    accum_peak = torch.cuda.max_memory_allocated(device)
+    del loss, _
+    trainer.optimizer.zero_grad()
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
     times, metrics = [], []
@@ -3340,7 +3396,229 @@ def phase_train(device, store, ckpt: Path, want: dict) -> dict:
           f"losses={[round(m['loss'], 4) for m in metrics]} peak_mem_gib={peak_gib:.2f} "
           f"model_tflop_per_step={flops / 1e12:.2f} "
           f"mfu_vs_989_tflops_datasheet={flops / step_s / PEAK_BF16_FLOPS:.4f} "
-          f"launches_per_step={(2 * L, L, L)} gpu={gpu_line()!r}")
+          f"launches_per_step={(2 * L, L, L)} static_gib={static / 2**30:.2f} "
+          f"accumulated_micro_batch_peak_gib={accum_peak / 2**30:.2f} gpu={gpu_line()!r}")
+    return {"launches": totals, "n_train": n_train, "accum_peak_gib": accum_peak / 2**30}
+
+
+#: the sharded phase keeps every layer while its reckoned peak (phase
+#: train's peak of a micro-batch accumulated into held gradients, plus the
+#: bf16 EMA) stays under this (GiB)
+SHARDED_PEAK_LIMIT_GIB = 76.0
+#: its first step's lm_loss against the two rows' forward-only token mean
+#: with the same parameters: the same bf16 forward on the same weights, so
+#: only the fp32 sums' order differs. The mean of the two rows' own means,
+#: which weighs a row's tokens by 1 / its count, lies 2.9e-4 (relative)
+#: from the token mean on these rows, so the limit sits well under that,
+#: and that reading is held to miss it
+SHARDED_LOSS_RTOL = 5e-5
+#: the EMA after step 2 against d·e + (1 − d)·p on the host (fp32), over
+#: |d·e| + |(1 − d)·p|: three bf16 roundings on the card (e·d, p·(1 − d),
+#: their sum), each within bf16's unit roundoff 2^-8 of those terms
+EMA_BF16_TOL = 3 * 2.0 ** -8
+
+
+def packed_rows(store: str, max_len: int, n: int) -> dict:
+    """n packed SFT rows of `max_len` tokens at the 7B vocab over
+    consecutive samples of the store (packed_row's filling), stacked."""
+    from internnav_tpu_torch.dataset.internvla_n1_dataset import (
+        N1SampleDataset,
+        n1_packed_collate_fn,
+        stack_packed_rows,
+        tokenize_sample,
+    )
+    from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import SimpleTokenizer
+
+    cfg = InternVLAN1Config.qwen25vl_7b()
+    tok = SimpleTokenizer(cfg.text.vocab_size)
+    tpi = (TRAIN_HW // cfg.vision.patch_size // cfg.vision.spatial_merge_size) ** 2
+    samples, total = [], 0
+    for s in N1SampleDataset(store, predict_step_nums=cfg.predict_step_nums, num_history=2):
+        samples.append(tokenize_sample(s, tok, tokens_per_image=tpi, n_query=cfg.n_query))
+        total += len(samples[-1]["input_ids"])
+        if total >= n * max_len + 2048:
+            break
+    rows, start = [], 0
+    for _ in range(n):
+        rows.append(n1_packed_collate_fn(samples[start:], max_len=max_len,
+                                         predict_step_nums=cfg.predict_step_nums))
+        start += rows[-1]["num_packed"]
+    return stack_packed_rows(rows)
+
+
+def phase_train_sharded(device, store, ckpt: Path, want: dict, train: dict) -> dict:
+    """The sharded trainer on one card: a one-rank NCCL process group and
+    mesh {"dp": 1, "tp": 1}, param_sharding "tp" with fsdp_rest (the
+    decoder's projections, embedding and lm_head as tensor-parallel
+    DTensors, the rest under FSDP2), grad_accum_steps 2 and the EMA, from
+    the HF-layout checkpoint; two optimizer steps over two packed
+    8192-token rows, one micro-batch a row. Holds the launches per
+    micro-batch, the first step's lm_loss against the rows' forward-only
+    token mean, the EMA after each step, the frozen tower and no plain
+    version run; returns the two steps' launches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
+    from internnav_tpu_torch.ops import flash_attention as fa
+    from internnav_tpu_torch.parallel.fsdp import is_dtensor, local
+    from internnav_tpu_torch.trainer.ema import ema_decay
+
+    # the depth: every layer unless the reckoned peak passes the limit: the
+    # second micro-batch's peak with the first's gradients held (measured
+    # by phase train) plus the EMA; a layer cut frees that layer's bf16
+    # weights, gradients, two moments and EMA
+    full = TRAIN_LAYERS
+    ema_gib = train["n_train"] * 2 / 2**30
+    reckoned = train["accum_peak_gib"] + ema_gib
+    c = InternVLAN1Config.qwen25vl_7b().text
+    kvd = c.num_key_value_heads * c.head_dim
+    layer_gib = 10 * (2 * c.hidden_size ** 2 + 2 * c.hidden_size * kvd
+                      + 3 * c.hidden_size * c.intermediate_size) / 2**30
+    L = full if reckoned < SHARDED_PEAK_LIMIT_GIB else \
+        full - math.ceil((reckoned - SHARDED_PEAK_LIMIT_GIB) / layer_gib)
+    print(f"phase train sharded: reckoned peak {train['accum_peak_gib']:.2f} (phase train's "
+          f"accumulated micro-batch) + {ema_gib:.2f} (the bf16 EMA of {train['n_train']} "
+          f"trainable) = {reckoned:.2f} GiB against {SHARDED_PEAK_LIMIT_GIB}; "
+          f"{layer_gib:.2f} GiB a layer -> layers={L} gpu={gpu_line()!r}")
+    os.environ.setdefault("MASTER_ADDR", "127.0.0.1")
+    if not os.environ.get("MASTER_PORT"):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            os.environ["MASTER_PORT"] = str(sock.getsockname()[1])
+    dist.init_process_group("nccl", rank=0, world_size=1, device_id=device)
+    spies = []
+    try:
+        t0 = time.perf_counter()
+        trainer = build_trainer(device, ckpt, layers=L, want=want, grad_accum=2, use_ema=True,
+                                mesh={"axes": {"dp": 1, "tp": 1}, "param_sharding": "tp",
+                                      "fsdp_rest": True})
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cfg, params = trainer.policy.cfg, trainer.params
+        q = params["language_model.layers.0.self_attn.q_proj.weight"]
+        vis = params["visual.blocks.0.qkv.weight"]
+        if not (is_dtensor(q) and q.device_mesh.mesh_dim_names == ("tp",)
+                and is_dtensor(vis) and vis.device_mesh.mesh_dim_names == ("dp",)):
+            raise AssertionError("phase train sharded: the layout is not tp + FSDP")
+        batch = packed_rows(store, TRAIN_LEN, 2)
+        prepared = trainer.prepare_batch(batch)
+        pieces = trainer.micro_batches(prepared)
+        if [p["input_ids"].shape[0] for p in pieces] != [1, 1]:
+            raise AssertionError("phase train sharded: the micro-batches are not one row each")
+        # each row's forward-only LM loss (sum, count) with the parameters before the step
+        sums, counts = [], []
+        with torch.no_grad():
+            for piece in pieces:
+                n = piece["draw_rows"]
+                zeros = (torch.zeros(n, dtype=torch.int32, device=device),
+                         torch.zeros(n, cfg.predict_step_nums, 3, device=device))
+                terms, _ = trainer._root(piece, zeros)
+                sums.append(float(terms["lm_loss"]))
+                counts.append(float(trainer.term_counts(piece)["lm_loss"]))
+        ref_lm = sum(sums) / sum(counts)
+        last = f"language_model.layers.{L - 1}.mlp.down_proj.weight"
+        names = {"layers[0].q_proj": "language_model.layers.0.self_attn.q_proj.weight",
+                 f"layers[{L - 1}].down_proj": last,
+                 "embed_tokens": "language_model.embed_tokens.weight",
+                 "lm_head": "language_model.lm_head.weight", "latent_queries": "latent_queries",
+                 "traj_dit.layers[0].linear_2": "traj_dit.layers.0.feed_forward.linear_2.weight",
+                 "action_decoder": "action_decoder.weight"}
+
+        def host(tensors):
+            return {k: local(t).detach().cpu() for k, t in tensors.items()}
+
+        p0 = host({k: params[n] for k, n in names.items()})
+        frozen0 = local(vis).detach().clone()
+        n_train = sum(local(p).numel() for p in params.values() if p.requires_grad)
+
+        plain = collections.Counter()
+        spies = _plain_spies(plain)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        times, metrics, ema_err = [], [], 0.0
+        e1 = None
+        for step in (1, 2):
+            before = (fa.kernel_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
+            t = time.perf_counter()
+            m = trainer.train_step(prepared)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            got = (fa.kernel_launches - before[0], fa.bwd_dkv_launches - before[1],
+                   fa.bwd_dq_launches - before[2])
+            if got != (2 * 2 * L, 2 * L, 2 * L):
+                raise AssertionError(f"train sharded step {step}: (K1, K2, K3) = {got}, expected "
+                                     f"{(2 * L, L, L)} per micro-batch for 2 micro-batches")
+            metrics.append({k: float(v) for k, v in m.items()})
+            p_now = host({k: params[n] for k, n in names.items()})
+            ema = {k: trainer.ema[n].cpu() for k, n in names.items()}
+            if step == 1:
+                rel = abs(metrics[0]["lm_loss"] - ref_lm) / abs(ref_lm)
+                if rel > SHARDED_LOSS_RTOL:
+                    raise AssertionError(f"train sharded: step 1 lm_loss {metrics[0]['lm_loss']} "
+                                         f"against the rows' forward-only {ref_lm} (rel {rel})")
+                row_means = sum(a / c for a, c in zip(sums, counts)) / len(sums)
+                rel_rows = abs(metrics[0]["lm_loss"] - row_means) / abs(row_means)
+                if not rel_rows > SHARDED_LOSS_RTOL:
+                    raise AssertionError(f"train sharded: the mean of the rows' means {row_means} "
+                                         f"is within {SHARDED_LOSS_RTOL} of step 1's lm_loss "
+                                         f"(rel {rel_rows}): the hold cannot tell the token "
+                                         "mean from it")
+                same = [k for k in names if not torch.equal(ema[k], p_now[k])]
+                if same:
+                    raise AssertionError(f"train sharded: the EMA after step 1 (decay 0) differs "
+                                         f"from the parameters: {same}")
+                e1 = ema
+            else:
+                d = ema_decay(2)
+                for k in names:
+                    a, b = d * e1[k].float(), (1 - d) * p_now[k].float()
+                    err = ((ema[k].float() - (a + b)).abs() / (a.abs() + b.abs() + 1e-30)).max()
+                    ema_err = max(ema_err, float(err))
+                if not ema_err <= EMA_BF16_TOL:
+                    raise AssertionError(f"train sharded: the EMA after step 2 is {ema_err} off "
+                                         f"d·e + (1 − d)·p (d = {d})")
+                # the warmup schedule's first update is zero (lr read at count 0)
+                same = [k for k in names if torch.equal(p_now[k], p0[k])]
+                if same:
+                    raise AssertionError(f"train sharded: trainable parameters unchanged by "
+                                         f"step 2: {same}")
+        totals = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        _restore(spies)
+        dist.destroy_process_group()
+    if plain:
+        raise AssertionError(f"train sharded: plain versions ran on the card: {dict(plain)}")
+    if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K6b_fused", "K7")):
+        raise AssertionError(f"train sharded: the bf16 steps launched an int8 kernel: {totals}")
+    if not totals["K8"]:
+        raise AssertionError(f"train sharded: the SwiGLU never launched K8: {totals}")
+    if not torch.equal(local(vis).detach(), frozen0):
+        raise AssertionError("train sharded: a frozen vision parameter changed")
+    for i, m in enumerate(metrics):
+        if not all(math.isfinite(m[k]) for k in ("lm_loss", "s1_loss", "loss", "grad_norm")):
+            raise AssertionError(f"train sharded step {i + 1}: a metric is not finite: {m}")
+    rows = [{"segment_ids": batch["segment_ids"][i:i + 1], "input_ids": batch["input_ids"][i:i + 1]}
+            for i in range(2)]
+    flops = sum(train_flops(cfg, r) for r in rows)
+    step_s = times[-1]  # step 1 also pays the layout's first-call costs
+    print(f"phase train sharded: mesh=dp1xtp1 param_sharding=tp+fsdp_rest grad_accum=2 ema=on "
+          f"layers={L} (of 28) rows=2x{TRAIN_LEN} packed_samples={batch['num_packed']} "
+          f"trainable={n_train} load_s={build_s:.2f} step_s={[round(x, 4) for x in times]} "
+          f"step2_tokens_per_s={2 * TRAIN_LEN / step_s:.1f} "
+          f"model_tflop_per_step={flops / 1e12:.2f} "
+          f"step2_mfu_vs_989_tflops_datasheet={flops / step_s / PEAK_BF16_FLOPS:.4f} "
+          f"peak_mem_gib={peak_gib:.2f} lm_loss_step1={metrics[0]['lm_loss']!r} "
+          f"rows_forward_token_mean={ref_lm!r} rel_err={rel!r} rows_forward_means="
+          f"{[a / c for a, c in zip(sums, counts)]} mean_of_row_means_rel_err={rel_rows!r} "
+          f"loss_rtol={SHARDED_LOSS_RTOL} valid_labels={counts} "
+          f"ema_step2_max_rel_err={ema_err:.3e} losses={[round(m['loss'], 4) for m in metrics]} "
+          f"grad_norms={[round(m['grad_norm'], 4) for m in metrics]} "
+          f"launches_per_micro_batch={(2 * L, L, L)} plain_version_calls=0 gpu={gpu_line()!r}")
     return {"launches": totals}
 
 
@@ -3451,8 +3729,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap("evaluate_navdp")
-        by_path["train"] = phase_train(device, store, hf["dir"], hf["digests"])["launches"]
+        train = phase_train(device, store, hf["dir"], hf["digests"])
+        by_path["train"] = train["launches"]
         lap("train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["train_sharded"] = phase_train_sharded(device, store, hf["dir"], hf["digests"],
+                                                       train)["launches"]
+        lap("train_sharded")
     finally:
         import shutil
 

@@ -19,8 +19,9 @@ the single-stream one, replays a captured CUDA graph per step
 (`decode_graph.py`); the evaluator path of the headline
 (`evaluator.VLNPipelinedEvaluator` over `env.FakeEnv`, driving
 `agent.BatchedInternVLAN1Agent` cohorts; `scripts/torch/bench_evaluator.py`
-measures it); the single-device N1 finetune path
-(`trainer.train_n1`) with the flash-attention backward kernels; and
+measures it); the N1 finetune path (`trainer.train_n1`) with the
+flash-attention backward kernels, grad accumulation, the parameter EMA and
+FSDP / tensor-parallel layouts over a DeviceMesh (`parallel/`); and
 checkpoint loading (`model/weights/`: HF-layout InternVLA-N1 checkpoints,
 quantized on load for `realtime`, and the port's native format); the int4
 and W8A16 formats; and the NavDP System-1 (`navdp_async`, `navdp`:

@@ -6,9 +6,9 @@ config written for the JAX trainer validates here. The per-family model
 tree (`ExpCfg.model`, the JAX package's `ModelCfg`) is kept as a free-form
 dict: the N1 trainer reads none of it.
 
-The port trains on one device: a mesh other than a single data-parallel
-device (`MeshCfg.axes` {"dp": 1} or {"dp": -1}, `param_sharding`
-"replicated") raises "not yet ported" in the trainer.
+`MeshCfg` lays the trainer out over the ranks of a process group
+(`trainer/base.py`: "replicated", "fsdp", or "tp" with `fsdp_rest`); with
+no process group the trainer runs on its one device.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ class _Cfg(BaseModel):
 
 
 class MeshCfg(_Cfg):
-    """Device-mesh layout: axis name → size; -1 means 'all remaining'."""
+    """Device-mesh layout: axis name → size; -1 means 'all remaining'
+    ranks."""
 
     axes: Dict[str, int] = {"dp": -1}
     # partitioning strategy for params: 'replicated' | 'fsdp' | 'tp'

@@ -223,6 +223,20 @@ def n1_packed_collate_fn(rows: List[Dict[str, np.ndarray]], max_len: int = 2048,
     }
 
 
+def stack_packed_rows(batches: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Packed batches of one row each (`n1_packed_collate_fn`, the same
+    max_len) as one batch of len(batches) rows: the rows stacked, the
+    samples' images, trajectories and masks in row order (each row's
+    segment ids number its own samples from 0)."""
+    if len(batches) == 1:
+        return batches[0]
+    out = {k: np.concatenate([b[k] for b in batches]) for k in
+           ("input_ids", "labels", "segment_ids", "traj_poses", "traj_mask")}
+    out["images"] = [im for b in batches for im in b["images"]]
+    out["num_packed"] = sum(b["num_packed"] for b in batches)
+    return out
+
+
 def write_synthetic_n1_dataset(path: str, n_episodes: int = 3, T: int = 10,
                                hw: int = 56, seed: int = 0) -> str:
     from internnav_tpu_torch.dataset.traj_store import TrajStore

@@ -24,6 +24,7 @@ import torch.distributed as dist
 from internnav_tpu_torch.agent.base import Agent
 from internnav_tpu_torch.configs.evaluator import EvalCfg
 from internnav_tpu_torch.env.base import Env
+from internnav_tpu_torch.parallel.collectives import get_rank, get_world_size
 from internnav_tpu_torch.utils.logging import get_logger
 from internnav_tpu_torch.utils.registry import Registry
 
@@ -33,9 +34,7 @@ evaluator_registry: Registry = Registry("evaluator")
 def get_rank_world() -> Tuple[int, int]:
     """(rank, world size) of the default process group; (0, 1) when no
     process group is initialised."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return get_rank(), get_world_size()
 
 
 class Evaluator:

@@ -13,7 +13,8 @@ from seed 0, drawn on the host and moved to the device, so every device
 runs the same weights; `params=` loads a JAX-layout parameter tree instead
 (`model/weights/from_jax`). `entry(device="cpu")` runs the plain versions
 on the host (the tests); without a device it asks for the GPU and raises
-without one.
+without one. `dryrun_multichip(n)` trains one step of the tiny policy
+sharded over n gloo CPU processes.
 """
 
 from __future__ import annotations
@@ -77,3 +78,134 @@ def entry(device=None, *, dtype: torch.dtype = torch.bfloat16,
         return logits, traj
 
     return forward, (torch.from_numpy(ids).to(dev), img_embeds, pos, x_init)
+
+
+# ------------------------------------------------------------ multichip
+def dryrun_multichip(n_devices: int = 8, *, spec: Optional[Mapping[str, Any]] = None,
+                     timeout: float = 600.0) -> dict:
+    """One N1 training step of the tiny policy on `n_devices` gloo CPU
+    processes, the training half of `__graft_entry__.dryrun_multichip`: a
+    dp × tp mesh (tp=2 where n_devices is even, else pure dp), param_sharding
+    "tp" with fsdp_rest, one packed batch of the synthetic SFT store, and
+    the production trainer. Prints and returns rank 0's metrics.
+
+    `spec` overrides the run (the CPU tests): "mesh" (MeshCfg fields),
+    "il" (IlCfg fields), "state" (a state-dict file for the tiny fp32
+    model), "batch" (a pickled raw packed batch), "draws" (train_step's
+    System-1 draws), "output_dir" and "resume" (restore the newest
+    checkpoint there first), "save" (write a checkpoint after the step)
+    and "gather" (return the gathered parameters and optimizer state).
+    The workers are this module's: a child imports neither the caller's
+    module nor JAX."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+
+    tp = 2 if n_devices % 2 == 0 else 1
+    spec = dict(spec or {})
+    spec.setdefault("mesh", {"axes": {"dp": n_devices // tp, "tp": tp},
+                             "param_sharding": "tp", "fsdp_rest": True})
+    with tempfile.TemporaryDirectory() as tmp:
+        spec.setdefault("output_dir", f"{tmp}/out")
+        out = f"{tmp}/rank0.pt"
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dryrun_worker, args=(r, n_devices, port, spec, out, tmp))
+                 for r in range(n_devices)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RuntimeError(f"dryrun_multichip: worker exit codes {codes}")
+        result = torch.load(out, weights_only=False)
+    m = spec["mesh"]
+    print("dryrun_multichip ok:", {k: round(v, 4) for k, v in result["metrics"].items()},
+          f"(mesh {m['axes']}, param_sharding={m.get('param_sharding', 'replicated')}"
+          f"{'+fsdp_rest' if m.get('fsdp_rest') else ''}, gloo x {n_devices})")
+    return result
+
+
+def _dryrun_worker(rank: int, world: int, port: int, spec: Mapping[str, Any], out: str,
+                   tmp: str) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        result = _dryrun_step(spec, tmp)
+        if rank == 0:
+            torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_step(spec: Mapping[str, Any], tmp: str) -> dict:
+    import pickle
+
+    from internnav_tpu_torch.configs.trainer import ExpCfg, MeshCfg
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import (
+        InternVLAN1Policy,
+        build_model,
+    )
+    from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
+
+    cfg = InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
+    model = build_model(cfg, device="cpu")
+    if "state" in spec:
+        model.load_state_dict(torch.load(spec["state"], weights_only=True))
+    else:
+        model = InternVLAN1Policy.build(cfg, device="cpu").model
+    policy = InternVLAN1Policy(model)
+    if "batch" in spec:
+        with open(spec["batch"], "rb") as f:
+            batch = pickle.load(f)
+    else:
+        batch = _synthetic_batch(policy, cfg, tmp)
+    exp = ExpCfg(name="graft_dryrun", model_name="internvla_n1", output_dir=spec["output_dir"],
+                 mesh=MeshCfg(**spec["mesh"]))
+    for k, v in spec.get("il", {}).items():
+        setattr(exp.il, k, v)
+    trainer = InternVLAN1Trainer(exp, policy, total_steps=1)
+    if spec.get("resume"):
+        trainer.maybe_restore()
+    draws = spec.get("draws")
+    metrics = trainer.train_on_batches([batch], None if draws is None else [draws])
+    result = {"metrics": metrics, "step": trainer.step}
+    if spec.get("save"):
+        trainer.save_checkpoint()
+    if spec.get("gather"):
+        result["state"] = trainer.full_state()
+    return result
+
+
+def _synthetic_batch(policy, cfg, tmp: str) -> dict:
+    """Two samples of a synthetic 28x28 store packed into one 256-token row
+    (the JAX dryrun's batch)."""
+    from internnav_tpu_torch.dataset.internvla_n1_dataset import (
+        N1SampleDataset,
+        n1_packed_collate_fn,
+        tokenize_sample,
+        write_synthetic_n1_dataset,
+    )
+
+    store = write_synthetic_n1_dataset(f"{tmp}/store.bin", n_episodes=2, T=6, hw=28)
+    ds = N1SampleDataset(store, predict_step_nums=cfg.predict_step_nums, num_history=2)
+    tpi = policy._tokens_per_image((28, 28))
+    rows = []
+    for s in ds:
+        rows.append(tokenize_sample(s, policy.tokenizer, tokens_per_image=tpi,
+                                    n_query=cfg.n_query))
+        if len(rows) >= 2:
+            break
+    return n1_packed_collate_fn(rows, max_len=256, predict_step_nums=cfg.predict_step_nums)

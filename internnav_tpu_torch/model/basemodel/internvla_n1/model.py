@@ -317,6 +317,18 @@ class InternVLAN1Model(nn.Module):
         traj_poses (B, P, 3); t (B,) integer timesteps in
         [0, num_train_timesteps) and noise (B, P, 3), both drawn by the
         caller; loss_mask (B,) weights whole samples."""
+        if loss_mask is None:
+            loss_mask = torch.ones(traj_poses.shape[0], device=traj_poses.device)
+        num = self.traj_loss_nextdit_sum(traj_hidden, traj_poses, t=t, noise=noise,
+                                         images_dp=images_dp, loss_mask=loss_mask)
+        return num / loss_mask.float().sum().clamp(min=1e-6)
+
+    def traj_loss_nextdit_sum(self, traj_hidden, traj_poses, *, t, noise, loss_mask,
+                              images_dp=None):
+        """`traj_loss_nextdit`'s numerator: the masked squared velocity
+        error summed over samples and averaged over the (P, 3) entries of
+        each. A trainer that splits the samples across micro-batches or
+        ranks divides it by loss_mask's sum over all of them."""
         lat = self._project_latents(traj_hidden)
         if "async" in self.cfg.system1 and images_dp is not None:
             lat = torch.cat([self.memory_tokens_from_images(images_dp), lat], dim=1)
@@ -325,10 +337,8 @@ class InternVLAN1Model(nn.Module):
         noisy = sched.add_noise(traj_poses, noise, t)
         v_pred = self.nextdit_velocity(noisy, t.float(), lat)
         mse = (v_pred.float() - sched.velocity_target(traj_poses, noise).float()) ** 2
-        if loss_mask is None:
-            return mse.mean()
         w = loss_mask.reshape(B, 1, 1).float()
-        return (mse * w).sum() / w.sum().clamp(min=1e-6) / (mse.shape[1] * mse.shape[2])
+        return (mse * w).sum() / (mse.shape[1] * mse.shape[2])
 
 
 def _sin_pos_encoding(positions: torch.Tensor, dim: int) -> torch.Tensor:

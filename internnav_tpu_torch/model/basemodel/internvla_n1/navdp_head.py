@@ -19,8 +19,10 @@ Differences from the JAX module:
   `step_noises` are arguments: the callers draw them (the policy and the
   serving cohorts from their torch.Generator; tests inject the JAX draws);
 - `point_encoder` and `critic_head` are left out: the JAX init never calls
-  them, so flax never creates their parameters; `forward_vlm_traj` (the
-  training loss) is not ported yet.
+  them, so flax never creates their parameters;
+- `forward_vlm_traj` takes its timesteps and noise from the caller, where
+  the JAX method draws them from its key. No trainer calls it (JAX's
+  trainer neither: a navdp-config run trains the LM loss alone).
 
 Rows of the batched paths are laid out i·sample_num + j ↔ stream i (the
 JAX module's `jnp.repeat` along axis 0, `repeat_interleave` here).
@@ -84,11 +86,11 @@ class NavDPHead(nn.Module):
         return mask
 
     def predict_noise(self, noisy_actions, t, goal_embed, rgbd_embed=None):
-        """ε for noisy_actions (B, P, 3) at the timestep t (a 0-d tensor),
-        conditioned on goal_embed (B or 1, 1, D) and rgbd_embed (B or 1,
-        memory·16, D) or None."""
+        """ε for noisy_actions (B, P, 3) at the timestep t (a 0-d tensor, or
+        (B,) one a row), conditioned on goal_embed (B or 1, 1, D) and
+        rgbd_embed (B or 1, memory·16, D) or None."""
         B = noisy_actions.shape[0]
-        time = self.time_emb(t.reshape(1))[:, None]
+        time = self.time_emb(t.reshape(-1))[:, None]
         parts = [time.expand(B, -1, -1), goal_embed.expand(B, -1, -1)]
         if rgbd_embed is not None:
             parts.append(rgbd_embed.expand(B, -1, -1))
@@ -97,6 +99,18 @@ class NavDPHead(nn.Module):
         x = self.input_embed(noisy_actions.float()) + self.out_pos_embed[:, : self.predict_size]
         out = self.decoder(x, cond, tgt_mask=self._causal(x.device))
         return self.action_head(self.final_ln(out))
+
+    # ------------------------------------------------------------- training
+    def forward_vlm_traj(self, vlm_tokens, input_images, input_depths, label_actions, *, t,
+                         noise):
+        """The head's training forward: vlm_tokens (B, L, D_vlm), frames
+        (B, M, H, W, 3) in [0, 1], depths (B, M, H, W, 1), label_actions (B,
+        P, 3), the caller's timesteps t (B,) in [0, 20) and noise (B, P, 3)
+        → (eps_pred (B, P, 3), noise): ε predicted at the noised labels."""
+        goal = self.goal_compressor(self._vlm_mlp(vlm_tokens))          # (B, 1, D)
+        noisy = self.scheduler.add_noise(label_actions.float(), noise.float(), t.long())
+        rgbd = self.rgbd_encoder(input_images, input_depths)
+        return self.predict_noise(noisy, t, goal, rgbd), noise
 
     # ------------------------------------------------------------ inference
     def predict_pointgoal_action_async(self, vlm_tokens, input_images, input_depths, *, x_init,

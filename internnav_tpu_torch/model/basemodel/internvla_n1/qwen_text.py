@@ -45,6 +45,11 @@ cross-entropy (`chunked_ce`).
 - `greedy_generate` and `greedy_decode_grouped` drive their loop through
   `decode_graph.DecodeLoop`: static caches the prefill writes into, and
   on CUDA one captured CUDA graph per decode step, replayed in chunks.
+- Tensor-parallel training (`parallel/tp.py`) splits q/k/v and gate/up by
+  output columns, o and down by input columns, the embedding and the
+  lm_head by vocab rows. The attention takes its head counts from the
+  local q/k widths (K1-K3 see whole local heads, the GQA ratio kept), and
+  `ce_sum` reduces a vocab-split cross-entropy over the group.
 """
 
 from __future__ import annotations
@@ -89,6 +94,7 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import (
     StaticCaches,
 )
 from internnav_tpu_torch.ops.rope import apply_rotary, mrope_cos_sin, rope_cos_sin
+from internnav_tpu_torch.parallel.collectives import pmax, psum_forward
 
 #: a cache entry: bf16 (B, T, KV, D), or (int8 (B, T, KV, D), fp32 scale
 #: (B, T, KV, 1)) with kv_dtype="int8"
@@ -366,8 +372,11 @@ class QwenAttention(nn.Module):
         cache."""
         c = self.cfg
         B, n = x.shape[:2]
-        H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
         q, k, v = project(x, self.q_proj, self.k_proj, self.v_proj, bf16_act=bf16_act)
+        # the heads this rank holds: all of them, or a tensor-parallel
+        # rank's column block of q/k/v (whole heads, the GQA ratio kept)
+        D = c.head_dim
+        H, KV = q.shape[-1] // D, k.shape[-1] // D
         if kv_cache is not None:
             cache_groups, cache_len_groups = [kv_cache], [cache_len]
         if cache_groups is not None:
@@ -407,9 +416,9 @@ class QwenAttention(nn.Module):
         """Attention of one cache group: q (B, n, H D), k/v (B, n, KV D)
         projected rows, cos/sin (B, n, D); their K/V written into the cache
         at cache_len (B,) in place. Returns (B, H, n, D)."""
-        c = self.cfg
+        D = self.cfg.head_dim
         B, n = q.shape[:2]
-        H, KV, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        H, KV = q.shape[-1] // D, k.shape[-1] // D
         k_cache, v_cache = cache
         if isinstance(k_cache, tuple):
             q = rope_kv_write(q, k, v, cos, sin, k_cache, v_cache, cache_len)
@@ -580,6 +589,13 @@ class QwenTextModel(nn.Module):
         `chunk` positions under checkpoint, so one chunk's logits are live
         at a time and backward recomputes them. Same value as the
         full-logits loss on shifted logits / labels."""
+        tot, cnt = self.chunked_ce_sum(hidden, labels, ignore_index=ignore_index, chunk=chunk)
+        return tot / cnt.clamp(min=1.0)
+
+    def chunked_ce_sum(self, hidden, labels, *, ignore_index: int, chunk: int = 1024):
+        """`chunked_ce` as (sum of the CE, count of the valid labels), both
+        fp32 0-d: a trainer that splits a batch across micro-batches or
+        ranks divides the sums by the count over all of them."""
         h = hidden[:, :-1]
         lbl = labels[:, 1:]
         tot = hidden.new_zeros((), dtype=torch.float32)
@@ -589,16 +605,45 @@ class QwenTextModel(nn.Module):
                               lbl[:, start:start + chunk], ignore_index, use_reentrant=False)
             tot = tot + t
             cnt = cnt + c
-        return tot / cnt.clamp(min=1.0)
+        return tot, cnt
 
     def _chunk_ce(self, h, lbl, ignore_index: int):
         """(sum of CE, count) over the valid labels of one chunk."""
-        logits = self._logits(h)
+        return self.ce_sum(self._logits(h), lbl, ignore_index)
+
+    def ce_sum(self, logits, lbl, ignore_index: int):
+        """(sum of CE, count) over the valid labels: fp32 logits (..., V)
+        against labels (...). When the lm_head is split over the vocab
+        (tensor parallel, a DTensor weight), logits holds this rank's
+        vocab columns: the log-sum-exp and the target logit are summed
+        over the group, and every rank of it returns the same values."""
         valid = lbl != ignore_index
         safe = torch.where(valid, lbl, 0).long()
-        gold = logits.gather(-1, safe[..., None])[..., 0]
-        ce = torch.logsumexp(logits, dim=-1) - gold
+        shard = self._vocab_shard()
+        if shard is None:
+            gold = logits.gather(-1, safe[..., None])[..., 0]
+            ce = torch.logsumexp(logits, dim=-1) - gold
+            return (ce * valid).sum(), valid.sum().float()
+        group, start = shard
+        v_local = logits.shape[-1]
+        m = pmax(logits.detach().amax(-1), group)
+        lse = psum_forward((logits - m[..., None]).exp_().sum(-1), group).log() + m
+        local = (safe >= start) & (safe < start + v_local)
+        picked = logits.gather(-1, torch.where(local, safe - start, 0)[..., None])[..., 0]
+        gold = psum_forward(torch.where(local, picked, 0.0), group)
+        ce = lse - gold
         return (ce * valid).sum(), valid.sum().float()
+
+    def _vocab_shard(self):
+        """(process group, first vocab id) of this rank's lm_head columns
+        when the lm_head is tensor-parallel, else None. Inside a forward,
+        FSDP's gathered parameters are plain tensors; a DTensor weight here
+        is a tensor-parallel split of the vocab rows."""
+        w = None if self.lm_head is None else getattr(self.lm_head, "weight", None)
+        if w is None or not hasattr(w, "device_mesh"):
+            return None
+        mesh = w.device_mesh
+        return mesh.get_group(), mesh.get_local_rank() * w.to_local().shape[0]
 
     def _decode_grouped(self, token_embeds, position_ids, cache_trees, cache_lens):
         cos, sin = self._cos_sin(position_ids)

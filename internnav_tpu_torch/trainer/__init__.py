@@ -1,2 +1,3 @@
-"""Training of the port: the optimizer chain, the single-device trainer,
-the InternVLA-N1 trainer and its command line (`train_n1`)."""
+"""Training of the port: the optimizer chain, the mesh-parallel trainer
+with grad accumulation and the parameter EMA (`ema`), the InternVLA-N1
+trainer and its command line (`train_n1`)."""

@@ -10,7 +10,18 @@ The frozen vision tower encodes the images on the host side of the step
 
 The System-1 loss's random draws (timesteps and noise) come from the
 trainer's torch.Generator, or are handed in (`draws`) so that a test can
-give both packages the same numbers.
+give both packages the same numbers: one set per micro-batch, over the
+micro-batch's samples, the same on every rank (JAX draws once for the
+global batch); a rank takes the slots of its rows' trajectory blocks.
+
+Splitting a packed batch (micro-batches, dp ranks) applies the JAX rule
+"split the rows where they divide, else take the whole batch" per sample
+row: a row's input ids, labels, segment ids, position ids, image tokens
+and trajectory blocks go together. The JAX trainer splits each leaf on its
+own leading axis instead, which breaks when the rows divide (F19: the
+(3, B, T) position ids replicate whole, the image tokens split by count).
+The losses are the token mean and the trajectory mean over the whole
+step (`term_counts`), as JAX's are over its batch.
 """
 
 from __future__ import annotations
@@ -20,10 +31,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from internnav_tpu_torch.dataset.internvla_n1_dataset import IGNORE_INDEX
 from internnav_tpu_torch.ops.rope import get_rope_index_25
+from internnav_tpu_torch.parallel.mesh import row_bounds
 from internnav_tpu_torch.trainer.base import Trainer
 
 #: the System-1 loss's draws for one batch: (timesteps (N,) int, noise (N, P, 3))
@@ -67,6 +78,8 @@ def gather_traj_blocks(hidden, input_ids, traj_poses, traj_mask,
 
 
 class InternVLAN1Trainer(Trainer):
+    TERM_FLOORS = {"lm_loss": 1.0, "s1_loss": 1e-6}
+
     def __init__(self, cfg, policy, dataset=None, total_steps: Optional[int] = None,
                  tune_llm: bool = True, tune_mm_vision: bool = False):
         self.tune_llm = tune_llm
@@ -86,7 +99,20 @@ class InternVLAN1Trainer(Trainer):
         for name, p in self.model.named_parameters():
             p.requires_grad_(labels[name] == "train")
 
+    def fsdp_groups(self) -> List[torch.nn.Module]:
+        """The decoder layers, then the vision tower, each gathered on its
+        own under FSDP."""
+        return [*self.model.language_model.layers, self.model.visual]
+
     # ------------------------------------------------------------ host prep
+    def encode_images(self, images):
+        """The policy's vision encode (frozen tower, no grad); under FSDP
+        as a forward of the root module, which gathers the tower."""
+        if self._root is not None:
+            return self._root.encode(images)
+        return self.policy._encode_images(images)
+
+    @torch.no_grad()
     def prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Encode the images (frozen tower, no grad) and build the M-RoPE
         position ids; returns the step's tensors on the policy's device."""
@@ -95,11 +121,11 @@ class InternVLAN1Trainer(Trainer):
         dev = pol.device
         images = [np.asarray(imgs) for imgs in batch["images"]]
         if len({im.shape[1:] for im in images}) == 1:
-            # one tower pass over every frame of the row: the tower encodes
+            # one tower pass over every frame of the batch: the tower encodes
             # each image on its own, so this equals per-sample encodes
-            tokens, grid = pol._encode_images(np.concatenate(images))
+            tokens, grid = self.encode_images(np.concatenate(images))
         else:
-            parts = [pol._encode_images(im) for im in images]
+            parts = [self.encode_images(im) for im in images]
             tokens = torch.cat([t for t, _ in parts])
             grid = np.concatenate([g for _, g in parts])
         input_ids = np.asarray(batch["input_ids"])
@@ -118,6 +144,23 @@ class InternVLAN1Trainer(Trainer):
             "traj_mask": torch.as_tensor(np.asarray(batch["traj_mask"], np.float32), device=dev),
         }
 
+    # ------------------------------------------------------------ splitting
+    def micro_batches(self, batch: Dict[str, Any]) -> List[Dict[str, Any]]:
+        """This rank's rows of each micro-batch: rows i·mb … (i+1)·mb − 1 of
+        micro-batch i where the B rows divide accum × dp, else all B; then a
+        dp rank's block of those where dp divides them. Each piece carries
+        `draw_rows` (the micro-batch's samples, which its System-1 draws
+        cover) and `draw_slots` (the draws of this piece's samples)."""
+        B = batch["input_ids"].shape[0]
+        accum, dp, r = self.accum, self.dp, self.dp_rank
+        pieces = []
+        for i in range(accum):
+            m0, m1 = row_bounds(B, accum, i) if B % (accum * dp) == 0 else (0, B)
+            a, b = row_bounds(m1 - m0, dp, r)
+            pieces.append(split_rows(batch, m0 + a, m0 + b, (m0, m1),
+                                     self.policy.cfg.image_token_index))
+        return pieces
+
     # -------------------------------------------------------------- loss
     def s1_draws(self, n: int) -> S1Draws:
         """Timesteps uniform in [0, num_train_timesteps) and N(0, 1) noise
@@ -129,44 +172,103 @@ class InternVLAN1Trainer(Trainer):
         noise = torch.randn((n, cfg.predict_step_nums, 3), generator=self.generator, device=dev)
         return t, noise
 
-    def loss_fn(self, batch, draws: Optional[S1Draws] = None):
+    def _has_s1_loss(self, batch) -> bool:
+        return "nextdit" in self.policy.cfg.system1 and batch["traj_poses"].shape[0] > 0
+
+    def term_counts(self, batch) -> Dict[str, torch.Tensor]:
+        """The valid next-token labels and the trajectory-bearing samples."""
+        lm = (batch["labels"][:, 1:] != IGNORE_INDEX).sum()
+        s1 = batch["traj_mask"].sum() if self._has_s1_loss(batch) else torch.zeros_like(lm)
+        return {"lm_loss": lm, "s1_loss": s1}
+
+    def loss_terms(self, batch, draws: Optional[S1Draws] = None):
+        """The LM cross-entropy summed over the valid labels and the
+        flow-matching loss summed over the trajectory-bearing samples
+        (`traj_loss_nextdit_sum`) of this piece."""
         model = self.model
         cfg = self.policy.cfg
         input_ids, labels = batch["input_ids"], batch["labels"]
         ce_chunk = int(self.cfg.il.ce_chunk or 0)
+        lm = model.language_model
 
         embeds = model.embed_multimodal(input_ids, batch["image_embeds"])
         logits, hidden, _ = model.prefill(embeds, batch["position_ids"],
                                           segment_ids=batch["segment_ids"],
                                           compute_logits=ce_chunk == 0)
         if ce_chunk:
-            lm_loss = model.language_model.chunked_ce(hidden, labels, ignore_index=IGNORE_INDEX,
-                                                      chunk=ce_chunk)
+            lm_num, _ = lm.chunked_ce_sum(hidden, labels, ignore_index=IGNORE_INDEX,
+                                          chunk=ce_chunk)
         else:
-            shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
-            valid = shift_labels != IGNORE_INDEX
-            ce = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
-                                 torch.where(valid, shift_labels, 0).reshape(-1).long(),
-                                 reduction="none").reshape(valid.shape)
-            lm_loss = (ce * valid).sum() / valid.sum().clamp(min=1)
+            lm_num, _ = lm.ce_sum(logits[:, :-1], labels[:, 1:], IGNORE_INDEX)
 
-        s1_loss = torch.zeros((), device=hidden.device)
-        n_traj_rows = batch["traj_poses"].shape[0]
-        if "nextdit" in cfg.system1 and n_traj_rows:
+        s1_num = torch.zeros((), device=hidden.device)
+        n_rows = batch.get("draw_rows", batch["traj_poses"].shape[0])
+        if "nextdit" in cfg.system1 and n_rows:
+            # drawn for the micro-batch's samples on every rank alike
+            t, noise = draws if draws is not None else self.s1_draws(n_rows)
+        if self._has_s1_loss(batch):
+            slots = batch.get("draw_slots")
+            if slots is not None:
+                t, noise = t[slots.to(t.device)], noise[slots.to(noise.device)]
             traj_hidden, traj_poses, loss_mask = gather_traj_blocks(
                 hidden, input_ids, batch["traj_poses"], batch["traj_mask"],
                 cfg.traj_token_index, cfg.n_query)
-            t, noise = draws if draws is not None else self.s1_draws(n_traj_rows)
-            s1_loss = model.traj_loss_nextdit(traj_hidden, traj_poses, t=t.to(hidden.device),
-                                              noise=noise.to(hidden.device), loss_mask=loss_mask)
-        return lm_loss + s1_loss, {"lm_loss": lm_loss, "s1_loss": s1_loss}
+            s1_num = model.traj_loss_nextdit_sum(traj_hidden, traj_poses, t=t.to(hidden.device),
+                                                 noise=noise.to(hidden.device),
+                                                 loss_mask=loss_mask)
+        return {"lm_loss": lm_num, "s1_loss": s1_num}, {}
+
+    def loss_fn(self, batch, draws: Optional[S1Draws] = None):
+        """The batch's loss on this rank, unsplit: (lm_loss + s1_loss,
+        {"lm_loss", "s1_loss"})."""
+        terms, _ = self.loss_terms(batch, draws)
+        counts = self.term_counts(batch)
+        parts = {n: terms[n] / counts[n].float().clamp(min=self.TERM_FLOORS[n]) for n in terms}
+        return parts["lm_loss"] + parts["s1_loss"], parts
 
     def train_on_batches(self, batches: List[Dict[str, Any]],
-                         draws: Optional[Sequence[S1Draws]] = None) -> Dict[str, float]:
+                         draws: Optional[Sequence[Any]] = None) -> Dict[str, float]:
         """Prepare and train on each raw batch in turn; returns the last
-        step's metrics. draws[i], when given, is batch i's System-1 draws."""
+        step's metrics. draws[i], when given, is batch i's System-1 draws
+        (a list of one set per micro-batch, or one set at accum 1)."""
         metrics: Dict[str, torch.Tensor] = {}
         for i, raw in enumerate(batches):
             metrics = self.train_step(self.prepare_batch(raw),
                                       None if draws is None else draws[i])
         return {k: float(v) for k, v in metrics.items()}
+
+
+def split_rows(batch: Dict[str, Any], a: int, b: int, micro: Tuple[int, int],
+               image_token_index: int) -> Dict[str, Any]:
+    """Rows a … b − 1 of a prepared packed batch with everything that
+    belongs to them: their position ids, image tokens (in reading order)
+    and trajectory blocks (samples in row order; a row's samples are its
+    segment ids 0 … k − 1, one sample a row without segment ids), with
+    `draw_rows` and `draw_slots` of the micro-batch rows micro = (m0, m1)
+    that holds them."""
+    ids = batch["input_ids"]
+    B = ids.shape[0]
+    if (a, b) == (0, B) and micro == (0, B):
+        return batch
+    seg = batch["segment_ids"]
+    img = [0] + np.cumsum((ids == image_token_index).sum(1).tolist()).tolist()
+    per_row = [1] * B if seg is None else (seg.amax(1) + 1).clamp(min=0).tolist()
+    smp = [0] + np.cumsum(per_row).tolist()
+    if smp[-1] != batch["traj_poses"].shape[0]:
+        raise ValueError(f"{batch['traj_poses'].shape[0]} trajectory blocks for {smp[-1]} "
+                         "samples in the rows: the batch cannot be split by row")
+    has_traj = [0] + np.cumsum(batch["traj_mask"].tolist()).tolist()
+    m0, m1 = micro
+    s0, s1 = smp[a], smp[b]
+    offset = int(round(has_traj[s0] - has_traj[smp[m0]]))
+    return {
+        "input_ids": ids[a:b],
+        "labels": batch["labels"][a:b],
+        "segment_ids": None if seg is None else seg[a:b],
+        "position_ids": batch["position_ids"][:, a:b],
+        "image_embeds": batch["image_embeds"][img[a]:img[b]] if img[b] > img[a] else None,
+        "traj_poses": batch["traj_poses"][s0:s1],
+        "traj_mask": batch["traj_mask"][s0:s1],
+        "draw_rows": smp[m1] - smp[m0],
+        "draw_slots": torch.arange(offset, offset + s1 - s0),
+    }

@@ -4,18 +4,30 @@
         --steps 1000 --max-len 8192 --remat --ce-chunk 1024 --opt-state-dtype bf16
 
 Port of scripts/train/train_n1.py with the same flags plus `--device`: a
-config file or `--name` gives the ExpCfg, the policy is built at `--tiny`
-or full Qwen2.5-VL-7B dims, from `--ckpt` (a reference-format checkpoint,
-or a bf16 native directory of the port) or with random weights (seed 0),
-and packed SFT rows from the trajectory store feed `InternVLAN1Trainer`.
-`--device` defaults to `cuda` and refuses without a GPU; `--device cpu`
-runs the tiny config on the CPU (the plain attention path):
+config file or `--name` gives the ExpCfg, the policy is built
+at `--tiny` or full Qwen2.5-VL-7B dims, from `--ckpt` (a reference-format
+checkpoint, or a bf16 native directory of the port) or with random
+weights (seed 0), and packed SFT rows from the trajectory store feed
+`InternVLAN1Trainer`. `--device` defaults to `cuda` and refuses without a
+GPU; `--device cpu` runs the tiny config on the CPU (the plain attention
+path):
 
     python -m internnav_tpu_torch.trainer.train_n1 --tiny --device cpu \
         --store /tmp/n1_store.bin --steps 2 --batch-size 2 --max-len 256
 
-Not ported yet, and refused: `--tp` and `--fsdp` (one device only). An
-int8 native directory is refused too: training needs bf16 weights.
+Sharded training runs one process a GPU under torchrun (NCCL on CUDA,
+gloo on the CPU; each rank on cuda:LOCAL_RANK), with the JAX launcher's
+meshes: `--fsdp` is {"dp": -1} with FSDP, `--tp N` {"dp": -1, "tp": N}
+with the decoder tensor-parallel and FSDP for the rest; `--grad-accum`
+micro-batches a step. A batch is one packed row, as in the JAX launcher,
+so every rank and micro-batch computes it whole (rows that do not divide
+accum x dp are not split):
+
+    torchrun --nproc-per-node 8 -m internnav_tpu_torch.trainer.train_n1 \
+        --store data/sft_store.bin --tp 2 --grad-accum 2 --remat --ce-chunk 1024
+
+Without torchrun (no process group) the trainer runs on its one device.
+An int8 native directory is refused: training needs bf16 weights.
 """
 
 from __future__ import annotations
@@ -41,13 +53,13 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="samples per packed batch (pre-packing)")
     ap.add_argument("--max-len", type=int, default=2048, help="packed sequence length")
     ap.add_argument("--grad-accum", type=int, default=None,
-                    help="gradient accumulation microbatches (only 1 is ported)")
+                    help="gradient accumulation microbatches")
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--tune-llm", action="store_true", default=True)
     ap.add_argument("--no-tune-llm", dest="tune_llm", action="store_false")
     ap.add_argument("--tune-mm-vision", action="store_true", default=False)
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (not yet ported)")
-    ap.add_argument("--fsdp", action="store_true", help="FSDP sharding (not yet ported)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel degree")
+    ap.add_argument("--fsdp", action="store_true", help="FSDP sharding over every rank")
     ap.add_argument("--remat", action="store_true", default=False,
                     help="recompute decoder layers in backward")
     ap.add_argument("--opt-state-dtype", default=None, choices=["bf16", "fp32"],
@@ -89,7 +101,8 @@ def build_policy(cfg_model, device, ckpt: Optional[str] = None):
 
 def make_batch_iter(store_path: str, policy, cfg_model, batch_size: int, max_len: int,
                     num_history: int, image_hw: int):
-    """Infinite iterator of packed SFT batches over the store."""
+    """Infinite iterator of packed SFT batches over the store (every rank
+    reads the same batches)."""
     from internnav_tpu_torch.dataset.internvla_n1_dataset import (
         N1SampleDataset,
         n1_packed_collate_fn,
@@ -116,21 +129,52 @@ def make_batch_iter(store_path: str, policy, cfg_model, batch_size: int, max_len
             yield collate(rows)
 
 
+def init_distributed(device: str) -> bool:
+    """Start the process group of a torchrun launch (its RANK / WORLD_SIZE /
+    MASTER_ADDR environment): NCCL for a CUDA device, gloo for the CPU.
+    Returns whether it started one (False outside torchrun, or when one
+    exists)."""
+    import os
+
+    import torch.distributed as dist
+
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    dist.init_process_group("gloo" if device == "cpu" else "nccl")
+    return True
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_argparser().parse_args(argv)
+
+    import os
 
     import torch
 
     from internnav_tpu_torch import require_cuda
-    from internnav_tpu_torch.configs.trainer import ExpCfg
-    from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
-    from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
 
-    if args.tp > 1 or args.fsdp:
-        raise NotImplementedError("--tp / --fsdp: sharded training is not yet ported")
     device = torch.device(args.device)
     if device.type != "cpu":
+        if "LOCAL_RANK" in os.environ and device.index is None:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         device = require_cuda(device)
+        if device.index is not None:
+            torch.cuda.set_device(device)
+    started = init_distributed(device.type)
+    try:
+        return _train(args, device)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> dict:
+    from internnav_tpu_torch.configs.trainer import ExpCfg, MeshCfg
+    from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
+    from internnav_tpu_torch.parallel import is_main_process
+    from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
 
     if args.config:
         import runpy
@@ -153,6 +197,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         exp.il.ce_chunk = args.ce_chunk
     if args.opt_state_dtype:
         exp.il.opt_state_dtype = args.opt_state_dtype
+    if args.tp > 1:
+        exp.mesh = MeshCfg(axes={"dp": -1, "tp": args.tp}, param_sharding="tp", fsdp_rest=True)
+    elif args.fsdp:
+        exp.mesh = MeshCfg(axes={"dp": -1}, param_sharding="fsdp")
 
     image_hw = args.image_hw or (28 if args.tiny else 224)
     if args.tiny:
@@ -173,7 +221,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.resume:
         trainer.maybe_restore()
     metrics = trainer.train(resume=False)
-    print("final:", metrics)
+    if is_main_process():
+        print("final:", metrics)
     return metrics
 
 

@@ -61,7 +61,10 @@ def test_port_modules_cover_the_package():
                 "configs.evaluator", "agent.base", "utils.registry", "graft_entry",
                 # the NavDP System-1 (head, RGBD backbone, DDPM scheduler)
                 "model.basemodel.internvla_n1.navdp_head", "model.encoder.navdp_backbone",
-                "model.encoder.transformer", "model.encoder.vit", "ops.schedulers"):
+                "model.encoder.transformer", "model.encoder.vit", "ops.schedulers",
+                # sharded training and the EMA
+                "parallel", "parallel.collectives", "parallel.mesh", "parallel.tp",
+                "parallel.fsdp", "trainer.ema"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
     assert BENCH_ENTRY in PORT_SOURCES
     assert len(PORT_MODULES) > 40

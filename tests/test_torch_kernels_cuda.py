@@ -1625,3 +1625,92 @@ def test_navdp_grouped_equals_per_cohort_on_the_card(device):
             assert np.isfinite(x.trajectory).all()
             np.testing.assert_allclose(y.trajectory, x.trajectory, atol=NAVDP_TOL, rtol=0)
             assert x.idx == y.idx
+
+
+def test_fsdp_single_rank_step_equals_the_unsharded_step(device, tmp_path):
+    """One N1 step of the small policy (graft_entry's: 4 text layers at
+    128-wide heads, bf16) under a one-rank NCCL process group with
+    param_sharding="fsdp", against the same step unsharded: FSDP over one
+    rank gathers and reduces nothing, so losses and grad_norm agree (bf16
+    tolerance), and so do the updates: Adam's first step moves each
+    element by about lr, and the two updates of an element agree within
+    0.02·lr plus one bf16 spacing of the updated parameter (its rounding),
+    except where the gradient is below its own noise (under 4 times the
+    two gradients' difference, at most 1% of the reached elements). A step
+    that skipped the update, or updated a stale shard, moves elements by
+    lr where the other did not. Both run remat, so K1-K3 run inside
+    non-reentrant checkpoints of FSDP-wrapped decoder layers: K1 twice a
+    layer, K2 and K3 once."""
+    import socket
+
+    import torch.distributed as dist
+
+    from internnav_tpu_torch.configs.trainer import ExpCfg, MeshCfg
+    from internnav_tpu_torch.dataset.internvla_n1_dataset import (
+        N1SampleDataset,
+        n1_packed_collate_fn,
+        tokenize_sample,
+        write_synthetic_n1_dataset,
+    )
+    from internnav_tpu_torch.graft_entry import small_n1_config
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
+    from internnav_tpu_torch.trainer.base import B1
+    from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
+
+    cfg = small_n1_config()
+    lr = 1e-3
+    store = write_synthetic_n1_dataset(str(tmp_path / "store.bin"), n_episodes=2, T=6, hw=56)
+
+    def run(mesh):
+        policy = InternVLAN1Policy.build(cfg, device=device, seed=0)
+        tpi = policy._tokens_per_image((56, 56))
+        rows = [tokenize_sample(s, policy.tokenizer, tokens_per_image=tpi, n_query=cfg.n_query)
+                for s, _ in zip(N1SampleDataset(store, predict_step_nums=cfg.predict_step_nums,
+                                                num_history=2), range(3))]
+        batch = n1_packed_collate_fn(rows, max_len=512, predict_step_nums=cfg.predict_step_nums)
+        exp = ExpCfg(name="fsdp1", model_name="internvla_n1", output_dir=str(tmp_path / "o"),
+                     mesh=mesh)
+        exp.il.lr, exp.il.lr_schedule, exp.il.remat = lr, "constant", True
+        start = {n: p.detach().float().cpu() for n, p in policy.model.named_parameters()}
+        trainer = InternVLAN1Trainer(exp, policy, total_steps=1)
+        if mesh.param_sharding == "fsdp":  # the layers are FSDP groups of their own
+            assert hasattr(trainer.model.language_model.layers[0], "reshard")
+        before = (fa.kernel_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
+        metrics = trainer.train_on_batches([batch])
+        launches = (fa.kernel_launches - before[0], fa.bwd_dkv_launches - before[1],
+                    fa.bwd_dq_launches - before[2])
+        return metrics, trainer.full_state(), launches, start
+
+    plain, plain_state, _, start = run(MeshCfg())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        sharded, state, launches, _ = run(MeshCfg(axes={"dp": 1}, param_sharding="fsdp"))
+    finally:
+        dist.destroy_process_group()
+    layers = cfg.text.num_hidden_layers
+    assert launches[0] >= 2 * layers and launches[1] == launches[2] == layers, launches
+    for k in ("lm_loss", "s1_loss", "loss", "grad_norm"):
+        assert abs(sharded[k] - plain[k]) <= 1e-3 * abs(plain[k]), (k, sharded[k], plain[k])
+    mu_p, mu_s = plain_state["opt_state"]["mu"], state["opt_state"]["mu"]
+    assert set(mu_p) == set(mu_s) and len(mu_p) > 20
+    moved = 0
+    for name in mu_p:
+        g_p, g_s = mu_p[name].float() / (1 - B1), mu_s[name].float() / (1 - B1)
+        new_p = plain_state["params"][name].float()
+        new_s = state["params"][name].float()
+        reached = (g_p != 0) | (g_s != 0)
+        noisy = reached & (g_p.abs() < 4 * (g_p - g_s).abs())
+        assert noisy.sum() <= 0.01 * reached.sum(), (name, int(noisy.sum()), int(reached.sum()))
+        # one bf16 spacing at the larger updated magnitude: 2^(e - 8), x = m·2^e, m in [0.5, 1)
+        _, e = torch.frexp(torch.maximum(new_p.abs(), new_s.abs()))
+        tol = 0.02 * lr + torch.exp2(e.float() - 8)
+        err = ((new_s - start[name]) - (new_p - start[name])).abs()
+        bad = (err > tol) & ~noisy
+        assert not bad.any(), (name, int(bad.sum()), float(err[bad].max()))
+        moved += int(((new_p - start[name]).abs() >= 0.5 * lr)[reached].sum())
+    assert moved > 0.5 * sum(int(((m != 0)).sum()) for m in mu_p.values()), moved

@@ -321,16 +321,89 @@ def test_train_n1_cli_trains_saves_and_restores(tmp_path):
     assert trainer.optimizer.count == 2
 
 
+@pytest.mark.parametrize("mesh,accum", [(["--fsdp"], ["--grad-accum", "2"]), (["--tp", "2"], [])],
+                         ids=["fsdp_accum2", "tp2"])
+def test_train_n1_cli_under_torchrun_matches_one_device(tmp_path, mesh, accum):
+    """train_n1 under torchrun in 2 gloo processes (the ranks' mesh from
+    --fsdp or --tp, their process group from torchrun's environment) takes
+    one step and rank 0 writes its checkpoint, full tensors; its metrics
+    and updates equal the same command's in one process. A batch is one
+    packed row, so at --fsdp every rank and micro-batch computes it whole."""
+    import ast
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from internnav_tpu_torch.trainer import train_n1
+
+    store = write_synthetic_n1_dataset(str(tmp_path / "store.bin"), n_episodes=2, T=6, hw=28)
+    lr = 1e-3  # constant: the warmup schedule's first update is zero
+    (tmp_path / "exp.py").write_text(
+        "from internnav_tpu_torch.configs.trainer import ExpCfg\n"
+        "exp_cfg = ExpCfg(name='cli', model_name='internvla_n1')\n"
+        f"exp_cfg.il.lr, exp_cfg.il.lr_schedule = {lr}, 'constant'\n")
+    argv = ["--tiny", "--device", "cpu", "--store", store, "--steps", "1", "--batch-size", "2",
+            "--max-len", "256", "--num-history", "2", "--no-resume",
+            "--config", str(tmp_path / "exp.py")]
+    one = train_n1.main(argv + accum + ["--output-dir", str(tmp_path / "one")])
+    repo = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "internnav_tpu_torch.trainer.train_n1", *argv, *mesh, *accum,
+         "--output-dir", str(tmp_path / "two")],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    finals = [ln for ln in proc.stdout.splitlines() if ln.startswith("final: ")]
+    assert len(finals) == 1, proc.stdout[-4000:]  # rank 0 alone prints
+    two = ast.literal_eval(finals[0][len("final: "):])
+    for k in ("lm_loss", "s1_loss", "loss", "grad_norm"):
+        _close(two[k], one[k])
+
+    ref = torch.load(tmp_path / "one" / "checkpoints" / "1" / "state.pt", weights_only=True)
+    got = torch.load(tmp_path / "two" / "checkpoints" / "1" / "state.pt", weights_only=True)
+    assert got["step"] == 1 and got["opt_state"]["count"] == 1
+    assert set(got["params"]) == set(ref["params"])
+    start = tpolicy.InternVLAN1Policy.build(
+        dataclasses.replace(InternVLAN1Config.tiny("nextdit"), s1_image_hw=28),
+        device="cpu").model.state_dict()
+    # Adam's first update lr·ĝ/(|ĝ| + eps) moves by at most lr·r/4 when ĝ
+    # moves by a fraction r of itself: the updates are held within 0.02·lr
+    # where the two gradients agree within 5%, and the elements where they
+    # do not (gradients at float noise: the k biases', which softmax
+    # ignores, and the random System-1's near-zero ones) are at most 1%
+    n_noisy = n_reached = 0
+    for name, mu in ref["opt_state"]["mu"].items():
+        g = mu / (1 - tbase.B1)
+        h = got["opt_state"]["mu"][name] / (1 - tbase.B1)
+        _close(h, g, atol=1e-6, rtol=1e-4)
+        noisy = (h - g).abs() > 0.05 * g.abs()
+        n_noisy += int(noisy.sum())
+        n_reached += int(((g != 0) | (h != 0)).sum())
+        _close((got["params"][name] - start[name])[~noisy],
+               (ref["params"][name] - start[name])[~noisy], atol=0.02 * lr, rtol=0)
+    assert n_noisy <= 0.01 * n_reached, (n_noisy, n_reached)
+    for name, value in ref["params"].items():
+        if name.startswith("visual."):
+            assert torch.equal(got["params"][name], value), name
+
+
 def test_unported_options_raise(tmp_path):
     from internnav_tpu_torch.configs.trainer import MeshCfg
     from internnav_tpu_torch.trainer import train_n1
 
     pol = tpolicy.InternVLAN1Policy.build(InternVLAN1Config.tiny("nextdit"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        InternVLAN1Trainer(ExpCfg(mesh=MeshCfg(axes={"dp": 4}, param_sharding="fsdp")), pol)
-    for flags in (["--tp", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train_n1.main(["--store", "x", "--device", "cpu", *flags])
+    # tensor parallel runs whole local heads only (JAX lets GSPMD partition
+    # a fraction): the tiny decoder's 4 query heads do not split 3 ways,
+    # its 2 KV heads not 4 ways
+    mesh = MeshCfg(axes={"dp": -1, "tp": 3}, param_sharding="tp", fsdp_rest=True)
+    with pytest.raises(NotImplementedError, match=r"layers\.0\.self_attn\.q_proj\.weight .*whole heads"):
+        InternVLAN1Trainer(ExpCfg(mesh=mesh), pol)
+    for tp, proj in (("3", "q_proj"), ("4", "k_proj")):
+        with pytest.raises(NotImplementedError, match=rf"{proj}\.weight .*whole heads"):
+            train_n1.main(["--store", "x", "--device", "cpu", "--tiny", "--tp", tp])
     # --ckpt is ported: a directory without weights raises, never trains
     # random weights in their place
     with pytest.raises(FileNotFoundError, match="no reference-format weights"):
