@@ -69,6 +69,15 @@ Phases, each printing its numbers:
                POST /reset + 4 /eval_dual requests; K1 must have launched
                during the requests, and no int8 kernel; K8 as computed
                from the frames, layer passes and System-1 calls;
+  serve tp — multi-GPU serving at world size 1 (the machine has one
+               card): serve parity's 4 System-2 prompts greedy-decoded
+               (MAX_NEW_TOKENS) by the parity policy as it is, then with
+               its decoder laid out for serving (`apply_serve_tp`) over
+               the tp group of a dp=1 x tp=1 mesh of a one-rank NCCL
+               group (the all-reduces and the vocab argmax reduce inside
+               the captured decode step); tokens, lengths and traj latents
+               bitwise equal, K1 launched once a prefill layer on the
+               local heads; each request's seconds;
   checkpoint — the parity policy written as an HF-layout sharded
                safetensors checkpoint (`convert.hf_state_dict`, 5 GiB
                shards and the index) in TMPDIR (or build/chip_smoke when
@@ -149,7 +158,14 @@ Phases, each printing its numbers:
                with path=evaluate); then the int4 loop (`bench_evaluator.py
                --weight-dtype int4 --ckpt <native int4>`): a warm run and
                one timed run, K9 and the lm_head's K6b launched, no K10,
-               no plain version. Python's str hash is pinned
+               no plain version; then evaluate server, the reference's
+               client-server layout: `AgentServer` on a thread of this
+               process, `scripts/torch/eval.py --config` as a subprocess
+               with use_agent_server over 2 FakeEnv episodes (at most 16
+               steps, 224x224), the server's "internvla_n1" agent built
+               from the native int8 checkpoint on the card: exit 0, 2
+               finite episodes in result.json, K1 and K4-K8 launched in
+               the server, no plain version, actions/s. Python's str hash is pinned
                (PYTHONHASHSEED=0; the script re-executes itself with it),
                so FakeEnv draws the same frames in every run;
   navdp    — the NavDP System-1 (`navdp_async`: the fp32 NavDP head with
@@ -208,9 +224,10 @@ Phases, each printing its numbers:
                unchanged; no plain version run; step s, tokens/s, MFU and
                peak memory printed.
 Every kernel's launch count is set to 0 just before each of the
-fourteen paths (serve, serve realtime, the long realtime request, serve
+sixteen paths (serve, serve tp, serve realtime, the long realtime request, serve
 realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
-evaluate phase's timed runs, the int4 evaluate's timed run, serve navdp,
+evaluate phase's timed runs, the int4 evaluate's timed run, evaluate
+server, serve navdp,
 serve batched navdp's checked cycle, evaluate navdp's timed run, train,
 train sharded's two steps) and read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
@@ -233,6 +250,8 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
 
 K1_SOURCE = "internnav_tpu_torch/csrc/flash_fwd.cu"
 BWD_SOURCE = "internnav_tpu_torch/csrc/flash_bwd.cu"
@@ -1498,7 +1517,7 @@ def build_agent(device, profile: str = "parity", policy=None):
 
     if policy is None:
         policy = serve.build_policy(profile, device=device)
-    return policy, InternVLAN1Agent(policy, async_s2=False, sys2_max_forward_step=1)
+    return policy, InternVLAN1Agent.with_policy(policy, async_s2=False, sys2_max_forward_step=1)
 
 
 LAUNCH_KEYS = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu", "K6a_plain",
@@ -1690,12 +1709,15 @@ def _check_requests(policy, profile, what, calls, chunks, gen_tokens, loop, laun
 
 
 def phase_serve(device, profile: str, policy, build_s: float, *, label: str = "",
-                requests: int = 4, long_request: bool = True) -> dict:
+                requests: int = 4, long_request: bool = True,
+                prompts: list = None) -> dict:
     """Serve `policy`, the 7B policy of `profile` (built or loaded in
     build_s), through the real-robot HTTP server; returns every kernel's
     launches by path (`label`, by default serve_<profile>): the `requests`
     requests, and with the realtime profile and `long_request` also the
-    long request, each held equal to `expected_serve_launches`."""
+    long request, each held equal to `expected_serve_launches`. With
+    `prompts`, each request's System-2 inputs (`fused_s2`'s arguments) are
+    appended to it."""
     import numpy as np
     import torch
 
@@ -1717,6 +1739,14 @@ def phase_serve(device, profile: str, policy, build_s: float, *, label: str = ""
         return forward(inputs_embeds, *args, **kwargs)
 
     lm.forward = recorded_forward
+    if prompts is not None:
+        fused_s2 = policy.fused_s2
+
+        def recorded_fused_s2(*args):
+            prompts.append(args[:-1])
+            return fused_s2(*args)
+
+        policy.fused_s2 = recorded_fused_s2
     port = _free_port()
     server = serve.RealWorldServer(agent, "127.0.0.1", port)
     thread = server.run(background=True)
@@ -1777,6 +1807,8 @@ def phase_serve(device, profile: str, policy, build_s: float, *, label: str = ""
         server.shutdown()
         thread.join(timeout=30)
         agent.close()
+        if prompts is not None:
+            del policy.fused_s2
     # per decode step with its lm_head call
     one, none = (expected_serve_launches(policy.cfg, profile, [s], s + 1, 0, 0) for s in (1, 0))
     per_step = {k: one[k] - none[k] for k in one if one[k] != none[k]}
@@ -1798,6 +1830,120 @@ def phase_serve(device, profile: str, policy, build_s: float, *, label: str = ""
               f"launches={by_path['serve_realtime_long']} peak_mem_gib={long['peak_mem_gib']:.2f} "
               f"gpu={gpu_line()!r}")
     return by_path
+
+
+# -------------------------------------------------------------- serve tp
+@contextlib.contextmanager
+def one_rank_nccl(device):
+    """A one-rank NCCL process group on this card (MASTER_ADDR and
+    MASTER_PORT set where absent), destroyed on exit."""
+    import socket
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("MASTER_ADDR", "127.0.0.1")
+    if "MASTER_PORT" not in os.environ:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            os.environ["MASTER_PORT"] = str(sock.getsockname()[1])
+    dist.init_process_group("nccl", rank=0, world_size=1, device_id=device)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_tp(device, policy, prompts) -> dict:
+    """Multi-GPU serving at world size 1: serve parity's System-2 prompts
+    (`prompts`, `fused_s2`'s inputs: the vision tokens, ids, positions,
+    rope deltas, lengths and segments of each request) greedy-decoded with
+    MAX_NEW_TOKENS by the parity policy as it is, then with its decoder
+    laid out for serving (`parallel/tp.apply_serve_tp`) over the tp group
+    of a dp=1 x tp=1 mesh of a one-rank NCCL group: every row-parallel
+    projection's all-reduce, the vocab-split embedding's and the lm_head's
+    argmax reduce are NCCL collectives, inside the captured decode step.
+    The laid-out prompts run twice: a warm pass that captures the decode
+    step's graphs with the collectives in them (serve parity captured the
+    unsharded ones), then the counted pass, which replays them, as the
+    unsharded pass does. Tokens, lengths and traj latents must be bitwise
+    equal; K1 must launch once a prefill layer on the rank's local heads
+    (the spy records each launch's query and KV heads). The policy keeps
+    the layout (the phase is its last use). Returns the counted pass's
+    launches."""
+    import torch
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text as qt
+    from internnav_tpu_torch.parallel.mesh import make_mesh
+    from internnav_tpu_torch.parallel.tp import apply_serve_tp
+
+    def decode_all():
+        outs, secs = [], []
+        for args in prompts:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tokens, lengths, latents = policy.fused_s2(*args, MAX_NEW_TOKENS)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            outs.append((tokens.cpu(), lengths.cpu(), latents.float().cpu()))
+        return outs, secs
+
+    if len(prompts) != 4:
+        raise AssertionError(f"serve tp: {len(prompts)} recorded prompts, expected 4")
+    whole, whole_s = decode_all()
+    lm = policy.model.language_model
+    heads = collections.Counter()
+    flash = qt.flash_attention
+
+    def spy(q, k, *args, **kwargs):
+        heads[(q.shape[1], k.shape[1])] += 1
+        return flash(q, k, *args, **kwargs)
+
+    with one_rank_nccl(device):
+        mesh = make_mesh({"dp": 1, "tp": 1})
+        layout = apply_serve_tp(lm, mesh.get_group("tp"))
+        split = sum(1 for d in layout.values() if d)
+        before = decode_stats()
+        warm, warm_s = decode_all()
+        warm_loop = decode_stats() - before
+        qt.flash_attention = spy
+        try:
+            reset_launch_counts()
+            before = decode_stats()
+            laid, laid_s = decode_all()
+            launches = launch_counts()
+            loop = decode_stats() - before
+        finally:
+            qt.flash_attention = flash
+    text = lm.cfg
+    for i, ((t0, l0, z0), (t1, l1, z1)) in enumerate(zip(whole + whole, warm + laid)):
+        if not (torch.equal(t0, t1) and torch.equal(l0, l1)):
+            raise AssertionError(f"serve tp: request {i}'s tokens differ from the unsharded "
+                                 f"decode: {t0.tolist()} / {l0.tolist()} vs {t1.tolist()} / "
+                                 f"{l1.tolist()}")
+        if not torch.equal(z0, z1):
+            raise AssertionError(f"serve tp: request {i}'s traj latents differ by "
+                                 f"{(z0 - z1).abs().max().item()}")
+    L = text.num_hidden_layers
+    if launches["K1"] != len(prompts) * L or dict(heads) != {
+            (text.num_attention_heads, text.num_key_value_heads): len(prompts) * L}:
+        raise AssertionError(f"serve tp: K1 launches {launches['K1']} on heads {dict(heads)}, "
+                             f"expected {len(prompts) * L} on ({text.num_attention_heads}, "
+                             f"{text.num_key_value_heads})")
+    if (not warm_loop["captures"] or loop["captures"] or not loop["replays"]
+            or any(launches[k] for k in ("K4", "K5", "K6a", "K6b", "K7"))):
+        raise AssertionError(f"serve tp: the warm pass captured {dict(warm_loop)}, the counted "
+                             f"pass ran {dict(loop)} (replays only), launches {launches} (no int8 "
+                             f"kernel)")
+    print(f"phase serve_tp: path=serve_tp mesh=dp1xtp1 backend=nccl world=1 "
+          f"split_params={split} local_heads=({text.num_attention_heads}, "
+          f"{text.num_key_value_heads}) prompts_T={[int(a[1].shape[1]) for a in prompts]} "
+          f"new_tokens={MAX_NEW_TOKENS} generated={[int(l[0]) for _, l, _ in laid]} "
+          f"tokens_equal=True latents_equal=True request_s={[round(x, 4) for x in laid_s]} "
+          f"unsharded_request_s={[round(x, 4) for x in whole_s]} "
+          f"warm_request_s={[round(x, 4) for x in warm_s]} warm_loop={dict(warm_loop)} "
+          f"k1_launches_local_heads={launches['K1']} k1_heads={dict(heads)} "
+          f"decode_loop={dict(loop)} launches={launches} gpu={gpu_line()!r}")
+    return {"serve_tp": launches}
 
 
 # ------------------------------------------------------------ checkpoint
@@ -2860,6 +3006,123 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
 #: 8.2e-6 was read on an H100; the phase also prints the same call with
 #: TF32 let into the towers' convolutions and into the products, which
 #: this limit is meant to catch
+#: the evaluate server phase: FakeEnv episodes, their step budget and frames
+SERVER_EPISODES = 2
+SERVER_MAX_STEP = 16
+SERVER_HW = 224
+SERVER_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
+
+
+def phase_evaluate_server(device, ckpt: Path) -> dict:
+    """The reference's client-server layout: `AgentServer` on a background
+    thread of this process (so that its launch counters are read here),
+    and `python scripts/torch/eval.py --config <cfg>` as a subprocess with
+    use_agent_server: the vln_batched evaluator over SERVER_EPISODES
+    FakeEnv episodes of data/fake_r2r (one stream, SERVER_HW frames, at
+    most SERVER_MAX_STEP steps) drives an `AgentClient`, whose /agent/init
+    makes the server build the "internvla_n1" agent (its defaults:
+    partial_async, System-2 on a background thread) from the native int8
+    checkpoint `ckpt` on the card (realtime: W8A8, int8 KV). Checks the
+    subprocess's exit, result.json's episodes and finite metrics, the
+    agent's device, each kernel of SERVER_KERNELS launched in the server
+    and no plain version called. Prints the agent's build seconds, the
+    steps it served and their actions/s (steps over the seconds from the
+    first step request's start to the last one's end). Returns the
+    launches of the run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.comm.server import AgentServer
+
+    out_dir = WORK_DIR / "evaluate_server"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    server = AgentServer("127.0.0.1", 0)
+    thread = server.run(background=True)
+    cfg = out_dir / "cfg.py"
+    cfg.write_text(
+        "from internnav_tpu_torch.configs import (AgentCfg, EnvCfg, EvalCfg, EvalDatasetCfg,\n"
+        "                                         TaskCfg)\n"
+        "eval_cfg = EvalCfg(\n"
+        f"    agent=AgentCfg(model_name='internvla_n1', ckpt_path={str(ckpt)!r},\n"
+        f"                   server_host='127.0.0.1', server_port={server.port},\n"
+        "                   model_settings={'profile': 'realtime'}),\n"
+        "    env=EnvCfg(env_type='fake', env_num=1,\n"
+        f"               env_settings={{'rgb_resolution': [{SERVER_HW}, {SERVER_HW}],\n"
+        f"                             'depth_resolution': [{SERVER_HW}, {SERVER_HW}]}}),\n"
+        f"    task=TaskCfg(max_step={SERVER_MAX_STEP}),\n"
+        f"    dataset=EvalDatasetCfg(base_data_dir={str(REPO / 'data' / 'fake_r2r')!r},\n"
+        f"                           max_episodes={SERVER_EPISODES}),\n"
+        f"    eval_type='vln_batched', output_dir={str(out_dir)!r}, use_agent_server=True)\n")
+    plain, stamps = collections.Counter(), []
+    init, step = server.init_agent, server.step_agent
+
+    def timed_init(agent_config):
+        t = time.perf_counter()
+        try:
+            return init(agent_config)
+        finally:
+            stamps.append(("init", t, time.perf_counter()))
+
+    def timed_step(name, payload):
+        t = time.perf_counter()
+        try:
+            return step(name, payload)
+        finally:
+            stamps.append(("step", t, time.perf_counter()))
+
+    server.init_agent, server.step_agent = timed_init, timed_step
+    spies = _plain_spies(plain)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "scripts" / "torch" / "eval.py"),
+                               "--config", str(cfg)], cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize(device)
+        launches = launch_counts()
+    finally:
+        _restore(spies)
+        server.shutdown()
+        thread.join(timeout=30)
+        for agent in server.agents.values():
+            agent.close()
+    (out_dir / "eval.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise AssertionError(f"evaluate server: eval.py exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    agent = server.agents.get("internvla_n1")
+    if agent is None or agent.policy.device.type != "cuda":
+        raise AssertionError(f"evaluate server: the server's agent is not on the card: {agent}")
+    with open(out_dir / "result.json") as f:
+        metrics = json.loads(f.read().splitlines()[-1])
+    values = [v for v in metrics.values() if isinstance(v, (int, float))]
+    if metrics.get("num_episodes") != SERVER_EPISODES or not np.isfinite(values).all():
+        raise AssertionError(f"evaluate server: result.json {metrics}")
+    missing = [k for k in SERVER_KERNELS if not launches[k]]
+    if missing or plain:
+        raise AssertionError(f"evaluate server: kernels {missing} never launched {launches}, "
+                             f"or plain versions ran on the card: {dict(plain)}")
+    steps = [(a, b) for kind, a, b in stamps if kind == "step"]
+    build_s = sum(b - a for kind, a, b in stamps if kind == "init")
+    serve_s = steps[-1][1] - steps[0][0]
+    del server, agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase evaluate_server: path=evaluate_server agent=internvla_n1 ckpt=native_int8 "
+          f"profile=realtime device=cuda episodes={int(metrics['num_episodes'])} "
+          f"max_step={SERVER_MAX_STEP} hw={SERVER_HW} steps={len(steps)} "
+          f"agent_build_s={build_s:.2f} serve_s={serve_s:.3f} "
+          f"actions_per_s={len(steps) / serve_s:.3f} "
+          f"step_request_s_mean={statistics.mean(b - a for a, b in steps):.4f} "
+          f"eval_wall_s={wall_s:.2f} metrics={json.dumps(metrics)} launches={launches} "
+          f"plain_calls=0 gpu={gpu_line()!r}")
+    return {"evaluate_server": launches}
+
+
 NAVDP_TOL = 1e-4
 #: grouped against per-cohort System-1: the same draws and inputs, cuBLAS
 #: at 48 streams' rows against 12 streams' (2.3e-5 read on an H100)
@@ -3457,10 +3720,7 @@ def phase_train_sharded(device, store, ckpt: Path, want: dict, train: dict) -> d
     micro-batch, the first step's lm_loss against the rows' forward-only
     token mean, the EMA after each step, the frozen tower and no plain
     version run; returns the two steps' launches."""
-    import socket
-
     import torch
-    import torch.distributed as dist
 
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.ops import flash_attention as fa
@@ -3484,113 +3744,110 @@ def phase_train_sharded(device, store, ckpt: Path, want: dict, train: dict) -> d
           f"accumulated micro-batch) + {ema_gib:.2f} (the bf16 EMA of {train['n_train']} "
           f"trainable) = {reckoned:.2f} GiB against {SHARDED_PEAK_LIMIT_GIB}; "
           f"{layer_gib:.2f} GiB a layer -> layers={L} gpu={gpu_line()!r}")
-    os.environ.setdefault("MASTER_ADDR", "127.0.0.1")
-    if not os.environ.get("MASTER_PORT"):
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            os.environ["MASTER_PORT"] = str(sock.getsockname()[1])
-    dist.init_process_group("nccl", rank=0, world_size=1, device_id=device)
     spies = []
-    try:
-        t0 = time.perf_counter()
-        trainer = build_trainer(device, ckpt, layers=L, want=want, grad_accum=2, use_ema=True,
-                                mesh={"axes": {"dp": 1, "tp": 1}, "param_sharding": "tp",
-                                      "fsdp_rest": True})
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        cfg, params = trainer.policy.cfg, trainer.params
-        q = params["language_model.layers.0.self_attn.q_proj.weight"]
-        vis = params["visual.blocks.0.qkv.weight"]
-        if not (is_dtensor(q) and q.device_mesh.mesh_dim_names == ("tp",)
-                and is_dtensor(vis) and vis.device_mesh.mesh_dim_names == ("dp",)):
-            raise AssertionError("phase train sharded: the layout is not tp + FSDP")
-        batch = packed_rows(store, TRAIN_LEN, 2)
-        prepared = trainer.prepare_batch(batch)
-        pieces = trainer.micro_batches(prepared)
-        if [p["input_ids"].shape[0] for p in pieces] != [1, 1]:
-            raise AssertionError("phase train sharded: the micro-batches are not one row each")
-        # each row's forward-only LM loss (sum, count) with the parameters before the step
-        sums, counts = [], []
-        with torch.no_grad():
-            for piece in pieces:
-                n = piece["draw_rows"]
-                zeros = (torch.zeros(n, dtype=torch.int32, device=device),
-                         torch.zeros(n, cfg.predict_step_nums, 3, device=device))
-                terms, _ = trainer._root(piece, zeros)
-                sums.append(float(terms["lm_loss"]))
-                counts.append(float(trainer.term_counts(piece)["lm_loss"]))
-        ref_lm = sum(sums) / sum(counts)
-        last = f"language_model.layers.{L - 1}.mlp.down_proj.weight"
-        names = {"layers[0].q_proj": "language_model.layers.0.self_attn.q_proj.weight",
-                 f"layers[{L - 1}].down_proj": last,
-                 "embed_tokens": "language_model.embed_tokens.weight",
-                 "lm_head": "language_model.lm_head.weight", "latent_queries": "latent_queries",
-                 "traj_dit.layers[0].linear_2": "traj_dit.layers.0.feed_forward.linear_2.weight",
-                 "action_decoder": "action_decoder.weight"}
-
-        def host(tensors):
-            return {k: local(t).detach().cpu() for k, t in tensors.items()}
-
-        p0 = host({k: params[n] for k, n in names.items()})
-        frozen0 = local(vis).detach().clone()
-        n_train = sum(local(p).numel() for p in params.values() if p.requires_grad)
-
-        plain = collections.Counter()
-        spies = _plain_spies(plain)
-        torch.cuda.reset_peak_memory_stats(device)
-        reset_launch_counts()
-        times, metrics, ema_err = [], [], 0.0
-        e1 = None
-        for step in (1, 2):
-            before = (fa.kernel_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
-            t = time.perf_counter()
-            m = trainer.train_step(prepared)
+    with one_rank_nccl(device):
+        try:
+            t0 = time.perf_counter()
+            trainer = build_trainer(device, ckpt, layers=L, want=want, grad_accum=2, use_ema=True,
+                                    mesh={"axes": {"dp": 1, "tp": 1}, "param_sharding": "tp",
+                                          "fsdp_rest": True})
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            got = (fa.kernel_launches - before[0], fa.bwd_dkv_launches - before[1],
-                   fa.bwd_dq_launches - before[2])
-            if got != (2 * 2 * L, 2 * L, 2 * L):
-                raise AssertionError(f"train sharded step {step}: (K1, K2, K3) = {got}, expected "
-                                     f"{(2 * L, L, L)} per micro-batch for 2 micro-batches")
-            metrics.append({k: float(v) for k, v in m.items()})
-            p_now = host({k: params[n] for k, n in names.items()})
-            ema = {k: trainer.ema[n].cpu() for k, n in names.items()}
-            if step == 1:
-                rel = abs(metrics[0]["lm_loss"] - ref_lm) / abs(ref_lm)
-                if rel > SHARDED_LOSS_RTOL:
-                    raise AssertionError(f"train sharded: step 1 lm_loss {metrics[0]['lm_loss']} "
-                                         f"against the rows' forward-only {ref_lm} (rel {rel})")
-                row_means = sum(a / c for a, c in zip(sums, counts)) / len(sums)
-                rel_rows = abs(metrics[0]["lm_loss"] - row_means) / abs(row_means)
-                if not rel_rows > SHARDED_LOSS_RTOL:
-                    raise AssertionError(f"train sharded: the mean of the rows' means {row_means} "
-                                         f"is within {SHARDED_LOSS_RTOL} of step 1's lm_loss "
-                                         f"(rel {rel_rows}): the hold cannot tell the token "
-                                         "mean from it")
-                same = [k for k in names if not torch.equal(ema[k], p_now[k])]
-                if same:
-                    raise AssertionError(f"train sharded: the EMA after step 1 (decay 0) differs "
-                                         f"from the parameters: {same}")
-                e1 = ema
-            else:
-                d = ema_decay(2)
-                for k in names:
-                    a, b = d * e1[k].float(), (1 - d) * p_now[k].float()
-                    err = ((ema[k].float() - (a + b)).abs() / (a.abs() + b.abs() + 1e-30)).max()
-                    ema_err = max(ema_err, float(err))
-                if not ema_err <= EMA_BF16_TOL:
-                    raise AssertionError(f"train sharded: the EMA after step 2 is {ema_err} off "
-                                         f"d·e + (1 − d)·p (d = {d})")
-                # the warmup schedule's first update is zero (lr read at count 0)
-                same = [k for k in names if torch.equal(p_now[k], p0[k])]
-                if same:
-                    raise AssertionError(f"train sharded: trainable parameters unchanged by "
-                                         f"step 2: {same}")
-        totals = launch_counts()
-        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    finally:
-        _restore(spies)
-        dist.destroy_process_group()
+            build_s = time.perf_counter() - t0
+            cfg, params = trainer.policy.cfg, trainer.params
+            q = params["language_model.layers.0.self_attn.q_proj.weight"]
+            vis = params["visual.blocks.0.qkv.weight"]
+            if not (is_dtensor(q) and q.device_mesh.mesh_dim_names == ("tp",)
+                    and is_dtensor(vis) and vis.device_mesh.mesh_dim_names == ("dp",)):
+                raise AssertionError("phase train sharded: the layout is not tp + FSDP")
+            batch = packed_rows(store, TRAIN_LEN, 2)
+            prepared = trainer.prepare_batch(batch)
+            pieces = trainer.micro_batches(prepared)
+            if [p["input_ids"].shape[0] for p in pieces] != [1, 1]:
+                raise AssertionError("phase train sharded: the micro-batches are not one row each")
+            # each row's forward-only LM loss (sum, count) with the parameters before the step
+            sums, counts = [], []
+            with torch.no_grad():
+                for piece in pieces:
+                    n = piece["draw_rows"]
+                    zeros = (torch.zeros(n, dtype=torch.int32, device=device),
+                             torch.zeros(n, cfg.predict_step_nums, 3, device=device))
+                    terms, _ = trainer._root(piece, zeros)
+                    sums.append(float(terms["lm_loss"]))
+                    counts.append(float(trainer.term_counts(piece)["lm_loss"]))
+            ref_lm = sum(sums) / sum(counts)
+            last = f"language_model.layers.{L - 1}.mlp.down_proj.weight"
+            names = {"layers[0].q_proj": "language_model.layers.0.self_attn.q_proj.weight",
+                     f"layers[{L - 1}].down_proj": last,
+                     "embed_tokens": "language_model.embed_tokens.weight",
+                     "lm_head": "language_model.lm_head.weight", "latent_queries": "latent_queries",
+                     "traj_dit.layers[0].linear_2":
+                         "traj_dit.layers.0.feed_forward.linear_2.weight",
+                     "action_decoder": "action_decoder.weight"}
+
+            def host(tensors):
+                return {k: local(t).detach().cpu() for k, t in tensors.items()}
+
+            p0 = host({k: params[n] for k, n in names.items()})
+            frozen0 = local(vis).detach().clone()
+            n_train = sum(local(p).numel() for p in params.values() if p.requires_grad)
+
+            plain = collections.Counter()
+            spies = _plain_spies(plain)
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            times, metrics, ema_err = [], [], 0.0
+            e1 = None
+            for step in (1, 2):
+                before = (fa.kernel_launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
+                t = time.perf_counter()
+                m = trainer.train_step(prepared)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                got = (fa.kernel_launches - before[0], fa.bwd_dkv_launches - before[1],
+                       fa.bwd_dq_launches - before[2])
+                if got != (2 * 2 * L, 2 * L, 2 * L):
+                    raise AssertionError(f"train sharded step {step}: (K1, K2, K3) = {got}, "
+                                         f"expected {(2 * L, L, L)} per micro-batch for 2 "
+                                         "micro-batches")
+                metrics.append({k: float(v) for k, v in m.items()})
+                p_now = host({k: params[n] for k, n in names.items()})
+                ema = {k: trainer.ema[n].cpu() for k, n in names.items()}
+                if step == 1:
+                    rel = abs(metrics[0]["lm_loss"] - ref_lm) / abs(ref_lm)
+                    if rel > SHARDED_LOSS_RTOL:
+                        raise AssertionError(f"train sharded: step 1 lm_loss "
+                                             f"{metrics[0]['lm_loss']} against the rows' "
+                                             f"forward-only {ref_lm} (rel {rel})")
+                    row_means = sum(a / c for a, c in zip(sums, counts)) / len(sums)
+                    rel_rows = abs(metrics[0]["lm_loss"] - row_means) / abs(row_means)
+                    if not rel_rows > SHARDED_LOSS_RTOL:
+                        raise AssertionError(f"train sharded: the mean of the rows' means "
+                                             f"{row_means} is within {SHARDED_LOSS_RTOL} of "
+                                             f"step 1's lm_loss (rel {rel_rows}): the hold "
+                                             "cannot tell the token mean from it")
+                    same = [k for k in names if not torch.equal(ema[k], p_now[k])]
+                    if same:
+                        raise AssertionError(f"train sharded: the EMA after step 1 (decay 0) "
+                                             f"differs from the parameters: {same}")
+                    e1 = ema
+                else:
+                    d = ema_decay(2)
+                    for k in names:
+                        a, b = d * e1[k].float(), (1 - d) * p_now[k].float()
+                        err = ((ema[k].float() - (a + b)).abs() / (a.abs() + b.abs() + 1e-30)).max()
+                        ema_err = max(ema_err, float(err))
+                    if not ema_err <= EMA_BF16_TOL:
+                        raise AssertionError(f"train sharded: the EMA after step 2 is {ema_err} "
+                                             f"off d·e + (1 − d)·p (d = {d})")
+                    # the warmup schedule's first update is zero (lr read at count 0)
+                    same = [k for k in names if torch.equal(p_now[k], p0[k])]
+                    if same:
+                        raise AssertionError(f"train sharded: trainable parameters unchanged by "
+                                             f"step 2: {same}")
+            totals = launch_counts()
+            peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+        finally:
+            _restore(spies)
     if plain:
         raise AssertionError(f"train sharded: plain versions ran on the card: {dict(plain)}")
     if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K6b_fused", "K7")):
@@ -3662,7 +3919,9 @@ def main() -> int:
     t0 = time.perf_counter()
     parity = serve.build_policy("parity", device=device)
     torch.cuda.synchronize()
-    by_path.update(phase_serve(device, "parity", parity, time.perf_counter() - t0))
+    prompts = []
+    by_path.update(phase_serve(device, "parity", parity, time.perf_counter() - t0,
+                               prompts=prompts))
     # the parity policy's bf16 weights as a checkpoint: the realtime and
     # evaluate paths and training start from it (HF layout) or from the
     # int8 policy loaded from it (native)
@@ -3670,7 +3929,10 @@ def main() -> int:
                                       for t in parity.model.state_dict().values()))
     try:
         hf = phase_checkpoint_write(parity, root)
-        del parity
+        lap("serve_checkpoint_write")
+        by_path.update(phase_serve_tp(device, parity, prompts))
+        lap("serve_tp")
+        del parity, prompts
         gc.collect()
         torch.cuda.empty_cache()
         realtime, load_s, realtime_digests = phase_checkpoint_load_realtime(device, hf)
@@ -3716,6 +3978,8 @@ def main() -> int:
         lap("evaluate")
         by_path.update(phase_evaluate_int4(device, native_int4, int4_digests))
         lap("evaluate_int4")
+        by_path.update(phase_evaluate_server(device, native))
+        lap("evaluate_server")
         # the NavDP System-1 at 7B: one realtime policy serves, is held
         # against the host, serves batched and evaluates
         navdp, navdp_paths = phase_serve_navdp(device)

@@ -1,11 +1,17 @@
 """InternVLA-N1 dual-system agents — System-2 planner + System-1 actor.
 
 Port of internnav_tpu/agent/internvla_n1_agent.py:
-- `InternVLAN1Agent` and its `S2Mailbox`: an optional background System-2
-  thread fed through a latest-wins mailbox, the 'partial_async'
-  re-planning schedule (the one every launcher and config uses), the
-  look-down protocol, and System-1 on the latent with the pixel-goal
-  memory frame + current frame;
+- `InternVLAN1Agent` (registered "internvla_n1", built from an `AgentCfg`
+  as the JAX agent is, its policy by `_build_n1_policy` unless one is
+  handed in) and its `S2Mailbox`: an optional background System-2 thread
+  fed through a latest-wins mailbox, the 'partial_async' and 'sync'
+  re-planning schedules, the look-down protocol, and System-1 on the
+  latent with the pixel-goal memory frame + current frame. The System-2
+  thread and `step`'s System-1 take turns on the policy (`policy_lock`):
+  one policy on the card has one set of decode buffers and graphs, and
+  the agent server runs each request on a thread of its own. A plan still
+  in flight when the episode is reset is dropped when it arrives (each
+  request carries its episode's number);
 - `BatchedInternVLAN1Agent` (registered "internvla_n1_batched"): B episode
   slots stepped through one batched System-2 call and one batched System-1
   denoise a macro-step (`serving.BatchedN1Policy`), with the JAX agent's
@@ -20,14 +26,15 @@ Port of internnav_tpu/agent/internvla_n1_agent.py:
 Deviation: the JAX agent turns any exception in System-2 into a STOP
 action, which hides a kernel or device failure. Here an exception raised
 by `s2_step` — in the background thread or inline — is re-raised by
-`step()`, so the caller (e.g. the HTTP server, as a 500) sees it.
+`step()`, so the caller (e.g. the HTTP server, as a 500) sees it; the
+agent serves the next step.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +45,8 @@ from internnav_tpu_torch.model.utils.vln_utils import S2Input, S2Output
 
 LOOK_DOWN_ACTION = 5
 S2Result = Union[S2Output, Exception]
+#: (the request's episode number, its result): what the System-2 thread publishes
+S2Published = Tuple[int, S2Result]
 
 
 def _build_n1_policy(cfg: AgentCfg, settings: Dict[str, Any]):
@@ -70,7 +79,7 @@ class S2Mailbox:
 
     def __init__(self):
         self._req: "queue.Queue[S2Input]" = queue.Queue(maxsize=1)
-        self._res: "queue.Queue[S2Result]" = queue.Queue(maxsize=1)
+        self._res: "queue.Queue[S2Published]" = queue.Queue(maxsize=1)
 
     @staticmethod
     def _replace(q: queue.Queue, item) -> None:
@@ -89,44 +98,67 @@ class S2Mailbox:
         except queue.Empty:
             return None
 
-    def publish(self, out: S2Result) -> None:
+    def publish(self, out: S2Published) -> None:
         self._replace(self._res, out)
 
-    def poll(self) -> Optional[S2Result]:
+    def poll(self) -> Optional[S2Published]:
         try:
             return self._res.get_nowait()
         except queue.Empty:
             return None
 
-    def wait(self) -> S2Result:
+    def wait(self) -> S2Published:
         return self._res.get()
 
 
-class InternVLAN1Agent:
+@Agent.register("internvla_n1")
+class InternVLAN1Agent(Agent):
     """Single-stream dual-system agent over an `InternVLAN1Policy`.
 
-    async_s2: System-2 runs in a background thread (the robot keeps acting
-    on queued actions meanwhile) or inline. sys2_max_forward_step: actions
-    executed per System-2 plan before re-planning."""
+    cfg.model_settings (the JAX agent's keys and defaults): infer_mode
+    ("partial_async": re-plan when sys2_max_forward_step actions ran since
+    the last plan or nothing is left to run; "sync": whenever the action
+    queue is empty), sys2_max_forward_step (8), max_local_steps (actions
+    taken from one System-1 call, 4), depth_scale (raw depth units →
+    metres, 10.0), depth_clip_m (5.0), continuous_traj (True: actions from
+    the mean trajectory; False: one sampled trajectory's chunks), async_s2
+    (True: System-2 in a background thread while the robot runs its queued
+    actions), and those of `_build_n1_policy` where no policy is given."""
 
-    MAX_LOCAL_STEPS = 4     # actions taken from one System-1 call
-    DEPTH_SCALE = 10.0      # raw depth units → metres
-    DEPTH_CLIP_M = 5.0
-
-    def __init__(self, policy, *, async_s2: bool = True, sys2_max_forward_step: int = 8):
+    def __init__(self, cfg: AgentCfg, policy=None):
+        super().__init__(cfg)
+        settings = cfg.model_settings or {}
+        if policy is None:
+            policy = _build_n1_policy(cfg, settings)
         self.policy = policy
-        self.async_s2 = async_s2
-        self.sys2_max_forward_step = sys2_max_forward_step
+        self.mode = settings.get("infer_mode", "partial_async")
+        if self.mode not in ("partial_async", "sync"):
+            raise ValueError(f"unknown infer_mode {self.mode!r}")
+        self.sys2_max_forward_step = int(settings.get("sys2_max_forward_step", 8))
+        self.max_local_steps = int(settings.get("max_local_steps", 4))
+        self.depth_scale = float(settings.get("depth_scale", 10.0))
+        self.depth_clip_m = float(settings.get("depth_clip_m", 5.0))
+        self.continuous_traj = bool(settings.get("continuous_traj", True))
+        self.async_s2 = bool(settings.get("async_s2", True))
         self.mailbox = S2Mailbox()
+        self.policy_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self.reset()
         if self.async_s2:
             self._start_s2_thread()
 
+    @classmethod
+    def with_policy(cls, policy, **settings) -> "InternVLAN1Agent":
+        """The agent over a built policy, with these model_settings."""
+        return cls(AgentCfg(model_name="internvla_n1", model_settings=settings), policy)
+
     # ------------------------------------------------------------ lifecycle
-    def reset(self) -> None:
-        self.policy.reset()
+    def reset(self, reset_index: Optional[List[int]] = None) -> None:
+        """A new episode (the one stream; reset_index is the evaluators'
+        argument)."""
+        with self.policy_lock:
+            self.policy.reset()
         self.action_queue: List[int] = []
         self.latent = None
         self.last_trajectory: Optional[np.ndarray] = None
@@ -134,6 +166,7 @@ class InternVLAN1Agent:
         self.steps_since_s2 = 0
         self.pending_s2 = False
         self.force_look_down = False
+        self._episode = getattr(self, "_episode", -1) + 1
 
     def close(self) -> None:
         self._stop.set()
@@ -150,25 +183,39 @@ class InternVLAN1Agent:
                     out: S2Result = self._infer_s2(req)
                 except Exception as e:  # handed to step(), which re-raises it
                     out = e
-                self.mailbox.publish(out)
+                self.mailbox.publish((req.idx, out))
 
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
     # -------------------------------------------------------------- helpers
     def _infer_s2(self, req: S2Input) -> S2Output:
-        return self.policy.s2_step(req.rgb, req.instruction, look_down=req.look_down)
+        with self.policy_lock:
+            return self.policy.s2_step(req.rgb, req.instruction, look_down=req.look_down)
+
+    def _take_s2(self, block: bool) -> Optional[S2Result]:
+        """This episode's System-2 result from the mailbox (waiting for it
+        with block), or None; a result of an earlier episode is dropped."""
+        while True:
+            got = self.mailbox.wait() if block else self.mailbox.poll()
+            if got is None:
+                return None
+            idx, res = got
+            if idx == self._episode:
+                return res
 
     def should_infer_s2(self) -> bool:
         if self.force_look_down:
             return True
+        if self.mode == "sync":
+            return len(self.action_queue) == 0
         # re-plan when the budget is spent or nothing is queued
         return (self.steps_since_s2 >= self.sys2_max_forward_step
                 or (len(self.action_queue) == 0 and self.latent is None))
 
     def _preprocess_depth(self, depth: np.ndarray) -> np.ndarray:
-        d = np.asarray(depth, np.float32) * self.DEPTH_SCALE
-        return np.clip(d, 0.0, self.DEPTH_CLIP_M)
+        d = np.asarray(depth, np.float32) * self.depth_scale
+        return np.clip(d, 0.0, self.depth_clip_m)
 
     def _consume_s2(self, out: S2Result, obs: Dict[str, Any]) -> None:
         if isinstance(out, Exception):
@@ -195,19 +242,24 @@ class InternVLAN1Agent:
             if d.ndim == 2:
                 d = d[..., None]
             depth2 = np.stack([d, d])[None]
-        s1 = self.policy.s1_step_latent(np.stack([mem, rgb])[None], depth2, self.latent)
+        with self.policy_lock:
+            s1 = self.policy.s1_step_latent(np.stack([mem, rgb])[None], depth2, self.latent,
+                                            continuous_traj=self.continuous_traj)
         self.last_trajectory = s1.trajectory
-        self.action_queue.extend(s1.idx[: self.MAX_LOCAL_STEPS])
+        self.action_queue.extend(s1.idx[: self.max_local_steps])
 
     # ------------------------------------------------------------------ api
     def step(self, obs: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         if len(obs) != 1:
             raise ValueError(f"the dual-system agent is single-stream, got {len(obs)} observations")
         o = obs[0]
+        instruction = o.get("instruction_text") or o.get("instruction", "")
+        if not isinstance(instruction, str):
+            instruction = " ".join(map(str, np.asarray(instruction).ravel().tolist()))
         if self.should_infer_s2():
             req = S2Input(rgb=np.asarray(o["rgb"]), depth=o.get("depth"),
-                          instruction=o.get("instruction_text", ""),
-                          look_down=self.force_look_down)
+                          instruction=instruction, look_down=self.force_look_down,
+                          idx=self._episode)
             self.force_look_down = False
             if self.async_s2:
                 self.mailbox.submit(req)
@@ -217,10 +269,7 @@ class InternVLAN1Agent:
 
         if self.async_s2 and self.pending_s2:
             # block only when there is nothing else to execute
-            if not self.action_queue and self.latent is None:
-                res = self.mailbox.wait()
-            else:
-                res = self.mailbox.poll()
+            res = self._take_s2(block=not self.action_queue and self.latent is None)
             if res is not None:
                 self.pending_s2 = False
                 self._consume_s2(res, o)
@@ -230,7 +279,7 @@ class InternVLAN1Agent:
 
         action = self.action_queue.pop(0) if self.action_queue else 0
         self.steps_since_s2 += 1
-        out: Dict[str, Any] = {"action": [int(action)]}
+        out: Dict[str, Any] = {"action": [int(action)], "ideal_flag": True}
         if self.last_trajectory is not None:
             out["trajectory"] = self.last_trajectory
         return [out]

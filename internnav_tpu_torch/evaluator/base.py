@@ -8,8 +8,9 @@ Distribution goes through `torch.distributed`: episodes are sharded per
 process (rank::world_size) and the per-episode metrics are gathered as
 JSON with `all_gather_object` when the process group has more than one
 rank. Without an initialised process group the evaluator is one process:
-rank 0 of 1, and the gather returns the local list. The agent server
-(`use_agent_server`) is not ported yet and raises.
+rank 0 of 1, and the gather returns the local list. With
+`use_agent_server` the agent is an `AgentClient` of the agent server at
+cfg.agent's host and port (`comm/`, `scripts/torch/start_server.py`).
 """
 
 from __future__ import annotations
@@ -48,9 +49,11 @@ class Evaluator:
             self.env = Env.init(cfg.env, cfg.task)
         if self.agent is None:
             if cfg.use_agent_server:
-                raise NotImplementedError("the remote agent server (comm.client.AgentClient) is "
-                                          "not yet ported (ROADMAP §1 item 7)")
-            self.agent = Agent.init(cfg.agent)
+                from internnav_tpu_torch.comm.client import AgentClient
+
+                self.agent = AgentClient(cfg.agent)
+            else:
+                self.agent = Agent.init(cfg.agent)
 
     register = staticmethod(evaluator_registry.register)
 

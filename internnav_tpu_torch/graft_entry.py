@@ -14,7 +14,8 @@ runs the same weights; `params=` loads a JAX-layout parameter tree instead
 (`model/weights/from_jax`). `entry(device="cpu")` runs the plain versions
 on the host (the tests); without a device it asks for the GPU and raises
 without one. `dryrun_multichip(n)` trains one step of the tiny policy
-sharded over n gloo CPU processes.
+sharded over n gloo CPU processes, then greedy-decodes with its decoder
+laid out for serving over a dp x tp mesh of the same processes.
 """
 
 from __future__ import annotations
@@ -83,16 +84,22 @@ def entry(device=None, *, dtype: torch.dtype = torch.bfloat16,
 # ------------------------------------------------------------ multichip
 def dryrun_multichip(n_devices: int = 8, *, spec: Optional[Mapping[str, Any]] = None,
                      timeout: float = 600.0) -> dict:
-    """One N1 training step of the tiny policy on `n_devices` gloo CPU
-    processes, the training half of `__graft_entry__.dryrun_multichip`: a
-    dp × tp mesh (tp=2 where n_devices is even, else pure dp), param_sharding
-    "tp" with fsdp_rest, one packed batch of the synthetic SFT store, and
-    the production trainer. Prints and returns rank 0's metrics.
+    """`__graft_entry__.dryrun_multichip` on `n_devices` gloo CPU processes.
+    Phase 1: one N1 training step of the tiny policy on a dp × tp mesh
+    (tp=2 where n_devices is even, else pure dp), param_sharding "tp" with
+    fsdp_rest, one packed batch of the synthetic SFT store, and the
+    production trainer. Phase 2, serving: the same processes lay the tiny
+    policy's decoder out for serving on a dp × tp mesh of that shape
+    (`parallel/tp.apply_serve_tp`) and greedy-decode B = 2·dp rows of T =
+    24 random ids (`RandomState(0)`, as JAX's phase), 4 new tokens, EOS
+    (3,), each dp group its own rows. Prints both and returns rank 0's
+    metrics, with "serve": the tokens (B, 4) and lengths (B,) of every
+    row, gathered on rank 0.
 
     `spec` overrides the run (the CPU tests): "mesh" (MeshCfg fields),
     "il" (IlCfg fields), "state" (a state-dict file for the tiny fp32
-    model), "batch" (a pickled raw packed batch), "draws" (train_step's
-    System-1 draws), "output_dir" and "resume" (restore the newest
+    model, which both phases start from), "batch" (a pickled raw packed
+    batch), "draws" (train_step's System-1 draws), "output_dir" and "resume" (restore the newest
     checkpoint there first), "save" (write a checkpoint after the step)
     and "gather" (return the gathered parameters and optimizer state).
     The workers are this module's: a child imports neither the caller's
@@ -132,6 +139,8 @@ def dryrun_multichip(n_devices: int = 8, *, spec: Optional[Mapping[str, Any]] = 
     print("dryrun_multichip ok:", {k: round(v, 4) for k, v in result["metrics"].items()},
           f"(mesh {m['axes']}, param_sharding={m.get('param_sharding', 'replicated')}"
           f"{'+fsdp_rest' if m.get('fsdp_rest') else ''}, gloo x {n_devices})")
+    print("dryrun_multichip serving ok:", tuple(result["serve"]["tokens"].shape),
+          f"(greedy decode dp={n_devices // tp} x tp={tp})")
     return result
 
 
@@ -144,6 +153,7 @@ def _dryrun_worker(rank: int, world: int, port: int, spec: Mapping[str, Any], ou
                             world_size=world)
     try:
         result = _dryrun_step(spec, tmp)
+        result["serve"] = _dryrun_serve(spec)
         if rank == 0:
             torch.save(result, out)
     finally:
@@ -154,19 +164,11 @@ def _dryrun_step(spec: Mapping[str, Any], tmp: str) -> dict:
     import pickle
 
     from internnav_tpu_torch.configs.trainer import ExpCfg, MeshCfg
-    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import (
-        InternVLAN1Policy,
-        build_model,
-    )
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
     from internnav_tpu_torch.trainer.internvla_n1_trainer import InternVLAN1Trainer
 
     cfg = InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
-    model = build_model(cfg, device="cpu")
-    if "state" in spec:
-        model.load_state_dict(torch.load(spec["state"], weights_only=True))
-    else:
-        model = InternVLAN1Policy.build(cfg, device="cpu").model
-    policy = InternVLAN1Policy(model)
+    policy = InternVLAN1Policy(_dryrun_model(spec, cfg))
     if "batch" in spec:
         with open(spec["batch"], "rb") as f:
             batch = pickle.load(f)
@@ -187,6 +189,52 @@ def _dryrun_step(spec: Mapping[str, Any], tmp: str) -> dict:
     if spec.get("gather"):
         result["state"] = trainer.full_state()
     return result
+
+
+def _dryrun_model(spec: Mapping[str, Any], cfg: InternVLAN1Config):
+    """The tiny fp32 model on the host: spec["state"]'s weights, else the
+    seed-0 build (the same on every process)."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import (
+        InternVLAN1Policy,
+        build_model,
+    )
+
+    if "state" not in spec:
+        return InternVLAN1Policy.build(cfg, device="cpu").model
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(torch.load(spec["state"], weights_only=True))
+    return model
+
+
+def _dryrun_serve(spec: Mapping[str, Any]) -> dict:
+    """Phase 2 on this process: the tiny decoder laid out for serving over
+    a dp × tp mesh of every process (tp=2 where their number is even),
+    this dp group's rows decoded; every row's tokens and lengths gathered,
+    in row order."""
+    import torch.distributed as dist
+
+    from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import greedy_generate
+    from internnav_tpu_torch.parallel.mesh import make_mesh, rank_of, row_bounds
+    from internnav_tpu_torch.parallel.tp import apply_serve_tp
+
+    cfg = InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
+    lm = _dryrun_model(spec, cfg).language_model
+    world = dist.get_world_size()
+    tp = 2 if world % 2 == 0 else 1
+    mesh = make_mesh({"dp": world // tp, "tp": tp})
+    apply_serve_tp(lm, mesh.get_group("tp"))
+    dp, dp_rank = world // tp, rank_of(mesh, "dp")
+    B, T = 2 * dp, 24
+    ids = np.random.RandomState(0).randint(0, cfg.text.vocab_size, (B, T))
+    a, b = row_bounds(B, dp, dp_rank)
+    pos = torch.arange(T)[None, None].expand(3, b - a, T)
+    with torch.inference_mode():
+        tokens, lengths, _ = greedy_generate(lm, lm.embed(torch.from_numpy(ids[a:b])), pos,
+                                             max_new_tokens=4, eos_token_ids=(3,))
+    parts = [None] * world
+    dist.all_gather_object(parts, (dp_rank, rank_of(mesh, "tp"), tokens, lengths))
+    rows = sorted((p for p in parts if p[1] == 0), key=lambda p: p[0])
+    return {"tokens": torch.cat([p[2] for p in rows]), "lengths": torch.cat([p[3] for p in rows])}
 
 
 def _synthetic_batch(policy, cfg, tmp: str) -> dict:

@@ -35,6 +35,14 @@ length; the traj-latent chunk writes its n_query slots from prompt_length
 + length on before it attends to them, and no query attends past its own
 slot, so a slot written past the end is overwritten or never read.
 
+Under the serving layout (`parallel/tp.apply_serve_tp`) a step holds the
+tp group's collectives: the row-parallel all-reduces and the vocab
+argmax's two (`QwenTextModel.greedy_token`), so every rank of the group
+feeds the same tokens and stops at the same chunk. A captured step holds
+NCCL's launches and its replays run them (held bitwise against the
+unsharded loop on the card at world size 1); gloo, on the CPU, runs the
+step eagerly.
+
 Launch counts: a captured launch does not run, so the kernel wrappers'
 counters are put back after a capture, and each replay adds the launches
 its graph captured, so that the counters still count launches on the
@@ -152,7 +160,7 @@ class DecodeLoop:
                                                  [g.entries for g in self.groups], lens,
                                                  compute_logits=False)
         if logits:
-            nxt = model._logits(hidden, decode=True).argmax(-1)
+            nxt = model.greedy_token(model._logits(hidden, decode=True))
             self.tokens.scatter_(1, idx + 1, torch.where(done, self.eos[0], nxt)[:, None])
         self.step.add_(1)
 
@@ -297,10 +305,11 @@ class DecodeBuffers:
              eos_token_ids: Sequence[int], *, eager: bool = False) -> DecodeLoop:
         """The loop over these cache groups (by identity), made (and on CUDA
         captured) when missing. The key holds the model's weight and decode
-        formats: a captured step launches the kernels of the format it was
-        captured in."""
+        formats and its serving layout's tp group: a captured step launches
+        the kernels and collectives it was captured with."""
         key = (tuple(id(g) for g in groups), int(max_new_tokens), tuple(eos_token_ids),
-               bool(eager), id(model), model.cfg.weight_dtype, model.cfg.decode_act_dtype)
+               bool(eager), id(model), model.cfg.weight_dtype, model.cfg.decode_act_dtype,
+               id(model.tp_group))
         hit = self._loops.pop(key, None)
         if hit is None:
             while len(self._loops) >= MAX_LOOPS:

@@ -68,6 +68,7 @@ from internnav_tpu_torch.model.utils.tokenization import has_tokenizer_files, lo
 from internnav_tpu_torch.model.utils.vln_utils import (
     S1Output,
     S2Output,
+    chunk_token,
     parse_actions,
     split_and_clean,
     traj_to_actions,
@@ -576,7 +577,7 @@ class InternVLAN1Policy:
         logits, _, _ = self.model.language_model(
             embeds, pos_ids, segment_ids=prompt_seg, logits_indices=prompt_len - 1,
             caches_out=caches.entries)
-        return logits[:, 0].argmax(-1)
+        return self.model.language_model.greedy_token(logits[:, 0])
 
     @torch.inference_mode()
     def grouped_tail(self, groups: List[StaticCaches], first_tok, rope_deltas, prompt_len,
@@ -612,13 +613,17 @@ class InternVLAN1Policy:
     @torch.inference_mode()
     def s1_step_latent(self, rgb: np.ndarray, depth: Optional[np.ndarray], latent,
                        num_sample_trajs: int = 32, x_init: Optional[torch.Tensor] = None,
-                       step_noises: Optional[torch.Tensor] = None) -> S1Output:
+                       step_noises: Optional[torch.Tensor] = None,
+                       continuous_traj: bool = True) -> S1Output:
         """rgb (B, 2, H, W, 3) [memory frame, current]; depth (B, 2, H, W, 1)
         or None (NavDP's async head needs it); latent from `s2_step`. x_init
         (B·num_sample_trajs, P, 3; NavDP: the first stream's
         num_sample_trajs rows) is the denoise's starting noise and
         step_noises (steps, rows, P, 3) NavDP's ancestral noise, each drawn
-        from the policy's generator when None, x_init first."""
+        from the policy's generator when None, x_init first. The actions:
+        with continuous_traj those of the mean trajectory
+        (`traj_to_actions`), else the chunks of one trajectory drawn from
+        the policy's generator (`chunk_token`), as the JAX policy does."""
         cfg = self.cfg
         navdp = "navdp" in cfg.system1
         if navdp and "async" in cfg.system1 and depth is None:
@@ -646,5 +651,11 @@ class InternVLAN1Policy:
             traj = self.model.generate_traj_nextdit(latent, images, x_init=x_init,
                                                     num_sample_trajs=num_sample_trajs)
         dp = traj.float().cpu().numpy()
-        action_list = [a for a in traj_to_actions(dp) if a != 0]
+        if continuous_traj:
+            action_list = traj_to_actions(dp)
+        else:
+            choice = int(torch.randint(dp.shape[0], (1,), generator=self._generator,
+                                       device=self.device)[0])
+            action_list = chunk_token(dp[choice])
+        action_list = [a for a in action_list if a != 0]
         return S1Output(idx=action_list[:4], trajectory=dp)

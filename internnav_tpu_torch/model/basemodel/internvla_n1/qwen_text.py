@@ -50,6 +50,13 @@ cross-entropy (`chunked_ce`).
   lm_head by vocab rows. The attention takes its head counts from the
   local q/k widths (K1-K3 see whole local heads, the GQA ratio kept), and
   `ce_sum` reduces a vocab-split cross-entropy over the group.
+- Tensor-parallel serving (`parallel/tp.apply_serve_tp`) holds the same
+  splits as plain local tensors: the attention and the MLP all-reduce
+  o_proj's and down_proj's partial sums over the model's `tp_group`, the
+  embedding looks up its vocab rows and all-reduces, and `greedy_token`
+  takes the argmax over the vocab-split lm_head across the group, ties to
+  the lowest id as `jnp.argmax`. The config's head counts are the rank's,
+  so the static caches hold its KV heads.
 """
 
 from __future__ import annotations
@@ -94,7 +101,12 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.decode_graph import (
     StaticCaches,
 )
 from internnav_tpu_torch.ops.rope import apply_rotary, mrope_cos_sin, rope_cos_sin
-from internnav_tpu_torch.parallel.collectives import pmax, psum_forward
+from internnav_tpu_torch.parallel.collectives import (
+    all_reduce_sum_,
+    pmax,
+    psum_forward,
+    vocab_argmax,
+)
 
 #: a cache entry: bf16 (B, T, KV, D), or (int8 (B, T, KV, D), fp32 scale
 #: (B, T, KV, 1)) with kv_dtype="int8"
@@ -337,6 +349,10 @@ def _proj(cfg: QwenTextConfig, in_features: int, out_features: int, bias: bool,
 
 
 class QwenAttention(nn.Module):
+    #: the serving layout's tp group when o_proj holds a block of its input
+    #: columns: its partial sums are all-reduced over it
+    tp_group = None
+
     def __init__(self, cfg: QwenTextConfig):
         super().__init__()
         self.cfg = cfg
@@ -389,7 +405,8 @@ class QwenAttention(nn.Module):
             out = outs[0] if len(outs) == 1 else torch.cat(outs)
             out = project(out.transpose(1, 2).reshape(B, n, H * D), self.o_proj,
                           bf16_act=bf16_act)[0]
-            return out, (kv_cache if kv_cache is not None else cache_groups)
+            return all_reduce_sum_(out, self.tp_group), (
+                kv_cache if kv_cache is not None else cache_groups)
         q = q.reshape(B, n, H, D).transpose(1, 2)
         k = k.reshape(B, n, KV, D).transpose(1, 2)
         v = v.reshape(B, n, KV, D)
@@ -410,7 +427,7 @@ class QwenAttention(nn.Module):
         else:
             new_cache = (k, v)
         out = out.transpose(1, 2).reshape(B, n, H * D)
-        return self.o_proj(out), new_cache
+        return all_reduce_sum_(self.o_proj(out), self.tp_group), new_cache
 
     def _cached_attention(self, q, k, v, cos, sin, cache: KVCache, cache_len):
         """Attention of one cache group: q (B, n, H D), k/v (B, n, KV D)
@@ -467,6 +484,10 @@ def _cache_kvtd(entry: CacheEntry):
 
 
 class QwenMLP(nn.Module):
+    #: the serving layout's tp group when down_proj holds a block of its
+    #: input columns
+    tp_group = None
+
     def __init__(self, cfg: QwenTextConfig):
         super().__init__()
         E, I = cfg.hidden_size, cfg.intermediate_size
@@ -481,8 +502,10 @@ class QwenMLP(nn.Module):
         `silu_mul` (K8), taken as it is by down_proj."""
         gate, up = project(x, self.gate_proj, self.up_proj, bf16_act=bf16_act)
         if isinstance(self.down_proj, QuantLinear) and not bf16_act:
-            return project(QuantizedRows(*swiglu_quantize(gate, up)), self.down_proj)[0]
-        return project(silu_mul(gate, up), self.down_proj, bf16_act=bf16_act)[0]
+            out = project(QuantizedRows(*swiglu_quantize(gate, up)), self.down_proj)[0]
+        else:
+            out = project(silu_mul(gate, up), self.down_proj, bf16_act=bf16_act)[0]
+        return all_reduce_sum_(out, self.tp_group)
 
 
 class QwenDecoderLayer(nn.Module):
@@ -518,6 +541,13 @@ class QwenTextModel(nn.Module):
     """Decoder trunk. forward = prefill; `decode_step` / `decode_chunk` =
     cached decode."""
 
+    #: the serving layout (`parallel/tp.apply_serve_tp`): its tp group, and
+    #: the first vocab id of this rank's embedding rows and lm_head rows
+    #: where those are split; None when the model is whole
+    tp_group = None
+    embed_start: Optional[int] = None
+    head_start: Optional[int] = None
+
     def __init__(self, cfg: QwenTextConfig):
         super().__init__()
         self.cfg = cfg
@@ -528,7 +558,23 @@ class QwenTextModel(nn.Module):
                         else _proj(cfg, cfg.hidden_size, cfg.vocab_size, False, "lm_head"))
 
     def embed(self, input_ids):
-        return self.embed_tokens(input_ids.long())
+        ids = input_ids.long()
+        if self.embed_start is None:
+            return self.embed_tokens(ids)
+        # this rank's vocab rows; the other ranks' ids look up exact zeros
+        local = ids - self.embed_start
+        mine = (local >= 0) & (local < self.embed_tokens.num_embeddings)
+        rows = self.embed_tokens(torch.where(mine, local, 0))
+        return all_reduce_sum_(torch.where(mine[..., None], rows, 0), self.tp_group)
+
+    def greedy_token(self, logits):
+        """The greedy next token of logits (..., vocab): the argmax over the
+        whole vocab, the lowest id among ties (`jnp.argmax`). Under the
+        serving layout logits holds this rank's vocab columns (`_logits` of
+        a split lm_head), and the argmax runs across the tp group."""
+        if self.head_start is None:
+            return logits.argmax(-1)
+        return vocab_argmax(logits, self.head_start, self.tp_group)
 
     def _cos_sin(self, position_ids):
         """Rotary tables: M-RoPE for (3, B, T) t/h/w position ids, 1-D RoPE
@@ -576,8 +622,9 @@ class QwenTextModel(nn.Module):
         return logits, hidden, caches
 
     def _logits(self, hidden, *, decode: bool = False):
-        """fp32 logits of the final norm's rows; at a decode step (`decode`)
-        under decode_act_dtype="bf16" the lm_head runs W8A16 (K10)."""
+        """fp32 logits of the final norm's rows (this rank's vocab columns
+        under the serving layout); at a decode step (`decode`) under
+        decode_act_dtype="bf16" the lm_head runs W8A16 (K10)."""
         if self.lm_head is None:  # tied: never quantized, as in the JAX package
             return hidden.float() @ self.embed_tokens.weight.float().T
         return project(hidden, self.lm_head,
@@ -779,7 +826,7 @@ def quantize_qwen_text_(model: QwenTextModel, group_size: Optional[int] = None,
 
 @torch.no_grad()
 def greedy_generate(model: QwenTextModel, inputs_embeds, position_ids, *,
-                    rope_deltas, prompt_lengths, segment_ids,
+                    rope_deltas=None, prompt_lengths=None, segment_ids=None,
                     max_new_tokens: int = 128,
                     eos_token_ids: Tuple[int, ...] = (151645,),
                     extra_cache_slots: int = 0):
@@ -793,7 +840,9 @@ def greedy_generate(model: QwenTextModel, inputs_embeds, position_ids, *,
     real lengths and `segment_ids` put the pads in their own segment, so
     decoding starts from the last real token and new tokens overwrite the
     pad cache slots — the result equals the unpadded run. rope_deltas (B,)
-    is the M-RoPE decode offset (position = length + delta + step).
+    is the M-RoPE decode offset (position = length + delta + step). Their
+    defaults are the JAX function's: the delta of (3, B, T) positions
+    (max + 1 - T; 0 for (B, T) ones), every row T long, one segment.
 
     The prefill writes into static caches of T + max_new_tokens +
     extra_cache_slots slots made for this call, and the loop runs through
@@ -802,12 +851,17 @@ def greedy_generate(model: QwenTextModel, inputs_embeds, position_ids, *,
     (`InternVLAN1Policy.prefill_s2` and `grouped_tail` on its
     `DecodeBuffers`)."""
     B, T, _ = inputs_embeds.shape
-    caches = StaticCaches(model.cfg, B, T + max_new_tokens + extra_cache_slots,
-                          inputs_embeds.device)
+    dev = inputs_embeds.device
+    if rope_deltas is None:
+        rope_deltas = (position_ids.amax(dim=(0, 2)) + 1 - T if position_ids.dim() == 3
+                       else torch.zeros(B, dtype=torch.long, device=dev))
+    if prompt_lengths is None:
+        prompt_lengths = torch.full((B,), T, dtype=torch.long, device=dev)
+    caches = StaticCaches(model.cfg, B, T + max_new_tokens + extra_cache_slots, dev)
     logits, _, _ = model(inputs_embeds, position_ids, segment_ids=segment_ids,
                          logits_indices=prompt_lengths.long() - 1, caches_out=caches.entries)
     loop = DecodeLoop(model, [caches], max_new_tokens, eos_token_ids)
-    tokens, lengths = loop.run(logits[:, 0].argmax(-1), prompt_lengths, rope_deltas)
+    tokens, lengths = loop.run(model.greedy_token(logits[:, 0]), prompt_lengths, rope_deltas)
     return tokens, lengths, caches.entries
 
 

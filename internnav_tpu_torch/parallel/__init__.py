@@ -1,6 +1,7 @@
 """Data, FSDP and tensor parallelism of the port on torch.distributed
 (the JAX package's `parallel/`): collectives, the device mesh and its
-placement rules, FSDP2 and the Megatron tensor-parallel plan."""
+placement rules, FSDP2, and the Megatron tensor-parallel plan for
+training (DTensors) and for serving (`tp.apply_serve_tp`: local shards)."""
 
 from internnav_tpu_torch.parallel.collectives import (
     all_reduce_mean,

@@ -135,3 +135,31 @@ def pmax(x: torch.Tensor, group) -> torch.Tensor:
     y = x.detach().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
+
+
+def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over `group` in place (the serving layout's row-parallel
+    projections and vocab-split embedding); x itself where group is None."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+#: an id above every vocabulary: the losing ranks' candidate in `vocab_argmax`
+_NO_ID = 2**62
+
+
+def vocab_argmax(logits: torch.Tensor, start: int, group) -> torch.Tensor:
+    """The argmax over the last dim of logits split over `group` by vocab
+    columns, this rank's from id `start` on: the lowest id holding the
+    largest value over the whole vocab, which is `jnp.argmax`'s answer
+    (ties to the first index). Two all-reduces, the maximum and then the
+    smallest id that holds it; every rank of the group gets the same ids.
+    Device-side only, so a captured decode step may hold it."""
+    idx = logits.argmax(-1)
+    best = logits.gather(-1, idx[..., None])[..., 0]
+    top = best.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    ids = torch.where(best == top, idx + start, _NO_ID)
+    dist.all_reduce(ids, op=dist.ReduceOp.MIN, group=group)
+    return ids

@@ -16,13 +16,27 @@ the next rule, as in JAX. `apply_tp` then puts the plan on the modules
 with `torch.distributed.tensor.parallel`; it refuses (NotImplementedError,
 naming the parameter) a layout whose attention or MLP splits would not be
 whole heads or whole columns, where JAX lets GSPMD partition the rest
-(tp = 8 at 7B: 3.5 query heads a device).
+(tp = 8 at 7B: 3.5 query heads a device). That is the training layout.
+
+The serving layout (`apply_serve_tp`, the JAX package's `qwen_tp_sharding`
+under greedy decode) takes the same rules and the same check, and holds
+each rank's shards as plain tensors sliced from the full weights, so that
+K1's launches and the captured decode step see no DTensor: the model
+all-reduces o_proj's and down_proj's partial sums and the vocab-split
+embedding over the tp group, and takes the greedy argmax over the
+vocab-split lm_head across it (`collectives.vocab_argmax`). The JAX rules
+name `kernel` and `embedding` only, so quantized projections (W8A8, W4A8:
+`QuantLinear` buffers, not parameters) stay whole on every rank, and their
+layers run as unsharded.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
+import torch
+import torch.distributed as dist
 from torch import nn
 
 from internnav_tpu_torch.parallel.mesh import (
@@ -86,7 +100,16 @@ def check_whole_heads(model: nn.Module, layout: Layout, n_tp: int, tp_axis: str 
     head_dim = lm.cfg.head_dim
     for i, layer in enumerate(lm.layers):
         prefix = f"language_model.layers.{i}."
+        quantized = {path for path in _COLWISE + _ROWWISE
+                     if not isinstance(getattr(layer.get_submodule(path), "weight", None),
+                                       nn.Parameter)}
+        if quantized and len(quantized) < len(_COLWISE + _ROWWISE):
+            raise NotImplementedError(
+                f"tensor parallel at tp={n_tp}: {prefix.rstrip('.')} mixes quantized "
+                f"projections {sorted(quantized)}, which stay whole, with split ones")
         for path in _COLWISE + _ROWWISE:
+            if path in quantized:  # whole on every rank, as JAX's rules leave them
+                continue
             name = prefix + path + ".weight"
             w = layer.get_submodule(path).weight
             width = w.shape[1 if path in _ROWWISE else 0]
@@ -126,3 +149,63 @@ def apply_tp(model: nn.Module, layout: Layout, tp_mesh, tp_axis: str = "tp") -> 
     if lm.lm_head is not None and tp_axis in layout.get("language_model.lm_head.weight", {}):
         # this rank's vocab columns of the logits (QwenTextModel.ce_sum)
         parallelize_module(lm, tp_mesh, {"lm_head": ColwiseParallel()})
+
+
+# ------------------------------------------------------------ serving layout
+def serve_tp_layout(lm: nn.Module, n_tp: int, tp_axis: str = "tp") -> Layout:
+    """The serving layout of a `QwenTextModel` at tp = n_tp: the TP rules'
+    splits of its parameters (names "language_model.<...>", as in
+    `qwen_tp_sharding`), refused by `check_whole_heads` where a rank would
+    hold a fraction of a head."""
+    holder = nn.ModuleDict({"language_model": lm})
+    layout = qwen_tp_sharding(holder, {tp_axis: n_tp}, tp_axis=tp_axis)
+    check_whole_heads(holder, layout, n_tp, tp_axis)
+    return layout
+
+
+@torch.no_grad()
+def apply_serve_tp(lm: nn.Module, group, tp_axis: str = "tp") -> Layout:
+    """Lay a whole `QwenTextModel` out for serving over the ranks of
+    `group` (a tp group of the mesh), in place: each split parameter
+    becomes this rank's block of it (block r of tp equal blocks along the
+    rule's dim, a copy when tp > 1), the module widths and the config's head and MLP widths become
+    this rank's, and the model is told the group (the attention's and the
+    MLP's all-reduce where their row-parallel weight is split, the
+    embedding's and the lm_head's first vocab id where theirs is). Every
+    rank of the group must hold the same full weights first. Returns the
+    layout."""
+    n_tp, r = dist.get_world_size(group), dist.get_rank(group)
+    layout = serve_tp_layout(lm, n_tp, tp_axis)
+    starts = {}
+    for name, spec in layout.items():
+        if tp_axis not in spec:
+            continue
+        mod_name, pname = name.removeprefix("language_model.").rsplit(".", 1)
+        mod = lm.get_submodule(mod_name)
+        p, dim = getattr(mod, pname), spec[tp_axis]
+        size = p.shape[dim] // n_tp
+        if n_tp > 1:
+            p.data = p.data.narrow(dim, r * size, size).clone()
+        starts[mod_name] = r * size
+        if isinstance(mod, nn.Linear) and pname == "weight":
+            mod.out_features, mod.in_features = p.shape
+        elif isinstance(mod, nn.Embedding):
+            mod.num_embeddings = p.shape[0]
+    for i, layer in enumerate(lm.layers):
+        if f"layers.{i}.self_attn.o_proj" in starts:
+            layer.self_attn.tp_group = group
+        if f"layers.{i}.mlp.down_proj" in starts:
+            layer.mlp.tp_group = group
+    lm.tp_group = group
+    lm.embed_start = starts.get("embed_tokens")
+    lm.head_start = starts.get("lm_head")
+    attn, mlp = lm.layers[0].self_attn, lm.layers[0].mlp
+    D = lm.cfg.head_dim
+    local = dataclasses.replace(
+        lm.cfg, num_attention_heads=attn.q_proj.out_features // D,
+        num_key_value_heads=attn.k_proj.out_features // D,
+        intermediate_size=mlp.gate_proj.out_features)
+    for mod in lm.modules():
+        if type(getattr(mod, "cfg", None)) is type(lm.cfg):
+            mod.cfg = local
+    return layout

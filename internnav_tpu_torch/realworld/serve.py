@@ -118,7 +118,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = torch.device("cpu") if args.device == "cpu" else require_cuda(args.device)
     policy = build_policy(args.profile, device=device, ckpt=args.ckpt or None,
                           system1=args.system1)
-    RealWorldServer(InternVLAN1Agent(policy), args.host, args.port).run()
+    RealWorldServer(InternVLAN1Agent.with_policy(policy), args.host, args.port).run()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,63 @@
+"""Evaluation entry point of the port (scripts/eval/eval.py; reference
+scripts/eval/eval.py:33-49).
+
+    python scripts/torch/eval.py --config scripts/torch/configs/fake_n1_pipelined_cfg.py \
+        [--device cpu]
+
+The config file is executable python exposing `eval_cfg`, an `EvalCfg` of
+`internnav_tpu_torch.configs` (the files in scripts/eval/configs/ import
+the JAX package; the port's own are in scripts/torch/configs/). Prints the
+metrics as one JSON line; rank 0 also appends them to
+`<output_dir>/result.json`.
+
+`--device` is where the agent runs: it goes into the agent's
+model_settings["device"]. The default is the GPU, and without one the run
+raises (no fallback to the host); `--device cpu` runs on the host when
+asked for (the tests). With `use_agent_server` the agent runs in the
+agent server (`scripts/torch/start_server.py`), which builds it on that
+device. eval_type "vln_pe" is assembled by `configs.vln_default.get_config`
+and then refused: the VLN-PE evaluator is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+import torch  # noqa: E402
+
+from internnav_tpu_torch import require_cuda  # noqa: E402
+from internnav_tpu_torch.configs import load_py_config  # noqa: E402
+from internnav_tpu_torch.evaluator import Evaluator  # noqa: E402
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", required=True, help="python config file exposing eval_cfg")
+    ap.add_argument("--device", default="cuda",
+                    help="where the agent runs: a CUDA device (no CPU fallback), or cpu when "
+                         "asked for")
+    args = ap.parse_args(argv)
+    cfg = load_py_config(args.config)
+    if args.device != "cpu" and not cfg.use_agent_server:
+        require_cuda(torch.device(args.device))
+    cfg.agent.model_settings = {**cfg.agent.model_settings, "device": args.device}
+    if cfg.eval_type == "vln_pe":
+        # the VLN-PE defaults assembly (reference eval.py:33-49 applies
+        # vln_default_config.get_config); its evaluator is still to port
+        from internnav_tpu_torch.configs.vln_default import get_config
+
+        cfg = get_config(cfg)
+        raise NotImplementedError("eval_type 'vln_pe': the VLN-PE evaluator is not yet ported "
+                                  "to internnav_tpu_torch (ROADMAP §1 item 7f)")
+    metrics = Evaluator.init(cfg).eval()
+    print(json.dumps(metrics, default=float), flush=True)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

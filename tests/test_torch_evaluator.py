@@ -405,9 +405,24 @@ def test_rank_world_and_gather_without_a_process_group(tmp_path):
 
 # ------------------------------------------------------ no silent fallbacks
 def test_remote_agent_is_not_replaced_by_a_local_one(tmp_path):
-    cfg = eval_cfg(tconfigs, tmp_path, False).model_copy(update={"use_agent_server": True})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbase.Evaluator(cfg, env=object())
+    """With use_agent_server the evaluator's agent is an AgentClient of the
+    server at the config's host and port, as in the JAX package, never an
+    agent built in-process."""
+    from internnav_tpu_torch.comm.client import AgentClient
+    from internnav_tpu_torch.comm.server import AgentServer
+
+    server = AgentServer("127.0.0.1", 0)
+    server.agents["internvla_n1_batched"] = object()  # served already: init builds nothing
+    thread = server.run(background=True)
+    try:
+        cfg = eval_cfg(tconfigs, tmp_path, False).model_copy(update={"use_agent_server": True})
+        cfg.agent.server_host, cfg.agent.server_port = "127.0.0.1", server.port
+        ev = tbase.Evaluator(cfg, env=object())
+        assert isinstance(ev.agent, AgentClient)
+        assert ev.agent.base == f"http://127.0.0.1:{server.port}"
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)
 
 
 class _NotDualSystem:

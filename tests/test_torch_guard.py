@@ -39,9 +39,14 @@ from internnav_tpu_torch.utils.logging import get_logger
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PORT_SOURCES = [*(REPO / "internnav_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
-                *(REPO / "scripts" / "torch").glob("*.py")]
+                *(REPO / "scripts" / "torch").rglob("*.py")]
 #: the port's bench entry of the evaluator path (a script, not a module)
 BENCH_ENTRY = REPO / "scripts" / "torch" / "bench_evaluator.py"
+#: the port's entry scripts and config files that the guard loads as files
+#: with jax blocked (each script's main runs only as __main__)
+SCRIPTS = [BENCH_ENTRY, *(REPO / "scripts" / "torch" / name for name in (
+    "eval.py", "start_server.py", "dryrun_distributed_eval.py",
+    "configs/fake_n1_pipelined_cfg.py", "configs/fake_n1_shared_decode_cfg.py"))]
 #: every module of the port, by its file
 PORT_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -64,22 +69,28 @@ def test_port_modules_cover_the_package():
                 "model.encoder.transformer", "model.encoder.vit", "ops.schedulers",
                 # sharded training and the EMA
                 "parallel", "parallel.collectives", "parallel.mesh", "parallel.tp",
-                "parallel.fsdp", "trainer.ema"):
+                "parallel.fsdp", "trainer.ema",
+                # the entry points: configs, the model factory, the agents the
+                # server builds, the agent server and its client
+                "configs.loader", "configs.model", "configs.defaults", "configs.vln_default",
+                "model", "agent.simple_agent", "comm", "comm.server", "comm.client"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
-    assert BENCH_ENTRY in PORT_SOURCES
+    assert set(SCRIPTS) <= set(PORT_SOURCES)
     assert len(PORT_MODULES) > 40
     assert not any(m.split(".")[0] != "internnav_tpu_torch" for m in PORT_MODULES)
 
 
 def test_port_imports_with_jax_blocked():
     """In a fresh interpreter (this one already imported jax): with jax and
-    internnav_tpu made unimportable, every port module and the bench entry
-    import and neither jax, flax nor internnav_tpu loads."""
+    internnav_tpu made unimportable, every port module, the bench entry and
+    the other entry scripts and config files load and neither jax, flax nor
+    internnav_tpu loads."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['internnav_tpu'] = None\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
             + "import importlib.util\n"
-              f"spec = importlib.util.spec_from_file_location('bench_entry', {str(BENCH_ENTRY)!r})\n"
-              "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            + "".join(f"spec = importlib.util.spec_from_file_location('script{i}', {str(p)!r})\n"
+                      "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+                      for i, p in enumerate(SCRIPTS))
             + "assert not any(m.split('.')[0] in ('jax', 'flax', 'internnav_tpu') "
               "for m in sys.modules if sys.modules[m] is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -225,7 +236,7 @@ class _Served:
 
 def test_agent_round_trip_through_server():
     policy = InternVLAN1Policy.build(InternVLAN1Config.tiny(), device="cpu")
-    with _Served(InternVLAN1Agent(policy)) as srv:
+    with _Served(InternVLAN1Agent.with_policy(policy)) as srv:
         assert _post(srv.port, "/reset", {}) == (200, {"status": "ok"})
         for seed in range(2):
             code, resp = _post(srv.port, "/eval_dual", _frame_body(seed))
@@ -245,7 +256,7 @@ class _FailingPolicy:
 
 @pytest.mark.parametrize("async_s2", [True, False])
 def test_s2_failure_reaches_caller_as_500(async_s2):
-    with _Served(InternVLAN1Agent(_FailingPolicy(), async_s2=async_s2)) as srv:
+    with _Served(InternVLAN1Agent.with_policy(_FailingPolicy(), async_s2=async_s2)) as srv:
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(srv.port, "/eval_dual", _frame_body(0))
         assert err.value.code == 500
@@ -316,7 +327,7 @@ class _LookDownPolicy:
 
 def test_look_down_action_forces_an_immediate_look_down_replan():
     policy = _LookDownPolicy()
-    agent = InternVLAN1Agent(policy, async_s2=False)
+    agent = InternVLAN1Agent.with_policy(policy, async_s2=False)
     obs = [{"rgb": np.zeros((8, 8, 3), np.uint8), "instruction_text": "go"}]
     assert agent.step(obs)[0]["action"] == [0]  # '↓' is not executed itself
     assert agent.step(obs)[0]["action"] == [1]
