@@ -165,7 +165,24 @@ Phases, each printing its numbers:
                steps, 224x224), the server's "internvla_n1" agent built
                from the native int8 checkpoint on the card: exit 0, 2
                finite episodes in result.json, K1 and K4-K8 launched in
-               the server, no plain version, actions/s. Python's str hash is pinned
+               the server, no plain version, actions/s; then evaluate
+               habitat, the reference's VLN-CE and VL-LN protocols over
+               NavmeshFakeSim at 420x420: `Evaluator.init` with the
+               "internvla_n1" agent from the native int8 checkpoint
+               (habitat_dual_system_cfg.py's settings), dual_system over 2
+               episodes of at most 32 steps (then resumed from its
+               progress.json: nothing re-run), system2 over one (the
+               navmesh snap and follower), `HabitatDialogEvaluator` with a
+               `DialogAgent` around the same policy over one; the policy
+               decodes in full, its texts scripted (a pixel goal, an
+               action list, STOP, a question its SimpleNPC answers) so
+               that each branch runs; the look-down capture balanced,
+               every action legal, the metrics finite, K1 and K4-K8 held
+               to the counts computed from the System-2 / System-1 calls
+               and the frames, no plain version; and one request through
+               `s2_step(fused=False)` against `fused=True` on the same
+               frame: tokens equal, each traj query's latents within
+               UNFUSED_LATENT_RTOL. Python's str hash is pinned
                (PYTHONHASHSEED=0; the script re-executes itself with it),
                so FakeEnv draws the same frames in every run;
   navdp    — the NavDP System-1 (`navdp_async`: the fp32 NavDP head with
@@ -224,10 +241,10 @@ Phases, each printing its numbers:
                unchanged; no plain version run; step s, tokens/s, MFU and
                peak memory printed.
 Every kernel's launch count is set to 0 just before each of the
-sixteen paths (serve, serve tp, serve realtime, the long realtime request, serve
+seventeen paths (serve, serve tp, serve realtime, the long realtime request, serve
 realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
 evaluate phase's timed runs, the int4 evaluate's timed run, evaluate
-server, serve navdp,
+server, evaluate habitat, serve navdp,
 serve batched navdp's checked cycle, evaluate navdp's timed run, train,
 train sharded's two steps) and read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
@@ -2999,13 +3016,7 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
     return {"evaluate": launches}, eval_kernel_rows(device, shapes)
 
 
-# ----------------------------------------------------------------- navdp
-#: the NavDP head on the card against the same module on the host, both
-#: fp32: 20 DDPM steps of a 16-layer decoder, two ViT-S towers and the
-#: former, each product summed in another order by cuBLAS and by the CPU.
-#: 8.2e-6 was read on an H100; the phase also prints the same call with
-#: TF32 let into the towers' convolutions and into the products, which
-#: this limit is meant to catch
+# ------------------------------------------------------- evaluate server
 #: the evaluate server phase: FakeEnv episodes, their step budget and frames
 SERVER_EPISODES = 2
 SERVER_MAX_STEP = 16
@@ -3123,6 +3134,358 @@ def phase_evaluate_server(device, ckpt: Path) -> dict:
     return {"evaluate_server": launches}
 
 
+# ------------------------------------------------------- evaluate habitat
+#: the evaluate habitat phase: serve realtime's 420x420 camera (R2R's
+#: 640x480 does not fit `preprocess_images`' whole 28-pixel merges, in
+#: either package: ROADMAP §3), the dual_system run's episodes, every
+#: run's step budget (system2 and dialog: one episode each)
+HABITAT_HW = 420
+HABITAT_EPISODES = 2
+HABITAT_MAX_STEP = 32
+HABITAT_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
+#: what the scripted decode returns in each run, per episode, call after
+#: call (an episode's last text repeats): the branches each run must take.
+#: dual_system: an action list, then STOP; pixel goals (System-1). system2:
+#: pixel goals (the follower). dialog: a question (the agent's SimpleNPC
+#: answers), a pixel goal (goal_gps), an action list, STOP
+HABITAT_SCRIPTS = {
+    "dual_system": (("↑ ↑ ← ↑", "STOP"), ("140 220",)),
+    "system2": (("140 220",),),
+    "dialog": (("where should I go now?", "140 220", "↑ ↑", "STOP"),),
+}
+#: each traj query's relative L2 gap between the unfused step's latents (a
+#: re-prefill attending over bf16 K/V) and the fused step's (a chunk decode
+#: over the int8 KV cache), on the same policy and frame: the bound PERF.md
+#: §6 states, from the int8 cache's rounding amplified through 28 layers of
+#: int8 activation codes
+UNFUSED_LATENT_RTOL = 0.5
+HABITAT_LEGAL = {"dual_system": {0, 1, 2, 3, 5, 6}, "system2": {0, 1, 2, 3},
+                 "dialog": {0, 1, 2, 3}}
+
+
+def habitat_episodes(n: int, seed: int, tag: str):
+    """n seeded R2R-style planar episodes whose reference paths head along
+    +x from the start (where FakeSim's agent faces), 5 segments of 0.8-1.6
+    m: a pixel goal ahead snaps onto the path ahead of the agent."""
+    import numpy as np
+
+    from internnav_tpu_torch.env.episodes import Episode
+
+    r = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        seg = np.c_[r.uniform(0.8, 1.6, 5), r.uniform(-0.4, 0.4, 5), np.zeros(5)]
+        ref = np.vstack([np.zeros(3), np.cumsum(seg, axis=0)]) + [*r.uniform(-2, 2, 2), 0.0]
+        out.append(Episode(
+            episode_id=f"{tag}{i}", trajectory_id=f"t{i}", scene_id="habitat_smoke",
+            instruction_text=INSTRUCTION, instruction_tokens=None, start_position=ref[0],
+            start_rotation=np.zeros(1), reference_path=ref,
+            geodesic_distance=float(np.linalg.norm(np.diff(ref, axis=0), axis=1).sum())))
+    return out
+
+
+def scripted_decode(policy, scripts):
+    """Install on `policy` a tokenizer whose encode is SimpleTokenizer's and
+    whose decode returns scripts[e]'s texts in turn (the last repeating), e
+    the episode (advanced by each policy.reset()); the decode on the card
+    still runs in full. Returns a function that restores the policy."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import SimpleTokenizer
+
+    class Scripted(SimpleTokenizer):
+        episode, call = -1, 0
+
+        def decode(self, ids):
+            script = scripts[min(self.episode, len(scripts) - 1)]
+            self.call += 1
+            return script[min(self.call - 1, len(script) - 1)]
+
+    tok, reset, saved = Scripted(policy.cfg.text.vocab_size), policy.reset, policy.tokenizer
+    if (tok.eos_token_id, tok.pad_token_id) != (saved.eos_token_id, saved.pad_token_id):
+        raise AssertionError("the scripted tokenizer's stop and pad ids differ from the policy's")
+
+    def next_episode():
+        tok.episode, tok.call = tok.episode + 1, 0
+        reset()
+
+    policy.tokenizer, policy.reset = tok, next_episode
+
+    def restore():
+        policy.tokenizer = saved
+        del policy.reset
+
+    return restore
+
+
+def _habitat_records(out_dir: Path):
+    with open(out_dir / "progress.json") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def expected_unfused_launches(cfg, steps: int, logits_steps: int) -> dict:
+    """Launches of one unfused System-2 step on the realtime profile (one
+    frame encoded, as a fused request's): `expected_serve_launches` of a
+    request with `steps` decode steps, except that `generate_latents`'
+    re-prefill (K1 a layer; K6a 4, K6b 7 on the prefill tiles and K7 1 a
+    layer pass; no lm_head) stands in for the latent chunk (K5 1, K6a 4,
+    K6b 4 of them 2 fused, K7 1 a layer pass)."""
+    L = cfg.text.num_hidden_layers
+    want = expected_serve_launches(cfg, "realtime", [steps], 1 + logits_steps, 0, 0)
+    for key, delta in (("K1", L), ("K5", -L), ("K6b", 3 * L), ("K6b_fused", -2 * L)):
+        want[key] += delta
+    return want
+
+
+def phase_evaluate_habitat(device, ckpt: Path) -> dict:
+    """The Habitat VLN-CE and VL-LN dialog evaluators at 7B on the card,
+    over NavmeshFakeSim at HABITAT_HW: `Evaluator.init` with the
+    "internvla_n1" agent loaded from the native int8 checkpoint `ckpt`
+    (realtime: W8A8, int8 KV; `habitat_dual_system_cfg.py`'s settings),
+    then on its policy, each with a scripted decode (HABITAT_SCRIPTS):
+    dual_system over HABITAT_EPISODES episodes of at most HABITAT_MAX_STEP
+    steps (then again from its progress.json: nothing re-run); system2 over
+    one (`snap_point` and `follow_toward`); `HabitatDialogEvaluator` with a
+    `DialogAgent` around the policy over one, its goal_info answered by
+    the agent's SimpleNPC; one System-2 request through
+    `s2_step(fused=False)` against `fused=True` on the same frame (the
+    policy's own tokenizer): tokens equal, each query's latents within
+    UNFUSED_LATENT_RTOL. Holds the look-down capture balanced, every
+    action legal, each branch taken, the metrics finite, each step's decode
+    loop, and every kernel's launches equal to the counts computed from the
+    System-2 / System-1 calls and the frames, with no plain version run.
+    Prints seconds per System-2 and System-1 call. Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.configs import AgentCfg, EnvCfg, EvalCfg, TaskCfg
+    from internnav_tpu_torch.dialog.dialog_agent import DialogAgent
+    from internnav_tpu_torch.dialog.evaluator import HabitatDialogEvaluator
+    from internnav_tpu_torch.evaluator import Evaluator
+    from internnav_tpu_torch.habitat.sim_adapter import NavmeshFakeSim
+
+    root = WORK_DIR / "evaluate_habitat"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def cfg(mode, agent="internvla_n1", eval_type="habitat_vln"):
+        return EvalCfg(agent=AgentCfg(model_name=agent, ckpt_path=str(ckpt),
+                                      model_settings={"system1": "nextdit_async"}),
+                       env=EnvCfg(env_type="habitat"), task=TaskCfg(max_step=HABITAT_MAX_STEP),
+                       eval_type=eval_type, eval_settings={"mode": mode},
+                       output_dir=str(root / mode))
+
+    def sim():
+        s = NavmeshFakeSim(rgb_hw=(HABITAT_HW, HABITAT_HW))
+        s.action_log, step = [], s.step
+        s.step = lambda a: s.action_log.append(int(a)) or step(a)
+        return s
+
+    t0 = time.perf_counter()
+    sims = {"dual_system": sim()}
+    ev = Evaluator.init(cfg("dual_system"), sim=sims["dual_system"],
+                        episodes=habitat_episodes(HABITAT_EPISODES, 0, "d"))
+    agent, policy = ev.agent, ev.policy
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    if policy.device.type != "cuda" or policy.cfg.text.weight_dtype != "int8" \
+            or policy.cfg.text.kv_dtype != "int8" or policy.cfg.system1 != "nextdit_async":
+        raise AssertionError(f"evaluate habitat: the agent's policy is {policy.cfg.text} "
+                             f"{policy.cfg.system1} on {policy.device}")
+    calls, s1, encodes, part = [], [], [], ["dual_system"]
+    s2_step, s1_step, encode = policy.s2_step, policy.s1_step_latent, policy._encode_images
+
+    def recorded_s2(image, instruction, look_down=False, max_new_tokens=MAX_NEW_TOKENS,
+                    fused=True):
+        before, t = decode_stats(), time.perf_counter()
+        out = s2_step(image, instruction, look_down, max_new_tokens, fused)
+        kind = ("pixel" if out.output_latent is not None else
+                "stop" if 0 in out.output_action else "actions" if out.output_action else "none")
+        calls.append({"part": part[0], "fused": fused, "kind": kind,
+                      "s": time.perf_counter() - t, "gen": len(policy.last_gen_tokens),
+                      "loop": decode_stats() - before})
+        return out
+
+    def recorded_s1(rgb, depth, latent, *args, **kwargs):
+        t = time.perf_counter()
+        out = s1_step(rgb, depth, latent, *args, **kwargs)
+        s1.append({"part": part[0], "s": time.perf_counter() - t, "actions": len(out.idx),
+                   "finite": bool(np.isfinite(out.trajectory).all())})
+        return out
+
+    def recorded_encode(images):
+        encodes.append(tuple(images.shape[:3]))
+        return encode(images)
+
+    policy.s2_step, policy.s1_step_latent = recorded_s2, recorded_s1
+    policy._encode_images = recorded_encode
+    restore = scripted_decode(policy, HABITAT_SCRIPTS["dual_system"])
+    plain, records, seconds = collections.Counter(), {}, {}
+    spies = _plain_spies(plain)
+    try:
+        reset_launch_counts()
+        t = time.perf_counter()
+        metrics = ev.eval()
+        seconds["dual_system"] = time.perf_counter() - t
+        records["dual_system"] = _habitat_records(root / "dual_system")
+        n_calls = len(calls)
+        again = sim()  # the resume: every episode is in progress.json
+        resumed = Evaluator.init(cfg("dual_system"), sim=again, agent=agent,
+                                 episodes=habitat_episodes(HABITAT_EPISODES, 0, "d")).eval()
+        if again.action_log or len(calls) != n_calls \
+                or not resumed["num_episodes"] == metrics["num_episodes"] == HABITAT_EPISODES:
+            raise AssertionError(f"evaluate habitat: the resume re-ran {again.action_log}, "
+                                 f"{len(calls) - n_calls} System-2 calls, {resumed}")
+        restore()
+        part[0] = "system2"
+        restore = scripted_decode(policy, HABITAT_SCRIPTS["system2"])
+        sims["system2"] = sim()
+        t = time.perf_counter()
+        Evaluator.init(cfg("system2"), sim=sims["system2"], agent=agent,
+                       episodes=habitat_episodes(1, 1, "s")).eval()
+        seconds["system2"] = time.perf_counter() - t
+        records["system2"] = _habitat_records(root / "system2")
+        restore()
+        part[0] = "dialog"
+        restore = scripted_decode(policy, HABITAT_SCRIPTS["dialog"])
+        sims["dialog"] = sim()
+        dialog_agent = DialogAgent(AgentCfg(model_name="dialog"), policy=policy)
+        outs, step = [], dialog_agent.step
+        dialog_agent.step = lambda obs: outs.append(step(obs)[0]) or [outs[-1]]
+        episode = habitat_episodes(1, 2, "q")[0]
+        episode.extra["goal_info"] = {"object": "the second door", "room": "corridor",
+                                      "nearby": ["table"]}
+        t = time.perf_counter()
+        records["dialog"] = HabitatDialogEvaluator(
+            cfg("dialog", "dialog", "habitat_dialog"), sim=sims["dialog"], episodes=[episode],
+            agent=dialog_agent).eval_action()
+        seconds["dialog"] = time.perf_counter() - t
+        restore()
+        # unfused against fused: one request on the same frame, the policy's
+        # own tokenizer (its text holds digits: the latents are made)
+        part[0] = "unfused"
+        rgb, _ = request_frames(np.random.default_rng(18))
+        t = time.perf_counter()
+        got = {}
+        for fused in (True, False):
+            policy.reset()
+            out = policy.s2_step(rgb, INSTRUCTION, fused=fused)
+            got[fused] = (policy.last_gen_tokens.copy(), out.output_latent.float())
+        seconds["unfused"] = time.perf_counter() - t
+        torch.cuda.synchronize(device)
+        launches = launch_counts()
+    finally:
+        _restore(spies)
+        del policy.s2_step, policy.s1_step_latent, policy._encode_images
+        if "reset" in vars(policy):
+            restore()
+        agent.close()
+    wall_s = sum(seconds.values())
+    # the branches, the actions, the capture, the metrics
+    kinds = {p: collections.Counter(c["kind"] for c in calls if c["part"] == p)
+             for p in HABITAT_SCRIPTS}
+    dual_log, s2_log, dialog_log = (sims[p].action_log for p in HABITAT_SCRIPTS)
+    problems = []
+    for p, want in (("dual_system", ("pixel", "actions", "stop")), ("system2", ("pixel",)),
+                    ("dialog", ("pixel", "actions"))):
+        problems += [f"{p}: no {k} branch" for k in want if not kinds[p][k]]
+        problems += [f"{p}: illegal action {a}" for a in set(sims[p].action_log)
+                     - HABITAT_LEGAL[p]]
+    i = 0
+    while i < len(dual_log):  # LOOKDOWN x2 then LOOKUP x2 (JAX test_habitat_contract)
+        if dual_log[i] in (5, 6):
+            if dual_log[i:i + 4] != [5, 5, 6, 6]:
+                problems.append(f"dual_system: unbalanced capture at {i}: {dual_log[i:i + 4]}")
+            i += 4
+        else:
+            i += 1
+    if not s1 or any(c["actions"] > 4 or not c["finite"] for c in s1):
+        problems.append(f"System-1 calls {s1}")
+    if not (sims["system2"].follow_calls and sims["system2"].snap_calls):
+        problems.append("system2: the follower was not used")
+    asked = [o for o in outs if o["action"] == [4]]
+    if not asked or "answer" not in asked[0] or not any("goal_gps" in o for o in outs) \
+            or records["dialog"][0]["questions"] < 1:
+        problems.append(f"dialog: no question answered by the NPC then a goal: {outs}")
+    for p, recs in records.items():
+        want_n = HABITAT_EPISODES if p == "dual_system" else 1
+        values = [v for r in recs for v in r.values() if isinstance(v, (int, float))]
+        if len(recs) != want_n or not np.isfinite(values).all():
+            problems.append(f"{p}: records {recs}")
+    # each call's decode loop, and every kernel's launches
+    for c in calls:
+        st, n = c["loop"], loop_steps(c["gen"])
+        if st["replays"] != n or st["captures"] != 2 * st["warmup_steps"] \
+                or st["steps"] != st["replays"] + st["warmup_steps"] \
+                or st["logits_steps"] != n - (n == MAX_NEW_TOKENS) + st["warmup_steps"]:
+            problems.append(f"decode loop {dict(st)} of a {c['gen']}-token step")
+    fused = [c for c in calls if c["fused"]]
+    if encodes != [(1, HABITAT_HW, HABITAT_HW)] * len(calls):
+        problems.append(f"vision encodes {encodes}: one new frame a System-2 step expected")
+    window_block, full_block = policy._vision_host_indices(HABITAT_HW, HABITAT_HW, 1)[1]
+    if window_block or not full_block:  # expected_serve_launches' vision K1 count
+        problems.append(f"vision blocks {window_block, full_block}: the K1 count assumes ragged "
+                        "windows (K1 a windowed block) and one uniform image (no K1)")
+    want = expected_serve_launches(policy.cfg, "realtime", [c["loop"]["steps"] for c in fused],
+                                   len(fused) + sum(c["loop"]["logits_steps"] for c in fused),
+                                   len(s1), dit_layers(policy))
+    for c in calls:
+        if not c["fused"]:
+            extra = expected_unfused_launches(policy.cfg, c["loop"]["steps"],
+                                              c["loop"]["logits_steps"])
+            want = {k: want[k] + extra[k] for k in want}
+    if launches != want:
+        problems.append(f"kernel launches {launches}, expected {want}")
+    if plain:
+        problems.append(f"plain versions ran on the card: {dict(plain)}")
+    missing = [k for k in HABITAT_KERNELS if not launches[k]]
+    if missing:
+        problems.append(f"kernels {missing} never launched")
+    # unfused against fused
+    (ft, fl), (ut, ul) = got[True], got[False]
+    rel = ((fl - ul).norm(dim=-1) / ul.norm(dim=-1))[0].tolist()
+    cos = torch.nn.functional.cosine_similarity(fl, ul, dim=-1)[0].tolist()
+    if not np.array_equal(ft, ut):
+        first = int(np.argmax(ft[:min(len(ft), len(ut))] != ut[:min(len(ft), len(ut))]))
+        problems.append(f"unfused tokens differ from the fused ones from step {first} "
+                        f"({len(ft)} and {len(ut)} tokens)")
+    if fl.shape != ul.shape or not torch.isfinite(ul).all() or max(rel) > UNFUSED_LATENT_RTOL:
+        problems.append(f"unfused latents {tuple(ul.shape)}: relative gap {rel} past "
+                        f"{UNFUSED_LATENT_RTOL}")
+    s2_s = {p: [round(c["s"], 4) for c in calls if c["part"] == p]
+            for p in (*HABITAT_SCRIPTS, "unfused")}
+    print(f"phase evaluate_habitat: path=evaluate_habitat agent=internvla_n1 ckpt=native_int8 "
+          f"profile=realtime hw={HABITAT_HW} max_step={HABITAT_MAX_STEP} "
+          f"agent_build_s={build_s:.2f} seconds={json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"phase_s={wall_s:.2f} s2_calls={len(calls)} s1_calls={len(s1)} "
+          f"branches={json.dumps({p: dict(k) for p, k in kinds.items()})} "
+          f"s2_s={json.dumps(s2_s)} s1_s={[round(c['s'], 4) for c in s1]} "
+          f"s1_actions={[c['actions'] for c in s1]} "
+          f"generated_tokens={[c['gen'] for c in calls]} "
+          f"actions={json.dumps({p: sims[p].action_log for p in sims})} "
+          f"dual_system_metrics={json.dumps(metrics)} resumed_episodes={resumed['num_episodes']} "
+          f"records={json.dumps(records, default=str)} launches={launches} plain_calls={sum(plain.values())} "
+          f"gpu={gpu_line()!r}")
+    print(f"phase evaluate_habitat: unfused_vs_fused tokens_equal={np.array_equal(ft, ut)} "
+          f"generated={len(ft)}/{len(ut)} latent_rel_gap={[round(x, 5) for x in rel]} "
+          f"latent_cosine={[round(x, 5) for x in cos]} "
+          f"latent_max_abs={float((fl - ul).abs().max()):.5f} "
+          f"latent_max={float(ul.abs().max()):.5f} bound={UNFUSED_LATENT_RTOL} "
+          f"fused_s={s2_s['unfused'][0]} unfused_s={s2_s['unfused'][1]} gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("evaluate habitat: " + "; ".join(problems))
+    del ev, agent, policy, dialog_agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"evaluate_habitat": launches}
+
+
+# ----------------------------------------------------------------- navdp
+#: the NavDP head on the card against the same module on the host, both
+#: fp32: 20 DDPM steps of a 16-layer decoder, two ViT-S towers and the
+#: former, each product summed in another order by cuBLAS and by the CPU.
+#: 8.2e-6 was read on an H100; the phase also prints the same call with
+#: TF32 let into the towers' convolutions and into the products, which
+#: this limit is meant to catch
 NAVDP_TOL = 1e-4
 #: grouped against per-cohort System-1: the same draws and inputs, cuBLAS
 #: at 48 streams' rows against 12 streams' (2.3e-5 read on an H100)
@@ -3980,6 +4343,8 @@ def main() -> int:
         lap("evaluate_int4")
         by_path.update(phase_evaluate_server(device, native))
         lap("evaluate_server")
+        by_path.update(phase_evaluate_habitat(device, native))
+        lap("evaluate_habitat")
         # the NavDP System-1 at 7B: one realtime policy serves, is held
         # against the host, serves batched and evaluates
         navdp, navdp_paths = phase_serve_navdp(device)

@@ -1,7 +1,9 @@
 """Simulator-free evaluation environments of the port (copies of
 internnav_tpu/env/: the registry, episodes, metrics, controllers and the
-kinematic `FakeEnv`). The simulator adapters are not ported yet (ROADMAP
-§1 item 7)."""
+kinematic `FakeEnv`). The registered "habitat" env is
+`internnav_tpu_torch.habitat.env.HabitatEnv` (imported on its own, as in
+the JAX package); the InternUtopia adapters are not ported yet (ROADMAP
+§1 item 7f)."""
 
 from internnav_tpu_torch.env.base import Env, env_registry
 from internnav_tpu_torch.env.episodes import (

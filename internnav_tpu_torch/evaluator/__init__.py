@@ -1,7 +1,12 @@
 """Evaluators of the port: the registry and the distributed template
-(`base.py`), the batched VLN evaluator and the pipelined multi-cohort one.
-The other evaluators (VLN-PE, VN, habitat, dialog) are not ported yet
-(ROADMAP §1 item 7)."""
+(`base.py`), the batched VLN evaluator and the pipelined multi-cohort one,
+and the Habitat evaluators ("habitat_vln", "habitat_default" in
+`habitat/evaluator.py`; "habitat_dialog" in `dialog/evaluator.py`), which
+register themselves on import: `Evaluator.init` imports their modules when
+it is asked for an eval_type it does not know, and this package exposes
+their classes lazily (importing them here would be circular: they import
+`evaluator.base`). The VLN-PE and VN evaluators are not ported yet
+(ROADMAP §1 item 7f)."""
 
 from internnav_tpu_torch.evaluator.base import Evaluator, evaluator_registry, get_rank_world
 from internnav_tpu_torch.evaluator.vln_evaluator import VLNBatchedEvaluator
@@ -9,3 +14,17 @@ from internnav_tpu_torch.evaluator.vln_pipelined_evaluator import VLNPipelinedEv
 
 __all__ = ["Evaluator", "evaluator_registry", "get_rank_world", "VLNBatchedEvaluator",
            "VLNPipelinedEvaluator"]
+_LAZY = {
+    "HabitatVLNEvaluator": "internnav_tpu_torch.habitat.evaluator",
+    "HabitatDefaultEvaluator": "internnav_tpu_torch.habitat.evaluator",
+    "HabitatDialogEvaluator": "internnav_tpu_torch.dialog.evaluator",
+}
+__all__ += sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

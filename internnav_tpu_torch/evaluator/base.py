@@ -57,8 +57,21 @@ class Evaluator:
 
     register = staticmethod(evaluator_registry.register)
 
+    #: modules whose import registers more evaluators ("habitat_vln",
+    #: "habitat_default", "habitat_dialog"): `init` imports them when
+    #: cfg.eval_type is not registered (they import this module)
+    _LAZY_EVALUATOR_MODULES = (
+        "internnav_tpu_torch.habitat.evaluator",
+        "internnav_tpu_torch.dialog.evaluator",
+    )
+
     @classmethod
     def init(cls, cfg: EvalCfg, **kwargs) -> "Evaluator":
+        if cfg.eval_type not in evaluator_registry:
+            import importlib
+
+            for mod in cls._LAZY_EVALUATOR_MODULES:
+                importlib.import_module(mod)
         return evaluator_registry.build(cfg.eval_type, cfg, **kwargs)
 
     # ------------------------------------------------------------- template

@@ -2,9 +2,10 @@
 
 Port of internnav_tpu/evaluator/vln_evaluator.py: the same loop, with the
 rank and world size from `torch.distributed` (`base.get_rank_world`).
-FakeEnv is the one simulator ported: without an `env=` any other env_type
-raises (real simulators: ROADMAP §1 item 7), where the original would run
-the fake backend in its place.
+FakeEnv is the one simulator this evaluator runs: without an `env=` any
+other env_type raises (ROADMAP §1 item 7; Habitat has evaluators of its
+own, `habitat/evaluator.py`), where the original would run the fake
+backend in its place.
 
 Reference parity: internnav/evaluator/vln_distributed_evaluator.py — the
 per-env FSM (runner_status NORMAL/TERMINATED, :19-25), fake-obs masking for
@@ -50,8 +51,10 @@ class VLNBatchedEvaluator(Evaluator):
         env = kwargs.pop("env", None)
         if env is None:
             if cfg.env.env_type != "fake":
-                raise NotImplementedError(f"env_type {cfg.env.env_type!r} is not yet ported "
-                                          "(ROADMAP §1 item 7); the port runs env_type 'fake'")
+                raise NotImplementedError(
+                    f"env_type {cfg.env.env_type!r} is not yet ported to this evaluator "
+                    "(ROADMAP §1 item 7); it runs env_type 'fake' (Habitat runs through "
+                    "eval_type 'habitat_vln', 'habitat_default' or 'habitat_dialog')")
             env = FakeEnv(cfg.env, cfg.task, episodes=pending)
         super().__init__(cfg, env=env, **kwargs)
         self.progress = ProgressLogger(name="eval_progress", log_dir=cfg.output_dir)

@@ -4,8 +4,10 @@ Port of internnav_tpu/model/basemodel/internvla_n1/policy.py
 (`SimpleTokenizer`, `InternVLAN1Policy`): keeps the rgb history, builds the
 Qwen chat prompt with history frames sampled by np.linspace, runs the fused
 System-2 step (vision encode with per-frame caching → embed → bucketed
-prefill + greedy decode → traj-latent chunk decode) and the System-1
-NextDiT denoise on the latent.
+prefill + greedy decode → traj-latent chunk decode) or the unfused one
+(every frame encoded → embed → greedy decode of the unpadded prompt →
+`generate_latents`' re-prefill of prompt, generated tokens and traj
+queries), and the System-1 NextDiT or NavDP denoise on the latent.
 
 Differences from the JAX policy:
 - System-1 frames are fitted to the DinoViT grid per stream: rgb and depth
@@ -18,9 +20,14 @@ Differences from the JAX policy:
 - `navdp_async` without depth raises ValueError (the JAX policy fails
   there too, converting None to an array); the sync `navdp` reads no
   frames and takes no depth;
-- only the fused System-2 step and the NextDiT and NavDP System-1 with
-  continuous trajectories are ported (`generate_latents`, the unfused
-  step and `chunk_token` actions are not);
+- the unfused System-2 step (`s2_step(fused=False)`) decodes through
+  `qwen_text.greedy_generate`, whose static caches and decode loop (a
+  captured CUDA graph a step on the card) are made for the call, its
+  caches as long as the fused step's (the JAX function sizes them to the
+  unpadded prompt and the budget: the masked slots change no value), and
+  `generate_latents` runs its re-prefill without the lm_head (the JAX
+  function computes the prompt's logits and drops them); the latents and
+  tokens are the JAX function's;
 - checkpoints (`from_pretrained_torch`, `save_pretrained`,
   `from_pretrained`) stream to the device one tensor at a time, and an
   int8 policy quantizes each projection as it lands; the native format is
@@ -56,6 +63,7 @@ from internnav_tpu_torch.model.basemodel.internvla_n1.model import (
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import (
     RMSNorm,
     greedy_decode_grouped,
+    greedy_generate,
     quantize_qwen_text_,
 )
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_vision import (
@@ -483,7 +491,12 @@ class InternVLAN1Policy:
 
     # ---------------------------------------------------------------- steps
     def s2_step(self, image: np.ndarray, instruction: str, look_down: bool = False,
-                max_new_tokens: int = 128) -> S2Output:
+                max_new_tokens: int = 128, fused: bool = True) -> S2Output:
+        """One System-2 step on a new frame (look_down: a transient frame
+        appended to the last step's images). fused=True runs `fused_s2`
+        (cached vision tokens, bucketed prompt, the latents as a chunk
+        decode over the generation's cache); fused=False the JAX policy's
+        separate dispatches (`_s2_step_unfused`)."""
         if not look_down:
             self.rgb_list.append(np.asarray(image))
             if self.episode_idx == 0:
@@ -500,7 +513,78 @@ class InternVLAN1Policy:
             self._frame_keys = self._frame_keys + [None]
         images = np.stack(self.input_images)
         input_ids = self._build_prompt_ids(instruction, len(images), images.shape[1:3])
+        if not fused:
+            return self._s2_step_unfused(images, input_ids, max_new_tokens)
         return self._s2_step_fused(images, input_ids, max_new_tokens, self._frame_keys)
+
+    def _s2_output(self, gen: np.ndarray, latents) -> S2Output:
+        """The step's output from its generated tokens: a pixel goal and the
+        latents (`latents()`, called only then) when the text holds digits,
+        else the parsed actions."""
+        self.last_gen_tokens = gen
+        self.llm_output = self.tokenizer.decode(gen)
+        out = S2Output()
+        if re.search(r"\d", self.llm_output):
+            coords = [int(c) for c in re.findall(r"\d+", self.llm_output)]
+            if len(coords) >= 2:
+                out.output_pixel = np.array([coords[1], coords[0]])
+            out.output_latent = latents()
+        else:
+            out.output_action = parse_actions(self.llm_output)
+        return out
+
+    @torch.inference_mode()
+    def _s2_step_unfused(self, images: np.ndarray, input_ids: np.ndarray,
+                         max_new_tokens: int) -> S2Output:
+        """The JAX policy's unfused step (its `s2_step(fused=False)`): every
+        frame encoded in one tower pass (no vision cache), M-RoPE positions
+        of the unpadded prompt, embed, `greedy_generate`, and for a pixel
+        goal `generate_latents`' re-prefill."""
+        cfg, dev = self.cfg, self.device
+        img_tokens, grid = self._encode_images(images)
+        pos_ids, rope_deltas = get_rope_index_25(
+            input_ids, grid, spatial_merge_size=cfg.vision.spatial_merge_size,
+            image_token_id=cfg.image_token_index)
+        embeds = self.model.embed_multimodal(to_device(input_ids, dev), img_tokens)
+        # caches as long as the fused step's (its prompt bucket, the budget and
+        # the traj queries), so that both decode with the same launch plans
+        # (K4's cluster size follows the cache length)
+        P = input_ids.shape[1]
+        slots = -(-P // self.PROMPT_BUCKET) * self.PROMPT_BUCKET - P + cfg.n_query
+        tokens, lengths, _ = greedy_generate(
+            self.model.language_model, embeds, to_device(pos_ids, dev),
+            rope_deltas=to_device(rope_deltas[:, 0], dev), max_new_tokens=max_new_tokens,
+            eos_token_ids=self.stop_token_ids, extra_cache_slots=slots)
+        gen = tokens[0, : int(lengths[0])].cpu().numpy()
+        return self._s2_output(gen, lambda: self.generate_latents(input_ids, gen, img_tokens,
+                                                                  grid))
+
+    @torch.inference_mode()
+    def generate_latents(self, input_ids: np.ndarray, generated, img_tokens, grid,
+                         bucket: int = 32) -> torch.Tensor:
+        """The traj latents by a re-prefill (JAX `generate_latents`): the
+        prompt input_ids (1, P), the generated tokens and n_query traj
+        tokens, right-padded to a multiple of `bucket` with the pads in
+        segment 1 (the real tokens' states equal the unpadded prefill's),
+        prefilled once over img_tokens (the prompt's vision tokens, grid
+        their grid_thw); returns the final norm's states of the query
+        positions, (1, n_query, E)."""
+        cfg, dev = self.cfg, self.device
+        n_q = cfg.n_query
+        real = np.concatenate([np.asarray(input_ids)[0], np.asarray(generated, np.int64),
+                               np.full((n_q,), cfg.traj_token_index, np.int64)])
+        L = len(real)
+        padded_len = -(-L // bucket) * bucket
+        full = np.full((1, padded_len), self.tokenizer.pad_token_id, np.int64)
+        full[0, :L] = real
+        seg = np.zeros((1, padded_len), np.int32)
+        seg[0, L:] = 1
+        pos_ids, _ = get_rope_index_25(full, grid, spatial_merge_size=cfg.vision.spatial_merge_size,
+                                       image_token_id=cfg.image_token_index)
+        embeds = self.model.embed_multimodal(to_device(full, dev), img_tokens)
+        _, hidden, _ = self.model.prefill(embeds, to_device(pos_ids, dev), to_device(seg, dev),
+                                          compute_logits=False)
+        return hidden[:, L - n_q:L]
 
     @torch.inference_mode()
     def _s2_step_fused(self, images: np.ndarray, input_ids: np.ndarray, max_new_tokens: int,
@@ -529,17 +613,7 @@ class InternVLAN1Policy:
             img_tokens, to_device(padded_ids, dev), to_device(padded_pos, dev), deltas, prompt_len,
             to_device(prompt_seg, dev), max_new_tokens)
         gen = tokens[0, : int(lengths[0])].cpu().numpy()
-        self.last_gen_tokens = gen
-        self.llm_output = self.tokenizer.decode(gen)
-        out = S2Output()
-        if re.search(r"\d", self.llm_output):
-            coords = [int(c) for c in re.findall(r"\d+", self.llm_output)]
-            if len(coords) >= 2:
-                out.output_pixel = np.array([coords[1], coords[0]])
-            out.output_latent = latents
-        else:
-            out.output_action = parse_actions(self.llm_output)
-        return out
+        return self._s2_output(gen, lambda: latents)
 
     @torch.inference_mode()
     def fused_s2(self, img_tokens, input_ids, pos_ids, rope_deltas, prompt_len, prompt_seg,

@@ -1,8 +1,8 @@
 """Rotary position embeddings: 1-D RoPE and Qwen2.5-VL multimodal M-RoPE.
 
-Port of internnav_tpu/ops/rope.py. `get_rope_index_25` is the host-side
-numpy walk, copied as is (the JAX module imports jax, so it cannot be
-shared).
+Port of internnav_tpu/ops/rope.py. `get_rope_index_25` and
+`get_rope_index_2` are the host-side numpy walks, copied as they are (the
+JAX module imports jax, so it cannot be shared).
 """
 
 from __future__ import annotations
@@ -48,6 +48,20 @@ def apply_rotary(q, k, cos, sin):
     q_out = q * cos + rotate_half(q) * sin
     k_out = k * cos + rotate_half(k) * sin
     return q_out, k_out.to(k.dtype)
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/k (B, H, T, D); cos/sin (B, T, D) or (T, D). The products run in
+    the promoted dtype (bf16 q with fp32 tables: fp32) and are cast back to
+    q's and k's dtypes, as the JAX `apply_rope` does (`apply_rotary` casts
+    the tables to q's dtype first, as HF's text attention does)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, None], sin[:, None]  # (B, 1, T, D)
+    q_out = q * cos + rotate_half(q) * sin
+    k_out = k * cos + rotate_half(k) * sin
+    return q_out.to(q.dtype), k_out.to(k.dtype)
 
 
 def mrope_cos_sin(position_ids: torch.Tensor, dim: int, mrope_section: Sequence[int],
@@ -156,3 +170,27 @@ def get_rope_index_25(
         position_ids[:, b, attention_mask[b] == 1] = full[:, :n]
         rope_deltas[b, 0] = (full.max() + 1 if full.size else 0) - n
     return position_ids, rope_deltas
+
+
+def get_rope_index_2(
+    input_ids: np.ndarray,
+    image_grid_thw: Optional[np.ndarray],
+    video_grid_thw: Optional[np.ndarray] = None,
+    *,
+    spatial_merge_size: int = 2,
+    image_token_id: int = 151655,
+    video_token_id: int = 151656,
+    vision_start_token_id: int = 151652,
+    attention_mask: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Qwen2-VL 3-D rotary indices: the walk of `get_rope_index_25`, with
+    video time advancing one index per temporal grid (no seconds-per-grid
+    scaling)."""
+    return get_rope_index_25(
+        input_ids, image_grid_thw, video_grid_thw,
+        spatial_merge_size=spatial_merge_size,
+        image_token_id=image_token_id, video_token_id=video_token_id,
+        vision_start_token_id=vision_start_token_id,
+        second_per_grid_ts=None, tokens_per_second=1.0,
+        attention_mask=attention_mask,
+    )

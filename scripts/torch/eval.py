@@ -16,7 +16,12 @@ raises (no fallback to the host); `--device cpu` runs on the host when
 asked for (the tests). With `use_agent_server` the agent runs in the
 agent server (`scripts/torch/start_server.py`), which builds it on that
 device. eval_type "vln_pe" is assembled by `configs.vln_default.get_config`
-and then refused: the VLN-PE evaluator is not ported yet.
+and then refused: the VLN-PE evaluator is not ported yet. The Habitat
+configs (`scripts/torch/configs/habitat_{dual_system,s2,dialog,object}_cfg.py`,
+eval_type "habitat_vln" / "habitat_dialog") need habitat for their
+simulator: without it they raise the JAX package's ImportError; the
+evaluators run over an injected sim from Python (`Evaluator.init(cfg,
+sim=..., episodes=...)`, README.md).
 """
 
 from __future__ import annotations

@@ -71,15 +71,22 @@ def _dump(cfg) -> tuple:
 
 @pytest.mark.parametrize("path", PORT_CONFIGS, ids=lambda p: p.name)
 def test_port_config_files_equal_jax_configs(path):
-    assert [p.name for p in PORT_CONFIGS] == ["fake_n1_pipelined_cfg.py",
-                                             "fake_n1_shared_decode_cfg.py"]
+    """The fake N1 configs (each with an N1 config object) and the Habitat
+    ones (none)."""
+    assert [p.name for p in PORT_CONFIGS] == [
+        "fake_n1_pipelined_cfg.py", "fake_n1_shared_decode_cfg.py", "habitat_dialog_cfg.py",
+        "habitat_dual_system_cfg.py", "habitat_object_cfg.py", "habitat_s2_cfg.py"]
     port = tconfigs.load_py_config(str(path))
     ref = jconfigs.load_py_config(str(REPO / "scripts" / "eval" / "configs" / path.name))
     assert isinstance(port, tconfigs.EvalCfg)
     pd, pn1 = _dump(port)
     rd, rn1 = _dump(ref)
     assert pd == rd
-    assert pn1 == rn1 and pn1["text.dtype"] == "bfloat16"
+    assert pn1 == rn1
+    if path.name.startswith("habitat_"):
+        assert pn1 is None and pd["env"]["env_type"] == "habitat"
+    else:
+        assert pn1["text.dtype"] == "bfloat16"
 
 
 def test_load_py_config_refuses_a_file_without_the_attribute(tmp_path):

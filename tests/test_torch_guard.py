@@ -46,7 +46,8 @@ BENCH_ENTRY = REPO / "scripts" / "torch" / "bench_evaluator.py"
 #: with jax blocked (each script's main runs only as __main__)
 SCRIPTS = [BENCH_ENTRY, *(REPO / "scripts" / "torch" / name for name in (
     "eval.py", "start_server.py", "dryrun_distributed_eval.py",
-    "configs/fake_n1_pipelined_cfg.py", "configs/fake_n1_shared_decode_cfg.py"))]
+    "configs/fake_n1_pipelined_cfg.py", "configs/fake_n1_shared_decode_cfg.py",
+    *(f"configs/habitat_{name}_cfg.py" for name in ("dual_system", "s2", "dialog", "object"))))]
 #: every module of the port, by its file
 PORT_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -73,7 +74,11 @@ def test_port_modules_cover_the_package():
                 # the entry points: configs, the model factory, the agents the
                 # server builds, the agent server and its client
                 "configs.loader", "configs.model", "configs.defaults", "configs.vln_default",
-                "model", "agent.simple_agent", "comm", "comm.server", "comm.client"):
+                "model", "agent.simple_agent", "comm", "comm.server", "comm.client",
+                # the Habitat VLN-CE and VL-LN dialog evaluation
+                "habitat", "habitat.measures", "habitat.sim_adapter", "habitat.env",
+                "habitat.evaluator", "dialog", "dialog.oracle", "dialog.npc", "dialog.mp3d",
+                "dialog.dialog_agent", "dialog.evaluator", "utils.geometry", "ops.rope"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
     assert set(SCRIPTS) <= set(PORT_SOURCES)
     assert len(PORT_MODULES) > 40
@@ -300,8 +305,11 @@ def test_launcher_refuses_unported_profile_and_missing_gpu(monkeypatch):
 
 
 def test_public_constructors_default_to_the_gpu(monkeypatch):
-    """`build_model` and `InternVLAN1Policy.build` without a device run on
-    the GPU: with no CUDA device they raise instead of building on the host."""
+    """`build_model`, `InternVLAN1Policy.build` and the dialog agent without
+    a device run on the GPU: with no CUDA device they raise instead of
+    building on the host."""
+    from internnav_tpu_torch.configs import AgentCfg
+    from internnav_tpu_torch.dialog.dialog_agent import DialogAgent
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -309,6 +317,8 @@ def test_public_constructors_default_to_the_gpu(monkeypatch):
         InternVLAN1Policy.build(InternVLAN1Config.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(InternVLAN1Config.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DialogAgent(AgentCfg(model_name="dialog"))
 
 
 class _LookDownPolicy:
