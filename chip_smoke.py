@@ -182,9 +182,28 @@ Phases, each printing its numbers:
                and the frames, no plain version; and one request through
                `s2_step(fused=False)` against `fused=True` on the same
                frame: tokens equal, each traj query's latents within
-               UNFUSED_LATENT_RTOL. Python's str hash is pinned
+               UNFUSED_LATENT_RTOL; then evaluate vln_pe, the reference's
+               VLN-PE protocol (InternUtopia physics) without a simulator
+               (FakePhysicsVecEnv) on the same checkpoint: (a) flash,
+               `scripts/torch/eval.py`'s main in this process on the h1
+               InternVLA-N1 config with backend fake_physics and a 420x420
+               camera, 2 episodes of data/fake_r2r in one env of at most
+               32 steps, then again (the resume: nothing re-run); (b)
+               physical, one episode of at most 8 macro steps of 50
+               substeps, the H1 loco actor on the card every 4th substep,
+               its joint targets held against the same actor on the host
+               within LOCO_TOL; (c) the pipelined evaluator's internutopia
+               cohorts: 2 x 4 FakePhysics envs at 224x224 behind
+               VLNPEBatchAdapter, the batched agent over the shared
+               grouped decode, 8 episodes of at most 16 steps; every
+               action legal, every episode ended with finite metrics, K1
+               and K4-K8 held per part to the counts computed from the
+               System-2 / System-1 calls and the frames
+               (`expected_serve_launches`, `expected_pipelined_launches`),
+               no plain version. Python's str hash is pinned
                (PYTHONHASHSEED=0; the script re-executes itself with it),
-               so FakeEnv draws the same frames in every run;
+               so FakeEnv and FakePhysicsVecEnv draw the same frames in
+               every run;
   navdp    — the NavDP System-1 (`navdp_async`: the fp32 NavDP head with
                its RGBD backbone and 20-step DDPM) on one 7B realtime
                policy (random weights, seed 0): serve navdp, 4
@@ -241,10 +260,11 @@ Phases, each printing its numbers:
                unchanged; no plain version run; step s, tokens/s, MFU and
                peak memory printed.
 Every kernel's launch count is set to 0 just before each of the
-seventeen paths (serve, serve tp, serve realtime, the long realtime request, serve
+eighteen paths (serve, serve tp, serve realtime, the long realtime request, serve
 realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
 evaluate phase's timed runs, the int4 evaluate's timed run, evaluate
-server, evaluate habitat, serve navdp,
+server, evaluate habitat, evaluate vln_pe (each of its three parts),
+serve navdp,
 serve batched navdp's checked cycle, evaluate navdp's timed run, train,
 train sharded's two steps) and read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
@@ -2332,42 +2352,18 @@ def own_instruction(ci: int, r: int) -> str:
             f"{SIDES[(r // 4) % 3]}")
 
 
-def expected_batched_launches(cfg, cycles: int, cohorts: int, rows: int,
-                              vision_k1: int, dit_layers: int) -> dict:
+def expected_batched_launches(policy, cycles: int, cohorts: int, rows: int) -> dict:
     """Launches of `cycles` shared-decode cycles of `cohorts` cohorts of
-    `rows` rows, each decoding the full BATCH_NEW_TOKENS budget: a cycle is
-    each cohort's vision call (vision_k1 K1 launches, K8 once a ViT block)
-    and its BATCH_S1_CALLS System-1 denoises (S1_STEPS velocities over
-    NextDiT's `dit_layers`, K8 as in `expected_serve_launches`) and prefill (K1 a
-    layer; per layer pass K6a 4 and K7 1, K6b 7 on the prefill tiles; one
-    lm_head call at its rows: K6a PLAIN 1, K6b 1), then one grouped decode
-    (BATCH_NEW_TOKENS steps over `cohorts` cache groups: K4 and K7 once a
-    group and layer; K6a 4 a layer; K6b 7 a layer at more than
-    GEMM_DECODE_MAX_M rows (the prefill tiles), else 4 with 2 fused; K6a
-    PLAIN and K6b one more a step with the lm_head, every step but the
-    last) and one grouped latent chunk (K5 and K7 once a group and layer,
-    K6a and K6b as a step at its rows x n_query rows)."""
-    from internnav_tpu_torch.ops.quant import GEMM_DECODE_MAX_M
-
-    L, G = cfg.text.num_hidden_layers, cohorts
+    `rows` rows at BATCH_HW, each decoding the full BATCH_NEW_TOKENS budget:
+    a cycle is each cohort's vision call over its rows' frames, its prefill
+    and its BATCH_S1_CALLS System-1 denoises, then one grouped decode and
+    latent chunk over the cohorts' cache groups
+    (`expected_pipelined_launches`)."""
     prefills = cycles * cohorts
-    steps, logit_steps = cycles * BATCH_NEW_TOKENS, cycles * (BATCH_NEW_TOKENS - 1)
-    passes = prefills + steps + cycles
-
-    def k6b(M):  # K6b launches and fused launches a layer pass of M rows
-        return (7, 0) if M > GEMM_DECODE_MAX_M else (4, 2)
-
-    (dec, dec_fused), (chk, chk_fused) = k6b(G * rows), k6b(G * rows * cfg.n_query)
-    want = dict.fromkeys(LAUNCH_KEYS, 0)
-    want.update(K1=prefills * (L + vision_k1), K4=L * G * steps, K5=L * G * cycles,
-                K6a=4 * L * passes + prefills + logit_steps, K6a_rmsnorm=2 * L * passes,
-                K6a_swiglu=L * passes, K6a_plain=L * passes + prefills + logit_steps,
-                K6b=7 * L * prefills + L * (dec * steps + chk * cycles) + prefills + logit_steps,
-                K6b_fused=L * (dec_fused * steps + chk_fused * cycles),
-                K7=L * prefills + L * G * (steps + cycles),
-                K8=prefills * (cfg.vision.depth
-                               + BATCH_S1_CALLS * s1_silu_launches(cfg, dit_layers)))
-    return want
+    return expected_pipelined_launches(
+        policy, [(rows, BATCH_HW, BATCH_HW)] * prefills, prefills,
+        [(cohorts, cohorts * rows, BATCH_NEW_TOKENS, BATCH_NEW_TOKENS - 1)] * cycles,
+        prefills * BATCH_S1_CALLS)
 
 
 def phase_serve_batched(device) -> dict:
@@ -2545,12 +2541,7 @@ def phase_serve_batched(device) -> dict:
     if prompts != {(BATCH_PROMPT_T, (BATCH_PROMPT,) * BATCH_ROWS)}:
         raise AssertionError(f"serve batched: prompt buckets and lengths {prompts}, the kernel "
                              f"rows hold {BATCH_PROMPT} in {BATCH_PROMPT_T}")
-    window_block, full_block = policy._vision_host_indices(BATCH_HW, BATCH_HW, BATCH_ROWS)[1]
-    v = cfg.vision
-    vision_k1 = (0 if window_block else v.depth - len(v.fullatt_block_indexes)) + \
-        (0 if full_block else len(v.fullatt_block_indexes))
-    want = expected_batched_launches(cfg, cycles, BATCH_COHORTS, BATCH_ROWS, vision_k1,
-                                     dit_layers(policy))
+    want = expected_batched_launches(policy, cycles, BATCH_COHORTS, BATCH_ROWS)
     if launches != want:
         raise AssertionError(f"serve batched: kernel launches {launches}, expected {want}")
     buffers = policy.decode_buffers
@@ -2572,7 +2563,7 @@ def phase_serve_batched(device) -> dict:
           f"actions_per_s={[round(a, 2) for a in aps]} actions_per_s_best={max(aps):.2f} "
           f"host_stats_sum_s={sums} last_stream_wall_s={walls[-1]:.4f} "
           f"decode_loop={dict(loop)} cache_sets={sum(len(x) for x in buffers._sets.values())} "
-          f"loops={len(buffers._loops)} vision_k1_per_call={vision_k1} launches={launches} "
+          f"loops={len(buffers._loops)} launches={launches} "
           f"peak_mem_gib={peak_gib:.2f} gpu={gpu_line()!r}")
     return {"serve_batched": launches}
 
@@ -3184,19 +3175,22 @@ def habitat_episodes(n: int, seed: int, tag: str):
     return out
 
 
-def scripted_decode(policy, scripts):
+def scripted_decode(policy, scripts, cycle: bool = False):
     """Install on `policy` a tokenizer whose encode is SimpleTokenizer's and
-    whose decode returns scripts[e]'s texts in turn (the last repeating), e
-    the episode (advanced by each policy.reset()); the decode on the card
-    still runs in full. Returns a function that restores the policy."""
+    whose decode returns scripts[e]'s texts in turn (the last repeating, or
+    all of them in a cycle with `cycle`), e the episode (advanced by each
+    policy.reset()); the decode on the card still runs in full. Returns a
+    function that restores the policy."""
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import SimpleTokenizer
 
     class Scripted(SimpleTokenizer):
         episode, call = -1, 0
 
         def decode(self, ids):
-            script = scripts[min(self.episode, len(scripts) - 1)]
+            script = scripts[max(0, min(self.episode, len(scripts) - 1))]
             self.call += 1
+            if cycle:
+                return script[(self.call - 1) % len(script)]
             return script[min(self.call - 1, len(script) - 1)]
 
     tok, reset, saved = Scripted(policy.cfg.text.vocab_size), policy.reset, policy.tokenizer
@@ -3479,6 +3473,476 @@ def phase_evaluate_habitat(device, ckpt: Path) -> dict:
     return {"evaluate_habitat": launches}
 
 
+# ------------------------------------------------------- evaluate vln_pe
+#: the evaluate vln_pe phase. (a) flash: scripts/torch/eval.py's path on
+#: the h1 InternVLA-N1 config, with the fake_physics backend and a square
+#: camera of whole 28-pixel merges (its 640x480 is ROADMAP F21), env_num 1;
+#: (b) physical: move_by_discrete over 50 substeps a macro step, the H1
+#: loco actor on the card; (c) the pipelined evaluator's internutopia
+#: cohorts behind VLNPEBatchAdapter
+H1_CONFIG = REPO / "scripts" / "torch" / "configs" / "h1_internvla_n1_async_cfg.py"
+VLNPE_HW = 420
+VLNPE_EPISODES = 2
+VLNPE_MAX_STEP = 32
+VLNPE_PHYSICAL_STEPS = 8
+VLNPE_COHORTS = 2
+VLNPE_ROWS = 4
+VLNPE_BATCH_HW = 224
+VLNPE_BATCH_EPISODES = 8
+VLNPE_BATCH_MAX_STEP = 16
+VLNPE_BATCH_NEW_TOKENS = 32
+VLNPE_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
+#: the loco actor on the card against the same weights on the host, fp32
+#: (TF32 off): 4 layers of 128-512 products summed in another order
+LOCO_TOL = 1e-5
+#: what the scripted decode returns. (a), per episode (an episode's last
+#: text repeating): episode 0 an action list, a pixel goal (System-1),
+#: then STOP; episode 1 pixel goals. (b) pixel goals. (c) the texts in a
+#: cycle over every row
+VLNPE_SCRIPTS = {
+    "flash": (("↑ ← ↑ →", "140 220", "STOP"), ("140 220",)),
+    "physical": (("140 220",),),
+    "pipelined": (("100 60", "↑ ← ↑ →", "60 100", "↑ ↑ STOP"),),
+}
+VLNPE_LEGAL = {0, 1, 2, 3}
+
+
+def expected_pipelined_launches(policy, vision, prefills: int, tails, s1_calls: int) -> dict:
+    """Launches of the pipelined evaluator's System-2 and System-1 work on
+    the realtime profile, from its calls: each vision call (n h x w frames:
+    K1 once a ViT block whose segments are ragged, K8 once a block); each
+    group's prefill (K1 a layer; per layer pass K6a 4 and K7 1, K6b 7 on
+    the prefill tiles; one lm_head call: K6a PLAIN 1, K6b 1); each grouped
+    tail (G cache groups of M rows in all, `steps` decode steps run on the
+    device of which `logits` call the lm_head: K4 and K7 once a group and
+    layer a step; K6a 4 a layer pass, K6b 7 a layer pass above
+    GEMM_DECODE_MAX_M rows, else 4 with 2 fused; one K6a PLAIN and K6b a
+    logits step; then the latent chunk at M x n_query rows: K5 and K7 once
+    a group and layer, K6a and K6b as a step); each System-1 denoise
+    (`s1_silu_launches`)."""
+    from internnav_tpu_torch.ops.quant import GEMM_DECODE_MAX_M
+
+    cfg, v = policy.cfg, policy.cfg.vision
+    L = cfg.text.num_hidden_layers
+    want = dict.fromkeys(LAUNCH_KEYS + ("K8",), 0)
+
+    def add(**counts):
+        for k, n in counts.items():
+            want[k] += n
+
+    def k6b(M):  # K6b launches and fused launches a layer pass of M rows
+        return (7, 0) if M > GEMM_DECODE_MAX_M else (4, 2)
+
+    for n, h, w in vision:
+        window_block, full_block = policy._vision_host_indices(h, w, n)[1]
+        add(K1=(0 if window_block else v.depth - len(v.fullatt_block_indexes))
+            + (0 if full_block else len(v.fullatt_block_indexes)), K8=v.depth)
+    add(K1=L * prefills, K6a=(4 * L + 1) * prefills, K6a_rmsnorm=2 * L * prefills,
+        K6a_swiglu=L * prefills, K6a_plain=(L + 1) * prefills, K6b=(7 * L + 1) * prefills,
+        K7=L * prefills)
+    for G, M, steps, logits in tails:
+        (dec, dec_fused), (chk, chk_fused) = k6b(M), k6b(M * cfg.n_query)
+        passes = steps + 1
+        add(K4=L * G * steps, K5=L * G, K7=L * G * passes, K6a=4 * L * passes + logits,
+            K6a_rmsnorm=2 * L * passes, K6a_swiglu=L * passes, K6a_plain=L * passes + logits,
+            K6b=L * (dec * steps + chk) + logits, K6b_fused=L * (dec_fused * steps + chk_fused))
+    add(K8=s1_calls * s1_silu_launches(cfg, dit_layers(policy)))
+    return want
+
+
+def phase_evaluate_vln_pe(device, ckpt: Path) -> dict:
+    """The VLN-PE protocol (InternUtopia physics, simulator-free through
+    FakePhysicsVecEnv) at 7B on the card, the "internvla_n1" agents loaded
+    from the native int8 checkpoint `ckpt` (realtime: W8A8, int8 KV), each
+    part with a scripted decode (VLN_SCRIPTS):
+    (a) flash: `scripts/torch/eval.py`'s main in this process on the h1
+        config (`h1_internvla_n1_async_cfg.py`: partial_async, System-2 on
+        its thread) with backend fake_physics and a VLNPE_HW camera,
+        VLNPE_EPISODES episodes of data/fake_r2r in one env of at most
+        VLNPE_MAX_STEP steps (`get_config`'s assembly, `VLNPEEvaluator`,
+        `InternutopiaEnv`), then main again: the resume re-runs nothing
+        and counts every episode;
+    (b) physical: robot_flash False and use_loco, one episode of at most
+        VLNPE_PHYSICAL_STEPS macro steps on the same policy (a new agent):
+        the H1 loco actor on the card every 4th of the 50 substeps a macro
+        step; each call's joint targets held against the same `LocoActor`
+        on the host for the recorded observations within LOCO_TOL;
+    (c) `VLNPipelinedEvaluator` with env_type internutopia: VLNPE_COHORTS
+        cohorts x VLNPE_ROWS FakePhysics envs at VLNPE_BATCH_HW through
+        `VLNPEBatchAdapter`, `BatchedInternVLAN1Agent` over the shared
+        grouped decode of the same policy, VLNPE_BATCH_EPISODES episodes of
+        at most VLNPE_BATCH_MAX_STEP steps.
+    Each part: every action legal, every episode ended with finite metrics,
+    K1 and K4-K8 launched exactly as computed from its calls and frames
+    (`expected_serve_launches` for the single stream,
+    `expected_pipelined_launches` for the cohorts), no plain version run.
+    Prints the seconds of each part and of each System-2 and System-1
+    call, and the loco calls a substep. Returns the phase's launches."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.agent.internvla_n1_agent import (
+        BatchedInternVLAN1Agent,
+        InternVLAN1Agent,
+    )
+    from internnav_tpu_torch.configs import (
+        AgentCfg, EnvCfg, EvalCfg, MetricCfg, TaskCfg, load_py_config,
+    )
+    from internnav_tpu_torch.configs.vln_default import get_config
+    from internnav_tpu_torch.env.internutopia import loco as loco_mod
+    from internnav_tpu_torch.evaluator import Evaluator
+    from internnav_tpu_torch.evaluator.vln_pipelined_evaluator import VLNPipelinedEvaluator
+    from internnav_tpu_torch.model.basemodel.internvla_n1.serving import BatchedN1Policy
+
+    root = WORK_DIR / "evaluate_vln_pe"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    spec = importlib.util.spec_from_file_location(
+        "port_eval_cli", REPO / "scripts" / "torch" / "eval.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    flash_cfg = root / "flash_cfg.py"
+    flash_cfg.write_text(
+        "from internnav_tpu_torch.configs import load_py_config\n"
+        f"eval_cfg = load_py_config({str(H1_CONFIG)!r})\n"
+        "eval_cfg.env.env_settings['backend'] = 'fake_physics'\n"
+        f"eval_cfg.task.camera_resolution = [{VLNPE_HW}, {VLNPE_HW}]\n"
+        f"eval_cfg.task.max_step = {VLNPE_MAX_STEP}\n"
+        f"eval_cfg.agent.ckpt_path = {str(ckpt)!r}\n"
+        f"eval_cfg.dataset.base_data_dir = {str(REPO / 'data' / 'fake_r2r')!r}\n"
+        f"eval_cfg.dataset.max_episodes = {VLNPE_EPISODES}\n"
+        f"eval_cfg.output_dir = {str(root / 'flash')!r}\n")
+
+    state = {"part": "flash", "policy": None, "agent": None}
+    calls, s1, encodes, outs = [], [], [], []
+    seconds = {}
+
+    def instrument(policy):
+        s2_step, s1_step, encode = policy.s2_step, policy.s1_step_latent, policy._encode_images
+
+        def recorded_s2(image, instruction, look_down=False, max_new_tokens=MAX_NEW_TOKENS,
+                        fused=True):
+            before, t = decode_stats(), time.perf_counter()
+            out = s2_step(image, instruction, look_down, max_new_tokens, fused)
+            kind = ("pixel" if out.output_latent is not None else
+                    "stop" if 0 in out.output_action else
+                    "actions" if out.output_action else "none")
+            calls.append({"part": state["part"], "kind": kind, "s": time.perf_counter() - t,
+                          "gen": len(policy.last_gen_tokens), "loop": decode_stats() - before})
+            return out
+
+        def recorded_s1(rgb, depth, latent, *args, **kwargs):
+            t = time.perf_counter()
+            out = s1_step(rgb, depth, latent, *args, **kwargs)
+            s1.append({"part": state["part"], "s": time.perf_counter() - t,
+                       "actions": len(out.idx), "finite": bool(np.isfinite(out.trajectory).all())})
+            return out
+
+        def recorded_encode(images):
+            encodes.append((state["part"], tuple(images.shape[:3])))
+            return encode(images)
+
+        policy.s2_step, policy.s1_step_latent = recorded_s2, recorded_s1
+        policy._encode_images = recorded_encode
+
+    def recorded_agent(agent):
+        step = agent.step
+
+        def recorded(obs):
+            out = step(obs)
+            outs.append((state["part"], [int(o["action"][0]) for o in out]))
+            return out
+
+        agent.step = recorded
+        return agent
+
+    class HookedEvaluator:
+        """eval.py's `Evaluator`, whose built evaluator gets the recording
+        spies and the scripted decode before it runs; the resume run gets
+        the first run's agent (no second load)."""
+
+        @staticmethod
+        def init(cfg, **kwargs):
+            if state["agent"] is not None:
+                kwargs.setdefault("agent", state["agent"])
+            ev = Evaluator.init(cfg, **kwargs)
+            if state["agent"] is None:
+                state["agent"], state["policy"] = recorded_agent(ev.agent), ev.agent.policy
+                instrument(state["policy"])
+                state["restore"] = scripted_decode(state["policy"], VLNPE_SCRIPTS["flash"])
+                # the first episode's script (this evaluator resets the agent
+                # after an episode only)
+                state["policy"].reset()
+                reset_launch_counts()
+            return ev
+
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    launches, metrics, problems = {}, {}, []
+    loco_check = {}
+    policy = agent = None
+    try:
+        # (a) flash, through eval.py's main
+        cli.Evaluator = HookedEvaluator
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # its metrics line
+            metrics["flash"] = cli.main(["--config", str(flash_cfg)])
+        seconds["flash"] = time.perf_counter() - t
+        agent, policy = state["agent"], state["policy"]
+        n_calls, n_outs = len(calls), len(outs)
+        with contextlib.redirect_stdout(sys.stderr):
+            metrics["flash_resumed"] = cli.main(["--config", str(flash_cfg)])
+        agent.close()  # an in-flight System-2 request ends before the counts are read
+        torch.cuda.synchronize(device)
+        launches["flash"] = launch_counts()
+        if len(calls) != n_calls or len(outs) != n_outs:
+            problems.append(f"flash: the resume re-ran {len(calls) - n_calls} System-2 calls "
+                            f"and {len(outs) - n_outs} steps")
+        state["restore"]()
+        if policy.device.type != "cuda" or policy.cfg.text.weight_dtype != "int8" \
+                or policy.cfg.text.kv_dtype != "int8" or policy.cfg.system1 != "nextdit_async":
+            raise AssertionError(f"evaluate vln_pe: the agent's policy is {policy.cfg.text} "
+                                 f"{policy.cfg.system1} on {policy.device}")
+
+        # (b) physical: the loco actor on the card
+        state["part"] = "physical"
+        restore = scripted_decode(policy, VLNPE_SCRIPTS["physical"])
+        base = load_py_config(str(H1_CONFIG))
+        base.env.env_settings.update(backend="fake_physics", use_loco=True)
+        base.task.robot_flash = False
+        base.task.camera_resolution = [VLNPE_HW, VLNPE_HW]
+        base.task.max_step = VLNPE_PHYSICAL_STEPS
+        base.agent.ckpt_path = str(ckpt)
+        base.output_dir = str(root / "physical")
+        cfg = get_config(base)
+        agent = recorded_agent(InternVLAN1Agent.with_policy(policy, **{
+            k: cfg.agent.model_settings[k] for k in ("infer_mode", "sys2_max_forward_step",
+                                                     "continuous_traj", "async_s2")}))
+        ev = Evaluator.init(cfg, episodes=habitat_episodes(1, 5, "v"), agent=agent)
+        vec = ev.env.env
+        actors = {id(c.actor): c.actor for c in vec.loco}
+        recorded_loco, loco_s, ticks = [], [], [0]
+        for actor in actors.values():
+            fwd = actor.forward
+
+            def loco_forward(x, _fwd=fwd, _actor=actor):
+                y = _fwd(x)
+                recorded_loco.append((_actor, x.clone(), y.clone()))
+                return y
+
+            actor.forward = loco_forward
+        control, step = loco_mod.H1SpeedController.action_to_control, vec.step
+
+        def timed_control(self, st, action):
+            t0 = time.perf_counter()
+            out = control(self, st, action)
+            loco_s.append(time.perf_counter() - t0)
+            return out
+
+        def counted_step(actions):
+            ticks[0] += 1
+            return step(actions)
+
+        loco_mod.H1SpeedController.action_to_control = timed_control
+        vec.step = counted_step
+        reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            metrics["physical"] = ev.eval()
+        finally:
+            loco_mod.H1SpeedController.action_to_control = control
+        seconds["physical"] = time.perf_counter() - t
+        agent.close()
+        torch.cuda.synchronize(device)
+        launches["physical"] = launch_counts()
+        restore()
+        devices = {str(c.device) for c in vec.loco}
+        err = 0.0
+        for actor in actors.values():
+            host = loco_mod.LocoActor(device="cpu")
+            host.load_state_dict({k: v.cpu() for k, v in actor.state_dict().items()})
+            mine = [(x, y) for a, x, y in recorded_loco if a is actor]
+            xs = torch.cat([x for x, _ in mine]).cpu()
+            with torch.inference_mode():
+                want = host(xs)
+            err = max(err, float((torch.cat([y for _, y in mine]).cpu() - want).abs().max()))
+        loco_check = {"calls": len(recorded_loco), "substeps": ticks[0],
+                      "loco_substeps": vec.loco_calls, "devices": sorted(devices),
+                      "max_abs_err": err, "control_ms_mean": 1e3 * statistics.mean(loco_s)
+                      if loco_s else None}
+        if devices != {"cuda:0"} or not recorded_loco or err > LOCO_TOL:
+            problems.append(f"physical: the loco actor {loco_check} (bound {LOCO_TOL})")
+        if sum(c.policy_calls for c in vec.loco) != len(recorded_loco):
+            problems.append("physical: the actors' call counts differ from the recorded calls")
+
+        # (c) the pipelined evaluator's internutopia cohorts
+        state["part"] = "pipelined"
+        restore = scripted_decode(policy, VLNPE_SCRIPTS["pipelined"], cycle=True)
+        settings = {"batch_size": VLNPE_ROWS, "max_new_tokens": VLNPE_BATCH_NEW_TOKENS,
+                    "num_sample_trajs": BATCH_TRAJS, "sys2_max_forward_step": 8,
+                    "max_local_steps": 4, "system1": policy.cfg.system1}
+        cfg = EvalCfg(
+            agent=AgentCfg(model_name="internvla_n1_batched", model_settings=settings),
+            env=EnvCfg(env_type="internutopia", env_num=VLNPE_ROWS,
+                       env_settings={"backend": "fake_physics", "cohorts": VLNPE_COHORTS,
+                                     "shared_decode": True}),
+            task=TaskCfg(max_step=VLNPE_BATCH_MAX_STEP, warm_up_step=4, robot_flash=True,
+                         camera_resolution=[VLNPE_BATCH_HW, VLNPE_BATCH_HW],
+                         metric_config=MetricCfg(success_distance=3.0)),
+            eval_type="vln_pipelined", output_dir=str(root / "pipelined"))
+        bad, tails, prefills, s1_batched = [], [], [0], [0]
+        spies.append(_check_outputs((BATCH_TRAJS, policy.cfg.predict_step_nums, 3), bad))
+        tail, prefill = policy.grouped_tail, policy.prefill_s2
+        s1_submit = BatchedN1Policy.s1_submit
+
+        def recorded_tail(caches, first, *args, **kwargs):
+            before, t0 = decode_stats(), time.perf_counter()
+            out = tail(caches, first, *args, **kwargs)
+            st = decode_stats() - before
+            tails.append((len(caches), int(first.shape[0]), st["steps"], st["logits_steps"],
+                          time.perf_counter() - t0))
+            return out
+
+        def recorded_prefill(*args, **kwargs):
+            prefills[0] += 1
+            return prefill(*args, **kwargs)
+
+        def recorded_s1_submit(self, *args, **kwargs):
+            s1_batched[0] += 1
+            return s1_submit(self, *args, **kwargs)
+
+        policy.grouped_tail, policy.prefill_s2 = recorded_tail, recorded_prefill
+        BatchedN1Policy.s1_submit = recorded_s1_submit
+        agent = BatchedInternVLAN1Agent(cfg.agent, policy=BatchedN1Policy(policy, VLNPE_ROWS,
+                                                                          seed=0))
+        reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            ev = VLNPipelinedEvaluator(
+                cfg, episodes=habitat_episodes(VLNPE_BATCH_EPISODES, 6, "c"), agent=agent)
+            metrics["pipelined"] = ev.eval()
+        finally:
+            BatchedN1Policy.s1_submit = s1_submit
+            del policy.grouped_tail, policy.prefill_s2
+        seconds["pipelined"] = time.perf_counter() - t
+        torch.cuda.synchronize(device)
+        launches["pipelined"] = launch_counts()
+        restore()
+        records = [r["info"] for r in ev.store.records()]
+        if bad:
+            problems.append(f"pipelined: {len(bad)} malformed agent outputs: {bad[:3]}")
+        if len(records) != VLNPE_BATCH_EPISODES or len(ev._prebuilt_envs) != VLNPE_COHORTS \
+                or not all(type(e).__name__ == "VLNPEBatchAdapter" for e in ev._prebuilt_envs):
+            problems.append(f"pipelined: {len(records)} episodes over {ev._prebuilt_envs}")
+        pipe_encodes = [shape for part, shape in encodes if part == "pipelined"]
+        want = expected_pipelined_launches(policy, pipe_encodes, prefills[0],
+                                           [x[:4] for x in tails], s1_batched[0])
+        if launches["pipelined"] != want:
+            problems.append(f"pipelined: kernel launches {launches['pipelined']}, "
+                            f"expected {want}")
+    finally:
+        _restore(spies)
+        for name in ("s2_step", "s1_step_latent", "_encode_images"):
+            if policy is not None and name in vars(policy):
+                delattr(policy, name)
+        if policy is not None and "reset" in vars(policy):
+            del policy.reset
+        if agent is not None:
+            agent.close()
+        if state["agent"] is not None:
+            state["agent"].close()
+        cli.Evaluator = Evaluator
+    # the single-stream parts: actions, branches, metrics, the launches
+    kinds = {p: collections.Counter(c["kind"] for c in calls if c["part"] == p)
+             for p in VLNPE_SCRIPTS}
+    for p, want_kinds in (("flash", ("pixel", "actions")), ("physical", ("pixel",))):
+        problems += [f"{p}: no {k} branch" for k in want_kinds if not kinds[p][k]]
+        acts = {a for part, out in outs if part == p for a in out}
+        if acts - VLNPE_LEGAL or not acts:
+            problems.append(f"{p}: actions {sorted(acts)}")
+        part_calls = [c for c in calls if c["part"] == p]
+        part_s1 = [c for c in s1 if c["part"] == p]
+        if not part_s1 or any(c["actions"] > 4 or not c["finite"] for c in part_s1):
+            problems.append(f"{p}: System-1 calls {part_s1}")
+        if [shape for part, shape in encodes if part == p] != \
+                [(1, VLNPE_HW, VLNPE_HW)] * len(part_calls):
+            problems.append(f"{p}: vision encodes, one new frame a System-2 step expected")
+        for c in part_calls:
+            st, n = c["loop"], loop_steps(c["gen"])
+            if st["replays"] != n or st["steps"] != st["replays"] + st["warmup_steps"]:
+                problems.append(f"{p}: decode loop {dict(st)} of a {c['gen']}-token step")
+        want = expected_serve_launches(policy.cfg, "realtime",
+                                       [c["loop"]["steps"] for c in part_calls],
+                                       len(part_calls) + sum(c["loop"]["logits_steps"]
+                                                             for c in part_calls),
+                                       len(part_s1), dit_layers(policy))
+        if launches[p] != want:
+            problems.append(f"{p}: kernel launches {launches[p]}, expected {want}")
+    window_block, full_block = policy._vision_host_indices(VLNPE_HW, VLNPE_HW, 1)[1]
+    if window_block or not full_block:  # expected_serve_launches' vision K1 count
+        problems.append(f"vision blocks {window_block, full_block}: the K1 count assumes ragged "
+                        "windows (K1 a windowed block) and one uniform image (no K1)")
+    if metrics["flash"].get("num_episodes") != VLNPE_EPISODES \
+            or metrics["flash_resumed"].get("num_episodes") != VLNPE_EPISODES \
+            or metrics["physical"].get("num_episodes") != 1 \
+            or metrics["pipelined"].get("num_episodes") != VLNPE_BATCH_EPISODES:
+        problems.append(f"episodes: {metrics}")
+    for name, m in metrics.items():
+        if not np.isfinite([v for v in m.values() if isinstance(v, (int, float))]).all():
+            problems.append(f"{name}: metrics {m}")
+    total = {k: sum(part[k] for part in launches.values()) for k in LAUNCH_KEYS + ("K8",)}
+    missing = [k for k in VLNPE_KERNELS if not total[k]]
+    if missing or total["K2"] or total["K3"]:
+        problems.append(f"kernels {missing} never launched, or a backward kernel did: {total}")
+    if plain:
+        problems.append(f"plain versions ran on the card: {dict(plain)}")
+    wall_s = sum(seconds.values())
+    actions = {p: [a for part, out in outs if part == p for a in out]
+               for p in ("flash", "physical")}
+    s2_s = {p: [round(c["s"], 4) for c in calls if c["part"] == p] for p in VLNPE_SCRIPTS}
+    s1_s = {p: [round(c["s"], 4) for c in s1 if c["part"] == p] for p in VLNPE_SCRIPTS}
+    substeps = max(loco_check.get("substeps", 0), 1)
+    print(f"phase evaluate_vln_pe: path=evaluate_vln_pe agent=internvla_n1 ckpt=native_int8 "
+          f"profile=realtime hw={VLNPE_HW} max_step={VLNPE_MAX_STEP} "
+          f"seconds={json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"phase_s={wall_s:.2f} s2_calls={ {p: len(v) for p, v in s2_s.items()} } "
+          f"s1_calls={ {p: len(v) for p, v in s1_s.items()} } "
+          f"branches={json.dumps({p: dict(k) for p, k in kinds.items()})} "
+          f"s2_s={json.dumps(s2_s)} s1_s={json.dumps(s1_s)} "
+          f"generated_tokens={[c['gen'] for c in calls]} "
+          f"actions={json.dumps(actions)} "
+          f"metrics={json.dumps(metrics)} gpu={gpu_line()!r}")
+    print(f"phase evaluate_vln_pe: loco physical_macro_steps<={VLNPE_PHYSICAL_STEPS} "
+          f"substeps={loco_check.get('substeps')} loco_substeps={loco_check.get('loco_substeps')} "
+          f"actor_calls={loco_check.get('calls')} "
+          f"loco_calls_per_substep={loco_check.get('loco_substeps', 0) / substeps:.4f} "
+          f"actor_calls_per_substep={loco_check.get('calls', 0) / substeps:.4f} "
+          f"control_ms_mean={loco_check.get('control_ms_mean')} "
+          f"devices={loco_check.get('devices')} "
+          f"card_vs_host_max_abs_err={loco_check.get('max_abs_err')} bound={LOCO_TOL} "
+          f"gpu={gpu_line()!r}")
+    print(f"phase evaluate_vln_pe: pipelined cohorts={VLNPE_COHORTS} rows={VLNPE_ROWS} "
+          f"hw={VLNPE_BATCH_HW} episodes={VLNPE_BATCH_EPISODES} max_step={VLNPE_BATCH_MAX_STEP} "
+          f"max_new_tokens={VLNPE_BATCH_NEW_TOKENS} vision_calls={len(pipe_encodes)} "
+          f"prefills={prefills[0]} grouped_tails(G,M,steps,logits,s)="
+          f"{[(g, m, st, lg, round(s_, 4)) for g, m, st, lg, s_ in tails]} "
+          f"s1_calls={s1_batched[0]} actions_timed={metrics['pipelined'].get('actions_timed')} "
+          f"episode_ends={dict(collections.Counter(r.get('fail_reason') for r in records))} "
+          f"gpu={gpu_line()!r}")
+    print(f"phase evaluate_vln_pe: launches={json.dumps(launches)} "
+          f"plain_calls={sum(plain.values())}")
+    if problems:
+        raise AssertionError("evaluate vln_pe: " + "; ".join(problems))
+    del ev, agent, policy
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"evaluate_vln_pe": total}
+
+
 # ----------------------------------------------------------------- navdp
 #: the NavDP head on the card against the same module on the host, both
 #: fp32: 20 DDPM steps of a 16-layer decoder, two ViT-S towers and the
@@ -3747,11 +4211,7 @@ def phase_serve_batched_navdp(device, policy) -> dict:
     per_cohort = stream(False)
     torch.cuda.synchronize()
     per_cohort_s = time.perf_counter() - t
-    window_block, full_block = policy._vision_host_indices(BATCH_HW, BATCH_HW, BATCH_ROWS)[1]
-    v = cfg.vision
-    vision_k1 = (0 if window_block else v.depth - len(v.fullatt_block_indexes)) + \
-        (0 if full_block else len(v.fullatt_block_indexes))
-    want = expected_batched_launches(cfg, 1, BATCH_COHORTS, BATCH_ROWS, vision_k1, 0)
+    want = expected_batched_launches(policy, 1, BATCH_COHORTS, BATCH_ROWS)
     if launches != want:
         raise AssertionError(f"serve batched navdp: kernel launches {launches}, expected {want}")
     err, actions, differ = 0.0, 0, 0
@@ -4345,6 +4805,8 @@ def main() -> int:
         lap("evaluate_server")
         by_path.update(phase_evaluate_habitat(device, native))
         lap("evaluate_habitat")
+        by_path.update(phase_evaluate_vln_pe(device, native))
+        lap("evaluate_vln_pe")
         # the NavDP System-1 at 7B: one realtime policy serves, is held
         # against the host, serves batched and evaluates
         navdp, navdp_paths = phase_serve_navdp(device)

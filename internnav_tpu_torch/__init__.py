@@ -26,7 +26,11 @@ checkpoint loading (`model/weights/`: HF-layout InternVLA-N1 checkpoints,
 quantized on load for `realtime`, and the port's native format); the int4
 and W8A16 formats; and the NavDP System-1 (`navdp_async`, `navdp`:
 `model/basemodel/internvla_n1/navdp_head.py`), served single-stream,
-batched and through the evaluator.
+batched and through the evaluator; and the reference's evaluation
+protocols: Habitat VLN-CE and VL-LN dialog (`habitat/`, `dialog/`), VLN-PE
+(`env/internutopia/`: InternUtopia physics through the simulator-free
+`FakePhysicsVecEnv`, the H1 loco controller; `evaluator/vln_pe_evaluator.py`)
+and the VN pointgoal evaluator.
 """
 
 from __future__ import annotations

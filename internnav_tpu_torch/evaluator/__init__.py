@@ -1,19 +1,22 @@
 """Evaluators of the port: the registry and the distributed template
 (`base.py`), the batched VLN evaluator and the pipelined multi-cohort one,
-and the Habitat evaluators ("habitat_vln", "habitat_default" in
-`habitat/evaluator.py`; "habitat_dialog" in `dialog/evaluator.py`), which
+the VLN-PE evaluator ("vln_pe", the InternUtopia physics protocol), the
+VN pointgoal evaluator ("vn_pointgoal"), and the Habitat evaluators
+("habitat_vln", "habitat_default" in `habitat/evaluator.py`;
+"habitat_dialog" in `dialog/evaluator.py`), which
 register themselves on import: `Evaluator.init` imports their modules when
 it is asked for an eval_type it does not know, and this package exposes
 their classes lazily (importing them here would be circular: they import
-`evaluator.base`). The VLN-PE and VN evaluators are not ported yet
-(ROADMAP §1 item 7f)."""
+`evaluator.base`)."""
 
 from internnav_tpu_torch.evaluator.base import Evaluator, evaluator_registry, get_rank_world
 from internnav_tpu_torch.evaluator.vln_evaluator import VLNBatchedEvaluator
+from internnav_tpu_torch.evaluator.vln_pe_evaluator import VLNPEEvaluator
 from internnav_tpu_torch.evaluator.vln_pipelined_evaluator import VLNPipelinedEvaluator
+from internnav_tpu_torch.evaluator.vn_evaluator import VNPointGoalEvaluator
 
 __all__ = ["Evaluator", "evaluator_registry", "get_rank_world", "VLNBatchedEvaluator",
-           "VLNPipelinedEvaluator"]
+           "VLNPEEvaluator", "VLNPipelinedEvaluator", "VNPointGoalEvaluator"]
 _LAZY = {
     "HabitatVLNEvaluator": "internnav_tpu_torch.habitat.evaluator",
     "HabitatDefaultEvaluator": "internnav_tpu_torch.habitat.evaluator",

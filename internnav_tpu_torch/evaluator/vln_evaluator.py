@@ -2,10 +2,11 @@
 
 Port of internnav_tpu/evaluator/vln_evaluator.py: the same loop, with the
 rank and world size from `torch.distributed` (`base.get_rank_world`).
-FakeEnv is the one simulator this evaluator runs: without an `env=` any
-other env_type raises (ROADMAP §1 item 7; Habitat has evaluators of its
-own, `habitat/evaluator.py`), where the original would run the fake
-backend in its place.
+The env it builds itself is FakeEnv: without an `env=` any other
+env_type raises (VLN-PE runs through eval_type "vln_pe", or the pipelined
+evaluator's internutopia cohorts, which hand their env in; Habitat has
+evaluators of its own, `habitat/evaluator.py`), where the original would
+run the fake backend in its place.
 
 Reference parity: internnav/evaluator/vln_distributed_evaluator.py — the
 per-env FSM (runner_status NORMAL/TERMINATED, :19-25), fake-obs masking for
@@ -52,9 +53,10 @@ class VLNBatchedEvaluator(Evaluator):
         if env is None:
             if cfg.env.env_type != "fake":
                 raise NotImplementedError(
-                    f"env_type {cfg.env.env_type!r} is not yet ported to this evaluator "
-                    "(ROADMAP §1 item 7); it runs env_type 'fake' (Habitat runs through "
-                    "eval_type 'habitat_vln', 'habitat_default' or 'habitat_dialog')")
+                    f"env_type {cfg.env.env_type!r}: this evaluator builds env_type 'fake' "
+                    "alone (VLN-PE runs through eval_type 'vln_pe' or 'vln_pipelined'; "
+                    "Habitat through eval_type 'habitat_vln', 'habitat_default' or "
+                    "'habitat_dialog')")
             env = FakeEnv(cfg.env, cfg.task, episodes=pending)
         super().__init__(cfg, env=env, **kwargs)
         self.progress = ProgressLogger(name="eval_progress", log_dir=cfg.output_dir)

@@ -4,11 +4,13 @@ Port of internnav_tpu/evaluator/vln_pipelined_evaluator.py, copied
 unchanged but for the calls that take the port's signatures: a cohort's
 `BatchedN1Policy(inner, batch_size, seed)`, `SharedDecodePool(inner)` and
 `SharedS1Pool()`. Here a requested shared pool that the agents cannot take
-raises instead of being skipped, a cohort agent is only ever built over
-cohort 0's shared policy (never a model of its own), and the cohorts run
-FakeEnv alone: the real simulators' cohort envs (`envs=`, `env_factory=`,
-the InternUtopia adapter) are not ported yet (ROADMAP §1 item 7), so any
-other env_type raises (in `VLNBatchedEvaluator`).
+raises instead of being skipped, and a cohort agent is only ever built
+over cohort 0's shared policy (never a model of its own; an agent without
+a policy, as the "simple" one, is built anew). The cohorts run
+FakeEnv (env_type "fake"), the envs handed in (`envs=`), those an
+`env_factory` builds, or for env_type "internutopia" one
+`InternutopiaEnv` each behind `VLNPEBatchAdapter` (VLN-PE: FakePhysicsVecEnv
+or Isaac); any other env_type raises.
 
 `VLNBatchedEvaluator` leaves the accelerator idle whenever the host is
 busy (simulator stepping, observation batching, result bookkeeping) and
@@ -40,7 +42,7 @@ import numpy as np
 from internnav_tpu_torch.configs.evaluator import EvalCfg
 from internnav_tpu_torch.env.episodes import Episode
 from internnav_tpu_torch.env.fake_env import FakeEnv
-from internnav_tpu_torch.evaluator.base import Evaluator
+from internnav_tpu_torch.evaluator.base import Evaluator, get_rank_world
 from internnav_tpu_torch.evaluator.utils.data_collector import EpisodeResultStore
 from internnav_tpu_torch.evaluator.vln_evaluator import VLNBatchedEvaluator
 from internnav_tpu_torch.utils.logging import ProgressLogger
@@ -155,14 +157,78 @@ class VLNPipelinedEvaluator(VLNBatchedEvaluator):
     loading / metrics / resume; replaces the step loop with the
     round-robin coroutine scheduler over N cohorts."""
 
-    def __init__(self, cfg: EvalCfg, episodes: Optional[List[Episode]] = None, **kwargs):
+    def __init__(self, cfg: EvalCfg, episodes: Optional[List[Episode]] = None,
+                 envs: Optional[List[Any]] = None, env_factory=None, **kwargs):
+        """``envs``: pre-built cohort envs speaking the batched obs-list
+        protocol (one per cohort; sets the cohort count). ``env_factory``:
+        callable ``(cohort_idx, env_cfg, task_cfg, episodes) -> env`` used
+        to build each cohort's env — also readable from
+        env_settings["env_factory"]. With neither, fake envs are built
+        in-process and any other env_type goes through `_make_cohort_env`
+        (for "internutopia", ``VLNPEBatchAdapter`` over one
+        InternutopiaEnv per cohort)."""
         settings = cfg.env.env_settings or {}
-        self.cohort_count = int(settings.get("cohorts", 2))
+        self._env_factory = env_factory or settings.get("env_factory")
+        self._prebuilt_envs = list(envs) if envs is not None else None
+        if self._prebuilt_envs is not None:
+            self.cohort_count = len(self._prebuilt_envs)
+            kwargs.setdefault("env", self._prebuilt_envs[0])
+        else:
+            self.cohort_count = int(settings.get("cohorts", 2))
         # env_settings["overlap_apply"]=False restores the pre-overlap
         # barrier form (all cohorts' env stepping as a serial host phase
         # after the macro-step barrier) — kept as an A-B measurement lever.
         self._overlap_apply = bool(settings.get("overlap_apply", True))
+        if self._prebuilt_envs is None and cfg.env.env_type != "fake":
+            # any real env_type builds its cohorts here, cohorts=1 too: the
+            # base class would otherwise refuse it
+            episodes, self._prebuilt_envs = self._build_real_envs(cfg, episodes)
+            kwargs.setdefault("env", self._prebuilt_envs[0])
         super().__init__(cfg, episodes=episodes, **kwargs)
+
+    def _build_real_envs(self, cfg: EvalCfg, episodes):
+        """Pre-split the (resume-filtered) episode shard across cohorts and
+        build one real env per cohort — real sims bind episodes at
+        construction, so the post-hoc re-scope used for fake envs can't
+        apply. The base __init__ repeats the load/shard/pending bookkeeping
+        idempotently against the same resume store."""
+        from internnav_tpu_torch.env.episodes import (
+            ResumableEpisodeLoader,
+            group_by_scene,
+            shard_episodes,
+        )
+
+        rank, world = get_rank_world()
+        store = EpisodeResultStore(root=f"{cfg.output_dir}/resume", rank=rank)
+        if episodes is None:
+            episodes = self._load_episodes(cfg)
+        sharded = shard_episodes(group_by_scene(episodes), rank, world)
+        pending = ResumableEpisodeLoader(
+            sharded, store=store, retry_list=cfg.dataset.retry_list).pending()
+        n = self.cohort_count
+        shares = [pending[c::n] for c in range(n)]
+        envs = [self._make_cohort_env(cfg, c, share) for c, share in enumerate(shares)]
+        return episodes, envs
+
+    def _make_cohort_env(self, cfg: EvalCfg, idx: int, episodes: List[Episode]):
+        """One cohort env for a real sim backend. ``env_factory`` wins;
+        otherwise env_type "internutopia" gets an InternutopiaEnv wrapped
+        in the batched-protocol adapter. Other backends must provide a
+        factory (the habitat stack has its own evaluator protocol)."""
+        if self._env_factory is not None:
+            return self._env_factory(idx, cfg.env, cfg.task, episodes)
+        if cfg.env.env_type == "internutopia":
+            from internnav_tpu_torch.env.internutopia.batch_adapter import VLNPEBatchAdapter
+            from internnav_tpu_torch.env.internutopia.env import InternutopiaEnv
+
+            env = InternutopiaEnv(cfg.env, cfg.task, episodes=episodes)
+            return VLNPEBatchAdapter(
+                env, robot_name=cfg.task.robot_name,
+                robot_flash=cfg.task.robot_flash, episodes=episodes,
+                rgb_hw=tuple(cfg.task.camera_resolution or (256, 256)))
+        raise NotImplementedError(
+            f"vln_pipelined has no default cohort env for "
+            f"env_type={cfg.env.env_type!r}; pass envs= or env_factory=")
 
     # the base class builds env + agent for cohort 0; add the rest lazily
     def _build_cohorts(self) -> List[_Cohort]:
@@ -175,14 +241,19 @@ class VLNPipelinedEvaluator(VLNBatchedEvaluator):
         for pool, setting in (("decode_pool", "shared_decode"), ("s1_pool", "shared_s1")):
             if settings.get(setting):  # before any cohort agent is made
                 _require_dual_system([self.agent], pool, setting)
-        pending = list(getattr(self.env, "episodes", []))
-        shares = [pending[c::n] for c in range(n)]
-        # cohort 0 reuses the already-built env/agent; re-scope episodes
-        self.env.episodes = shares[0]
         cohorts: List[_Cohort] = [_Cohort(0, self.env, self.agent, self.progress, self.store,
                                           latency=self._latency)]
-        for c in range(1, n):
-            env = FakeEnv(cfg.env, cfg.task, episodes=shares[c])
+        if self._prebuilt_envs is not None:
+            # each env owns its episode share already (pre-built or
+            # pre-split at construction): no post-hoc re-scope
+            envs = self._prebuilt_envs[1:]
+        else:
+            pending = list(getattr(self.env, "episodes", []))
+            shares = [pending[c::n] for c in range(n)]
+            # cohort 0 reuses the already-built env/agent; re-scope episodes
+            self.env.episodes = shares[0]
+            envs = [FakeEnv(cfg.env, cfg.task, episodes=shares[c]) for c in range(1, n)]
+        for c, env in enumerate(envs, start=1):
             cohorts.append(_Cohort(c, env, self._make_cohort_agent(c), self.progress,
                                    self.store, latency=self._latency))
         self._attach_decode_pool(cohorts)
@@ -232,10 +303,16 @@ class VLNPipelinedEvaluator(VLNBatchedEvaluator):
         """A new agent of cohort 0's type with its own slot state, over a
         BatchedN1Policy that shares cohort 0's inner policy (weights,
         decode caches and graphs); cohort idx draws its System-1 noise
-        from seed idx, as PipelinedN1Server's cohorts do. Raises ValueError
-        when cohort 0's agent has no such policy: a cohort never builds a
-        model of its own."""
+        from seed idx, as PipelinedN1Server's cohorts do. An agent that holds
+        no policy at all (the "simple" agent) gets a new one of its own from
+        the registry, as the JAX evaluator's fallback builds it. Raises
+        ValueError when cohort 0's agent has a policy but no such inner: a
+        cohort never builds a model of its own."""
         base = self.agent
+        if not hasattr(base, "policy"):
+            from internnav_tpu_torch.agent.base import Agent
+
+            return Agent.init(self.cfg.agent)
         inner = getattr(getattr(base, "policy", None), "inner", None)
         if inner is None:
             raise ValueError(f"vln_pipelined cohorts share cohort 0's policy, and "

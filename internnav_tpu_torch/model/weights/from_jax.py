@@ -1,4 +1,5 @@
-"""JAX param tree → the port's state_dict.
+"""JAX param tree → the port's state_dict (`state_dict_from_jax` by rule;
+`loco_state_from_jax` for the H1 loco actor).
 
 The port's modules carry the JAX package's submodule and parameter names,
 so the mapping is by rule, per leaf:
@@ -111,3 +112,16 @@ def load_from_jax(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Load a JAX param tree into `module` in place (strict)."""
     module.load_state_dict(state_dict_from_jax(params, module), strict=True)
     return module
+
+
+def loco_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's loco MLP params (flax `Dense_i` with `kernel` (in,
+    out) and `bias`, from `make_loco_mlp` or `convert_loco_policy`) as a
+    state_dict of `env.internutopia.loco.LocoActor` (`layers.i.weight` (out,
+    in), `layers.i.bias`), in float32."""
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(len(params)):
+        dense = params[f"Dense_{i}"]
+        out[f"layers.{i}.weight"] = torch.from_numpy(np.array(dense["kernel"], np.float32).T.copy())
+        out[f"layers.{i}.bias"] = torch.from_numpy(np.array(dense["bias"], np.float32))
+    return out

@@ -15,8 +15,14 @@ model_settings["device"]. The default is the GPU, and without one the run
 raises (no fallback to the host); `--device cpu` runs on the host when
 asked for (the tests). With `use_agent_server` the agent runs in the
 agent server (`scripts/torch/start_server.py`), which builds it on that
-device. eval_type "vln_pe" is assembled by `configs.vln_default.get_config`
-and then refused: the VLN-PE evaluator is not ported yet. The Habitat
+device. eval_type "vln_pe" (the VLN-PE physics protocol,
+`evaluator.VLNPEEvaluator`) is first assembled by
+`configs.vln_default.get_config`, as the JAX entry point does; its
+config `scripts/torch/configs/h1_internvla_n1_async_cfg.py` names the
+Isaac backend ("internutopia", which raises without InternUtopia): set
+env_settings["backend"] to "fake_physics" for the simulator-free one,
+whose H1 loco actors (use_loco) run on env_settings["device"], the GPU
+by default. The Habitat
 configs (`scripts/torch/configs/habitat_{dual_system,s2,dialog,object}_cfg.py`,
 eval_type "habitat_vln" / "habitat_dialog") need habitat for their
 simulator: without it they raise the JAX package's ImportError; the
@@ -53,12 +59,10 @@ def main(argv=None) -> dict:
     cfg.agent.model_settings = {**cfg.agent.model_settings, "device": args.device}
     if cfg.eval_type == "vln_pe":
         # the VLN-PE defaults assembly (reference eval.py:33-49 applies
-        # vln_default_config.get_config); its evaluator is still to port
+        # vln_default_config.get_config)
         from internnav_tpu_torch.configs.vln_default import get_config
 
         cfg = get_config(cfg)
-        raise NotImplementedError("eval_type 'vln_pe': the VLN-PE evaluator is not yet ported "
-                                  "to internnav_tpu_torch (ROADMAP §1 item 7f)")
     metrics = Evaluator.init(cfg).eval()
     print(json.dumps(metrics, default=float), flush=True)
     return metrics

@@ -456,9 +456,13 @@ def test_cohort_agent_is_never_built_without_a_policy_to_share(tmp_path):
 
 @pytest.mark.parametrize("eval_type", ["vln_batched", "vln_pipelined"])
 def test_unported_env_type_is_not_replaced_by_the_fake_env(tmp_path, eval_type):
+    """The batched evaluator builds FakeEnv alone (VLN-PE runs through
+    "vln_pe" or the pipelined evaluator's internutopia cohorts); the
+    pipelined one has no default cohort env for habitat."""
     cfg = eval_cfg(tconfigs, tmp_path, False, eval_type=eval_type)
-    cfg.env.env_type = "internutopia"
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
+    cfg.env.env_type = "internutopia" if eval_type == "vln_batched" else "habitat"
+    with pytest.raises(NotImplementedError,
+                       match="env_type 'internutopia'.*'vln_pe'|env_type='habitat'"):
         tbase.Evaluator.init(cfg, episodes=episodes(tepisodes, 4),
                              agent=_NotDualSystem(policy=object()))
 

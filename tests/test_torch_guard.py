@@ -47,6 +47,7 @@ BENCH_ENTRY = REPO / "scripts" / "torch" / "bench_evaluator.py"
 SCRIPTS = [BENCH_ENTRY, *(REPO / "scripts" / "torch" / name for name in (
     "eval.py", "start_server.py", "dryrun_distributed_eval.py",
     "configs/fake_n1_pipelined_cfg.py", "configs/fake_n1_shared_decode_cfg.py",
+    "configs/h1_internvla_n1_async_cfg.py",
     *(f"configs/habitat_{name}_cfg.py" for name in ("dual_system", "s2", "dialog", "object"))))]
 #: every module of the port, by its file
 PORT_MODULES = sorted(
@@ -78,7 +79,15 @@ def test_port_modules_cover_the_package():
                 # the Habitat VLN-CE and VL-LN dialog evaluation
                 "habitat", "habitat.measures", "habitat.sim_adapter", "habitat.env",
                 "habitat.evaluator", "dialog", "dialog.oracle", "dialog.npc", "dialog.mp3d",
-                "dialog.dialog_agent", "dialog.evaluator", "utils.geometry", "ops.rope"):
+                "dialog.dialog_agent", "dialog.evaluator", "utils.geometry", "ops.rope",
+                # the VLN-PE protocol (InternUtopia) and the VN evaluator
+                "env.checkers", "env.occupancy", "env.task_gen", "env.internutopia",
+                "env.internutopia.loco", "env.internutopia.vec_env",
+                "env.internutopia.proc_pool", "env.internutopia.env",
+                "env.internutopia.isaac_ext", "env.internutopia.batch_adapter",
+                "evaluator.utils.result_logger", "evaluator.utils.visualize",
+                "evaluator.vln_pe_evaluator", "evaluator.utils.planners",
+                "evaluator.vn_evaluator"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
     assert set(SCRIPTS) <= set(PORT_SOURCES)
     assert len(PORT_MODULES) > 40
@@ -181,6 +190,13 @@ def test_geometry_and_controller_copies_equal_jax_originals():
     np.testing.assert_array_equal(tgeo.to_local_coords(pos, cur, yaw),
                                   jgeo.to_local_coords(pos, cur, yaw))
     np.testing.assert_array_equal(tgeo.yaw_rotmat(yaw), jgeo.yaw_rotmat(yaw))
+    for q in [*r.standard_normal((20, 4)), np.array([0.5, 0.5, 0.5, 0.5]), np.zeros(4)]:
+        assert tgeo.yaw_from_quat_wxyz(q) == jgeo.yaw_from_quat_wxyz(q)
+        np.testing.assert_array_equal(tgeo.quat_to_euler_angles(q), jgeo.quat_to_euler_angles(q))
+        np.testing.assert_array_equal(tgeo.quat_to_euler_angles(q, degrees=True),
+                                      jgeo.quat_to_euler_angles(q, degrees=True))
+    for y in a[:10]:
+        np.testing.assert_array_equal(tgeo.quat_wxyz_from_yaw(y), jgeo.quat_wxyz_from_yaw(y))
     traj = np.cumsum(r.uniform(0, 0.2, (10, 2)), axis=0)
     pose = (0.3, -0.2, 0.4)
     assert tctrl.trajectory_to_vw(traj, pose) == jctrl.trajectory_to_vw(traj, pose)
@@ -305,11 +321,14 @@ def test_launcher_refuses_unported_profile_and_missing_gpu(monkeypatch):
 
 
 def test_public_constructors_default_to_the_gpu(monkeypatch):
-    """`build_model`, `InternVLAN1Policy.build` and the dialog agent without
-    a device run on the GPU: with no CUDA device they raise instead of
-    building on the host."""
+    """`build_model`, `InternVLAN1Policy.build`, the dialog agent, the H1
+    loco controller, the loco checkpoint conversion and the VLN-PE vec env
+    with its loco actors without a device run on the GPU: with no CUDA
+    device they raise instead of building on the host."""
     from internnav_tpu_torch.configs import AgentCfg
     from internnav_tpu_torch.dialog.dialog_agent import DialogAgent
+    from internnav_tpu_torch.env.internutopia.loco import H1SpeedController, convert_loco_policy
+    from internnav_tpu_torch.env.internutopia.vec_env import FakePhysicsVecEnv
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -319,6 +338,13 @@ def test_public_constructors_default_to_the_gpu(monkeypatch):
         build_model(InternVLAN1Config.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DialogAgent(AgentCfg(model_name="dialog"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        H1SpeedController()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FakePhysicsVecEnv([], use_loco=True)
+    FakePhysicsVecEnv([], use_loco=False)  # no actor, no device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_loco_policy("unread.pt")
 
 
 class _LookDownPolicy:

@@ -164,6 +164,5 @@ def test_batched_stream_silu_calls_follow_chip_smoke_count(monkeypatch):
     server.serve_stream(lambda ci, t, ph: frames[[(ci + t + ph) % 6, (ci + t + ph + 1) % 6]],
                         cycles, max_new_tokens=5, num_sample_trajs=2,
                         s1_calls=chip_smoke.BATCH_S1_CALLS, shared_decode=True)
-    want = chip_smoke.expected_batched_launches(cfg, cycles, 2, 2, 0,
-                                                len(policy.model.traj_dit.layers))["K8"]
+    want = chip_smoke.expected_batched_launches(policy, cycles, 2, 2)["K8"]
     assert len(calls) == want
