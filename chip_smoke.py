@@ -203,7 +203,24 @@ Phases, each printing its numbers:
                no plain version. Python's str hash is pinned
                (PYTHONHASHSEED=0; the script re-executes itself with it),
                so FakeEnv and FakePhysicsVecEnv draw the same frames in
-               every run;
+               every run; then evaluate recurrent, the reference's
+               recurrent VLN baselines CMA and Seq2Seq at their published
+               width (ResNet-50 RGB at 224x224, the DD-PPO GroupNorm
+               ResNet-50 depth tower at 256x256, a bi-LSTM over 2504 x 50
+               embeddings, GRUs of 512; fp32), random weights from seed 0
+               (the action head centred so that episodes take steps)
+               written as reference-layout checkpoints: (a) eval.py's main
+               on `h1_cma_cfg.py`, 4 FakeEnv envs, 8 episodes of
+               data/fake_r2r of at most 32 steps, then the resume; (b)
+               the same on `h1_seq2seq_cfg.py`; (c) the pipelined
+               evaluator, 2 cohorts x 4 envs of "cma" agents on one
+               shared policy; (d) a CMA and a Seq2Seq forward at 4 envs
+               against the same checkpoints on the host within
+               RECURRENT_TOL; every action legal, every episode ended with
+               finite metrics, K1-K10 launched 0 times and no plain
+               version run; a step's seconds at 4 and 8 envs, one
+               profiled step's device ms and launches, actions/s, peak
+               memory;
   navdp    — the NavDP System-1 (`navdp_async`: the fp32 NavDP head with
                its RGBD backbone and 20-step DDPM) on one 7B realtime
                policy (random weights, seed 0): serve navdp, 4
@@ -260,10 +277,11 @@ Phases, each printing its numbers:
                unchanged; no plain version run; step s, tokens/s, MFU and
                peak memory printed.
 Every kernel's launch count is set to 0 just before each of the
-eighteen paths (serve, serve tp, serve realtime, the long realtime request, serve
+nineteen paths (serve, serve tp, serve realtime, the long realtime request, serve
 realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
 evaluate phase's timed runs, the int4 evaluate's timed run, evaluate
 server, evaluate habitat, evaluate vln_pe (each of its three parts),
+evaluate recurrent (each of its parts, where every count must stay 0),
 serve navdp,
 serve batched navdp's checked cycle, evaluate navdp's timed run, train,
 train sharded's two steps) and read just after. Then one JSON
@@ -3943,6 +3961,289 @@ def phase_evaluate_vln_pe(device, ckpt: Path) -> dict:
     return {"evaluate_vln_pe": total}
 
 
+# ---------------------------------------------------- evaluate recurrent
+#: the evaluate recurrent phase: the reference's recurrent VLN baselines
+#: (CMA, Seq2Seq) at their published width (ResNet-50 RGB at 224, the
+#: DD-PPO ResNet-50 depth tower at 256, the bi-LSTM over 2504 x 50 GloVe-
+#: sized embeddings, GRUs of 512), random weights from seed 0 written as a
+#: reference-layout checkpoint and loaded through `from_pretrained`
+RECURRENT_CONFIGS = {name: REPO / "scripts" / "torch" / "configs" / f"h1_{name}_cfg.py"
+                     for name in ("cma", "seq2seq")}
+RECURRENT_ENVS = 4
+RECURRENT_EPISODES = 8
+RECURRENT_MAX_STEP = 32
+RECURRENT_COHORTS = 2
+RECURRENT_STEP_ROWS = (4, 8)  # a step's seconds at these env counts
+RECURRENT_LEGAL = {0, 1, 2, 3}
+#: card against host: fp32 with TF32 off (main sets it for cuBLAS and
+#: cuDNN), two ResNet-50s, the bi-LSTM over 200 tokens and the GRUs
+RECURRENT_TOL = 1e-4
+#: with random weights every env's features sit near one point and the
+#: argmax never moves (every episode STOPs at its first step): the action
+#: head is centred on the mean logits of RECURRENT_CALIBRATION random
+#: inputs and widened by RECURRENT_HEAD_GAIN, so that episodes take steps
+RECURRENT_CALIBRATION = 8
+RECURRENT_HEAD_GAIN = 20.0
+
+
+def recurrent_batch(n: int, device, seed: int, layers: int) -> dict:
+    """A recurrent policy's inference batch of n envs at the published
+    frame sizes: instructions of 0, 1, 17, 60 and 200 tokens in turn."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.zeros(n, 200, dtype=torch.int32)
+    for i in range(n):
+        k = (0, 1, 17, 60, 200)[i % 5]
+        tokens[i, :k] = torch.randint(1, 2504, (k,), generator=g)
+    batch = {"observations": {"instruction": tokens,
+                              "rgb": 255 * torch.rand(n, 224, 224, 3, generator=g),
+                              "depth": torch.rand(n, 256, 256, 1, generator=g)},
+             "rnn_states": torch.randn(n, layers, 512, generator=g),
+             "prev_actions": torch.randint(0, 4, (n,), generator=g),
+             "masks": (torch.arange(n) % 3 != 0).float(), "mode": "features"}
+    return {k: ({f: t.to(device) for f, t in v.items()} if isinstance(v, dict) else
+                v.to(device) if hasattr(v, "to") else v) for k, v in batch.items()}
+
+
+def recurrent_checkpoint(name: str, device, root: Path) -> Path:
+    """The policy at its default config drawn from seed 0 on the card, its
+    action head centred (RECURRENT_CALIBRATION, RECURRENT_HEAD_GAIN),
+    written as a reference-layout checkpoint (the keys JAX's
+    convert_{name}_policy reads) to root/name/model.pth."""
+    import torch
+
+    from internnav_tpu_torch.model import get_config, get_policy
+    from internnav_tpu_torch.model.weights.convert import recurrent_reference_state_dict
+
+    pol = get_policy(name).build(get_config(name), device=device, seed=0)
+    batch = recurrent_batch(RECURRENT_CALIBRATION, device, 1, pol.num_recurrent_layers())
+    batch["masks"] = torch.ones_like(batch["masks"])
+    logits, _, _ = pol.forward(batch)
+    head = pol.net.action_head
+    with torch.no_grad():
+        head.bias.copy_(RECURRENT_HEAD_GAIN * (head.bias - logits.mean(0)))
+        head.weight.mul_(RECURRENT_HEAD_GAIN)
+    out = root / name
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save(recurrent_reference_state_dict(pol.net), out / "model.pth")
+    return out
+
+
+def phase_evaluate_recurrent(device) -> dict:
+    """The recurrent VLN policies (CMA, Seq2Seq) at the reference's width,
+    from reference-layout checkpoints of random weights
+    (`recurrent_checkpoint`):
+    (a) `scripts/torch/eval.py`'s main in this process on `h1_cma_cfg.py`:
+        vln_batched over FakeEnv, RECURRENT_ENVS envs with RGB 224x224 and
+        depth 256x256, RECURRENT_EPISODES episodes of data/fake_r2r of at
+        most RECURRENT_MAX_STEP steps, the "cma" agent loading the
+        checkpoint through `from_pretrained`; then main again: the resume
+        re-runs nothing;
+    (b) the same on `h1_seq2seq_cfg.py`;
+    (c) `VLNPipelinedEvaluator`, RECURRENT_COHORTS cohorts x
+        RECURRENT_ENVS FakeEnv envs, "cma" agents sharing (a)'s policy;
+    (d) card against host: one CMA and one Seq2Seq forward at 4 envs, the
+        same checkpoints loaded on the host, logits, states and progress
+        within RECURRENT_TOL.
+    Every action legal, every episode ended with finite metrics, no
+    hand-written kernel launched (K1-K10 stay 0: the policies are
+    convolutions, GEMMs and cuDNN RNNs) and no plain version run. Prints
+    each part's seconds, a step's seconds at RECURRENT_STEP_ROWS envs, one
+    profiled step's device ms and launches, actions/s and peak memory.
+    Returns the phase's launches."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    root = WORK_DIR / "evaluate_recurrent"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    spec = importlib.util.spec_from_file_location(
+        "port_eval_cli", REPO / "scripts" / "torch" / "eval.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    torch.cuda.synchronize(device)  # the context exists before its statistics are reset
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        return _evaluate_recurrent(device, cli, root)
+    finally:
+        shutil.rmtree(root / "ckpt", ignore_errors=True)  # ~270 MB of random weights
+
+
+def _evaluate_recurrent(device, cli, root: Path) -> dict:
+    """phase_evaluate_recurrent's parts, from the checkpoints on."""
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.agent import recurrent_agent as ragents
+    from internnav_tpu_torch.configs import load_py_config
+    from internnav_tpu_torch.evaluator.vln_pipelined_evaluator import VLNPipelinedEvaluator
+    from internnav_tpu_torch.model import get_config, get_policy
+
+    t = time.perf_counter()
+    ckpts = {name: recurrent_checkpoint(name, device, root / "ckpt") for name in RECURRENT_CONFIGS}
+    torch.cuda.synchronize(device)
+    seconds = {"checkpoints": time.perf_counter() - t}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = {"part": None}
+    steps = []  # (part, agent, n, actions, host s)
+    coroutine = ragents._RecurrentAgentBase.step_coroutine
+
+    def recorded(self, obs):
+        t0 = time.perf_counter()
+        out = yield from coroutine(self, obs)
+        steps.append((state["part"], self, len(obs), [o["action"][0] for o in out],
+                      time.perf_counter() - t0))
+        return out
+
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    ragents._RecurrentAgentBase.step_coroutine = recorded
+    launches, metrics, problems, policies = {}, {}, [], {}
+    try:
+        # (a), (b): eval.py's main on the h1 configs, then the resume
+        for name, config in RECURRENT_CONFIGS.items():
+            cfg_file = root / f"{name}_cfg.py"
+            cfg_file.write_text(
+                "from internnav_tpu_torch.configs import load_py_config\n"
+                f"eval_cfg = load_py_config({str(config)!r})\n"
+                "eval_cfg.env.env_settings.update(rgb_resolution=[224, 224], "
+                "depth_resolution=[256, 256])\n"
+                f"eval_cfg.env.env_num = {RECURRENT_ENVS}\n"
+                f"eval_cfg.task.max_step = {RECURRENT_MAX_STEP}\n"
+                f"eval_cfg.agent.ckpt_path = {str(ckpts[name])!r}\n"
+                f"eval_cfg.dataset.base_data_dir = {str(REPO / 'data' / 'fake_r2r')!r}\n"
+                f"eval_cfg.dataset.max_episodes = {RECURRENT_EPISODES}\n"
+                f"eval_cfg.output_dir = {str(root / name)!r}\n")
+            state["part"] = name
+            reset_launch_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):  # its metrics line
+                metrics[name] = cli.main(["--config", str(cfg_file)])
+            torch.cuda.synchronize(device)
+            seconds[name] = time.perf_counter() - t
+            launches[name] = launch_counts()
+            n_steps = len(steps)
+            policies[name] = next(a.policy for p, a, *_ in steps if p == name)
+            state["part"] = f"{name}_resumed"
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                metrics[f"{name}_resumed"] = cli.main(["--config", str(cfg_file)])
+            seconds[f"{name}_resumed"] = time.perf_counter() - t
+            if len(steps) != n_steps:
+                problems.append(f"{name}: the resume re-ran {len(steps) - n_steps} steps")
+            pol = policies[name]
+            if pol.device != device or type(pol) is not get_policy(name):
+                problems.append(f"{name}: the agent's policy is a {type(pol).__name__} on "
+                                f"{pol.device}")
+
+        # (c) pipelined cohorts sharing (a)'s CMA policy
+        state["part"] = "pipelined"
+        cfg = load_py_config(str(RECURRENT_CONFIGS["cma"]))
+        cfg.eval_type = "vln_pipelined"
+        cfg.env.env_num = RECURRENT_ENVS
+        cfg.env.env_settings.update(rgb_resolution=[224, 224], depth_resolution=[256, 256],
+                                    cohorts=RECURRENT_COHORTS)
+        cfg.task.max_step = RECURRENT_MAX_STEP
+        cfg.dataset.base_data_dir = str(REPO / "data" / "fake_r2r")
+        cfg.dataset.max_episodes = RECURRENT_EPISODES
+        cfg.output_dir = str(root / "pipelined")
+        agent = ragents.CmaAgent(cfg.agent, policy=policies["cma"])
+        reset_launch_counts()
+        t = time.perf_counter()
+        metrics["pipelined"] = VLNPipelinedEvaluator(cfg, agent=agent).eval()
+        torch.cuda.synchronize(device)
+        seconds["pipelined"] = time.perf_counter() - t
+        launches["pipelined"] = launch_counts()
+        cohort_agents = {a for p, a, *_ in steps if p == "pipelined"}
+        if len(cohort_agents) != RECURRENT_COHORTS or any(
+                a.policy is not policies["cma"] for a in cohort_agents):
+            problems.append(f"pipelined: {len(cohort_agents)} cohort agents, not all on (a)'s "
+                            "policy")
+    finally:
+        ragents._RecurrentAgentBase.step_coroutine = coroutine
+
+    # a step's seconds at 4 and 8 envs, one profiled step, card against host
+    reset_launch_counts()
+    step_s, profiled, card_vs_host = {}, {}, {}
+    for name, pol in policies.items():
+        layers = pol.num_recurrent_layers()
+        for n in RECURRENT_STEP_ROWS:
+            batch = {**recurrent_batch(n, device, 2, layers), "mode": "inference"}
+            pol.forward(batch)[0].cpu()  # warm: cuDNN picks its algorithms
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                pol.forward(batch)[0].cpu()
+                times.append(time.perf_counter() - t)
+            step_s[f"{name}_n{n}"] = statistics.median(times)
+        batch = {**recurrent_batch(4, device, 2, layers), "mode": "inference"}
+        profiled[name] = _profiled(lambda: pol.forward(batch))
+        host = get_policy(name).from_pretrained(str(ckpts[name]), get_config(name), device="cpu")
+        batch = recurrent_batch(4, device, 3, layers)
+        got = pol.forward(batch)
+        want = host.forward(recurrent_batch(4, "cpu", 3, layers))
+        card_vs_host[name] = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        if not all(torch.isfinite(g).all() for g in got) or card_vs_host[name] > RECURRENT_TOL:
+            problems.append(f"{name}: card against host {card_vs_host[name]} "
+                            f"(bound {RECURRENT_TOL})")
+        del host
+    torch.cuda.synchronize(device)
+    launches["steps"] = launch_counts()
+    _restore(spies)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+
+    for part in ("cma", "seq2seq", "pipelined"):
+        acts = {a for p, _, _, out, _ in steps if p == part for a in out}
+        if not acts or acts - RECURRENT_LEGAL:
+            problems.append(f"{part}: actions {sorted(acts)}")
+        if metrics[part].get("num_episodes") != RECURRENT_EPISODES:
+            problems.append(f"{part}: {metrics[part].get('num_episodes')} episodes evaluated")
+    for name in RECURRENT_CONFIGS:
+        if metrics[f"{name}_resumed"].get("num_episodes") != RECURRENT_EPISODES:
+            problems.append(f"{name}: the resume counts {metrics[f'{name}_resumed']}")
+    for name, m in metrics.items():
+        if not np.isfinite([v for v in m.values() if isinstance(v, (int, float))]).all():
+            problems.append(f"{name}: metrics {m}")
+    total = {k: sum(part.get(k, 0) for part in launches.values()) for k in LAUNCH_KEYS + ("K8",)}
+    if any(total.values()):
+        problems.append(f"a hand-written kernel launched: {total}")
+    if plain:
+        problems.append(f"plain versions ran: {dict(plain)}")
+    per_part = {}
+    for part in ("cma", "seq2seq", "pipelined"):
+        part_steps = [s_ for p, _, _, _, s_ in steps if p == part]
+        per_part[part] = {
+            "s": round(seconds[part], 3), "steps": len(part_steps),
+            "step_s_median": round(statistics.median(part_steps), 4) if part_steps else None,
+            "actions_timed": metrics[part].get("actions_timed"),
+            "actions_per_s": round(metrics[part].get("actions_timed", 0) / seconds[part], 3),
+            "episode_steps": metrics[part].get("steps"), "success": metrics[part].get("success")}
+    ckpt_mb = {name: round((p / "model.pth").stat().st_size / 2**20, 1)
+               for name, p in ckpts.items()}
+    print(f"phase evaluate_recurrent: path=evaluate_recurrent envs={RECURRENT_ENVS} "
+          f"episodes={RECURRENT_EPISODES} max_step={RECURRENT_MAX_STEP} rgb=224 depth=256 "
+          f"seconds={json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"phase_s={sum(seconds.values()):.2f} parts={json.dumps(per_part)} "
+          f"ckpt_mb={json.dumps(ckpt_mb)} gpu={gpu_line()!r}")
+    print(f"phase evaluate_recurrent: step_s={json.dumps({k: round(v, 4) for k, v in step_s.items()})} "
+          f"profiled_step_n4={json.dumps(profiled)} "
+          f"card_vs_host_max_abs_err={json.dumps(card_vs_host)} bound={RECURRENT_TOL} "
+          f"peak_gib={peak_gib:.2f} launches={json.dumps(total)} "
+          f"plain_calls={sum(plain.values())} gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("evaluate recurrent: " + "; ".join(problems))
+    del policies, agent
+    steps.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"evaluate_recurrent": total}
+
+
 # ----------------------------------------------------------------- navdp
 #: the NavDP head on the card against the same module on the host, both
 #: fp32: 20 DDPM steps of a 16-layer decoder, two ViT-S towers and the
@@ -4807,6 +5108,8 @@ def main() -> int:
         lap("evaluate_habitat")
         by_path.update(phase_evaluate_vln_pe(device, native))
         lap("evaluate_vln_pe")
+        by_path.update(phase_evaluate_recurrent(device))
+        lap("evaluate_recurrent")
         # the NavDP System-1 at 7B: one realtime policy serves, is held
         # against the host, serves batched and evaluates
         navdp, navdp_paths = phase_serve_navdp(device)

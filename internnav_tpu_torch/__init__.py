@@ -30,7 +30,8 @@ batched and through the evaluator; and the reference's evaluation
 protocols: Habitat VLN-CE and VL-LN dialog (`habitat/`, `dialog/`), VLN-PE
 (`env/internutopia/`: InternUtopia physics through the simulator-free
 `FakePhysicsVecEnv`, the H1 loco controller; `evaluator/vln_pe_evaluator.py`)
-and the VN pointgoal evaluator.
+and the VN pointgoal evaluator; and the recurrent VLN baselines CMA and
+Seq2Seq (`model/basemodel/{cma,seq2seq}.py`, `agent/recurrent_agent.py`).
 """
 
 from __future__ import annotations

@@ -303,21 +303,27 @@ class VLNPipelinedEvaluator(VLNBatchedEvaluator):
         """A new agent of cohort 0's type with its own slot state, over a
         BatchedN1Policy that shares cohort 0's inner policy (weights,
         decode caches and graphs); cohort idx draws its System-1 noise
-        from seed idx, as PipelinedN1Server's cohorts do. An agent that holds
-        no policy at all (the "simple" agent) gets a new one of its own from
-        the registry, as the JAX evaluator's fallback builds it. Raises
-        ValueError when cohort 0's agent has a policy but no such inner: a
-        cohort never builds a model of its own."""
+        from seed idx, as PipelinedN1Server's cohorts do. A recurrent agent
+        (CMA, Seq2Seq) shares cohort 0's policy object itself, with its own
+        recurrent states, as the JAX evaluator's cohorts do. An agent that
+        holds no policy at all (the "simple" agent) gets a new one of its
+        own from the registry, as the JAX evaluator's fallback builds it.
+        Raises ValueError when cohort 0's agent has a policy but none of
+        these to share: a cohort never builds a model of its own."""
+        from internnav_tpu_torch.agent.recurrent_agent import _RecurrentAgentBase
+
         base = self.agent
         if not hasattr(base, "policy"):
             from internnav_tpu_torch.agent.base import Agent
 
             return Agent.init(self.cfg.agent)
+        if isinstance(base, _RecurrentAgentBase):
+            return type(base)(base.cfg, policy=base.policy)
         inner = getattr(getattr(base, "policy", None), "inner", None)
         if inner is None:
             raise ValueError(f"vln_pipelined cohorts share cohort 0's policy, and "
                              f"{type(base).__name__} has none to share (a BatchedN1Policy "
-                             f"with an inner policy)")
+                             f"with an inner policy, or a recurrent agent's policy)")
         from internnav_tpu_torch.model.basemodel.internvla_n1.serving import BatchedN1Policy
 
         return type(base)(base.cfg, policy=BatchedN1Policy(inner, base.policy.batch_size,

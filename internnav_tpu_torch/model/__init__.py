@@ -2,10 +2,11 @@
 JAX package's string → policy mapping (internnav_tpu/model/__init__.py,
 the reference's internnav/model/__init__.py:1-62).
 
-The port holds the InternVLA-N1 dual system. The other policies (CMA,
-Seq2Seq, RDP, NavDP, CMA-CLIP) are not ported yet and raise
-NotImplementedError (ROADMAP §1 item 6); an unknown name raises KeyError,
-as in JAX. Their default configs are ported (`configs/defaults`)."""
+The port holds the InternVLA-N1 dual system and the recurrent VLN
+policies CMA and Seq2Seq. The other policies (RDP, NavDP, CMA-CLIP) are
+not ported yet and raise NotImplementedError (ROADMAP §1 item 6); an
+unknown name raises KeyError, as in JAX. Their default configs are ported
+(`configs/defaults`)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,6 @@ from internnav_tpu_torch.configs.model import ModelCfg
 
 #: the policies still to port, by the names the factory takes
 _UNPORTED = {
-    "CMA_Policy": "CMAPolicy", "cma": "CMAPolicy",
-    "Seq2Seq_Policy": "Seq2SeqPolicy", "seq2seq": "Seq2SeqPolicy",
     "RDP_Policy": "RDPPolicy", "rdp": "RDPPolicy",
     "NavDP_Policy": "NavDPPolicy", "navdp": "NavDPPolicy",
     "CMA_CLIP_Policy": "CMACLIPPolicy", "cma_clip": "CMACLIPPolicy",
@@ -22,6 +21,14 @@ _UNPORTED = {
 
 
 def get_policy(name: str):
+    if name in ("CMA_Policy", "cma"):
+        from internnav_tpu_torch.model.basemodel.cma import CMAPolicy
+
+        return CMAPolicy
+    if name in ("Seq2Seq_Policy", "seq2seq"):
+        from internnav_tpu_torch.model.basemodel.seq2seq import Seq2SeqPolicy
+
+        return Seq2SeqPolicy
     if name in ("InternVLAN1_Policy", "internvla_n1"):
         from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
 

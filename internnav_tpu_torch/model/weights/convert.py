@@ -355,3 +355,170 @@ def hf_state_dict(model: nn.Module, *, text_prefix: str = "model.language_model.
     for key, ts in parts.items():
         out[key] = torch.cat(ts)
     return out
+
+
+# ------------------------------------------------ CMA / Seq2Seq (recurrent)
+# Reference CMANet / Seq2SeqNet checkpoints (cma_policy.py:131-242,
+# seq2seq_policy.py:128-179) → the port's CMANet / Seq2SeqNet, the
+# counterparts of the JAX package's convert_cma_policy /
+# convert_seq2seq_policy (:407-491); its sub-converters for the towers and
+# the RNNs (convert_torchvision_resnet :168, convert_habitat_resnet_encoder
+# :201, convert_gru / convert_lstm_bidir :328-348) are the name rules
+# `_tv_name`, `_habitat_name` and `_RNN_LEAVES` here. Each port parameter
+# names its reference key and a layout rule:
+#   "same"     the tensor as it is;
+#   "conv1d"   a 1x1 Conv1d (O, I, 1) is the port's Linear (O, I);
+#   "spatial"  the reference views its (h·w, d) spatial table as (d, h, w)
+#              (resnet_encoders.py:199-216): ours[t, d] = w.flat[d·h·w + t];
+#   "flatten"  the reference flattens (B, C, T) channel-major into the
+#              Linear, the port token-major: ours[:, t·C + c] = w[:, c·T + t].
+_RNN_LEAVES = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
+               "b_hh": "bias_hh_l0"}
+_BN_LEAVES = {"weight": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _tv_name(rel: str) -> str:
+    """A TorchVisionResNet trunk parameter → its torchvision name."""
+    m = re.fullmatch(r"stem_(conv|bn)\.(\w+)", rel)
+    if m:
+        return f"conv1.{m[2]}" if m[1] == "conv" else f"bn1.{_BN_LEAVES[m[2]]}"
+    m = re.fullmatch(r"(layer\d\.\d+)\.(conv\d|bn\d|ds_conv|ds_bn)\.(\w+)", rel)
+    if not m:
+        raise KeyError(f"{rel}: no torchvision name")
+    sub = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}.get(m[2], m[2])
+    leaf = _BN_LEAVES[m[3]] if "bn" in m[2] else m[3]
+    return f"{m[1]}.{sub}.{leaf}"
+
+
+def _habitat_name(rel: str, bottleneck: bool = True) -> str:
+    """A HabitatResNetEncoder parameter → its reference (resnet.py) name:
+    a block's Sequential interleaves conv, GroupNorm and ReLU."""
+    m = re.fullmatch(r"backbone\.stem_(conv|gn)\.(\w+)", rel)
+    if m:
+        return f"backbone.conv1.{0 if m[1] == 'conv' else 1}.{m[2]}"
+    m = re.fullmatch(r"compress_(conv|gn)\.(\w+)", rel)
+    if m:
+        return f"compression.{0 if m[1] == 'conv' else 1}.{m[2]}"
+    m = re.fullmatch(r"backbone\.(layer\d\.\d+)\.(conv|gn|ds_conv|ds_gn)(\d?)\.(\w+)", rel)
+    if not m:
+        raise KeyError(f"{rel}: no reference name")
+    if m[2].startswith("ds_"):
+        return f"backbone.{m[1]}.downsample.{0 if m[2] == 'ds_conv' else 1}.{m[4]}"
+    return f"backbone.{m[1]}.convs.{3 * (int(m[3]) - 1) + (m[2] == 'gn')}.{m[4]}"
+
+
+def recurrent_reference_map(net: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """{port name: (reference key, layout rule)} for every tensor of a
+    CMANet or Seq2SeqNet."""
+    out: Dict[str, Tuple[str, str]] = {}
+    for name in net.state_dict():
+        rule = "same"
+        m = re.fullmatch(r"instruction_encoder\.encoder_rnn_reverse\.(\w+)", name)
+        if m:
+            key = f"instruction_encoder.encoder_rnn.{m[1]}_reverse"
+        elif name.startswith("instruction_encoder."):
+            key = name
+        elif m := re.fullmatch(r"((?:second_)?state_encoder)\.(\w+)", name):
+            key = f"{m[1]}.rnn.{_RNN_LEAVES[m[2]]}"
+        elif m := re.fullmatch(r"depth_encoder\.visual_encoder\.(.+)", name):
+            key = "depth_encoder.visual_encoder." + _habitat_name(m[1])
+        elif m := re.fullmatch(r"(rgb|depth)_encoder\.spatial_embeddings", name):
+            key, rule = f"{m[1]}_encoder.spatial_embeddings.weight", "spatial"
+        elif m := re.fullmatch(r"depth_encoder\.visual_fc\.(\w+)", name):
+            key, rule = f"depth_encoder.visual_fc.1.{m[1]}", "flatten" if m[1] == "weight" else rule
+        elif m := re.fullmatch(r"rgb_encoder\.fc\.(\w+)", name):
+            key = f"rgb_encoder.fc.1.{m[1]}"
+        elif m := re.fullmatch(r"rgb_encoder\.(.+)", name):
+            tv = _tv_name(m[1])
+            tv = re.sub(r"^(conv1|bn1)\.", lambda s: f"cnn.{0 if s[1] == 'conv1' else 1}.", tv)
+            key = "rgb_encoder." + re.sub(r"^layer(\d)\.", lambda s: f"cnn.{3 + int(s[1])}.", tv)
+        elif m := re.fullmatch(r"rgb_linear\.(\w+)", name):
+            key = f"rgb_linear.2.{m[1]}"
+        elif m := re.fullmatch(r"depth_linear\.(\w+)", name):
+            key, rule = f"depth_linear.1.{m[1]}", "flatten" if m[1] == "weight" else rule
+        elif m := re.fullmatch(r"(rgb_kv|depth_kv|text_k)\.(\w+)", name):
+            key, rule = name, "conv1d" if m[2] == "weight" else rule
+        elif m := re.fullmatch(r"second_state_compress\.(\w+)", name):
+            key = f"second_state_compress.0.{m[1]}"
+        elif m := re.fullmatch(r"action_head\.(\w+)", name):
+            key = f"action_distribution.linear.{m[1]}"
+        elif name == "prev_action_embed.weight":
+            key = "prev_action_embedding.weight"
+        else:  # state_q, text_q, progress_monitor
+            key = name
+        out[name] = (key, rule)
+    return out
+
+
+def _flat_tokens(net: nn.Module) -> int:
+    return net.depth_encoder.n_tokens
+
+
+def _from_reference(w: torch.Tensor, rule: str, tokens: int) -> torch.Tensor:
+    if rule == "conv1d":
+        return w[:, :, 0]
+    if rule == "spatial":
+        n, d = w.shape
+        return w.reshape(d, n).t().contiguous()
+    if rule == "flatten":
+        out = w.shape[0]
+        return w.reshape(out, -1, tokens).transpose(1, 2).reshape(out, -1).contiguous()
+    return w
+
+
+def _to_reference(w: torch.Tensor, rule: str, tokens: int) -> torch.Tensor:
+    if rule == "conv1d":
+        return w[:, :, None]
+    if rule == "spatial":
+        n, d = w.shape
+        return w.t().contiguous().reshape(n, d)
+    if rule == "flatten":
+        out = w.shape[0]
+        return w.reshape(out, tokens, -1).transpose(1, 2).reshape(out, -1).contiguous()
+    return w
+
+
+def strip_prefixes(sd: Mapping[str, torch.Tensor],
+                   prefixes: Sequence[str] = ("module.", "net.")) -> Dict[str, torch.Tensor]:
+    """The reference's DDP / policy wrapper prefixes removed from each key."""
+    out = {}
+    for k, v in sd.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+        out[k] = v
+    return out
+
+
+def convert_recurrent_policy(sd: Mapping[str, torch.Tensor], net: nn.Module
+                             ) -> Dict[str, torch.Tensor]:
+    """A reference CMANet / Seq2SeqNet state dict → `net`'s state_dict (in
+    its dtypes, on the host). Every port tensor must find its key and
+    shape (KeyError / ValueError); keys the port does not read, such as
+    BatchNorm's `num_batches_tracked`, are left."""
+    sd = strip_prefixes(sd)
+    target, tokens = net.state_dict(), _flat_tokens(net)
+    out: Dict[str, torch.Tensor] = {}
+    for name, (key, rule) in recurrent_reference_map(net).items():
+        if key not in sd:
+            raise KeyError(f"reference checkpoint has no {key} (for {name})")
+        value = _from_reference(sd[key], rule, tokens).to(target[name].dtype)
+        if tuple(value.shape) != tuple(target[name].shape):
+            raise ValueError(f"{key} {tuple(sd[key].shape)} -> {name} "
+                             f"{tuple(target[name].shape)}: shape differs")
+        out[name] = value.cpu()
+    return out
+
+
+convert_cma_policy = convert_seq2seq_policy = convert_recurrent_policy
+
+
+def recurrent_reference_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse map: a CMANet / Seq2SeqNet as a reference-format state
+    dict (the keys JAX's convert_cma_policy / convert_seq2seq_policy read),
+    on the host. For writing reference-layout checkpoints in tests and
+    chip_smoke.py."""
+    tokens, state = _flat_tokens(net), net.state_dict()
+    return {key: _to_reference(state[name].detach(), rule, tokens).cpu().contiguous()
+            for name, (key, rule) in recurrent_reference_map(net).items()}

@@ -1,5 +1,6 @@
 """JAX param tree → the port's state_dict (`state_dict_from_jax` by rule;
-`loco_state_from_jax` for the H1 loco actor).
+`loco_state_from_jax` for the H1 loco actor; `cma_state_from_jax` /
+`seq2seq_state_from_jax` for the recurrent VLN policies).
 
 The port's modules carry the JAX package's submodule and parameter names,
 so the mapping is by rule, per leaf:
@@ -125,3 +126,29 @@ def loco_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"layers.{i}.weight"] = torch.from_numpy(np.array(dense["kernel"], np.float32).T.copy())
         out[f"layers.{i}.bias"] = torch.from_numpy(np.array(dense["bias"], np.float32))
     return out
+
+
+_RNN_NAMES = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
+              "b_hh": "bias_hh_l0"}
+
+
+def cma_state_from_jax(params: Mapping[str, Any], net: nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX CMANet / Seq2SeqNet param tree → the port net's state_dict.
+    The rule above maps every leaf but the instruction encoder's, which JAX
+    keeps flat (`embedding`, `w_ih`, ..., `rev_w_ih`, ...): here they become
+    `embedding_layer` and the two directions' `nn.LSTM` (`encoder_rnn`,
+    `encoder_rnn_reverse`, `*_l0`)."""
+    tree = dict(params)
+    enc: Dict[str, Dict[str, Any]] = {"embedding_layer": {}, "encoder_rnn": {}}
+    for k, v in tree.pop("instruction_encoder").items():
+        if k == "embedding":
+            enc["embedding_layer"]["embedding"] = v
+        elif k.startswith("rev_"):
+            enc.setdefault("encoder_rnn_reverse", {})[_RNN_NAMES[k[4:]]] = v
+        else:
+            enc["encoder_rnn"][_RNN_NAMES[k]] = v
+    tree["instruction_encoder"] = enc
+    return state_dict_from_jax(tree, net)
+
+
+seq2seq_state_from_jax = cma_state_from_jax

@@ -1,8 +1,10 @@
-"""Convert a reference-format InternVLA-N1 torch checkpoint to a native
-directory of the PyTorch port.
+"""Convert a reference-format torch checkpoint (InternVLA-N1, CMA or
+Seq2Seq) to a native directory of the PyTorch port.
 
     python scripts/torch/convert_checkpoint.py --model internvla_n1 \
         --src /path/to/InternVLA-N1 --dst converted/n1 [--int8 | --int4]
+    python scripts/torch/convert_checkpoint.py --model cma \
+        --src checkpoints/r2r/zero_shot/cma --dst converted/cma
 
 The port's counterpart of scripts/tools/convert_checkpoint.py's
 internvla_n1 branch: `InternVLAN1Policy.from_pretrained_torch` at the
@@ -13,8 +15,12 @@ codes with grouped-128 scales, the lm_head at 8 bits), then
 tokenizer assets copied over so that the native directory loads the same
 tokenizer. `realworld.serve --ckpt` and the agents load either format
 directly; a native directory skips the conversion and, in int8, holds a
-bit more than half the bytes. The conversion runs on the GPU (`--device`);
-the other models of the JAX tool are not ported yet and raise.
+bit more than half the bytes. `--model cma` / `seq2seq` load the reference
+checkpoint through `from_pretrained` (its converter,
+`model/weights/convert.convert_recurrent_policy`, at the default config of
+the model) and save it natively (`save_pretrained`), as the JAX tool does.
+The conversion runs on the GPU (`--device`); RDP and NavDP are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -54,6 +60,17 @@ def convert_n1(src: str, dst: str, *, int8: bool = False, int4: bool = False, de
     return policy
 
 
+def convert_recurrent(model: str, src: str, dst: str, *, device, cfg=None):
+    """A reference CMA / Seq2Seq checkpoint `src` → the native directory
+    `dst`, at the model's default config or `cfg`; returns the policy."""
+    from internnav_tpu_torch.model import get_config, get_policy
+
+    policy = get_policy(model).from_pretrained(src, cfg if cfg is not None else get_config(model),
+                                               device=device)
+    policy.save_pretrained(dst)
+    return policy
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", required=True,
@@ -72,7 +89,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--int8 and --int4 are mutually exclusive")
     if (args.int8 or args.int4) and args.model != "internvla_n1":
         ap.error("--int8/--int4 apply only to --model internvla_n1")
-    if args.model != "internvla_n1":
+    if args.model in ("rdp", "navdp"):
         raise NotImplementedError(f"--model {args.model} is not yet ported (ROADMAP §1 item 6)")
 
     import torch
@@ -80,7 +97,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from internnav_tpu_torch import require_cuda
 
     device = torch.device("cpu") if args.device == "cpu" else require_cuda(args.device)
-    convert_n1(args.src, args.dst, int8=args.int8, int4=args.int4, device=device)
+    if args.model == "internvla_n1":
+        convert_n1(args.src, args.dst, int8=args.int8, int4=args.int4, device=device)
+    else:
+        convert_recurrent(args.model, args.src, args.dst, device=device)
     print(f"converted {args.model}: {args.src} -> {args.dst}")
     return 0
 

@@ -519,9 +519,38 @@ def test_convert_checkpoint_cli(tmp_path):
         cli.convert_n1 = real
     assert seen["int4"] and not seen["int8"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--model", "cma", *base])
+        cli.main(["--model", "rdp", *base])
+    real = cli.convert_recurrent
+    cli.convert_recurrent = lambda *a, **kw: seen.update(model=a[0])
+    try:
+        assert cli.main(["--model", "seq2seq", *base]) == 0
+    finally:
+        cli.convert_recurrent = real
+    assert seen["model"] == "seq2seq"
     with pytest.raises(SystemExit):
         cli.main(["--model", "internvla_n1", "--int8", "--int4", *base])
+
+
+def test_convert_checkpoint_cli_recurrent(tmp_path):
+    """`--model cma`: a reference-layout CMA checkpoint (small widths, the
+    keys JAX's convert_cma_policy reads) becomes a native directory that
+    loads back to the same weights, its config.json the one it was
+    converted at."""
+    from internnav_tpu_torch import model as zoo
+    from internnav_tpu_torch.model.weights.convert import recurrent_reference_state_dict
+
+    cli = _convert_cli()
+    cfg = zoo.get_config("cma")
+    cfg.text_encoder.rnn_hidden_size, cfg.state_encoder.hidden_size = 8, 32
+    cfg.image_encoder.rgb.model_name = "resnet18"
+    src = zoo.get_policy("cma").build(cfg, device="cpu", seed=4)
+    (tmp_path / "ref").mkdir()
+    torch.save(recurrent_reference_state_dict(src.net), tmp_path / "ref" / "model.pth")
+    cli.convert_recurrent("cma", str(tmp_path / "ref"), str(tmp_path / "dst"), device="cpu",
+                          cfg=cfg)
+    back = zoo.get_policy("cma").from_pretrained(str(tmp_path / "dst"), device="cpu")
+    assert back.cfg.model_dump() == cfg.model_dump()
+    _assert_state_equal(back.net.state_dict(), src.net.state_dict())
 
 
 # ------------------------------------------------------------ safetensors

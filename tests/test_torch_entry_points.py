@@ -38,6 +38,7 @@ from internnav_tpu_torch.realworld import serve
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PORT_CONFIGS = sorted((REPO / "scripts" / "torch" / "configs").glob("*.py"))
+FAKE_N1 = REPO / "scripts" / "torch" / "configs" / "fake_n1_pipelined_cfg.py"
 #: what a run's metrics hold that is a time, not a result
 TIMINGS = ("wall_clock_s", "action_latency_p50_ms", "action_latency_p90_ms",
            "action_latency_p99_ms", "action_latency_mean_ms")
@@ -71,12 +72,13 @@ def _dump(cfg) -> tuple:
 
 @pytest.mark.parametrize("path", PORT_CONFIGS, ids=lambda p: p.name)
 def test_port_config_files_equal_jax_configs(path):
-    """The fake N1 configs (each with an N1 config object), the Habitat ones
-    and the VLN-PE h1 one (none)."""
+    """The fake N1 configs (each with an N1 config object), the Habitat ones,
+    the VLN-PE h1 one and the recurrent policies' (none)."""
     assert [p.name for p in PORT_CONFIGS] == [
-        "fake_n1_pipelined_cfg.py", "fake_n1_shared_decode_cfg.py",
-        "h1_internvla_n1_async_cfg.py", "habitat_dialog_cfg.py",
-        "habitat_dual_system_cfg.py", "habitat_object_cfg.py", "habitat_s2_cfg.py"]
+        "fake_cma_cfg.py", "fake_n1_pipelined_cfg.py", "fake_n1_shared_decode_cfg.py",
+        "h1_cma_cfg.py", "h1_internvla_n1_async_cfg.py", "h1_seq2seq_cfg.py",
+        "habitat_dialog_cfg.py", "habitat_dual_system_cfg.py", "habitat_object_cfg.py",
+        "habitat_s2_cfg.py"]
     port = tconfigs.load_py_config(str(path))
     ref = jconfigs.load_py_config(str(REPO / "scripts" / "eval" / "configs" / path.name))
     assert isinstance(port, tconfigs.EvalCfg)
@@ -86,6 +88,9 @@ def test_port_config_files_equal_jax_configs(path):
     assert pn1 == rn1
     if path.name.startswith("habitat_"):
         assert pn1 is None and pd["env"]["env_type"] == "habitat"
+    elif "cma" in path.name or "seq2seq" in path.name:
+        assert pn1 is None and pd["eval_type"] == "vln_batched"
+        assert pd["agent"]["model_name"] in ("cma", "seq2seq") and pd["env"]["env_type"] == "fake"
     elif path.name.startswith("h1_"):
         assert pn1 is None and pd["env"]["env_type"] == "internutopia"
         assert pd["eval_type"] == "vln_pe" and pd["task"]["camera_resolution"] == [640, 480]
@@ -113,10 +118,17 @@ def test_get_config_unknown_name_raises_as_jax():
 
 
 def test_get_policy():
+    from internnav_tpu_torch.model.basemodel.cma import CMAPolicy
+    from internnav_tpu_torch.model.basemodel.seq2seq import Seq2SeqPolicy
+
     assert tmodel_zoo.get_policy("InternVLAN1_Policy") is InternVLAN1Policy
     assert tmodel_zoo.get_policy("internvla_n1") is InternVLAN1Policy
-    for name in ("CMA_Policy", "cma", "Seq2Seq_Policy", "seq2seq", "RDP_Policy", "rdp",
-                 "NavDP_Policy", "navdp", "CMA_CLIP_Policy", "cma_clip"):
+    for names, cls in ((("CMA_Policy", "cma"), CMAPolicy),
+                       (("Seq2Seq_Policy", "seq2seq"), Seq2SeqPolicy)):
+        for name in names:
+            assert tmodel_zoo.get_policy(name) is cls
+            assert cls.name == jmodel_zoo.get_policy(name).name
+    for name in ("RDP_Policy", "rdp", "NavDP_Policy", "navdp", "CMA_CLIP_Policy", "cma_clip"):
         with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 6"):
             tmodel_zoo.get_policy(name)
         jmodel_zoo.get_policy(name)  # the JAX package has each
@@ -164,7 +176,7 @@ def test_eval_cli_prints_the_metrics_of_the_evaluator(tmp_path):
     cfg = tmp_path / "cfg.py"
     cfg.write_text(
         "from internnav_tpu_torch.configs import load_py_config\n"
-        f"eval_cfg = load_py_config({str(PORT_CONFIGS[0])!r})\n"
+        f"eval_cfg = load_py_config({str(FAKE_N1)!r})\n"
         f"eval_cfg.output_dir = {str(tmp_path / 'cli')!r}\n")
     cli = _run(["scripts/torch/eval.py", "--config", str(cfg), "--device", "cpu"])
     direct = _run(["-c", (
@@ -182,6 +194,30 @@ def test_eval_cli_prints_the_metrics_of_the_evaluator(tmp_path):
         assert json.loads(f.read().splitlines()[-1]) == cli
 
 
+@pytest.mark.parametrize("model", ["cma", "seq2seq"])
+def test_eval_cli_runs_the_recurrent_policies_on_the_cpu(tmp_path, model):
+    """`scripts/torch/eval.py --config scripts/torch/configs/fake_cma_cfg.py
+    --device cpu` (and the same with the seq2seq agent) at the reference's
+    width, random weights: every episode evaluated, finite metrics,
+    result.json written."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("port_eval", REPO / "scripts/torch/eval.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(
+        "from internnav_tpu_torch.configs import load_py_config\n"
+        f"eval_cfg = load_py_config({str(PORT_CONFIGS[0])!r})\n"
+        f"eval_cfg.agent.model_name = {model!r}\n"
+        f"eval_cfg.dataset.base_data_dir = {str(REPO / 'data' / 'fake_r2r')!r}\n"
+        f"eval_cfg.output_dir = {str(tmp_path / 'out')!r}\n")
+    got = cli.main(["--config", str(cfg), "--device", "cpu"])  # in this process: 2 threads
+    assert PORT_CONFIGS[0].name == "fake_cma_cfg.py"
+    assert got["num_episodes"] == 4 and np.isfinite([got[k] for k in ("success", "spl", "NE")]).all()
+    assert (tmp_path / "out" / "result.json").exists()
+
+
 def test_eval_cli_needs_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch):
     """Without a GPU the default device raises (no fallback to the host);
     eval_type vln_pe is assembled and run: with no episode at its data
@@ -194,7 +230,7 @@ def test_eval_cli_needs_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch):
     spec.loader.exec_module(cli)
     cfg = tmp_path / "cfg.py"
     cfg.write_text("from internnav_tpu_torch.configs import load_py_config\n"
-                   f"eval_cfg = load_py_config({str(PORT_CONFIGS[0])!r})\n")
+                   f"eval_cfg = load_py_config({str(FAKE_N1)!r})\n")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config", str(cfg)])

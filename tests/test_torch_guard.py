@@ -48,7 +48,9 @@ SCRIPTS = [BENCH_ENTRY, *(REPO / "scripts" / "torch" / name for name in (
     "eval.py", "start_server.py", "dryrun_distributed_eval.py",
     "configs/fake_n1_pipelined_cfg.py", "configs/fake_n1_shared_decode_cfg.py",
     "configs/h1_internvla_n1_async_cfg.py",
-    *(f"configs/habitat_{name}_cfg.py" for name in ("dual_system", "s2", "dialog", "object"))))]
+    *(f"configs/habitat_{name}_cfg.py" for name in ("dual_system", "s2", "dialog", "object")),
+    "configs/fake_cma_cfg.py", "configs/h1_cma_cfg.py", "configs/h1_seq2seq_cfg.py",
+    "convert_checkpoint.py"))]
 #: every module of the port, by its file
 PORT_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -87,7 +89,14 @@ def test_port_modules_cover_the_package():
                 "env.internutopia.isaac_ext", "env.internutopia.batch_adapter",
                 "evaluator.utils.result_logger", "evaluator.utils.visualize",
                 "evaluator.vln_pe_evaluator", "evaluator.utils.planners",
-                "evaluator.vn_evaluator"):
+                "evaluator.vn_evaluator",
+                # the recurrent VLN policies (CMA, Seq2Seq), their agents,
+                # and the rest of the host-only copies
+                "ops.rnn", "model.encoder.rnn_state", "model.encoder.instruction",
+                "model.encoder.resnet", "model.base", "model.basemodel.cma",
+                "model.basemodel.seq2seq", "agent.recurrent_agent", "utils.misc",
+                "utils.metric_logger", "utils.profiling", "realworld.env", "realworld.agilex",
+                "dataset.vlln_dataset"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
     assert set(SCRIPTS) <= set(PORT_SOURCES)
     assert len(PORT_MODULES) > 40
@@ -322,9 +331,10 @@ def test_launcher_refuses_unported_profile_and_missing_gpu(monkeypatch):
 
 def test_public_constructors_default_to_the_gpu(monkeypatch):
     """`build_model`, `InternVLAN1Policy.build`, the dialog agent, the H1
-    loco controller, the loco checkpoint conversion and the VLN-PE vec env
-    with its loco actors without a device run on the GPU: with no CUDA
-    device they raise instead of building on the host."""
+    loco controller, the loco checkpoint conversion, the VLN-PE vec env
+    with its loco actors, `CMAPolicy.build` / `Seq2SeqPolicy.build` and
+    the "cma" / "seq2seq" agents without a device run on the GPU: with no
+    CUDA device they raise instead of building on the host."""
     from internnav_tpu_torch.configs import AgentCfg
     from internnav_tpu_torch.dialog.dialog_agent import DialogAgent
     from internnav_tpu_torch.env.internutopia.loco import H1SpeedController, convert_loco_policy
@@ -345,6 +355,14 @@ def test_public_constructors_default_to_the_gpu(monkeypatch):
     FakePhysicsVecEnv([], use_loco=False)  # no actor, no device
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert_loco_policy("unread.pt")
+    from internnav_tpu_torch.agent.recurrent_agent import CmaAgent, Seq2SeqAgent
+    from internnav_tpu_torch.model import get_config, get_policy
+
+    for name, agent_cls in (("cma", CmaAgent), ("seq2seq", Seq2SeqAgent)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_policy(name).build(get_config(name))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            agent_cls(AgentCfg(model_name=name))
 
 
 class _LookDownPolicy:

@@ -1714,3 +1714,52 @@ def test_fsdp_single_rank_step_equals_the_unsharded_step(device, tmp_path):
         assert not bad.any(), (name, int(bad.sum()), float(err[bad].max()))
         moved += int(((new_p - start[name]).abs() >= 0.5 * lr)[reached].sum())
     assert moved > 0.5 * sum(int(((m != 0)).sum()) for m in mu_p.values()), moved
+
+
+#: card against host for the recurrent policies: fp32 with TF32 off
+#: (cuDNN convolutions and LSTMs, cuBLAS GEMMs) through two ResNets and
+#: three recurrences
+RECURRENT_TOL = 1e-4
+
+
+@pytest.mark.parametrize("name", ["cma", "seq2seq"])
+def test_recurrent_policy_on_the_card_matches_the_host(device, name):
+    """CMA and Seq2Seq at small widths (ResNet-18 RGB, the fixed ResNet-50
+    depth tower at 256 x 256, hidden 32), the same weights and inputs on the
+    card and on the host: logits, states and progress; the per-token text
+    padding stays exact zeros on the card (cuDNN's LSTM past each row's
+    length is discarded)."""
+    from internnav_tpu_torch import model as zoo
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = zoo.get_config(name)
+        cfg.text_encoder.rnn_hidden_size, cfg.state_encoder.hidden_size = 8, 32
+        cfg.image_encoder.rgb.model_name = "resnet18"
+        host = zoo.get_policy(name).build(cfg, device="cpu", seed=0)
+        card = zoo.get_policy(name).build(cfg, device=device, seed=0)
+        g = torch.Generator().manual_seed(1)
+        n, layers = 4, host.num_recurrent_layers()
+        tokens = torch.zeros(n, 200, dtype=torch.int32)
+        for i, k in enumerate((0, 1, 17, 200)):
+            tokens[i, :k] = torch.randint(1, 2504, (k,), generator=g)
+        batch = {"observations": {"instruction": tokens,
+                                  "rgb": 255 * torch.rand(n, 224, 224, 3, generator=g),
+                                  "depth": torch.rand(n, 256, 256, 1, generator=g)},
+                 "rnn_states": torch.randn(n, layers, 32, generator=g),
+                 "prev_actions": torch.tensor([0, 1, 2, 3]),
+                 "masks": torch.tensor([0.0, 1.0, 1.0, 1.0])}
+        on_card = {k: ({f: t.to(device) for f, t in v.items()} if isinstance(v, dict)
+                       else v.to(device)) for k, v in batch.items()}
+        want = host.forward(batch)
+        got = card.forward(on_card)
+        for w, c in zip(want, got):
+            assert torch.isfinite(c).all()
+            assert torch.allclose(c.cpu(), w, atol=RECURRENT_TOL, rtol=0), \
+                (c.cpu() - w).abs().max().item()
+        if name == "cma":
+            emb = card.net.instruction_encoder(on_card["observations"]["instruction"]).cpu()
+            assert (emb[0] == 0).all() and (emb[2, 17:] == 0).all() and (emb[3] != 0).any()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
