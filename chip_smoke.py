@@ -220,7 +220,18 @@ Phases, each printing its numbers:
                finite metrics, K1-K10 launched 0 times and no plain
                version run; a step's seconds at 4 and 8 envs, one
                profiled step's device ms and launches, actions/s, peak
-               memory;
+               memory; then train recurrent (a fixture LMDB written by the
+               port's LMDBWriter, lmdb_to_store.py, train.py's main for
+               CMA and Seq2Seq, 4 steps each at cma_cfg's batch, the saved
+               policies reloaded bitwise), evaluate rdp (a seed-0 RDP at
+               rdp_cfg's width as a reference-layout checkpoint, its
+               denoiser's dx and stop heads biased so that episodes run
+               to their 32 steps: eval.py on h1_rdp_cfg.py, 4 FakeEnv envs,
+               8 episodes, mid-episode cache refills, the resume; one act
+               call card against host within RDP_TOL, timed and profiled)
+               and train rdp (4 steps at batch 8, the EMA moved off its
+               start and apart from the parameters); K1-K10 launched 0
+               times in each, no plain version;
   navdp    — the NavDP System-1 (`navdp_async`: the fp32 NavDP head with
                its RGBD backbone and 20-step DDPM) on one 7B realtime
                policy (random weights, seed 0): serve navdp, 4
@@ -4244,6 +4255,439 @@ def _evaluate_recurrent(device, cli, root: Path) -> dict:
     return {"evaluate_recurrent": total}
 
 
+# ------------------------------------------ train recurrent, RDP evaluate / train
+#: train recurrent: a fixture LMDB of TRAIN_REC_EPISODES episodes of at
+#: most TRAIN_REC_MAX_T steps at the reference's frames (RGB 224, depth
+#: 256), converted by lmdb_to_store.py, then train.py: TRAIN_REC_STEPS
+#: optimizer steps of CMA and of Seq2Seq at cma_cfg's batch size
+TRAIN_REC_EPISODES = 8
+TRAIN_REC_MAX_T = 32
+TRAIN_REC_STEPS = 4
+#: evaluate rdp: h1_rdp_cfg.py's vln_batched over FakeEnv, as evaluate
+#: recurrent runs the h1 recurrent configs
+RDP_ENVS = 4
+RDP_EPISODES = 8
+RDP_MAX_STEP = 32
+#: card against host, one act call with the same draws: fp32, TF32 off,
+#: a ViT-B/16, the depth ResNet-50, the text and cross encoders, then 20
+#: CFG DDPM steps of the 3-layer denoiser (each step's ε feeds the next)
+RDP_TOL = 1e-4
+#: with random weights a denoised waypoint's dx sits near 0, which the
+#: agent maps to STOP, and episodes end after a step or two: the seed-0
+#: checkpoint's denoiser head has RDP_DX_BIAS taken off its dx ε, so that
+#: every step's x0 estimate clamps to dx = +1 (0.25 m, a forward move or a
+#: turn), and its stop-progress head's last bias is RDP_STOP_BIAS (the
+#: sigmoid far below stop_threshold): episodes run to RDP_MAX_STEP and
+#: each env refills its waypoint cache mid-episode. RDP_DX_BIAS x
+#: sqrt(1 - abar_0) (0.0894) is ~18, far above |x_t| and the random
+#: head's own output
+RDP_DX_BIAS = 200.0
+RDP_STOP_BIAS = -30.0
+#: train rdp: write_synthetic_rdp_dataset at the reference's frames,
+#: rdp_cfg's batch of 8, the EMA on (rdp_train_cfg sets use_ema)
+TRAIN_RDP_STEPS = 4
+TRAIN_RDP_BATCH = 8
+
+
+def _load_script(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"port_{name}_cli",
+                                                  REPO / "scripts" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _train_cli(device, trainer_cls, argv) -> dict:
+    """scripts/torch/train.py's main(argv) in this process with each
+    optimizer step recorded (its wall seconds to the loss on the host, its
+    metrics), then the saved policy reloaded through `from_pretrained` and
+    held bitwise to the trained weights on the card. Returns the steps,
+    the trainer, the reload's mismatches, the peak memory and the EMA as
+    it stood before the first step (None without one)."""
+    import torch
+
+    from internnav_tpu_torch.model import get_policy
+
+    steps, step, ema_start = [], trainer_cls.train_step, []
+
+    def recorded(self, batch, draws=None):
+        if not steps and self.ema is not None:
+            ema_start.append({n: v.detach().clone() for n, v in self.ema.items()})
+        t = time.perf_counter()
+        m = step(self, batch, draws)
+        m = {k: float(v) for k, v in m.items()}  # the host waits for the step here
+        steps.append({"s": round(time.perf_counter() - t, 4), **{k: round(v, 6) for k, v in
+                                                                 m.items()}, "trainer": self})
+        return m
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    trainer_cls.train_step = recorded
+    try:
+        with contextlib.redirect_stdout(sys.stderr):  # its "final:" line
+            _load_script("train").main(argv)
+    finally:
+        trainer_cls.train_step = step
+    trainer = steps[-1].pop("trainer")
+    for s in steps:
+        s.pop("trainer", None)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    cfg = trainer.cfg
+    final = Path(cfg.output_dir) / f"{cfg.name}_final"
+    back = get_policy(cfg.model_name).from_pretrained(str(final), device=device)
+    trained = trainer.policy.net.state_dict()
+    mismatched = [n for n, t in back.net.state_dict().items() if not torch.equal(t, trained[n])]
+    return {"steps": steps, "trainer": trainer, "mismatched": mismatched, "peak_gib": peak,
+            "final": final, "ema_start": ema_start[0] if ema_start else None}
+
+
+def _fixture_lmdb(path: Path, seed: int = 0) -> int:
+    """TRAIN_REC_EPISODES reference-style trajectory records (msgpack-numpy,
+    every other one under "episode_data") written by the port's LMDBWriter;
+    returns the frames written."""
+    import numpy as np
+
+    from internnav_tpu_torch.dataset.lmdb_reader import LMDBWriter, packb
+
+    rs = np.random.RandomState(seed)
+    frames = 0
+    with LMDBWriter(str(path)) as w:
+        for i in range(TRAIN_REC_EPISODES):
+            t = int(rs.randint(TRAIN_REC_MAX_T // 2, TRAIN_REC_MAX_T + 1))
+            ep = {"rgb": rs.randint(0, 255, (t, 224, 224, 3)).astype(np.uint8),
+                  "depth": rs.rand(t, 256, 256).astype(np.float32),
+                  "instruction": rs.randint(1, 2504, int(rs.randint(8, 80))).astype(np.int32),
+                  "actions": rs.randint(0, 4, t).astype(np.int32),
+                  "progress": np.linspace(0, 1, t).astype(np.float32), "stuck": np.int32(0)}
+            w.put(f"ep{i:03d}", packb({"episode_data": ep} if i % 2 else ep))
+            frames += t
+    return frames
+
+
+def phase_train_recurrent(device) -> dict:
+    """CMA / Seq2Seq training from an LMDB at the reference's width: a
+    fixture LMDB (`_fixture_lmdb`) through `scripts/torch/lmdb_to_store.py`'s
+    main, then `scripts/torch/train.py`'s main on cma_train_cfg.py and
+    seq2seq_train_cfg.py for TRAIN_REC_STEPS steps at their batch size (2
+    episodes, time-major, padded to the longer); the saved policy reloaded
+    through `from_pretrained` equal to the trained weights. Every step's
+    loss and grad norm finite; no hand-written kernel launched and no plain
+    version run. Prints each step's seconds and loss, the grad norms and the
+    peak memory. Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.dataset.traj_store import TrajStore
+    from internnav_tpu_torch.trainer.cma_trainer import CMATrainer, Seq2SeqTrainer
+
+    root = WORK_DIR / "train_recurrent"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    reset_launch_counts()
+    seconds, runs, problems = {}, {}, []
+    try:
+        t = time.perf_counter()
+        frames = _fixture_lmdb(root / "lmdb")
+        seconds["lmdb_write"] = time.perf_counter() - t
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            n = _load_script("lmdb_to_store").main(["--lmdb", str(root / "lmdb"),
+                                                    "--out", str(root / "store.bin")])
+        seconds["lmdb_to_store"] = time.perf_counter() - t
+        if n != TRAIN_REC_EPISODES or len(TrajStore(str(root / "store.bin"), False)) != n:
+            problems.append(f"lmdb_to_store imported {n} of {TRAIN_REC_EPISODES} episodes")
+        for name, cls in (("cma", CMATrainer), ("seq2seq", Seq2SeqTrainer)):
+            t = time.perf_counter()
+            runs[name] = _train_cli(device, cls, [
+                "--config", str(REPO / "scripts" / "torch" / "configs" / f"{name}_train_cfg.py"),
+                "--store", str(root / "store.bin"), "--steps", str(TRAIN_REC_STEPS),
+                "--batch-size", "2", "--output-dir", str(root / name)])
+            seconds[name] = time.perf_counter() - t
+        launches = launch_counts()
+    finally:
+        _restore(spies)
+    for name, run in runs.items():
+        st = run["steps"]
+        if len(st) != TRAIN_REC_STEPS or not np.isfinite(
+                [s[k] for s in st for k in ("loss", "grad_norm")]).all():
+            problems.append(f"{name}: steps {st}")
+        if run["mismatched"]:
+            problems.append(f"{name}: the reloaded policy differs in {run['mismatched'][:3]}")
+        if run["trainer"].policy.device != device or run["trainer"].batch_axis != 1:
+            problems.append(f"{name}: trained on {run['trainer'].policy.device}")
+    if any(launches.values()):
+        problems.append(f"a hand-written kernel launched: {launches}")
+    if plain:
+        problems.append(f"plain versions ran: {dict(plain)}")
+    for name, run in runs.items():
+        print(f"phase train_recurrent: path=train_recurrent model={name} "
+              f"episodes={TRAIN_REC_EPISODES} frames={frames} batch=2 "
+              f"steps={json.dumps(run['steps'])} peak_gib={run['peak_gib']:.2f} "
+              f"reload_equal={not run['mismatched']} gpu={gpu_line()!r}")
+    print(f"phase train_recurrent: seconds={json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"phase_s={sum(seconds.values()):.2f} launches={json.dumps(launches)} "
+          f"plain_calls={sum(plain.values())}")
+    if problems:
+        raise AssertionError("train recurrent: " + "; ".join(problems))
+    del runs
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_recurrent": launches}
+
+
+def rdp_batch(n: int, device, seed: int) -> dict:
+    """An RDP act batch of n envs at the reference's frames (80-token
+    instructions, RoBERTa's pad id 1), built on the host."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.ones(n, 80, dtype=torch.int32)
+    for i in range(n):
+        k = (80, 40, 12, 3)[i % 4]
+        ids[i, :k] = torch.randint(2, 50265, (k,), generator=g)
+    obs = {"instruction": ids, "rgb": 255 * torch.rand(n, 224, 224, 3, generator=g),
+           "depth": torch.rand(n, 256, 256, 1, generator=g), "imu": torch.randn(n, 3, generator=g)}
+    batch = {"observations": obs, "rnn_states": torch.randn(n, 1, 512, generator=g),
+             "prev_actions": 0.1 * torch.randn(n, 4, 3, generator=g),
+             "masks": (torch.arange(n) % 3 != 0).float(), "mode": "act"}
+    return {k: ({f: t.to(device) for f, t in v.items()} if isinstance(v, dict) else
+                v.to(device) if hasattr(v, "to") else v) for k, v in batch.items()}
+
+
+def phase_evaluate_rdp(device) -> dict:
+    """RDP at rdp_cfg's width (RoBERTa-style text 6 x 512, CLIP ViT-B/16 at
+    224, the DD-PPO depth ResNet-50 at 256, GRU 512, a 3-layer denoiser of
+    512, 20 DDPM steps with CFG), seed-0 weights written as a
+    reference-layout checkpoint (`convert.rdp_reference_state_dict`):
+    (a) `scripts/torch/eval.py`'s main on `h1_rdp_cfg.py`: vln_batched over
+        FakeEnv, RDP_ENVS envs, RDP_EPISODES episodes of at most
+        RDP_MAX_STEP steps, the "rdp" agent loading the checkpoint through
+        `from_pretrained` (the reference converter); then main again: the
+        resume re-runs nothing;
+    (b) card against host: one act call, the same checkpoint on the host,
+        the same draws: trajectory, progress and stop-progress within
+        RDP_TOL;
+    (c) one act call's host seconds (to its trajectory on the host), its
+        profiled device ms and launches.
+    Every action legal, every episode ended with finite metrics, an env's
+    waypoint cache refilled mid-episode (RDP_DX_BIAS, RDP_STOP_BIAS keep
+    the episodes going), the agent's RNN states on the card; no
+    hand-written kernel launched and no plain version run. Returns the
+    launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.agent import rdp_agent
+    from internnav_tpu_torch.model import get_config, get_policy
+    from internnav_tpu_torch.model.weights.convert import rdp_reference_state_dict
+
+    root = WORK_DIR / "evaluate_rdp"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "ckpt").mkdir(parents=True)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    seconds, metrics, problems, steps = {}, {}, [], []
+    t = time.perf_counter()
+    cfg = get_config("rdp")
+    pol = get_policy("rdp").build(cfg, device=device, seed=0)
+    params = sum(p.numel() for p in pol.net.parameters())
+    with torch.no_grad():
+        pol.net.action_dp_pred_net.head.bias[0] -= RDP_DX_BIAS
+        pol.net.stop_progress_predictor.fc3.bias.fill_(RDP_STOP_BIAS)
+    torch.save(rdp_reference_state_dict(pol.net), root / "ckpt" / "model.pth")
+    del pol
+    seconds["checkpoint"] = time.perf_counter() - t
+    cfg_file = root / "rdp_cfg.py"
+    cfg_file.write_text(
+        "from internnav_tpu_torch.configs import load_py_config\n"
+        f"eval_cfg = load_py_config({str(REPO / 'scripts/torch/configs/h1_rdp_cfg.py')!r})\n"
+        "eval_cfg.env.env_settings.update(rgb_resolution=[224, 224], "
+        "depth_resolution=[256, 256])\n"
+        f"eval_cfg.env.env_num = {RDP_ENVS}\n"
+        f"eval_cfg.task.max_step = {RDP_MAX_STEP}\n"
+        f"eval_cfg.agent.ckpt_path = {str(root / 'ckpt' / 'model.pth')!r}\n"
+        f"eval_cfg.dataset.base_data_dir = {str(REPO / 'data' / 'fake_r2r')!r}\n"
+        f"eval_cfg.dataset.max_episodes = {RDP_EPISODES}\n"
+        f"eval_cfg.output_dir = {str(root / 'out')!r}\n")
+    cli = _load_script("eval")
+    coroutine = rdp_agent.RdpAgent.step_coroutine
+    refills = []  # envs whose empty cache an act call refills after the episode's first step
+
+    def recorded(self, obs):
+        if self._caches is not None and len(self._caches) == len(obs):
+            empty = [i for i, c in enumerate(self._caches) if not c]
+            if empty:
+                masks = self._masks.cpu()
+                refills.extend(i for i in empty if masks[i] > 0)
+        t0 = time.perf_counter()
+        out = yield from coroutine(self, obs)
+        steps.append((self, [o["action"][0] for o in out], time.perf_counter() - t0))
+        return out
+
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    rdp_agent.RdpAgent.step_coroutine = recorded
+    reset_launch_counts()
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            metrics["rdp"] = cli.main(["--config", str(cfg_file)])
+        torch.cuda.synchronize(device)
+        seconds["rdp"] = time.perf_counter() - t
+        n_steps = len(steps)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            metrics["rdp_resumed"] = cli.main(["--config", str(cfg_file)])
+        seconds["rdp_resumed"] = time.perf_counter() - t
+        if len(steps) != n_steps:
+            problems.append(f"the resume re-ran {len(steps) - n_steps} steps")
+        agent = steps[0][0]
+        pol = agent.policy
+        if pol.device != device or agent._states.device != device:
+            problems.append(f"the agent's policy on {pol.device}, states on {agent._states.device}")
+        # (b) card against host, (c) one act call
+        host = get_policy("rdp").from_pretrained(str(root / "ckpt" / "model.pth"), cfg,
+                                                 device="cpu")
+        draws = pol.net.act_draws(RDP_ENVS, torch.Generator().manual_seed(5), "cpu")
+        want = host.forward({**rdp_batch(RDP_ENVS, "cpu", 6), "draws": draws})
+        t = time.perf_counter()
+        got = pol.forward({**rdp_batch(RDP_ENVS, device, 6),
+                           "draws": {k: v.to(device) for k, v in draws.items()}})
+        got = [g.cpu() for g in got if g is not None]
+        act_host_s = time.perf_counter() - t
+        err = {k: float((g - w).abs().max()) for k, g, w in zip(
+            ("trajectory", "rnn_states", "progress", "stop_progress"), got, want)}
+        if max(err.values()) > RDP_TOL or not all(torch.isfinite(g).all() for g in got):
+            problems.append(f"card against host {err} (bound {RDP_TOL})")
+        del host
+        batch = rdp_batch(RDP_ENVS, device, 7)
+        pol.forward(batch)[0].cpu()  # warm
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            pol.forward(batch)[0].cpu()
+            times.append(time.perf_counter() - t)
+        profiled = _profiled(lambda: pol.forward(batch))
+        launches = launch_counts()
+    finally:
+        rdp_agent.RdpAgent.step_coroutine = coroutine
+        _restore(spies)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    acts = collections.Counter(a for _, out, _ in steps for a in out)
+    if not acts or set(acts) - RECURRENT_LEGAL:
+        problems.append(f"actions {dict(acts)}")
+    if not refills:
+        problems.append("no env refilled its waypoint cache mid-episode")
+    for name, m in metrics.items():
+        if m.get("num_episodes") != RDP_EPISODES or not np.isfinite(
+                [v for v in m.values() if isinstance(v, (int, float))]).all():
+            problems.append(f"{name}: metrics {m}")
+    if any(launches.values()):
+        problems.append(f"a hand-written kernel launched: {launches}")
+    if plain:
+        problems.append(f"plain versions ran: {dict(plain)}")
+    step_s = [s for _, _, s in steps]
+    print(f"phase evaluate_rdp: path=evaluate_rdp envs={RDP_ENVS} episodes={RDP_EPISODES} "
+          f"max_step={RDP_MAX_STEP} rgb=224 depth=256 params={params} "
+          f"seconds={json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"phase_s={sum(seconds.values()):.2f} steps={len(steps)} "
+          f"mid_episode_refills={len(refills)} "
+          f"step_s_median={statistics.median(step_s):.4f} actions={json.dumps(dict(acts))} "
+          f"actions_per_s={metrics['rdp'].get('actions_timed', 0) / seconds['rdp']:.3f} "
+          f"metrics={json.dumps(metrics['rdp'])} gpu={gpu_line()!r}")
+    print(f"phase evaluate_rdp: act_call_host_s={act_host_s:.4f} "
+          f"act_call_host_s_median={statistics.median(times):.4f} "
+          f"act_call_device={profiled} card_vs_host_max_abs_err={json.dumps(err)} "
+          f"bound={RDP_TOL} peak_gib={peak_gib:.2f} launches={json.dumps(launches)} "
+          f"plain_calls={sum(plain.values())} gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("evaluate rdp: " + "; ".join(problems))
+    del agent, pol
+    steps.clear()
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"evaluate_rdp": launches}
+
+
+def phase_train_rdp(device) -> dict:
+    """RDP training at rdp_cfg's width: `write_synthetic_rdp_dataset` at the
+    reference's frames (RGB 224, depth 256), then `scripts/torch/train.py`'s
+    main on rdp_train_cfg.py for TRAIN_RDP_STEPS steps of TRAIN_RDP_BATCH
+    samples, the EMA on; the saved policy reloaded equal to the trained
+    weights, every loss term finite, the EMA moved off its start. No
+    hand-written kernel launched and no plain version run. Prints each
+    step's seconds and losses, the grad norms and the peak memory. Returns
+    the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.dataset.rdp_dataset import write_synthetic_rdp_dataset
+    from internnav_tpu_torch.trainer.rdp_trainer import RDPTrainer
+
+    root = WORK_DIR / "train_rdp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    reset_launch_counts()
+    problems = []
+    try:
+        t = time.perf_counter()
+        write_synthetic_rdp_dataset(str(root / "store.bin"), n_episodes=4, T=16, hw=224,
+                                    depth_hw=256)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        run = _train_cli(device, RDPTrainer, [
+            "--config", str(REPO / "scripts" / "torch" / "configs" / "rdp_train_cfg.py"),
+            "--store", str(root / "store.bin"), "--steps", str(TRAIN_RDP_STEPS),
+            "--batch-size", str(TRAIN_RDP_BATCH), "--output-dir", str(root / "out")])
+        train_s = time.perf_counter() - t
+        launches = launch_counts()
+    finally:
+        _restore(spies)
+    st, trainer = run["steps"], run["trainer"]
+    keys = ("loss", "diffusion_loss", "progress_loss", "stop_loss", "grad_norm")
+    if len(st) != TRAIN_RDP_STEPS or not np.isfinite([s[k] for s in st for k in keys]).all():
+        problems.append(f"steps {st}")
+    if run["mismatched"]:
+        problems.append(f"the reloaded policy differs in {run['mismatched'][:3]}")
+    ema, ema_start = trainer.ema, run["ema_start"]
+    ema_moved = ema is not None and any(not torch.equal(ema[n], ema_start[n]) for n in ema)
+    ema_lags = ema is not None and any(not torch.equal(ema[n], p)
+                                       for n, p in trainer.optimizer.params)
+    if not (trainer.cfg.il.use_ema and ema_moved and ema_lags):
+        problems.append(f"the EMA is off, never moved off its start ({not ema_moved}) or "
+                        f"equals the parameters ({not ema_lags})")
+    if any(launches.values()):
+        problems.append(f"a hand-written kernel launched: {launches}")
+    if plain:
+        problems.append(f"plain versions ran: {dict(plain)}")
+    print(f"phase train_rdp: path=train_rdp batch={TRAIN_RDP_BATCH} rgb=224 depth=256 "
+          f"ema={trainer.cfg.il.use_ema} steps={json.dumps(st)} peak_gib={run['peak_gib']:.2f} "
+          f"reload_equal={not run['mismatched']} write_s={write_s:.2f} train_s={train_s:.2f} "
+          f"launches={json.dumps(launches)} plain_calls={sum(plain.values())} "
+          f"gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("train rdp: " + "; ".join(problems))
+    del run, trainer
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_rdp": launches}
+
+
 # ----------------------------------------------------------------- navdp
 #: the NavDP head on the card against the same module on the host, both
 #: fp32: 20 DDPM steps of a 16-layer decoder, two ViT-S towers and the
@@ -5110,6 +5554,12 @@ def main() -> int:
         lap("evaluate_vln_pe")
         by_path.update(phase_evaluate_recurrent(device))
         lap("evaluate_recurrent")
+        by_path.update(phase_train_recurrent(device))
+        lap("train_recurrent")
+        by_path.update(phase_evaluate_rdp(device))
+        lap("evaluate_rdp")
+        by_path.update(phase_train_rdp(device))
+        lap("train_rdp")
         # the NavDP System-1 at 7B: one realtime policy serves, is held
         # against the host, serves batched and evaluates
         navdp, navdp_paths = phase_serve_navdp(device)

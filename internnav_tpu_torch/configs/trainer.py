@@ -2,9 +2,9 @@
 
 Copy of internnav_tpu/configs/trainer.py (ExpCfg, IlCfg, MeshCfg,
 TrainEvalCfg) with the same field names and defaults, so an experiment
-config written for the JAX trainer validates here. The per-family model
-tree (`ExpCfg.model`, the JAX package's `ModelCfg`) is kept as a free-form
-dict: the N1 trainer reads none of it.
+config written for the JAX trainer validates here. `ExpCfg.model` is the
+port's `ModelCfg`, as in JAX (the recurrent and RDP trainers read it; the
+N1 trainer reads none of it).
 
 `MeshCfg` lays the trainer out over the ranks of a process group
 (`trainer/base.py`: "replicated", "fsdp", or "tp" with `fsdp_rest`); with
@@ -16,6 +16,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from pydantic import BaseModel, ConfigDict
+
+from internnav_tpu_torch.configs.model import ModelCfg
 
 
 class _Cfg(BaseModel):
@@ -91,5 +93,5 @@ class ExpCfg(_Cfg):
     seed: int = 0
     eval: TrainEvalCfg = TrainEvalCfg()
     il: IlCfg = IlCfg()
-    model: Dict[str, Any] = {}
+    model: ModelCfg = ModelCfg()
     mesh: MeshCfg = MeshCfg()

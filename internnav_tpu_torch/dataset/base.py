@@ -1,9 +1,12 @@
-"""Episode iteration over a trajectory store (port of the parts of
-internnav_tpu/dataset/base.py the N1 trainer uses): rank/world sharding of
-the sorted keys and block shuffling, and the batching helper."""
+"""Episode iteration over a trajectory store (port of
+internnav_tpu/dataset/base.py): rank/world sharding of the sorted keys and
+block shuffling, the batching helper, a background-thread prefetcher,
+and the inflection weights of the recurrent policies' labels."""
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
@@ -66,3 +69,47 @@ def batch_iterator(
             batch = []
     if batch and not drop_last:
         yield collate_fn(batch)
+
+
+class Prefetcher:
+    """Background-thread prefetch of host batches (depth=2 default)."""
+
+    _SENTINEL = object()
+
+    def __init__(self, iterable: Iterable, depth: int = 2):
+        self.queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.error: Optional[BaseException] = None
+
+        def run():
+            try:
+                for item in iterable:
+                    self.queue.put(item)
+            except BaseException as e:  # surface worker errors to consumer
+                self.error = e
+            finally:
+                self.queue.put(self._SENTINEL)
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def __iter__(self):
+        while True:
+            item = self.queue.get()
+            if item is self._SENTINEL:
+                if self.error is not None:
+                    raise self.error
+                return
+            yield item
+
+
+def repeat_forever(make_iter: Callable[[], Iterable]) -> Iterator:
+    while True:
+        yield from make_iter()
+
+
+def inflection_weights(actions: np.ndarray, coef: float = 3.2) -> np.ndarray:
+    """Weight (1, coef) where the action differs from the previous step
+    (reference cma_lmdb_dataset.py __next__ :200-221). First step weights coef."""
+    actions = np.asarray(actions)
+    prev = np.concatenate([[actions[0] - 1], actions[:-1]])
+    return np.where(actions != prev, coef, 1.0).astype(np.float32)

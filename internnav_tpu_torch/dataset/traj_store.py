@@ -83,6 +83,13 @@ class TrajStore:
     def __contains__(self, key: str) -> bool:
         return key.encode() in self._index
 
+    def sync(self) -> None:
+        """Nothing to flush: every put is written through (the JAX
+        package's native store syncs its mapped file here)."""
+
+    def close(self) -> None:
+        """Nothing to release: no handle is held between calls."""
+
     # ---------------------------------------------------------- tree codec
     @staticmethod
     def encode_tree(tree: Dict[str, Any]) -> bytes:

@@ -2,11 +2,11 @@
 JAX package's string → policy mapping (internnav_tpu/model/__init__.py,
 the reference's internnav/model/__init__.py:1-62).
 
-The port holds the InternVLA-N1 dual system and the recurrent VLN
-policies CMA and Seq2Seq. The other policies (RDP, NavDP, CMA-CLIP) are
-not ported yet and raise NotImplementedError (ROADMAP §1 item 6); an
-unknown name raises KeyError, as in JAX. Their default configs are ported
-(`configs/defaults`)."""
+The port holds the InternVLA-N1 dual system, the recurrent VLN policies
+CMA and Seq2Seq, and the RDP family (RDP, CMA-CLIP). NavDP, the last
+policy, is not ported yet and raises NotImplementedError (ROADMAP §1 item
+6c); an unknown name raises KeyError, as in JAX. Every default config is
+ported (`configs/defaults`)."""
 
 from __future__ import annotations
 
@@ -14,9 +14,7 @@ from internnav_tpu_torch.configs.model import ModelCfg
 
 #: the policies still to port, by the names the factory takes
 _UNPORTED = {
-    "RDP_Policy": "RDPPolicy", "rdp": "RDPPolicy",
     "NavDP_Policy": "NavDPPolicy", "navdp": "NavDPPolicy",
-    "CMA_CLIP_Policy": "CMACLIPPolicy", "cma_clip": "CMACLIPPolicy",
 }
 
 
@@ -29,13 +27,21 @@ def get_policy(name: str):
         from internnav_tpu_torch.model.basemodel.seq2seq import Seq2SeqPolicy
 
         return Seq2SeqPolicy
+    if name in ("RDP_Policy", "rdp"):
+        from internnav_tpu_torch.model.basemodel.rdp import RDPPolicy
+
+        return RDPPolicy
+    if name in ("CMA_CLIP_Policy", "cma_clip"):
+        from internnav_tpu_torch.model.basemodel.cma_clip import CMACLIPPolicy
+
+        return CMACLIPPolicy
     if name in ("InternVLAN1_Policy", "internvla_n1"):
         from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
 
         return InternVLAN1Policy
     if name in _UNPORTED:
         raise NotImplementedError(f"policy {name!r} ({_UNPORTED[name]}) is not yet ported to "
-                                  "internnav_tpu_torch (ROADMAP §1 item 6)")
+                                  "internnav_tpu_torch (ROADMAP §1 item 6c)")
     raise KeyError(f"unknown policy {name!r}")
 
 

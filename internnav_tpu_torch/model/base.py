@@ -83,6 +83,11 @@ class Policy:
     def device(self) -> torch.device:
         return next(self.net.parameters()).device
 
+    @property
+    def model(self) -> nn.Module:
+        """The net, under the name the trainers read (`Trainer.model`)."""
+        return self.net
+
     def forward(self, batch: Dict):
         """dict in; mode ∈ {train, inference, features}."""
         raise NotImplementedError

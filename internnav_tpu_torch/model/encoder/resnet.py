@@ -40,15 +40,17 @@ BN_EPS = 1e-5
 
 class FrozenBatchNorm(nn.Module):
     """Inference-mode BatchNorm: y = x * inv + (bias - mean * inv),
-    inv = weight / sqrt(var + eps), over NCHW channels."""
+    inv = weight / sqrt(var + eps), over NCHW channels. Its four tensors
+    are parameters, as in JAX (where they are params, which the
+    recurrent trainers update with the rest)."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.mean = nn.Parameter(torch.zeros(features))
+        self.var = nn.Parameter(torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = self.weight / torch.sqrt(self.var + self.eps)

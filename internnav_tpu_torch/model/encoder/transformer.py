@@ -1,6 +1,8 @@
 """Transformer building blocks (port of internnav_tpu/model/encoder/
 transformer.py: `MultiHeadAttention`, `TransformerEncoderLayer`,
-`TransformerDecoderLayer`, `SinusoidalPosEmb`, `causal_mask`)."""
+`TransformerDecoderLayer`, `SinusoidalPosEmb`, `causal_mask`). Attention
+is plain einsum and softmax, as in JAX, whose module never calls its flash
+path (F24)."""
 
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ class MultiHeadAttention(nn.Module):
     """torch nn.MultiheadAttention-style: q/k/v/out projections with bias.
 
     key_padding_mask (B, S): True = masked OUT (torch convention);
-    attn_mask (T, S) boolean: True = keep."""
+    attn_mask (T, S) boolean: True = keep. JAX's module returns (out,
+    probs); here `need_weights=True` returns that pair (the cross-modal
+    encoders read the probabilities) and the default the output alone."""
 
     def __init__(self, embed_dim: int, num_heads: int, dtype=torch.float32):
         super().__init__()
@@ -27,7 +31,8 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(embed_dim, embed_dim, dtype=dtype)
         self.out_proj = nn.Linear(embed_dim, embed_dim, dtype=dtype)
 
-    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None):
+    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None,
+                need_weights: bool = False):
         B, T, _ = query.shape
         S = key.shape[1]
         H = self.num_heads
@@ -45,8 +50,8 @@ class MultiHeadAttention(nn.Module):
             # rows with every key masked give 0, as torch SDPA does
             probs = probs.masked_fill(~attn_mask.any(-1)[None, None, :, None], 0.0)
         out = torch.einsum("bhts,bhsd->bhtd", probs, v)
-        out = out.transpose(1, 2).reshape(B, T, self.embed_dim)
-        return self.out_proj(out)
+        out = self.out_proj(out.transpose(1, 2).reshape(B, T, self.embed_dim))
+        return (out, probs) if need_weights else out
 
 
 _ACTIVATIONS = {

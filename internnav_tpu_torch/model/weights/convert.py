@@ -522,3 +522,167 @@ def recurrent_reference_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
     tokens, state = _flat_tokens(net), net.state_dict()
     return {key: _to_reference(state[name].detach(), rule, tokens).cpu().contiguous()
             for name, (key, rule) in recurrent_reference_map(net).items()}
+
+
+# ------------------------------------------------------------------ RDP
+# Reference RDPNet checkpoints (rdp_policy.py:116-297 module names) → the
+# port's RDPNet, the counterpart of the JAX package's convert_rdp_policy
+# (:652) with its sub-converters convert_bert_language_encoder (:492),
+# convert_longclip_text (encoder/longclip.py), convert_crossmodal_encoder
+# (:523), convert_clip_visual (:554), convert_distance_network (:582),
+# _torch_mha (:593) and convert_diffusion_transformer (:604). Rules beside
+# the recurrent ones:
+#   "qkv0" / "qkv1" / "qkv2"  a third of a packed q/k/v projection
+#              (torch MultiheadAttention's and CLIP's in_proj_*);
+#   "pos"      RoBERTa's position table, with the type-0 token_type row
+#              folded in when the checkpoint has one.
+_BERT_SUB = {"q_proj": "self.query", "k_proj": "self.key", "v_proj": "self.value",
+             "out_proj": "output.dense"}
+_POST_NORM = {"intermediate": "intermediate.dense", "output": "output.dense",
+              "out_ln": "output.LayerNorm"}
+
+
+def _mha_packed(prefix: str, proj: str, leaf: str, packed: str) -> Tuple[str, str]:
+    """A MultiHeadAttention projection of the port → its key in a packed
+    torch / CLIP attention `packed` (in_proj_* thirds, out_proj whole)."""
+    if proj == "out_proj":
+        return f"{prefix}{packed}.out_proj.{leaf}", "same"
+    return f"{prefix}{packed}.in_proj_{leaf}", f"qkv{'qkv'.index(proj[0])}"
+
+
+def _rdp_key(name: str) -> Tuple[str, str]:
+    """(reference key, rule) of one RDPNet tensor."""
+    if name == "instruction_encoder.embeddings.position_embeddings.weight":
+        return name, "pos"
+    if name.startswith("instruction_encoder.embeddings."):
+        return name, "same"
+    if m := re.fullmatch(r"instruction_encoder\.layer\.(\d+)\.(\w+)\.?(\w*)\.(weight|bias)", name):
+        i, mod, sub, leaf = m.groups()
+        src = f"instruction_encoder.layer.{i}."
+        if mod == "attention":
+            return f"{src}attention.{_BERT_SUB[sub]}.{leaf}", "same"
+        if mod == "attn_ln":
+            return f"{src}attention.output.LayerNorm.{leaf}", "same"
+        return f"{src}{_POST_NORM[mod]}.{leaf}", "same"
+    if m := re.fullmatch(r"instruction_encoder\.(.+)", name):  # LongCLIP
+        rel, tt = m[1], "instruction_encoder.text_transformer."
+        if b := re.fullmatch(r"resblock\.(\d+)\.(\w+)\.(weight|bias)", rel):
+            i, mod, leaf = b.groups()
+            sub = {"in_proj": None, "out_proj": "attn.out_proj", "c_fc": "mlp.c_fc",
+                   "c_proj": "mlp.c_proj"}.get(mod, mod)
+            if sub is None:
+                return f"{tt}transformer.resblocks.{i}.attn.in_proj_{leaf}", "same"
+            return f"{tt}transformer.resblocks.{i}.{sub}.{leaf}", "same"
+        return tt + rel, "same"
+    if m := re.fullmatch(r"image_encoder\.visual\.(.+)", name):
+        rel, vis = m[1], "image_encoder.image_transformer.visual."
+        if b := re.fullmatch(r"block\.(\d+)\.attn\.(\w+)\.(weight|bias)", rel):
+            return _mha_packed(f"{vis}transformer.resblocks.{b[1]}.", b[2], b[3], "attn")
+        if b := re.fullmatch(r"block\.(\d+)\.(ln_1|ln_2|c_fc|c_proj)\.(weight|bias)", rel):
+            sub = b[2] if b[2].startswith("ln") else f"mlp.{b[2]}"
+            return f"{vis}transformer.resblocks.{b[1]}.{sub}.{b[3]}", "same"
+        return vis + rel, "same"
+    if m := re.fullmatch(r"image_encoder\.depth_encoder\.visual_encoder\.(.+)", name):
+        return "image_encoder.depth_encoder.visual_encoder." + _habitat_name(m[1]), "same"
+    if name == "image_encoder.depth_encoder.spatial_embeddings":
+        return "image_encoder.depth_encoder.spatial_embeddings.weight", "spatial"
+    if m := re.fullmatch(r"image_encoder\.depth_linear\.(\w+)", name):
+        return f"image_encoder.depth_linear.1.{m[1]}", "flatten" if m[1] == "weight" else "same"
+    if m := re.fullmatch(r"(img_txt|txt_img)_cross_encoder\.layer\.(\d+)\.(\w+)\.?(\w*)\."
+                         r"(weight|bias)", name):
+        enc, i, mod, sub, leaf = m.groups()
+        src = f"{enc}_cross_encoder.cross_modal_encoder.crossattention.{i}."
+        if mod in ("self_attn", "cross_attn"):
+            part = "attention" if mod == "self_attn" else "crossattention"
+            return f"{src}{part}.{_BERT_SUB[sub]}.{leaf}", "same"
+        if mod in ("self_ln", "cross_ln"):
+            part = "attention" if mod == "self_ln" else "crossattention"
+            return f"{src}{part}.output.LayerNorm.{leaf}", "same"
+        return f"{src}{_POST_NORM[mod]}.{leaf}", "same"
+    if m := re.fullmatch(r"state_encoder\.(\w+)", name):
+        return f"state_encoder.rnn.{_RNN_LEAVES[m[1]]}", "same"
+    if m := re.fullmatch(r"(progress_monitor|stop_progress_predictor|distance_pred_net)\."
+                         r"fc(\d)\.(weight|bias)", name):
+        return f"{m[1]}.network.{2 * (int(m[2]) - 1)}.{m[3]}", "same"
+    if m := re.fullmatch(r"action_dp_pred_net\.(.+)", name):
+        rel, dp = m[1], "action_dp_pred_net."
+        if b := re.fullmatch(r"cond_mlp_(\d)\.(weight|bias)", rel):
+            return f"{dp}encoder.{2 * (int(b[1]) - 1)}.{b[2]}", "same"
+        if b := re.fullmatch(r"(cond_layer|dec_layer)\.(\d+)\.(self_attn|cross_attn)\.(\w+)\."
+                             r"(weight|bias)", rel):
+            stack = "encoder" if b[1] == "cond_layer" else "decoder"
+            packed = "multihead_attn" if b[3] == "cross_attn" else "self_attn"
+            return _mha_packed(f"{dp}{stack}.layers.{b[2]}.", b[4], b[5], packed)
+        if b := re.fullmatch(r"(cond_layer|dec_layer)\.(\d+)\.(.+)", rel):
+            stack = "encoder" if b[1] == "cond_layer" else "decoder"
+            return f"{dp}{stack}.layers.{b[2]}.{b[3]}", "same"
+        return dp + rel, "same"
+    return name, "same"  # prev_action_embedding*, imu_linear*, action_type_embeds, ...
+
+
+def rdp_reference_map(net: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """{port name: (reference key, layout rule)} for every tensor of an
+    RDPNet."""
+    return {name: _rdp_key(name) for name in net.state_dict()}
+
+
+def _rdp_normalized(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The prefixes JAX's converter also accepts, as the map names them: a
+    HF CLIP tower under `vision_model.`, a cross encoder's layers without
+    `cross_modal_encoder.`."""
+    out = {}
+    for k, v in strip_prefixes(sd).items():
+        k = k.replace("image_encoder.image_transformer.vision_model.",
+                      "image_encoder.image_transformer.visual.")
+        k = re.sub(r"^(img_txt|txt_img)_cross_encoder\.crossattention\.",
+                   r"\1_cross_encoder.cross_modal_encoder.crossattention.", k)
+        out[k] = v
+    return out
+
+
+def convert_rdp_policy(sd: Mapping[str, torch.Tensor], net: nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+    """A reference RDPNet state dict → `net`'s tensors that it holds (in
+    their dtypes, on the host). As JAX's converter, what the checkpoint
+    lacks (the imu linears, the second cross encoder, a head) is left out
+    for the caller's tolerant merge (`model.base.merge_params`); a shape
+    that differs raises."""
+    sd = _rdp_normalized(sd)
+    target = net.state_dict()
+    tokens = net.image_encoder.depth_encoder.n_tokens
+    out: Dict[str, torch.Tensor] = {}
+    for name, (key, rule) in rdp_reference_map(net).items():
+        if key not in sd:
+            continue
+        w = sd[key]
+        if rule.startswith("qkv"):
+            w = w.chunk(3, dim=0)[int(rule[3])]
+        elif rule == "pos":
+            tt = "instruction_encoder.embeddings.token_type_embeddings.weight"
+            w = w + sd[tt][0][None] if tt in sd else w
+        else:
+            w = _from_reference(w, rule, tokens)
+        if tuple(w.shape) != tuple(target[name].shape):
+            raise ValueError(f"{key} {tuple(sd[key].shape)} -> {name} "
+                             f"{tuple(target[name].shape)}: shape differs")
+        out[name] = w.to(target[name].dtype).cpu().contiguous()
+    return out
+
+
+def rdp_reference_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse map: an RDPNet as a reference-format state dict (the
+    keys JAX's convert_rdp_policy reads; the q/k/v thirds packed back, the
+    position table without a token_type row), on the host. For writing
+    reference-layout checkpoints in tests and chip_smoke.py."""
+    tokens, state = net.image_encoder.depth_encoder.n_tokens, net.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    parts: Dict[str, Dict[int, torch.Tensor]] = {}
+    for name, (key, rule) in rdp_reference_map(net).items():
+        w = state[name].detach().cpu()
+        if rule.startswith("qkv"):
+            parts.setdefault(key, {})[int(rule[3])] = w
+        else:
+            out[key] = _to_reference(w, "same" if rule == "pos" else rule, tokens).contiguous()
+    for key, ps in parts.items():
+        out[key] = torch.cat([ps[j] for j in range(3)]).contiguous()
+    return out

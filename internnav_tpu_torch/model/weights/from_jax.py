@@ -1,6 +1,7 @@
-"""JAX param tree → the port's state_dict (`state_dict_from_jax` by rule;
-`loco_state_from_jax` for the H1 loco actor; `cma_state_from_jax` /
-`seq2seq_state_from_jax` for the recurrent VLN policies).
+"""JAX param tree → the port's state_dict (`state_dict_from_jax` by rule,
+the RDP family's RDPNet and CMACLIPNet included; `loco_state_from_jax`
+for the H1 loco actor; `cma_state_from_jax` / `seq2seq_state_from_jax`
+for the recurrent VLN policies).
 
 The port's modules carry the JAX package's submodule and parameter names,
 so the mapping is by rule, per leaf:

@@ -125,20 +125,26 @@ def row_bounds(rows: int, n: int, i: int) -> Tuple[int, int]:
     return i * b, (i + 1) * b
 
 
-def shard_batch(batch: Mapping[str, Any], mesh: Any, axis: str = "dp") -> Dict[str, Any]:
-    """This rank's rows of every array leaf (its `row_bounds` block over
-    the axis); other leaves, and leaves whose rows the axis does not
-    divide, whole."""
+def shard_batch(batch: Mapping[str, Any], mesh: Any, axis: str = "dp",
+                batch_axis: int = 0) -> Dict[str, Any]:
+    """This rank's rows of every array leaf, nested dicts included (its
+    `row_bounds` block over the mesh axis, along the leaf's `batch_axis`:
+    0 for (B, ...) batches, 1 for time-major (T, N, ...) ones); other
+    leaves, and leaves whose rows the axis does not divide, whole."""
     n = 1 if mesh is None else axis_size(mesh, axis)
     r = rank_of(mesh, axis)
 
     def take(x):
-        if not hasattr(x, "shape") or not len(x.shape):
+        if isinstance(x, Mapping):
+            return {k: take(v) for k, v in x.items()}
+        if not hasattr(x, "shape") or len(x.shape) <= batch_axis:
             return x
-        a, b = row_bounds(x.shape[0], n, r)
-        return x if (a, b) == (0, x.shape[0]) else x[a:b]
+        a, b = row_bounds(x.shape[batch_axis], n, r)
+        if (a, b) == (0, x.shape[batch_axis]):
+            return x
+        return x[(slice(None),) * batch_axis + (slice(a, b),)]
 
-    return {k: take(v) for k, v in batch.items()}
+    return take(batch)
 
 
 def rank_of(mesh: Any, axis: str) -> int:

@@ -87,6 +87,7 @@ from internnav_tpu_torch.parallel.mesh import (
 from internnav_tpu_torch.parallel.tp import apply_tp, check_whole_heads, qwen_tp_sharding
 from internnav_tpu_torch.trainer.ema import ema_init, ema_update
 from internnav_tpu_torch.utils.logging import get_logger
+from internnav_tpu_torch.utils.misc import tree_device_put
 
 #: elements of a tensor updated per fp32 pass of the optimizer
 SLICE = 1 << 26
@@ -122,14 +123,25 @@ def make_schedule(il: IlCfg, total_steps: int) -> Callable[[int], float]:
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
-    """Which parameters decay: all but biases and norm scales (the JAX
-    mask exempts the leaves named bias / scale; the port's norm modules
-    call their scale `weight`)."""
+    """Which parameters decay: the JAX mask exempts the leaves named bias,
+    b_ih, b_hh, scale, mean and var. Here: biases, a recurrent cell's
+    b_ih / b_hh, and every parameter of a norm module (the port's norms
+    call their scale `weight`; a frozen BatchNorm's statistics are
+    parameters, as in JAX). An `nn.LSTM` / `nn.GRU` holds JAX's flat
+    instruction-encoder leaves: its forward direction's biases are JAX's
+    b_ih / b_hh, exempt, and the reverse direction's (`*_reverse`
+    modules) are JAX's rev_b_ih / rev_b_hh, which decay."""
+    from internnav_tpu_torch.model.encoder.resnet import FrozenBatchNorm
+
+    norms = (RMSNorm, nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)
     out = {}
     for mod_name, mod in model.named_modules():
         for name, _ in mod.named_parameters(prefix=mod_name, recurse=False):
             leaf = name.rsplit(".", 1)[-1]
-            out[name] = not (leaf == "bias" or isinstance(mod, (RMSNorm, nn.LayerNorm)))
+            rnn_bias = (isinstance(mod, nn.RNNBase) and leaf.startswith("bias_")
+                        and not mod_name.endswith("_reverse"))
+            out[name] = not (leaf in ("bias", "b_ih", "b_hh") or rnn_bias
+                             or isinstance(mod, norms))
     return out
 
 
@@ -366,21 +378,30 @@ class Trainer:
         its forward)."""
         return {"loss": torch.ones((), device=self.policy.device)}
 
+    #: the axis of a batch leaf that holds its rows: 0 for (B, ...)
+    #: batches, 1 for the time-major (T, N, ...) batches of the recurrent
+    #: trainers (JAX's `Trainer.batch_axis`)
+    batch_axis: int = 0
+
     def micro_batches(self, batch) -> List[Any]:
         """This rank's part of each of the step's accum micro-batches, by
-        the JAX rule for each leaf: micro-batch i is rows i·mb … (i+1)·mb −
-        1 of a leaf whose rows accum × dp divide, else the whole leaf; a dp
-        rank then takes its rows where dp divides them."""
-        accum, dp = self.accum, self.dp
+        the JAX rule for each leaf, nested dicts included: micro-batch i is
+        rows i·mb … (i+1)·mb − 1 along `batch_axis` of a leaf whose rows
+        accum × dp divide, else the whole leaf; a dp rank then takes its
+        rows where dp divides them. numpy leaves become tensors on the
+        policy's device first."""
+        accum, dp, ax = self.accum, self.dp, self.batch_axis
+        batch = tree_device_put(batch, self.policy.device)
 
         def micro(x, i):
-            if torch.is_tensor(x) and x.dim() and x.shape[0] % (accum * dp) == 0:
-                a, b = row_bounds(x.shape[0], accum, i)
-                return x[a:b]
+            if isinstance(x, dict):
+                return {k: micro(v, i) for k, v in x.items()}
+            if torch.is_tensor(x) and x.dim() > ax and x.shape[ax] % (accum * dp) == 0:
+                a, b = row_bounds(x.shape[ax], accum, i)
+                return x[(slice(None),) * ax + (slice(a, b),)]
             return x
 
-        return [shard_batch({k: micro(v, i) for k, v in batch.items()}, self.mesh, self.dp_axis)
-                for i in range(accum)]
+        return [shard_batch(micro(batch, i), self.mesh, self.dp_axis, ax) for i in range(accum)]
 
     # ---------------------------------------------------------- train step
     def _dp_sum(self, x: torch.Tensor) -> torch.Tensor:

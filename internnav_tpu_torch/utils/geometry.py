@@ -1,13 +1,16 @@
 """Planar geometry helpers (numpy).
 
 The part of internnav_tpu/utils/geometry.py that the port uses (the planar
-frame helpers, the quaternion conversions of the VLN-PE env and its
+frame helpers, the RDP dataset's waypoint labels and their [-1, 1]
+normalization, the quaternion conversions of the VLN-PE env and its
 checkers, and the pinhole camera unprojection), copied so that the port
 imports nothing of the JAX package. World positions are
 (x, y) in the ground plane, yaw counter-clockwise from +x.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -34,6 +37,63 @@ def to_local_coords(positions: np.ndarray, curr_pos: np.ndarray, curr_yaw: float
     """World → robot-local frame: translate by -curr_pos, rotate by -curr_yaw."""
     rot = yaw_rotmat(curr_yaw)
     return (np.asarray(positions) - np.asarray(curr_pos)) @ rot  # R(-yaw) = R(yaw)^T applied on the right
+
+
+# ----------------------------------------------------------------- actions
+def compute_actions(
+    positions: np.ndarray,
+    yaws: np.ndarray,
+    curr_index: int,
+    horizon: int,
+    waypoint_spacing: int = 1,
+    learn_angle: bool = True,
+    metric_waypoint_spacing: float = 1.0,
+) -> np.ndarray:
+    """Future waypoints in the current local frame.
+
+    Returns (horizon, 2) Δ(x, y) — or (horizon, 3) with Δyaw appended when
+    learn_angle — expressed relative to the pose at curr_index, sampled every
+    waypoint_spacing steps and padded by repeating the last pose past the
+    trajectory end (reference semantics: geometry_utils.py:138-201).
+    """
+    positions = np.asarray(positions, dtype=np.float64)
+    yaws = np.asarray(yaws, dtype=np.float64)
+    T = len(positions)
+    idx = np.minimum(
+        curr_index + np.arange(1, horizon + 1) * waypoint_spacing, T - 1
+    )
+    future_pos = positions[idx]
+    local = to_local_coords(future_pos, positions[curr_index], yaws[curr_index])
+    local = local / max(metric_waypoint_spacing, 1e-9)
+    if learn_angle:
+        dyaw = wrap_angle(yaws[idx] - yaws[curr_index])[:, None]
+        return np.concatenate([local, dyaw], axis=-1).astype(np.float32)
+    return local.astype(np.float32)
+
+
+def get_delta(actions: np.ndarray) -> np.ndarray:
+    """Cumulative waypoints → per-step deltas (reference geometry_utils.py:202)."""
+    actions = np.asarray(actions)
+    padded = np.concatenate([np.zeros_like(actions[..., :1, :]), actions], axis=-2)
+    return np.diff(padded, axis=-2)
+
+
+def undo_delta(deltas):
+    """Per-step deltas → cumulative waypoints (inverse of get_delta)."""
+    return np.cumsum(deltas, axis=-2)
+
+
+def normalize_data(data, stats: Dict[str, np.ndarray]):
+    """Scale into [-1, 1] with dataset min/max stats (geometry_utils.py:265)."""
+    dmin, dmax = np.asarray(stats["min"]), np.asarray(stats["max"])
+    scale = np.maximum(dmax - dmin, 1e-8)
+    return (np.asarray(data) - dmin) / scale * 2.0 - 1.0
+
+
+def unnormalize_data(data, stats: Dict[str, np.ndarray]):
+    dmin, dmax = np.asarray(stats["min"]), np.asarray(stats["max"])
+    scale = np.maximum(dmax - dmin, 1e-8)
+    return (np.asarray(data) + 1.0) / 2.0 * scale + dmin
 
 
 def wrap_angle(a):

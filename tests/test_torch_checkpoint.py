@@ -519,14 +519,15 @@ def test_convert_checkpoint_cli(tmp_path):
         cli.convert_n1 = real
     assert seen["int4"] and not seen["int8"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--model", "rdp", *base])
+        cli.main(["--model", "navdp", *base])
     real = cli.convert_recurrent
     cli.convert_recurrent = lambda *a, **kw: seen.update(model=a[0])
     try:
-        assert cli.main(["--model", "seq2seq", *base]) == 0
+        for model in ("seq2seq", "rdp"):
+            assert cli.main(["--model", model, *base]) == 0
+            assert seen["model"] == model
     finally:
         cli.convert_recurrent = real
-    assert seen["model"] == "seq2seq"
     with pytest.raises(SystemExit):
         cli.main(["--model", "internvla_n1", "--int8", "--int4", *base])
 

@@ -234,7 +234,7 @@ def test_reference_checkpoint_loads_as_jax_converts_it(name):
         for prm in src.parameters():  # away from torch's init scale, every tensor its own
             prm.add_(0.05 * torch.randn(prm.shape, generator=torch.Generator().manual_seed(
                 prm.numel())))
-        for buf_name, buf in src.named_buffers():
+        for buf_name, buf in src.named_parameters():
             if buf_name.endswith(".var"):
                 buf.uniform_(0.5, 1.5)
             elif buf_name.endswith(".mean"):

@@ -37,7 +37,11 @@ from internnav_tpu_torch.realworld import serve
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
-PORT_CONFIGS = sorted((REPO / "scripts" / "torch" / "configs").glob("*.py"))
+#: the port's eval configs (its copies of scripts/eval/configs/); the
+#: train configs, `*_train_cfg.py`, copy scripts/train/configs/
+PORT_CONFIGS = sorted(p for p in (REPO / "scripts" / "torch" / "configs").glob("*.py")
+                      if not p.name.endswith("_train_cfg.py"))
+TRAIN_CONFIGS = sorted((REPO / "scripts" / "torch" / "configs").glob("*_train_cfg.py"))
 FAKE_N1 = REPO / "scripts" / "torch" / "configs" / "fake_n1_pipelined_cfg.py"
 #: what a run's metrics hold that is a time, not a result
 TIMINGS = ("wall_clock_s", "action_latency_p50_ms", "action_latency_p90_ms",
@@ -76,7 +80,7 @@ def test_port_config_files_equal_jax_configs(path):
     the VLN-PE h1 one and the recurrent policies' (none)."""
     assert [p.name for p in PORT_CONFIGS] == [
         "fake_cma_cfg.py", "fake_n1_pipelined_cfg.py", "fake_n1_shared_decode_cfg.py",
-        "h1_cma_cfg.py", "h1_internvla_n1_async_cfg.py", "h1_seq2seq_cfg.py",
+        "h1_cma_cfg.py", "h1_internvla_n1_async_cfg.py", "h1_rdp_cfg.py", "h1_seq2seq_cfg.py",
         "habitat_dialog_cfg.py", "habitat_dual_system_cfg.py", "habitat_object_cfg.py",
         "habitat_s2_cfg.py"]
     port = tconfigs.load_py_config(str(path))
@@ -88,14 +92,29 @@ def test_port_config_files_equal_jax_configs(path):
     assert pn1 == rn1
     if path.name.startswith("habitat_"):
         assert pn1 is None and pd["env"]["env_type"] == "habitat"
-    elif "cma" in path.name or "seq2seq" in path.name:
+    elif any(m in path.name for m in ("cma", "seq2seq", "rdp")):
         assert pn1 is None and pd["eval_type"] == "vln_batched"
-        assert pd["agent"]["model_name"] in ("cma", "seq2seq") and pd["env"]["env_type"] == "fake"
+        assert pd["agent"]["model_name"] in ("cma", "seq2seq", "rdp")
+        assert pd["env"]["env_type"] == "fake"
     elif path.name.startswith("h1_"):
         assert pn1 is None and pd["env"]["env_type"] == "internutopia"
         assert pd["eval_type"] == "vln_pe" and pd["task"]["camera_resolution"] == [640, 480]
     else:
         assert pn1["text.dtype"] == "bfloat16"
+
+
+@pytest.mark.parametrize("path", TRAIN_CONFIGS, ids=lambda p: p.name)
+def test_port_train_configs_equal_jax_configs(path):
+    """scripts/torch/configs/{cma,seq2seq,rdp}_train_cfg.py against
+    scripts/train/configs/{cma,seq2seq,rdp}_cfg.py: the same ExpCfg."""
+    assert [p.name for p in TRAIN_CONFIGS] == [
+        "cma_train_cfg.py", "rdp_train_cfg.py", "seq2seq_train_cfg.py"]
+    port = tconfigs.load_py_config(str(path), "exp_cfg")
+    ref = jconfigs.load_py_config(str(REPO / "scripts" / "train" / "configs" /
+                                      path.name.replace("_train_cfg", "_cfg")), "exp_cfg")
+    assert type(port).__module__ == "internnav_tpu_torch.configs.trainer"
+    assert port.model_dump() == ref.model_dump()
+    assert port.il.model_fields_set == ref.il.model_fields_set  # use_ema set in rdp's
 
 
 def test_load_py_config_refuses_a_file_without_the_attribute(tmp_path):
@@ -119,19 +138,23 @@ def test_get_config_unknown_name_raises_as_jax():
 
 def test_get_policy():
     from internnav_tpu_torch.model.basemodel.cma import CMAPolicy
+    from internnav_tpu_torch.model.basemodel.cma_clip import CMACLIPPolicy
+    from internnav_tpu_torch.model.basemodel.rdp import RDPPolicy
     from internnav_tpu_torch.model.basemodel.seq2seq import Seq2SeqPolicy
 
     assert tmodel_zoo.get_policy("InternVLAN1_Policy") is InternVLAN1Policy
     assert tmodel_zoo.get_policy("internvla_n1") is InternVLAN1Policy
     for names, cls in ((("CMA_Policy", "cma"), CMAPolicy),
-                       (("Seq2Seq_Policy", "seq2seq"), Seq2SeqPolicy)):
+                       (("Seq2Seq_Policy", "seq2seq"), Seq2SeqPolicy),
+                       (("RDP_Policy", "rdp"), RDPPolicy),
+                       (("CMA_CLIP_Policy", "cma_clip"), CMACLIPPolicy)):
         for name in names:
             assert tmodel_zoo.get_policy(name) is cls
             assert cls.name == jmodel_zoo.get_policy(name).name
-    for name in ("RDP_Policy", "rdp", "NavDP_Policy", "navdp", "CMA_CLIP_Policy", "cma_clip"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 6"):
+    for name in ("NavDP_Policy", "navdp"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 6c"):
             tmodel_zoo.get_policy(name)
-        jmodel_zoo.get_policy(name)  # the JAX package has each
+        jmodel_zoo.get_policy(name)  # the JAX package has it
     for zoo in (tmodel_zoo, jmodel_zoo):
         with pytest.raises(KeyError, match="unknown policy"):
             zoo.get_policy("nope")

@@ -50,7 +50,8 @@ SCRIPTS = [BENCH_ENTRY, *(REPO / "scripts" / "torch" / name for name in (
     "configs/h1_internvla_n1_async_cfg.py",
     *(f"configs/habitat_{name}_cfg.py" for name in ("dual_system", "s2", "dialog", "object")),
     "configs/fake_cma_cfg.py", "configs/h1_cma_cfg.py", "configs/h1_seq2seq_cfg.py",
-    "convert_checkpoint.py"))]
+    "convert_checkpoint.py", "train.py", "lmdb_to_store.py", "configs/h1_rdp_cfg.py",
+    *(f"configs/{name}_train_cfg.py" for name in ("cma", "seq2seq", "rdp"))))]
 #: every module of the port, by its file
 PORT_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -96,7 +97,13 @@ def test_port_modules_cover_the_package():
                 "model.encoder.resnet", "model.base", "model.basemodel.cma",
                 "model.basemodel.seq2seq", "agent.recurrent_agent", "utils.misc",
                 "utils.metric_logger", "utils.profiling", "realworld.env", "realworld.agilex",
-                "dataset.vlln_dataset"):
+                "dataset.vlln_dataset",
+                # LMDB-trajectory training of CMA / Seq2Seq and the RDP family
+                "dataset.lmdb_reader", "dataset.vln_dataset", "dataset.rdp_dataset",
+                "trainer.cma_trainer", "trainer.rdp_trainer", "model.encoder.bert",
+                "model.encoder.longclip", "model.encoder.clip_vit",
+                "model.encoder.diffusion_transformer", "model.basemodel.rdp",
+                "model.basemodel.cma_clip", "agent.rdp_agent"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
     assert set(SCRIPTS) <= set(PORT_SOURCES)
     assert len(PORT_MODULES) > 40
@@ -206,6 +213,19 @@ def test_geometry_and_controller_copies_equal_jax_originals():
                                       jgeo.quat_to_euler_angles(q, degrees=True))
     for y in a[:10]:
         np.testing.assert_array_equal(tgeo.quat_wxyz_from_yaw(y), jgeo.quat_wxyz_from_yaw(y))
+    # the RDP dataset's waypoint labels
+    positions, yaws = np.cumsum(r.uniform(-0.2, 0.3, (12, 2)), axis=0), r.uniform(-3, 3, 12)
+    for t, horizon, spacing, angle in ((0, 8, 1, True), (9, 8, 2, True), (4, 3, 1, False)):
+        args = (positions, yaws, t, horizon, spacing, angle, 0.5)
+        np.testing.assert_array_equal(tgeo.compute_actions(*args), jgeo.compute_actions(*args))
+    cum = jgeo.compute_actions(positions, yaws, 2, 8)
+    np.testing.assert_array_equal(tgeo.get_delta(cum), jgeo.get_delta(cum))
+    np.testing.assert_array_equal(tgeo.undo_delta(tgeo.get_delta(cum)),
+                                  jgeo.undo_delta(jgeo.get_delta(cum)))
+    stats = {"min": np.asarray([-0.25, -0.25, -0.27]), "max": np.asarray([0.25, 0.25, 0.27])}
+    np.testing.assert_array_equal(tgeo.normalize_data(cum, stats), jgeo.normalize_data(cum, stats))
+    np.testing.assert_array_equal(tgeo.unnormalize_data(cum, stats),
+                                  jgeo.unnormalize_data(cum, stats))
     traj = np.cumsum(r.uniform(0, 0.2, (10, 2)), axis=0)
     pose = (0.3, -0.2, 0.4)
     assert tctrl.trajectory_to_vw(traj, pose) == jctrl.trajectory_to_vw(traj, pose)
@@ -213,6 +233,69 @@ def test_geometry_and_controller_copies_equal_jax_originals():
     tp, jp = tctrl.PIDController(), jctrl.PIDController()
     for target in traj[:4]:
         assert tp.step(pose, target) == jp.step(pose, target)
+
+
+def test_dataset_copies_equal_jax_originals(tmp_path):
+    """The port's vln_dataset / rdp_dataset and dataset/base helpers: the
+    synthetic writers give stores that read the same, and the samples,
+    collated batches (the CMA collate's resizes within cv2's bilinear
+    rounding, 255 x 2^-14), failure filter and inflection weights equal
+    JAX's."""
+    from internnav_tpu.dataset import base as jbase
+    from internnav_tpu.dataset import rdp_dataset as jrdp
+    from internnav_tpu.dataset import vln_dataset as jvln
+    from internnav_tpu_torch.dataset import base as tbase
+    from internnav_tpu_torch.dataset import rdp_dataset as trdp
+    from internnav_tpu_torch.dataset import vln_dataset as tvln
+    from internnav_tpu_torch.dataset.traj_store import TrajStore
+
+    def same(a, b, tol=0.0):
+        assert type(a) is type(b) or not isinstance(a, dict)
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                same(a[k], b[k], tol)
+        else:
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_allclose(a.astype(np.float64), b.astype(np.float64), atol=tol)
+
+    acts = np.array([0, 0, 1, 1, 1, 3, 2, 2])
+    same(tbase.inflection_weights(acts, 2.5), jbase.inflection_weights(acts, 2.5))
+    assert list(tbase.Prefetcher(iter(range(5)))) == list(jbase.Prefetcher(iter(range(5))))
+    for name, jw, tw, kw in (("vln", jvln.write_synthetic_dataset, tvln.write_synthetic_dataset,
+                              {"n_episodes": 5, "T": 9, "hw": 20}),
+                             ("rdp", jrdp.write_synthetic_rdp_dataset,
+                              trdp.write_synthetic_rdp_dataset,
+                              {"n_episodes": 3, "T": 12, "hw": 16})):
+        jw(str(tmp_path / f"j_{name}.bin"), seed=4, **kw)
+        tw(str(tmp_path / f"t_{name}.bin"), seed=4, **kw)
+        js, ts = (TrajStore(str(tmp_path / f"{w}_{name}.bin"), False) for w in "jt")
+        assert sorted(js.keys()) == sorted(ts.keys())
+        for key in js.keys():
+            same(js.get_tree(key), ts.get_tree(key))
+    store = str(tmp_path / "j_vln.bin")
+    traj = TrajStore(store, False).get_tree(TrajStore(store, False).keys()[0])
+    for n in (5, 9, 30):
+        assert tvln.make_failure_filter(n)(traj) == jvln.make_failure_filter(n)(traj)
+    kw = {"inflection_coef": 2.0, "min_rgb_nums": 7, "instr_pad_len": 12, "max_len": 8}
+    jsamples, tsamples = (list(m.VLNSampleDataset(store, seed=1, **kw)) for m in (jvln, tvln))
+    assert len(jsamples) == len(tsamples) > 0
+    for a, b in zip(jsamples, tsamples):
+        same(a, b)
+    for rgb, depth in ((None, None), (24, None), (None, 32)):
+        same(jvln.cma_collate_fn([dict(x) for x in jsamples[:3]], rgb, depth),
+             tvln.cma_collate_fn([dict(x) for x in tsamples[:3]], rgb, depth),
+             tol=255 * 2 ** -14 if rgb else 0.0)
+    store = str(tmp_path / "j_rdp.bin")
+    kw = {"len_traj_pred": 6, "len_traj_act": 3, "instr_pad_len": 20, "stride": 3, "seed": 2}
+    jsamples, tsamples = (list(m.RDPSampleDataset(store, **kw)) for m in (jrdp, trdp))
+    assert len(jsamples) == len(tsamples) > 4
+    for a, b in zip(jsamples, tsamples):
+        same(a, b)
+    same(jrdp.rdp_collate_fn(jsamples[:4]), trdp.rdp_collate_fn(tsamples[:4]))
+    same(next(jrdp.make_rdp_dataloader(store, 2, **kw)()),
+         next(trdp.make_rdp_dataloader(store, 2, **kw)()))
 
 
 def test_logger_copy_configures_like_the_original(tmp_path):
@@ -332,9 +415,10 @@ def test_launcher_refuses_unported_profile_and_missing_gpu(monkeypatch):
 def test_public_constructors_default_to_the_gpu(monkeypatch):
     """`build_model`, `InternVLAN1Policy.build`, the dialog agent, the H1
     loco controller, the loco checkpoint conversion, the VLN-PE vec env
-    with its loco actors, `CMAPolicy.build` / `Seq2SeqPolicy.build` and
-    the "cma" / "seq2seq" agents without a device run on the GPU: with no
-    CUDA device they raise instead of building on the host."""
+    with its loco actors, `CMAPolicy.build` / `Seq2SeqPolicy.build` /
+    `RDPPolicy.build` / `CMACLIPPolicy.build` and the "cma" / "seq2seq" /
+    "rdp" agents without a device run on the GPU: with no CUDA device they
+    raise instead of building on the host."""
     from internnav_tpu_torch.configs import AgentCfg
     from internnav_tpu_torch.dialog.dialog_agent import DialogAgent
     from internnav_tpu_torch.env.internutopia.loco import H1SpeedController, convert_loco_policy
@@ -358,11 +442,15 @@ def test_public_constructors_default_to_the_gpu(monkeypatch):
     from internnav_tpu_torch.agent.recurrent_agent import CmaAgent, Seq2SeqAgent
     from internnav_tpu_torch.model import get_config, get_policy
 
-    for name, agent_cls in (("cma", CmaAgent), ("seq2seq", Seq2SeqAgent)):
+    from internnav_tpu_torch.agent.rdp_agent import RdpAgent
+
+    for name, agent_cls in (("cma", CmaAgent), ("seq2seq", Seq2SeqAgent), ("rdp", RdpAgent)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_policy(name).build(get_config(name))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             agent_cls(AgentCfg(model_name=name))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_policy("cma_clip").build(get_config("cma"))
 
 
 class _LookDownPolicy:

@@ -94,3 +94,46 @@ def serve_tp_worker(rank: int, world: int, port: int, spec_path: str, out: str) 
         torch.save(res, f"{out}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def time_major_dp_worker(rank: int, world: int, port: int, spec_path: str, out: str) -> None:
+    """A recurrent trainer at dp = world over one gloo group, with the
+    pickled spec's grad_accum_steps: its `micro_batches` of the spec's
+    time-major probe batch (nested dicts, leaves whose envs the split does
+    not divide), then two steps on the spec's batch with the gradients
+    each optimizer step takes. Rank r's results are saved to
+    out/rank{r}.pt."""
+    import pickle
+
+    from internnav_tpu_torch.configs.trainer import ExpCfg, IlCfg, MeshCfg
+    from internnav_tpu_torch.model import get_policy
+    from internnav_tpu_torch.trainer.cma_trainer import CMATrainer, Seq2SeqTrainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        with open(spec_path, "rb") as f:
+            spec = pickle.load(f)
+        name = spec["name"]
+        pol = get_policy(name).build(spec["cfg"], device="cpu", depth_hw=spec["depth_hw"])
+        pol.net.load_state_dict(torch.load(spec["state"], weights_only=True))
+        exp = ExpCfg(name="t", model_name=name, output_dir=f"{out}/rank{rank}", model=spec["cfg"],
+                     il=IlCfg(**spec["il"]), mesh=MeshCfg(axes={"dp": world}))
+        cls = CMATrainer if name == "cma" else Seq2SeqTrainer
+        trainer = cls(exp, pol, total_steps=3)
+        pieces = trainer.micro_batches(spec["probe"])
+        seen, step = [], trainer.optimizer.step
+
+        def snap():
+            seen.append({n: p.grad.detach().clone() for n, p in trainer.optimizer.params})
+            return step()
+
+        trainer.optimizer.step = snap
+        metrics = [{k: float(v) for k, v in trainer.train_step(spec["batch"]).items()}
+                   for _ in range(2)]
+        params = {n: p.detach().clone() for n, p in pol.net.named_parameters()}
+        torch.save({"pieces": pieces, "metrics": metrics, "grads": seen, "params": params,
+                    "dp": (trainer.dp, trainer.accum)}, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
