@@ -141,7 +141,8 @@ Phases, each printing its numbers:
                7B realtime policy, 4 cohorts x 12 streams, 224x224,
                max_step 24, shared grouped decode of 20 tokens (stop id
                -7), per-cohort System-1, barrier env apply; one warm run
-               and 3 timed runs: actions/s per run and their median,
+               and EVAL_RUNS (2) timed runs: actions/s per run and their
+               median,
                p50/p99 action latency, the agents' System-2 and System-1
                calls, the decode graph's captures and replays, peak
                memory; every episode must end, every action be one of the
@@ -157,7 +158,8 @@ Phases, each printing its numbers:
                and timed at its most launched signatures (kernel rows
                with path=evaluate); then the int4 loop (`bench_evaluator.py
                --weight-dtype int4 --ckpt <native int4>`): a warm run and
-               one timed run, K9 and the lm_head's K6b launched, no K10,
+               one timed run of SHORT_MAX_STEP (12) steps, K9 and the
+               lm_head's K6b launched, no K10,
                no plain version; then evaluate server, the reference's
                client-server layout: `AgentServer` on a thread of this
                process, `scripts/torch/eval.py --config` as a subprocess
@@ -230,8 +232,17 @@ Phases, each printing its numbers:
                8 episodes, mid-episode cache refills, the resume; one act
                call card against host within RDP_TOL, timed and profiled)
                and train rdp (4 steps at batch 8, the EMA moved off its
-               start and apart from the parameters); K1-K10 launched 0
-               times in each, no plain version;
+               start and apart from the parameters); then evaluate
+               navdp_vn (standalone NavDP at navdp_cfg's width as a
+               reference-layout checkpoint, the "navdp" agent through the
+               VN pointgoal evaluator over 3 episodes, one replan card
+               against host within NAVDP_VN_TOL, timed and profiled),
+               train navdp (train.py on navdp_train_cfg.py, 4 steps at
+               batch 16 over a synthetic 224x224 store, the EMA on, the
+               policy reloaded bitwise) and dpt (DepthAnythingV2 at
+               518x518 through its reference-layout converter, card
+               against host within DPT_TOL); K1-K10 launched 0 times in
+               each, no plain version;
   navdp    — the NavDP System-1 (`navdp_async`: the fp32 NavDP head with
                its RGBD backbone and 20-step DDPM) on one 7B realtime
                policy (random weights, seed 0): serve navdp, 4
@@ -253,7 +264,8 @@ Phases, each printing its numbers:
                counted), the warm cycle's last grouped call profiled
                (device ms, launches);
                evaluate navdp (`bench_evaluator.py --system1 navdp_async`'s
-               functions, 4 x 12, a warm and one timed run: actions/s,
+               functions, 4 x 12, a warm and one timed run of
+               SHORT_MAX_STEP (12) steps: actions/s,
                System-1's host seconds, K1 and K4-K8 launched, no plain
                version);
   7. train   — with the serving policies freed: the full-width 7B
@@ -288,12 +300,13 @@ Phases, each printing its numbers:
                unchanged; no plain version run; step s, tokens/s, MFU and
                peak memory printed.
 Every kernel's launch count is set to 0 just before each of the
-nineteen paths (serve, serve tp, serve realtime, the long realtime request, serve
+twenty-five paths (serve, serve tp, serve realtime, the long realtime request, serve
 realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
 evaluate phase's timed runs, the int4 evaluate's timed run, evaluate
 server, evaluate habitat, evaluate vln_pe (each of its three parts),
 evaluate recurrent (each of its parts, where every count must stay 0),
-serve navdp,
+train recurrent, evaluate rdp, train rdp, evaluate navdp_vn, train navdp,
+dpt (every count 0 in each), serve navdp,
 serve batched navdp's checked cycle, evaluate navdp's timed run, train,
 train sharded's two steps) and read just after. Then one JSON
 line of kernel results, the GPU's name and power limit, and as the last
@@ -2315,7 +2328,8 @@ def phase_evaluate_int4(device, ckpt: Path, want: dict) -> dict:
     """The evaluator loop of `scripts/torch/bench_evaluator.py
     --weight-dtype int4 --ckpt <native int4 dir>` (4 cohorts x 12 streams,
     str hashing pinned): the policy held equal by digest to the int4
-    seed-0 build, one warm run and one timed run of the same episodes;
+    seed-0 build, one warm run and one timed run of the same episodes of
+    SHORT_MAX_STEP steps;
     every episode ends, K9 and K6b (the 8-bit lm_head) launch, K10 does
     not, and no plain version runs. Returns the timed run's launches."""
     import shutil
@@ -2333,10 +2347,10 @@ def phase_evaluate_int4(device, ckpt: Path, want: dict) -> dict:
     out_dir = WORK_DIR / "evaluate_int4"
     shutil.rmtree(out_dir, ignore_errors=True)
     try:
-        warm = bench.evaluator_run(inner, str(out_dir / "warm"))
+        warm = bench.evaluator_run(inner, str(out_dir / "warm"), max_step=SHORT_MAX_STEP)
         torch.cuda.reset_peak_memory_stats(device)
         reset_launch_counts()
-        run = bench.evaluator_run(inner, str(out_dir / "run0"))
+        run = bench.evaluator_run(inner, str(out_dir / "run0"), max_step=SHORT_MAX_STEP)
         launches = launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     finally:
@@ -2354,7 +2368,7 @@ def phase_evaluate_int4(device, ckpt: Path, want: dict) -> dict:
         raise AssertionError(f"evaluate int4: K9 and the lm_head's K6b must launch, K10 and "
                              f"fused K6b not: {launches}")
     print(f"phase evaluate: path=evaluate_int4 weight_dtype=int4 cohorts={bench.COHORTS} "
-          f"rows={bench.BATCH} episodes={n} load_s={build_s:.2f} "
+          f"rows={bench.BATCH} episodes={n} max_step={SHORT_MAX_STEP} load_s={build_s:.2f} "
           f"digests_equal={len(want)}/{len(want)} "
           f"warm_actions_per_s={warm['actions_per_sec']:.4f} "
           f"actions_per_s={run['actions_per_sec']:.4f} wall_clock_s={run['wall_clock_s']:.4f} "
@@ -2598,7 +2612,10 @@ def phase_serve_batched(device) -> dict:
 
 
 # -------------------------------------------------------------- evaluate
-EVAL_RUNS = 3  # timed evaluator runs after the warm one
+EVAL_RUNS = 2  # timed evaluator runs after the warm one
+#: the step budget of the evaluate int4 and evaluate navdp runs: half the
+#: headline's bench.MAX_STEP, to keep the script inside its time limit
+SHORT_MAX_STEP = 12
 #: the plain versions of the kernels, by ops module: none may run on the card
 PLAIN_VERSIONS = {
     "flash_attention": ("mha_reference", "flash_backward_reference", "gqa_decode_reference",
@@ -4688,6 +4705,311 @@ def phase_train_rdp(device) -> dict:
     return {"train_rdp": launches}
 
 
+# ------------------------------------------------------ standalone navdp
+#: evaluate navdp_vn: the "navdp" agent on navdp_cfg (224 x 224 RGB-D,
+#: memory 8, predict 24, an 8-layer decoder at 384 with 8 heads, four
+#: ViT-S towers; 16 samples a replan, a replan every 4 steps) through the
+#: VN pointgoal evaluator: one open episode and NAVDP_VN_CLUTTERED
+#: cluttered ones of at most NAVDP_VN_MAX_STEP steps
+NAVDP_VN_CLUTTERED = 2
+NAVDP_VN_MAX_STEP = 16
+NAVDP_VN_SAMPLES = 16
+#: card against host, one replan with the same draws: fp32, TF32 off; two
+#: ViT-S towers over 8 frames, 10 DDPM steps of the 8-layer decoder over
+#: 16 samples, the critic, each product summed in another order by cuBLAS
+#: and by the CPU
+NAVDP_VN_TOL = 1e-4
+#: train navdp: navdp_train_cfg.py's batch of 16 over a synthetic store of
+#: 224 x 224 RGB-D random walks, the EMA on (the config sets use_ema)
+TRAIN_NAVDP_STEPS = 4
+TRAIN_NAVDP_BATCH = 16
+#: dpt: DepthAnythingV2 (ViT-S trunk, DPT head) at the reference's 518 x
+#: 518, card against host within DPT_TOL of max_depth (fp32, TF32 off)
+DPT_HW = 518
+DPT_TOL = 1e-4
+
+
+def phase_evaluate_navdp_vn(device) -> dict:
+    """Standalone NavDP at navdp_cfg's width, seed-0 weights written as a
+    reference-layout checkpoint (`convert.navdp_reference_state_dict`):
+    (a) `VNPointGoalEvaluator` with the "navdp" agent (`Agent.init`,
+        loading the checkpoint through `from_pretrained` and the reference
+        converter) over one open and NAVDP_VN_CLUTTERED cluttered pointgoal
+        episodes, each replan's host seconds recorded;
+    (b) card against host: one replan (pointgoal, NAVDP_VN_SAMPLES samples)
+        of the same checkpoint on the host with the same draws: the best
+        and worst trajectories within NAVDP_VN_TOL;
+    (c) one replan's host ms (to its trajectories on the host; median of
+        3 after a warm call), its profiled device ms and launches.
+    Every waypoint finite, every episode evaluated with finite metrics, the
+    policy on the card; no hand-written kernel launched and no plain
+    version run. Prints the peak memory. Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.agent import navdp_agent
+    from internnav_tpu_torch.agent.base import Agent
+    from internnav_tpu_torch.configs import AgentCfg, EnvCfg, EvalCfg, TaskCfg
+    from internnav_tpu_torch.evaluator import vn_evaluator as vn
+    from internnav_tpu_torch.model import get_config, get_policy
+    from internnav_tpu_torch.model.weights.convert import navdp_reference_state_dict
+
+    root = WORK_DIR / "evaluate_navdp_vn"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "ckpt").mkdir(parents=True)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    seconds, problems, replans, waypoints = {}, [], [], []
+    t = time.perf_counter()
+    cfg = get_config("navdp")
+    pol = get_policy("navdp").build(cfg, device=device, seed=0)
+    params = sum(p.numel() for p in pol.net.parameters())
+    ckpt = root / "ckpt" / "navdp.pth"
+    torch.save(navdp_reference_state_dict(pol.net), ckpt)
+    del pol
+    seconds["checkpoint"] = time.perf_counter() - t
+    replan = navdp_agent.NavDPAgent._replan
+
+    def recorded(self, o):
+        t0 = time.perf_counter()
+        best = replan(self, o)
+        replans.append(time.perf_counter() - t0)
+        return best
+
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    navdp_agent.NavDPAgent._replan = recorded
+    reset_launch_counts()
+    try:
+        t = time.perf_counter()
+        agent = Agent.init(AgentCfg(model_name="navdp", ckpt_path=str(ckpt), model_settings={
+            "image_size": 224, "sample_num": NAVDP_VN_SAMPLES, "replan_every": 4, "seed": 0}))
+        seconds["agent_load"] = time.perf_counter() - t
+        step = agent.step
+
+        def checked(obs):
+            out = step(obs)
+            waypoints.append(out[0]["waypoint"])
+            return out
+
+        agent.step = checked
+        eps = [vn.VNEpisode(episode_id="open", start_xy=np.asarray([0.5, 3.0]),
+                            goal_xy=np.asarray([4.0, 3.0]), geodesic=3.5),
+               *vn.make_cluttered_episodes(n=NAVDP_VN_CLUTTERED, seed=0)]
+        eval_cfg = EvalCfg(agent=AgentCfg(model_name="navdp"),
+                           env=EnvCfg(env_type="fake",
+                                      env_settings={"rgb_resolution": [224, 224]}),
+                           task=TaskCfg(max_step=NAVDP_VN_MAX_STEP), eval_type="vn_pointgoal",
+                           output_dir=str(root / "out"))
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            metrics = vn.VNPointGoalEvaluator(eval_cfg, episodes=eps, agent=agent).eval()
+        torch.cuda.synchronize(device)
+        seconds["evaluate"] = time.perf_counter() - t
+        pol = agent.policy
+        if pol.device != device:
+            problems.append(f"the agent's policy on {pol.device}")
+        # (b) card against host, (c) one replan
+        host = get_policy("navdp").from_pretrained(str(ckpt), cfg, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        obs = {"input_images": torch.rand(1, 8, 224, 224, 3, generator=g),
+               "input_depths": 5.0 * torch.rand(1, 8, 224, 224, 1, generator=g),
+               "goal_point": torch.tensor([[2.0, 0.5, 0.0]])}
+        draws = host.net.infer_draws(NAVDP_VN_SAMPLES, g, "cpu")
+        batch = {"mode": "pointgoal", "observations": obs, "sample_num": NAVDP_VN_SAMPLES}
+        want = host.forward({**batch, "draws": draws})
+        card = {**batch, "observations": {k: v.to(device) for k, v in obs.items()},
+                "draws": {k: v.to(device) for k, v in draws.items()}}
+        got = [x.cpu() for x in pol.forward(card)]
+        err = {k: float((g_ - w).abs().max()) for k, g_, w in zip(("worst", "best"), got, want)}
+        if max(err.values()) > NAVDP_VN_TOL or not all(torch.isfinite(x).all() for x in got):
+            problems.append(f"card against host {err} (bound {NAVDP_VN_TOL})")
+        del host
+        times = []
+        for _ in range(4):  # a warm call, then 3 timed
+            t = time.perf_counter()
+            pol.forward(card)[1].cpu()
+            times.append(time.perf_counter() - t)
+        profiled = _profiled(lambda: pol.forward(card))
+        launches = launch_counts()
+    finally:
+        navdp_agent.NavDPAgent._replan = replan
+        _restore(spies)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    if not replans or not np.isfinite(np.asarray(waypoints, np.float64)).all():
+        problems.append(f"{len(replans)} replans, waypoints finite: "
+                        f"{bool(np.isfinite(np.asarray(waypoints, np.float64)).all())}")
+    if metrics.get("num_episodes") != 1 + NAVDP_VN_CLUTTERED or not np.isfinite(
+            [v for v in metrics.values() if isinstance(v, (int, float))]).all():
+        problems.append(f"metrics {metrics}")
+    if any(launches.values()):
+        problems.append(f"a hand-written kernel launched: {launches}")
+    if plain:
+        problems.append(f"plain versions ran: {dict(plain)}")
+    print(f"phase evaluate_navdp_vn: path=evaluate_navdp_vn rgbd=224 memory=8 predict=24 "
+          f"decoder_layers=8 samples={NAVDP_VN_SAMPLES} episodes={1 + NAVDP_VN_CLUTTERED} "
+          f"max_step={NAVDP_VN_MAX_STEP} params={params} "
+          f"seconds={json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+          f"steps={len(waypoints)} replans={len(replans)} "
+          f"replan_s_median={statistics.median(replans):.4f} "
+          f"metrics={json.dumps(metrics)} gpu={gpu_line()!r}")
+    print(f"phase evaluate_navdp_vn: "
+          f"replan_host_ms_median={1e3 * statistics.median(times[1:]):.2f} "
+          f"replan_host_ms={json.dumps([round(1e3 * x, 2) for x in times[1:]])} "
+          f"replan_device={profiled} card_vs_host_max_abs_err={json.dumps(err)} "
+          f"bound={NAVDP_VN_TOL} peak_gib={peak_gib:.2f} launches={json.dumps(launches)} "
+          f"plain_calls={sum(plain.values())} gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("evaluate navdp_vn: " + "; ".join(problems))
+    del agent, pol
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"evaluate_navdp_vn": launches}
+
+
+def phase_train_navdp(device) -> dict:
+    """NavDP training at navdp_cfg's width: `write_synthetic_navdp_dataset`
+    at 224 x 224, then `scripts/torch/train.py`'s main on
+    navdp_train_cfg.py for TRAIN_NAVDP_STEPS steps of TRAIN_NAVDP_BATCH
+    samples, the EMA on; the saved policy reloaded equal to the trained
+    weights, every loss term finite, the EMA moved off its start. No
+    hand-written kernel launched and no plain version run. Prints each
+    step's seconds and loss terms, and the peak memory. Returns the
+    launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.dataset.navdp_dataset import write_synthetic_navdp_dataset
+    from internnav_tpu_torch.trainer.navdp_trainer import NavDPTrainer
+
+    root = WORK_DIR / "train_navdp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    reset_launch_counts()
+    problems = []
+    try:
+        t = time.perf_counter()
+        write_synthetic_navdp_dataset(str(root / "store.bin"), n_episodes=8, T=16, hw=224)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        run = _train_cli(device, NavDPTrainer, [
+            "--config", str(REPO / "scripts" / "torch" / "configs" / "navdp_train_cfg.py"),
+            "--store", str(root / "store.bin"), "--steps", str(TRAIN_NAVDP_STEPS),
+            "--batch-size", str(TRAIN_NAVDP_BATCH), "--output-dir", str(root / "out")])
+        train_s = time.perf_counter() - t
+        launches = launch_counts()
+    finally:
+        _restore(spies)
+    st, trainer = run["steps"], run["trainer"]
+    keys = ("loss", "ng_action_loss", "mg_action_loss", "critic_loss", "aux_loss", "grad_norm")
+    if len(st) != TRAIN_NAVDP_STEPS or not np.isfinite([s[k] for s in st for k in keys]).all():
+        problems.append(f"steps {st}")
+    if run["mismatched"]:
+        problems.append(f"the reloaded policy differs in {run['mismatched'][:3]}")
+    ema, ema_start = trainer.ema, run["ema_start"]
+    ema_moved = ema is not None and any(not torch.equal(ema[n], ema_start[n]) for n in ema)
+    ema_lags = ema is not None and any(not torch.equal(ema[n], p)
+                                       for n, p in trainer.optimizer.params)
+    if not (trainer.cfg.il.use_ema and ema_moved and ema_lags):
+        problems.append(f"the EMA is off, never moved off its start ({not ema_moved}) or "
+                        f"equals the parameters ({not ema_lags})")
+    if any(launches.values()):
+        problems.append(f"a hand-written kernel launched: {launches}")
+    if plain:
+        problems.append(f"plain versions ran: {dict(plain)}")
+    print(f"phase train_navdp: path=train_navdp batch={TRAIN_NAVDP_BATCH} rgbd=224 memory=8 "
+          f"ema={trainer.cfg.il.use_ema} steps={json.dumps(st)} peak_gib={run['peak_gib']:.2f} "
+          f"reload_equal={not run['mismatched']} write_s={write_s:.2f} train_s={train_s:.2f} "
+          f"launches={json.dumps(launches)} plain_calls={sum(plain.values())} "
+          f"gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("train navdp: " + "; ".join(problems))
+    del run, trainer
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_navdp": launches}
+
+
+def phase_dpt(device) -> dict:
+    """DepthAnythingV2 at the reference's DPT_HW x DPT_HW: seed-0 weights
+    written as a reference-layout state dict
+    (`convert.depth_anything_reference_state_dict`) and read back through
+    `convert_depth_anything_v2` into a module on the card and one on the
+    host; one forward of the same ImageNet-normalized pixels on each,
+    within DPT_TOL of max_depth. Prints the card forward's host ms (median
+    of 3 after a warm call), its profiled device ms and launches, and the
+    peak memory. No hand-written kernel launched and no plain version run.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from internnav_tpu_torch.model.encoder.dpt import DepthAnythingV2
+    from internnav_tpu_torch.model.weights.convert import (
+        convert_depth_anything_v2,
+        depth_anything_reference_state_dict,
+    )
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    reset_launch_counts()
+    try:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            seed0 = DepthAnythingV2(image_hw=DPT_HW)
+        sd = depth_anything_reference_state_dict(seed0)
+        host, card = DepthAnythingV2(image_hw=DPT_HW).eval(), DepthAnythingV2(image_hw=DPT_HW)
+        for m in (host, card):
+            m.load_state_dict(convert_depth_anything_v2(sd, m))
+        card = card.eval().to(device)
+        x = torch.randn(1, DPT_HW, DPT_HW, 3, generator=torch.Generator().manual_seed(1))
+        xd = x.to(device)
+        with torch.no_grad():
+            want = host(x)
+            got = card(xd).cpu()
+            times = []
+            for _ in range(4):  # a warm call, then 3 timed
+                t = time.perf_counter()
+                card(xd).cpu()
+                times.append(time.perf_counter() - t)
+            profiled = _profiled(lambda: card(xd))
+        launches = launch_counts()
+    finally:
+        _restore(spies)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    err = float((got - want).abs().max())
+    problems = []
+    if got.shape != (1, DPT_HW, DPT_HW) or not torch.isfinite(got).all() or \
+            err > DPT_TOL * card.max_depth:
+        problems.append(f"card against host {err} (bound {DPT_TOL * card.max_depth}), "
+                        f"shape {tuple(got.shape)}")
+    if any(launches.values()):
+        problems.append(f"a hand-written kernel launched: {launches}")
+    if plain:
+        problems.append(f"plain versions ran: {dict(plain)}")
+    print(f"phase dpt: path=dpt hw={DPT_HW} params={sum(p.numel() for p in card.parameters())} "
+          f"forward_host_ms_median={1e3 * statistics.median(times[1:]):.2f} "
+          f"forward_device={profiled} card_vs_host_max_abs_err={err:.3e} "
+          f"bound={DPT_TOL * card.max_depth} depth_range=[{float(got.min()):.4f}, "
+          f"{float(got.max()):.4f}] peak_gib={peak_gib:.2f} launches={json.dumps(launches)} "
+          f"plain_calls={sum(plain.values())} gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("dpt: " + "; ".join(problems))
+    del host, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dpt": launches}
+
+
 # ----------------------------------------------------------------- navdp
 #: the NavDP head on the card against the same module on the host, both
 #: fp32: 20 DDPM steps of a 16-layer decoder, two ViT-S towers and the
@@ -4999,7 +5321,8 @@ def phase_evaluate_navdp(device, policy) -> dict:
     """The evaluator loop of `scripts/torch/bench_evaluator.py --system1
     navdp_async` (its functions: 4 cohorts x 12 streams, str hashing
     pinned, FakeEnv's depth at 224) on the NavDP policy: one warm run and
-    one timed run of the same episodes; every agent output well formed,
+    one timed run of the same episodes of SHORT_MAX_STEP steps; every
+    agent output well formed,
     every episode ended, K1 and K4-K8 launched, no backward kernel, no
     plain version. Prints actions/s, System-1's host seconds and the peak
     memory. Returns the timed run's launches."""
@@ -5022,12 +5345,12 @@ def phase_evaluate_navdp(device, policy) -> dict:
     out_dir = WORK_DIR / "evaluate_navdp"
     shutil.rmtree(out_dir, ignore_errors=True)
     try:
-        warm = bench.evaluator_run(policy, str(out_dir / "warm"))
+        warm = bench.evaluator_run(policy, str(out_dir / "warm"), max_step=SHORT_MAX_STEP)
         calls.clear()
         host_s.clear()
         torch.cuda.reset_peak_memory_stats(device)
         reset_launch_counts()
-        run = bench.evaluator_run(policy, str(out_dir / "run0"))
+        run = bench.evaluator_run(policy, str(out_dir / "run0"), max_step=SHORT_MAX_STEP)
         launches = launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     finally:
@@ -5048,7 +5371,7 @@ def phase_evaluate_navdp(device, policy) -> dict:
     if run["episode_steps"] != warm["episode_steps"]:
         raise AssertionError("evaluate navdp: the timed run took other episodes")
     print(f"phase evaluate: path=evaluate_navdp system1=navdp_async cohorts={bench.COHORTS} "
-          f"rows={bench.BATCH} episodes={n} max_step={bench.MAX_STEP} "
+          f"rows={bench.BATCH} episodes={n} max_step={SHORT_MAX_STEP} "
           f"warm_actions_per_s={warm['actions_per_sec']:.4f} "
           f"actions_per_s={run['actions_per_sec']:.4f} wall_clock_s={run['wall_clock_s']:.4f} "
           f"actions_timed={run['actions_timed']} "
@@ -5560,6 +5883,12 @@ def main() -> int:
         lap("evaluate_rdp")
         by_path.update(phase_train_rdp(device))
         lap("train_rdp")
+        by_path.update(phase_evaluate_navdp_vn(device))
+        lap("evaluate_navdp_vn")
+        by_path.update(phase_train_navdp(device))
+        lap("train_navdp")
+        by_path.update(phase_dpt(device))
+        lap("dpt")
         # the NavDP System-1 at 7B: one realtime policy serves, is held
         # against the host, serves batched and evaluates
         navdp, navdp_paths = phase_serve_navdp(device)

@@ -27,6 +27,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from internnav_tpu_torch.dataset.base import TrajectoryDataset
+from internnav_tpu_torch.dataset.navdp_dataset import resample_path
 from internnav_tpu_torch.utils.geometry import to_local_coords, wrap_angle
 
 IGNORE_INDEX = -100
@@ -41,21 +42,6 @@ SYSTEM_PROMPT = (
     "using the four actions: TURN LEFT (←) or TURN RIGHT (→) by 15 degrees, "
     "MOVE FORWARD (↑) by 25 centimeters, or STOP."
 )
-
-
-def resample_path(points: np.ndarray, n: int) -> np.ndarray:
-    """Arc-length linear resampling of (K, D) → (n, D) (the JAX package's
-    navdp_dataset.resample_path)."""
-    points = np.asarray(points, np.float64)
-    if len(points) == 1:
-        return np.repeat(points, n, axis=0)
-    seg = np.linalg.norm(np.diff(points, axis=0), axis=1)
-    cum = np.concatenate([[0], np.cumsum(seg)])
-    targets = np.linspace(0, cum[-1], n)
-    out = np.empty((n, points.shape[1]))
-    for d in range(points.shape[1]):
-        out[:, d] = np.interp(targets, cum, points[:, d])
-    return out
 
 
 @dataclass

@@ -2,21 +2,14 @@
 JAX package's string → policy mapping (internnav_tpu/model/__init__.py,
 the reference's internnav/model/__init__.py:1-62).
 
-The port holds the InternVLA-N1 dual system, the recurrent VLN policies
-CMA and Seq2Seq, and the RDP family (RDP, CMA-CLIP). NavDP, the last
-policy, is not ported yet and raises NotImplementedError (ROADMAP §1 item
-6c); an unknown name raises KeyError, as in JAX. Every default config is
-ported (`configs/defaults`)."""
+The port holds every policy of the JAX package: the InternVLA-N1 dual
+system, the recurrent VLN policies CMA and Seq2Seq, the RDP family (RDP,
+CMA-CLIP) and the standalone NavDP. An unknown name raises KeyError, as in
+JAX. Every default config is ported (`configs/defaults`)."""
 
 from __future__ import annotations
 
 from internnav_tpu_torch.configs.model import ModelCfg
-
-#: the policies still to port, by the names the factory takes
-_UNPORTED = {
-    "NavDP_Policy": "NavDPPolicy", "navdp": "NavDPPolicy",
-}
-
 
 def get_policy(name: str):
     if name in ("CMA_Policy", "cma"):
@@ -39,9 +32,10 @@ def get_policy(name: str):
         from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
 
         return InternVLAN1Policy
-    if name in _UNPORTED:
-        raise NotImplementedError(f"policy {name!r} ({_UNPORTED[name]}) is not yet ported to "
-                                  "internnav_tpu_torch (ROADMAP §1 item 6c)")
+    if name in ("NavDP_Policy", "navdp"):
+        from internnav_tpu_torch.model.basemodel.navdp import NavDPPolicy
+
+        return NavDPPolicy
     raise KeyError(f"unknown policy {name!r}")
 
 

@@ -1,5 +1,6 @@
 """NavDP backbone parts (port of internnav_tpu/model/encoder/navdp_backbone.py:
-`FormerDecoder`, pre- and post-norm; `RGBDBackbone`; `TokenCompressor`).
+`FormerDecoder`, pre- and post-norm; `RGBDBackbone`; `ImageGoalBackbone`;
+`PixelGoalBackbone`; `TokenCompressor`).
 
 Inputs are NHWC like the JAX modules: images (B, T, H, W, 3) in [0, 1],
 depths (B, T, H, W, 1) in metres, pre-clamped; depth goes in un-normalized
@@ -104,6 +105,42 @@ class RGBDBackbone(nn.Module):
         tokens = tokens + self.former_pe.weight[: tokens.shape[1]][None]
         queries = self.former_query.weight[None].expand(B, -1, -1)
         return self.project_layer(self.former_net(queries, tokens))
+
+
+class _GoalBackbone(nn.Module):
+    """A ViT-S over a (B, H, W, channels) goal image, its patch tokens
+    mean-pooled, then `project_layer` → (B, embed_size)."""
+
+    tower = ""
+
+    def __init__(self, embed_size: int, channels: int, image_hw: int):
+        super().__init__()
+        self.add_module(self.tower, DinoViT(image_hw=image_hw, in_channels=channels))
+        self.project_layer = nn.Linear(384, embed_size)
+
+    def forward(self, images):
+        with _fp32_convolutions():
+            tokens = getattr(self, self.tower)(images.float())
+        return self.project_layer(tokens.mean(dim=1))
+
+
+class ImageGoalBackbone(_GoalBackbone):
+    """(B, H, W, 6): the goal image stacked with the current one."""
+
+    tower = "imagegoal_encoder"
+
+    def __init__(self, embed_size: int = 512, image_hw: int = 224):
+        super().__init__(embed_size, 6, image_hw)
+
+
+class PixelGoalBackbone(_GoalBackbone):
+    """(B, H, W, pixel_channel): the current image, its depth and the goal
+    pixel's mask channels."""
+
+    tower = "pixelgoal_encoder"
+
+    def __init__(self, embed_size: int = 512, pixel_channel: int = 7, image_hw: int = 224):
+        super().__init__(embed_size, pixel_channel, image_hw)
 
 
 class TokenCompressor(nn.Module):

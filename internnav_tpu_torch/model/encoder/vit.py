@@ -1,10 +1,16 @@
 """DINOv2-style ViT trunk (port of internnav_tpu/model/encoder/vit.py
 `DinoViT`, `DinoBlock`, `imagenet_normalize`). Input is NHWC like the JAX module; the patch
-embed pads SAME, as flax `nn.Conv` does."""
+embed pads SAME, as flax `nn.Conv` does.
+
+`in_channels` takes NavDP's 6-channel image-goal and 7-channel pixel-goal
+inputs; `intermediates` gives the listed blocks' outputs through the final
+norm as (patch tokens, cls) pairs (DINOv2's get_intermediate_layers with norm and
+the class token), which the DPT depth head reads."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -35,24 +41,25 @@ class DinoBlock(nn.Module):
 
 
 class DinoViT(nn.Module):
-    """(B, H, W, 3) → final-block patch tokens (B, P, dim). `image_hw` sizes
-    the learned position embedding (1 + ceil(hw / 14)^2 tokens)."""
+    """(B, H, W, in_channels) → final-block patch tokens (B, P, dim).
+    `image_hw` sizes the learned position embedding (1 + ceil(hw / 14)^2
+    tokens)."""
 
     patch_size = 14
 
     def __init__(self, dim: int = 384, depth: int = 12, heads: int = 6, image_hw: int = 224,
-                 dtype=torch.float32):
+                 dtype=torch.float32, in_channels: int = 3):
         super().__init__()
         self.dim = dim
         p = self.patch_size
         grid = math.ceil(image_hw / p)
-        self.patch_embed = nn.Conv2d(3, dim, p, stride=p, dtype=dtype)
+        self.patch_embed = nn.Conv2d(in_channels, dim, p, stride=p, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim, dtype=dtype))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + grid * grid, dim, dtype=dtype))
         self.block = nn.ModuleList(DinoBlock(dim, heads, dtype=dtype) for _ in range(depth))
         self.norm = nn.LayerNorm(dim, eps=1e-6, dtype=dtype)
 
-    def forward(self, pixels):
+    def forward(self, pixels, intermediates: Optional[Sequence[int]] = None):
         B, H, W, _ = pixels.shape
         p = self.patch_size
         pad_h = max((-(-H // p) - 1) * p + p - H, 0)
@@ -63,8 +70,13 @@ class DinoViT(nn.Module):
         x = x.flatten(2).transpose(1, 2)
         x = torch.cat([self.cls_token.expand(B, 1, self.dim), x], dim=1)
         x = x + self.pos_embed
-        for blk in self.block:
+        taken = []
+        for i, blk in enumerate(self.block):
             x = blk(x)
+            if intermediates is not None and i in intermediates:
+                taken.append(x)
+        if intermediates is not None:
+            return [(t[:, 1:], t[:, 0]) for t in map(self.norm, taken)]
         return self.norm(x)[:, 1:]
 
 

@@ -534,8 +534,8 @@ def recurrent_reference_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
 # the recurrent ones:
 #   "qkv0" / "qkv1" / "qkv2"  a third of a packed q/k/v projection
 #              (torch MultiheadAttention's and CLIP's in_proj_*);
-#   "pos"      RoBERTa's position table, with the type-0 token_type row
-#              folded in when the checkpoint has one.
+#   "token_type"  RoBERTa's position table, with the type-0 token_type
+#              row folded in when the checkpoint has one.
 _BERT_SUB = {"q_proj": "self.query", "k_proj": "self.key", "v_proj": "self.value",
              "out_proj": "output.dense"}
 _POST_NORM = {"intermediate": "intermediate.dense", "output": "output.dense",
@@ -553,7 +553,7 @@ def _mha_packed(prefix: str, proj: str, leaf: str, packed: str) -> Tuple[str, st
 def _rdp_key(name: str) -> Tuple[str, str]:
     """(reference key, rule) of one RDPNet tensor."""
     if name == "instruction_encoder.embeddings.position_embeddings.weight":
-        return name, "pos"
+        return name, "token_type"
     if name.startswith("instruction_encoder.embeddings."):
         return name, "same"
     if m := re.fullmatch(r"instruction_encoder\.layer\.(\d+)\.(\w+)\.?(\w*)\.(weight|bias)", name):
@@ -640,26 +640,29 @@ def _rdp_normalized(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def convert_rdp_policy(sd: Mapping[str, torch.Tensor], net: nn.Module
-                       ) -> Dict[str, torch.Tensor]:
-    """A reference RDPNet state dict → `net`'s tensors that it holds (in
-    their dtypes, on the host). As JAX's converter, what the checkpoint
-    lacks (the imu linears, the second cross encoder, a head) is left out
-    for the caller's tolerant merge (`model.base.merge_params`); a shape
+def _convert_by_map(sd: Mapping[str, torch.Tensor], net: nn.Module,
+                    ref_map: Dict[str, Tuple[str, str]], tokens: int = 0
+                    ) -> Dict[str, torch.Tensor]:
+    """The tensors of `net` that the reference state dict `sd` holds (in
+    net's dtypes, on the host), each laid out by its map rule; what sd
+    lacks is left out for the caller's tolerant merge
+    (`model.base.merge_params`), as JAX's converters leave it. A DINOv2
+    position table of another grid is resized to net's; any other shape
     that differs raises."""
-    sd = _rdp_normalized(sd)
     target = net.state_dict()
-    tokens = net.image_encoder.depth_encoder.n_tokens
     out: Dict[str, torch.Tensor] = {}
-    for name, (key, rule) in rdp_reference_map(net).items():
+    for name, (key, rule) in ref_map.items():
         if key not in sd:
             continue
         w = sd[key]
         if rule.startswith("qkv"):
             w = w.chunk(3, dim=0)[int(rule[3])]
-        elif rule == "pos":
-            tt = "instruction_encoder.embeddings.token_type_embeddings.weight"
+        elif rule == "token_type":
+            tt = key.replace("position_embeddings", "token_type_embeddings")
             w = w + sd[tt][0][None] if tt in sd else w
+        elif rule == "dino_pos" and w.shape != target[name].shape:
+            g = int(round((target[name].shape[1] - 1) ** 0.5))
+            w = interpolate_dino_pos_embed(w, (g, g))
         else:
             w = _from_reference(w, rule, tokens)
         if tuple(w.shape) != tuple(target[name].shape):
@@ -669,20 +672,186 @@ def convert_rdp_policy(sd: Mapping[str, torch.Tensor], net: nn.Module
     return out
 
 
+def _reference_by_map(net: nn.Module, ref_map: Dict[str, Tuple[str, str]], tokens: int = 0
+                      ) -> Dict[str, torch.Tensor]:
+    """The inverse of `_convert_by_map`: net as a reference state dict,
+    packed q/k/v thirds concatenated back, position tables as they are, on
+    the host."""
+    state = net.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    parts: Dict[str, Dict[int, torch.Tensor]] = {}
+    for name, (key, rule) in ref_map.items():
+        w = state[name].detach().cpu()
+        if rule.startswith("qkv"):
+            parts.setdefault(key, {})[int(rule[3])] = w
+        else:
+            out[key] = _to_reference(w, rule, tokens).contiguous()
+    for key, ps in parts.items():
+        out[key] = torch.cat([ps[j] for j in range(3)]).contiguous()
+    return out
+
+
+def convert_rdp_policy(sd: Mapping[str, torch.Tensor], net: nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+    """A reference RDPNet state dict → `net`'s tensors that it holds (in
+    their dtypes, on the host). As JAX's converter, what the checkpoint
+    lacks (the imu linears, the second cross encoder, a head) is left out
+    for the caller's tolerant merge (`model.base.merge_params`); a shape
+    that differs raises."""
+    return _convert_by_map(_rdp_normalized(sd), net, rdp_reference_map(net),
+                           net.image_encoder.depth_encoder.n_tokens)
+
+
 def rdp_reference_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
     """The inverse map: an RDPNet as a reference-format state dict (the
     keys JAX's convert_rdp_policy reads; the q/k/v thirds packed back, the
     position table without a token_type row), on the host. For writing
     reference-layout checkpoints in tests and chip_smoke.py."""
-    tokens, state = net.image_encoder.depth_encoder.n_tokens, net.state_dict()
-    out: Dict[str, torch.Tensor] = {}
-    parts: Dict[str, Dict[int, torch.Tensor]] = {}
-    for name, (key, rule) in rdp_reference_map(net).items():
-        w = state[name].detach().cpu()
-        if rule.startswith("qkv"):
-            parts.setdefault(key, {})[int(rule[3])] = w
-        else:
-            out[key] = _to_reference(w, "same" if rule == "pos" else rule, tokens).contiguous()
-    for key, ps in parts.items():
-        out[key] = torch.cat([ps[j] for j in range(3)]).contiguous()
+    return _reference_by_map(net, rdp_reference_map(net),
+                             net.image_encoder.depth_encoder.n_tokens)
+
+
+# ------------------------------------------------------------ NavDP / DPT
+# Reference NavDPNet (navdp_policy.py:86-134 and navdp_backbone.py module
+# names) and DepthAnythingV2 (dpt.py:38-185) checkpoints → the port's
+# NavDPNet and DepthAnythingV2, the counterparts of the JAX package's
+# convert_navdp_policy (:768, with _convert_post_norm_decoder :729 and
+# _convert_pre_norm_decoder :748), convert_depth_anything_v2 (:298),
+# convert_dinov2_vits (:234) and interpolate_dino_pos_embed (:270). Rules
+# as RDP's ("qkv0" / "qkv1" / "qkv2" for a third of a packed projection),
+# and "dino_pos" for a DINOv2 position table, resized to the port's patch
+# grid when the checkpoint's differs (the reference resizes at run time).
+_FORMER_SUB = {"self": "self_attn", "cross": "multihead_attn", "ff1": "linear1",
+               "ff2": "linear2", "ln1": "norm1", "ln2": "norm2", "ln3": "norm3"}
+
+
+def _dino_key(prefix: str, rel: str) -> Tuple[str, str]:
+    """A DinoViT tensor (`rel`, port naming) → its DINOv2 key under
+    `prefix`."""
+    if rel == "pos_embed":
+        return prefix + rel, "dino_pos"
+    if m := re.fullmatch(r"patch_embed\.(\w+)", rel):
+        return f"{prefix}patch_embed.proj.{m[1]}", "same"
+    if m := re.fullmatch(r"block\.(\d+)\.attn\.([qkv])_proj\.(\w+)", rel):
+        return f"{prefix}blocks.{m[1]}.attn.qkv.{m[3]}", f"qkv{'qkv'.index(m[2])}"
+    if m := re.fullmatch(r"block\.(\d+)\.attn\.out_proj\.(\w+)", rel):
+        return f"{prefix}blocks.{m[1]}.attn.proj.{m[2]}", "same"
+    if m := re.fullmatch(r"block\.(\d+)\.mlp_fc([12])\.(\w+)", rel):
+        return f"{prefix}blocks.{m[1]}.mlp.fc{m[2]}.{m[3]}", "same"
+    if m := re.fullmatch(r"block\.(\d+)\.(ls[12])", rel):
+        return f"{prefix}blocks.{m[1]}.{m[2]}.gamma", "same"
+    if m := re.fullmatch(r"block\.(\d+)\.(.+)", rel):
+        return f"{prefix}blocks.{m[1]}.{m[2]}", "same"
+    return prefix + rel, "same"  # cls_token, norm.*
+
+
+def _navdp_key(name: str) -> Tuple[str, str]:
+    """(reference key, rule) of one NavDPNet tensor."""
+    if m := re.fullmatch(r"rgbd_encoder\.(rgb_model|depth_model)\.(.+)", name):
+        return _dino_key(f"rgbd_encoder.{m[1]}.", m[2])
+    if m := re.fullmatch(r"(pixel_encoder\.pixelgoal_encoder|image_encoder\.imagegoal_encoder)"
+                         r"\.(.+)", name):
+        return _dino_key(m[1] + ".", m[2])
+    if m := re.fullmatch(r"rgbd_encoder\.former_net\.layer_(\d+)_(\w+?)\.(.+)", name):
+        src = f"rgbd_encoder.former_net.layers.{m[1]}.{_FORMER_SUB[m[2]]}"
+        if b := re.fullmatch(r"([qkv]|out)_proj\.(\w+)", m[3]):
+            return _mha_packed(src.rsplit(".", 1)[0] + ".", f"{b[1]}_proj", b[2],
+                               _FORMER_SUB[m[2]])
+        return f"{src}.{m[3]}", "same"
+    if m := re.fullmatch(r"decoder\.layer_(\d+)\.(self_attn|cross_attn)\.(\w+)\.(\w+)", name):
+        packed = "multihead_attn" if m[2] == "cross_attn" else "self_attn"
+        return _mha_packed(f"decoder.layers.{m[1]}.", m[3], m[4], packed)
+    if m := re.fullmatch(r"decoder\.layer_(\d+)\.(.+)", name):
+        return f"decoder.layers.{m[1]}.{m[2]}", "same"
+    if m := re.fullmatch(r"final_ln\.(\w+)", name):
+        return f"layernorm.{m[1]}", "same"
+    if m := re.fullmatch(r"(cond_pos_embed|out_pos_embed)\.weight", name):
+        return f"{m[1]}.position_embedding.weight", "same"
+    return name, "same"  # former_query / former_pe / the projections and heads
+
+
+def navdp_reference_map(net: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """{port name: (reference key, layout rule)} for every tensor of a
+    NavDPNet."""
+    return {name: _navdp_key(name) for name in net.state_dict()}
+
+
+def _dpt_key(name: str) -> Tuple[str, str]:
+    """(reference key, rule) of one DepthAnythingV2 tensor."""
+    if m := re.fullmatch(r"pretrained\.(.+)", name):
+        return _dino_key("pretrained.", m[1])
+    rel, h = name.removeprefix("depth_head."), "depth_head."
+    if m := re.fullmatch(r"project_(\d)\.(\w+)", rel):
+        return f"{h}projects.{m[1]}.{m[2]}", "same"
+    if m := re.fullmatch(r"resize_(\d)\.(\w+)", rel):  # ConvTranspose2d's layout kept
+        return f"{h}resize_layers.{m[1]}.{m[2]}", "same"
+    if m := re.fullmatch(r"refinenet(\d)\.res([12])\.(.+)", rel):
+        return f"{h}scratch.refinenet{m[1]}.resConfUnit{m[2]}.{m[3]}", "same"
+    if m := re.fullmatch(r"output_conv2_(\d)\.(\w+)", rel):
+        return f"{h}scratch.output_conv2.{m[1]}.{m[2]}", "same"
+    return f"{h}scratch.{rel}", "same"  # layer{i}_rn, refinenet{i}.out_conv, output_conv1
+
+
+def depth_anything_reference_map(net: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """{port name: (reference key, layout rule)} for every tensor of a
+    DepthAnythingV2."""
+    return {name: _dpt_key(name) for name in net.state_dict()}
+
+
+def interpolate_dino_pos_embed(pos: torch.Tensor, grid_hw, offset: float = 0.1) -> torch.Tensor:
+    """DINOv2 position embeddings (1, 1+N, D) resized to a patch grid as the
+    reference does at run time (dinov2.py:180-211: bicubic in
+    scale-factor form with the +0.1 offset, antialias off); fp32."""
+    import math
+
+    import torch.nn.functional as F
+
+    cls_pos, patch_pos = pos[:, :1].float(), pos[:, 1:].float()
+    s = int(math.sqrt(patch_pos.shape[1]))
+    h, w = grid_hw
+    if (h, w) == (s, s):
+        return pos
+    dim = pos.shape[-1]
+    t = patch_pos.reshape(1, s, s, dim).permute(0, 3, 1, 2)
+    t = F.interpolate(t, scale_factor=((h + offset) / s, (w + offset) / s), mode="bicubic",
+                      antialias=False)
+    if tuple(t.shape[-2:]) != (h, w):
+        raise ValueError(f"pos_embed {s}x{s} resized to {tuple(t.shape[-2:])}, not {h}x{w}")
+    return torch.cat([cls_pos, t.permute(0, 2, 3, 1).reshape(1, h * w, dim)], dim=1)
+
+
+def convert_navdp_policy(sd: Mapping[str, torch.Tensor], net: nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """A reference NavDPNet state dict → `net`'s tensors that it holds. As
+    JAX's converter, a checkpoint without the goal towers or the aux heads
+    leaves them to the merge."""
+    return _convert_by_map(strip_prefixes(sd), net, navdp_reference_map(net))
+
+
+def navdp_reference_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse map: a NavDPNet as a reference-format state dict (the keys
+    JAX's convert_navdp_policy reads), for writing reference-layout
+    checkpoints in tests and chip_smoke.py."""
+    return _reference_by_map(net, navdp_reference_map(net))
+
+
+def convert_depth_anything_v2(sd: Mapping[str, torch.Tensor], net: nn.Module
+                              ) -> Dict[str, torch.Tensor]:
+    """A DepthAnythingV2 checkpoint (`pretrained.*` DINOv2 trunk and
+    `depth_head.*` DPT head) → `net`'s tensors; the trunk's position table
+    resized to net's patch grid. refinenet4's unused resConfUnit1 is left
+    (the port's first fusion block has no skip unit, as JAX's)."""
+    return _convert_by_map(strip_prefixes(sd), net, depth_anything_reference_map(net))
+
+
+def depth_anything_reference_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse map of `convert_depth_anything_v2`, with refinenet4's
+    resConfUnit1 as zeros: the reference module holds that unit and never
+    runs it, and JAX's converter reads it."""
+    out = _reference_by_map(net, depth_anything_reference_map(net))
+    unit = "depth_head.scratch.refinenet4.resConfUnit1."
+    for conv in ("conv1", "conv2"):
+        for leaf in ("weight", "bias"):
+            like = out[f"depth_head.scratch.refinenet4.resConfUnit2.{conv}.{leaf}"]
+            out[f"{unit}{conv}.{leaf}"] = torch.zeros_like(like)
     return out

@@ -1,5 +1,5 @@
 """Convert a reference-format torch checkpoint (InternVLA-N1, CMA,
-Seq2Seq or RDP) to a native directory of the PyTorch port.
+Seq2Seq, RDP or NavDP) to a native directory of the PyTorch port.
 
     python scripts/torch/convert_checkpoint.py --model internvla_n1 \
         --src /path/to/InternVLA-N1 --dst converted/n1 [--int8 | --int4]
@@ -7,6 +7,8 @@ Seq2Seq or RDP) to a native directory of the PyTorch port.
         --src checkpoints/r2r/zero_shot/cma --dst converted/cma
     python scripts/torch/convert_checkpoint.py --model rdp \
         --src checkpoints/rdp/model.pth --dst converted/rdp
+    python scripts/torch/convert_checkpoint.py --model navdp \
+        --src checkpoints/navdp/navdp.ckpt --dst converted/navdp
 
 The port's counterpart of scripts/tools/convert_checkpoint.py's
 internvla_n1 branch: `InternVLAN1Policy.from_pretrained_torch` at the
@@ -17,13 +19,12 @@ codes with grouped-128 scales, the lm_head at 8 bits), then
 tokenizer assets copied over so that the native directory loads the same
 tokenizer. `realworld.serve --ckpt` and the agents load either format
 directly; a native directory skips the conversion and, in int8, holds a
-bit more than half the bytes. `--model cma` / `seq2seq` / `rdp` load the
-reference checkpoint through `from_pretrained` (its converter,
-`model/weights/convert.convert_recurrent_policy` or `convert_rdp_policy`
-with its LongCLIP text variant, at the default config of the model) and
-save it natively (`save_pretrained`), as the JAX tool does. The
-conversion runs on the GPU (`--device`); NavDP is not ported yet and
-raises (ROADMAP §1 item 6c).
+bit more than half the bytes. `--model cma` / `seq2seq` / `rdp` / `navdp`
+load the reference checkpoint through `from_pretrained` (its converter,
+`model/weights/convert.convert_recurrent_policy`, `convert_rdp_policy`
+with its LongCLIP text variant, or `convert_navdp_policy`, at the default
+config of the model) and save it natively (`save_pretrained`), as the JAX
+tool does. The conversion runs on the GPU (`--device`).
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def convert_n1(src: str, dst: str, *, int8: bool = False, int4: bool = False, de
 
 
 def convert_recurrent(model: str, src: str, dst: str, *, device, cfg=None):
-    """A reference CMA / Seq2Seq / RDP checkpoint `src` → the native
+    """A reference CMA / Seq2Seq / RDP / NavDP checkpoint `src` → the native
     directory `dst`, at the model's default config or `cfg`; returns the
     policy."""
     from internnav_tpu_torch.model import get_config, get_policy
@@ -93,8 +94,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--int8 and --int4 are mutually exclusive")
     if (args.int8 or args.int4) and args.model != "internvla_n1":
         ap.error("--int8/--int4 apply only to --model internvla_n1")
-    if args.model == "navdp":
-        raise NotImplementedError(f"--model {args.model} is not yet ported (ROADMAP §1 item 6c)")
 
     import torch
 

@@ -1,5 +1,5 @@
 """Training entry point of the port for the small VLN policies: CMA,
-Seq2Seq and RDP (scripts/train/train.py; reference
+Seq2Seq, RDP and NavDP (scripts/train/train.py; reference
 scripts/train/base_train/train.py:75-325).
 
     python scripts/torch/train.py --model-name cma --store data/trajectories.bin \
@@ -8,14 +8,16 @@ scripts/train/base_train/train.py:75-325).
 
 A store for cma / seq2seq comes from a reference LMDB through
 `scripts/torch/lmdb_to_store.py`; RDP reads stores with positions and yaws
-(`dataset.rdp_dataset.write_synthetic_rdp_dataset` writes one). A config
-file is python exposing `exp_cfg`, an `ExpCfg` of
-`internnav_tpu_torch.configs.trainer` (the port's copies of the JAX
-configs are scripts/torch/configs/{cma,seq2seq,rdp}_train_cfg.py);
+(`dataset.rdp_dataset.write_synthetic_rdp_dataset` writes one), and so
+does NavDP, with RGB-D frames (`dataset.navdp_dataset.
+write_synthetic_navdp_dataset`). A config file is python exposing
+`exp_cfg`, an `ExpCfg` of `internnav_tpu_torch.configs.trainer` (the
+port's copies of the JAX configs are
+scripts/torch/configs/{cma,seq2seq,rdp,navdp}_train_cfg.py);
 without one the model's default config is used. `--ckpt-to-load` (or
 `il.ckpt_to_load`) warm-starts from a native directory or a
 reference-format checkpoint (`from_pretrained`). The trainer
-(`trainer/cma_trainer.py`, `trainer/rdp_trainer.py`) checkpoints under
+(`trainer/{cma,rdp,navdp}_trainer.py`) checkpoints under
 `<output_dir>/<checkpoint_folder>` and resumes from the newest step; the
 trained policy is written with `save_pretrained` to
 `<output_dir>/<name>_final`.
@@ -23,8 +25,9 @@ trained policy is written with `save_pretrained` to
 Training runs on the GPU unless `--device cpu` asks for the host (no
 fallback), in fp32 with TF32 off, at the reference's frames: the cma /
 seq2seq loader resizes to RGB 224 and depth 256, and an RDP store must
-hold frames of those sizes. The navdp branch is not ported yet (ROADMAP
-§1 item 6c).
+hold frames of those sizes; a NavDP store holds frames of the model's
+`image_size`, and its samples take the model's memory_size and
+predict_size (JAX's loader keeps its defaults, 8 and 24).
 """
 
 from __future__ import annotations
@@ -93,9 +96,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg.il.batch_size = args.batch_size
     if args.ckpt_to_load:
         cfg.il.ckpt_to_load = args.ckpt_to_load
-    if cfg.model_name == "navdp":
-        raise NotImplementedError("train.py --model-name navdp is not yet ported to "
-                                  "internnav_tpu_torch (ROADMAP §1 item 6c)")
     policy = build_policy(cfg, device)
 
     if cfg.model_name in ("cma", "seq2seq"):
@@ -104,12 +104,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
         make_epoch = make_vln_dataloader(args.store, cfg.il.batch_size)
         trainer_cls = CMATrainer if cfg.model_name == "cma" else Seq2SeqTrainer
-    else:
+    elif cfg.model_name == "rdp":
         from internnav_tpu_torch.dataset.rdp_dataset import make_rdp_dataloader
         from internnav_tpu_torch.trainer.rdp_trainer import RDPTrainer
 
         make_epoch = make_rdp_dataloader(args.store, cfg.il.batch_size)
         trainer_cls = RDPTrainer
+    else:
+        from internnav_tpu_torch.dataset.navdp_dataset import make_navdp_dataloader
+        from internnav_tpu_torch.trainer.navdp_trainer import NavDPTrainer
+
+        make_epoch = make_navdp_dataloader(
+            args.store, cfg.il.batch_size, memory_size=getattr(cfg.model, "memory_size", 8),
+            predict_size=getattr(cfg.model, "predict_size", 24))
+        trainer_cls = NavDPTrainer
 
     data = Prefetcher(repeat_forever(make_epoch))
     trainer = trainer_cls(cfg, policy, dataset=data, total_steps=args.steps)

@@ -518,12 +518,10 @@ def test_convert_checkpoint_cli(tmp_path):
     finally:
         cli.convert_n1 = real
     assert seen["int4"] and not seen["int8"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--model", "navdp", *base])
     real = cli.convert_recurrent
     cli.convert_recurrent = lambda *a, **kw: seen.update(model=a[0])
     try:
-        for model in ("seq2seq", "rdp"):
+        for model in ("seq2seq", "rdp", "navdp"):
             assert cli.main(["--model", model, *base]) == 0
             assert seen["model"] == model
     finally:

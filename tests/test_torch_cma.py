@@ -64,11 +64,26 @@ def small_cfg(get_config, name):
     return cfg
 
 
+#: each module's param shapes by (module, the shapes and statics of its
+#: init's arguments): a trace of a whole net's init takes seconds, and the
+#: tests build the same nets again with other seeds
+_PARAM_SHAPES = {}
+
+
+def _arg_key(args) -> str:
+    return repr(jax.tree_util.tree_map(
+        lambda a: (np.shape(a), np.asarray(a).dtype.str) if hasattr(a, "shape") else a, args))
+
+
 def jax_params(module, *args, seed=0):
     """A JAX module's params from jax.eval_shape (no init run) drawn from
     a numpy seed at sensible scales: kernels N(0, 1/fan_in), BatchNorm
     variances in [0.5, 1.5], norm scales near 1."""
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args))["params"]
+    key = (repr(module), _arg_key(args))
+    if key not in _PARAM_SHAPES:
+        _PARAM_SHAPES[key] = jax.eval_shape(
+            lambda: module.init(jax.random.PRNGKey(0), *args))["params"]
+    shapes = _PARAM_SHAPES[key]
     rs = np.random.RandomState(seed)
 
     def draw(path, s):

@@ -20,8 +20,8 @@ width 32; JAX's depth tower is its DD-PPO ResNet-50, here at 64x64):
   as the whole batch's own fp32 noise allows (measured with its envs
   reversed);
 - three optimizer steps of the port's trainer next to JAX's optimizer
-  chain over JAX's gradients (the same losses and parameters), and a
-  resume from the step-2 checkpoint taking the same third step.
+  chain over JAX's float64 gradients (the same losses and parameters),
+  and a resume from the step-2 checkpoint taking the same third step.
 
 JAX params come from `jax.eval_shape` and a numpy seed; the JAX gradient
 is jitted once a model (its compile is most of this file's time).
@@ -369,11 +369,9 @@ def test_dp2_accum2_splits_envs_as_jax_and_steps_as_the_whole_batch(batch, tmp_p
     leaf of 3 and a 1-D leaf whole), and the two steps' loss, grad_norm,
     gradients and parameters are the whole batch's at accum 1 on one
     process, as close as the whole batch with its envs reversed."""
-    import multiprocessing as mp
     import pickle
-    import socket
 
-    from torch_gloo_workers import time_major_dp_worker
+    from torch_gloo_workers import join_ranks, start_ranks, time_major_dp_worker
 
     assert jtrain.CMATrainer.batch_axis == 1
     _, cfg_t, _, _, pol1 = _models("cma")
@@ -389,26 +387,16 @@ def test_dp2_accum2_splits_envs_as_jax_and_steps_as_the_whole_batch(batch, tmp_p
         pickle.dump({"name": "cma", "cfg": cfg_t, "depth_hw": DEPTH,
                      "state": str(tmp_path / "state.pt"), "probe": probe, "batch": batch,
                      "il": {"lr": LR, "weight_decay": 1e-5, "grad_accum_steps": 2}}, f)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=time_major_dp_worker,
-                         args=(r, 2, port, str(tmp_path / "spec.pkl"), str(tmp_path)))
-             for r in range(2)]
-    for p in procs:
-        p.start()
+    deadline_s = 120
+    procs = start_ranks(time_major_dp_worker, 2, str(tmp_path / "store"),
+                        str(tmp_path / "spec.pkl"), str(tmp_path))
     whole, flipped = (_trainer("cma", cfg_t, p, tmp_path / n) for p, n in
                       ((pol1, "whole"), (pol2, "flipped")))
     seen = [_snapshot_grads(t) for t in (whole, flipped)]
     metrics = [whole.train_step(batch) for _ in range(2)]
     for _ in range(2):
         flipped.train_step(_envs_reversed(batch))
-    for p in procs:
-        p.join(300)
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0, 0]
+    assert join_ranks(procs, deadline_s) == [0, 0]
     res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
 
     want = _jax_split(probe, dp=2, accum=2)
@@ -439,7 +427,10 @@ def test_dp2_accum2_splits_envs_as_jax_and_steps_as_the_whole_batch(batch, tmp_p
 def test_three_steps_equal_jax_and_resume(batch, tmp_path):
     """JAX's optimizer chain (`trainer.base.make_optimizer`: clip, AdamW
     with the decay mask, the warmup-cosine schedule) over JAX's gradients
-    against the port's trainer, step for step."""
+    against the port's trainer (fp32), step for step. JAX runs in float64,
+    the gradient program test_loss_and_every_gradient_equal_jax compiles
+    (one compile for the file): its steps are the exact ones the port's
+    fp32 steps are held to."""
     import optax
 
     from internnav_tpu.trainer.base import make_optimizer
@@ -447,14 +438,17 @@ def test_three_steps_equal_jax_and_resume(batch, tmp_path):
     cfg_j, cfg_t, _, params, pol = _models("cma", seed=12)
     jexp = JExpCfg(name="j", model_name="cma", model=cfg_j,
                    il=JIlCfg(lr=LR, weight_decay=1e-5))
-    tx = make_optimizer(jexp, 3)
-    update = jax.jit(lambda g, o, p: tx.update(g, o, p))
-    jlosses, jp, jo = [], params, tx.init(params)
-    for _ in range(3):
-        (loss, _), grads = _jax_grad_fn("cma")(jp, batch)
-        updates, jo = update(grads, jo, jp)
-        jp = optax.apply_updates(jp, updates)
-        jlosses.append(float(loss))
+    jlosses = []
+    with jax.enable_x64(True):
+        tx = make_optimizer(jexp, 3)
+        update = jax.jit(lambda g, o, p: tx.update(g, o, p))
+        jp, b64 = to64(params), to64(batch)
+        jo = tx.init(jp)
+        for _ in range(3):
+            (loss, _), grads = _jax_grad_fn("cma")(jp, b64)
+            updates, jo = update(grads, jo, jp)
+            jp = optax.apply_updates(jp, updates)
+            jlosses.append(float(loss))
     trainer = _trainer("cma", cfg_t, pol, tmp_path)
     losses = []
     for i in range(3):

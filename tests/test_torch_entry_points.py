@@ -9,10 +9,9 @@ agent, which acts as the JAX agent's schedule does on the same policy.
 import dataclasses
 import inspect
 import json
-import os
-import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -105,16 +104,16 @@ def test_port_config_files_equal_jax_configs(path):
 
 @pytest.mark.parametrize("path", TRAIN_CONFIGS, ids=lambda p: p.name)
 def test_port_train_configs_equal_jax_configs(path):
-    """scripts/torch/configs/{cma,seq2seq,rdp}_train_cfg.py against
-    scripts/train/configs/{cma,seq2seq,rdp}_cfg.py: the same ExpCfg."""
+    """scripts/torch/configs/{cma,seq2seq,rdp,navdp}_train_cfg.py against
+    scripts/train/configs/{cma,seq2seq,rdp,navdp}_cfg.py: the same ExpCfg."""
     assert [p.name for p in TRAIN_CONFIGS] == [
-        "cma_train_cfg.py", "rdp_train_cfg.py", "seq2seq_train_cfg.py"]
+        "cma_train_cfg.py", "navdp_train_cfg.py", "rdp_train_cfg.py", "seq2seq_train_cfg.py"]
     port = tconfigs.load_py_config(str(path), "exp_cfg")
     ref = jconfigs.load_py_config(str(REPO / "scripts" / "train" / "configs" /
                                       path.name.replace("_train_cfg", "_cfg")), "exp_cfg")
     assert type(port).__module__ == "internnav_tpu_torch.configs.trainer"
     assert port.model_dump() == ref.model_dump()
-    assert port.il.model_fields_set == ref.il.model_fields_set  # use_ema set in rdp's
+    assert port.il.model_fields_set == ref.il.model_fields_set  # use_ema set in rdp's, navdp's
 
 
 def test_load_py_config_refuses_a_file_without_the_attribute(tmp_path):
@@ -139,6 +138,7 @@ def test_get_config_unknown_name_raises_as_jax():
 def test_get_policy():
     from internnav_tpu_torch.model.basemodel.cma import CMAPolicy
     from internnav_tpu_torch.model.basemodel.cma_clip import CMACLIPPolicy
+    from internnav_tpu_torch.model.basemodel.navdp import NavDPPolicy
     from internnav_tpu_torch.model.basemodel.rdp import RDPPolicy
     from internnav_tpu_torch.model.basemodel.seq2seq import Seq2SeqPolicy
 
@@ -147,17 +147,64 @@ def test_get_policy():
     for names, cls in ((("CMA_Policy", "cma"), CMAPolicy),
                        (("Seq2Seq_Policy", "seq2seq"), Seq2SeqPolicy),
                        (("RDP_Policy", "rdp"), RDPPolicy),
-                       (("CMA_CLIP_Policy", "cma_clip"), CMACLIPPolicy)):
+                       (("CMA_CLIP_Policy", "cma_clip"), CMACLIPPolicy),
+                       (("NavDP_Policy", "navdp"), NavDPPolicy)):
         for name in names:
             assert tmodel_zoo.get_policy(name) is cls
             assert cls.name == jmodel_zoo.get_policy(name).name
-    for name in ("NavDP_Policy", "navdp"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 6c"):
-            tmodel_zoo.get_policy(name)
-        jmodel_zoo.get_policy(name)  # the JAX package has it
     for zoo in (tmodel_zoo, jmodel_zoo):
         with pytest.raises(KeyError, match="unknown policy"):
             zoo.get_policy("nope")
+
+
+def test_navdp_train_and_convert_entry_points_run(tmp_path, monkeypatch):
+    """`scripts/torch/train.py` on a NavDP config (tiny widths, the towers
+    of tests/test_torch_navdp_policy.py's `small_towers`) trains two steps
+    on the CPU over a synthetic NavDP store and saves the policy;
+    `scripts/torch/convert_checkpoint.py --model navdp` converts a
+    reference-layout .pth to a native directory that loads to the same
+    tensors."""
+    import importlib.util
+
+    from internnav_tpu_torch.dataset.navdp_dataset import write_synthetic_navdp_dataset
+    from internnav_tpu_torch.model.weights.convert import navdp_reference_state_dict
+    from test_torch_navdp_policy import small_towers, tiny
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(f"port_{name}",
+                                                      REPO / "scripts" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    store = write_synthetic_navdp_dataset(str(tmp_path / "store.bin"), n_episodes=2, T=10,
+                                          hw=28)
+    (tmp_path / "cfg.py").write_text(
+        "from internnav_tpu_torch.configs.trainer import ExpCfg, IlCfg\n"
+        "from test_torch_navdp_policy import tiny\n"
+        "from internnav_tpu_torch.model import get_config\n"
+        f"exp_cfg = ExpCfg(name='navdp_tiny', model_name='navdp', output_dir={str(tmp_path)!r},"
+        " model=tiny(get_config), il=IlCfg(lr=1e-4))\n")
+    with small_towers():
+        metrics = load("train").main(["--config", str(tmp_path / "cfg.py"), "--store", store,
+                                      "--steps", "2", "--batch-size", "2", "--device", "cpu"])
+        pol = tmodel_zoo.get_policy("navdp").from_pretrained(str(tmp_path / "navdp_tiny_final"),
+                                                             device="cpu")
+    assert np.isfinite([metrics[k] for k in ("loss", "critic_loss", "aux_loss")]).all()
+    assert pol.cfg.memory_size == 2 and pol.net.predict_size == 6
+    torch.save(navdp_reference_state_dict(pol.net), tmp_path / "navdp.pth")
+    from internnav_tpu_torch.configs import defaults
+
+    # the converter builds the model's default config: the tiny one here
+    monkeypatch.setattr(tmodel_zoo, "get_config", lambda name: tiny(defaults.get_model_cfg))
+    with small_towers():
+        assert load("convert_checkpoint").main([
+            "--model", "navdp", "--src", str(tmp_path / "navdp.pth"), "--dst",
+            str(tmp_path / "native"), "--device", "cpu"]) == 0
+        back = tmodel_zoo.get_policy("navdp").from_pretrained(str(tmp_path / "native"),
+                                                              device="cpu")
+    for name, value in back.net.state_dict().items():
+        assert torch.equal(value, pol.net.state_dict()[name]), name
 
 
 def _vlnpe_cfg(mod, **task):
@@ -182,12 +229,22 @@ def test_vln_default_get_config_equals_jax(task):
             get(_vlnpe_cfg(mod, scene=mod.SceneCfg(scene_type="moon")))
 
 
-def _run(args, **kw):
-    env = {**os.environ, "PYTHONHASHSEED": "0"}
-    proc = subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True,
-                          timeout=300, env=env, **kw)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+def _start(args):
+    """A python subprocess at the repo's root with PYTHONHASHSEED=0 and two
+    threads (`torch_gloo_workers.bounded_env`)."""
+    from torch_gloo_workers import bounded_env, start_bounded
+
+    return start_bounded([sys.executable, *args], cwd=REPO, env=bounded_env(PYTHONHASHSEED="0"))
+
+
+def _last_json(proc, deadline):
+    """The last stdout line of `proc` as JSON, once it exits 0 before the
+    time.monotonic() `deadline` (its process group killed past it)."""
+    from torch_gloo_workers import finish
+
+    done = finish(proc, deadline)
+    assert done.returncode == 0, done.stderr[-3000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
 
 
 def test_eval_cli_prints_the_metrics_of_the_evaluator(tmp_path):
@@ -201,15 +258,18 @@ def test_eval_cli_prints_the_metrics_of_the_evaluator(tmp_path):
         "from internnav_tpu_torch.configs import load_py_config\n"
         f"eval_cfg = load_py_config({str(FAKE_N1)!r})\n"
         f"eval_cfg.output_dir = {str(tmp_path / 'cli')!r}\n")
-    cli = _run(["scripts/torch/eval.py", "--config", str(cfg), "--device", "cpu"])
-    direct = _run(["-c", (
-        "import json\n"
-        "from internnav_tpu_torch.configs import load_py_config\n"
-        "from internnav_tpu_torch.evaluator import Evaluator\n"
-        f"cfg = load_py_config({str(cfg)!r})\n"
-        f"cfg.output_dir = {str(tmp_path / 'direct')!r}\n"
-        "cfg.agent.model_settings['device'] = 'cpu'\n"
-        "print(json.dumps(Evaluator.init(cfg).eval()))\n")])
+    # the two runs at once, under one deadline
+    procs = [_start(["scripts/torch/eval.py", "--config", str(cfg), "--device", "cpu"]),
+             _start(["-c", (
+                 "import json\n"
+                 "from internnav_tpu_torch.configs import load_py_config\n"
+                 "from internnav_tpu_torch.evaluator import Evaluator\n"
+                 f"cfg = load_py_config({str(cfg)!r})\n"
+                 f"cfg.output_dir = {str(tmp_path / 'direct')!r}\n"
+                 "cfg.agent.model_settings['device'] = 'cpu'\n"
+                 "print(json.dumps(Evaluator.init(cfg).eval()))\n")])]
+    deadline = time.monotonic() + 120
+    cli, direct = (_last_json(p, deadline) for p in procs)
     assert cli["num_episodes"] == 4
     assert {k: v for k, v in cli.items() if k not in TIMINGS} == \
         {k: v for k, v in direct.items() if k not in TIMINGS}

@@ -7,11 +7,8 @@ as HTTP 500 instead of a STOP action.
 
 import dataclasses
 import json
-import os
 import re
 import shutil
-import socket
-import subprocess
 import sys
 import urllib.error
 import urllib.request
@@ -35,6 +32,7 @@ from internnav_tpu_torch.realworld import serve
 from internnav_tpu_torch.realworld.server import RealWorldServer, encode_npy
 from internnav_tpu_torch.utils import geometry as tgeo
 from internnav_tpu_torch.utils.logging import get_logger
+from torch_gloo_workers import bounded_env, run_bounded
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
@@ -51,7 +49,12 @@ SCRIPTS = [BENCH_ENTRY, *(REPO / "scripts" / "torch" / name for name in (
     *(f"configs/habitat_{name}_cfg.py" for name in ("dual_system", "s2", "dialog", "object")),
     "configs/fake_cma_cfg.py", "configs/h1_cma_cfg.py", "configs/h1_seq2seq_cfg.py",
     "convert_checkpoint.py", "train.py", "lmdb_to_store.py", "configs/h1_rdp_cfg.py",
-    *(f"configs/{name}_train_cfg.py" for name in ("cma", "seq2seq", "rdp"))))]
+    *(f"configs/{name}_train_cfg.py" for name in ("cma", "seq2seq", "rdp", "navdp")),
+    # the LeRobot converters and the robot-side scripts
+    "vlnce_to_store.py", "store_to_lerobot.py", "realworld/http_internvla_client.py",
+    "iros_challenge/eval_iros.py",
+    *(f"iros_challenge/sdk/{name}.py" for name in ("main", "stream", "test_agent",
+                                                   "test_robot"))))]
 #: every module of the port, by its file
 PORT_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -103,7 +106,10 @@ def test_port_modules_cover_the_package():
                 "trainer.cma_trainer", "trainer.rdp_trainer", "model.encoder.bert",
                 "model.encoder.longclip", "model.encoder.clip_vit",
                 "model.encoder.diffusion_transformer", "model.basemodel.rdp",
-                "model.basemodel.cma_clip", "agent.rdp_agent"):
+                "model.basemodel.cma_clip", "agent.rdp_agent",
+                # standalone NavDP, the DPT depth head and the LeRobot reader
+                "model.basemodel.navdp", "model.encoder.dpt", "agent.navdp_agent",
+                "dataset.navdp_dataset", "trainer.navdp_trainer", "dataset.lerobot"):
         assert f"internnav_tpu_torch.{mod}" in PORT_MODULES, mod
     assert set(SCRIPTS) <= set(PORT_SOURCES)
     assert len(PORT_MODULES) > 40
@@ -123,8 +129,7 @@ def test_port_imports_with_jax_blocked():
                       for i, p in enumerate(SCRIPTS))
             + "assert not any(m.split('.')[0] in ('jax', 'flax', 'internnav_tpu') "
               "for m in sys.modules if sys.modules[m] is not None)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                          text=True, timeout=120)
+    proc = run_bounded([sys.executable, "-c", code], 120, cwd=REPO, env=bounded_env())
     assert proc.returncode == 0, proc.stderr
 
 
@@ -150,8 +155,8 @@ def test_port_int8_modules_import_without_triton(tmp_path, monkeypatch):
             "                        torch.zeros(1, dtype=torch.long))\n"
             "assert q.shape == (1, 1, 1, 64) and int(ke[0][0, 0].abs().max()) == 127\n"
             "assert 'triton' not in [m for m in sys.modules if sys.modules[m] is not None]\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                          text=True, timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    proc = run_bounded([sys.executable, "-c", code], 120, cwd=REPO,
+                       env=bounded_env(CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode == 0, proc.stderr
     from internnav_tpu_torch.ops import _build
 
@@ -309,12 +314,6 @@ def test_logger_copy_configures_like_the_original(tmp_path):
     assert (tmp_path / "port_copy_check.log").exists()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _post(port, route, body):
     req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
                                  data=json.dumps(body).encode(),
@@ -331,13 +330,16 @@ def _frame_body(seed):
 
 
 class _Served:
+    """The agent behind a RealWorldServer on a port the kernel picks at the
+    bind (no port read and released first, which another test could take)."""
+
     def __init__(self, agent):
         self.agent = agent
-        self.port = _free_port()
-        self.server = RealWorldServer(agent, "127.0.0.1", self.port)
+        self.server = RealWorldServer(agent, "127.0.0.1", 0)
 
     def __enter__(self):
         self.thread = self.server.run(background=True)
+        self.port = self.server._httpd.server_address[1]
         return self
 
     def __exit__(self, *exc):
@@ -416,9 +418,9 @@ def test_public_constructors_default_to_the_gpu(monkeypatch):
     """`build_model`, `InternVLAN1Policy.build`, the dialog agent, the H1
     loco controller, the loco checkpoint conversion, the VLN-PE vec env
     with its loco actors, `CMAPolicy.build` / `Seq2SeqPolicy.build` /
-    `RDPPolicy.build` / `CMACLIPPolicy.build` and the "cma" / "seq2seq" /
-    "rdp" agents without a device run on the GPU: with no CUDA device they
-    raise instead of building on the host."""
+    `RDPPolicy.build` / `CMACLIPPolicy.build` / `NavDPPolicy.build` and the
+    "cma" / "seq2seq" / "rdp" / "navdp" agents without a device run on the
+    GPU: with no CUDA device they raise instead of building on the host."""
     from internnav_tpu_torch.configs import AgentCfg
     from internnav_tpu_torch.dialog.dialog_agent import DialogAgent
     from internnav_tpu_torch.env.internutopia.loco import H1SpeedController, convert_loco_policy
@@ -442,9 +444,11 @@ def test_public_constructors_default_to_the_gpu(monkeypatch):
     from internnav_tpu_torch.agent.recurrent_agent import CmaAgent, Seq2SeqAgent
     from internnav_tpu_torch.model import get_config, get_policy
 
+    from internnav_tpu_torch.agent.navdp_agent import NavDPAgent
     from internnav_tpu_torch.agent.rdp_agent import RdpAgent
 
-    for name, agent_cls in (("cma", CmaAgent), ("seq2seq", Seq2SeqAgent), ("rdp", RdpAgent)):
+    for name, agent_cls in (("cma", CmaAgent), ("seq2seq", Seq2SeqAgent), ("rdp", RdpAgent),
+                            ("navdp", NavDPAgent)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_policy(name).build(get_config(name))
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -10,8 +10,6 @@ constructors) and `dataset/vlln_dataset.py` (its samples and the
 combined stream)."""
 
 import os
-import socket
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -111,11 +109,12 @@ def test_metric_logger_equals_jax(monkeypatch, total):
 
 
 _SYNC = """
-import sys, torch.distributed as dist
+import datetime, sys, torch.distributed as dist
 sys.path.insert(0, {repo!r})
 from internnav_tpu_torch.utils.metric_logger import MetricLogger
 rank = int(sys.argv[1])
-dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}", rank=rank, world_size=2)
+dist.init_process_group("gloo", init_method="file://{store}", rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
 log = MetricLogger()
 for v in range(rank + 1):
     log.update(loss=float(v + 10 * rank))
@@ -125,19 +124,18 @@ dist.destroy_process_group()
 """
 
 
-def test_metric_logger_sums_over_a_process_group():
+def test_metric_logger_sums_over_a_process_group(tmp_path):
     """Two gloo ranks: counts 1 and 2, totals 0 and 10 + 11; each rank
     then holds the sums (3, 21), as the reference's all_reduce gives."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    code = _SYNC.format(repo=str(REPO), port=port)
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], stdout=subprocess.PIPE,
-                              text=True, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
-             for r in range(2)]
-    outs = [p.communicate(timeout=120)[0].split() for p in procs]
-    assert [p.returncode for p in procs] == [0, 0]
-    assert outs == [["3", "21.0"], ["3", "21.0"]]
+    from torch_gloo_workers import bounded_env, finish, start_bounded
+
+    code = _SYNC.format(repo=str(REPO), store=str(tmp_path / "store"))
+    procs = [start_bounded([sys.executable, "-c", code, str(r)],
+                           env=bounded_env(CUDA_VISIBLE_DEVICES="")) for r in range(2)]
+    deadline = time.monotonic() + 60
+    done = [finish(p, deadline) for p in procs]
+    assert [d.returncode for d in done] == [0, 0], [d.stderr[-2000:] for d in done]
+    assert [d.stdout.split() for d in done] == [["3", "21.0"], ["3", "21.0"]]
 
 
 def test_phase_timer_equals_jax(monkeypatch):

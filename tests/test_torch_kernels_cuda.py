@@ -1763,3 +1763,61 @@ def test_recurrent_policy_on_the_card_matches_the_host(device, name):
             assert (emb[0] == 0).all() and (emb[2, 17:] == 0).all() and (emb[3] != 0).any()
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+#: standalone NavDP and the DPT head, fp32 with TF32 off on both sides: the
+#: same math summed in another order by cuBLAS / cuDNN and by the CPU
+STANDALONE_NAVDP_TOL = 1e-4
+DPT_TOL = 1e-4
+
+
+def test_standalone_navdp_replan_on_the_card_matches_the_host(device):
+    """navdp_cfg at the reference's width (224 x 224 RGB-D, memory 8,
+    predict 24, an 8-layer decoder, four ViT-S towers), one pointgoal replan
+    of 16 samples with fixed draws, on the card and on the host: the best
+    and worst trajectories."""
+    from internnav_tpu_torch import model as zoo
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = zoo.get_config("navdp")
+        host = zoo.get_policy("navdp").build(cfg, device="cpu", seed=0)
+        card = zoo.get_policy("navdp").build(cfg, device=device, seed=0)
+        g = torch.Generator().manual_seed(1)
+        obs = {"input_images": torch.rand(1, 8, 224, 224, 3, generator=g),
+               "input_depths": 5.0 * torch.rand(1, 8, 224, 224, 1, generator=g),
+               "goal_point": torch.tensor([[2.0, 0.5, 0.0]])}
+        draws = host.net.infer_draws(16, g, "cpu")
+        batch = {"mode": "pointgoal", "observations": obs, "sample_num": 16, "draws": draws}
+        want = host.forward(batch)
+        got = card.forward(dict(batch, draws={k: v.to(device) for k, v in draws.items()}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for w, c in zip(want, got):
+        assert c.shape == (1, 8, 24, 3) and torch.isfinite(c).all()
+        err = (c.cpu() - w).abs().max().item()
+        assert err <= STANDALONE_NAVDP_TOL, err
+
+
+def test_dpt_forward_on_the_card_matches_the_host(device):
+    """DepthAnythingV2 (ViT-S trunk, the DPT head) at the reference's 518 x
+    518 input, seed-0 weights, on the card and on the host."""
+    from internnav_tpu_torch.model.encoder.dpt import DepthAnythingV2
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        host = DepthAnythingV2().eval()
+        card = DepthAnythingV2().eval()
+        card.load_state_dict(host.state_dict())
+        card.to(device)
+        x = torch.randn(1, 518, 518, 3, generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            want, got = host(x), card(x.to(device)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.shape == (1, 518, 518) and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= DPT_TOL * host.max_depth, err

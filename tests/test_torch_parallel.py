@@ -47,6 +47,7 @@ from internnav_tpu_torch.dataset.internvla_n1_dataset import (
     write_synthetic_n1_dataset,
 )
 from internnav_tpu_torch.graft_entry import dryrun_multichip
+from torch_gloo_workers import child_deadline
 from internnav_tpu_torch.model.basemodel.internvla_n1 import policy as tpolicy
 from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
 from internnav_tpu_torch.model.weights.from_jax import _resolve, load_from_jax
@@ -158,24 +159,9 @@ def test_collectives_over_a_gloo_mesh(tmp_path):
     dp x tp = 2 x 2 mesh (rank = 2·dp + tp): means, sums and maxima over
     one mesh dimension, rank 0's value broadcast, rank 0 alone saving, and
     each dp rank's block of rows."""
-    import multiprocessing as mp
-    import socket
+    from torch_gloo_workers import collectives_worker, run_ranks
 
-    from torch_gloo_workers import collectives_worker
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=collectives_worker, args=(r, 4, port, str(tmp_path)))
-             for r in range(4)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(120)
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * 4
+    run_ranks(collectives_worker, 4, str(tmp_path / "store"), str(tmp_path), deadline_s=90)
     for r in range(4):
         res = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
         dp, tp = divmod(r, 2)
@@ -336,10 +322,11 @@ def test_dp4_tp2_step_matches_jax_and_checkpoints_cross_layouts(tiny_pair, tmp_p
     InternVLAN1Trainer(_exp(out), pol, total_steps=1).save_checkpoint()  # step 0, one device
     with open(tmp_path / "batch.pkl", "wb") as f:
         pickle.dump(batch, f)
-    res = dryrun_multichip(8, spec={"mesh": mesh, "il": {"lr": LR, "lr_schedule": "constant"},
-                                    "batch": str(tmp_path / "batch.pkl"), "draws": jax_out[3],
-                                    "output_dir": str(out), "resume": True, "save": True,
-                                    "gather": True})
+    with child_deadline(120):
+        res = dryrun_multichip(8, spec={"mesh": mesh, "il": {"lr": LR, "lr_schedule": "constant"},
+                                        "batch": str(tmp_path / "batch.pkl"),
+                                        "draws": jax_out[3], "output_dir": str(out),
+                                        "resume": True, "save": True, "gather": True})
     assert res["step"] == 1
     _check_step(res["metrics"], res["state"], jax_out, start, tcfg)
     got = res["state"]["params"]
@@ -374,9 +361,10 @@ def test_dp4_fsdp_step_over_unequal_rows_matches_jax(tiny_pair, tmp_path):
     with open(tmp_path / "batch.pkl", "wb") as f:
         pickle.dump(batch, f)
     torch.save(start, tmp_path / "state.pt")
-    res = dryrun_multichip(4, spec={"mesh": {"axes": {"dp": 4}, "param_sharding": "fsdp"},
-                                    "il": {"lr": LR, "lr_schedule": "constant"},
-                                    "state": str(tmp_path / "state.pt"),
-                                    "batch": str(tmp_path / "batch.pkl"), "draws": jax_out[3],
-                                    "gather": True})
+    with child_deadline(120):
+        res = dryrun_multichip(4, spec={"mesh": {"axes": {"dp": 4}, "param_sharding": "fsdp"},
+                                        "il": {"lr": LR, "lr_schedule": "constant"},
+                                        "state": str(tmp_path / "state.pt"),
+                                        "batch": str(tmp_path / "batch.pkl"),
+                                        "draws": jax_out[3], "gather": True})
     _check_step(res["metrics"], res["state"], jax_out, start, tcfg)

@@ -188,23 +188,27 @@ def test_eval_cli_against_start_server(tmp_path):
     `scripts/torch/start_server.py` in another process: the metrics of the
     same evaluation in-process (the "simple" agent's seeded actions), one
     result.json line, and the server's /health lists the agent."""
+    from torch_gloo_workers import bounded_env, run_bounded, start_bounded
+
     port = _free_port()
     (tmp_path / "remote.py").write_text(_simple_cfg(tmp_path / "remote", port))
     (tmp_path / "local.py").write_text(_simple_cfg(tmp_path / "local"))
-    server = subprocess.Popen([sys.executable, "scripts/torch/start_server.py", "--config",
-                               str(tmp_path / "remote.py")], cwd=REPO,
-                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    server = start_bounded([sys.executable, "scripts/torch/start_server.py", "--config",
+                            str(tmp_path / "remote.py")], cwd=REPO, env=bounded_env())
     try:
-        proc = subprocess.run([sys.executable, "scripts/torch/eval.py", "--config",
-                               str(tmp_path / "remote.py")], cwd=REPO, capture_output=True,
-                              text=True, timeout=300)
+        proc = run_bounded([sys.executable, "scripts/torch/eval.py", "--config",
+                            str(tmp_path / "remote.py")], 120, cwd=REPO, env=bounded_env())
         assert proc.returncode == 0, proc.stderr[-3000:]
         remote = json.loads(proc.stdout.strip().splitlines()[-1])
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5) as resp:
             assert json.loads(resp.read())["agents"] == ["simple"]
     finally:
         server.terminate()
-        server.wait(timeout=30)
+        try:
+            server.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.communicate()
     cwd = os.getcwd()
     try:
         os.chdir(REPO)
@@ -224,8 +228,10 @@ def test_two_process_eval_gather():
     3 of the 6 episodes, both ranks' gathered metrics over 6, one
     result.json line (what the JAX package's tests/test_distributed_eval.py
     expects of its script)."""
-    out = subprocess.run([sys.executable, str(REPO / "scripts/torch/dryrun_distributed_eval.py")],
-                         capture_output=True, text=True, timeout=600)
+    from torch_gloo_workers import bounded_env, run_bounded
+
+    out = run_bounded([sys.executable, str(REPO / "scripts/torch/dryrun_distributed_eval.py")],
+                      120, env=bounded_env())
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
     assert lines, f"no summary line:\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}"
     summary = json.loads(lines[-1])

@@ -23,9 +23,7 @@ fp32 keeps a near-tie in the logits from deciding a token).
 """
 
 import dataclasses
-import multiprocessing as mp
 import pickle
-import socket
 
 import numpy as np
 import pytest
@@ -45,6 +43,7 @@ from internnav_tpu_torch.model.weights.from_jax import load_from_jax
 from internnav_tpu_torch.parallel.tp import serve_tp_layout
 # fp32_jax_nextdit: autouse, the JAX tiny NextDiT in fp32 for every test here
 from test_torch_system1 import f32_config, fp32_jax_nextdit, n1_params  # noqa: F401
+from torch_gloo_workers import child_deadline, run_ranks
 
 torch.set_num_threads(2)
 EOS = (3,)
@@ -115,19 +114,8 @@ def _port_greedy(tm, ids, new):
     return tok.numpy(), ln.numpy()
 
 
-def _spawn(target, world, *args):
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=target, args=(r, world, port, *args)) for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(240)
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * world
+def _spawn(target, world, tmp, *args):
+    run_ranks(target, world, str(tmp / "store"), *args, deadline_s=120)
 
 
 @pytest.fixture(scope="module")
@@ -160,7 +148,7 @@ def tp2(tmp_path_factory):
     spec["argmax_logits"] = [logits[:, :4], logits[:, 4:]]
     with open(tmp / "spec.pkl", "wb") as f:
         pickle.dump(spec, f)
-    _spawn(serve_tp_worker, 2, str(tmp / "spec.pkl"), str(tmp))
+    _spawn(serve_tp_worker, 2, tmp, str(tmp / "spec.pkl"), str(tmp))
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
     return cases, models, ranks, logits
 
@@ -244,7 +232,8 @@ def test_dryrun_multichip_serving_matches_single_device_and_jax(tmp_path):
     tcfg = InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
     model = load_from_jax(tpolicy.build_model(tcfg, device="cpu"), params)
     torch.save(model.state_dict(), tmp_path / "state.pt")
-    res = dryrun_multichip(8, spec={"state": str(tmp_path / "state.pt")})
+    with child_deadline(120):
+        res = dryrun_multichip(8, spec={"state": str(tmp_path / "state.pt")})
 
     # JAX's phase 2 on the same language model
     tparams = params["language_model"]

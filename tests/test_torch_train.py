@@ -331,7 +331,6 @@ def test_train_n1_cli_under_torchrun_matches_one_device(tmp_path, mesh, accum):
     packed row, so at --fsdp every rank and micro-batch computes it whole."""
     import ast
     import os
-    import subprocess
     import sys
     from pathlib import Path
 
@@ -350,11 +349,12 @@ def test_train_n1_cli_under_torchrun_matches_one_device(tmp_path, mesh, accum):
     repo = str(Path(__file__).resolve().parents[1])
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")])}
-    proc = subprocess.run(
+    from torch_gloo_workers import run_bounded
+
+    proc = run_bounded(  # the launcher and its two ranks killed at the limit
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
          "-m", "internnav_tpu_torch.trainer.train_n1", *argv, *mesh, *accum,
-         "--output-dir", str(tmp_path / "two")],
-        env=env, cwd=str(tmp_path), capture_output=True, text=True, timeout=300)
+         "--output-dir", str(tmp_path / "two")], 120, env=env, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-4000:]
     finals = [ln for ln in proc.stdout.splitlines() if ln.startswith("final: ")]
     assert len(finals) == 1, proc.stdout[-4000:]  # rank 0 alone prints

@@ -6,7 +6,7 @@ and metrics; the planners' grid transforms, obstacle inflation, continuous
 A* paths and discrete action plans on seeded grids exactly equal.
 
 The VN run with the standalone "navdp" agent (tests/test_vn.py's slow
-test) waits for that agent's port (ROADMAP §1 item 6).
+test) is tests/test_torch_navdp_agent.py's.
 """
 
 import numpy as np

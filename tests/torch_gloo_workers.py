@@ -1,21 +1,124 @@
-"""Workers that the CPU tests spawn in gloo process groups. This module
-imports neither JAX nor the test modules, so a spawned child loads only
-torch and the port."""
+"""Workers that the CPU tests spawn in gloo process groups, and the
+helpers that bound every spawning test in time. This module imports
+neither JAX nor the test modules, so a spawned child loads only torch and
+the port.
+
+The ranks meet through a `FileStore` at a path of the test's own (no TCP
+port: a free port read, released and reused can be taken by another
+test's group in between, whose ranks the two groups would then share),
+with a collective timeout of GROUP_TIMEOUT; the parent waits for them
+under one deadline (`join_ranks`) and kills what is left, so a hang fails
+its own test instead of using up the run."""
+
+import contextlib
+import datetime
+import multiprocessing as mp
+import os
+import signal
+import subprocess
+import threading
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+#: a gloo collective's timeout in the workers: a lost rank fails its
+#: peers' next collective instead of holding them for torch's 30 minutes
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
 
-def collectives_worker(rank: int, world: int, port: int, out: str) -> None:
+
+def init_group(rank: int, world: int, store: str) -> None:
+    """Join the gloo group of `world` ranks meeting at the file `store`."""
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=GROUP_TIMEOUT)
+
+
+def start_ranks(target, world: int, store: str, *args) -> list:
+    """Spawn `world` processes running target(rank, world, store, *args)."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, store, *args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_ranks(procs: list, deadline_s: float) -> list:
+    """Wait for the processes under one deadline shared by all the joins;
+    kill those still running and fail. Returns their exit codes."""
+    end = time.monotonic() + deadline_s
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+    assert not late, f"{len(late)} of {len(procs)} processes still ran after {deadline_s} s"
+    return [p.exitcode for p in procs]
+
+
+def run_ranks(target, world: int, store: str, *args, deadline_s: float = 120.0) -> None:
+    """`start_ranks`, then `join_ranks`; every rank must exit 0."""
+    codes = join_ranks(start_ranks(target, world, store, *args), deadline_s)
+    assert codes == [0] * world, codes
+
+
+@contextlib.contextmanager
+def child_deadline(seconds: float):
+    """Kill every multiprocessing child still running `seconds` after the
+    block starts: a test that spawns through code it does not own
+    (`graft_entry.dryrun_multichip`, whose joins then return) fails instead
+    of hanging."""
+    timer = threading.Timer(seconds, lambda: [p.kill() for p in mp.active_children()])
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def start_bounded(cmd, **kw) -> subprocess.Popen:
+    """A subprocess in a process group of its own (text pipes), for
+    `finish`."""
+    return subprocess.Popen(cmd, process_group=0, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, **kw)
+
+
+def finish(proc: subprocess.Popen, deadline: float) -> subprocess.CompletedProcess:
+    """Wait for `proc` until the time.monotonic() `deadline`; past it, kill
+    its whole process group (torchrun's ranks too) and raise
+    TimeoutExpired."""
+    try:
+        out, err = proc.communicate(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def run_bounded(cmd, timeout: float, **kw) -> subprocess.CompletedProcess:
+    """subprocess.run(cmd, capture_output=True, text=True, timeout=...) with
+    the process group killed on timeout."""
+    return finish(start_bounded(cmd, **kw), time.monotonic() + timeout)
+
+
+def bounded_env(**extra) -> dict:
+    """The environment of a test's subprocesses: two threads each, as the
+    test workers run, so that a subprocess does not spin every core of a
+    host the other workers share."""
+    return {**os.environ, "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2", **extra}
+
+
+def collectives_worker(rank: int, world: int, store: str, out: str) -> None:
     """Every helper of `parallel.collectives` and `parallel.mesh.shard_batch`
     on a dp x tp = 2 x 2 mesh; this rank's results saved to out/rank{r}.pt."""
     from internnav_tpu_torch import parallel
     from internnav_tpu_torch.parallel.collectives import comm_device, mesh_group, pmax, psum_forward
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+    init_group(rank, world, store)
     try:
         mesh = parallel.make_mesh({"dp": -1, "tp": 2})
         saved = []
@@ -47,7 +150,7 @@ def collectives_worker(rank: int, world: int, port: int, out: str) -> None:
         dist.destroy_process_group()
 
 
-def serve_tp_worker(rank: int, world: int, port: int, spec_path: str, out: str) -> None:
+def serve_tp_worker(rank: int, world: int, store: str, spec_path: str, out: str) -> None:
     """The serving layout at tp = world over one gloo group: for each case
     of the pickled spec (a QwenTextConfig, a state-dict file, prompt ids
     and the decode's budget and stop ids) the text model is built whole,
@@ -61,8 +164,7 @@ def serve_tp_worker(rank: int, world: int, port: int, spec_path: str, out: str) 
     from internnav_tpu_torch.parallel.tp import apply_serve_tp
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+    init_group(rank, world, store)
     try:
         with open(spec_path, "rb") as f:
             spec = pickle.load(f)
@@ -96,7 +198,7 @@ def serve_tp_worker(rank: int, world: int, port: int, spec_path: str, out: str) 
         dist.destroy_process_group()
 
 
-def time_major_dp_worker(rank: int, world: int, port: int, spec_path: str, out: str) -> None:
+def time_major_dp_worker(rank: int, world: int, store: str, spec_path: str, out: str) -> None:
     """A recurrent trainer at dp = world over one gloo group, with the
     pickled spec's grad_accum_steps: its `micro_batches` of the spec's
     time-major probe batch (nested dicts, leaves whose envs the split does
@@ -110,8 +212,7 @@ def time_major_dp_worker(rank: int, world: int, port: int, spec_path: str, out: 
     from internnav_tpu_torch.trainer.cma_trainer import CMATrainer, Seq2SeqTrainer
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+    init_group(rank, world, store)
     try:
         with open(spec_path, "rb") as f:
             spec = pickle.load(f)
