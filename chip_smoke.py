@@ -78,6 +78,21 @@ Phases, each printing its numbers:
                the captured decode step); tokens, lengths and traj latents
                bitwise equal, K1 launched once a prefill layer on the
                local heads; each request's seconds;
+  quant quality — scripts/torch/compare_quant.py on the parity policy:
+               6 prompts (224x224, saturated histories, 20 tokens, 32
+               System-1 samples) through it and through its co-resident
+               W8A8 + int8 KV and int4 (g128) + int8 KV copies at all 28
+               layers, then the sequential W8A8 + int8 KV run (tokens equal
+               to the co-resident run's, statistics within
+               QUALITY_SEQ_TOL); each JSON line, its seconds and peak
+               memory; then, with the parity policy freed, the tools:
+               bench_flash_attention.py (the live-pair rate at most the
+               bf16 peak), bench_w4.py (each weight stream at most the HBM
+               rate x 1.05), profile_s2.py --phase cycle at batch 16 and 28
+               layers (device time by category above 0), the inference
+               demo on the card (its six synthetic frames at DEMO_LAYERS of
+               the 7B width) and launch_multihost.sh at world size 1 over
+               NCCL on fake_cma_cfg.py (one result.json line);
   checkpoint — the parity policy written as an HF-layout sharded
                safetensors checkpoint (`convert.hf_state_dict`, 5 GiB
                shards and the index) in TMPDIR (or build/chip_smoke when
@@ -141,7 +156,7 @@ Phases, each printing its numbers:
                7B realtime policy, 4 cohorts x 12 streams, 224x224,
                max_step 24, shared grouped decode of 20 tokens (stop id
                -7), per-cohort System-1, barrier env apply; one warm run
-               and EVAL_RUNS (2) timed runs: actions/s per run and their
+               and EVAL_RUNS (1) timed runs: actions/s per run and their
                median,
                p50/p99 action latency, the agents' System-2 and System-1
                calls, the decode graph's captures and replays, peak
@@ -158,7 +173,7 @@ Phases, each printing its numbers:
                and timed at its most launched signatures (kernel rows
                with path=evaluate); then the int4 loop (`bench_evaluator.py
                --weight-dtype int4 --ckpt <native int4>`): a warm run and
-               one timed run of SHORT_MAX_STEP (12) steps, K9 and the
+               one timed run of SHORT_MAX_STEP (8) steps, K9 and the
                lm_head's K6b launched, no K10,
                no plain version; then evaluate server, the reference's
                client-server layout: `AgentServer` on a thread of this
@@ -265,7 +280,7 @@ Phases, each printing its numbers:
                (device ms, launches);
                evaluate navdp (`bench_evaluator.py --system1 navdp_async`'s
                functions, 4 x 12, a warm and one timed run of
-               SHORT_MAX_STEP (12) steps: actions/s,
+               SHORT_MAX_STEP (8) steps: actions/s,
                System-1's host seconds, K1 and K4-K8 launched, no plain
                version);
   7. train   — with the serving policies freed: the full-width 7B
@@ -300,7 +315,8 @@ Phases, each printing its numbers:
                unchanged; no plain version run; step s, tokens/s, MFU and
                peak memory printed.
 Every kernel's launch count is set to 0 just before each of the
-twenty-five paths (serve, serve tp, serve realtime, the long realtime request, serve
+thirty paths (serve, serve tp, quant quality, flash bench, w4 bench, profile s2,
+demo, serve realtime, the long realtime request, serve
 realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
 evaluate phase's timed runs, the int4 evaluate's timed run, evaluate
 server, evaluate habitat, evaluate vln_pe (each of its three parts),
@@ -434,10 +450,10 @@ def gpu_line() -> str:
 _FLUSH = []  # the buffer `cuda_ms(cold=True)` writes, made once
 
 
-def cuda_ms(fn, reps: int = 20, cold: bool = False) -> float:
-    """Device milliseconds of one fn() call: the median of `reps` CUDA-event
-    timings (after one warm-up). Each call is queued behind a device-side
-    sleep (QUEUE_CYCLES, ~5 ms), so the host has enqueued the call's
+def cuda_ms(fn, reps: int = 20, cold: bool = False, stat=statistics.median) -> float:
+    """Device milliseconds of one fn() call: the median (or `stat`) of
+    `reps` CUDA-event timings (after one warm-up). Each call is queued
+    behind a device-side sleep (QUEUE_CYCLES, ~5 ms), so the host has enqueued the call's
     launches before the device reaches them, and the events time the
     device's work alone rather than the host's launch overhead. With
     `cold`, a 128 MB buffer is written between the sleep and the start
@@ -460,7 +476,7 @@ def cuda_ms(fn, reps: int = 20, cold: bool = False) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return stat(times)
 
 
 def phase_build() -> None:
@@ -2612,10 +2628,11 @@ def phase_serve_batched(device) -> dict:
 
 
 # -------------------------------------------------------------- evaluate
-EVAL_RUNS = 2  # timed evaluator runs after the warm one
-#: the step budget of the evaluate int4 and evaluate navdp runs: half the
-#: headline's bench.MAX_STEP, to keep the script inside its time limit
-SHORT_MAX_STEP = 12
+EVAL_RUNS = 1  # timed evaluator runs after the warm one (3 before PR 22, 2 before PR 23)
+#: the step budget of the evaluate int4 and evaluate navdp runs: a third of
+#: the headline's bench.MAX_STEP (24 before PR 22, 12 before PR 23), to
+#: keep the script inside its time limit
+SHORT_MAX_STEP = 8
 #: the plain versions of the kernels, by ops module: none may run on the card
 PLAIN_VERSIONS = {
     "flash_attention": ("mha_reference", "flash_backward_reference", "gqa_decode_reference",
@@ -5770,6 +5787,228 @@ def phase_train_sharded(device, store, ckpt: Path, want: dict, train: dict) -> d
     return {"launches": totals}
 
 
+# ------------------------------------------------------------------ tools
+#: the quant quality phase (scripts/torch/compare_quant.py at its
+#: defaults): 6 prompts of 224x224 frames, 20 tokens, 32 System-1 samples
+#: at all 28 layers. The sequential run must give the co-resident run's
+#: tokens on both sides and its statistics within QUALITY_SEQ_TOL
+#: (the same seed-0 draws and codes: a gap is an op that the card does not
+#: repeat bitwise, which the phase names by the outputs that differ)
+QUALITY_SEQ_TOL = 1e-3
+#: the bf16 side's decode attention over its bf16 caches: plain torch, no
+#: kernel (none in JAX either; ROADMAP H1 item 7), so these two plain
+#: versions run there by design and no other may
+BF16_DECODE_PLAIN = ("flash_attention.gqa_decode_reference",
+                     "flash_attention.gqa_chunk_decode_reference")
+#: the micro-benchmarks' ceilings: the bf16 tensor-core peak over the live
+#: pairs, and the HBM3 rate with 5% for the clock's spread
+FLASH_LIVE_PEAK_TFLOPS = PEAK_BF16_FLOPS / 1e12
+W4_STREAM_LIMIT_GBS = PEAK_HBM_BYTES * 1.05 / 1e9
+#: the demo's decoder depth at the 7B width (a smoke of the script's path)
+DEMO_LAYERS = 4
+
+
+def _seq_gaps(co, seq) -> dict:
+    """Largest differences of the sequential run's per-prompt outputs from
+    the co-resident run's: {side.output: max abs}, tokens as counts."""
+    import numpy as np
+
+    gaps = {}
+    for side, a, b in (("bf16", co[0], seq[0]), ("quant", co[1], seq[1])):
+        gaps[f"{side}.tokens_differing"] = int(sum(
+            (x["tokens"] != y["tokens"]).sum() for x, y in zip(a, b)))
+        for key in ("latent", "traj"):
+            gaps[f"{side}.{key}"] = float(max(np.abs(x[key] - y[key]).max()
+                                              for x, y in zip(a, b)))
+    return gaps
+
+
+def phase_quant_quality(device, parity) -> dict:
+    """scripts/torch/compare_quant.py on chip_smoke's parity policy (the
+    28-layer 7B bf16 build, seed 0): co-resident W8A8 + int8 KV and int4
+    (grouped-128) + int8 KV against one bf16 pass, then the sequential
+    W8A8 + int8 KV run (the bf16 tree drawn again from seed 0, freed,
+    drawn again and quantized in place), whose tokens must equal the
+    co-resident run's and whose statistics must lie within
+    QUALITY_SEQ_TOL of them. No plain version may run but the bf16
+    caches' decode attention (BF16_DECODE_PLAIN). Prints each JSON
+    line with its seconds and peak memory; returns the phase's launches."""
+    import torch
+
+    cq = _load_script("compare_quant")
+    plain = collections.Counter()
+    spies = _plain_spies(plain)
+    reset_launch_counts()
+    lines, outs = {}, {}
+    try:
+        torch.cuda.synchronize(device)
+        for name, kw in (("w8a8_kv8", dict(weight_bits=8)),
+                         ("int4_g128_kv8", dict(weight_bits=4)),
+                         ("w8a8_kv8_sequential", dict(weight_bits=8))):
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            if name.endswith("sequential"):
+                line, bf16, quant = cq.compare_quant_sequential(
+                    parity.cfg, device=device, seed=parity.seed, kv_dtype="int8", **kw)
+            else:  # the bf16 pass once, for both formats
+                line, bf16, quant = cq.compare_quant(
+                    parity, kv_dtype="int8", outs_bf=outs.get("w8a8_kv8", (None,))[0], **kw)
+            outs[name] = (bf16, quant)
+            torch.cuda.synchronize(device)
+            lines[name] = line
+            print(f"phase quant quality: {name} seconds={time.perf_counter() - t0:.2f} "
+                  f"peak_gib={torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
+                  f"line={json.dumps(line)}")
+        launches = launch_counts()
+    finally:
+        _restore(spies)
+    gaps = _seq_gaps(outs["w8a8_kv8"], outs["w8a8_kv8_sequential"])
+    stats = ("token_agreement", "mean_first_divergence_tok", "traj_latent_rel_l2",
+             "waypoint_mean_l2_m", "waypoint_rel_l2")
+    co, seq = lines["w8a8_kv8"]["detail"], lines["w8a8_kv8_sequential"]["detail"]
+    stat_gap = {k: abs(co[k] - seq[k]) for k in stats}
+    problems = []
+    if gaps["bf16.tokens_differing"] or gaps["quant.tokens_differing"]:
+        problems.append(f"sequential tokens differ from the co-resident run's: {gaps}")
+    if max(stat_gap.values()) > QUALITY_SEQ_TOL:
+        problems.append(f"sequential statistics off the co-resident ones by {stat_gap}")
+    for name, line in lines.items():
+        d = line["detail"]
+        if d["num_layers"] != 28 or d["n_prompts"] != 6 or d["decode_tokens"] != 20 or not all(
+                math.isfinite(d[k]) for k in stats):
+            problems.append(f"{name}: {d}")
+    other = {k: v for k, v in plain.items() if k not in BF16_DECODE_PLAIN}
+    if other:
+        problems.append(f"plain versions ran: {other}")
+    if not all(launches[k] for k in ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8", "K9")):
+        problems.append(f"a kernel of the path was not launched: {launches}")
+    not_bitwise = sorted(k for k, v in gaps.items() if v and not k.endswith("tokens_differing"))
+    print(f"phase quant quality: path=quant_quality sequential_vs_coresident_max_abs={gaps} "
+          f"stat_gaps={stat_gap} tol={QUALITY_SEQ_TOL} not_bitwise_repeated="
+          f"{not_bitwise or 'none'} launches={json.dumps(launches)} "
+          f"plain_calls={json.dumps(plain)} gpu={gpu_line()!r}")
+    if problems:
+        raise AssertionError("quant quality: " + "; ".join(problems))
+    return {"quant_quality": launches}
+
+
+def phase_tool_benches(device) -> dict:
+    """scripts/torch/bench_flash_attention.py and bench_w4.py at their
+    defaults (K1, K2 + K3 at the 8192-token packed row; K6b, K9 and K10
+    over 12 weight buffers at M = 16), each under its own launch count.
+    Fails if the flash rate over the live pairs reads above the bf16 peak
+    or a weight stream above the HBM rate (x 1.05)."""
+    import torch
+
+    fb, w4 = _load_script("bench_flash_attention"), _load_script("bench_w4")
+    out, problems = {}, []
+    reset_launch_counts()
+    flash = fb.run()
+    out["flash_bench"] = launch_counts()
+    reset_launch_counts()
+    stream = w4.run()
+    out["w4_bench"] = launch_counts()
+    torch.cuda.synchronize(device)
+    print(f"phase flash bench: path=flash_bench {json.dumps(flash)} "
+          f"launches={json.dumps(out['flash_bench'])} gpu={gpu_line()!r}")
+    print(f"phase w4 bench: path=w4_bench {json.dumps(stream)} "
+          f"launches={json.dumps(out['w4_bench'])} gpu={gpu_line()!r}")
+    for side in ("fwd", "bwd"):
+        if not 0 < flash[f"{side}_live_tflops"] <= FLASH_LIVE_PEAK_TFLOPS:
+            problems.append(f"flash {side} at {flash[f'{side}_live_tflops']} TFLOP/s over "
+                            f"the live pairs")
+    for name in w4.BYTES_PER_WEIGHT:
+        if not 0 < stream[name]["stream_gbs"] <= W4_STREAM_LIMIT_GBS:
+            problems.append(f"w4 {name} streams {stream[name]['stream_gbs']} GB/s")
+    if not (out["flash_bench"]["K1"] and out["flash_bench"]["K2"] and out["flash_bench"]["K3"]):
+        problems.append(f"flash bench launches {out['flash_bench']}")
+    if not all(out["w4_bench"][k] for k in ("K6b", "K9", "K10")):
+        problems.append(f"w4 bench launches {out['w4_bench']}")
+    if problems:
+        raise AssertionError("tool benches: " + "; ".join(problems))
+    return out
+
+
+def phase_profile_s2(device) -> dict:
+    """scripts/torch/profile_s2.py --phase cycle at batch 16 and 28 layers
+    (its own W8A8 + int8 KV build, seed 0): the traced cycle's device time
+    by category must be more than 0."""
+    import torch
+
+    ps = _load_script("profile_s2")
+    reset_launch_counts()
+    got = ps.run("cycle", batch=16, layers=28, top=15, logdir=str(WORK_DIR / "profile_s2"))
+    launches = launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cats = {k: round(v, 4) for k, v in sorted(got["categories"].items(), key=lambda kv: -kv[1])}
+    print(f"phase profile s2: path=profile_s2 phase=cycle batch=16 layers=28 "
+          f"device_ms={got['total_ms']:.4f} traced_wall_ms={got['traced_wall_ms']:.1f} "
+          f"s2_best_ms={got['s2_best_ms']:.1f} s1_best_ms={got['s1_best_ms']:.1f} "
+          f"categories_ms={json.dumps(cats)} launches={json.dumps(launches)} gpu={gpu_line()!r}")
+    if not got["total_ms"] > 0:
+        raise AssertionError(f"profile s2: no device time in the trace: {got}")
+    return {"profile_s2": launches}
+
+
+def phase_demo(device) -> dict:
+    """scripts/torch/inference_demo.py on the card: its six synthetic
+    frames through the 7B width at DEMO_LAYERS decoder layers (random bf16
+    weights, seed 0), one System-2 line a frame."""
+    import torch
+
+    demo = _load_script("inference_demo")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = demo.main(["--device", str(device), "--config", "7b",
+                       "--layers", str(DEMO_LAYERS)])
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = [ln for ln in lines if "llm:" in ln]
+    print(f"phase demo: path=demo layers={DEMO_LAYERS} frames={len(steps)} "
+          f"seconds={seconds:.2f} launches={json.dumps(launches)} gpu={gpu_line()!r}")
+    if len(steps) != 6 or not launches["K1"] or not launches["K8"]:
+        raise AssertionError(f"demo: {len(steps)} frames, launches {launches}")
+    return {"demo": launches}
+
+
+def phase_launcher(device) -> None:
+    """scripts/torch/launch_multihost.sh on fake_cma_cfg.py (CMA at the
+    reference's width, random weights, 4 FakeEnv episodes) at world size
+    1: torchrun, eval.py's NCCL process group on cuda:0, one result.json
+    line. Its kernels run in the launched process (CMA launches none of
+    K1-K10)."""
+    import shutil
+
+    out = WORK_DIR / "launcher"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg = out / "cfg.py"
+    cfg.write_text(
+        "from internnav_tpu_torch.configs import load_py_config\n"
+        f"eval_cfg = load_py_config({str(REPO / 'scripts/torch/configs/fake_cma_cfg.py')!r})\n"
+        f"eval_cfg.dataset.base_data_dir = {str(REPO / 'data' / 'fake_r2r')!r}\n"
+        f"eval_cfg.output_dir = {str(out / 'eval')!r}\n")
+    env = {**os.environ, "NPROC_PER_NODE": "1", "MASTER_PORT": str(_free_port()),
+           "PYTHON": sys.executable}
+    t0 = time.perf_counter()
+    done = subprocess.run(["bash", str(REPO / "scripts/torch/launch_multihost.sh"), str(cfg)],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"launcher exited {done.returncode}: {done.stderr[-3000:]}")
+    results = (out / "eval" / "result.json").read_text().splitlines()
+    metrics = json.loads(done.stdout.strip().splitlines()[-1])
+    print(f"phase launcher: path=launcher world_size=1 backend=nccl seconds={seconds:.2f} "
+          f"result_lines={len(results)} metrics={json.dumps(metrics)} gpu={gpu_line()!r}")
+    if len(results) != 1 or json.loads(results[0])["num_episodes"] != 4 or \
+            metrics["num_episodes"] != 4:
+        raise AssertionError(f"launcher: result.json {results}, printed {metrics}")
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
         # FakeEnv seeds each episode's frames with hash(path_key): with str
@@ -5821,11 +6060,19 @@ def main() -> int:
     try:
         hf = phase_checkpoint_write(parity, root)
         lap("serve_checkpoint_write")
+        # before serve tp, which leaves the policy laid out over its group
+        by_path.update(phase_quant_quality(device, parity))
+        lap("quant_quality")
         by_path.update(phase_serve_tp(device, parity, prompts))
         lap("serve_tp")
         del parity, prompts
         gc.collect()
         torch.cuda.empty_cache()
+        by_path.update(phase_tool_benches(device))
+        by_path.update(phase_profile_s2(device))
+        by_path.update(phase_demo(device))
+        phase_launcher(device)
+        lap("tools")
         realtime, load_s, realtime_digests = phase_checkpoint_load_realtime(device, hf)
         by_path.update(phase_serve(device, "realtime", realtime, load_s))
         by_path.update(phase_w8a16(device, realtime, "serve_realtime_w8a16"))

@@ -36,10 +36,14 @@ from internnav_tpu_torch.realworld import serve
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
+#: the warm-started finetunes' and the Kujiale VLN-PE evaluation's configs,
+#: which tests/test_torch_tools.py holds against their originals
+TOOL_CONFIGS = ("cma_plus_cfg.py", "seq2seq_plus_cfg.py", "challenge_train_kujiale_cfg.py",
+                "challenge_train_mp3d_cfg.py", "h1_cma_cfg_kujiale.py")
 #: the port's eval configs (its copies of scripts/eval/configs/); the
 #: train configs, `*_train_cfg.py`, copy scripts/train/configs/
 PORT_CONFIGS = sorted(p for p in (REPO / "scripts" / "torch" / "configs").glob("*.py")
-                      if not p.name.endswith("_train_cfg.py"))
+                      if not p.name.endswith("_train_cfg.py") and p.name not in TOOL_CONFIGS)
 TRAIN_CONFIGS = sorted((REPO / "scripts" / "torch" / "configs").glob("*_train_cfg.py"))
 FAKE_N1 = REPO / "scripts" / "torch" / "configs" / "fake_n1_pipelined_cfg.py"
 #: what a run's metrics hold that is a time, not a result
