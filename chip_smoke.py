@@ -47,7 +47,13 @@ Phases, each printing its numbers:
                at a parity decode token's, a parity prompt's and the train
                row's SwiGLU, a frame's vision MLP, a stream's NextDiT
                feed-forward and the time embedding, at a length that is no
-               multiple of 8 and on inputs no 16-byte boundary aligns; K9
+               multiple of 8 and on inputs no 16-byte boundary aligns; K8f
+               (NextDiT's gate and up products with the SwiGLU as their
+               epilogue, within K8F_RTOL / K8F_ATOL of the plain version,
+               its bitwise share and largest gap in bf16 ulps) at one
+               stream's 32 samples, three streams, the 12-stream group
+               and a ragged M, timed beside the two torch.matmul and the
+               K8 launch it replaces; K9
                (W4A8 GEMM, packed int4 codes, grouped-128) for a layer's
                q/k/v and gate/up fused and o and down at M = 1, 4, 12 and
                48 (its decode ring, warm and cold), each projection alone
@@ -67,8 +73,10 @@ Phases, each printing its numbers:
                `parity` profile (bf16, random weights from a seeded
                generator), serve it through the real-robot HTTP server and
                POST /reset + 4 /eval_dual requests; K1 must have launched
-               during the requests, and no int8 kernel; K8 as computed
-               from the frames, layer passes and System-1 calls;
+               during the requests, and no int8 kernel; K8 and K8f as
+               computed from the frames, layer passes and System-1 calls
+               (a velocity with no gradient: K8 twice, K8f once a NextDiT
+               layer, `s1_launches`);
   serve tp — multi-GPU serving at world size 1 (the machine has one
                card): serve parity's 4 System-2 prompts greedy-decoded
                (MAX_NEW_TOKENS) by the parity policy as it is, then with
@@ -292,7 +300,11 @@ Phases, each printing its numbers:
                `InternVLAN1Trainer.prepare_batch`, one untimed and 3 timed
                optimizer steps (chunked CE 1024, bf16 Adam moments, vision
                frozen); each timed step must launch K1 2·L times and K2, K3
-               L times each;
+               L times each, K8 must launch and K8f (no backward) not; the
+               first timed step's gradients, read before its update, must
+               be finite on every trainable parameter outside System-1's
+               memory path (which the loss does not reach) and nonzero on
+               the time embedding's (`check_train_gradients`, ROADMAP F29);
   8. train sharded — the same policy through the sharded trainer on this
                one card: a one-rank NCCL process group (MASTER_ADDR and
                MASTER_PORT set where absent), mesh {"dp": 1, "tp": 1},
@@ -364,6 +376,10 @@ K6A_REPLACES = f"{QWEN_TEXT}:173"
 K6B_REPLACES = f"{QWEN_TEXT}:177"
 K7_REPLACES = f"{QWEN_TEXT}:527"
 K8_REPLACES = f"{QWEN_TEXT}:597"
+K8F_SOURCE = "internnav_tpu_torch/csrc/swiglu_gemm.cu"
+# the XLA fusion of NextDiT's feed-forward input: two bf16 dots and
+# nn.silu(g) * u (no Pallas kernel)
+K8F_REPLACES = "internnav_tpu/model/basemodel/internvla_n1/nextdit.py:144"
 K9_SOURCE = "internnav_tpu_torch/csrc/w4a8_gemm.cu"
 K10_SOURCE = "internnav_tpu_torch/csrc/w8a16_gemm.cu"
 K9_REPLACES = f"{QWEN_TEXT}:140"  # the s4 -> s8 widening, then the int8 dot of :177-196
@@ -483,7 +499,8 @@ def phase_build() -> None:
     from internnav_tpu_torch.ops import _build
 
     sources = ("flash_fwd.cu", "flash_bwd.cu", "w8a8_gemm.cu", "decode_int8.cu",
-               "quantize_rows.cu", "rope_kv_write.cu", "w4a8_gemm.cu", "w8a16_gemm.cu")
+               "quantize_rows.cu", "rope_kv_write.cu", "w4a8_gemm.cu", "w8a16_gemm.cu",
+               "swiglu_gemm.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, sources))
@@ -1563,18 +1580,83 @@ def k8_row(device, g, kind, M, K, offset=0, extra=None) -> dict:
                 extra=extra)
 
 
+#: K8f's rows (M, N, K): NextDiT's feed-forward at one stream's 32
+#: samples, three streams, the 12-stream group of serve batched and
+#: evaluate, and a ragged row count
+K8F_ROWS = ((1024, 1024, 384), (3072, 1024, 384), (12288, 1024, 384), (1000, 1024, 384))
+#: K8f against its plain version: the products' fp32 sums run in another
+#: order than cuBLAS's, so a gate or up value can round to the neighbouring
+#: bf16 value (one ulp, 2^-8 relative), which the SiLU and the product carry
+K8F_RTOL = 2.0 ** -6
+K8F_ATOL = 1e-3
+#: the weights' scale: the policies' random N(0, 0.02) initialization
+K8F_W_STD = 0.02
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in bf16 ulps (the bit
+    patterns in sign-magnitude order; +0 and -0 are 0 apart)."""
+    import torch
+
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def k8f_row(device, g, M, N, K, extra=None) -> dict:
+    """K8f (`activations.swiglu_gemm_cuda`) on x (M, K) ~ N(0, 1) and W1,
+    W3 (N, K) ~ N(0, K8F_W_STD) bf16 against its plain version
+    (`swiglu_gemm_reference`) within K8F_RTOL / K8F_ATOL, with the share of
+    bitwise-equal elements and the largest gap in bf16 ulps; timed beside
+    the sequence it replaces on the path (two torch.matmul and K8). The
+    bound: 4 M N K bf16 flops, or x, W1, W3 read once and out written
+    once. No single PyTorch call computes it."""
+    import torch
+
+    from internnav_tpu_torch.ops import activations as act
+
+    x = torch.randn(M, K, generator=g, device=device).bfloat16()
+    w1 = (torch.randn(N, K, generator=g, device=device) * K8F_W_STD).bfloat16()
+    w3 = (torch.randn(N, K, generator=g, device=device) * K8F_W_STD).bfloat16()
+    run = lambda: act.swiglu_gemm_cuda(x, w1, w3)  # noqa: E731
+    plain = lambda: act.swiglu_gemm_reference(x, w1, w3)  # noqa: E731
+    replaced = lambda: act.silu_cuda(torch.matmul(x, w1.t()),  # noqa: E731
+                                     torch.matmul(x, w3.t()))
+    out, ref, seq = run(), plain(), replaced()
+    torch.cuda.synchronize()
+    if out.shape != (M, N) or not torch.isfinite(out).all():
+        raise AssertionError(f"K8f M={M} N={N} K={K}: output {tuple(out.shape)} not finite")
+    err = (out.float() - ref.float()).abs()
+    bad = int((err > K8F_ATOL + K8F_RTOL * ref.float().abs()).sum())
+    if bad:
+        raise AssertionError(f"K8f M={M} N={N} K={K}: {bad} elements off the plain version "
+                             f"beyond rtol {K8F_RTOL} atol {K8F_ATOL}; max {err.max().item()}")
+    ulps = bf16_ulps(out, ref)
+    row = {**(extra or {}), "bitwise_share": float((ulps == 0).float().mean()),
+           "max_ulps": int(ulps.max()),
+           "replaced_vs_plain_max_ulps": int(bf16_ulps(seq, ref).max()),
+           "replaced_ms": cuda_ms(replaced)}
+    flops = 4.0 * M * N * K
+    nbytes = 2.0 * (M * K + 2 * N * K + M * N)
+    return _row("K8f", f"M{M}_N{N}_K{K}", err.max().item(), cuda_ms(run), cuda_ms(plain),
+                _bytes_bound(nbytes, flops, PEAK_BF16_FLOPS), extra=row)
+
+
 def phase_int8_kernels(device) -> dict:
     """The realtime profile's kernels at the 7B shapes, K8 at the bf16
-    paths' SiLU shapes, and the int4 / W8A16 GEMMs K9 and K10; rows by
-    kernel."""
+    paths' SiLU shapes, K8f at NextDiT's feed-forward shapes, and the
+    int4 / W8A16 GEMMs K9 and K10; rows by kernel."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(2)
     rows = (int8_k6a_rows(device, g) + int8_gemm_rows(device, g)
             + int8_decode_rows(device, g) + int8_kv_write_rows(device, g)
-            + [k8_row(device, g, *shape) for shape in K8_ROWS] + int4_gemm_rows(device, g))
+            + [k8_row(device, g, *shape) for shape in K8_ROWS]
+            + [k8f_row(device, g, *shape) for shape in K8F_ROWS] + int4_gemm_rows(device, g))
     return {name: [r for r in rows if r["kernel"] == name]
-            for name in ("K4", "K5", "K6a", "K6b", "K7", "K8", "K9", "K10")}
+            for name in ("K4", "K5", "K6a", "K6b", "K7", "K8", "K8f", "K9", "K10")}
 
 
 # ----------------------------------------------------------------- serve
@@ -1616,7 +1698,7 @@ def build_agent(device, profile: str = "parity", policy=None):
 
 
 LAUNCH_KEYS = ("K1", "K2", "K3", "K4", "K5", "K6a", "K6a_rmsnorm", "K6a_swiglu", "K6a_plain",
-               "K6b", "K6b_fused", "K7", "K9", "K9_fused", "K10", "K10_fused")
+               "K6b", "K6b_fused", "K7", "K8f", "K9", "K9_fused", "K10", "K10_fused")
 
 
 def launch_counts() -> dict:
@@ -1625,7 +1707,7 @@ def launch_counts() -> dict:
     from internnav_tpu_torch.ops import flash_attention as fa
     from internnav_tpu_torch.ops import quant
 
-    return {"K8": act.silu_launches,
+    return {"K8": act.silu_launches, "K8f": act.swiglu_gemm_launches,
             "K1": fa.kernel_launches, "K2": fa.bwd_dkv_launches, "K3": fa.bwd_dq_launches,
             "K4": fa.decode_int8_launches, "K5": fa.chunk_decode_int8_launches,
             "K6a": quant.quantize_rows_launches, "K6a_rmsnorm": quant.rmsnorm_quantize_launches,
@@ -1641,7 +1723,7 @@ def reset_launch_counts() -> None:
     from internnav_tpu_torch.ops import flash_attention as fa
     from internnav_tpu_torch.ops import quant
 
-    act.silu_launches = 0
+    act.silu_launches = act.swiglu_gemm_launches = 0
     fa.kernel_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
     fa.decode_int8_launches = fa.chunk_decode_int8_launches = 0
     quant.quantize_rows_launches = quant.w8a8_launches = quant.kv_write_launches = 0
@@ -1672,8 +1754,9 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
     `dit_layers` in all: K1 once per prefill layer and once per windowed
     ViT block of the request's new frame; K8 once per ViT block of that
     frame, per parity decoder layer pass (the SwiGLU), and per System-1
-    velocity 2 per NextDiT layer and 2 more (the time embedding's and the
-    output norm's SiLU); with the realtime profile per layer pass 4
+    velocity 2 (the time embedding's SiLU and the one the blocks' AdaLN
+    and the output norm share), and K8f once per NextDiT layer and
+    velocity (`s1_launches`); with the realtime profile per layer pass 4
     activation quantizations (K6a: the two RMSNorms, q/k/v
     sharing the first and gate/up the second; the SwiGLU product for down;
     o_proj's input as it is) and one K7 launch (rotary + K/V cache write;
@@ -1695,8 +1778,10 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
     want["K1"] = len(steps) * (L + windowed)
     decode_passes = sum(1 + s for s in steps)  # decode steps + chunk, per layer
     passes = len(steps) + decode_passes  # and the prefill
-    want["K8"] = (len(steps) * cfg.vision.depth + s1_calls * s1_silu_launches(cfg, dit_layers)
+    s1 = s1_launches(cfg, dit_layers)
+    want["K8"] = (len(steps) * cfg.vision.depth + s1_calls * s1["K8"]
                   + (L * passes if profile == "parity" else 0))
+    want["K8f"] = s1_calls * s1["K8f"]
     if profile == "realtime":
         n = len(steps)
         # layer passes and lm_head calls whose activations K6a quantizes
@@ -1720,11 +1805,16 @@ def expected_serve_launches(cfg, profile, steps, logits_calls, s1_calls,
 S1_STEPS = 10
 
 
-def s1_silu_launches(cfg, dit_layers: int) -> int:
-    """K8 launches of one System-1 denoise: NextDiT's S1_STEPS velocities,
-    2 a layer and 2 more (the time embedding's and the output norm's SiLU);
-    none for the NavDP head (fp32 GELU and ReLU, no SiLU)."""
-    return 0 if "navdp" in cfg.system1 else S1_STEPS * (2 * dit_layers + 2)
+def s1_launches(cfg, dit_layers: int) -> dict:
+    """K8 and K8f launches of one System-1 denoise, NextDiT's S1_STEPS
+    velocities with no gradient recorded: K8 2 a velocity (the time
+    embedding's SiLU, and the conditioning's, which every block's AdaLN and
+    the output norm share), K8f one a layer (the feed-forward's gate and up
+    products with the SwiGLU); none for the NavDP head (fp32 GELU and ReLU,
+    no SiLU)."""
+    if "navdp" in cfg.system1:
+        return {"K8": 0, "K8f": 0}
+    return {"K8": S1_STEPS * 2, "K8f": S1_STEPS * dit_layers}
 
 
 def dit_layers(policy) -> int:
@@ -2640,9 +2730,9 @@ PLAIN_VERSIONS = {
     "quant": ("quantize_rows", "rmsnorm_quantize_reference", "swiglu_quantize_reference",
               "w8a8_linear_reference", "write_kv_cache_reference", "rope_kv_write_reference",
               "w4a8_linear_reference", "w8a16_linear_reference"),
-    "activations": ("silu_reference", "silu_mul_reference"),
+    "activations": ("silu_reference", "silu_mul_reference", "swiglu_gemm_reference"),
 }
-EVAL_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
+EVAL_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8", "K8f")
 
 
 def bench_entry():
@@ -2723,7 +2813,8 @@ def _restore(spies) -> None:
 #: signatures)
 EVAL_SHAPE_SHARE = 0.75
 EVAL_SHAPES_MIN = 2
-EVAL_SHAPES_MAX = {"K1": 4, "K4": 4, "K5": 4, "K6a": 8, "K6b": 10, "K7": 4, "K8": 10}
+EVAL_SHAPES_MAX = {"K1": 4, "K4": 4, "K5": 4, "K6a": 8, "K6b": 10, "K7": 4, "K8": 10,
+                   "K8f": 4}
 
 
 def _tensor_arg(t):
@@ -2824,13 +2915,16 @@ class ShapeLog:
         def silu(gate, up=None):
             return ("K8", "silu" if up is None else "silu_mul", *rows(gate)), {}
 
+        def swiglu_gemm(x, w1, w3):
+            return ("K8f", x.shape[0], w1.shape[0], x.shape[1]), {}
+
         restore = [self._spy(mod, name, sig) for mod, name, sig in (
             (fa, "flash_attention_cuda", k1), (fa, "gqa_decode_int8_cuda", k4),
             (fa, "gqa_chunk_decode_int8_cuda", k5), (quant, "rmsnorm_quantize_cuda", rmsnorm),
             (quant, "swiglu_quantize_cuda", swiglu), (quant, "quantize_rows_cuda", plain),
             (quant, "w8a8_linear_cuda", gemm), (quant, "w8a8_decode_cuda", gemm_decode),
             (quant, "rope_kv_write_cuda", rope_kv), (quant, "write_kv_cache_cuda", kv),
-            (act, "silu_cuda", silu))]
+            (act, "silu_cuda", silu), (act, "swiglu_gemm_cuda", swiglu_gemm))]
         loop = dg.DecodeLoop
         step, run_step, run, capture = loop._step, loop._run_step, loop.run, loop._capture
 
@@ -2933,6 +3027,8 @@ def eval_kernel_rows(device, log: ShapeLog) -> dict:
                 rows[kernel].append(gemm_row(device, g, M, widths, K, bias, group, extra=extra))
             elif kernel == "K8":
                 rows[kernel].append(k8_row(device, g, *sig[1:], extra=extra))
+            elif kernel == "K8f":
+                rows[kernel].append(k8f_row(device, g, *sig[1:], extra=extra))
             else:
                 _, rotary, B, n, Tmax = sig
                 rows[kernel].append(kv_write_row(device, g, rotary, n, log.lengths(sig), Tmax,
@@ -3075,7 +3171,7 @@ def phase_evaluate(device, ckpt: Path, want: dict) -> dict:
 SERVER_EPISODES = 2
 SERVER_MAX_STEP = 16
 SERVER_HW = 224
-SERVER_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
+SERVER_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8", "K8f")
 
 
 def phase_evaluate_server(device, ckpt: Path) -> dict:
@@ -3196,7 +3292,7 @@ def phase_evaluate_server(device, ckpt: Path) -> dict:
 HABITAT_HW = 420
 HABITAT_EPISODES = 2
 HABITAT_MAX_STEP = 32
-HABITAT_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
+HABITAT_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8", "K8f")
 #: what the scripted decode returns in each run, per episode, call after
 #: call (an episode's last text repeats): the branches each run must take.
 #: dual_system: an action list, then STOP; pixel goals (System-1). system2:
@@ -3554,7 +3650,7 @@ VLNPE_BATCH_HW = 224
 VLNPE_BATCH_EPISODES = 8
 VLNPE_BATCH_MAX_STEP = 16
 VLNPE_BATCH_NEW_TOKENS = 32
-VLNPE_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8")
+VLNPE_KERNELS = ("K1", "K4", "K5", "K6a", "K6b", "K7", "K8", "K8f")
 #: the loco actor on the card against the same weights on the host, fp32
 #: (TF32 off): 4 layers of 128-512 products summed in another order
 LOCO_TOL = 1e-5
@@ -3582,7 +3678,7 @@ def expected_pipelined_launches(policy, vision, prefills: int, tails, s1_calls: 
     GEMM_DECODE_MAX_M rows, else 4 with 2 fused; one K6a PLAIN and K6b a
     logits step; then the latent chunk at M x n_query rows: K5 and K7 once
     a group and layer, K6a and K6b as a step); each System-1 denoise
-    (`s1_silu_launches`)."""
+    (`s1_launches`)."""
     from internnav_tpu_torch.ops.quant import GEMM_DECODE_MAX_M
 
     cfg, v = policy.cfg, policy.cfg.vision
@@ -3609,7 +3705,7 @@ def expected_pipelined_launches(policy, vision, prefills: int, tails, s1_calls: 
         add(K4=L * G * steps, K5=L * G, K7=L * G * passes, K6a=4 * L * passes + logits,
             K6a_rmsnorm=2 * L * passes, K6a_swiglu=L * passes, K6a_plain=L * passes + logits,
             K6b=L * (dec * steps + chk) + logits, K6b_fused=L * (dec_fused * steps + chk_fused))
-    add(K8=s1_calls * s1_silu_launches(cfg, dit_layers(policy)))
+    add(**{k: s1_calls * n for k, n in s1_launches(cfg, dit_layers(policy)).items()})
     return want
 
 
@@ -5376,10 +5472,11 @@ def phase_evaluate_navdp(device, policy) -> dict:
         raise AssertionError(f"evaluate navdp: {len(bad)} malformed agent outputs: {bad[:3]}")
     if plain:
         raise AssertionError(f"evaluate navdp: plain versions ran on the card: {dict(plain)}")
-    missing = [k for k in EVAL_KERNELS if not launches[k]]
-    if missing or launches["K2"] or launches["K3"]:
+    # the NavDP System-1 runs no NextDiT: no K8f
+    missing = [k for k in EVAL_KERNELS if not launches[k] and k != "K8f"]
+    if missing or launches["K2"] or launches["K3"] or launches["K8f"]:
         raise AssertionError(f"evaluate navdp: kernels {missing} never launched, or a backward "
-                             f"kernel did: {launches}")
+                             f"kernel or K8f did: {launches}")
     n = bench.BATCH * bench.COHORTS
     for r in (warm, run):
         ends = collections.Counter(e["fail_reason"] for e in r["records"])
@@ -5457,10 +5554,48 @@ def build_trainer(device, ckpt=None, layers: int = TRAIN_LAYERS, want=None, mesh
     return InternVLAN1Trainer(exp, policy, total_steps=4, tune_llm=True, tune_mm_vision=False)
 
 
+#: System-1's DINOv2 memory path: the training loss passes no images to
+#: System-1 (`images_dp=None`, as the JAX package's trainer does), so these
+#: trainable modules get no gradient, and every other trainable one must
+S1_MEMORY_MODULES = ("rgb_model", "rgb_resampler", "memory_encoder", "memory_proj")
+
+
+def gradient_report(named_params) -> dict:
+    """name -> (finite, largest magnitude) of each parameter's gradient, or
+    None where it has none; one transfer from the device."""
+    import torch
+
+    held = [(n, p.grad) for n, p in named_params if p.grad is not None]
+    stats = torch.stack([torch.stack([torch.isfinite(g).all().float(), g.abs().max().float()])
+                         for _, g in held]).cpu().tolist() if held else []
+    report = {n: None for n, _ in named_params}
+    report.update({n: (bool(f), m) for (n, _), (f, m) in zip(held, stats)})
+    return report
+
+
+def check_train_gradients(report: dict) -> dict:
+    """Every trainable parameter outside S1_MEMORY_MODULES holds a finite
+    gradient and those have none; System-1's time embedding
+    (`time_caption_embed`, whose SiLU once dropped its gradient on the card:
+    ROADMAP F29) nonzero ones. Returns counts for the phase line."""
+    memory = {n for n in report if n.split(".")[0] in S1_MEMORY_MODULES}
+    missing = sorted(n for n, r in report.items() if r is None and n not in memory)
+    stray = sorted(n for n in memory if report[n] is not None)
+    bad = sorted(n for n, r in report.items() if r is not None and not r[0])
+    temb = {n: r for n, r in report.items() if "time_caption_embed" in n}
+    if missing or stray or bad or len(temb) != 8 or not all(r and r[1] > 0 for r in temb.values()):
+        raise AssertionError(f"train step 1 gradients: none for {missing[:8]} ({len(missing)}), "
+                             f"unexpected for {stray[:8]}, not finite for {bad[:8]}, "
+                             f"time_caption_embed {temb}")
+    return {"with_grad": len(report) - len(memory), "s1_memory_without": len(memory),
+            "time_caption_embed_max": max(r[1] for r in temb.values())}
+
+
 def phase_train(device, store, ckpt: Path, want: dict) -> dict:
     """Optimizer steps of the full-width 7B policy, loaded from the
     HF-layout checkpoint `ckpt` and held equal to the parity build by
-    digest (`want`), on one packed row; returns the kernel launches of the
+    digest (`want`), on one packed row; the first timed step's gradients
+    held by `check_train_gradients`; returns the kernel launches of the
     four steps."""
     import torch
 
@@ -5517,6 +5652,15 @@ def phase_train(device, store, ckpt: Path, want: dict) -> dict:
     accum_peak = torch.cuda.max_memory_allocated(device)
     del loss, _
     trainer.optimizer.zero_grad()
+    # the first timed step's gradients, read before its update
+    grads, opt_step = {}, trainer.optimizer.step
+
+    def step_reading_grads():
+        if not grads:
+            grads.update(gradient_report(trainer.optimizer.params))
+        return opt_step()
+
+    trainer.optimizer.step = step_reading_grads
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
     times, metrics = [], []
@@ -5541,10 +5685,13 @@ def phase_train(device, store, ckpt: Path, want: dict) -> dict:
         else:
             first_s = dt
     totals = launch_counts()
+    trainer.optimizer.step = opt_step
+    grad_counts = check_train_gradients(grads)
     if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K6b_fused", "K7")):
         raise AssertionError(f"the bf16 train step launched an int8 kernel: {totals}")
-    if not totals["K8"]:
-        raise AssertionError(f"the bf16 train steps' SwiGLU never launched K8: {totals}")
+    if not totals["K8"] or totals["K8f"]:
+        raise AssertionError(f"the bf16 train steps' SwiGLU never launched K8, or K8f (no "
+                             f"backward) ran under grad: {totals}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     for i, m in enumerate(metrics):
         bad = [k for k in ("lm_loss", "s1_loss", "loss", "grad_norm")
@@ -5567,7 +5714,8 @@ def phase_train(device, store, ckpt: Path, want: dict) -> dict:
           f"losses={[round(m['loss'], 4) for m in metrics]} peak_mem_gib={peak_gib:.2f} "
           f"model_tflop_per_step={flops / 1e12:.2f} "
           f"mfu_vs_989_tflops_datasheet={flops / step_s / PEAK_BF16_FLOPS:.4f} "
-          f"launches_per_step={(2 * L, L, L)} static_gib={static / 2**30:.2f} "
+          f"launches_per_step={(2 * L, L, L)} step1_grads={grad_counts} "
+          f"static_gib={static / 2**30:.2f} "
           f"accumulated_micro_batch_peak_gib={accum_peak / 2**30:.2f} gpu={gpu_line()!r}")
     return {"launches": totals, "n_train": n_train, "accum_peak_gib": accum_peak / 2**30}
 
@@ -5760,8 +5908,9 @@ def phase_train_sharded(device, store, ckpt: Path, want: dict, train: dict) -> d
         raise AssertionError(f"train sharded: plain versions ran on the card: {dict(plain)}")
     if any(totals[k] for k in ("K4", "K5", "K6a", "K6b", "K6b_fused", "K7")):
         raise AssertionError(f"train sharded: the bf16 steps launched an int8 kernel: {totals}")
-    if not totals["K8"]:
-        raise AssertionError(f"train sharded: the SwiGLU never launched K8: {totals}")
+    if not totals["K8"] or totals["K8f"]:
+        raise AssertionError(f"train sharded: the SwiGLU never launched K8, or K8f (no "
+                             f"backward) ran under grad: {totals}")
     if not torch.equal(local(vis).detach(), frozen0):
         raise AssertionError("train sharded: a frozen vision parameter changed")
     for i, m in enumerate(metrics):
@@ -6234,6 +6383,8 @@ def main() -> int:
         # most frequent shape
         int8_entry("silu_bf16", "K8", "cuda", K6A_SOURCE, K8_REPLACES,
                    f"silu_mul_M1_K{K6A_I}"),
+        # NextDiT's feed-forward at one stream's 32 samples
+        int8_entry("swiglu_gemm", "K8f", "cuda", K8F_SOURCE, K8F_REPLACES, "M1024_N1024_K384"),
         # K9 and K10 at a decode token's gate projection of the int4 format
         int8_entry("w4a8_gemm", "K9", "cuda", K9_SOURCE, K9_REPLACES,
                    "M1_N18944_K3584_g128_int4"),

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // split cluster barriers and stores into a cluster block's shared memory,
 // TMA tile and bulk loads, 128-byte-swizzled wgmma descriptors, the wgmma
-// products the flash-attention kernels (bf16) and the W8A8 GEMM (s8) issue,
-// register reallocation, the live-tile list, the accumulator store, and
-// host-side tensor maps (bf16 tiles; int8 rows of 128-byte lines).
+// products the flash-attention kernels and the SwiGLU GEMM (bf16) and the
+// W8A8 GEMM (s8) issue, register reallocation, the live-tile list, the
+// accumulator store, and host-side tensor maps (bf16 tiles and rows of
+// 128-byte lines; int8 rows of 128-byte lines).
 //
 // Layout convention. A tile is 64 rows of up to 128 bf16 columns, loaded by
 // TMA as two boxes of 64 x 64 elements (box 0: columns 0-63, box 1: 64-127,
@@ -225,6 +226,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : HOPPER_F32(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128 fp32) (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_F32(0), HOPPER_F32(32)
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 #undef HOPPER_F32
@@ -450,6 +466,25 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int slices, int 
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a row-major bf16 (rows, cols) matrix as the 2-D (cols,
+// rows) with boxes of 64 columns (one 128-byte line) x `box_rows` rows and
+// 128-byte swizzle; cols must be a multiple of 8 (16-byte rows). A box that
+// runs past the last row or column is zero-filled.
+inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
+                            int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

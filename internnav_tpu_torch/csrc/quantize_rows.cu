@@ -20,8 +20,9 @@
 // - PLAIN (o_proj and lm_head inputs): y is the bf16 or fp32 row itself.
 // The arithmetic is ATen's op for op, so that the codes match the plain
 // versions (ops/quant.py): the fp32 sum of squares times fl(1/K) (ATen's
-// CUDA `mean`), + eps, `rsqrtf`, `expf` in `silu_xla`, IEEE divisions
-// (the build has no fast-math flag), round-to-nearest-even bf16 casts, and
+// CUDA `mean`), + eps, `rsqrtf`, `expf` in `silu_xla` (whose reciprocal,
+// rcp.approx, rounds to the IEEE one's bf16: silu_xla.cuh), IEEE divisions
+// elsewhere (the build has no fast-math flag), round-to-nearest-even bf16 casts, and
 // no multiply-add contraction where ATen rounds between two kernels. SWIGLU
 // and PLAIN are bitwise; RMSNORM adds its squares in another order than
 // ATen's reduction, which can move the norm's last bit: codes within +-1.
@@ -43,28 +44,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "silu_xla.cuh"
+
 namespace {
 
 enum Prologue : int { kPlain = 0, kRmsNorm = 1, kSwiGlu = 2 };
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxVectors = 5;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // jax.nn.silu of a bf16 value as XLA computes it (ops/activations.py
-// `silu`): g * (1 / (1 + exp(-g))) with every step rounded to bf16, and
-// subnormals flushed: |g| < 2^-125 gives a signed zero, and so does a
-// sigmoid below 2^-126.
-__device__ __forceinline__ float silu_xla(float g) {
-  g = fabsf(g) >= 0x1p-125f ? g : __fmul_rn(g, 0.0f);
-  const float ex = bf16_round(expf(-g));
-  const float d = bf16_round(__fadd_rn(ex, 1.0f));
-  float s = bf16_round(__fdiv_rn(1.0f, d));
-  s = s >= 0x1p-126f ? s : 0.0f;
-  return bf16_round(__fmul_rn(g, s));
-}
+// `silu`), in the shared header
+using xla::bf16_round;
+using xla::silu_xla;
 
 // 16 bytes of input as floats: 8 bf16 or 4 fp32
 __device__ __forceinline__ void widen(const uint4& u, float (&f)[8]) {
@@ -271,7 +262,8 @@ cudaError_t launch(const void* a, const void* b, const void* w, float eps, void*
 // K8: silu(gate), or silu(gate) * up, of bf16 tensors with XLA's roundings
 // (`silu_xla`, then the product rounded to bf16), n elements. Replaces the
 // XLA fusion of `nn.silu(gate) * up` (internnav_tpu/model/basemodel/
-// internvla_n1/qwen_text.py:597, qwen_vision.py:199, nextdit.py:146) and of
+// internvla_n1/qwen_text.py:597, qwen_vision.py:199, and nextdit.py:146
+// under grad: at inference K8f, swiglu_gemm.cu, takes it) and of
 // `nn.silu(t)` (nextdit.py:81,169,234), which eager torch would run as ten
 // elementwise kernels (`ops/activations.silu_reference`). Bound by bytes:
 // each input read once, the output written once. Grid-stride over 16-byte

@@ -8,6 +8,14 @@ The linear layers run in `cfg.dtype` (each casts its input once); softmax
 and norm statistics run in fp32, and the RMSNorm scales are fp32 with fp32
 products, as the JAX package's parameters are, so the residual stream is
 fp32 from the first gated sum on, as it is there.
+
+Two departures in structure, none in the function: the SiLU of the
+conditioning embedding, which the JAX package takes in every block and
+again for the output norm, is taken once per forward and shared (one K8
+launch instead of n_layers + 1); and where no gradient is recorded the
+feed-forward's gate and up products run as one K8f launch with the SwiGLU
+as their epilogue (`activations.swiglu_gemm`, which under grad keeps the
+two products and `silu_mul`, which have a backward).
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import RMSNorm
-from internnav_tpu_torch.ops.activations import silu, silu_mul
+from internnav_tpu_torch.ops.activations import silu, swiglu_gemm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +116,8 @@ class LuminaFeedForward(nn.Module):
         self.linear_2 = nn.Linear(inner, dim, bias=False, dtype=dtype)
 
     def forward(self, x):
-        x = x.to(self.linear_1.weight.dtype)
-        return self.linear_2(silu_mul(self.linear_1(x), self.linear_3(x)))
+        w1, w3 = self.linear_1.weight, self.linear_3.weight
+        return self.linear_2(swiglu_gemm(x.to(w1.dtype), w1, w3))
 
 
 class NextDiTBlock(nn.Module):
@@ -129,17 +137,18 @@ class NextDiTBlock(nn.Module):
         self.ffn_norm1 = RMSNorm(c.dim, c.norm_eps)
         self.ffn_norm2 = RMSNorm(c.dim, c.norm_eps)
 
-    def forward(self, x, cond, temb, num_samples: int = 1):
-        """x (B*num_samples, T, dim); cond/temb at batch B (sample
+    def forward(self, x, cond, temb_act, num_samples: int = 1):
+        """x (B*num_samples, T, dim); cond and temb_act (silu of the
+        conditioning embedding, shared by every block) at batch B (sample
         i*num_samples+j conditions on row i)."""
         c = self.cfg
         ns = num_samples
-        B, T = temb.shape[0], x.shape[1]
+        B, T = temb_act.shape[0], x.shape[1]
 
         def bc(g):  # (B, dim) → (B*ns, 1, dim)
             return g.repeat_interleave(ns, dim=0)[:, None] if ns > 1 else g[:, None]
 
-        scale_msa, gate_msa, scale_mlp, gate_mlp = self.norm1_linear(silu(temb)).chunk(4, -1)
+        scale_msa, gate_msa, scale_mlp, gate_mlp = self.norm1_linear(temb_act).chunk(4, -1)
         xn = self.norm1_rms(x) * (1 + bc(scale_msa))
         self_out = self.attn1(xn, xn)
         cond_n = self.norm1_context(cond)
@@ -177,9 +186,10 @@ class NextDiT(nn.Module):
         x = x.to(dt)
         cond = self.caption_fc2(F.gelu(self.caption_fc1(z_latents.to(dt)), approximate="tanh"))
         temb = self.time_caption_embed(timestep, cond).to(dt)
+        temb_act = silu(temb)  # every block's AdaLN and the output norm take it
         for layer in self.layers:
-            x = layer(x, cond, temb, num_samples)
-        scale = self.norm_out_linear(silu(temb))
+            x = layer(x, cond, temb_act, num_samples)
+        scale = self.norm_out_linear(temb_act)
         if num_samples > 1:
             scale = scale.repeat_interleave(num_samples, dim=0)
         return self.norm_out_linear2((self.norm_out_ln(x) * (1 + scale[:, None])).to(dt))

@@ -516,6 +516,82 @@ def test_silu_dispatch_launches_the_kernel_on_cuda(device):
         act.silu_cuda(g, u[:2])
 
 
+def test_silu_gradient_on_cuda_is_the_plain_one(device):
+    """A bf16 `silu` that needs a gradient launches K8 inside `_SiluBf16`
+    and returns a tracked tensor (ROADMAP F29); its gradient is torch's
+    autograd of F.silu in bf16 on the same tensors, bitwise, and its
+    output K8's."""
+    import torch.nn.functional as F
+
+    from internnav_tpu_torch.ops import activations as act
+
+    x, g = _rand(device, 64, 384, seed=5) * 3.0, _rand(device, 64, 384, seed=6)
+    xa = x.clone().requires_grad_(True)
+    before = act.silu_launches
+    y = act.silu(xa)
+    assert act.silu_launches == before + 1 and y.grad_fn is not None
+    y.backward(g)
+    xb = x.clone().requires_grad_(True)
+    F.silu(xb).backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(y.detach().view(torch.int16), act.silu_reference(x).view(torch.int16))
+    assert torch.equal(xa.grad.view(torch.int16), xb.grad.view(torch.int16))
+
+
+#: K8f against its plain version: fp32 sums in another order than
+#: cuBLAS's can round a gate or up value to the neighbouring bf16 value
+K8F_RTOL, K8F_ATOL = 2.0 ** -6, 1e-3
+
+
+@pytest.mark.parametrize("M,N,K", [(1024, 1024, 384), (1000, 1024, 384), (1, 1024, 384),
+                                   (130, 100, 72), (257, 63, 8), (64, 1024, 448),
+                                   (256, 128, 1000)])
+def test_swiglu_gemm_kernel_matches_plain(device, M, N, K):
+    """K8f at NextDiT's feed-forward (M = 1,024 and a ragged 1,000 and 1),
+    columns past a 64-column tile and an odd N (element stores), K off the
+    64-wide stages (zero fill), and K past the 6-stage ring (its stages
+    reused): within K8F_RTOL / K8F_ATOL of `swiglu_gemm_reference`."""
+    from internnav_tpu_torch.ops import activations as act
+
+    x = _rand(device, M, K, seed=M)
+    w1, w3 = _rand(device, N, K, seed=N) * 0.02, _rand(device, N, K, seed=N + 1) * 0.02
+    before = act.swiglu_gemm_launches
+    out = act.swiglu_gemm_cuda(x, w1, w3)
+    assert act.swiglu_gemm_launches == before + 1
+    ref = act.swiglu_gemm_reference(x, w1, w3)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and torch.isfinite(out).all()
+    assert ((out.float() - ref.float()).abs() <= K8F_ATOL + K8F_RTOL * ref.float().abs()).all()
+
+
+def test_swiglu_gemm_dispatch_and_refusals(device):
+    """NextDiT's feed-forward launches K8f once with no gradient recorded
+    and keeps its two products and K8 under grad; the wrapper refuses
+    what the kernel does not take, and a call that would need a backward."""
+    from internnav_tpu_torch.model.basemodel.internvla_n1.nextdit import LuminaFeedForward
+    from internnav_tpu_torch.ops import activations as act
+
+    torch.manual_seed(0)
+    ffn = LuminaFeedForward(384, 256, torch.bfloat16).to(device)
+    x = torch.randn(2, 512, 384, device=device)
+    k8f, k8 = act.swiglu_gemm_launches, act.silu_launches
+    with torch.no_grad():
+        y = ffn(x)
+    assert (act.swiglu_gemm_launches, act.silu_launches) == (k8f + 1, k8)
+    ffn(x).float().sum().backward()
+    assert act.swiglu_gemm_launches == k8f + 1 and act.silu_launches > k8
+    assert ffn.linear_1.weight.grad is not None and y.shape == (2, 512, 384)
+    w = ffn.linear_1.weight.detach()
+    xs = x.reshape(-1, 384).bfloat16()
+    for bad in ((xs.float(), w, w), (xs.t(), w, w), (xs[:, :380].contiguous(), w[:, :380], w),
+                (xs[:, :12].contiguous(), w[:, :12].contiguous(), w[:, :12].contiguous()),
+                (xs.cpu(), w.cpu(), w.cpu())):
+        with pytest.raises(ValueError):
+            act.swiglu_gemm_cuda(*bad)
+    with pytest.raises(RuntimeError):
+        act.swiglu_gemm_cuda(xs, ffn.linear_1.weight, ffn.linear_3.weight)
+
+
 def test_k6a_wrappers_reject_what_they_do_not_take(device):
     from internnav_tpu_torch.ops import quant
 

@@ -139,21 +139,25 @@ def test_tiny_int8_model_kv_codes_against_jax(scaled_text_params):
 
 
 def test_batched_stream_silu_calls_follow_chip_smoke_count(monkeypatch):
-    """chip_smoke.py holds serve batched's K8 launches to
+    """chip_smoke.py holds serve batched's K8 and K8f launches to
     `expected_batched_launches`: each cohort and cycle, one SiLU a ViT block
-    (one vision call) and 2 a NextDiT layer + 2 a velocity for each of the
-    System-1 denoises. The same count of `silu` / `silu_mul` calls in a
-    tiny 2 x 2 shared-decode stream on the CPU (on the card each call is
-    one K8 launch)."""
+    (one vision call), and for each of the System-1 denoises 2 SiLUs a
+    velocity (the time embedding's, and the one every NextDiT block's
+    AdaLN and the output norm share) and one fused SwiGLU GEMM a NextDiT
+    layer and velocity. The same counts of `silu` / `silu_mul` and of
+    `swiglu_gemm` calls in a tiny 2 x 2 shared-decode stream on the CPU
+    (on the card each call is one K8 or one K8f launch)."""
     import chip_smoke
     from internnav_tpu_torch.model.basemodel.internvla_n1 import nextdit, qwen_vision, serving
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
 
-    calls = []
-    for mod, name in ((nextdit, "silu"), (nextdit, "silu_mul"), (qwen_vision, "silu_mul")):
+    calls = {"K8": [], "K8f": []}
+    for mod, name, key in ((nextdit, "silu", "K8"), (qwen_vision, "silu_mul", "K8"),
+                           (nextdit, "swiglu_gemm", "K8f")):
         fn = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, **k: calls.append(1) or _fn(*a, **k))
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _c=calls[key], **k:
+                            _c.append(1) or _fn(*a, **k))
     cfg = InternVLAN1Config.tiny("nextdit_async", dtype=torch.float32)
     policy = InternVLAN1Policy.build(cfg, device="cpu")
     server = serving.PipelinedN1Server(policy, 2, cohorts=2)
@@ -164,5 +168,8 @@ def test_batched_stream_silu_calls_follow_chip_smoke_count(monkeypatch):
     server.serve_stream(lambda ci, t, ph: frames[[(ci + t + ph) % 6, (ci + t + ph + 1) % 6]],
                         cycles, max_new_tokens=5, num_sample_trajs=2,
                         s1_calls=chip_smoke.BATCH_S1_CALLS, shared_decode=True)
-    want = chip_smoke.expected_batched_launches(policy, cycles, 2, 2)["K8"]
-    assert len(calls) == want
+    want = chip_smoke.expected_batched_launches(policy, cycles, 2, 2)
+    L = len(policy.model.traj_dit.layers)
+    denoises = cycles * 2 * chip_smoke.BATCH_S1_CALLS
+    assert want["K8f"] == denoises * chip_smoke.S1_STEPS * L
+    assert {k: len(c) for k, c in calls.items()} == {k: want[k] for k in calls}
