@@ -8,8 +8,10 @@ Phases, each printing its numbers:
                all started together) and print ptxas registers / spills;
   2. kernels — hold each kernel against its plain PyTorch version and time
                both: K1 at the serving shapes (a prompt bucket, a ragged
-               prompt, a batched cohort's 12 prompts, a vision image;
-               beside SDPA with the same boolean mask and the bound); K1,
+               prompt, a batched cohort's 12 prompts, a vision image,
+               serve tp8's (4, 1) and (3, 1) local heads at a prompt's
+               bucket and at T=8192; beside SDPA with the same boolean
+               mask and the bound); K1,
                K2 and K3 at the training
                head shape (28 heads, 4 KV heads, D=128, causal, segment ids of
                a real packed row) at T=2048, a ragged T and T=8192 (K1's
@@ -77,6 +79,27 @@ Phases, each printing its numbers:
                computed from the frames, layer passes and System-1 calls
                (a velocity with no gradient: K8 twice, K8f once a NextDiT
                layer, `s1_launches`);
+  serve tp8 — tensor-parallel serving where ranks share the KV heads:
+               parity's 4 prompts served by the unsharded policy and
+               re-prefilled with its tokens (teacher forcing), then by 8
+               processes on the one card in one gloo group (NCCL refuses
+               two ranks on a device) at dp=1 x tp=8, each loading only
+               its blocks of the run's HF checkpoint (`serve.build_policy(
+               tp_group=)`): ranks 2g, 2g + 1 hold KV head g whole and its
+               7 query heads 4 + 3, o_proj's uneven input blocks, the MLP
+               and vocab split evenly; per rank K1 once a prefill layer on
+               (4, 1) or (3, 1) heads, K8 once a layer pass, no int8
+               kernel, the decode loop eager (a gloo group cannot be
+               captured), every reduction staged through the host; the
+               ranks' teacher-forced logits and latents within the fixed
+               TP8_LOGIT_TOL / TP8_LATENT_TOL (argmax equal past the
+               logit limit), and each planted layout fault (TP8_FAULTS:
+               odd ranks on the next KV head, or their query heads
+               shifted by one) past both limits on every prompt; the
+               controls, free-running token agreement, each rank's load
+               and request seconds, device peak and host RSS; then K1
+               and K8 (2,368 columns a rank) against their plain versions
+               at every signature the ranks launched (`ShapeLog`);
   serve tp — multi-GPU serving at world size 1 (the machine has one
                card): serve parity's 4 System-2 prompts greedy-decoded
                (MAX_NEW_TOKENS) by the parity policy as it is, then with
@@ -326,20 +349,19 @@ Phases, each printing its numbers:
                sampled parameters (EMA_BF16_TOL); the frozen tower
                unchanged; no plain version run; step s, tokens/s, MFU and
                peak memory printed.
-Every kernel's launch count is set to 0 just before each of the
-thirty paths (serve, serve tp, quant quality, flash bench, w4 bench, profile s2,
-demo, serve realtime, the long realtime request, serve
-realtime W8A16, serve int4, serve W4A16, serve batched's timed stream, the
-evaluate phase's timed runs, the int4 evaluate's timed run, evaluate
-server, evaluate habitat, evaluate vln_pe (each of its three parts),
-evaluate recurrent (each of its parts, where every count must stay 0),
-train recurrent, evaluate rdp, train rdp, evaluate navdp_vn, train navdp,
-dpt (every count 0 in each), serve navdp,
-serve batched navdp's checked cycle, evaluate navdp's timed run, train,
-train sharded's two steps) and read just after. Then one JSON
-line of kernel results, the GPU's name and power limit, and as the last
-line {"ok": true, "device": {...}}. Any failure raises and exits
-non-zero; with no CUDA device it exits non-zero before printing any result.
+Every kernel's launch count is set to 0 just before each of the thirty-one
+paths (serve, serve tp8 (each rank's serving pass), serve tp, quant quality,
+flash bench, w4 bench, profile s2, demo, serve realtime, the long realtime
+request, serve realtime W8A16, serve int4, serve W4A16, serve batched's timed
+stream, the evaluate phase's timed runs, the int4 evaluate's timed run,
+evaluate server, evaluate habitat, evaluate vln_pe (each of its three parts),
+evaluate recurrent (each of its parts, where every count must stay 0), train
+recurrent, evaluate rdp, train rdp, evaluate navdp_vn, train navdp, dpt (every
+count 0 in each), serve navdp, serve batched navdp's checked cycle, evaluate
+navdp's timed run, train, train sharded's two steps) and read just after. Then
+one JSON line of kernel results, the GPU's name and power limit, and as the
+last line {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
+with no CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -607,6 +629,14 @@ def k1_cases(device):
                   rnd(BATCH_ROWS, 28, BATCH_PROMPT_T, 128),
                   rnd(BATCH_ROWS, 4, BATCH_PROMPT_T, 128),
                   rnd(BATCH_ROWS, 4, BATCH_PROMPT_T, 128), seg, True))
+    # serve tp8's local heads: (4, 1) on even ranks, (3, 1) on odd ones, at
+    # the 4th parity prompt's bucket and at a long 8,192-token prompt
+    for T in (PROMPT_T, TRAIN_LEN):
+        seg = torch.zeros((1, T), dtype=torch.int32, device=device)
+        seg[:, T - 23:] = 1
+        for H in (4, 3):
+            cases.append((f"text_tp8_H{H}_KV1_T{T}", rnd(1, H, T, 128), rnd(1, 1, T, 128),
+                          rnd(1, 1, T, 128), seg, True))
     win = vision_indices((14, 2, 112), ((1, 30, 30),))["window_segments"]
     seg = torch.as_tensor(np.asarray(win)[None], dtype=torch.int32, device=device)
     cases.append(("vision_S900", rnd(1, 16, 900, 80), rnd(1, 16, 900, 80),
@@ -2131,6 +2161,511 @@ def phase_serve_tp(device, policy, prompts) -> dict:
     return {"serve_tp": launches}
 
 
+# ------------------------------------------------------------ serve tp8
+#: tensor-parallel serving where ranks share the KV heads: 8 ranks on the
+#: one card in one gloo group (NCCL refuses two ranks on one device), a
+#: dp=1 x tp=8 mesh, each rank (4, 1) or (3, 1) heads of the 7B decoder
+TP8_RANKS = 8
+#: each request's decode budget in the phase, cut from MAX_NEW_TOKENS: a
+#: decode step of 8 ranks sharing one card through gloo takes 1.4-2.5 s,
+#: most of it in gloo's all-reduce (PERF.md §6), so 128 tokens would take
+#: the script past its limit
+TP8_NEW_TOKENS = 4
+#: the laid-out ranks' teacher-forced logits and traj latents against the
+#: unsharded policy's, on the same prefill, are held within these fixed
+#: limits (|logit| reaches ~6 at random weights). The layout changes only
+#: where bf16 sums round (each rank's partial o_proj and down_proj sums,
+#: added in bf16 by gloo, where one GEMM rounds once): PERF.md §6 reads
+#: 0.30-0.34 on the logits and 0.21-0.25 on the latents, about what two
+#: other bf16 computations of the same outputs by the unsharded policy
+#: differ by (the controls, printed beside). Planted layout faults (each
+#: run plants them: TP8_FAULTS) move them by several times the limits.
+#: The argmax must agree wherever the unsharded top two are further apart
+#: than the logit limit.
+TP8_LOGIT_TOL = 0.5
+TP8_LATENT_TOL = 0.4
+#: layout faults planted in the ranks after serving, each re-running the
+#: teacher-forced prefill, which must then break the limits on every
+#: prompt: odd ranks reading the next KV head's k / v (sent by the even
+#: rank that holds it), and odd ranks' query heads shifted by one (their
+#: q rows rolled, so o_proj's columns take the wrong heads)
+TP8_FAULTS = ("wrong_kv_head", "q_heads_shifted")
+#: the ranks' whole run (start, load, serve, teacher forcing) at most
+TP8_DEADLINE_S = 600
+
+
+def _time_reductions(seconds) -> list:
+    """Add the seconds this process spends in the staged reductions
+    (`collectives._all_reduce_`: the copies to and from the host, which
+    wait for the card, and gloo) and in gloo's all-reduce alone to
+    seconds["staged"] / ["gloo"]; returns the (owner, name, original)
+    triples for `_restore`."""
+    import torch.distributed as dist
+
+    from internnav_tpu_torch.parallel import collectives
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[key] += time.perf_counter() - t
+        return wrapper
+
+    out = [(collectives, "_all_reduce_", collectives._all_reduce_),
+           (dist, "all_reduce", dist.all_reduce)]
+    collectives._all_reduce_ = timed(collectives._all_reduce_, "staged")
+    dist.all_reduce = timed(dist.all_reduce, "gloo")
+    return out
+
+
+def _plant_fault(lm, fault: str, rank: int, world: int) -> list:
+    """Plant a TP8_FAULTS layout fault in this rank's laid-out decoder `lm`,
+    in place: "wrong_kv_head" gives every odd rank the k / v weights and
+    biases of the next KV head (the even rank after it sends its own),
+    "q_heads_shifted" rolls every odd rank's q rows and bias by one head.
+    Returns the (parameter, original) pairs that undo it."""
+    import torch
+    import torch.distributed as dist
+
+    attn = [layer.self_attn for layer in lm.layers]
+    if fault == "wrong_kv_head":
+        params = [p for a in attn for p in (a.k_proj.weight, a.k_proj.bias, a.v_proj.weight,
+                                            a.v_proj.bias)]
+    elif fault == "q_heads_shifted":
+        params = [p for a in attn for p in (a.q_proj.weight, a.q_proj.bias)]
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = [(p, p.detach().clone()) for p in params] if rank % 2 else []
+    with torch.no_grad():
+        if fault == "wrong_kv_head":
+            flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in params]).cpu()
+            if rank % 2 == 0:
+                dist.send(flat, (rank - 1) % world)
+            else:
+                dist.recv(flat, (rank + 1) % world)
+                at = 0
+                for p in params:
+                    n = p.numel() * p.element_size()
+                    p.copy_(flat[at:at + n].view(p.dtype).view_as(p))
+                    at += n
+        elif rank % 2:
+            D = lm.cfg.head_dim
+            for p in params:
+                p.copy_(torch.roll(p, D, 0))
+    return saved
+
+
+#: the kernels' plain versions the bf16-cache decode runs by design (no
+#: kernel decodes a bf16 cache; the serve parity path runs them too)
+TP8_PLAIN_DECODE = ("flash_attention.gqa_decode_reference",
+                    "flash_attention.gqa_chunk_decode_reference")
+
+
+def teacher_forced(policy, args, gen) -> tuple:
+    """The prompt of `fused_s2`'s args (its P real tokens), the tokens
+    `gen` (1-d, the generation before its stop token) and the n_query traj
+    queries prefilled as one sequence at the decode's positions: (logits
+    at the positions that predicted gen and its stop token, this rank's
+    vocab columns; the queries' final-norm rows, the traj latents of that
+    generation), both fp32 on the host."""
+    import torch
+
+    img, ids, pos, deltas, plen = args[:5]
+    model, lm = policy.model, policy.model.language_model
+    P, L = int(plen[0]), int(gen.numel())
+    gen = gen.to(ids.device)[None]
+    with torch.inference_mode():
+        queries = model.traj_queries().to(lm.cfg.dtype)
+        x = torch.cat([model.embed_multimodal(ids[:, :P], img), lm.embed(gen), queries], 1)
+        tail = P + deltas[0] + torch.arange(L + queries.shape[1], device=ids.device)
+        full_pos = torch.cat([pos[:, :, :P], tail[None, None].expand(3, 1, -1)], 2)
+        _, hidden, _ = lm(x, full_pos, compute_logits=False)
+        logits = lm._logits(hidden[:, P - 1:P + min(L, TP8_NEW_TOKENS - 1)])[0]
+    return logits.float().cpu(), hidden[0, P + L:].float().cpu()
+
+
+def _proc_status() -> dict:
+    """This process's resident host memory (GiB): all, private, mapped
+    files (the checkpoint's shared page cache among them), and its peak."""
+    keys = {"VmRSS": "rss", "RssAnon": "anon", "RssFile": "file", "VmHWM": "peak_rss"}
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            name, _, rest = line.partition(":")
+            if name in keys:
+                out[keys[name]] = round(int(rest.split()[0]) / 2**20, 3)
+    return out
+
+
+def _gloo_cuda_probe(group) -> dict:
+    """Which of the serving layout's reductions gloo takes on CUDA tensors
+    as they are (bf16 SUM, fp32 MAX, int64 MAX and MIN), each tried once on
+    a group of its own: the port does not rely on it and stages every one
+    through the host (`collectives.staged` counts them)."""
+    import torch
+    import torch.distributed as dist
+
+    ops = (("sum", torch.bfloat16), ("max", torch.float32), ("max", torch.int64),
+           ("min", torch.int64))
+    out = {}
+    for op, dtype in ops:
+        x = torch.ones(4, dtype=dtype, device="cuda")
+        try:
+            dist.all_reduce(x, op=getattr(dist.ReduceOp, op.upper()), group=group)
+            torch.cuda.synchronize()
+            out[f"{op} {str(dtype).removeprefix('torch.')}"] = "direct"
+        except Exception as e:  # noqa: BLE001 - a report, not a path
+            out[f"{op} {str(dtype).removeprefix('torch.')}"] = f"refused: {str(e)[:80]}"
+    return out
+
+
+def _tp8_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of phase serve tp8 (a process of its own on cuda:0): the
+    parity policy loaded from the run's HF checkpoint with its decoder laid
+    out over the gloo group's tp dimension (`serve.build_policy(tp_group=)`:
+    this rank's blocks read from the memory-mapped shards), the recorded
+    prompts served through `fused_s2` (counted: launches, K1's heads, the
+    decode loop, the staged reductions, plain versions), then each prompt
+    re-prefilled with the unsharded policy's tokens (`teacher_forced`).
+    Saves its results beside the spec."""
+    sys.modules["jax"] = None  # the port runs without jax
+    sys.modules["internnav_tpu"] = None
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        from internnav_tpu_torch.model.basemodel.internvla_n1 import decode_graph
+        from internnav_tpu_torch.model.basemodel.internvla_n1 import qwen_text as qt
+        from internnav_tpu_torch.parallel import collectives
+        from internnav_tpu_torch.parallel.mesh import make_mesh
+        from internnav_tpu_torch.realworld import serve
+
+        mesh = make_mesh({"dp": 1, "tp": world})
+        t0 = time.perf_counter()
+        policy = serve.build_policy("parity", device=device, ckpt=spec["ckpt"],
+                                    tp_group=mesh.get_group("tp"))
+        torch.cuda.synchronize()
+        res = {"load_s": time.perf_counter() - t0, "after_load": _proc_status(),
+               "resident_gib": torch.cuda.memory_allocated(device) / 2**30}
+        if rank == 0:
+            print(f"phase serve_tp8: rank 0 loaded in {res['load_s']:.2f} s", flush=True)
+        lm = policy.model.language_model
+        res["heads_cfg"] = (lm.cfg.num_attention_heads, lm.cfg.num_key_value_heads)
+        res["o_proj_in"] = lm.layers[0].self_attn.o_proj.in_features
+        res["mlp_width"] = lm.layers[0].mlp.gate_proj.out_features
+        res["vocab_cols"] = lm.lm_head.out_features
+        prompts = [tuple(a.to(device) if hasattr(a, "to") else a for a in args)
+                   for args in spec["prompts"]]
+        heads = collections.Counter()
+        flash = qt.flash_attention
+
+        def spy(q, k, *args, **kwargs):
+            heads[(q.shape[1], k.shape[1])] += 1
+            return flash(q, k, *args, **kwargs)
+
+        plain = collections.Counter()
+        spies = _plain_spies(plain)
+        prefill_s = []
+        prefill = policy.prefill_s2
+
+        def timed_prefill(*args):
+            t = time.perf_counter()
+            first = prefill(*args)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+            return first
+
+        policy.prefill_s2 = timed_prefill
+        waits = collections.Counter()
+        spies += _time_reductions(waits)
+        shapes = ShapeLog()  # the kernels' signatures, checked by the phase after the ranks
+        spies += shapes.install()
+        qt.flash_attention = spy
+        torch.cuda.reset_peak_memory_stats(device)
+        collectives.staged.clear()
+        reset_launch_counts()
+        before = collections.Counter(decode_graph.stats)
+        outs, secs = [], []
+        cpu0 = time.process_time()
+        try:
+            for i, args in enumerate(prompts):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                tokens, lengths, latents = policy.fused_s2(*args, spec["new"])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                outs.append((tokens.cpu(), lengths.cpu(), latents.float().cpu()))
+                if rank == 0:
+                    print(f"phase serve_tp8: rank 0 request {i} s={secs[-1]:.3f} "
+                          f"prefill_s={prefill_s[-1]:.3f}", flush=True)
+        finally:
+            qt.flash_attention = flash
+            del policy.prefill_s2
+            _restore(spies)
+        res.update(launches=launch_counts(), heads=dict(heads), plain=dict(plain),
+                   loop=dict(collections.Counter(decode_graph.stats) - before),
+                   staged=dict(collectives.staged), request_s=secs, prefill_s=prefill_s,
+                   serve_cpu_s=time.process_time() - cpu0, waits=dict(waits), outs=outs,
+                   serve_peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                   shapes=dict(shapes.launches),
+                   shape_inputs={sig: {k: v if v is None else v.cpu() for k, v in inp.items()}
+                                 for sig, inp in shapes.inputs.items()})
+        t = time.perf_counter()
+        res["forced"] = [teacher_forced(policy, args, gen)
+                         for args, gen in zip(prompts, spec["gen"])]
+        res["forced_s"] = time.perf_counter() - t
+        res["faults"] = {}
+        for fault in TP8_FAULTS:
+            saved = _plant_fault(lm, fault, rank, world)
+            res["faults"][fault] = [teacher_forced(policy, args, gen)
+                                    for args, gen in zip(prompts, spec["gen"])]
+            with torch.no_grad():
+                for p, value in saved:
+                    p.copy_(value)
+        res["faults_s"] = time.perf_counter() - t - res["forced_s"]
+        res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        res["end"] = _proc_status()
+        res["gloo_cuda"] = _gloo_cuda_probe(dist.new_group(
+            list(range(world)), timeout=datetime.timedelta(seconds=30)))
+        torch.save(res, Path(spec["out"]) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_tp8(device, policy, prompts, ckpt: Path) -> tuple:
+    """Tensor-parallel serving at tp = 8 on the one card: parity's
+    recorded prompts (`fused_s2`'s inputs) served by the unsharded parity
+    `policy` (tokens, lengths, latents, seconds) and re-prefilled with its
+    tokens (`teacher_forced`: the reference logits and latents), then by
+    TP8_RANKS processes (`_tp8_rank`) in one gloo group, each loading its
+    blocks of the checkpoint at `ckpt` (the parity weights) with its
+    decoder laid out at dp=1 x tp=8: ranks 2g and 2g + 1 hold KV head g
+    and its 7 query heads 4 + 3. Held: every rank exits 0; per rank K1
+    launched once a prefill layer on (4, 1) heads at even ranks and (3, 1)
+    at odd ones, K8 once a decoder layer pass, no int8 kernel, no plain
+    version but the bf16-cache decode's, the decode loop eager with no
+    capture, the reductions staged through the host; the ranks' teacher-
+    forced logits (their vocab columns side by side) and latents within
+    TP8_LOGIT_TOL / TP8_LATENT_TOL, the argmax equal wherever the unsharded
+    top two are more than the logit limit apart, and every planted fault
+    (TP8_FAULTS) past both limits on every prompt (checked after the lines
+    are printed); the controls (two other bf16 computations of the same
+    outputs by the unsharded policy) and the free-running tokens' agreement
+    and first divergence reported. K1 and K8 are then held against their
+    plain versions at every signature the ranks' serving passes launched
+    (`eval_kernel_rows`). Returns (the launches of rank 0's serving pass,
+    those rows by kernel)."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+
+    import torch
+
+    if len(prompts) != 4:
+        raise AssertionError(f"serve tp8: {len(prompts)} recorded prompts, expected 4")
+    text = policy.cfg.text
+    whole, whole_s, ref = [], [], []
+    for args in prompts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tokens, lengths, latents = policy.fused_s2(*args, TP8_NEW_TOKENS)
+        torch.cuda.synchronize()
+        whole_s.append(time.perf_counter() - t)
+        gen = tokens[0, :int(lengths[0])].cpu()
+        whole.append((tokens.cpu(), lengths.cpu(), latents.float().cpu()))
+        ref.append(teacher_forced(policy, args, gen))
+    # the controls, two other bf16 computations of the same outputs by the
+    # unsharded policy: its re-prefill through the plain attention, and its
+    # decode (the logits each eager step took its token from, the latent
+    # chunk over the cache)
+    with plain_prefill_attention():
+        plain = [teacher_forced(policy, args, t[0, :int(n[0])].cpu())
+                 for args, (t, n, _) in zip(prompts, whole)]
+    lm, served = policy.model.language_model, []
+    greedy = lm.greedy_token
+
+    def record(logits):
+        served[-1].append(logits.float().cpu())
+        return greedy(logits)
+
+    lm.greedy_token, policy.eager_decode = record, True
+    try:
+        for args, (tokens, _, latents) in zip(prompts, whole):
+            served.append([])
+            again = policy.fused_s2(*args, TP8_NEW_TOKENS)
+            if not torch.equal(again[0].cpu(), tokens):
+                raise AssertionError("serve tp8: the unsharded eager decode differs from its "
+                                     "graph decode")
+    finally:
+        del lm.greedy_token
+        policy.eager_decode = False
+    control = {
+        "k1_vs_plain": [max((a - b).abs().max().item() for (a, _), (b, _) in zip(ref, plain)),
+                        max((a - b).abs().max().item() for (_, a), (_, b) in zip(ref, plain))],
+        "decode_vs_prefill": [
+            max((torch.cat(rows)[:len(f)] - f).abs().max().item()
+                for rows, (f, _) in zip(served, ref)),
+            max((w[2][0] - f).abs().max().item() for w, (_, f) in zip(whole, ref))]}
+    logit_tol, latent_tol = TP8_LOGIT_TOL, TP8_LATENT_TOL
+    work = WORK_DIR / "serve_tp8"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    spec = {"store": str(work / "store"), "out": str(work), "ckpt": str(ckpt),
+            "new": TP8_NEW_TOKENS, "gen": [t[0, :int(n[0])] for t, n, _ in whole],
+            "prompts": [tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
+                        for args in prompts]}
+    with open(work / "spec.pkl", "wb") as f:
+        pickle.dump(spec, f)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' room on the card
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp8_rank, args=(r, TP8_RANKS, str(work / "spec.pkl")))
+             for r in range(TP8_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        end = time.monotonic() + TP8_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TP8_RANKS:
+        raise AssertionError(f"serve tp8: rank exit codes {codes} (a negative code: killed "
+                             f"at the {TP8_DEADLINE_S} s deadline or by a signal)")
+    res = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(TP8_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    L, n = text.num_hidden_layers, len(prompts)
+    for r, rr in enumerate(res):
+        want = (4, 1) if r % 2 == 0 else (3, 1)
+        la, loop = rr["launches"], rr["loop"]
+        passes = 2 * n + loop.get("steps", 0)  # prefills, latent chunks, decode steps
+        bad = [k for k in ("K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8f", "K9", "K10")
+               if la[k]]
+        if rr["heads_cfg"] != want or rr["heads"] != {want: n * L} or la["K1"] != n * L:
+            raise AssertionError(f"serve tp8: rank {r} K1 {la['K1']} on heads {rr['heads']} "
+                                 f"(config {rr['heads_cfg']}), expected {n * L} on {want}")
+        if bad or la["K8"] != L * passes:
+            raise AssertionError(f"serve tp8: rank {r} launched {la}: K8 expected {L} x "
+                                 f"{passes} passes, no int8 kernel or K8f")
+        plain = {k: v for k, v in rr["plain"].items() if v and k not in TP8_PLAIN_DECODE}
+        if plain:
+            raise AssertionError(f"serve tp8: rank {r} ran the plain versions {plain}")
+        if (loop.get("captures", 0) or loop.get("replays", 0)
+                or not loop.get("eager_uncapturable", 0)):
+            raise AssertionError(f"serve tp8: rank {r}'s decode loop {loop}: eager, no capture")
+        if not all(rr["staged"].get(k) for k in ("sum bfloat16", "max float32", "min int64")):
+            raise AssertionError(f"serve tp8: rank {r} staged {rr['staged']}")
+    def gaps_of(forced, i):
+        """The ranks' teacher-forced outputs of request i (`forced(rank
+        result)`) against the unsharded ones: (logits, their largest gap,
+        the latents' largest gap)."""
+        got = torch.cat([forced(rr)[i][0] for rr in res], -1)
+        if got.shape != ref[i][0].shape or not torch.isfinite(got).all():
+            raise AssertionError(f"serve tp8: request {i} logits {tuple(got.shape)} vs "
+                                 f"{tuple(ref[i][0].shape)}, or not finite")
+        return (got, (got - ref[i][0]).abs().max().item(),
+                max((forced(rr)[i][1] - ref[i][1]).abs().max().item() for rr in res))
+
+    errs, lat_errs, flips, near, gaps, agree, ties = [], [], [], [], [], [], []
+    for i, (want_logits, want_lat) in enumerate(ref):
+        got, err, lat_err = gaps_of(lambda rr: rr["forced"], i)
+        errs.append(err)
+        top2 = want_logits.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > logit_tol
+        flips.append(int(((got.argmax(-1) != want_logits.argmax(-1)) & clear).sum()))
+        near.append(int(clear.numel() - clear.sum()))
+        gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+        lat_errs.append(lat_err)
+        for rr in res[1:]:  # every rank decodes the same tokens
+            if not torch.equal(rr["outs"][i][0], res[0]["outs"][i][0]):
+                ties.append(i)
+        same = whole[i][0][0] == res[0]["outs"][i][0][0]
+        agree.append((round(float(same.float().mean()), 4),
+                      None if same.all() else int((~same).int().argmax())))
+    faults = {}  # fault -> per request (logit gap, latent gap, argmax changes)
+    for fault in TP8_FAULTS:
+        faults[fault] = []
+        for i in range(len(ref)):
+            got, err, lat_err = gaps_of(lambda rr: rr["faults"][fault], i)
+            faults[fault].append((round(err, 4), round(lat_err, 4),
+                                  int((got.argmax(-1) != ref[i][0].argmax(-1)).sum())))
+    print(f"phase serve_tp8: path=serve_tp8 mesh=dp1xtp{TP8_RANKS} backend=gloo "
+          f"ranks_on_one_card={TP8_RANKS} layers={L} hidden={text.hidden_size} "
+          f"prompts_T={[int(a[1].shape[1]) for a in prompts]} new_tokens={TP8_NEW_TOKENS} "
+          f"(cut from {MAX_NEW_TOKENS}) heads_by_rank={[rr['heads_cfg'] for rr in res]} "
+          f"o_proj_in_by_rank={[rr['o_proj_in'] for rr in res]} "
+          f"mlp_width={res[0]['mlp_width']} vocab_cols={res[0]['vocab_cols']} "
+          f"teacher_forced_max_abs_err={[round(e, 4) for e in errs]} "
+          f"controls_logits_latents={ {k: [round(x, 4) for x in v] for k, v in control.items()} } "
+          f"limit={logit_tol} "
+          f"max_abs_logit={round(max(r[0].abs().max().item() for r in ref), 4)} "
+          f"argmax_flips_past_limit={flips} near_ties_within_limit={near} "
+          f"min_top2_gap={[round(g, 5) for g in gaps]} "
+          f"latent_max_abs_err={[round(e, 4) for e in lat_errs]} "
+          f"latent_limit={latent_tol} "
+          f"planted_faults_logit_latent_gaps_argmax_changes={faults} "
+          f"free_tokens_agreement_first_divergence={agree} "
+          f"generated_unsharded={[int(l[0]) for _, l, _ in whole]} "
+          f"generated_tp8={[int(l[0]) for _, l, _ in res[0]['outs']]} "
+          f"ranks_wall_s={ranks_s:.2f} gpu={gpu_line()!r}")
+    for r, rr in enumerate(res):
+        print(f"phase serve_tp8: rank={r} heads={rr['heads_cfg']} load_s={rr['load_s']:.2f} "
+              f"resident_gib={rr['resident_gib']:.3f} peak_gib={rr['peak_gib']:.3f} "
+              f"serve_peak_gib={rr['serve_peak_gib']:.3f} host_after_load_gib={rr['after_load']} "
+              f"host_end_gib={rr['end']} request_s={[round(x, 4) for x in rr['request_s']]} "
+              f"prefill_s={[round(x, 4) for x in rr['prefill_s']]} "
+              f"serve_cpu_s={rr['serve_cpu_s']:.2f} "
+              f"reduction_s={ {k: round(v, 3) for k, v in rr['waits'].items()} } "
+              f"teacher_forced_s={rr['forced_s']:.2f} faults_s={rr['faults_s']:.2f} "
+              f"unsharded_request_s={[round(x, 4) for x in whole_s]} "
+              f"(gloo through the host on one card, not NVLink tensor parallelism) "
+              f"launches={ {k: v for k, v in rr['launches'].items() if v} } "
+              f"k1_heads={rr['heads']} decode_loop={rr['loop']} staged={rr['staged']} "
+              f"plain_bf16_decode={ {k: v for k, v in rr['plain'].items() if v} }")
+    print(f"phase serve_tp8: gloo_on_cuda_tensors={res[0]['gloo_cuda']} (the port stages "
+          f"every reduction through the host: staged counts above)")
+    if ties or max(errs) > logit_tol or any(flips) or max(lat_errs) > latent_tol:
+        raise AssertionError(f"serve tp8: teacher-forced logits {errs} (limit {logit_tol}), "
+                             f"{flips} argmax flips past it, latents {lat_errs} (limit "
+                             f"{latent_tol}), requests whose ranks' tokens differ {ties}")
+    unseen = {f: g for f, g in faults.items()
+              if any(e <= logit_tol or le <= latent_tol for e, le, _ in g)}
+    if unseen:
+        raise AssertionError(f"serve tp8: planted faults within the limits ({logit_tol}, "
+                             f"{latent_tol}) on some prompt: {unseen}")
+    # K1 and K8 at every signature the ranks launched, against their plain versions
+    shapes = ShapeLog()
+    for rr in res:
+        shapes.launches.update(rr["shapes"])
+        for sig, inputs in rr["shape_inputs"].items():
+            shapes.inputs.setdefault(sig, {k: v if v is None else v.to(device)
+                                           for k, v in inputs.items()})
+    rows = eval_kernel_rows(device, shapes, path="serve_tp8", every=True)
+    if set(rows) != {"K1", "K8"}:
+        raise AssertionError(f"serve tp8: the ranks launched {sorted(rows)}, expected K1, K8")
+    return {"serve_tp8": res[0]["launches"]}, rows
+
+
 # ------------------------------------------------------------ checkpoint
 #: RAM kept free beside checkpoints on a RAM-backed file system
 CKPT_RAM_HEADROOM = 16 * 2**30
@@ -2992,21 +3527,22 @@ class ShapeLog:
         return tuple(int(x) for x in self.inputs[sig]["lengths"].tolist())
 
 
-def eval_kernel_rows(device, log: ShapeLog) -> dict:
-    """Each kernel of EVAL_KERNELS at the evaluate path's most launched
-    signatures (`ShapeLog.chosen`), checked against its plain version and
-    timed like the rows of phase kernels, on fresh random inputs (the
-    segment ids and positions of the path); rows by kernel, each with the
-    signature's warm-run launches and share."""
+def eval_kernel_rows(device, log: ShapeLog, path: str = "evaluate",
+                     every: bool = False) -> dict:
+    """Each kernel of EVAL_KERNELS at `path`'s most launched signatures
+    (`ShapeLog.chosen`; with `every`, at all of them), checked against its
+    plain version and timed like the rows of phase kernels, on fresh
+    random inputs (the segment ids and positions of the path); rows by
+    kernel, each with the signature's launches on the path and share."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(3)
     by_kernel = log.by_kernel()
     rows = collections.defaultdict(list)
-    for kernel, picked in log.chosen().items():
+    for kernel, picked in (by_kernel if every else log.chosen()).items():
         total = sum(n for _, n in by_kernel[kernel])
         for sig, n in picked:
-            extra = {"path": "evaluate", "warm_run_launches": n, "share": n / total}
+            extra = {"path": path, "path_launches": n, "share": n / total}
             if kernel == "K1":
                 (B, H, T, D), KV, causal = sig[1], sig[2], sig[3]
                 seg = log.inputs[sig]["seg"]
@@ -3014,7 +3550,7 @@ def eval_kernel_rows(device, log: ShapeLog) -> dict:
                 def rnd(*shape):
                     return torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
 
-                name = f"eval_{'text' if D == 128 else 'vision'}_B{B}_T{T}"
+                name = f"{path}_{'text' if D == 128 else 'vision'}_B{B}_H{H}_KV{KV}_T{T}"
                 rows[kernel].append(k1_row(name, rnd(B, H, T, D), rnd(B, KV, T, D),
                                            rnd(B, KV, T, D), seg, causal, extra))
             elif kernel in ("K4", "K5"):
@@ -6212,6 +6748,12 @@ def main() -> int:
         # before serve tp, which leaves the policy laid out over its group
         by_path.update(phase_quant_quality(device, parity))
         lap("quant_quality")
+        # before serve tp, which lays the parity decoder out over its group
+        tp8_launches, tp8_rows = phase_serve_tp8(device, parity, prompts, hf["dir"])
+        by_path.update(tp8_launches)
+        kern["k1_serve"] += tp8_rows["K1"]
+        int8["K8"] += tp8_rows["K8"]
+        lap("serve_tp8")
         by_path.update(phase_serve_tp(device, parity, prompts))
         lap("serve_tp")
         del parity, prompts

@@ -15,7 +15,8 @@ runs the same weights; `params=` loads a JAX-layout parameter tree instead
 on the host (the tests); without a device it asks for the GPU and raises
 without one. `dryrun_multichip(n)` trains one step of the tiny policy
 sharded over n gloo CPU processes, then greedy-decodes with its decoder
-laid out for serving over a dp x tp mesh of the same processes.
+laid out for serving over a dp x tp mesh of the same processes (its spec
+may skip the training step, and name the serving mesh and text model).
 """
 
 from __future__ import annotations
@@ -92,20 +93,23 @@ def dryrun_multichip(n_devices: int = 8, *, spec: Optional[Mapping[str, Any]] = 
     policy's decoder out for serving on a dp × tp mesh of that shape
     (`parallel/tp.apply_serve_tp`) and greedy-decode B = 2·dp rows of T =
     24 random ids (`RandomState(0)`, as JAX's phase), 4 new tokens, EOS
-    (3,), each dp group its own rows. Prints both and returns rank 0's
-    metrics, with "serve": the tokens (B, 4) and lengths (B,) of every
-    row, gathered on rank 0.
+    (3,), each dp group its own rows, then re-prefill each row's prompt and
+    tokens (teacher forcing). Prints both and returns rank 0's metrics,
+    with "serve": the tokens (B, 4), lengths (B,) and teacher-forced
+    logits (B, 4, vocab) at the generated positions of every row, gathered
+    on rank 0.
 
     `spec` overrides the run (the CPU tests): "mesh" (MeshCfg fields),
     "il" (IlCfg fields), "state" (a state-dict file for the tiny fp32
     model, which both phases start from), "batch" (a pickled raw packed
-    batch), "draws" (train_step's System-1 draws), "output_dir" and "resume" (restore the newest
-    checkpoint there first), "save" (write a checkpoint after the step)
-    and "gather" (return the gathered parameters and optimizer state).
-    The workers are this module's: a child imports neither the caller's
-    module nor JAX."""
+    batch), "draws" (train_step's System-1 draws), "output_dir" and
+    "resume" (restore the newest checkpoint there first), "save" (write a
+    checkpoint after the step), "gather" (return the gathered parameters
+    and optimizer state), "train" (False: skip phase 1) and "serve"
+    (phase 2's "mesh" axes, and its text model: a "text" QwenTextConfig
+    with its "state" file). The workers are this module's: a child imports
+    neither the caller's module nor JAX."""
     import multiprocessing as mp
-    import socket
     import tempfile
 
     tp = 2 if n_devices % 2 == 0 else 1
@@ -115,11 +119,12 @@ def dryrun_multichip(n_devices: int = 8, *, spec: Optional[Mapping[str, Any]] = 
     with tempfile.TemporaryDirectory() as tmp:
         spec.setdefault("output_dir", f"{tmp}/out")
         out = f"{tmp}/rank0.pt"
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_dryrun_worker, args=(r, n_devices, port, spec, out, tmp))
+        # forked from a server that imported torch and this module once (a
+        # fresh interpreter a rank would import torch n times over), not
+        # from this process, whose threads a fork would not carry over
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload([__name__])
+        procs = [ctx.Process(target=_dryrun_worker, args=(r, n_devices, spec, out, tmp))
                  for r in range(n_devices)]
         for p in procs:
             p.start()
@@ -136,23 +141,26 @@ def dryrun_multichip(n_devices: int = 8, *, spec: Optional[Mapping[str, Any]] = 
             raise RuntimeError(f"dryrun_multichip: worker exit codes {codes}")
         result = torch.load(out, weights_only=False)
     m = spec["mesh"]
-    print("dryrun_multichip ok:", {k: round(v, 4) for k, v in result["metrics"].items()},
-          f"(mesh {m['axes']}, param_sharding={m.get('param_sharding', 'replicated')}"
-          f"{'+fsdp_rest' if m.get('fsdp_rest') else ''}, gloo x {n_devices})")
+    if "metrics" in result:
+        print("dryrun_multichip ok:", {k: round(v, 4) for k, v in result["metrics"].items()},
+              f"(mesh {m['axes']}, param_sharding={m.get('param_sharding', 'replicated')}"
+              f"{'+fsdp_rest' if m.get('fsdp_rest') else ''}, gloo x {n_devices})")
+    axes = result["serve"]["mesh"]
     print("dryrun_multichip serving ok:", tuple(result["serve"]["tokens"].shape),
-          f"(greedy decode dp={n_devices // tp} x tp={tp})")
+          f"(greedy decode dp={axes['dp']} x tp={axes['tp']})")
     return result
 
 
-def _dryrun_worker(rank: int, world: int, port: int, spec: Mapping[str, Any], out: str,
-                   tmp: str) -> None:
+def _dryrun_worker(rank: int, world: int, spec: Mapping[str, Any], out: str, tmp: str) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+    # the ranks meet at a file of the run's own directory: a free TCP port,
+    # read and released, can be taken by another group before rank 0 binds it
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
                             world_size=world)
     try:
-        result = _dryrun_step(spec, tmp)
+        result = _dryrun_step(spec, tmp) if spec.get("train", True) else {}
         result["serve"] = _dryrun_serve(spec)
         if rank == 0:
             torch.save(result, out)
@@ -207,34 +215,56 @@ def _dryrun_model(spec: Mapping[str, Any], cfg: InternVLAN1Config):
 
 
 def _dryrun_serve(spec: Mapping[str, Any]) -> dict:
-    """Phase 2 on this process: the tiny decoder laid out for serving over
-    a dp × tp mesh of every process (tp=2 where their number is even),
-    this dp group's rows decoded; every row's tokens and lengths gathered,
-    in row order."""
+    """Phase 2 on this process: a decoder laid out for serving over a dp ×
+    tp mesh of every process (spec["serve"]["mesh"]; by default tp=2 where
+    their number is even), this dp group's rows decoded and then
+    re-prefilled with their tokens; every row's tokens, lengths and
+    teacher-forced logits gathered, in row order, with the mesh's axes.
+    The decoder is spec["serve"]'s text model where given, else the tiny
+    N1 policy's."""
     import torch.distributed as dist
 
-    from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import greedy_generate
+    from internnav_tpu_torch.model.basemodel.internvla_n1.qwen_text import (
+        QwenTextModel,
+        greedy_generate,
+    )
     from internnav_tpu_torch.parallel.mesh import make_mesh, rank_of, row_bounds
     from internnav_tpu_torch.parallel.tp import apply_serve_tp
 
-    cfg = InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
-    lm = _dryrun_model(spec, cfg).language_model
+    serve = spec.get("serve", {})
+    if "text" in serve:
+        lm = QwenTextModel(serve["text"])
+        lm.load_state_dict(torch.load(serve["state"], weights_only=True))
+    else:
+        lm = _dryrun_model(spec, InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
+                           ).language_model
+    vocab = lm.cfg.vocab_size
     world = dist.get_world_size()
     tp = 2 if world % 2 == 0 else 1
-    mesh = make_mesh({"dp": world // tp, "tp": tp})
+    axes = dict(serve.get("mesh", {"dp": world // tp, "tp": tp}))
+    mesh = make_mesh(axes)
     apply_serve_tp(lm, mesh.get_group("tp"))
-    dp, dp_rank = world // tp, rank_of(mesh, "dp")
-    B, T = 2 * dp, 24
-    ids = np.random.RandomState(0).randint(0, cfg.text.vocab_size, (B, T))
+    dp, dp_rank = axes["dp"], rank_of(mesh, "dp")
+    B, T, new = 2 * dp, 24, 4
+    ids = np.random.RandomState(0).randint(0, vocab, (B, T))
     a, b = row_bounds(B, dp, dp_rank)
-    pos = torch.arange(T)[None, None].expand(3, b - a, T)
+    pos = torch.arange(T + new)[None, None].expand(3, b - a, T + new)
     with torch.inference_mode():
-        tokens, lengths, _ = greedy_generate(lm, lm.embed(torch.from_numpy(ids[a:b])), pos,
-                                             max_new_tokens=4, eos_token_ids=(3,))
+        prompt = torch.from_numpy(ids[a:b])
+        tokens, lengths, _ = greedy_generate(lm, lm.embed(prompt), pos[..., :T],
+                                             max_new_tokens=new, eos_token_ids=(3,))
+        _, hidden, _ = lm(lm.embed(torch.cat([prompt, tokens], 1)), pos, compute_logits=False)
+        logits = lm._logits(hidden[:, T - 1:T - 1 + new])  # this rank's vocab columns
     parts = [None] * world
-    dist.all_gather_object(parts, (dp_rank, rank_of(mesh, "tp"), tokens, lengths))
-    rows = sorted((p for p in parts if p[1] == 0), key=lambda p: p[0])
-    return {"tokens": torch.cat([p[2] for p in rows]), "lengths": torch.cat([p[3] for p in rows])}
+    dist.all_gather_object(parts, (dp_rank, rank_of(mesh, "tp"), tokens, lengths, logits))
+    parts.sort(key=lambda p: p[:2])
+    rows = [p for p in parts if p[1] == 0]
+    # the vocab columns of a dp group's ranks in tp order (a whole lm_head:
+    # every rank holds them all)
+    cols = [[p[4] for p in parts if p[0] == d and (lm.head_start is not None or p[1] == 0)]
+            for d in range(dp)]
+    return {"tokens": torch.cat([p[2] for p in rows]), "lengths": torch.cat([p[3] for p in rows]),
+            "logits": torch.cat([torch.cat(c, -1) for c in cols]), "mesh": axes}
 
 
 def _synthetic_batch(policy, cfg, tmp: str) -> dict:

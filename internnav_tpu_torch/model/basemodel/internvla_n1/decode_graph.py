@@ -40,8 +40,10 @@ tp group's collectives: the row-parallel all-reduces and the vocab
 argmax's two (`QwenTextModel.greedy_token`), so every rank of the group
 feeds the same tokens and stops at the same chunk. A captured step holds
 NCCL's launches and its replays run them (held bitwise against the
-unsharded loop on the card at world size 1); gloo, on the CPU, runs the
-step eagerly.
+unsharded loop on the card at world size 1). A gloo group (the CPU, or
+ranks that share one card) reduces on the host, which no graph can hold:
+a loop over a model whose tp group is not NCCL's runs its step eagerly on
+the card too (`capturable`; counted as `eager_uncapturable` in `stats`).
 
 Launch counts: a captured launch does not run, so the kernel wrappers'
 counters are put back after a capture, and each replay adds the launches
@@ -66,8 +68,9 @@ MAX_CACHES = 64
 MAX_LOOPS = 64
 
 #: steps run on the device (graph replays, eager and warm-up steps), those
-#: of them with the lm_head, graph replays, captures (one per graph) and
-#: warm-up steps
+#: of them with the lm_head, graph replays, captures (one per graph),
+#: warm-up steps, and CUDA loops left eager because their model's
+#: collectives cannot be captured
 stats = collections.Counter()
 
 
@@ -92,6 +95,18 @@ def _add_launches(delta: Dict[Tuple[str, str], int]) -> None:
         for name in m.LAUNCH_COUNTERS:
             if delta.get((m.__name__, name)):
                 setattr(m, name, getattr(m, name) + delta[(m.__name__, name)])
+
+
+def capturable(model) -> bool:
+    """Whether a CUDA graph may hold a decode step of model: it has no
+    serving tp group, or that group is NCCL's (a gloo group reduces on the
+    host)."""
+    group = getattr(model, "tp_group", None)
+    if group is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_backend(group) == "nccl"
 
 
 def stop_mask(tokens: torch.Tensor, eos: torch.Tensor) -> torch.Tensor:
@@ -137,9 +152,12 @@ class DecodeLoop:
         self.rope_deltas = torch.zeros(B, dtype=torch.long, device=dev)
         self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         if dev.type == "cuda" and not eager:
-            self._flag = torch.zeros(1, dtype=torch.bool, pin_memory=True)
-            self._event = torch.cuda.Event()
-            self._capture(dev)
+            if capturable(model):
+                self._flag = torch.zeros(1, dtype=torch.bool, pin_memory=True)
+                self._event = torch.cuda.Event()
+                self._capture(dev)
+            else:
+                stats["eager_uncapturable"] += 1
 
     # ------------------------------------------------------------ the step
     def _step(self, logits: bool) -> None:

@@ -88,6 +88,7 @@ from internnav_tpu_torch.model.weights.convert import (
 )
 from internnav_tpu_torch.model.weights.safetensors_io import read_safetensors, write_safetensors
 from internnav_tpu_torch.ops.rope import get_rope_index_25
+from internnav_tpu_torch.parallel.tp import apply_serve_tp
 
 IM_START, IM_END = "<|im_start|>", "<|im_end|>"
 VISION_START, VISION_END = "<|vision_start|>", "<|vision_end|>"
@@ -248,10 +249,25 @@ def _with_tied_embeddings(cfg: InternVLAN1Config, tied: bool) -> InternVLAN1Conf
     return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, tie_word_embeddings=tied))
 
 
+def _serving_model(cfg: InternVLAN1Config, device, tp_group):
+    """(model, blocks): an uninitialized model on `device` (`build_model`)
+    and {}; with a tp group, its decoder laid out for serving over the
+    group on the meta device first (`apply_serve_tp`), so that only this
+    rank's blocks are allocated, and those blocks by state name (the
+    loader takes only them from the memory-mapped checkpoint)."""
+    if tp_group is None:
+        return build_model(cfg, device=device), {}
+    with torch.device("meta"):
+        model = InternVLAN1Model(cfg)
+    apply_serve_tp(model.language_model, tp_group)
+    blocks = {f"language_model.{n}": b for n, b in model.language_model.serve_blocks.items()}
+    return model.to_empty(device=device).eval(), blocks
+
+
 @torch.no_grad()
-def _load_native_(model: InternVLAN1Model, sd, path: str) -> None:
+def _load_native_(model: InternVLAN1Model, sd, path: str, blocks=None) -> None:
     """The port's own state_dict into a built model: the same names,
-    shapes and dtypes, or it raises."""
+    shapes and dtypes, or it raises; `blocks` as in `convert.load_into_`."""
     state = model.state_dict(keep_vars=True)
     if set(sd) != set(state):
         raise KeyError(f"{path}: native weights differ from the model's state: missing "
@@ -259,6 +275,8 @@ def _load_native_(model: InternVLAN1Model, sd, path: str) -> None:
                        f"{sorted(set(sd) - set(state))[:8]}")
     for name, target in state.items():
         value = sd[name]
+        if blocks and name in blocks:
+            value = value.narrow(*blocks[name])
         if value.dtype != target.dtype or value.shape != target.shape:
             raise ValueError(f"{path}: {name} is {value.dtype} {tuple(value.shape)}, the model "
                              f"has {target.dtype} {tuple(target.shape)}")
@@ -323,7 +341,8 @@ class InternVLAN1Policy:
 
     @classmethod
     def from_pretrained_torch(cls, path: str, cfg: InternVLAN1Config, *, device=None,
-                              tokenizer=None, seed: int = 0) -> "InternVLAN1Policy":
+                              tokenizer=None, seed: int = 0,
+                              tp_group=None) -> "InternVLAN1Policy":
         """A reference-format InternVLA-N1 checkpoint (safetensors, sharded
         or not, or .bin / .pth; `convert.load_torch_state_dict`) in cfg's
         formats on `device` (the GPU when None; raises without one). The
@@ -335,7 +354,11 @@ class InternVLAN1Policy:
         is ever resident. Without `lm_head.weight` the text model ties its
         embeddings. The tokenizer is the directory's (`checkpoint_tokenizer`)
         unless one is given. Any unmatched, missing or misshapen tensor
-        raises (`convert.load_into_`)."""
+        raises (`convert.load_into_`). With `tp_group` (a mesh's tp group)
+        the decoder is laid out for serving over it (`apply_serve_tp`) and
+        this rank reads only its blocks of the split tensors from the
+        memory-mapped files: the page cache is shared between the ranks of
+        a host, and no rank holds a full copy of its own."""
         device = require_cuda() if device is None else device
         if checkpoint_format(path) == "native":
             raise ValueError(f"{path} is a native directory of the port: load it with "
@@ -348,8 +371,8 @@ class InternVLAN1Policy:
                 "policy with save_pretrained and load it with from_pretrained")
         sd = load_torch_state_dict(path)
         cfg = _with_tied_embeddings(cfg, "lm_head.weight" not in sd)
-        model = build_model(cfg, device=device)
-        load_into_(model, sd)
+        model, blocks = _serving_model(cfg, device, tp_group)
+        load_into_(model, sd, blocks=blocks)
         return cls(model, seed=seed, tokenizer=tokenizer if tokenizer is not None else
                    checkpoint_tokenizer(path, cfg.text.vocab_size))
 
@@ -374,11 +397,12 @@ class InternVLAN1Policy:
 
     @classmethod
     def from_pretrained(cls, path: str, cfg: InternVLAN1Config, *, device=None,
-                        tokenizer=None, seed: int = 0) -> "InternVLAN1Policy":
+                        tokenizer=None, seed: int = 0, tp_group=None) -> "InternVLAN1Policy":
         """A native `save_pretrained` directory on `device` (the GPU when
         None). cfg must ask for the weight dtype the directory records (the
         JAX package's check and message; config.json must be there); every
-        tensor must match the model's name, shape and dtype."""
+        tensor must match the model's name, shape and dtype. `tp_group` as
+        in `from_pretrained_torch`."""
         device = require_cuda() if device is None else device
         if checkpoint_format(path) != "native":
             raise ValueError(f"{path} has no {NATIVE_WEIGHTS}: not a native directory of the "
@@ -398,8 +422,8 @@ class InternVLAN1Policy:
         sd = read_safetensors(os.path.join(path, NATIVE_WEIGHTS))
         cfg = _with_tied_embeddings(
             cfg, not any(k.startswith("language_model.lm_head.") for k in sd))
-        model = build_model(cfg, device=device)
-        _load_native_(model, sd, path)
+        model, blocks = _serving_model(cfg, device, tp_group)
+        _load_native_(model, sd, path, blocks)
         return cls(model, seed=seed, tokenizer=tokenizer if tokenizer is not None else
                    checkpoint_tokenizer(path, cfg.text.vocab_size))
 

@@ -56,7 +56,9 @@ cross-entropy (`chunked_ce`).
   embedding looks up its vocab rows and all-reduces, and `greedy_token`
   takes the argmax over the vocab-split lm_head across the group, ties to
   the lowest id as `jnp.argmax`. The config's head counts are the rank's,
-  so the static caches hold its KV heads.
+  so the static caches hold its KV heads. Where ranks share a KV head (tp
+  = 8 at 7B) a rank's heads are (4, 1) or (3, 1): every local query head
+  reads the one local KV head, and o_proj's input blocks are uneven.
 """
 
 from __future__ import annotations

@@ -253,7 +253,8 @@ def fetch(sd: Mapping[str, torch.Tensor], src: Source) -> torch.Tensor:
 
 @torch.no_grad()
 def load_into_(module: nn.Module, sd: Mapping[str, torch.Tensor], *, prefix: str = "",
-               scope: Optional[Sequence[str]] = None) -> nn.Module:
+               scope: Optional[Sequence[str]] = None,
+               blocks: Optional[Mapping[str, Tuple[int, int, int]]] = None) -> nn.Module:
     """A reference-format state dict into a built module, one tensor at a
     time through `plan`'s strict map (`prefix`, `scope` as there). A
     quantized projection (a module with `load_weight_`: `QuantLinear`)
@@ -262,13 +263,18 @@ def load_into_(module: nn.Module, sd: Mapping[str, torch.Tensor], *, prefix: str
     does; every other tensor is copied into its parameter, cast to its
     dtype (the fp32 norm scales keep a checkpoint's fp32 values, which the
     JAX package rounds to the model dtype; a bf16 checkpoint's are the
-    same). A shape that differs raises."""
+    same). `blocks` (module state name → (dim, start, size): a serving
+    layout's `serve_blocks`) takes only that block of a tensor, a view of
+    the memory-mapped file. A shape that differs raises."""
     state = module.state_dict(keep_vars=True)
     modules = dict(module.named_modules())
+    blocks = blocks or {}
     # a QuantLinear's weight_q and scale_q come from one HF weight
     names = [k.removesuffix("_q") for k in state if not k.endswith(".scale_q")]
     for name, src in plan(sd.keys(), names, prefix=prefix, scope=scope).items():
         value = fetch(sd, src)
+        if name in blocks:
+            value = value.narrow(*blocks[name])
         parent, _, leaf = name.rpartition(".")
         quantized = hasattr(modules[parent], "load_weight_")
         if quantized and leaf == "weight":

@@ -12,10 +12,19 @@ identity (rank 0 of 1), as the JAX helpers are in one process.
 in the forward whose backward passes the gradient through unchanged
 (Megatron's reduce-from-tensor-parallel region), because every rank of
 the group computes the same loss from the summed value.
+
+The serving layout's reductions (`all_reduce_sum_`, `vocab_argmax`) take
+CUDA tensors on any group. NCCL reduces them on the card (and a captured
+decode step holds its launches); NCCL refuses two ranks on one card, so
+ranks that share a card meet in a gloo group, and there a CUDA tensor is
+staged through the host explicitly: copied to the host, reduced in gloo's
+host arithmetic and copied back. `staged` counts those reductions by op
+and dtype.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Iterable, Optional
 
 import numpy as np
@@ -137,11 +146,29 @@ def pmax(x: torch.Tensor, group) -> torch.Tensor:
     return y
 
 
+#: the serving reductions staged through the host, by "op dtype"
+staged = collections.Counter()
+
+
+def _all_reduce_(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """dist.all_reduce of x over group in place by `op` ("sum", "max",
+    "min"); a CUDA tensor on a group that is not NCCL's (gloo) staged
+    through the host, counted in `staged`."""
+    reduce_op = getattr(dist.ReduceOp, op.upper())
+    if not x.is_cuda or dist.get_backend(group) == "nccl":
+        dist.all_reduce(x, op=reduce_op, group=group)
+        return x
+    host = x.to("cpu", memory_format=torch.contiguous_format)
+    dist.all_reduce(host, op=reduce_op, group=group)
+    staged[f"{op} {str(x.dtype).removeprefix('torch.')}"] += 1
+    return x.copy_(host)
+
+
 def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over `group` in place (the serving layout's row-parallel
     projections and vocab-split embedding); x itself where group is None."""
     if group is not None:
-        dist.all_reduce(x, group=group)
+        _all_reduce_(x, "sum", group)
     return x
 
 
@@ -155,11 +182,9 @@ def vocab_argmax(logits: torch.Tensor, start: int, group) -> torch.Tensor:
     largest value over the whole vocab, which is `jnp.argmax`'s answer
     (ties to the first index). Two all-reduces, the maximum and then the
     smallest id that holds it; every rank of the group gets the same ids.
-    Device-side only, so a captured decode step may hold it."""
+    Device-side only on NCCL, so a captured decode step may hold it."""
     idx = logits.argmax(-1)
     best = logits.gather(-1, idx[..., None])[..., 0]
-    top = best.clone()
-    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    top = _all_reduce_(best.clone(), "max", group)
     ids = torch.where(best == top, idx + start, _NO_ID)
-    dist.all_reduce(ids, op=dist.ReduceOp.MIN, group=group)
-    return ids
+    return _all_reduce_(ids, "min", group)

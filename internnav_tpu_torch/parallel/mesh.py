@@ -8,15 +8,19 @@ the process group, which `torchrun` or the caller starts. One axis may be
 
 A layout is a dict, parameter name → {mesh axis: torch dim}: the dims a
 parameter is split on, the torch form of the JAX `PartitionSpec` of the
-same leaf; {} is replicated. The JAX rule reads a Dense kernel as (in,
-out) and a conv kernel as HWIO; the port's `nn.Linear` weight is (out, in)
-and `nn.Conv2d` OIHW, so the rules walk each parameter's dims in JAX
-order (`jax_dim_order`), and ties break as JAX's do.
+same leaf; {} is replicated. An axis's value may instead be `Blocks`, each
+rank's own span of one dim, where the blocks are not equal (the serving
+layout's query heads split 4 + 3) or repeat (a KV head held by the ranks
+that share it); `block_of` reads either form. The JAX rule reads a Dense
+kernel as (in, out) and a conv kernel as HWIO; the port's `nn.Linear`
+weight is (out, in) and `nn.Conv2d` OIHW, so the rules walk each
+parameter's dims in JAX order (`jax_dim_order`), and ties break as JAX's
+do.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,8 +28,18 @@ from torch import nn
 
 from internnav_tpu_torch.parallel.collectives import get_world_size, initialized
 
-#: a parameter name → {mesh axis: the torch dim split over it}
-Layout = Dict[str, Dict[str, int]]
+
+class Blocks(NamedTuple):
+    """A split of `dim` whose blocks are not the axis's equal blocks: rank
+    r holds [start, start + size) of it, spans[r] = (start, size). Ranks'
+    sizes may differ and two ranks may hold the same span."""
+    dim: int
+    spans: Tuple[Tuple[int, int], ...]
+
+
+#: a parameter name → {mesh axis: the torch dim split over it in equal
+#: blocks, or its `Blocks`}
+Layout = Dict[str, Dict[str, Union[int, Blocks]]]
 #: parameters below this many elements stay replicated (the JAX rule)
 MIN_SHARD_SIZE = 2**14
 
@@ -60,6 +74,17 @@ def make_mesh(axes: Optional[Mapping[str, int]] = None, device_type: Optional[st
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, tuple(sizes.values()), mesh_dim_names=tuple(sizes))
+
+
+def block_of(split: Union[int, Blocks], shape: Sequence[int], n: int,
+             r: int) -> Tuple[int, int, int]:
+    """(dim, start, size) of rank r's block of a parameter of `shape`
+    under a layout entry's split over an axis of n ranks: an int dim
+    gives block r of n equal blocks of that dim, a `Blocks` its span r."""
+    if isinstance(split, Blocks):
+        return (split.dim, *split.spans[r])
+    size = shape[split] // n
+    return split, r * size, size
 
 
 def axis_size(mesh: Any, axis: str) -> int:

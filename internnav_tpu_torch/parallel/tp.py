@@ -28,12 +28,30 @@ vocab-split lm_head across it (`collectives.vocab_argmax`). The JAX rules
 name `kernel` and `embedding` only, so quantized projections (W8A8, W4A8:
 `QuantLinear` buffers, not parameters) stay whole on every rank, and their
 layers run as unsharded.
+
+Where tp does not divide the KV heads but is a multiple of them (tp = 8
+at 7B, 4 KV heads: JAX splits q into 3.5 heads a device and k / v into
+halves, and GSPMD partitions the rest), the serving layout shares each KV
+head between r = tp / KV ranks instead (`shared_kv_spans`): ranks r·g …
+r·g + r − 1 hold KV head g whole (k / v rows and biases, replicated over
+them) and split its G = H / KV query heads as whole heads, the first
+G mod r ranks ceil(G / r) and the rest floor(G / r) (4 + 3 at 7B); q's
+rows and bias and o_proj's input columns follow a rank's heads, so
+o_proj's blocks are uneven (`mesh.Blocks`). Each rank runs attention on
+its own (H_local, 1) heads, all of them over its one KV head, and the
+partial sums all-reduce as before; the MLP and vocab splits stay equal. No
+query head is padded: a rank holds only weights the checkpoint has. At
+most MAX_KV_SHARERS ranks share a KV head; a wider share (tp = 16 at 7B:
+four ranks, 1.75 query heads a rank on average) is refused, naming the
+parameter, as is every other layout without whole heads. Training keeps
+the DTensor plan, which cannot replicate a KV head over a pair of ranks
+and sum its gradients over them: `apply_tp` refuses tp = 8 at 7B.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,8 +59,10 @@ from torch import nn
 
 from internnav_tpu_torch.parallel.mesh import (
     MIN_SHARD_SIZE,
+    Blocks,
     Layout,
     axis_size,
+    block_of,
     largest_divisible_dim,
     named_params_with_modules,
 )
@@ -61,6 +81,8 @@ _TP_RULES = (
 _COLWISE = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "mlp.gate_proj",
             "mlp.up_proj")
 _ROWWISE = ("self_attn.o_proj", "mlp.down_proj")
+#: the most ranks of the serving layout that share one KV head
+MAX_KV_SHARERS = 2
 
 
 def _tp_dim(name: str, shape, n_tp: int) -> Optional[int]:
@@ -94,7 +116,8 @@ def check_whole_heads(model: nn.Module, layout: Layout, n_tp: int, tp_axis: str 
     would give a rank a fraction of an attention head, or where a layer's
     paired projections are not split alike (JAX replicates a ruled
     parameter whose dim tp does not divide, and GSPMD partitions what that
-    leaves; the port runs whole local heads only)."""
+    leaves; the port runs whole local heads only). A `Blocks` split is the
+    serving layout's whole heads (`shared_kv_spans`)."""
     lm = model.language_model
     tied = lm.lm_head is None
     head_dim = lm.cfg.head_dim
@@ -111,13 +134,21 @@ def check_whole_heads(model: nn.Module, layout: Layout, n_tp: int, tp_axis: str 
             if path in quantized:  # whole on every rank, as JAX's rules leave them
                 continue
             name = prefix + path + ".weight"
+            split = layout.get(name, {}).get(tp_axis)
+            if isinstance(split, Blocks):
+                continue
             w = layer.get_submodule(path).weight
             width = w.shape[1 if path in _ROWWISE else 0]
-            whole = width % (n_tp * (head_dim if "self_attn" in path else 1)) == 0
-            if tp_axis not in layout.get(name, {}) or not whole:
+            attention = "self_attn" in path
+            whole = width % (n_tp * (head_dim if attention else 1)) == 0
+            if split is None or not whole:
+                hint = ""
+                if attention and _shares_kv(lm.cfg, n_tp):
+                    hint = (" (serving shares each KV head between ranks instead: "
+                            "`serve_tp_layout`; training at this tp is ROADMAP §1's first item)")
                 raise NotImplementedError(
                     f"tensor parallel at tp={n_tp}: {name} ({tuple(w.shape)}) does not split "
-                    f"into whole {'heads' if 'self_attn' in path else 'columns'} a rank")
+                    f"into whole {'heads' if attention else 'columns'} a rank{hint}")
     if tied and tp_axis in layout.get("language_model.embed_tokens.weight", {}):
         raise NotImplementedError(
             f"tensor parallel at tp={n_tp}: language_model.embed_tokens.weight is also the "
@@ -152,13 +183,64 @@ def apply_tp(model: nn.Module, layout: Layout, tp_mesh, tp_axis: str = "tp") -> 
 
 
 # ------------------------------------------------------------ serving layout
+def _shares_kv(cfg, n_tp: int) -> bool:
+    """Whether n_tp ranks would share the KV heads: tp a multiple of the
+    KV head count that does not divide it."""
+    KV = cfg.num_key_value_heads
+    return n_tp > 1 and KV % n_tp != 0 and n_tp % KV == 0
+
+
+def shared_kv_spans(cfg, n_tp: int
+                    ) -> Optional[Tuple[Tuple[Tuple[int, int], ...], Tuple[Tuple[int, int], ...]]]:
+    """The serving layout's spans where n_tp ranks share the KV heads
+    (`_shares_kv`), else None: per rank its (first row, rows) of q_proj
+    (its whole query heads: of KV head g's G = H / KV heads, the first
+    G mod r of the r ranks on g take ceil(G / r), the rest floor(G / r))
+    and of k_proj / v_proj (KV head g whole). Raises NotImplementedError,
+    naming q_proj, where more than MAX_KV_SHARERS ranks would share a KV
+    head or a rank would hold no query head."""
+    if not _shares_kv(cfg, n_tp):
+        return None
+    H, KV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    r, G = n_tp // KV, H // KV
+    if r > MAX_KV_SHARERS or G < r:
+        raise NotImplementedError(
+            f"tensor parallel at tp={n_tp}: language_model.layers.0.self_attn.q_proj.weight "
+            f"({H * D}, {cfg.hidden_size}): {H} query heads over {KV} KV heads would put {r} "
+            f"ranks on a KV head ({H / n_tp:g} query heads a rank); the serving layout shares "
+            f"a KV head between at most {MAX_KV_SHARERS}")
+    small, big = divmod(G, r)
+    q, kv = [], []
+    for rank in range(n_tp):
+        g, j = divmod(rank, r)
+        first = g * G + j * small + min(j, big)
+        q.append((first * D, (small + (j < big)) * D))
+        kv.append((g * D, D))
+    return tuple(q), tuple(kv)
+
+
 def serve_tp_layout(lm: nn.Module, n_tp: int, tp_axis: str = "tp") -> Layout:
     """The serving layout of a `QwenTextModel` at tp = n_tp: the TP rules'
     splits of its parameters (names "language_model.<...>", as in
-    `qwen_tp_sharding`), refused by `check_whole_heads` where a rank would
-    hold a fraction of a head."""
+    `qwen_tp_sharding`), with q / k / v / o_proj as `Blocks` of whole
+    heads where the ranks share the KV heads (`shared_kv_spans`), refused
+    by `check_whole_heads` where a rank would hold a fraction of a
+    head."""
     holder = nn.ModuleDict({"language_model": lm})
     layout = qwen_tp_sharding(holder, {tp_axis: n_tp}, tp_axis=tp_axis)
+    # quantized projections are buffers, whole on every rank: nothing to span
+    split_attention = "language_model.layers.0.self_attn.q_proj.weight" in layout
+    spans = shared_kv_spans(lm.cfg, n_tp) if split_attention else None
+    if spans is not None:
+        q, kv = spans
+        for i in range(len(lm.layers)):
+            prefix = f"language_model.layers.{i}.self_attn."
+            for leaf, split in (("q_proj.weight", Blocks(0, q)), ("q_proj.bias", Blocks(0, q)),
+                                ("k_proj.weight", Blocks(0, kv)), ("k_proj.bias", Blocks(0, kv)),
+                                ("v_proj.weight", Blocks(0, kv)), ("v_proj.bias", Blocks(0, kv)),
+                                ("o_proj.weight", Blocks(1, q))):
+                if prefix + leaf in layout:  # a parameter: quantized ones stay whole
+                    layout[prefix + leaf] = {tp_axis: split}
     check_whole_heads(holder, layout, n_tp, tp_axis)
     return layout
 
@@ -167,38 +249,42 @@ def serve_tp_layout(lm: nn.Module, n_tp: int, tp_axis: str = "tp") -> Layout:
 def apply_serve_tp(lm: nn.Module, group, tp_axis: str = "tp") -> Layout:
     """Lay a whole `QwenTextModel` out for serving over the ranks of
     `group` (a tp group of the mesh), in place: each split parameter
-    becomes this rank's block of it (block r of tp equal blocks along the
-    rule's dim, a copy when tp > 1), the module widths and the config's head and MLP widths become
-    this rank's, and the model is told the group (the attention's and the
-    MLP's all-reduce where their row-parallel weight is split, the
-    embedding's and the lm_head's first vocab id where theirs is). Every
-    rank of the group must hold the same full weights first. Returns the
-    layout."""
+    becomes this rank's block of it (`mesh.block_of`: block r of tp equal
+    blocks along the rule's dim, or its span of the shared-KV layout; a
+    copy when tp > 1), the module widths and the config's head and MLP
+    widths become this rank's, and the model is told the group (the
+    attention's and the MLP's all-reduce where their row-parallel weight
+    is split, the embedding's and the lm_head's first vocab id where
+    theirs is). Every rank of the group must hold the same full weights
+    first, or the model is on the meta device and its blocks are loaded
+    afterwards: `lm.serve_blocks` maps each split parameter's name (in the
+    text model) to this rank's (dim, start, size). Returns the layout."""
     n_tp, r = dist.get_world_size(group), dist.get_rank(group)
     layout = serve_tp_layout(lm, n_tp, tp_axis)
-    starts = {}
+    blocks = {}
     for name, spec in layout.items():
         if tp_axis not in spec:
             continue
-        mod_name, pname = name.removeprefix("language_model.").rsplit(".", 1)
+        name = name.removeprefix("language_model.")
+        mod_name, pname = name.rsplit(".", 1)
         mod = lm.get_submodule(mod_name)
-        p, dim = getattr(mod, pname), spec[tp_axis]
-        size = p.shape[dim] // n_tp
+        p = getattr(mod, pname)
+        dim, start, size = blocks[name] = block_of(spec[tp_axis], p.shape, n_tp, r)
         if n_tp > 1:
-            p.data = p.data.narrow(dim, r * size, size).clone()
-        starts[mod_name] = r * size
+            p.data = p.data.narrow(dim, start, size).clone()
         if isinstance(mod, nn.Linear) and pname == "weight":
             mod.out_features, mod.in_features = p.shape
         elif isinstance(mod, nn.Embedding):
             mod.num_embeddings = p.shape[0]
     for i, layer in enumerate(lm.layers):
-        if f"layers.{i}.self_attn.o_proj" in starts:
+        if f"layers.{i}.self_attn.o_proj.weight" in blocks:
             layer.self_attn.tp_group = group
-        if f"layers.{i}.mlp.down_proj" in starts:
+        if f"layers.{i}.mlp.down_proj.weight" in blocks:
             layer.mlp.tp_group = group
     lm.tp_group = group
-    lm.embed_start = starts.get("embed_tokens")
-    lm.head_start = starts.get("lm_head")
+    lm.embed_start = blocks.get("embed_tokens.weight", (None, None))[1]
+    lm.head_start = blocks.get("lm_head.weight", (None, None))[1]
+    lm.serve_blocks = blocks
     attn, mlp = lm.layers[0].self_attn, lm.layers[0].mlp
     D = lm.cfg.head_dim
     local = dataclasses.replace(

@@ -45,7 +45,8 @@ PROFILES = {
 
 def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optional[str] = None,
                  system1: Optional[str] = None, config=None,
-                 weight_dtype: Optional[str] = None, kv_dtype: Optional[str] = None):
+                 weight_dtype: Optional[str] = None, kv_dtype: Optional[str] = None,
+                 tp_group=None):
     """The served policy in the profile's formats: at Qwen2.5-VL-7B dims
     (or `config`'s), random weights from seed 0 without `ckpt`, else the
     checkpoint's; `system1` stands in for the config's System-1 head
@@ -55,8 +56,11 @@ def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optio
     `--kv-dtype`). A native directory keeps the weight dtype it records
     (F4); an HF-layout checkpoint takes the asked one, quantized on load
     for int8 and int4. W8A16 / W4A16 decode comes with `config`
-    (`decode_act_dtype="bf16"`), as the JAX package selects it. Prints the
-    weight and KV formats chosen and why."""
+    (`decode_act_dtype="bf16"`), as the JAX package selects it. With
+    `tp_group` (a mesh's tp group) the checkpoint's decoder is laid out for
+    serving over it (`parallel/tp.apply_serve_tp`), each rank reading its
+    blocks from the memory-mapped files. Prints the weight and KV formats
+    chosen and why."""
     from internnav_tpu_torch.model.basemodel.internvla_n1.model import InternVLAN1Config
     from internnav_tpu_torch.model.basemodel.internvla_n1.policy import (
         InternVLAN1Policy,
@@ -89,10 +93,13 @@ def build_policy(profile: str = "realtime", *, device: torch.device, ckpt: Optio
     print(f"serve: system1={cfg.system1}, weight_dtype={weight} ({why}), kv_dtype={kv} "
           f"({kv_why}), decode_act_dtype={cfg.text.decode_act_dtype}, {source}", flush=True)
     if kind is None:
+        if tp_group is not None:
+            raise ValueError("serving over a tp group loads each rank's blocks from a "
+                             "checkpoint: pass ckpt")
         return InternVLAN1Policy.build(cfg, device=device)
-    if kind == "native":
-        return InternVLAN1Policy.from_pretrained(ckpt, cfg, device=device)
-    return InternVLAN1Policy.from_pretrained_torch(ckpt, cfg, device=device)
+    load = (InternVLAN1Policy.from_pretrained if kind == "native"
+            else InternVLAN1Policy.from_pretrained_torch)
+    return load(ckpt, cfg, device=device, tp_group=tp_group)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -78,6 +78,17 @@ def test_text_prefill_gqa_causal_with_pad_segment(device, T):
            _rand(device, 1, 4, T, 128, seed=2), seg, causal=True)
 
 
+@pytest.mark.parametrize("H", [4, 3])
+@pytest.mark.parametrize("T", [1088, 329])
+def test_text_prefill_on_a_tp8_ranks_local_heads(device, H, T):
+    """Serving at tp = 8 on the 7B decoder: a rank holds one KV head and 4
+    (even ranks) or 3 (odd ranks) of its query heads."""
+    seg = torch.zeros((1, T), dtype=torch.int32, device=device)
+    seg[:, T - 23:] = 1
+    _check(_rand(device, 1, H, T, 128), _rand(device, 1, 1, T, 128, seed=1),
+           _rand(device, 1, 1, T, 128, seed=2), seg, causal=True)
+
+
 @pytest.mark.parametrize("S", [900, 257])
 def test_vision_head_dim_80_windows(device, S):
     seg = (torch.arange(S, device=device) // 64).to(torch.int32)[None]

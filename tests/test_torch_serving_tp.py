@@ -232,8 +232,9 @@ def test_dryrun_multichip_serving_matches_single_device_and_jax(tmp_path):
     tcfg = InternVLAN1Config.tiny("nextdit", dtype=torch.float32)
     model = load_from_jax(tpolicy.build_model(tcfg, device="cpu"), params)
     torch.save(model.state_dict(), tmp_path / "state.pt")
+    # the serving phase alone: the training step is test_torch_parallel.py's
     with child_deadline(120):
-        res = dryrun_multichip(8, spec={"state": str(tmp_path / "state.pt")})
+        res = dryrun_multichip(8, spec={"state": str(tmp_path / "state.pt"), "train": False})
 
     # JAX's phase 2 on the same language model
     tparams = params["language_model"]

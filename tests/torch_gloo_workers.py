@@ -35,8 +35,12 @@ def init_group(rank: int, world: int, store: str) -> None:
 
 
 def start_ranks(target, world: int, store: str, *args) -> list:
-    """Spawn `world` processes running target(rank, world, store, *args)."""
-    ctx = mp.get_context("spawn")
+    """Start `world` processes running target(rank, world, store, *args),
+    forked from a server that imported torch and this module once (world
+    fresh interpreters would each import torch: seconds of CPU apiece on
+    a host the other test workers share)."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])
     procs = [ctx.Process(target=target, args=(r, world, store, *args)) for r in range(world)]
     for p in procs:
         p.start()
@@ -193,6 +197,49 @@ def serve_tp_worker(rank: int, world: int, store: str, spec_path: str, out: str)
             }
         local = torch.as_tensor(spec["argmax_logits"][rank])
         res["argmax"] = vocab_argmax(local, rank * local.shape[-1], group)
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_tp8_worker(rank: int, world: int, store: str, spec_path: str, out: str) -> None:
+    """Tensor-parallel serving where ranks share the KV heads, over one
+    gloo group of 8: `graft_entry._dryrun_serve` at each of the pickled
+    spec's "decode" cases (a serving mesh and a text model: tokens,
+    lengths and teacher-forced logits, gathered), then the spec's N1
+    policy loaded from its HF-layout checkpoint at dp=1 x tp=8, this rank
+    reading only its blocks (`from_pretrained_torch(tp_group=)`), and
+    `fused_s2` on the recorded prompt; and the same policy loaded so from
+    its native directory (`from_pretrained(tp_group=)`), its state held
+    equal. Rank r's results are saved to out/rank{r}.pt."""
+    import pickle
+
+    from internnav_tpu_torch.graft_entry import _dryrun_serve
+    from internnav_tpu_torch.model.basemodel.internvla_n1.policy import InternVLAN1Policy
+    from internnav_tpu_torch.parallel import collectives
+    from internnav_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    init_group(rank, world, store)
+    try:
+        with open(spec_path, "rb") as f:
+            spec = pickle.load(f)
+        res = {name: _dryrun_serve({"serve": case}) for name, case in spec["decode"].items()}
+        mesh = make_mesh({"dp": 1, "tp": world})
+        policy = InternVLAN1Policy.from_pretrained_torch(
+            spec["ckpt"], spec["cfg"], device="cpu", tp_group=mesh.get_group("tp"))
+        lm = policy.model.language_model
+        tokens, lengths, latents = policy.fused_s2(*spec["prompt"], spec["new"])
+        native = InternVLAN1Policy.from_pretrained(
+            spec["native"], spec["cfg"], device="cpu", tp_group=mesh.get_group("tp")
+        ).model.state_dict()
+        res["policy"] = {
+            "tokens": tokens, "lengths": lengths, "latents": latents,
+            "heads": (lm.cfg.num_attention_heads, lm.cfg.num_key_value_heads),
+            "blocks": dict(lm.serve_blocks), "staged": dict(collectives.staged),
+            "native_equal": all(torch.equal(t, native[n])
+                                for n, t in policy.model.state_dict().items()),
+        }
         torch.save(res, f"{out}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
